@@ -1,0 +1,71 @@
+"""Interpolated output from the BDF history (L4).
+
+Port of ``ida_tpu/core/interp.py`` (reference ``get_solution``,
+src/lib.rs:1274-1343): evaluate y(t), y'(t) from the divided-difference
+array phi and the step sums psi.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import constants as C
+from ..utils.numerics import sum0
+from .coeffs import kidx
+from .state import IdaState
+
+
+def _eps(state: IdaState) -> float:
+    """Unit roundoff of the state's dtype (a Python float: no promotion)."""
+    return torch.finfo(state.dtype).eps
+
+
+def check_t_legal(state: IdaState, t: torch.Tensor) -> torch.Tensor:
+    """True iff t lies within (fuzzed) [tn - hused, tn] in the direction of
+    integration (src/lib.rs:1279-1291)."""
+    tfuzz = 100.0 * _eps(state) * (state.tn.abs() + state.hh.abs()) * torch.sign(state.hh)
+    tp = state.tn - state.hused - tfuzz
+    return (t - tp) * state.hh >= 0.0
+
+
+def interpolate(state: IdaState, t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(yy, yp) at t from phi/psi without legality checks; the cvals/dvals
+    recurrences (src/lib.rs:1301-1314) unrolled to the static order bound."""
+    kord = state.kused.clamp(min=1)
+    delt = t - state.tn
+    c = torch.ones_like(delt)
+    d = torch.zeros_like(delt)
+    zero = torch.zeros_like(delt)
+    gam = delt / state.psi[0]
+
+    cvals = [c] + [zero] * (C.MXORDP1 - 1)
+    dvals = [zero] * C.MXORDP1
+    for j in range(1, C.MXORDP1):
+        active = kord >= j
+        d_new = d * gam + c / state.psi[j - 1]
+        c_new = c * gam
+        gam_new = (delt + state.psi[j - 1]) / state.psi[j]
+        c = torch.where(active, c_new, c)
+        d = torch.where(active, d_new, d)
+        gam = torch.where(active, gam_new, gam)
+        cvals[j] = torch.where(active, c, zero)
+        dvals[j] = torch.where(active, d, zero)
+
+    cvec = torch.stack(cvals)
+    dvec = torch.stack(dvals)
+    csel = torch.where(kidx(state) <= kord, cvec, torch.zeros_like(cvec))
+    yy = sum0(csel.unsqueeze(1) * state.phi)
+    yp = sum0(dvec.unsqueeze(1) * state.phi)
+    return yy, yp
+
+
+def get_solution(state: IdaState, t: torch.Tensor) -> Tuple[IdaState, torch.Tensor]:
+    """Interpolate into state.yy/state.yp; returns (state, ok). On an illegal
+    t the state is unchanged and ok is False (the caller maps it to BAD_T)."""
+    ok = check_t_legal(state, t)
+    yy, yp = interpolate(state, t)
+    yy = torch.where(ok, yy, state.yy)
+    yp = torch.where(ok, yp, state.yp)
+    return state._replace(yy=yy, yp=yp), ok

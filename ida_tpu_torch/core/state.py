@@ -1,0 +1,214 @@
+"""The integrator state (L4 layer).
+
+Port of ``ida_tpu/core/state.py``: the reference's mutable ``Ida`` struct and
+its nonlinear/linear solver state (reference ``src/lib.rs:89-244``,
+``src/ida_nls.rs:20-60``, ``src/ida_ls.rs:15-106``) as one NamedTuple of
+tensors with the same fields, so a state converts field by field. Per lane a
+field has the reference's shape; an ensemble adds batch axes (leading from
+:func:`init_state` with batched inputs, trailing inside the core).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from .. import constants as C
+from ..problem import IdaProblem
+
+
+@dataclasses.dataclass(frozen=True)
+class IdaOptions:
+    """Solver options (reference ``Ida::new`` defaults, src/lib.rs:309-317).
+
+    This port covers the C-parity dense direct path: ``linear_solver`` must
+    be "dense" and ``ls_precision`` "full"; ``fast_math`` and ``debug_trace``
+    must be False. Any other value raises."""
+
+    maxord: int = C.MAXORD_DEFAULT  # max BDF order (1..5)
+    mxstep: int = C.MXSTEP_DEFAULT  # max internal steps per solve() call
+    maxncf: int = C.MXNCF  # max convergence failures per step
+    maxnef: int = C.MXNEF  # max error-test failures per step
+    maxnlsit: int = C.MAXNLSIT  # max Newton iterations per attempt
+    suppressalg: bool = False  # exclude algebraic vars from error tests
+    linear_solver: str = "dense"
+    ls_precision: str = "full"
+    fast_math: bool = False
+    debug_trace: bool = False
+
+    def __post_init__(self):
+        if self.linear_solver != "dense":
+            raise NotImplementedError(f"linear_solver={self.linear_solver!r}: only 'dense' is ported")
+        if self.ls_precision != "full":
+            raise NotImplementedError(f"ls_precision={self.ls_precision!r}: only 'full' is ported")
+        if self.fast_math:
+            raise NotImplementedError("fast_math=True is not ported")
+        if self.debug_trace:
+            raise NotImplementedError("debug_trace=True is not ported")
+        if not 1 <= self.maxord <= C.MAXORD_DEFAULT:
+            raise ValueError(f"maxord must lie in 1..{C.MAXORD_DEFAULT}, got {self.maxord}")
+
+
+class IdaState(NamedTuple):
+    """Complete integrator state. Per-lane shapes: N = problem size,
+    R = max(nroots, 1), K1 = MXORDP1 = 6. Real fields share one dtype."""
+
+    # --- BDF history and coefficients (reference src/lib.rs:104-116) ---
+    phi: torch.Tensor  # [K1, N] divided differences
+    psi: torch.Tensor  # [K1]
+    alpha: torch.Tensor  # [K1]
+    beta: torch.Tensor  # [K1]
+    sigma: torch.Tensor  # [K1]
+    gamma: torch.Tensor  # [K1]
+
+    # --- work vectors (reference src/lib.rs:118-126, src/ida_nls.rs:25-39) ---
+    ee: torch.Tensor  # [N] accumulated corrections / local error estimate
+    yy: torch.Tensor  # [N]
+    yp: torch.Tensor  # [N]
+    yypredict: torch.Tensor  # [N]
+    yppredict: torch.Tensor  # [N]
+    ewt: torch.Tensor  # [N] error weights
+    savres: torch.Tensor  # [N] saved residual
+
+    # --- step data (reference src/lib.rs:140-194) ---
+    tn: torch.Tensor  # current internal time
+    hh: torch.Tensor  # current step size
+    hused: torch.Tensor  # step size of last successful step
+    rr: torch.Tensor  # hnext / hused
+    h0u: torch.Tensor  # actual initial step size
+    tretlast: torch.Tensor  # last tret returned
+    tolsf: torch.Tensor  # tolerance scale factor
+    kk: torch.Tensor  # int32 current order
+    kused: torch.Tensor  # int32 order of last successful step
+    knew: torch.Tensor  # int32 proposed order after decrease decision
+    phase: torch.Tensor  # int32 0 = startup (raise order, double h)
+    ns: torch.Tensor  # int32 steps at constant h and k
+
+    # --- nonlinear-solver state (reference src/ida_nls.rs:41-48) ---
+    cj: torch.Tensor
+    cjlast: torch.Tensor
+    cjold: torch.Tensor
+    cjratio: torch.Tensor
+    ss: torch.Tensor
+    oldnrm: torch.Tensor
+    eps_newt: torch.Tensor
+    toldel: torch.Tensor
+
+    # --- linear-solver state (reference src/ida_ls.rs:22-31) ---
+    lu: torch.Tensor  # [N, N] factored J
+    piv: torch.Tensor  # [N] int32 pivots
+    pdata: object  # preconditioner state (Krylov path; () here)
+    ls_tn: torch.Tensor  # [] time of the last lsetup (refined mode only)
+    ls_cj: torch.Tensor  # [] cj of the last lsetup (refined mode only)
+    ls_yy: torch.Tensor  # [0] (refined mode only)
+    ls_yp: torch.Tensor  # [0] (refined mode only)
+
+    # --- per-lane options ---
+    hin: torch.Tensor  # initial step (0 = auto)
+    hmax_inv: torch.Tensor  # 1/hmax (0 = unlimited)
+    epcon: torch.Tensor  # Newton convergence constant
+    tstop: torch.Tensor  # stop time (meaningful iff tstop_set)
+    tstop_set: torch.Tensor  # bool
+    constraints: torch.Tensor  # [N] inequality constraint codes (0 = none)
+    constraints_set: torch.Tensor  # bool
+
+    # --- counters (reference src/lib.rs:71-84, ida_ls.rs:44-59), int64 ---
+    nst: torch.Tensor  # steps
+    nre: torch.Tensor  # residual evaluations
+    ncfn: torch.Tensor  # nonlinear convergence failures
+    netf: torch.Tensor  # error test failures
+    nni: torch.Tensor  # Newton iterations
+    nsetups: torch.Tensor  # lsetup calls
+    nje: torch.Tensor  # Jacobian evaluations
+    nge: torch.Tensor  # root function evaluations
+    nli: torch.Tensor  # linear (Krylov) iterations
+    nps: torch.Tensor  # preconditioner solves
+    ncfl: torch.Tensor  # linear convergence failures
+    njtsetup: torch.Tensor  # jtimes-setup calls
+    njtimes: torch.Tensor  # Jacobian-vector products
+
+    # --- rootfinding (reference src/lib.rs:196-231) ---
+    tlo: torch.Tensor
+    thi: torch.Tensor
+    trout: torch.Tensor
+    ttol: torch.Tensor
+    toutc: torch.Tensor
+    glo: torch.Tensor  # [R]
+    ghi: torch.Tensor  # [R]
+    grout: torch.Tensor  # [R]
+    iroots: torch.Tensor  # [R] int32
+    rootdir: torch.Tensor  # [R] int32
+    gactive: torch.Tensor  # [R] bool
+    irfnd: torch.Tensor  # bool
+    taskc: torch.Tensor  # int32 saved itask
+
+    # --- quadrature accumulator ---
+    yQ: torch.Tensor  # [1]
+
+    # --- outcome lane (replaces Rust Result) ---
+    status: torch.Tensor  # int32, constants.CONTINUE while stepping
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.phi.dtype
+
+
+def init_state(
+    problem: IdaProblem,
+    yy0,
+    yp0,
+    *,
+    device,
+    dtype: torch.dtype = torch.float64,
+) -> IdaState:
+    """Initial state (reference ``Ida::new``, src/lib.rs:278-405): phi[0] = y0,
+    phi[1] = y'0, defaults elsewhere. ``yy0``/``yp0`` are [N] for one lane or
+    [*batch, N] for a batch-leading ensemble (every field then gains the
+    leading ``batch`` axes). Only the dense/full path is ported, so unlike
+    the reference no option changes a shape and none is taken."""
+    n = problem.n
+    yy0 = torch.as_tensor(yy0, dtype=dtype, device=device)
+    yp0 = torch.as_tensor(yp0, dtype=dtype, device=device)
+    if yy0.shape[-1:] != (n,) or yp0.shape != yy0.shape:
+        raise ValueError(f"yy0/yp0 must be [..., {n}], got {tuple(yy0.shape)}, {tuple(yp0.shape)}")
+    b = tuple(yy0.shape[:-1])
+    r = max(problem.nroots, 1)
+
+    def full(shape, value, dt=dtype):
+        return torch.full(b + tuple(shape), value, dtype=dt, device=device)
+
+    zero = full((), 0.0)
+    zeros_k1 = full((C.MXORDP1,), 0.0)
+    zeros_n = full((n,), 0.0)
+    phi = torch.cat([yy0.unsqueeze(-2), yp0.unsqueeze(-2), full((C.MXORDP1 - 2, n), 0.0)], dim=-2)
+    i32, i64 = torch.int32, torch.int64
+    return IdaState(
+        phi=phi, psi=zeros_k1, alpha=zeros_k1, beta=zeros_k1, sigma=zeros_k1, gamma=zeros_k1,
+        ee=zeros_n, yy=yy0, yp=yp0, yypredict=zeros_n, yppredict=zeros_n, ewt=zeros_n,
+        savres=zeros_n,
+        tn=zero, hh=zero, hused=zero, rr=zero, h0u=zero, tretlast=zero, tolsf=full((), 1.0),
+        kk=full((), 0, i32), kused=full((), 0, i32), knew=full((), 0, i32),
+        phase=full((), 0, i32), ns=full((), 0, i32),
+        cj=zero, cjlast=zero, cjold=zero, cjratio=zero, ss=zero, oldnrm=zero,
+        eps_newt=zero, toldel=zero,
+        lu=full((n, n), 0.0), piv=full((n,), 0, i32), pdata=(),
+        ls_tn=zero, ls_cj=zero, ls_yy=full((0,), 0.0), ls_yp=full((0,), 0.0),
+        hin=zero, hmax_inv=full((), C.HMAX_INV_DEFAULT), epcon=full((), C.EPCON),
+        tstop=zero, tstop_set=full((), False, torch.bool), constraints=zeros_n,
+        constraints_set=full((), False, torch.bool),
+        nst=full((), 0, i64), nre=full((), 0, i64), ncfn=full((), 0, i64),
+        netf=full((), 0, i64), nni=full((), 0, i64), nsetups=full((), 0, i64),
+        nje=full((), 0, i64), nge=full((), 0, i64), nli=full((), 0, i64),
+        nps=full((), 0, i64), ncfl=full((), 0, i64), njtsetup=full((), 0, i64),
+        njtimes=full((), 0, i64),
+        tlo=zero, thi=zero, trout=zero, ttol=zero, toutc=zero,
+        glo=full((r,), 0.0), ghi=full((r,), 0.0), grout=full((r,), 0.0),
+        iroots=full((r,), 0, i32), rootdir=full((r,), 0, i32),
+        # C IDA semantics: roots start active
+        gactive=full((r,), True, torch.bool),
+        irfnd=full((), False, torch.bool), taskc=full((), 0, i32),
+        yQ=full((1,), 0.0),
+        status=full((), C.CONTINUE, i32),
+    )

@@ -1,0 +1,57 @@
+"""Weighted root-mean-square norms (L1 layer).
+
+Port of ``ida_tpu/norms.py``: ``wrms(x, w) = sqrt(sum_i (x_i * w_i)^2 / N)``.
+The masked variant zeroes masked entries but still divides by the FULL
+length N (SUNDIALS ``N_VWrmsNormMask`` semantics). Sums run in the
+reference's sequential order and the root is IEEE-correct
+(:mod:`~ida_tpu_torch.utils.numerics`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .utils.numerics import sqrt_, sum0
+
+
+def _mean_sqrt(sq: torch.Tensor, n: int) -> torch.Tensor:
+    # divide by a tensor, not a Python number: on CUDA, ATen turns a
+    # division by a CPU scalar into a multiply by its reciprocal, which
+    # rounds differently from the reference's true division
+    return sqrt_(sq / torch.full_like(sq, n))
+
+
+def wrms_norm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted RMS norm over the trailing axis of ``x``."""
+    return _mean_sqrt(sum0(torch.square(x * w).movedim(-1, 0)), x.shape[-1])
+
+
+def wrms_norm_masked(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked weighted RMS norm over the trailing axis; divides by full N."""
+    t = x * w * mask.to(x.dtype)
+    return _mean_sqrt(sum0(torch.square(t).movedim(-1, 0)), x.shape[-1])
+
+
+def wrms_norm_bnd(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    n: int,
+    bnd: int,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """WRMS norm over the DATA axis of a possibly batch-native array:
+    ``x`` is [..., N, *batch] with ``bnd`` trailing batch dims."""
+    t = x * w
+    if mask is not None:
+        t = t * mask.to(x.dtype).reshape((n,) + (1,) * bnd)
+    axis = x.dim() - 1 - bnd
+    return _mean_sqrt(sum0(torch.square(t).movedim(axis, 0)), n)
+
+
+def wrms_norm_maybe_masked(
+    x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor | None, use_mask: bool
+) -> torch.Tensor:
+    """Dispatch mirroring ``Ida::wrms_norm`` (reference src/lib.rs:1353-1370)."""
+    if use_mask and mask is not None:
+        return wrms_norm_masked(x, w, mask)
+    return wrms_norm(x, w)

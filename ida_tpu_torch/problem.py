@@ -1,0 +1,75 @@
+"""Problem-definition API (L5 layer).
+
+Port of ``ida_tpu/problem.py``. The DAE is ``F(t, y, y') = 0``; the Newton
+and linear layers use the system Jacobian ``J = dF/dy + cj * dF/dy'``.
+Callables take and return torch tensors. Under the batch-native layout
+every argument carries the trailing batch axes: ``yy`` is [N, *batch],
+``t``/``cj`` are [*batch] and ``res`` returns [N, *batch].
+
+An analytic Jacobian is optional: the Newton iterate is
+``y = yypredict + e``, ``y' = yppredict + cj*e``, so J is the Jacobian of
+the residual with respect to the correction ``e``, taken by forward-mode AD
+(one ``torch.func.jvp`` per column; lanes are independent, so each column's
+jvp serves every lane at once).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+ResFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+JacFn = Callable[
+    [torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class IdaProblem:
+    """A DAE problem ``F(t, y, y') = 0``.
+
+    Attributes:
+      n: state dimension N.
+      res: residual ``(t, yy, yp) -> F`` of shape [N, *batch].
+      jac: optional analytic ``(t, cj, yy, yp, rr) -> J`` of shape
+        [N, N, *batch]; forward-mode AD of ``res`` when None.
+      root: optional root function (not supported by this port's solve yet).
+      nroots: number of root functions.
+      id: optional bool [N]: differential (True) vs algebraic (False).
+    """
+
+    n: int
+    res: ResFn
+    jac: Optional[JacFn] = None
+    root: Optional[Callable] = None
+    nroots: int = 0
+    id: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.root is None and self.nroots:
+            raise ValueError("nroots > 0 requires a root function")
+
+    def jtimes(self, t, cj, yy, yp, v) -> torch.Tensor:
+        """Matrix-free J v = (dF/dy) v + cj (dF/dy') v via one jvp."""
+        return torch.func.jvp(lambda y, ydot: self.res(t, y, ydot), (yy, yp), (v, cj * v))[1]
+
+    def sys_jacobian(self, t, cj, yy, yp, rr) -> torch.Tensor:
+        """System Jacobian ``J = dF/dy + cj*dF/dy'`` at (t, yy, yp),
+        [N, N, *batch]: the analytic ``jac`` when given, else forward AD of
+        the correction map (the true ``t`` is passed, not the reference's
+        ``tt = 0``)."""
+        if self.jac is not None:
+            return self.jac(t, cj, yy, yp, rr)
+
+        def f_of_e(e):
+            return self.res(t, yy + e, yp + cj * e)
+
+        zero = torch.zeros_like(yy)
+        cols = []
+        for j in range(self.n):
+            unit = torch.zeros_like(yy)
+            unit[j] = 1.0
+            cols.append(torch.func.jvp(f_of_e, (zero,), (unit,))[1])
+        return torch.stack(cols, dim=1)

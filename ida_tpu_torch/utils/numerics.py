@@ -1,0 +1,62 @@
+"""Arithmetic helpers that keep the port's rounding equal to the reference's.
+
+* :func:`sum0` adds the rows of a tensor one after another. The reference's
+  reductions over small data axes (the K1 = 6 rows of phi, the N entries of
+  a WRMS norm) run as a sequential loop under XLA:CPU; ``torch.sum`` may
+  split the axis over several accumulators (CUDA) or a cascade (CPU), which
+  rounds differently. Step-size decisions hinge on the last bit (a 1-ulp
+  predictor difference once turned 362 canonical steps into 375), so the
+  order is written out.
+* :func:`sqrt_` is ``sqrt``. ATen's vectorized CPU ``sqrt`` for float64 is
+  not correctly rounded (about 1.3% of inputs differ by an ulp from IEEE
+  ``sqrt``, which XLA:CPU, numpy and C use), so CPU tensors go through
+  numpy. CUDA's ``sqrt`` is IEEE-correct.
+* :func:`pow_` is ``base ** expo``. On CPU tensors it calls the C library's
+  ``pow`` per element: ATen's vectorized CPU ``pow`` (SLEEF, 1 ulp) differs
+  from the C library's in about 1.7% of the step-size ratios and Newton
+  rates this solver computes, while XLA:CPU and C IDA both call the C
+  library. On CUDA tensors it is ``torch.pow`` (CUDA's ``pow``, which need
+  not round like the C library's).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import ctypes.util
+import functools
+
+import numpy as np
+import torch
+
+
+def sum0(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading axis, strictly left to right."""
+    acc = t[0]
+    for i in range(1, t.shape[0]):
+        acc = acc + t[i]
+    return acc
+
+
+def sqrt_(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded elementwise square root (see module doc)."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
+
+
+@functools.cache
+def _libm_pow():
+    fn = ctypes.CDLL(ctypes.util.find_library("m")).pow
+    fn.argtypes = [ctypes.c_double, ctypes.c_double]
+    fn.restype = ctypes.c_double
+    return fn
+
+
+def pow_(base: torch.Tensor, expo: torch.Tensor) -> torch.Tensor:
+    """Elementwise ``base ** expo`` in ``base``'s dtype (see module doc)."""
+    if base.device.type != "cpu":
+        return torch.pow(base, expo)
+    b, e = torch.broadcast_tensors(base, expo.to(base.dtype))
+    fn = _libm_pow()
+    vals = [fn(x, y) for x, y in zip(b.reshape(-1).tolist(), e.reshape(-1).tolist())]
+    return torch.tensor(vals, dtype=base.dtype).reshape(b.shape)

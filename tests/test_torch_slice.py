@@ -1,0 +1,230 @@
+"""The port's main path end to end: the batched Roberts ensemble through
+``ensemble_init`` + ``make_ensemble_solve``, against the JAX package.
+
+* B=8 to tout 0.4 and 400 against ``ida_tpu``'s batch-native ``core_solve``
+  (as in tests/test_batch_native.py). Run op by op (``jax.disable_jit``),
+  the JAX solve rounds every multiply and add separately, as the port and C
+  IDA do: istate, tret and the counters must match exactly, yy/yp/phi to
+  rtol 1e-12. Jitted, XLA:CPU contracts multiply-adds into FMAs, so there
+  only istate, tret and the counters are held exactly.
+* One lane, roots off, over 12 decades: the canonical per-decade step
+  counts of C idaRoberts_dns exactly, and the trajectory against the native
+  C++ oracle as in tests/test_native_oracle.py.
+* dtype: f32 in gives f32 out for every float leaf, f64 gives f64.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ida_tpu.core.solve import TASK_NORMAL, TASK_ONE_STEP
+from ida_tpu.core.solve import solve as jsolve
+from ida_tpu.core.state import IdaOptions as JOptions
+from ida_tpu.models import ROBERTS_PARAMS, ROBERTS_YP0, ROBERTS_YY0, roberts_factory
+from ida_tpu.parallel import ensemble_init as jensemble_init
+from ida_tpu.tol_control import TolControl as JTol
+from ida_tpu_torch import constants as C
+from ida_tpu_torch.core.solve import solve as tsolve
+from ida_tpu_torch.core.state import IdaOptions, init_state
+from ida_tpu_torch.models import roberts_factory as troberts
+from ida_tpu_torch.parallel import ensemble_init, make_ensemble_solve
+from ida_tpu_torch.tol_control import tol_sv
+from ida_tpu_torch.utils.convert import params_from_numpy, state_from_numpy, tol_from_numpy
+
+torch.set_num_threads(1)
+
+B = 8
+ATOL = [1e-8, 1e-6, 1e-6]
+COUNTERS = ("nst", "nre", "nje", "nni", "netf", "ncfn")
+CANONICAL_NST = [29, 43, 68, 95, 126, 161, 202, 250, 293, 325, 348, 362]
+
+
+def _inputs(b):
+    params = np.outer(np.exp(np.linspace(-0.2, 0.2, b)), ROBERTS_PARAMS)
+    yy0 = np.tile(ROBERTS_YY0, (b, 1))
+    yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
+    return params, yy0, yp0
+
+
+@pytest.fixture(scope="module")
+def jax_native():
+    """Batch-native JAX states, problem and tolerances for B=8."""
+    params, yy0, yp0 = _inputs(B)
+    st = jensemble_init(roberts_factory, jnp.asarray(params), jnp.asarray(yy0), jnp.asarray(yp0))
+    st = jax.tree_util.tree_map(lambda x: jnp.moveaxis(x, 0, -1), st)
+    prob = roberts_factory(jnp.asarray(params.T))
+    tol = JTol(jnp.full((B,), 1e-4), jnp.tile(jnp.asarray(ATOL)[:, None], (1, B)))
+    return st, prob, tol
+
+
+def _port_solve(tout, itask=TASK_NORMAL, steps=1):
+    params, yy0, yp0 = _inputs(B)
+    st = ensemble_init(troberts, params, yy0, yp0, device="cpu")
+    fn = make_ensemble_solve(troberts, itask=itask)
+    tol = tol_sv(1e-4, ATOL, device="cpu")
+    for _ in range(steps):
+        st, tret, istate = fn(st, params, tol, tout)
+    return st, tret, istate
+
+
+def _assert_exact(ref, got, tret_rtol=0.0):
+    (jst, jtret, jist), (tst, ttret, tist) = ref, got
+    np.testing.assert_array_equal(tist.numpy(), np.asarray(jist))
+    np.testing.assert_allclose(ttret.numpy(), np.asarray(jtret), rtol=tret_rtol, atol=0)
+    for f in COUNTERS:
+        np.testing.assert_array_equal(getattr(tst, f).numpy(), np.asarray(getattr(jst, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("tout", [0.4, 400.0])
+def test_ensemble_matches_op_by_op_reference(jax_native, tout):
+    st, prob, tol = jax_native
+    with jax.disable_jit():
+        ref = jsolve(st, prob, JOptions(), tol, jnp.full((B,), tout), TASK_NORMAL)
+    got = _port_solve(tout)
+    assert bool((got[2] == C.SUCCESS).all())
+    _assert_exact(ref, got)
+    for f in ("yy", "yp", "phi"):
+        a = np.moveaxis(np.asarray(getattr(ref[0], f)), -1, 0)
+        np.testing.assert_allclose(getattr(got[0], f).numpy(), a, rtol=1e-12, atol=0, err_msg=f)
+
+
+@pytest.mark.parametrize("tout", [0.4, 400.0])
+def test_ensemble_counters_match_jitted_reference(jax_native, tout):
+    st, prob, tol = jax_native
+    ref = jax.jit(lambda s, t: jsolve(s, prob, JOptions(), tol, t, TASK_NORMAL))(
+        st, jnp.full((B,), tout)
+    )
+    _assert_exact(ref, _port_solve(tout))
+
+
+def test_one_step_task_matches_jitted_reference(jax_native):
+    # ONE_STEP returns tret = tn, which carries the jitted run's FMA rounding
+    st, prob, tol = jax_native
+    one = jax.jit(lambda s: jsolve(s, prob, JOptions(), tol, jnp.full((B,), 400.0), TASK_ONE_STEP))
+    for _ in range(5):
+        st, tret, ist = one(st)
+    _assert_exact((st, tret, ist), _port_solve(400.0, itask=TASK_ONE_STEP, steps=5), tret_rtol=1e-13)
+
+
+def test_core_solve_on_inputs_converted_from_jax(jax_native):
+    # the JAX package's own batch-native state, params and tolerances,
+    # carried over field by field, through the port's core solve
+    st, prob, tol = jax_native
+    ref = jax.jit(lambda s: jsolve(s, prob, JOptions(), tol, jnp.full((B,), 4.0), TASK_NORMAL))(st)
+    params, _, _ = _inputs(B)
+    got = tsolve(
+        state_from_numpy({f: np.asarray(getattr(st, f)) for f in st._fields}, device="cpu", batch="trailing"),
+        troberts(params_from_numpy(params, device="cpu", batch="leading")),
+        IdaOptions(),
+        tol_from_numpy({f: np.asarray(getattr(tol, f)) for f in tol._fields}, device="cpu", batch="trailing"),
+        4.0,
+    )
+    assert got[0].phi.shape == st.phi.shape
+    _assert_exact(ref, got)
+
+
+def test_returned_states_keep_the_batch_leading_layout():
+    params, yy0, yp0 = _inputs(B)
+    st0 = ensemble_init(troberts, params, yy0, yp0, device="cpu")
+    st, tret, istate = _port_solve(0.4)
+    assert tret.shape == istate.shape == (B,)
+    for f in st._fields:
+        if f != "pdata":
+            assert getattr(st, f).shape == getattr(st0, f).shape, f
+            assert getattr(st, f).dtype == getattr(st0, f).dtype, f
+
+
+@pytest.fixture(scope="module")
+def canonical_lane():
+    """One lane at nominal params, roots off, solved decade by decade."""
+    from ida_tpu.native import oracle_roberts_trajectory
+
+    touts = [0.4 * 10**k for k in range(12)]
+    params = ROBERTS_PARAMS[None, :]
+    st = ensemble_init(troberts, params, ROBERTS_YY0[None], ROBERTS_YP0[None], device="cpu")
+    fn = make_ensemble_solve(troberts)
+    tol = tol_sv(1e-4, ATOL, device="cpu")
+    rows = []
+    for t in touts:
+        st, tret, istate = fn(st, params, tol, t)
+        rows.append((int(istate[0]), float(tret[0]), int(st.nst[0]), st.yy[0].numpy().copy()))
+    return st, rows, touts, oracle_roberts_trajectory(touts)
+
+
+def test_canonical_per_decade_steps(canonical_lane):
+    _, rows, _, _ = canonical_lane
+    assert [r[0] for r in rows] == [C.SUCCESS] * 12
+    assert [r[2] for r in rows] == CANONICAL_NST
+
+
+def test_canonical_statistics(canonical_lane):
+    # C idaRoberts_dns without roots (tests/test_roberts_e2e.py:72-84)
+    st, _, _, _ = canonical_lane
+    stats = {f: int(getattr(st, f)[0]) for f in COUNTERS}
+    assert stats == {"nst": 362, "nre": 537, "nje": 60, "nni": 537, "netf": 15, "ncfn": 0}
+
+
+def test_trajectory_matches_native_oracle(canonical_lane):
+    _, rows, touts, (ret, y_oracle, nst_oracle) = canonical_lane
+    assert ret == 0
+    assert nst_oracle.tolist() == CANONICAL_NST
+    for k, t in enumerate(touts):
+        assert rows[k][1] == t
+        rel = np.max(np.abs((rows[k][3] - y_oracle[k]) / y_oracle[k]))
+        assert rel < (1e-10 if t <= 4.0e4 else 1e-6), (t, rel)
+
+
+def test_final_state_passes_check_ans(canonical_lane):
+    # reference examples/roberts.rs:9-51 (tests/test_roberts_e2e.py:57-69)
+    _, rows, _, _ = canonical_lane
+    reference = np.array([5.2083474251394888e-08, 2.0833390772616859e-13, 9.9999994791631752e-01])
+    ewt = 1.0 / (1e-4 * np.abs(reference) + 10.0 * np.array(ATOL))
+    assert rows[-1][1] == 4.0e10
+    assert np.sqrt(np.mean((ewt * (rows[-1][3] - reference)) ** 2)) < 1.0
+
+
+def test_unbatched_lane_matches_batch_of_one():
+    prob = troberts(torch.from_numpy(ROBERTS_PARAMS))
+    tol = tol_sv(1e-4, ATOL, device="cpu")
+    st = init_state(prob, ROBERTS_YY0, ROBERTS_YP0, device="cpu")
+    one, tret, istate = tsolve(st, prob, IdaOptions(), tol, 4.0)
+    assert one.tn.dim() == 0 and int(istate) == C.SUCCESS
+    params = ROBERTS_PARAMS[None, :]
+    sb = ensemble_init(troberts, params, ROBERTS_YY0[None], ROBERTS_YP0[None], device="cpu")
+    batch, tret_b, _ = make_ensemble_solve(troberts)(sb, params, tol, 4.0)
+    assert float(tret) == float(tret_b[0])
+    for f in ("yy", "phi", "nst", "nni", "kused"):
+        assert torch.equal(getattr(one, f), getattr(batch, f)[0]), f
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dtype_is_preserved(dtype):
+    params, yy0, yp0 = _inputs(2)
+    st = ensemble_init(troberts, params, yy0, yp0, device="cpu", dtype=dtype)
+    tol = tol_sv(1e-4, ATOL, device="cpu", dtype=dtype)
+    st, tret, istate = make_ensemble_solve(troberts)(st, params, tol, 0.4)
+    assert bool((istate == C.SUCCESS).all())
+    assert tret.dtype == dtype
+    for f in st._fields:
+        x = getattr(st, f)
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            assert x.dtype == dtype, f
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        {"linear_solver": "spgmr"},
+        {"linear_solver": "band"},
+        {"ls_precision": "single"},
+        {"ls_precision": "refined"},
+        {"fast_math": True},
+        {"debug_trace": True},
+    ],
+    ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()),
+)
+def test_unported_options_raise(kwargs):
+    with pytest.raises(NotImplementedError):
+        IdaOptions(**kwargs)
