@@ -1,39 +1,75 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the port's CUDA kernels from this checkout, holds each against its
-plain PyTorch version on the card, drives the main path (the batched
-Roberts ensemble: B=65,536 lanes to tout=400 in f64 through
-``ensemble_init`` + ``make_ensemble_solve``), checks its results against
-the CPU and against the canonical Roberts acceptance test, and prints one
-JSON line per phase. Any failed check raises, so the exit code is non-zero.
+Builds the port's CUDA kernels from this checkout (the batched small-N LU,
+``csrc/small_lu.cu``, and the whole-solve kernel, ``csrc/fused_solve.cu``,
+in parallel), holds each against its plain PyTorch version on the card, and
+drives both paths of the batched Roberts ensemble (B=65,536 lanes to
+tout=400 in f64):
+
+* the eager path, ``ensemble_init`` + ``make_ensemble_solve`` (LU kernels);
+* the fused path, ``ensemble_init`` + ``make_fused_solve`` (one kernel per
+  solve, or the budgeted kernel and its continuation), bit for bit against
+  the eager path's result from the same run, in f64 and (counters) f32;
+* the canonical Roberts acceptance lane through both.
+
+Every stage kernel is checked bit for bit against its eager stage on real
+mid-flight states first, so a parity break is localized. It prints one JSON
+line per phase; any failed check raises, so the exit code is non-zero.
 
     python3 chip_smoke.py
 
-The last two lines are the kernels' summary and
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+The last three lines are the kernels' summary, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ida_tpu_torch import constants as C
+from ida_tpu_torch.core.solve import TASK_ONE_STEP
+from ida_tpu_torch.core.solve import solve as core_solve
+from ida_tpu_torch.core.state import IdaOptions
 from ida_tpu_torch.models import ROBERTS_PARAMS, ROBERTS_YP0, ROBERTS_YY0, roberts_factory
-from ida_tpu_torch.ops import dense_lu, small_lu
-from ida_tpu_torch.parallel import ensemble_init, make_ensemble_solve
-from ida_tpu_torch.tol_control import tol_sv
+from ida_tpu_torch.ops import _build, dense_lu, fused_solve, fused_stages, small_lu
+from ida_tpu_torch.parallel import ensemble_init, from_native, make_ensemble_solve, to_native
+from ida_tpu_torch.tol_control import TolControl, tol_sv
 
 B = 65536
+B_SMALL = 4096
 TOUT = 400.0
 ATOL = [1e-8, 1e-6, 1e-6]
 CANONICAL_NST = [29, 43, 68, 95, 126, 161, 202, 250, 293, 325, 348, 362]
-KERNEL_SOURCE = "ida_tpu_torch/csrc/small_lu.cu"
-REPLACES = "ida_tpu/ops/pallas_lu.py:28"
+CANONICAL_TOTALS = {"nst": 362, "nre": 537, "nje": 60, "nni": 537, "netf": 15, "ncfn": 0}
+COUNTERS = ("nst", "nre", "nje", "nni", "netf", "ncfn")
+LU_SOURCE = "ida_tpu_torch/csrc/small_lu.cu"
+LU_REPLACES = "ida_tpu/ops/pallas_lu.py:28"
+FUSED_SOURCE = "ida_tpu_torch/csrc/fused_solve.cu"
+REPLACES = {
+    "fused_solve": "ida_tpu/ops/fused_solve.py:200",
+    "fused_solve_init": "ida_tpu/ops/fused_solve.py:396",
+    "fused_solve_cont": "ida_tpu/ops/fused_solve.py:429",
+    "stage": "scripts/bisect_fused.py:154",
+}
+# the card's peaks (NVIDIA H100 SXM data sheet, 700 W): memory 3.35 TB/s;
+# float64 outside the tensor cores 34 TFLOP/s, float32 67 TFLOP/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
+# floating-point operations of the solve per event at N = 3, counted by
+# hand from ida_tpu_torch/csrc/ida_lane.cuh (a division as one operation,
+# pow and sqrt as 20 each): an attempt (set_coeffs ~75, predict ~72, the
+# predictor residual ~12, error_test's three norms and estimates ~106), a
+# Newton iteration (LU solve, norm, rate, residual), an lsetup (Jacobian
+# and LU factor), a completed step (complete_step ~95, stop test, preamble
+# with ewt and norm ~50)
+OPS_PER = {"attempt": 270, "newton": 100, "lsetup": 30, "step": 145}
 
 
 def emit(phase: str, **fields) -> None:
@@ -45,9 +81,11 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean CUDA-event time of ``fn`` over ``reps`` back-to-back calls."""
-    fn()
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean CUDA-event time of ``fn`` over ``reps`` back-to-back calls
+    (after one warm-up call unless ``warm`` is False)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -58,6 +96,56 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(fns, rounds: int, name_part: str) -> float:
+    """Device time per call of the kernels whose name holds ``name_part``,
+    from torch.profiler, over ``rounds`` passes through ``fns`` (one call
+    each, after a warm-up pass). Raises when the profiler records no device
+    time."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(rounds):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        if name_part in evt.key:
+            total += getattr(evt, "device_time_total", getattr(evt, "cuda_time_total", 0.0))
+    check(total > 0, f"the profiler recorded no device time for {name_part}")
+    return total / 1e3 / (rounds * len(fns))
+
+
+def device_busy(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall, the device time of
+    everything it ran on the card, and the longest of those by name."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_card = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    dev = sum(e.self_device_time_total for e in on_card) / 1e3
+    return {"profiled_wall_ms": wall * 1e3, "device_ms": dev,
+            "device_events": sum(e.count for e in on_card), "busy_share": dev / (wall * 1e3),
+            "longest": sorted(((e.key[:60], e.self_device_time_total / 1e3) for e in on_card),
+                              key=lambda kv: -kv[1])[:4]}
+
+
+def wall_s(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def ensemble_inputs(b: int):
     params = np.outer(np.exp(np.linspace(-0.2, 0.2, b)), ROBERTS_PARAMS)
     yy0 = np.tile(ROBERTS_YY0, (b, 1))
@@ -65,10 +153,56 @@ def ensemble_inputs(b: int):
     return params, yy0, yp0
 
 
-def run_ensemble(params, yy0, yp0, device, tout):
-    st = ensemble_init(roberts_factory, params, yy0, yp0, device=device)
-    tol = tol_sv(1e-4, ATOL, device=device)
+def run_ensemble(params, yy0, yp0, device, tout, dtype=torch.float64):
+    st = ensemble_init(roberts_factory, params, yy0, yp0, device=device, dtype=dtype)
+    tol = tol_sv(1e-4, ATOL, device=device, dtype=dtype)
     return make_ensemble_solve(roberts_factory)(st, params, tol, tout)
+
+
+def fused_fn(device, dtype=torch.float64, budget=None):
+    tol = tol_sv(1e-4, ATOL, device=device, dtype=dtype)
+    return fused_solve.make_fused_solve(roberts_factory, tol, attempt_budget=budget)
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, NaN equal to NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    eq = a == b
+    if a.is_floating_point():
+        eq |= torch.isnan(a) & torch.isnan(b)
+    return bool(eq.all())
+
+
+def first_difference(st_a, st_b, out_a: dict, out_b: dict) -> str | None:
+    for f in st_a._fields:
+        x, y = getattr(st_a, f), getattr(st_b, f)
+        if isinstance(x, torch.Tensor) and not same(x, y):
+            return f"state.{f}"
+    for k in out_a:
+        if not same(out_a[k].to(out_b[k].dtype), out_b[k]):
+            return k
+    return None
+
+
+def max_abs_diff(st_a, st_b, out_a: dict | None = None, out_b: dict | None = None) -> float:
+    """Largest |a - b| over the float fields and outputs (NaN = NaN)."""
+    pairs = [(getattr(st_a, f), getattr(st_b, f)) for f in st_a._fields]
+    pairs += [(out_a[k], out_b[k]) for k in (out_a or {})]
+    worst = 0.0
+    for x, y in pairs:
+        if isinstance(x, torch.Tensor) and x.is_floating_point() and x.numel():
+            d = (x - y.to(x.dtype)).abs()
+            d = torch.where(torch.isnan(x) & torch.isnan(y.to(x.dtype)), 0.0, d)
+            worst = max(worst, float(d.max()))
+    return worst
+
+
+def state_bytes(st) -> int:
+    return sum(getattr(st, f).numel() * getattr(st, f).element_size() for f in fused_solve.STATE_FIELDS)
+
+
+# ---------------------------------------------------------------- phases
 
 
 def phase_device() -> str:
@@ -79,7 +213,7 @@ def phase_device() -> str:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     nvcc = subprocess.run(
-        [small_lu.nvcc_path(), "--version"], capture_output=True, text=True, check=True, timeout=60
+        [_build.nvcc_path(), "--version"], capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[-1]
     emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
@@ -87,12 +221,25 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    info = small_lu.build()
-    emit("build", seconds=info["seconds"], cached=info["cached"], library=info["path"])
+    """Both libraries at once, one nvcc each."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        lu, fused = pool.submit(small_lu.build), pool.submit(fused_solve.build)
+        lu, fused = lu.result(), fused.result()
+    lu_ptxas = {k: v for k, v in _build.ptxas_summary(lu["log"]).items() if "Li3E" in k}
+    emit("build", seconds=time.perf_counter() - t0, cached=lu["cached"] and fused["cached"],
+         small_lu_seconds=lu["seconds"], library=lu["path"], small_lu_n3_ptxas=lu_ptxas)
+    summary = _build.ptxas_summary(fused["log"])
+    emit("fused_build", seconds=fused["seconds"], cached=fused["cached"], library=fused["path"],
+         ptxas={k: v for k, v in summary.items() if "fused" in k or "ida" in k})
+
+
+def lu_bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def phase_kernels() -> dict:
-    """Kernel vs plain on the same CUDA tensors: bit for bit."""
+    """LU kernel vs plain on the same CUDA tensors: bit for bit."""
     errs = {"factor": 0.0, "solve": 0.0}
     for dtype in (torch.float64, torch.float32):
         for n in (3, 5, 8, 16):
@@ -104,11 +251,11 @@ def phase_kernels() -> dict:
             torch.cuda.synchronize()
             err_f = float((f.lu - g.lu).abs().max())
             err_s = float((x - y).abs().max())
-            same = (torch.equal(f.lu, g.lu) and torch.equal(x, y)
-                    and torch.equal(f.piv, g.piv) and torch.equal(f.fail_col, g.fail_col))
-            emit("kernel_vs_plain", dtype=str(dtype), n=n, batch=B, bitwise_equal=same,
+            ok = (torch.equal(f.lu, g.lu) and torch.equal(x, y)
+                  and torch.equal(f.piv, g.piv) and torch.equal(f.fail_col, g.fail_col))
+            emit("kernel_vs_plain", dtype=str(dtype), n=n, batch=B, bitwise_equal=ok,
                  max_abs_err_lu=err_f, max_abs_err_x=err_s)
-            check(same, f"kernel != plain at n={n} {dtype}")
+            check(ok, f"kernel != plain at n={n} {dtype}")
             errs["factor"] = max(errs["factor"], err_f)
             errs["solve"] = max(errs["solve"], err_s)
 
@@ -143,12 +290,43 @@ def phase_kernels() -> dict:
         ("solve_plain_2", lambda: dense_lu.lu_solve_unrolled(f, b), 50),
     ]:
         t[key] = cuda_ms(fn, reps)
-    times = {
-        k: {"ms": (t[f"{k}_kernel_1"] + t[f"{k}_kernel_2"]) / 2,
-            "plain_ms": (t[f"{k}_plain_1"] + t[f"{k}_plain_2"]) / 2}
-        for k in ("factor", "solve")
+
+    # the kernels' own device time (profiler), apart from the wrapper's host
+    # work, cold: 16 input sets in turn move ~170 MB (factor) and ~110 MB
+    # (solve) a pass, more than the 50 MB of L2, so every launch reads its
+    # input from HBM
+    a_sets = [a.clone() for _ in range(16)]
+    b_sets = [b.clone() for _ in range(16)]
+    f_sets = [small_lu.lu_factor(x) for x in a_sets]
+    dev_ms = {
+        "factor": kernel_device_ms([lambda x=x: small_lu.lu_factor(x) for x in a_sets], 4,
+                                   "factor_kernel"),
+        "solve": kernel_device_ms([lambda g=g, y=y: small_lu.lu_solve(g, y)
+                                   for g, y in zip(f_sets, b_sets)], 4, "solve_kernel"),
     }
-    emit("kernel_times", n=3, batch=B, dtype="float64", runs_ms=t, **times)
+    del a_sets, b_sets, f_sets
+    # the library yardstick (never called by the port): the same batch, batch-leading
+    a_lead = a.permute(2, 0, 1).contiguous()
+    b_lead = b.t().contiguous().unsqueeze(-1)
+    lu_l, piv_l, _ = torch.linalg.lu_factor_ex(a_lead)
+    lib_ms = {
+        "factor": cuda_ms(lambda: torch.linalg.lu_factor_ex(a_lead), 200),
+        "solve": cuda_ms(lambda: torch.linalg.lu_solve(lu_l, piv_l, b_lead), 200),
+    }
+    # bytes: each input read once, each output written once
+    nbytes = {
+        "factor": a.numel() * 8 + a.numel() * 8 + 3 * B * 4 + B * 4,
+        "solve": a.numel() * 8 + 3 * B * 4 + b.numel() * 8 + b.numel() * 8,
+    }
+    # "ms" is the kernel's own cold device time; the back-to-back CUDA-event
+    # time ("wrapper_ms") is paced by the wrapper's host work
+    times = {}
+    for k in ("factor", "solve"):
+        times[k] = {"ms": dev_ms[k], "wrapper_ms": (t[f"{k}_kernel_1"] + t[f"{k}_kernel_2"]) / 2,
+                    "plain_ms": (t[f"{k}_plain_1"] + t[f"{k}_plain_2"]) / 2,
+                    "library_ms": lib_ms[k], "bound_ms": lu_bound_ms(nbytes[k]),
+                    "bound_by": "bytes"}
+    emit("kernel_times", n=3, batch=B, dtype="float64", runs_ms=t, bytes=nbytes, **times)
     return {k: {"max_abs_err": errs[k], **times[k]} for k in errs}
 
 
@@ -163,7 +341,7 @@ def phase_slice() -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"factor": small_lu.FACTOR_LAUNCHES, "solve": small_lu.SOLVE_LAUNCHES}
-    totals = {f: int(getattr(st, f).sum()) for f in ("nst", "nre", "nje", "nni", "netf", "ncfn")}
+    totals = {f: int(getattr(st, f).sum()) for f in COUNTERS}
     n_ok = int((istate == C.SUCCESS).sum())
     emit("slice", batch=B, tout=TOUT, dtype="float64", wall_s=wall, lanes_success=n_ok,
          steps_per_s=totals["nst"] / wall, launches=launches,
@@ -172,7 +350,7 @@ def phase_slice() -> dict:
     check(bool((tret == TOUT).all()), "tret != tout")
     check(bool(torch.isfinite(st.yy).all()) and tuple(st.yy.shape) == (B, 3), "bad yy")
     check(launches["factor"] > 0 and launches["solve"] > 0, f"LU kernels not launched: {launches}")
-    return launches
+    return {"launches": launches, "wall_s": wall, "result": (st, tret, istate), "totals": totals}
 
 
 def phase_card_vs_cpu() -> None:
@@ -186,43 +364,355 @@ def phase_card_vs_cpu() -> None:
     w = 1.0 / (1e-4 * np.abs(ycpu) + np.array(ATOL))
     wrms = np.sqrt(np.mean((w * (sg.yy.cpu().numpy() - ycpu)) ** 2, axis=1))
     differ = np.zeros(256, bool)
-    for f in ("nst", "nre", "nje", "nni", "netf", "ncfn"):
+    for f in COUNTERS:
         differ |= getattr(sg, f).cpu().numpy() != getattr(sc, f).numpy()
     emit("card_vs_cpu", lanes=256, max_wrms=float(wrms.max()), lanes_counters_differ=int(differ.sum()))
     check(float(wrms.max()) < 1.0, f"card vs CPU WRMS {wrms.max()}")
 
 
-def phase_canonical() -> None:
+def canonical(fn, label: str) -> None:
+    """One lane at nominal params, decade by decade to 4e10: the canonical
+    per-decade steps, the C idaRoberts_dns totals and check_ans."""
     params = ROBERTS_PARAMS[None, :]
     st = ensemble_init(roberts_factory, params, ROBERTS_YY0[None], ROBERTS_YP0[None], device="cuda")
-    fn = make_ensemble_solve(roberts_factory)
-    tol = tol_sv(1e-4, ATOL, device="cuda")
     nst = []
     for k in range(12):
-        st, tret, istate = fn(st, params, tol, 0.4 * 10**k)
-        check(int(istate[0]) == C.SUCCESS, f"decade {k}: istate {int(istate[0])}")
+        st, tret, istate = fn(st, params, 0.4 * 10**k)
+        check(int(istate[0]) == C.SUCCESS, f"{label} decade {k}: istate {int(istate[0])}")
         nst.append(int(st.nst[0]))
+    totals = {f: int(getattr(st, f)[0]) for f in COUNTERS}
     reference = np.array([5.2083474251394888e-08, 2.0833390772616859e-13, 9.9999994791631752e-01])
     ewt = 1.0 / (1e-4 * np.abs(reference) + 10.0 * np.array(ATOL))
     err = float(np.sqrt(np.mean((ewt * (st.yy[0].cpu().numpy() - reference)) ** 2)))
-    emit("canonical_lane", nst_per_decade=nst, canonical=CANONICAL_NST, check_ans_wrms=err,
-         tret=float(tret[0]))
-    check(float(tret[0]) == 4.0e10, "final tret")
-    check(err < 1.0, f"check_ans WRMS {err}")
+    emit(label, nst_per_decade=nst, canonical=CANONICAL_NST, totals=totals,
+         check_ans_wrms=err, tret=float(tret[0]))
+    check(nst == CANONICAL_NST, f"{label}: per-decade nst {nst} != {CANONICAL_NST}")
+    check(totals == CANONICAL_TOTALS, f"{label}: totals {totals} != {CANONICAL_TOTALS}")
+    check(float(tret[0]) == 4.0e10, f"{label}: final tret")
+    check(err < 1.0, f"{label}: check_ans WRMS {err}")
+
+
+def phase_canonical() -> None:
+    tol = tol_sv(1e-4, ATOL, device="cuda")
+    eager = make_ensemble_solve(roberts_factory)
+    canonical(lambda st, p, t: eager(st, p, tol, t), "canonical_lane")
+
+
+def stage_states():
+    """Real mid-flight states from the eager path on the card: B_SMALL
+    lanes, TASK_ONE_STEP calls 1, 5, 10 and 20, plus the 20th state with hh
+    x16, whose next attempt fails in many lanes."""
+    params, yy0, yp0 = ensemble_inputs(B_SMALL)
+    st = ensemble_init(roberts_factory, params, yy0, yp0, device="cuda")
+    tol = tol_sv(1e-4, ATOL, device="cuda")
+    fn = make_ensemble_solve(roberts_factory, itask=TASK_ONE_STEP)
+    snaps = {"init": to_native(st)}
+    for k in range(1, 21):
+        st, _, _ = fn(st, params, tol, TOUT)
+        if k in (1, 5, 10, 20):
+            snaps[f"step{k}"] = to_native(st)
+    snaps["step20_hh_x16"] = snaps["step20"]._replace(hh=snaps["step20"].hh * 16.0)
+    return torch.as_tensor(params, device="cuda").t().contiguous(), tol, snaps
+
+
+def phase_fused_stages() -> dict:
+    params, tol, snaps = stage_states()
+
+    def compare(stage, st, aux=None):
+        # the eager stage and the stage kernel on the same CUDA tensors
+        st_e, out_e = eager_stage(stage, st, params, tol, aux)
+        st_k, out_k = fused_stages.run_stage(stage, st, params, tol, TOUT, aux=aux)
+        torch.cuda.synchronize()
+        errs[stage] = max(errs.get(stage, 0.0), max_abs_diff(st_k, st_e, out_k, out_e))
+        return first_difference(st_k, st_e, out_k, out_e), st_e, out_e
+
+    fused_stages.reset_launch_counts()
+    results, errs, n_failed_attempts = {}, {}, 0
+    for name, st in snaps.items():
+        if name == "init":
+            diff, _, _ = compare("prologue", st)
+            results[f"{name}/prologue"] = diff
+            continue
+        for stage in ("prologue", "stoptest", "getsol", "attempt"):
+            diff, _, out = compare(stage, st)
+            results[f"{name}/{stage}"] = diff
+            if stage == "attempt":
+                n_failed_attempts += int((out["success"] == 0).sum())
+        # the chain inside one attempt, each stage on the eager output of the last
+        diff, s1, o1 = compare("set_coeffs", st)
+        results[f"{name}/set_coeffs"] = diff
+        s1 = s1._replace(tn=s1.tn + s1.hh)
+        diff, s2, _ = compare("nls", s1)
+        results[f"{name}/nls"] = diff
+        diff, s3, o3 = compare("error_test", s2, {"ck": o1["ck"]})
+        results[f"{name}/error_test"] = diff
+        diff, _, _ = compare("complete_step", s3,
+                             {"err_k": o3["err_k"], "err_km1": o3["err_km1"], "ck": o1["ck"]})
+        results[f"{name}/complete_step"] = diff
+    fails = {k: v for k, v in results.items() if v is not None}
+    launches = dict(fused_stages.STAGE_LAUNCHES)
+    emit("fused_stages", batch=B_SMALL, checks=len(results), failed_attempts=n_failed_attempts,
+         first_differences=fails, launches=launches, max_abs_err=errs)
+    check(not fails, f"stage kernels differ from the eager stages: {fails}")
+    check(n_failed_attempts > 0, "no failed attempt among the stage inputs")
+    check(all(v > 0 for v in launches.values()), f"a stage kernel was not launched: {launches}")
+
+    # times per stage at B_SMALL on the step-10 state: the bare kernel
+    # launch (CUDA events, median of 5 fresh copies) vs the eager stage
+    st = snaps["step10"]
+    times = {}
+    for stage in fused_stages.STAGES:
+        src = snaps["init"] if stage == "prologue" else st
+        runs = []
+        for _ in range(5):
+            launch, _, _ = fused_stages.prepare_launch(stage, src, params, tol, TOUT)
+            runs.append(cuda_ms(launch, 1, warm=False))
+        p1 = cuda_ms(lambda: eager_stage(stage, src, params, tol), 3)
+        p2 = cuda_ms(lambda: eager_stage(stage, src, params, tol), 3)
+        times[stage] = {"ms": statistics.median(runs), "plain_ms": (p1 + p2) / 2,
+                        "bound_ms": 2 * state_bytes(src) / HBM_BYTES_PER_S * 1e3}
+    emit("fused_stage_times", batch=B_SMALL, dtype="float64", times=times)
+    return {"launches": launches, "times": times, "max_abs_err": errs}
+
+
+def eager_stage(stage, st, params, tol, aux=None):
+    """The eager stage (plain version) on the given CUDA tensors."""
+    return fused_stages.plain_stage(stage, st, params, tol, TOUT, aux)
+
+
+def solve_ops(totals: dict) -> float:
+    attempts = totals["nst"] + totals["netf"] + totals["ncfn"]
+    return (attempts * OPS_PER["attempt"] + totals["nni"] * OPS_PER["newton"]
+            + totals["nje"] * OPS_PER["lsetup"] + totals["nst"] * OPS_PER["step"])
+
+
+def solve_bound(native, ops: float) -> tuple[float, str]:
+    """The least time for a launch's work: the state (batch-native, B lanes)
+    read and written once, with params, tolerances and tout read once, over
+    the memory rate, against the operations over the peak rate of the
+    dtype."""
+    bsz = native.tn.shape[-1]
+    nbytes = 2 * state_bytes(native) + bsz * (3 + 1 + 3 + 1) * native.phi.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[native.dtype] * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def counter_totals(st) -> dict:
+    return {f: int(getattr(st, f).sum()) for f in COUNTERS}
+
+
+def bare_launch_ms(st0, params) -> float:
+    """CUDA-event time of one bare K2 launch (no clone, no layout moves) on
+    a fresh batch-native copy of ``st0``."""
+    native = fused_solve.native_clone(st0)
+    inputs = fused_solve.lane_inputs(native, torch.as_tensor(params, device="cuda").t(),
+                                     tol_sv(1e-4, ATOL, device="cuda"), TOUT, 3)
+    carry = fused_solve.new_carry(native.tn.shape[-1], native.dtype, native.phi.device, False)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    fused_solve.launch("", native, inputs, carry, IdaOptions(), 0, None)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1])
+
+
+def phase_fused_slice(eager: dict) -> dict:
+    params, yy0, yp0 = ensemble_inputs(B)
+    st0 = ensemble_init(roberts_factory, params, yy0, yp0, device="cuda")
+    fn = fused_fn("cuda")
+    fn(st0, params, TOUT)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_solve.reset_launch_counts()
+    out = fn(st0, params, TOUT)
+    torch.cuda.synchronize()
+    launches = fused_solve.FUSED_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    st, tret, istate = out
+    est, etret, eistate = eager["result"]
+
+    n_ok = int((istate == C.SUCCESS).sum())
+    ok_counters = {f: same(getattr(st, f), getattr(est, f)) for f in COUNTERS}
+    ok_fields = {f: same(getattr(st, f), getattr(est, f)) for f in ("yy", "yp", "phi")}
+    mismatch = [f for f in st._fields if isinstance(getattr(st, f), torch.Tensor)
+                and not same(getattr(st, f), getattr(est, f))]
+    err = max_abs_diff(st, est)
+
+    walls = [wall_s(lambda: fn(st0, params, TOUT)) for _ in range(3)]
+    wall = statistics.median(walls)
+    kernel_runs = [bare_launch_ms(st0, params) for _ in range(3)]
+    kernel_ms = statistics.median(kernel_runs)
+    eager_walls = [wall_s(lambda: run_ensemble(params, yy0, yp0, "cuda", TOUT)) for _ in range(2)]
+    busy = device_busy(lambda: fn(st0, params, TOUT))
+    totals = counter_totals(st)
+    bound, bound_by = solve_bound(to_native(st0), solve_ops(totals))
+    emit("fused_slice", batch=B, tout=TOUT, dtype="float64", lanes_success=n_ok,
+         istate_equal=same(istate, eistate), tret_equal=same(tret, etret),
+         counters_equal=ok_counters, bitwise_equal=ok_fields, fields_differ=mismatch,
+         max_abs_err=err, wall_s=wall, walls_s=walls, steps_per_s=totals["nst"] / wall,
+         kernel_ms=kernel_ms, kernel_runs_ms=kernel_runs, launches=launches,
+         peak_mem_bytes=peak, eager_wall_s=eager["wall_s"],
+         eager_walls_s_same_process=eager_walls, bound_ms=bound, bound_by=bound_by,
+         ops=solve_ops(totals), profiled=busy, **totals)
+    check(n_ok == B, f"fused: {B - n_ok} lanes did not return SUCCESS")
+    check(same(istate, eistate) and same(tret, etret), "fused istate/tret != eager")
+    check(all(ok_counters.values()), f"fused counters != eager: {ok_counters}")
+    check(all(ok_fields.values()), f"fused yy/yp/phi != eager: {ok_fields}")
+    check(launches == 1, f"fused kernel launches {launches}")
+    return {"launches": launches, "ms": kernel_ms, "plain_ms": eager["wall_s"] * 1e3,
+            "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err}
+
+
+def phase_fused_budgeted() -> dict:
+    params, yy0, yp0 = ensemble_inputs(B_SMALL)
+    st0 = ensemble_init(roberts_factory, params, yy0, yp0, device="cuda")
+    ref = fused_fn("cuda")(st0, params, TOUT)
+    fused_solve.reset_launch_counts()
+    got = fused_fn("cuda", budget=7)(st0, params, TOUT)
+    torch.cuda.synchronize()
+    n_launch = fused_solve.FUSED_INIT_LAUNCHES + fused_solve.FUSED_CONT_LAUNCHES
+    differ = [f for f in ref[0]._fields if isinstance(getattr(ref[0], f), torch.Tensor)
+              and not same(getattr(ref[0], f), getattr(got[0], f))]
+    ok = not differ and same(ref[1], got[1]) and same(ref[2], got[2])
+    err = max_abs_diff(got[0], ref[0])
+    emit("fused_budgeted", batch=B_SMALL, attempt_budget=7, launches=n_launch,
+         bitwise_equal=ok, fields_differ=differ, max_abs_err=err)
+    check(ok, f"budgeted kernel != unbudgeted: {differ}")
+    check(n_launch > 3, f"budget 7 took only {n_launch} launches")
+
+    # the headline with budget 32: launches and wall through the entry point
+    params, yy0, yp0 = ensemble_inputs(B)
+    st0 = ensemble_init(roberts_factory, params, yy0, yp0, device="cuda")
+    fn = fused_fn("cuda", budget=32)
+    fn(st0, params, TOUT)
+    fused_solve.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(st0, params, TOUT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"init": fused_solve.FUSED_INIT_LAUNCHES, "cont": fused_solve.FUSED_CONT_LAUNCHES}
+    check(launches["init"] == 1 and launches["cont"] > 0, f"budgeted launches {launches}")
+
+    # launch by launch against the plain version, the eager
+    # solve(max_attempts=32) and its resumes on the same card: after each
+    # launch the state and the 9-field carry are bit for bit the eager
+    # call's; each launch's CUDA-event time beside the eager call's wall
+    p = torch.as_tensor(params, device="cuda").t().contiguous()
+    prob = roberts_factory(p)
+    native = fused_solve.native_clone(st0)
+    inputs = fused_solve.lane_inputs(native, p, tol_sv(1e-4, ATOL, device="cuda"), TOUT, 3)
+    tol_n = TolControl(inputs[1], inputs[2])
+    carry = fused_solve.new_carry(B, native.dtype, native.phi.device, True)
+    eager_out = (to_native(st0), None, None, None)
+    runs = []
+
+    def step(resume: bool) -> torch.Tensor:
+        nonlocal eager_out
+        kind = "cont" if resume else "init"
+        ops_before = solve_ops(counter_totals(native))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        istate = fused_solve.launch(kind, native, inputs, carry, IdaOptions(), 0, 32)
+        ev[1].record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager_out = core_solve(eager_out[0], prob, IdaOptions(), tol_n, inputs[3], max_attempts=32,
+                               resume_carry=eager_out[3] if resume else None)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        eager_carry = dict(zip(fused_solve.CARRY_FIELDS, eager_out[3]))
+        diff = first_difference(native, eager_out[0], carry, eager_carry)
+        runs.append({"kind": kind, "ms": ev[0].elapsed_time(ev[1]), "plain_ms": plain_ms,
+                     "ops": solve_ops(counter_totals(native)) - ops_before, "first_difference": diff,
+                     "max_abs_err": max_abs_diff(native, eager_out[0], carry, eager_carry)})
+        check(diff is None, f"budget 32, launch {len(runs)} ({kind}): {diff} != the eager call's")
+        return istate
+
+    n_runs = fused_solve.run_until_done(step)
+    est, etret, eistate = from_native(eager_out[0]), eager_out[1], eager_out[2]
+    differ = [f for f in est._fields if isinstance(getattr(est, f), torch.Tensor)
+              and not same(getattr(out[0], f), getattr(est, f))]
+    final_ok = not differ and same(out[1], etret) and same(out[2], eistate)
+    init, cont = runs[0], runs[1:]
+    ops_cont = statistics.mean(r["ops"] for r in cont)
+    bound_init, by_init = solve_bound(native, init["ops"])
+    bound_cont, by_cont = solve_bound(native, ops_cont)
+    emit("fused_budgeted_headline", batch=B, attempt_budget=32, wall_s=wall, launches=launches,
+         per_launch=runs, entry_point_equals_eager_budgeted=final_ok, fields_differ=differ,
+         bound_init_ms=bound_init, bound_cont_ms=bound_cont)
+    check(n_runs == launches["init"] + launches["cont"],
+          f"the eager budgeted loop ran {n_runs} calls, the entry point {launches} launches")
+    check(final_ok, f"budget 32 through make_fused_solve != the eager budgeted loop: {differ}")
+    check(bool((out[2] == C.SUCCESS).all()), "budget 32: a lane did not return SUCCESS")
+    return {
+        "init": {"launches": launches["init"], "ms": init["ms"], "plain_ms": init["plain_ms"],
+                 "bound_ms": bound_init, "bound_by": by_init, "max_abs_err": init["max_abs_err"]},
+        "cont": {"launches": launches["cont"], "ms": statistics.mean(r["ms"] for r in cont),
+                 "plain_ms": statistics.mean(r["plain_ms"] for r in cont),
+                 "bound_ms": bound_cont, "bound_by": by_cont,
+                 "max_abs_err": max(r["max_abs_err"] for r in cont)},
+    }
+
+
+def phase_fused_f32() -> None:
+    params, yy0, yp0 = ensemble_inputs(B)
+    st0 = ensemble_init(roberts_factory, params, yy0, yp0, device="cuda", dtype=torch.float32)
+    st, tret, istate = fused_fn("cuda", torch.float32)(st0, params, TOUT)
+    est, etret, eistate = run_ensemble(params, yy0, yp0, "cuda", TOUT, dtype=torch.float32)
+    torch.cuda.synchronize()
+    counters = {f: same(getattr(st, f), getattr(est, f)) for f in COUNTERS}
+    bitwise = {f: same(getattr(st, f), getattr(est, f)) for f in ("yy", "yp", "phi")}
+    n_ok = int((istate == C.SUCCESS).sum())
+    emit("fused_f32", batch=B, tout=TOUT, lanes_success=n_ok, istate_equal=same(istate, eistate),
+         tret_equal=same(tret, etret), counters_equal=counters, bitwise_equal=bitwise,
+         nst=int(st.nst.sum()))
+    check(same(istate, eistate) and same(tret, etret), "f32 kernel istate/tret != eager f32")
+    check(all(counters.values()), f"f32 kernel counters != eager f32: {counters}")
+
+
+def phase_fused_canonical() -> None:
+    fn = fused_fn("cuda")
+    canonical(fn, "fused_canonical_lane")
 
 
 def main() -> None:
     smi = phase_device()
     phase_build()
-    kernels = phase_kernels()
-    launches = phase_slice()
+    lu = phase_kernels()
+    eager = phase_slice()
     phase_card_vs_cpu()
     phase_canonical()
-    print(json.dumps({"kernels": [
-        {"name": f"small_lu_{k}", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
-         "launches": launches[k], **kernels[k]}
+    stages = phase_fused_stages()
+    fused = phase_fused_slice(eager)
+    budgeted = phase_fused_budgeted()
+    phase_fused_f32()
+    phase_fused_canonical()
+
+    rows = [
+        {"name": f"small_lu_{k}", "route": "cuda", "source": LU_SOURCE, "replaces": LU_REPLACES,
+         "launches": eager["launches"][k], "max_abs_err": lu[k]["max_abs_err"], "ms": lu[k]["ms"],
+         "plain_ms": lu[k]["plain_ms"], "bound_ms": lu[k]["bound_ms"], "bound_by": "bytes",
+         "library_ms": lu[k]["library_ms"]}
         for k in ("factor", "solve")
-    ]}), flush=True)
+    ]
+    rows.append({"name": "fused_solve", "route": "cuda", "source": FUSED_SOURCE,
+                 "replaces": REPLACES["fused_solve"], "launches": fused["launches"],
+                 "max_abs_err": fused["max_abs_err"], "ms": fused["ms"], "plain_ms": fused["plain_ms"],
+                 "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"], "library_ms": None})
+    for kind in ("init", "cont"):
+        rows.append({"name": f"fused_solve_{kind}", "route": "cuda", "source": FUSED_SOURCE,
+                     "replaces": REPLACES[f"fused_solve_{kind}"], **budgeted[kind],
+                     "library_ms": None})
+    for stage, t in stages["times"].items():
+        rows.append({"name": f"fused_stage_{stage}", "route": "cuda", "source": FUSED_SOURCE,
+                     "replaces": REPLACES["stage"], "launches": stages["launches"][stage],
+                     "max_abs_err": stages["max_abs_err"][stage], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": None})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -2,12 +2,13 @@
 
 Port of ``ida_tpu/core/solve.py::solve`` (reference ``solve``
 src/impl_solve.rs:69-377 and the stop tests src/impl_stop_test.rs:36-211)
-for TASK_NORMAL and TASK_ONE_STEP, without roots and without the budgeted
-(``max_attempts``/``resume_carry``) form: first-call initialisation, pre-step
-stop tests, then one masked loop over step ATTEMPTS (mxstep guard, ewt
-refresh, accuracy test, attempt, completion, post-step stop test). The loop
-body is self-masked: finished lanes pass through bit for bit. The
-interpolation an exiting lane needs is deferred to one pass after the loop.
+for TASK_NORMAL and TASK_ONE_STEP, without roots: first-call
+initialisation, pre-step stop tests, then one masked loop over step ATTEMPTS
+(mxstep guard, ewt refresh, accuracy test, attempt, completion, post-step
+stop test). The loop body is self-masked: finished lanes pass through bit
+for bit. The interpolation an exiting lane needs is deferred to one pass
+after the loop. The budgeted form (``max_attempts``/``resume_carry``) stops
+the loop after a fixed number of attempts and resumes it exactly.
 """
 
 from __future__ import annotations
@@ -238,10 +239,12 @@ def _step_preamble(state: IdaState, problem, opts, tol, nstloc, istate, tret, ik
     return state, istate, tret, ikind, itgt
 
 
-def _run_attempt_loop(init: _Loop, problem, opts, tol, tout, itask: int):
+def _run_attempt_loop(init: _Loop, problem, opts, tol, tout, itask: int, max_attempts=None):
     """The flattened internal loop over step ATTEMPTS (impl_solve.rs:246-373
     + src/lib.rs:613-711): each iteration is one attempt; a lane that lands
-    its step also does the completion and stop-test work."""
+    its step also does the completion and stop-test work. With
+    ``max_attempts`` the loop stops after that many iterations and also
+    returns the carry to resume from."""
 
     def body(c: _Loop) -> _Loop:
         # SELF-MASKED: every write is masked, finished lanes pass through
@@ -296,11 +299,18 @@ def _run_attempt_loop(init: _Loop, problem, opts, tol, tout, itask: int):
         )
 
     c = init
-    while bool((c.istate == C.CONTINUE).any()):
+    n = 0
+    while (max_attempts is None or n < max_attempts) and bool((c.istate == C.CONTINUE).any()):
         c = body(c)
+        n += 1
+    # the deferred interpolation; a budgeted call applies it to the returned
+    # state but not to the carry (only finished lanes have ikind > 0, and
+    # get_solution reads phi/psi, never yy/yp, so a resume is unaffected)
     st_i, _ = get_solution(c.state, c.itgt)
     state = tree_where(c.ikind > 0, st_i, c.state)._replace(status=c.istate)
-    return state, c.tret, c.istate
+    if max_attempts is None:
+        return state, c.tret, c.istate
+    return state, c.tret, c.istate, tuple(c)[1:]
 
 
 def solve(
@@ -310,20 +320,37 @@ def solve(
     tol: TolControl,
     tout,
     itask: int = TASK_NORMAL,
-) -> Tuple[IdaState, torch.Tensor, torch.Tensor]:
+    max_attempts: int | None = None,
+    resume_carry: tuple | None = None,
+):
     """Integrate toward ``tout`` (reference impl_solve.rs:69-377).
 
     ``state`` is batch-native (one trailing batch axis, or none for a single
     lane); ``tout`` is a number or a per-lane tensor. TASK_NORMAL steps past
     tout then interpolates; TASK_ONE_STEP returns after each internal step.
     Returns (state, tret, istate), istate one of SUCCESS, TSTOP_RETURN or a
-    negative failure code."""
+    negative failure code.
+
+    ``max_attempts`` bounds the loop to that many step attempts. Lanes that
+    need more come back with istate == CONTINUE, and the return becomes
+    ``(state, tret, istate, carry)`` with ``carry`` the 9-tuple (tret,
+    istate, nstloc, saved_t, ncf, nef, fresh, ikind, itgt). Passing the
+    returned state and ``resume_carry=carry`` (with ``max_attempts``) skips
+    the prologue and continues the loop exactly where it stopped, so a
+    budgeted and resumed solve is bit for bit the unbudgeted one."""
     if problem.nroots > 0:
         raise NotImplementedError("rootfinding is not ported yet (problem.nroots > 0)")
     if itask not in (TASK_NORMAL, TASK_ONE_STEP):
         raise ValueError(f"itask must be TASK_NORMAL or TASK_ONE_STEP, got {itask}")
+    if max_attempts is not None and max_attempts < 1:
+        raise ValueError(f"max_attempts must be at least 1, got {max_attempts}")
     dtype, dev, bshape = state.dtype, state.phi.device, state.tn.shape
     tout = torch.broadcast_to(torch.as_tensor(tout, dtype=dtype, device=dev), bshape)
+    if resume_carry is not None:
+        if max_attempts is None:
+            raise ValueError("resume_carry requires max_attempts")
+        init = _Loop(state, *resume_carry)
+        return _run_attempt_loop(init, problem, opts, tol, tout, itask, max_attempts)
     # tret defaults to tn so failures raised before any step report the
     # true time for problems with nonzero t0
     tret = state.tn
@@ -362,4 +389,4 @@ def solve(
         fresh=torch.ones(bshape, dtype=torch.bool, device=dev),
         ikind=ikind0, itgt=itgt0,
     )
-    return _run_attempt_loop(init, problem, opts, tol, tout, itask)
+    return _run_attempt_loop(init, problem, opts, tol, tout, itask, max_attempts)

@@ -1,0 +1,263 @@
+// The whole IDA solve in one kernel for Hopper (sm_90a): one thread per
+// ensemble lane, batch-last state, the attempt loop on the device.
+//
+// Replaces the Pallas TPU kernels of ida_tpu/ops/fused_solve.py:
+//   K2  make_fused_solve -> kern (the whole core.solve per 1024-lane tile),
+//   K3  _make_budgeted_fused_solve -> fn_init.kern (K2 with a fixed attempt
+//       budget, writing the resume carry),
+//   K4  _make_budgeted_fused_solve -> fn_cont.kern (resume from the carry),
+// and the stage harness of scripts/bisect_fused.py (build_stage -> kern, K5):
+// each fused_stage_<name> runs one solver stage, the same device function
+// the whole-solve kernel calls, alone.
+//
+// The TPU kernel was float32 only and packed the state into two [rows, TILE]
+// buffers; this one reads the batch-native IdaState fields where they lie,
+// in their own dtypes (f64 or f32 reals, int32 order/status fields, int64
+// counters), and updates them in place (the wrapper hands it clones).
+//
+// What bounds it: operations, not bytes. A lane's state (about 0.9 KB in
+// f64) is read once and written once, while its solve is tens of thousands
+// of dependent floating-point operations (a few hundred per step attempt,
+// about a hundred per Newton iteration). In practice the chain of attempts
+// waits on latency: the lane's state is indexed by its order (phi[kk]), so
+// it lives in local memory (L1, then L2), and the lanes of a warp diverge.
+// The design keeps one thread per lane, 128 threads a block, so
+// consecutive lanes load and store consecutive addresses; registers, stack
+// and spills per entry point are in the nvcc log beside the library
+// (-Xptxas -v).
+//
+// Parity with the eager port on the card is bit for bit (see ida_lane.cuh):
+// build with -fmad=false and -dc, and link with torch_pow.cu built apart
+// with -fmad=true.
+//
+// Each entry point launches on the given stream and returns
+// cudaGetLastError(); none allocates or synchronizes. `model` selects the
+// compiled-in problem (0 = Roberts); any other value returns
+// cudaErrorInvalidValue.
+
+#include <climits>
+
+#include <cuda_runtime.h>
+
+#include "ida_lane.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+// Robertson kinetics, ida_tpu_torch/models/roberts.py (params [k1, k2, k3]
+// per lane), in the eager code's order of operations.
+struct Roberts {
+  static constexpr int N = 3;
+  static constexpr int P = 3;
+  __device__ static bool id(int i) { return i != 2; }
+
+  template <typename T>
+  __device__ static void res(const T (&p)[P], T t, const T (&yy)[N], const T (&yp)[N],
+                             T (&r)[N]) {
+    const T r0 = -p[0] * yy[0] + p[1] * yy[1] * yy[2];
+    const T r1 = -r0 - p[2] * yy[1] * yy[1] - yp[1];
+    r[0] = r0 - yp[0];
+    r[1] = r1;
+    r[2] = yy[0] + yy[1] + yy[2] - T(1);
+  }
+
+  template <typename T>
+  __device__ static void jac(const T (&p)[P], T t, T cj, const T (&yy)[N], const T (&yp)[N],
+                             const T (&rr)[N], T (&J)[N][N]) {
+    J[0][0] = -p[0] - cj;
+    J[0][1] = p[1] * yy[2];
+    J[0][2] = p[1] * yy[1];
+    J[1][0] = p[0];
+    J[1][1] = -p[1] * yy[2] - T(2) * p[2] * yy[1] - cj;
+    J[1][2] = -p[1] * yy[1];
+    J[2][0] = T(1);
+    J[2][1] = T(1);
+    J[2][2] = T(1);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ void load_carry(const ida::CarryRefs& r, long long b,
+                                           ida::Carry<T>& c) {
+  c.tret = ((const T*)r.tret)[b];
+  c.istate = ((const int*)r.istate)[b];
+  c.nstloc = ((const int*)r.nstloc)[b];
+  c.saved_t = ((const T*)r.saved_t)[b];
+  c.ncf = ((const int*)r.ncf)[b];
+  c.nef = ((const int*)r.nef)[b];
+  c.fresh = ((const unsigned char*)r.fresh)[b] != 0;
+  c.ikind = ((const int*)r.ikind)[b];
+  c.itgt = ((const T*)r.itgt)[b];
+}
+
+template <typename T>
+__device__ __forceinline__ void store_carry(const ida::CarryRefs& r, long long b,
+                                            const ida::Carry<T>& c) {
+  ((T*)r.tret)[b] = c.tret;
+  ((int*)r.istate)[b] = c.istate;
+  if (r.nstloc == nullptr) return;
+  ((int*)r.nstloc)[b] = c.nstloc;
+  ((T*)r.saved_t)[b] = c.saved_t;
+  ((int*)r.ncf)[b] = c.ncf;
+  ((int*)r.nef)[b] = c.nef;
+  ((unsigned char*)r.fresh)[b] = c.fresh ? 1 : 0;
+  ((int*)r.ikind)[b] = c.ikind;
+  ((T*)r.itgt)[b] = c.itgt;
+}
+
+// K2 (budget INT_MAX, resume 0), K3 (budget, resume 0), K4 (budget, resume 1)
+template <typename T, class M>
+__global__ void __launch_bounds__(kThreads)
+fused_solve_kernel(ida::StateRefs s, const void* params, const void* rtol, const void* atol,
+                   const void* tout, ida::CarryRefs carry, ida::Opts opts, long long B,
+                   int budget, int resume) {
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  ida::Lane<T, M::N> L;
+  ida::Ctx<T, M> c;
+  ida::Carry<T> cr;
+  ida::load_lane<T, M::N>(s, b, B, L);
+  ida::load_ctx<T, M>(params, rtol, atol, tout, opts, b, B, c);
+  if (resume) {
+    load_carry<T>(carry, b, cr);
+  } else {
+    ida::solve_prologue<T, M>(L, c, cr);
+  }
+  for (int n = 0; n < budget && cr.istate == ida::CONTINUE; ++n)
+    ida::attempt_loop_body<T, M>(L, c, cr);
+  ida::solve_epilogue<T, M>(L, cr);
+  ida::store_lane<T, M::N>(s, b, B, L);
+  store_carry<T>(carry, b, cr);
+}
+
+// K5: the stages. aux_f [*, B] (T) and aux_i [*, B] (int32) carry each
+// stage's extra inputs and outputs, in the slots that
+// ida_tpu_torch/ops/fused_stages.py STAGES names.
+enum Stage { SET_COEFFS, NLS, ERROR_TEST, COMPLETE_STEP, ATTEMPT, PROLOGUE, STOPTEST, GETSOL };
+
+template <typename T, class M, int S>
+__global__ void __launch_bounds__(kThreads)
+fused_stage_kernel(ida::StateRefs s, const void* params, const void* rtol, const void* atol,
+                   const void* tout, void* aux_f, void* aux_i, ida::Opts opts, long long B) {
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  T* af = (T*)aux_f;
+  int* ai = (int*)aux_i;
+#define AF(k) af[(long long)(k) * B + b]
+#define AI(k) ai[(long long)(k) * B + b]
+  ida::Lane<T, M::N> L;
+  ida::Ctx<T, M> c;
+  ida::load_lane<T, M::N>(s, b, B, L);
+  ida::load_ctx<T, M>(params, rtol, atol, tout, opts, b, B, c);
+  if (S == SET_COEFFS) {
+    AF(0) = ida::set_coeffs<T, M>(L);
+    ida::predict<T, M>(L);
+  } else if (S == NLS) {
+    AI(0) = ida::nonlinear_solve<T, M>(L, c);
+  } else if (S == ERROR_TEST) {
+    T err_k, err_km1;
+    AI(0) = ida::error_test<T, M>(L, c, AF(0), err_k, err_km1) ? 1 : 0;
+    AF(1) = err_k;
+    AF(2) = err_km1;
+  } else if (S == COMPLETE_STEP) {
+    ida::complete_step<T, M>(L, c, AF(0), AF(1), AF(2));
+  } else if (S == ATTEMPT) {
+    int ncf = AI(0), nef = AI(1);
+    T ck, err_k, err_km1;
+    const ida::AttemptOut a = ida::attempt_once<T, M>(L, c, AF(0), ncf, nef, ck, err_k, err_km1);
+    AI(0) = ncf;
+    AI(1) = nef;
+    AI(2) = a.success ? 1 : 0;
+    AI(3) = a.fatal;
+    AF(1) = ck;
+    AF(2) = err_k;
+    AF(3) = err_km1;
+  } else if (S == PROLOGUE) {
+    AI(0) = ida::_first_call_init<T, M>(L, c);
+  } else if (S == STOPTEST) {
+    T tret = L.tn, itgt;
+    int ikind;
+    AI(0) = ida::_stop_test1<T, M>(L, c.tout, tret);
+    AI(1) = ida::_stop_test2<T, M>(L, c.tout, tret, ikind, itgt);
+    AI(2) = ikind;
+    AF(0) = tret;
+    AF(1) = itgt;
+  } else if (S == GETSOL) {
+    AI(0) = ida::get_solution<T, M>(L, c.tout) ? 1 : 0;
+  }
+#undef AF
+#undef AI
+  ida::store_lane<T, M::N>(s, b, B, L);
+}
+
+inline unsigned grid_for(long long B) { return (unsigned)((B + kThreads - 1) / kThreads); }
+
+template <typename T>
+int launch_solve(const ida::StateRefs* s, const void* params, const void* rtol, const void* atol,
+                 const void* tout, const ida::CarryRefs* carry, const ida::Opts* opts, int model,
+                 long long B, int budget, int resume, void* stream) {
+  if (model != 0 || budget < 1) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaSuccess;
+  fused_solve_kernel<T, Roberts><<<grid_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+      *s, params, rtol, atol, tout, *carry, *opts, B, budget, resume);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int S>
+int launch_stage(const ida::StateRefs* s, const void* params, const void* rtol, const void* atol,
+                 const void* tout, void* aux_f, void* aux_i, const ida::Opts* opts, int model,
+                 long long B, void* stream) {
+  if (model != 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaSuccess;
+  fused_stage_kernel<T, Roberts, S><<<grid_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+      *s, params, rtol, atol, tout, aux_f, aux_i, *opts, B);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+#define IDA_SOLVE_ARGS                                                                      \
+  const ida::StateRefs *s, const void *params, const void *rtol, const void *atol,         \
+      const void *tout, const ida::CarryRefs *carry, const ida::Opts *opts, int model,      \
+      long long B
+#define IDA_SOLVE_ENTRY(dt, T)                                                              \
+  int fused_solve_##dt(IDA_SOLVE_ARGS, void* stream) {                                      \
+    return launch_solve<T>(s, params, rtol, atol, tout, carry, opts, model, B, INT_MAX, 0,  \
+                           stream);                                                         \
+  }                                                                                         \
+  int fused_solve_init_##dt(IDA_SOLVE_ARGS, int budget, void* stream) {                     \
+    return launch_solve<T>(s, params, rtol, atol, tout, carry, opts, model, B, budget, 0,   \
+                           stream);                                                         \
+  }                                                                                         \
+  int fused_solve_cont_##dt(IDA_SOLVE_ARGS, int budget, void* stream) {                     \
+    return launch_solve<T>(s, params, rtol, atol, tout, carry, opts, model, B, budget, 1,   \
+                           stream);                                                         \
+  }
+
+IDA_SOLVE_ENTRY(f64, double)
+IDA_SOLVE_ENTRY(f32, float)
+
+#define IDA_STAGE_ENTRY(name, S, dt, T)                                                     \
+  int fused_stage_##name##_##dt(const ida::StateRefs* s, const void* params,                \
+                                const void* rtol, const void* atol, const void* tout,       \
+                                void* aux_f, void* aux_i, const ida::Opts* opts, int model, \
+                                long long B, void* stream) {                                \
+    return launch_stage<T, S>(s, params, rtol, atol, tout, aux_f, aux_i, opts, model, B,    \
+                              stream);                                                      \
+  }
+#define IDA_STAGE_BOTH(name, S) \
+  IDA_STAGE_ENTRY(name, S, f64, double) IDA_STAGE_ENTRY(name, S, f32, float)
+
+IDA_STAGE_BOTH(set_coeffs, SET_COEFFS)
+IDA_STAGE_BOTH(nls, NLS)
+IDA_STAGE_BOTH(error_test, ERROR_TEST)
+IDA_STAGE_BOTH(complete_step, COMPLETE_STEP)
+IDA_STAGE_BOTH(attempt, ATTEMPT)
+IDA_STAGE_BOTH(prologue, PROLOGUE)
+IDA_STAGE_BOTH(stoptest, STOPTEST)
+IDA_STAGE_BOTH(getsol, GETSOL)
+
+}  // extern "C"

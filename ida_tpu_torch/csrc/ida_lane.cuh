@@ -1,0 +1,994 @@
+// The IDA solve of ONE lane (one DAE instance) as device code: the port's
+// eager routines (ida_tpu_torch/core/*.py), each written as a __device__
+// function of the same name and in the same order of operations, for a lane
+// whose whole state lives in a struct held by its thread.
+//
+// Parity with the eager port on the card is bit for bit, so:
+// * every operation rounds once, as one torch op does: build with
+//   -fmad=false (no multiply-add is contracted), keep -prec-div and
+//   -prec-sqrt at their defaults, never --use_fast_math;
+// * sums run left to right over all rows, adding the zeros of masked rows
+//   (utils/numerics.py sum0), and masks multiply (x * 1.0, x * 0.0) where the
+//   eager code multiplies;
+// * `c / t` in torch is `reciprocal(t) * c`; every such numerator on this
+//   path is a power of two (1, 0.5, 2, -1), so a plain division rounds the
+//   same; `restore` multiplies by the rounded 1/beta as the eager code does;
+// * sqrt is CUDA's, as torch.sqrt calls it; pow is torch_pow, CUDA's pow
+//   compiled apart with -fmad=true as torch.pow is (torch_pow.cu);
+// * Python constants enter in double and are rounded to T once, as a torch
+//   op with a Python scalar does (e.g. 100.0 * eps is a double product).
+// The eager loops compute some values for lanes that are masked out (the
+// Jacobian of lanes that skip lsetup, the residual after the last Newton
+// iteration); here a lane skips that work and keeps only what the eager code
+// keeps and counts.
+//
+// Only TASK_NORMAL and the dense direct linear solver are covered; roots
+// (nroots > 0) are not.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "small_lu.cuh"
+
+// pow as torch.pow rounds it on the card; defined in torch_pow.cu, which is
+// compiled on its own with -fmad=true and linked in
+__device__ double torch_pow(double base, double exponent);
+__device__ float torch_pow(float base, float exponent);
+
+namespace ida {
+
+constexpr int MXORDP1 = 6;  // rows of phi (constants.py)
+
+// status codes (ida_tpu_torch/constants.py)
+constexpr int CONTINUE = 99, SUCCESS = 0, TSTOP_RETURN = 1;
+constexpr int TOO_MUCH_WORK = -1, TOO_MUCH_ACC = -2, ERR_FAIL = -3, CONV_FAIL = -4;
+constexpr int LSETUP_FAIL = -6, LSOLVE_FAIL = -7, REP_RES_ERR = -9, CONSTR_FAIL = -11;
+constexpr int BAD_EWT = -13, ILL_INPUT = -22, BAD_T = -26;
+constexpr int REC_NONE = 0, REC_CONV = 1, REC_RESIDUAL = 2, REC_LSETUP = 3, REC_LSOLVE = 4;
+constexpr int REC_CONSTRAINT = 5, ERROR_TEST_FAIL = 6;
+constexpr double XRATE = 0.25, RATEMAX = 0.9;
+
+// internal Newton status (core/nls.py)
+constexpr int NL_CONTINUE = 0, NL_OK = 1, NL_CONV_RECVR = 2, NL_LSETUP_RECVR = 3;
+constexpr int NL_RES_RECVR = 4, NL_LSOLVE_RECVR = 5;
+
+// order actions (core/complete_step.py)
+constexpr int LOWER = 0, MAINTAIN = 1, RAISE = 2;
+
+struct Opts {
+  int maxord, mxstep, maxncf, maxnef, maxnlsit, suppressalg;
+};
+
+// torch.finfo(dtype).eps
+template <typename T> struct Eps;
+template <> struct Eps<double> { static constexpr double v = 2.220446049250313e-16; };
+template <> struct Eps<float> { static constexpr double v = 1.1920928955078125e-07; };
+
+// torch.maximum / torch.minimum: NaN propagates
+template <typename T> __device__ __forceinline__ T tmax(T a, T b) {
+  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
+}
+template <typename T> __device__ __forceinline__ T tmin(T a, T b) {
+  return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
+}
+template <typename T> __device__ __forceinline__ T tsign(T a) {
+  return T((T(0) < a) - (a < T(0)));
+}
+
+// The state fields the solve reads or writes (core/state.py IdaState), in
+// the order of the pointer table the wrapper passes (ops/fused_solve.py
+// STATE_FIELDS must list the same names in the same order). Fields the solve
+// never touches (roots, yQ, constraints, the Krylov and refined-mode
+// buffers) are not passed and pass through.
+#define IDA_STATE_FIELDS(X)                                                     \
+  X(phi) X(psi) X(alpha) X(beta) X(sigma) X(gamma) X(ee) X(yy) X(yp)            \
+  X(yypredict) X(yppredict) X(ewt) X(savres) X(tn) X(hh) X(hused) X(rr) X(h0u)  \
+  X(tretlast) X(tolsf) X(kk) X(kused) X(knew) X(phase) X(ns) X(cj) X(cjlast)    \
+  X(cjold) X(cjratio) X(ss) X(oldnrm) X(eps_newt) X(toldel) X(lu) X(piv) X(hin) \
+  X(hmax_inv) X(epcon) X(tstop) X(tstop_set) X(nst) X(nre) X(ncfn) X(netf)      \
+  X(nni) X(nsetups) X(nje) X(toutc) X(taskc) X(status)
+
+// Device pointers to the batch-native fields ([..., B], B last): reals in
+// the state's dtype, kk..ns/piv/taskc/status int32, counters int64,
+// tstop_set bool as uint8. Passed to a kernel by value.
+struct StateRefs {
+#define IDA_PTR(name) void* name;
+  IDA_STATE_FIELDS(IDA_PTR)
+#undef IDA_PTR
+};
+
+// The attempt loop's carry (core/solve.py _Loop minus the state), [B] each.
+// A null pointer is neither read nor written.
+struct CarryRefs {
+  void* tret;     // T
+  void* istate;   // int32
+  void* nstloc;   // int32
+  void* saved_t;  // T
+  void* ncf;      // int32
+  void* nef;      // int32
+  void* fresh;    // uint8 (bool)
+  void* ikind;    // int32
+  void* itgt;     // T
+};
+
+// One lane's state.
+template <typename T, int N>
+struct Lane {
+  T phi[MXORDP1][N];
+  T psi[MXORDP1], alpha[MXORDP1], beta[MXORDP1], sigma[MXORDP1], gamma[MXORDP1];
+  T ee[N], yy[N], yp[N], yypredict[N], yppredict[N], ewt[N], savres[N];
+  T tn, hh, hused, rr, h0u, tretlast, tolsf;
+  int kk, kused, knew, phase, ns;
+  T cj, cjlast, cjold, cjratio, ss, oldnrm, eps_newt, toldel;
+  T lu[N][N];
+  int piv[N];
+  T hin, hmax_inv, epcon, tstop;
+  bool tstop_set;
+  long long nst, nre, ncfn, netf, nni, nsetups, nje;
+  T toutc;
+  int taskc, status;
+};
+
+// The lane's problem data: parameters, tolerances, tout, options.
+template <typename T, class M>
+struct Ctx {
+  T p[M::P];
+  T rtol, atol[M::N], tout;
+  Opts opts;
+};
+
+template <typename T>
+struct Carry {
+  T tret;
+  int istate, nstloc;
+  T saved_t;
+  int ncf, nef;
+  bool fresh;
+  int ikind;
+  T itgt;
+};
+
+// ---------------------------------------------------------------- I/O
+
+template <typename T, int N>
+__device__ __forceinline__ void load_lane(const StateRefs& s, long long b, long long B,
+                                          Lane<T, N>& L) {
+#define LD_SCALAR(name, ty) L.name = ((const ty*)s.name)[b];
+#define LD_VEC(name, K) \
+  for (int i = 0; i < K; ++i) L.name[i] = ((const T*)s.name)[(long long)i * B + b];
+  for (int j = 0; j < MXORDP1; ++j)
+    for (int i = 0; i < N; ++i) L.phi[j][i] = ((const T*)s.phi)[(long long)(j * N + i) * B + b];
+  LD_VEC(psi, MXORDP1) LD_VEC(alpha, MXORDP1) LD_VEC(beta, MXORDP1) LD_VEC(sigma, MXORDP1)
+  LD_VEC(gamma, MXORDP1)
+  LD_VEC(ee, N) LD_VEC(yy, N) LD_VEC(yp, N) LD_VEC(yypredict, N) LD_VEC(yppredict, N)
+  LD_VEC(ewt, N) LD_VEC(savres, N)
+  LD_SCALAR(tn, T) LD_SCALAR(hh, T) LD_SCALAR(hused, T) LD_SCALAR(rr, T) LD_SCALAR(h0u, T)
+  LD_SCALAR(tretlast, T) LD_SCALAR(tolsf, T)
+  LD_SCALAR(kk, int) LD_SCALAR(kused, int) LD_SCALAR(knew, int) LD_SCALAR(phase, int)
+  LD_SCALAR(ns, int)
+  LD_SCALAR(cj, T) LD_SCALAR(cjlast, T) LD_SCALAR(cjold, T) LD_SCALAR(cjratio, T)
+  LD_SCALAR(ss, T) LD_SCALAR(oldnrm, T) LD_SCALAR(eps_newt, T) LD_SCALAR(toldel, T)
+  for (int i = 0; i < N; ++i)
+    for (int j = 0; j < N; ++j) L.lu[i][j] = ((const T*)s.lu)[(long long)(i * N + j) * B + b];
+  for (int i = 0; i < N; ++i) L.piv[i] = ((const int*)s.piv)[(long long)i * B + b];
+  LD_SCALAR(hin, T) LD_SCALAR(hmax_inv, T) LD_SCALAR(epcon, T) LD_SCALAR(tstop, T)
+  L.tstop_set = ((const unsigned char*)s.tstop_set)[b] != 0;
+  LD_SCALAR(nst, long long) LD_SCALAR(nre, long long) LD_SCALAR(ncfn, long long)
+  LD_SCALAR(netf, long long) LD_SCALAR(nni, long long) LD_SCALAR(nsetups, long long)
+  LD_SCALAR(nje, long long)
+  LD_SCALAR(toutc, T) LD_SCALAR(taskc, int) LD_SCALAR(status, int)
+#undef LD_SCALAR
+#undef LD_VEC
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store_lane(const StateRefs& s, long long b, long long B,
+                                           const Lane<T, N>& L) {
+#define ST_SCALAR(name, ty) ((ty*)s.name)[b] = L.name;
+#define ST_VEC(name, K) \
+  for (int i = 0; i < K; ++i) ((T*)s.name)[(long long)i * B + b] = L.name[i];
+  for (int j = 0; j < MXORDP1; ++j)
+    for (int i = 0; i < N; ++i) ((T*)s.phi)[(long long)(j * N + i) * B + b] = L.phi[j][i];
+  ST_VEC(psi, MXORDP1) ST_VEC(alpha, MXORDP1) ST_VEC(beta, MXORDP1) ST_VEC(sigma, MXORDP1)
+  ST_VEC(gamma, MXORDP1)
+  ST_VEC(ee, N) ST_VEC(yy, N) ST_VEC(yp, N) ST_VEC(yypredict, N) ST_VEC(yppredict, N)
+  ST_VEC(ewt, N) ST_VEC(savres, N)
+  ST_SCALAR(tn, T) ST_SCALAR(hh, T) ST_SCALAR(hused, T) ST_SCALAR(rr, T) ST_SCALAR(h0u, T)
+  ST_SCALAR(tretlast, T) ST_SCALAR(tolsf, T)
+  ST_SCALAR(kk, int) ST_SCALAR(kused, int) ST_SCALAR(knew, int) ST_SCALAR(phase, int)
+  ST_SCALAR(ns, int)
+  ST_SCALAR(cj, T) ST_SCALAR(cjlast, T) ST_SCALAR(cjold, T) ST_SCALAR(cjratio, T)
+  ST_SCALAR(ss, T) ST_SCALAR(oldnrm, T) ST_SCALAR(eps_newt, T) ST_SCALAR(toldel, T)
+  for (int i = 0; i < N; ++i)
+    for (int j = 0; j < N; ++j) ((T*)s.lu)[(long long)(i * N + j) * B + b] = L.lu[i][j];
+  for (int i = 0; i < N; ++i) ((int*)s.piv)[(long long)i * B + b] = L.piv[i];
+  ST_SCALAR(hin, T) ST_SCALAR(hmax_inv, T) ST_SCALAR(epcon, T) ST_SCALAR(tstop, T)
+  ((unsigned char*)s.tstop_set)[b] = L.tstop_set ? 1 : 0;
+  ST_SCALAR(nst, long long) ST_SCALAR(nre, long long) ST_SCALAR(ncfn, long long)
+  ST_SCALAR(netf, long long) ST_SCALAR(nni, long long) ST_SCALAR(nsetups, long long)
+  ST_SCALAR(nje, long long)
+  ST_SCALAR(toutc, T) ST_SCALAR(taskc, int) ST_SCALAR(status, int)
+#undef ST_SCALAR
+#undef ST_VEC
+}
+
+template <typename T, class M>
+__device__ __forceinline__ void load_ctx(const void* params, const void* rtol, const void* atol,
+                                         const void* tout, const Opts& opts, long long b,
+                                         long long B, Ctx<T, M>& c) {
+  for (int i = 0; i < M::P; ++i) c.p[i] = ((const T*)params)[(long long)i * B + b];
+  c.rtol = ((const T*)rtol)[b];
+  for (int i = 0; i < M::N; ++i) c.atol[i] = ((const T*)atol)[(long long)i * B + b];
+  c.tout = ((const T*)tout)[b];
+  c.opts = opts;
+}
+
+// ---------------------------------------------------------------- norms.py
+
+// wrms_norm_bnd: sqrt(sum0((x*w [*mask])^2) / N), divided by N as a number
+// of the dtype (the eager code divides by a tensor, never by a reciprocal).
+template <typename T, class M>
+__device__ __forceinline__ T wrms_norm_bnd(const T (&x)[M::N], const T (&w)[M::N], bool masked) {
+  T acc = T(0);
+#pragma unroll
+  for (int i = 0; i < M::N; ++i) {
+    T t = x[i] * w[i];
+    if (masked) t = t * (M::id(i) ? T(1) : T(0));
+    const T sq = t * t;
+    acc = (i == 0) ? sq : acc + sq;
+  }
+  return ::sqrt(acc / T(M::N));
+}
+
+// error_test.py _norm: the suppressalg mask when the options ask for it
+template <typename T, class M>
+__device__ __forceinline__ T norm(const Ctx<T, M>& c, const T (&x)[M::N], const T (&w)[M::N]) {
+  return wrms_norm_bnd<T, M>(x, w, c.opts.suppressalg != 0);
+}
+
+// ---------------------------------------------------------------- tol_control.py
+
+template <typename T, class M>
+__device__ __forceinline__ void ewt_set(const Ctx<T, M>& c, const T (&y)[M::N], T (&ewt)[M::N]) {
+#pragma unroll
+  for (int i = 0; i < M::N; ++i) ewt[i] = T(1) / (c.rtol * absval(y[i]) + c.atol[i]);
+}
+
+// solve.py _ewt_invalid, any over the data axis
+template <typename T, int N>
+__device__ __forceinline__ bool ewt_invalid(const T (&ewt)[N]) {
+  bool bad = false;
+#pragma unroll
+  for (int i = 0; i < N; ++i) bad = bad || !(ewt[i] > T(0)) || !isfinite(ewt[i]);
+  return bad;
+}
+
+// ---------------------------------------------------------------- coeffs.py
+
+template <typename T, class M>
+__device__ __noinline__ T set_coeffs(Lane<T, M::N>& L) {
+  constexpr int N = M::N;
+  int ns_new = (L.hh != L.hused || L.kk != L.kused) ? 0 : L.ns;
+  ns_new = min(ns_new + 1, L.kused + 2);
+  L.ns = ns_new;
+  const bool update = L.kk + 1 >= L.ns;
+  const T hh = L.hh;
+  const int kk = L.kk;
+
+  T psi_n[MXORDP1], alpha_r[MXORDP1], beta_r[MXORDP1], sigma_r[MXORDP1], gamma_r[MXORDP1];
+  psi_n[0] = hh;
+  for (int i = 1; i < MXORDP1; ++i) psi_n[i] = L.psi[i - 1] + hh;
+  alpha_r[0] = T(1);
+  for (int i = 1; i < MXORDP1; ++i) alpha_r[i] = hh / psi_n[i];
+  beta_r[0] = T(1);
+  sigma_r[0] = T(1);
+  gamma_r[0] = T(0);
+  for (int i = 1; i < MXORDP1; ++i) {
+    beta_r[i] = beta_r[i - 1] * psi_n[i - 1] / L.psi[i - 1];
+    sigma_r[i] = (T(i) * sigma_r[i - 1]) * alpha_r[i];
+    gamma_r[i] = gamma_r[i - 1] + alpha_r[i - 1] / hh;
+  }
+  for (int i = 0; i < MXORDP1; ++i) {
+    if (update && i <= kk) {
+      L.psi[i] = psi_n[i];
+      L.alpha[i] = alpha_r[i];
+      L.beta[i] = beta_r[i];
+      L.sigma[i] = sigma_r[i];
+      L.gamma[i] = gamma_r[i];
+    }
+  }
+
+  // alphas in double, cast to T; alpha0 in T (both sums over all rows)
+  double s = 0.0;
+  T a0 = T(0);
+  for (int i = 0; i < MXORDP1; ++i) {
+    const double inv = (i < kk) ? 1.0 / (double(i) + 1.0) : 0.0;
+    s = (i == 0) ? inv : s + inv;
+    const T ai = (i < kk) ? L.alpha[i] : T(0);
+    a0 = (i == 0) ? ai : a0 + ai;
+  }
+  const T alphas = -T(s);
+  const T alpha0 = -a0;
+
+  L.cjlast = L.cj;
+  L.cj = (-alphas) / L.hh;
+
+  const T alpha_kk = L.alpha[kk];
+  T ck = absval(alpha_kk + alphas - alpha0);
+  ck = tmax(ck, alpha_kk);
+
+  for (int i = 0; i < MXORDP1; ++i) {
+    if (i >= L.ns && i <= kk) {
+      for (int n = 0; n < N; ++n) L.phi[i][n] = L.phi[i][n] * L.beta[i];
+    }
+  }
+  return ck;
+}
+
+template <typename T, class M>
+__device__ __noinline__ void predict(Lane<T, M::N>& L) {
+  constexpr int N = M::N;
+  for (int n = 0; n < N; ++n) {
+    T yy = T(0), yp = T(0);
+    for (int j = 0; j < MXORDP1; ++j) {
+      const T a = L.phi[j][n] * ((j <= L.kk) ? T(1) : T(0));
+      const T g = L.phi[j][n] * ((j >= 1 && j <= L.kk) ? L.gamma[j] : T(0));
+      yy = (j == 0) ? a : yy + a;
+      yp = (j == 0) ? g : yp + g;
+    }
+    L.yypredict[n] = yy;
+    L.yppredict[n] = yp;
+  }
+}
+
+template <typename T, class M>
+__device__ __noinline__ void restore(Lane<T, M::N>& L, T saved_t) {
+  constexpr int N = M::N;
+  for (int i = 0; i < MXORDP1 - 1; ++i)
+    if (i < L.kk) L.psi[i] = L.psi[i + 1] - L.hh;
+  for (int i = 0; i < MXORDP1; ++i) {
+    if (i >= L.ns && i <= L.kk) {
+      const T inv = T(1) / L.beta[i];
+      for (int n = 0; n < N; ++n) L.phi[i][n] = L.phi[i][n] * inv;
+    }
+  }
+  L.tn = saved_t;
+}
+
+template <typename T, class M>
+__device__ __forceinline__ void reset(Lane<T, M::N>& L) {
+  for (int n = 0; n < M::N; ++n) L.phi[1][n] = L.phi[1][n] * L.rr;
+  L.psi[0] = L.hh;
+}
+
+// ---------------------------------------------------------------- interp.py
+
+template <typename T, class M>
+__device__ __noinline__ bool get_solution(Lane<T, M::N>& L, T t) {
+  constexpr int N = M::N;
+  // check_t_legal
+  const T tfuzz = T(100.0 * Eps<T>::v) * (absval(L.tn) + absval(L.hh)) * tsign(L.hh);
+  const T tp = L.tn - L.hused - tfuzz;
+  const bool ok = (t - tp) * L.hh >= T(0);
+  if (!ok) return false;
+
+  // interpolate
+  const int kord = max(L.kused, 1);
+  const T delt = t - L.tn;
+  T c = T(1), d = T(0), gam = delt / L.psi[0];
+  T cv[MXORDP1], dv[MXORDP1];
+  cv[0] = c;
+  dv[0] = T(0);
+  for (int j = 1; j < MXORDP1; ++j) {
+    if (kord >= j) {
+      const T d_new = d * gam + c / L.psi[j - 1];
+      const T c_new = c * gam;
+      const T gam_new = (delt + L.psi[j - 1]) / L.psi[j];
+      c = c_new;
+      d = d_new;
+      gam = gam_new;
+      cv[j] = c;
+      dv[j] = d;
+    } else {
+      cv[j] = T(0);
+      dv[j] = T(0);
+    }
+  }
+  for (int n = 0; n < N; ++n) {
+    T yy = T(0), yp = T(0);
+    for (int j = 0; j < MXORDP1; ++j) {
+      const T a = ((j <= kord) ? cv[j] : T(0)) * L.phi[j][n];
+      const T g = dv[j] * L.phi[j][n];
+      yy = (j == 0) ? a : yy + a;
+      yp = (j == 0) ? g : yp + g;
+    }
+    L.yy[n] = yy;
+    L.yp[n] = yp;
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------- nls.py
+
+// The inner Newton loop (nls.py _newton_iterate); the carry lives in the
+// caller's variables.
+template <typename T, class M>
+__device__ __forceinline__ void _newton_iterate(const Lane<T, M::N>& L, const Ctx<T, M>& c,
+                                                const T (&lu)[M::N][M::N], const int (&piv)[M::N],
+                                                T cjratio, T (&ycor)[M::N], T (&delta)[M::N],
+                                                T& oldnrm, T& ss, int& istatus, int& knni,
+                                                int& kre) {
+  constexpr int N = M::N;
+  const T scale = (cjratio != T(1)) ? T(2) / (T(1) + cjratio) : T(1);
+  int m = 0;
+  istatus = NL_CONTINUE;
+  while (istatus == NL_CONTINUE) {
+    const bool first = m == 0;
+    T x[N];
+    for (int i = 0; i < N; ++i) x[i] = -delta[i];
+    lu_solve_dev<T, N>(lu, piv, x);
+    for (int i = 0; i < N; ++i) {
+      x[i] = x[i] * scale;
+      ycor[i] = ycor[i] + x[i];
+    }
+
+    const T delnrm = wrms_norm_bnd<T, M>(x, L.ewt, false);
+    oldnrm = first ? delnrm : oldnrm;
+    const bool conv_direct = first && (delnrm <= T(1.0e-4) * L.toldel);
+    const T expo = T(1) / T(max(m, 1));
+    const T rate = first ? T(0) : torch_pow(delnrm / oldnrm, expo);
+    const bool diverged = !first && (rate > T(RATEMAX));
+    ss = !first ? rate / (T(1) - rate) : ss;
+    const bool converged = conv_direct || (ss * delnrm <= L.eps_newt);
+
+    m = m + 1;
+    const bool exhausted = m >= c.opts.maxnlsit;
+    istatus = diverged ? NL_CONV_RECVR
+                       : (converged ? NL_OK : (exhausted ? NL_CONV_RECVR : NL_CONTINUE));
+
+    const bool keep = istatus == NL_CONTINUE;
+    if (keep) {
+      T yy[N], yp[N], r[N];
+      for (int i = 0; i < N; ++i) {
+        yy[i] = L.yypredict[i] + ycor[i];
+        yp[i] = L.yppredict[i] + L.cj * ycor[i];
+      }
+      M::res(c.p, L.tn, yy, yp, r);
+      bool rok = true;
+      for (int i = 0; i < N; ++i) rok = rok && isfinite(r[i]);
+      if (!rok) {
+        istatus = NL_RES_RECVR;
+      } else {
+        for (int i = 0; i < N; ++i) delta[i] = r[i];
+      }
+    }
+    knni += 1;
+    kre += keep ? 1 : 0;
+  }
+}
+
+// nonlinear_solve for an active lane; returns REC_NONE (ok) or a REC_* kind.
+template <typename T, class M>
+__device__ __noinline__ int nonlinear_solve(Lane<T, M::N>& L, const Ctx<T, M>& c) {
+  constexpr int N = M::N;
+  const bool first = L.nst == 0;
+  const T cjold0 = first ? L.cj : L.cjold;
+  T ss = first ? T(20) : L.ss;
+  const T cjratio0 = L.cj / cjold0;
+  const double lo = (1.0 - XRATE) / (1.0 + XRATE);
+  bool call_lsetup = first || (cjratio0 < T(lo)) || (cjratio0 > T(1.0 / lo));
+  ss = (L.cj != L.cjlast) ? T(100) : ss;
+
+  // linear-solver carry (_Lin)
+  T lu[N][N];
+  int piv[N];
+  for (int i = 0; i < N; ++i) {
+    piv[i] = L.piv[i];
+    for (int j = 0; j < N; ++j) lu[i][j] = L.lu[i][j];
+  }
+  T cjold = cjold0, cjratio = cjratio0;
+  long long nje = L.nje, nsetups = L.nsetups;
+
+  // inner carry (_Inner)
+  T ycor[N], delta[N];
+  for (int i = 0; i < N; ++i) {
+    ycor[i] = T(0);
+    delta[i] = L.savres[i];
+  }
+  T oldnrm = L.oldnrm;
+  int knni = 0, kre = 0;
+
+  bool jcur = false;
+  int ostatus = NL_CONTINUE;
+  while (ostatus == NL_CONTINUE) {
+    // residual at the predictor (ycor = 0)
+    T r[N];
+    M::res(c.p, L.tn, L.yypredict, L.yppredict, r);
+    kre = kre + 1;
+    bool res_bad = false;
+    for (int i = 0; i < N; ++i) res_bad = res_bad || !isfinite(r[i]);
+
+    const bool do_setup = call_lsetup && !res_bad;
+    bool setup_fail = false;
+    if (do_setup) {
+      // _lsetup: J at the predictor, LU-factored
+      T J[N][N];
+      M::jac(c.p, L.tn, L.cj, L.yypredict, L.yppredict, r, J);
+      bool jfinite = true;
+      for (int i = 0; i < N; ++i)
+        for (int j = 0; j < N; ++j) jfinite = jfinite && isfinite(J[i][j]);
+      const int failc = lu_factor_dev<T, N>(J, piv);
+      for (int i = 0; i < N; ++i)
+        for (int j = 0; j < N; ++j) lu[i][j] = J[i][j];
+      setup_fail = (failc > 0) || !jfinite;
+      nje += 1;
+      nsetups += 1;
+      cjold = L.cj;
+      cjratio = T(1);
+      ss = T(20);
+    }
+    jcur = jcur || do_setup;
+
+    // a fresh inner carry
+    for (int i = 0; i < N; ++i) {
+      ycor[i] = T(0);
+      delta[i] = r[i];
+    }
+    oldnrm = L.oldnrm;
+    int istatus = NL_CONTINUE;
+    const bool skip_newton = setup_fail || res_bad;
+    if (!skip_newton)
+      _newton_iterate<T, M>(L, c, lu, piv, cjratio, ycor, delta, oldnrm, ss, istatus, knni, kre);
+
+    const bool recvr = istatus == NL_CONV_RECVR || istatus == NL_LSOLVE_RECVR ||
+                       istatus == NL_RES_RECVR;
+    const bool retry = recvr && !jcur && !skip_newton;
+    ostatus = setup_fail ? NL_LSETUP_RECVR
+                         : (res_bad ? NL_RES_RECVR : (retry ? NL_CONTINUE : istatus));
+    call_lsetup = retry;
+    jcur = jcur && (istatus != NL_OK);
+  }
+
+  // fold the loop-local pieces back into the state
+  for (int i = 0; i < N; ++i) {
+    L.piv[i] = piv[i];
+    for (int j = 0; j < N; ++j) L.lu[i][j] = lu[i][j];
+  }
+  L.cjold = cjold;
+  L.cjratio = cjratio;
+  L.nje = nje;
+  L.nsetups = nsetups;
+  L.nni = L.nni + knni;
+  L.nre = L.nre + kre;
+  L.oldnrm = oldnrm;
+  L.ss = ss;
+  for (int i = 0; i < N; ++i) {
+    L.savres[i] = delta[i];
+    L.ee[i] = ycor[i];
+    L.yy[i] = L.yypredict[i] + ycor[i];
+    L.yp[i] = L.yppredict[i] + L.cj * ycor[i];
+  }
+
+  return ostatus == NL_OK
+             ? REC_NONE
+             : (ostatus == NL_LSETUP_RECVR
+                    ? REC_LSETUP
+                    : (ostatus == NL_RES_RECVR
+                           ? REC_RESIDUAL
+                           : (ostatus == NL_LSOLVE_RECVR ? REC_LSOLVE : REC_CONV)));
+}
+
+// ---------------------------------------------------------------- error_test.py
+
+template <typename T, class M>
+__device__ __noinline__ bool error_test(Lane<T, M::N>& L, const Ctx<T, M>& c, T ck, T& err_k,
+                                        T& err_km1) {
+  constexpr int N = M::N;
+  const int kk = L.kk;
+  const T kkf = T(kk);
+  const int km1 = max(kk - 1, 0);
+  const int km2 = max(kk - 2, 0);
+
+  T delta1[N], delta2[N];
+  for (int i = 0; i < N; ++i) {
+    delta1[i] = L.phi[kk][i] + L.ee[i];
+    delta2[i] = delta1[i] + L.phi[km1][i];
+  }
+  const T enorm_k = norm<T, M>(c, L.ee, L.ewt);
+  const T enorm_km1 = norm<T, M>(c, delta1, L.ewt);
+  const T enorm_km2 = norm<T, M>(c, delta2, L.ewt);
+
+  err_k = L.sigma[kk] * enorm_k;
+  const T terr_k = err_k * (kkf + T(1));
+  const T err_km1_val = L.sigma[km1] * enorm_km1;
+  const T terr_km1 = kkf * err_km1_val;
+  const T err_km2 = L.sigma[km2] * enorm_km2;
+  const T terr_km2 = (kkf - T(1)) * err_km2;
+
+  const int knew_gt2 = (tmax(terr_km1, terr_km2) <= terr_k) ? kk - 1 : kk;
+  const int knew_eq2 = (terr_km1 <= T(0.5) * terr_k) ? kk - 1 : kk;
+  int knew = (kk > 2) ? knew_gt2 : knew_eq2;
+  knew = (kk > 1) ? knew : kk;
+  err_km1 = (kk > 1) ? err_km1_val : T(0);
+  L.knew = knew;
+  return (ck * enorm_k) <= T(1);
+}
+
+// ---------------------------------------------------------------- complete_step.py
+
+template <typename T, class M>
+__device__ __noinline__ void complete_step(Lane<T, M::N>& L, const Ctx<T, M>& c, T err_k,
+                                           T err_km1, T ck) {
+  constexpr int N = M::N;
+  const int maxord = c.opts.maxord;
+  const long long nst = L.nst + 1;
+  const int kdiff = L.kk - L.kused;
+  const int kused = L.kk;
+  const T hused = L.hh;
+
+  const int phase = (L.knew == L.kk - 1 || L.kk == maxord) ? 1 : L.phase;
+
+  // phase 0: raise order and double step
+  T hnew0 = T(2) * L.hh;
+  const T tmp0 = absval(hnew0) * L.hmax_inv;
+  hnew0 = (tmp0 > T(1)) ? hnew0 / tmp0 : hnew0;
+  const bool grow = (phase == 0) && (nst > 1);
+  const int kk_p0 = grow ? L.kk + 1 : L.kk;
+  const T hh_p0 = grow ? hnew0 : L.hh;
+  const T rr_p0 = L.rr;
+
+  // phase 1: order selection
+  const T kkf = T(L.kk);
+  const int kp1 = min(L.kk + 1, MXORDP1 - 1);
+  T dif[N];
+  for (int i = 0; i < N; ++i) dif[i] = L.ee[i] - L.phi[kp1][i];
+  const T enorm_kp1 = norm<T, M>(c, dif, L.ewt);
+  const T err_kp1 = enorm_kp1 / (kkf + T(2));
+
+  const T terr_k = (kkf + T(1)) * err_k;
+  const T terr_kp1 = (kkf + T(2)) * err_kp1;
+  const T terr_km1 = kkf * err_km1;
+
+  const int action_k1 = (terr_kp1 >= T(0.5) * terr_k) ? MAINTAIN : RAISE;
+  const int action_kn = (terr_km1 <= tmin(terr_k, terr_kp1))
+                            ? LOWER
+                            : ((terr_kp1 >= terr_k) ? MAINTAIN : RAISE);
+  int action = (L.kk == 1) ? action_k1 : action_kn;
+  action = (L.kk + 1 >= L.ns || kdiff == 1) ? MAINTAIN : action;
+  action = (L.kk == maxord) ? MAINTAIN : action;
+  action = (L.knew == L.kk - 1) ? LOWER : action;
+
+  const int kk_p1 = L.kk + (action == RAISE ? 1 : 0) - (action == LOWER ? 1 : 0);
+  const T err_knew = (action == RAISE) ? err_kp1 : ((action == LOWER) ? err_km1 : err_k);
+
+  const T base = T(2) * err_knew + T(1.0e-4);
+  const T rr_p1 = torch_pow(base, T(-1) / (T(kk_p1) + T(1)));
+  T hnew1 = T(2) * L.hh;
+  const T tmp1 = absval(hnew1) * L.hmax_inv;
+  hnew1 = (tmp1 > T(1)) ? hnew1 / tmp1 : hnew1;
+  const T rr_clamped = tmax(T(0.5), tmin(T(0.9), rr_p1));
+  const T hh_p1 = (rr_p1 >= T(2)) ? hnew1 : ((rr_p1 <= T(1)) ? L.hh * rr_clamped : L.hh);
+  const T rr_p1_out = (rr_p1 <= T(1)) ? rr_clamped : rr_p1;
+
+  const bool in_phase0 = phase == 0;
+  const int kk = in_phase0 ? kk_p0 : kk_p1;
+  const T hh = in_phase0 ? hh_p0 : hh_p1;
+  const T rr = in_phase0 ? rr_p0 : rr_p1_out;
+
+  // phi: save ee into phi[kused+1], and the recurrence over rows kused..0
+  const bool save = kused < maxord;
+  for (int n = 0; n < N; ++n) {
+    T tmp = L.ee[n];
+    for (int j = MXORDP1 - 1; j >= 0; --j) {
+      const bool active = kused >= j;
+      const T new_tmp = tmp + L.phi[j][n];
+      T row = active ? new_tmp : L.phi[j][n];
+      row = (save && kused + 1 == j) ? L.ee[n] : row;
+      tmp = active ? new_tmp : tmp;
+      L.phi[j][n] = row;
+    }
+  }
+  for (int n = 0; n < N; ++n) L.ee[n] = L.ee[n] * ck;
+
+  L.nst = nst;
+  L.kused = kused;
+  L.hused = hused;
+  L.phase = phase;
+  L.kk = kk;
+  L.hh = hh;
+  L.rr = rr;
+}
+
+// ---------------------------------------------------------------- step.py
+
+// failure policy for a lane whose attempt failed; returns the fatal code
+template <typename T, class M>
+__device__ __forceinline__ int _handle_n_flag(Lane<T, M::N>& L, const Ctx<T, M>& c, int kind,
+                                              T err_k, T err_km1, int& ncf, int& nef) {
+  L.phase = 1;
+  const bool is_etf = kind == ERROR_TEST_FAIL;
+
+  const int nef_new = nef + 1;
+  const T err_knew = (L.kk == L.knew) ? err_k : err_km1;
+  const int kk1 = L.knew;
+  T rr1 = T(0.9) * torch_pow(T(2) * err_knew + T(1.0e-4), T(-1) / (T(kk1) + T(1)));
+  rr1 = tmax(T(0.25), tmin(T(0.9), rr1));
+  const int kk_etf = (nef_new >= 3) ? 1 : kk1;
+  const T rr_etf = (nef_new == 1) ? rr1 : T(0.25);
+  const bool etf_fatal = nef_new >= c.opts.maxnef;
+
+  const int ncf_new = ncf + 1;
+  const T rr_cf = (kind == REC_CONSTRAINT) ? L.rr : T(0.25);
+  const bool cf_fatal = ncf_new >= c.opts.maxncf;
+  const int cf_fatal_code =
+      (kind == REC_RESIDUAL)
+          ? REP_RES_ERR
+          : ((kind == REC_CONSTRAINT)
+                 ? CONSTR_FAIL
+                 : ((kind == REC_LSETUP) ? LSETUP_FAIL
+                                         : ((kind == REC_LSOLVE) ? LSOLVE_FAIL : CONV_FAIL)));
+
+  const int kk = is_etf ? kk_etf : L.kk;
+  const T rr = is_etf ? rr_etf : rr_cf;
+  const T hh = L.hh * rr;
+  nef = is_etf ? nef_new : nef;
+  ncf = is_etf ? ncf : ncf_new;
+  L.netf += is_etf ? 1 : 0;
+  L.ncfn += is_etf ? 0 : 1;
+  const int fatal =
+      is_etf ? (etf_fatal ? ERR_FAIL : CONTINUE) : (cf_fatal ? cf_fatal_code : CONTINUE);
+  L.kk = kk;
+  L.rr = rr;
+  L.hh = hh;
+  return fatal;
+}
+
+// step_begin for a lane that begins a fresh step
+template <typename T, class M>
+__device__ __forceinline__ void step_begin(Lane<T, M::N>& L) {
+  if (L.nst == 0) {
+    L.kk = 1;
+    L.kused = 0;
+    L.hused = T(0);
+    L.psi[0] = L.hh;
+    L.cj = T(1) / L.hh;
+    L.phase = 0;
+    L.ns = 0;
+  }
+}
+
+struct AttemptOut {
+  bool success;
+  int fatal;
+};
+
+// attempt_once for an active lane: ck/err_k/err_km1 out, ncf/nef in-out
+template <typename T, class M>
+__device__ __noinline__ AttemptOut attempt_once(Lane<T, M::N>& L, const Ctx<T, M>& c, T saved_t,
+                                                int& ncf, int& nef, T& ck, T& err_k,
+                                                T& err_km1) {
+  ck = set_coeffs<T, M>(L);
+
+  // advance tn, clamping to tstop against roundoff
+  T tn = L.tn + L.hh;
+  const bool past_tstop = L.tstop_set && ((tn - L.tstop) * L.hh > T(0));
+  tn = past_tstop ? L.tstop : tn;
+  L.tn = tn;
+
+  predict<T, M>(L);
+  const int nl_status = nonlinear_solve<T, M>(L, c);
+
+  T ek, ekm1;
+  const bool converged = error_test<T, M>(L, c, ck, ek, ekm1);
+  const bool nl_ok = nl_status == REC_NONE;
+  const bool success = nl_ok && converged;
+  const int kind = nl_ok ? ERROR_TEST_FAIL : nl_status;
+  err_k = nl_ok ? ek : T(0);
+  err_km1 = nl_ok ? ekm1 : T(0);
+
+  int fatal = CONTINUE;
+  if (!success) {
+    restore<T, M>(L, saved_t);
+    fatal = _handle_n_flag<T, M>(L, c, kind, err_k, err_km1, ncf, nef);
+    if (fatal == CONTINUE && L.nst == 0) reset<T, M>(L);
+  }
+  return {success, fatal};
+}
+
+// ---------------------------------------------------------------- solve.py
+
+// _first_call_init; returns istate (CONTINUE unless an input check fails)
+template <typename T, class M>
+__device__ __noinline__ int _first_call_init(Lane<T, M::N>& L, const Ctx<T, M>& c) {
+  constexpr int N = M::N;
+  int istate = CONTINUE;
+  const T tout = c.tout;
+
+  ewt_set<T, M>(c, L.phi[0], L.ewt);
+  if (ewt_invalid<T, N>(L.ewt)) istate = BAD_EWT;
+
+  const T tdist = absval(tout - L.tn);
+  const T troundoff = T(2.0 * Eps<T>::v) * (absval(L.tn) + absval(tout));
+  if (tdist == T(0) || tdist < troundoff) istate = ILL_INPUT;
+
+  T hh = L.hin;
+  if (hh != T(0) && (tout - L.tn) * hh < T(0)) istate = ILL_INPUT;
+  T hh_auto = T(0.001) * tdist;
+  const T ypnorm = norm<T, M>(c, L.phi[1], L.ewt);
+  hh_auto = (ypnorm > T(2) / hh_auto) ? T(0.5) / ypnorm : hh_auto;
+  hh_auto = (tout < L.tn) ? -hh_auto : hh_auto;
+  hh = (hh == T(0)) ? hh_auto : hh;
+
+  const T rh = absval(hh) * L.hmax_inv;
+  hh = (rh > T(1)) ? hh / rh : hh;
+
+  if (L.tstop_set && (L.tstop - L.tn) * hh <= T(0)) istate = ILL_INPUT;
+  const bool clamp = L.tstop_set && ((L.tn + hh - L.tstop) * hh > T(0));
+  hh = clamp ? (L.tstop - L.tn) * T(1.0 - 4.0 * Eps<T>::v) : hh;
+
+  L.hh = hh;
+  L.h0u = hh;
+  L.kk = 0;
+  L.kused = 0;
+  for (int n = 0; n < N; ++n) L.phi[1][n] = L.phi[1][n] * hh;
+  L.eps_newt = L.epcon;
+  L.toldel = T(1.0e-4) * L.epcon;
+  return istate;
+}
+
+// hh clamp to land on tstop (both stop tests)
+template <typename T, class M>
+__device__ __forceinline__ void _tstop_clamp(Lane<T, M::N>& L, int istate) {
+  const bool clamp =
+      L.tstop_set && istate == CONTINUE && ((L.tn + L.hh - L.tstop) * L.hh > T(0));
+  L.hh = clamp ? (L.tstop - L.tn) * T(1.0 - 4.0 * Eps<T>::v) : L.hh;
+}
+
+// _stop_test1, TASK_NORMAL; returns istate, updates tret
+template <typename T, class M>
+__device__ __noinline__ int _stop_test1(Lane<T, M::N>& L, T tout, T& tret) {
+  constexpr int N = M::N;
+  const bool bad_tstop = L.tstop_set && ((L.tn - L.tstop) * L.hh > T(0));
+  int istate = bad_tstop ? ILL_INPUT : CONTINUE;
+  const T troundoff = T(100.0 * Eps<T>::v) * (absval(L.tn) + absval(L.hh));
+
+  const bool hit_prev = tout == L.tretlast;
+  const bool past_tout = (L.tn - tout) * L.hh >= T(0);
+  const bool at_tstop = L.tstop_set && (absval(L.tn - L.tstop) <= troundoff);
+  const bool sel_tstop = at_tstop && !(hit_prev || past_tout);
+
+  // y(tout), and whether tout is legal for interpolation
+  T yy0[N], yp0[N];
+  for (int n = 0; n < N; ++n) {
+    yy0[n] = L.yy[n];
+    yp0[n] = L.yp[n];
+  }
+  const bool ok = get_solution<T, M>(L, tout);
+  const bool sel_tout = past_tout && ok && !hit_prev;
+  if (!sel_tout) {
+    for (int n = 0; n < N; ++n) {
+      L.yy[n] = yy0[n];
+      L.yp[n] = yp0[n];
+    }
+  }
+  if (sel_tstop) get_solution<T, M>(L, L.tstop);
+
+  const bool hit_or_past = hit_prev || past_tout;
+  const T newret = hit_or_past ? tout : (sel_tstop ? L.tstop : tret);
+  const bool returning = hit_or_past || sel_tstop;
+  tret = returning ? newret : tret;
+  L.tretlast = returning ? newret : L.tretlast;
+  L.tstop_set = L.tstop_set && !sel_tstop;
+  const int code = hit_or_past ? ((past_tout && !(hit_prev || ok)) ? BAD_T : SUCCESS)
+                               : (sel_tstop ? TSTOP_RETURN : CONTINUE);
+  istate = (istate != CONTINUE) ? istate : code;
+  _tstop_clamp<T, M>(L, istate);
+  return istate;
+}
+
+// _stop_test2, TASK_NORMAL, interpolation deferred; returns istate
+template <typename T, class M>
+__device__ __noinline__ int _stop_test2(Lane<T, M::N>& L, T tout, T& tret, int& ikind, T& itgt) {
+  const T troundoff = T(100.0 * Eps<T>::v) * (absval(L.tn) + absval(L.hh));
+  const bool at_tstop = L.tstop_set && (absval(L.tn - L.tstop) <= troundoff);
+  const bool past_tout = (L.tn - tout) * L.hh >= T(0);
+  const bool sel_tstop = at_tstop && !past_tout;
+  ikind = (past_tout || sel_tstop) ? 1 : 0;
+  itgt = past_tout ? tout : (sel_tstop ? L.tstop : T(0));
+  const T newret = past_tout ? tout : (sel_tstop ? L.tstop : tret);
+  const bool returning = past_tout || sel_tstop;
+  tret = returning ? newret : tret;
+  L.tretlast = returning ? newret : L.tretlast;
+  L.tstop_set = L.tstop_set && !sel_tstop;
+  const int istate = past_tout ? SUCCESS : (sel_tstop ? TSTOP_RETURN : CONTINUE);
+  _tstop_clamp<T, M>(L, istate);
+  return istate;
+}
+
+// _step_preamble for a lane about to start a new step
+template <typename T, class M>
+__device__ __noinline__ void _step_preamble(Lane<T, M::N>& L, const Ctx<T, M>& c,
+                                            Carry<T>& cr) {
+  constexpr int N = M::N;
+  const bool too_much = cr.nstloc >= c.opts.mxstep;
+  bool ewt_bad = false;
+  if (L.nst > 0) {
+    T ewt[N];
+    ewt_set<T, M>(c, L.phi[0], ewt);
+    ewt_bad = ewt_invalid<T, N>(ewt);
+    for (int n = 0; n < N; ++n) L.ewt[n] = ewt[n];
+  }
+  const T nrm = norm<T, M>(c, L.phi[0], L.ewt);
+  const T tolsf = T(Eps<T>::v) * nrm;
+  const bool too_acc = tolsf > T(1);
+  if (too_acc) L.tolsf = tolsf * T(10);
+
+  if (too_much || ewt_bad || too_acc) {
+    cr.istate = too_much ? TOO_MUCH_WORK : (ewt_bad ? BAD_EWT : TOO_MUCH_ACC);
+    cr.tret = L.tn;
+    L.tretlast = L.tn;
+    cr.ikind = 1;
+    cr.itgt = L.tn;
+  }
+}
+
+// the prologue of solve (TASK_NORMAL), up to the loop's initial carry
+template <typename T, class M>
+__device__ __forceinline__ void solve_prologue(Lane<T, M::N>& L, const Ctx<T, M>& c,
+                                               Carry<T>& cr) {
+  L.toutc = c.tout;
+  L.taskc = 0;
+  L.status = CONTINUE;
+  cr.tret = L.tn;
+  const bool first = L.nst == 0;
+  cr.istate = first ? _first_call_init<T, M>(L, c) : CONTINUE;
+  if (!first) cr.istate = _stop_test1<T, M>(L, c.tout, cr.tret);
+  cr.nstloc = 0;
+  cr.ikind = 0;
+  cr.itgt = T(0);
+  if (cr.istate == CONTINUE) _step_preamble<T, M>(L, c, cr);
+  cr.saved_t = L.tn;
+  cr.ncf = 0;
+  cr.nef = 0;
+  cr.fresh = true;
+}
+
+// one iteration of the attempt loop for an active lane (cr.istate == CONTINUE)
+template <typename T, class M>
+__device__ __forceinline__ void attempt_loop_body(Lane<T, M::N>& L, const Ctx<T, M>& c,
+                                                  Carry<T>& cr) {
+  if (cr.fresh) {
+    cr.saved_t = L.tn;
+    step_begin<T, M>(L);
+    cr.ncf = 0;
+    cr.nef = 0;
+  }
+  T ck, err_k, err_km1;
+  const AttemptOut a = attempt_once<T, M>(L, c, cr.saved_t, cr.ncf, cr.nef, ck, err_k, err_km1);
+  if (a.success) complete_step<T, M>(L, c, err_k, err_km1, ck);
+
+  if (a.fatal != CONTINUE) {
+    cr.ikind = 1;
+    cr.itgt = L.tn;
+    cr.tret = L.tn;
+    L.tretlast = L.tn;
+    cr.istate = a.fatal;
+  }
+  if (a.success) cr.nstloc += 1;
+
+  if (cr.istate == CONTINUE && a.success) {
+    cr.istate = _stop_test2<T, M>(L, c.tout, cr.tret, cr.ikind, cr.itgt);
+    if (cr.istate == CONTINUE) _step_preamble<T, M>(L, c, cr);
+  }
+  cr.fresh = a.success;
+}
+
+// the deferred interpolation and the status lane, after the loop
+template <typename T, class M>
+__device__ __forceinline__ void solve_epilogue(Lane<T, M::N>& L, const Carry<T>& cr) {
+  if (cr.ikind > 0) get_solution<T, M>(L, cr.itgt);
+  L.status = cr.istate;
+}
+
+}  // namespace ida

@@ -4,13 +4,12 @@
 // Replaces ida_tpu/ops/pallas_lu.py::_lu_solve_kernel (the Pallas TPU
 // kernel behind pallas_lu_solve). Unlike that kernel, factor and solve are
 // separate launches: the solver factors once per lsetup, keeps lu/piv in
-// its state, and solves once per Newton iteration. The order of operations
+// its state, and solves once per Newton iteration. The arithmetic lives in
+// small_lu.cuh (shared with the whole-solve kernel, fused_solve.cu) and
 // follows the reference's parity path, ida_tpu/ops/dense_lu.py
-// lu_factor_unrolled / lu_solve_unrolled (first-max pivot on strict '>',
-// multiplier 1/pivot with a zero pivot replaced by 1 and its column recorded
-// in fail, column-oriented back substitution), NOT the Pallas body's
-// row-oriented back substitution. Build with -fmad=false so no multiply-add
-// is contracted: the results then equal the plain PyTorch version bit for bit.
+// lu_factor_unrolled / lu_solve_unrolled, NOT the Pallas body's row-oriented
+// back substitution. Build with -fmad=false so no multiply-add is
+// contracted: the results then equal the plain PyTorch version bit for bit.
 //
 // What bounds it: bytes. At N = 3 the factor reads 9 values and writes 13
 // (lu, piv, fail) per lane for a few dozen flops; the solve reads 15 and
@@ -26,12 +25,11 @@
 
 #include <cuda_runtime.h>
 
+#include "small_lu.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ double absval(double v) { return fabs(v); }
-__device__ __forceinline__ float absval(float v) { return fabsf(v); }
 
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
@@ -40,52 +38,16 @@ factor_kernel(const T* __restrict__ a, T* __restrict__ lu, int* __restrict__ piv
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   T m[N][N];
+  int p[N];
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j) m[i][j] = a[(long long)(i * N + j) * B + b];
 
-  int failc = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    // pivot row: first occurrence of max |m[i][k]| for i >= k
-    T best = absval(m[k][k]);
-    int l = k;
-#pragma unroll
-    for (int i = k + 1; i < N; ++i) {
-      const T cand = absval(m[i][k]);
-      const bool take = cand > best;
-      best = take ? cand : best;
-      l = take ? i : l;
-    }
-    piv[(long long)k * B + b] = l;
+  const int failc = ida::lu_factor_dev<T, N>(m, p);
 
-    // swap rows k and l by selects (keeps the matrix in registers)
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const T mkj = m[k][j];
-      T mlj = mkj;
-#pragma unroll
-      for (int i = k + 1; i < N; ++i) mlj = (l == i) ? m[i][j] : mlj;
-      m[k][j] = mlj;
-#pragma unroll
-      for (int i = k + 1; i < N; ++i) m[i][j] = (l == i) ? mkj : m[i][j];
-    }
-
-    const T p = m[k][k];
-    const bool zero = p == T(0);
-    failc = (failc == 0 && zero) ? k + 1 : failc;
-    const T mult = T(1) / (zero ? T(1) : p);
-#pragma unroll
-    for (int i = k + 1; i < N; ++i) m[i][k] = m[i][k] * mult;
-#pragma unroll
-    for (int j = k + 1; j < N; ++j) {
-      const T mkj = m[k][j];
-#pragma unroll
-      for (int i = k + 1; i < N; ++i) m[i][j] = m[i][j] - mkj * m[i][k];
-    }
-  }
-
+  for (int k = 0; k < N; ++k) piv[(long long)k * B + b] = p[k];
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
@@ -99,37 +61,18 @@ solve_kernel(const T* __restrict__ lu, const int* __restrict__ piv,
              const T* __restrict__ rhs, T* __restrict__ x, long long B) {
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
+  T m[N][N];
+  int p[N];
   T v[N];
 #pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = rhs[(long long)i * B + b];
-
-  // permute by the pivot sequence
+  for (int i = 0; i < N; ++i) {
+    v[i] = rhs[(long long)i * B + b];
+    p[i] = piv[(long long)i * B + b];
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const int pk = piv[(long long)k * B + b];
-    const T vk = v[k];
-    T vpk = vk;
-#pragma unroll
-    for (int i = k + 1; i < N; ++i) vpk = (pk == i) ? v[i] : vpk;
-    v[k] = vpk;
-#pragma unroll
-    for (int i = k + 1; i < N; ++i) v[i] = (pk == i) ? vk : v[i];
+    for (int j = 0; j < N; ++j) m[i][j] = lu[(long long)(i * N + j) * B + b];
   }
 
-  // forward substitution, unit lower triangle
-#pragma unroll
-  for (int k = 0; k < N - 1; ++k)
-#pragma unroll
-    for (int i = k + 1; i < N; ++i) v[i] = v[i] - lu[(long long)(i * N + k) * B + b] * v[k];
-
-  // back substitution, column-oriented
-#pragma unroll
-  for (int k = N - 1; k > 0; --k) {
-    v[k] = v[k] / lu[(long long)(k * N + k) * B + b];
-#pragma unroll
-    for (int i = 0; i < k; ++i) v[i] = v[i] - lu[(long long)(i * N + k) * B + b] * v[k];
-  }
-  v[0] = v[0] / lu[b];
+  ida::lu_solve_dev<T, N>(m, p, v);
 
 #pragma unroll
   for (int i = 0; i < N; ++i) x[(long long)i * B + b] = v[i];

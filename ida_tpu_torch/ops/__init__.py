@@ -6,5 +6,15 @@ from .small_lu import lu_factor_solve
 
 __all__ = [
     "DenseLU", "lu_factor", "lu_factor_auto", "lu_factor_solve", "lu_factor_unrolled",
-    "lu_solve", "lu_solve_auto", "lu_solve_unrolled",
+    "lu_solve", "lu_solve_auto", "lu_solve_unrolled", "make_fused_solve",
 ]
+
+
+def __getattr__(name):
+    # fused_solve imports core.solve, whose Newton layer imports this
+    # package's dense_lu: load it on first use to keep the import acyclic
+    if name == "make_fused_solve":
+        from .fused_solve import make_fused_solve
+
+        return make_fused_solve
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

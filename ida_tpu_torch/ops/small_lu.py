@@ -7,12 +7,14 @@ dozen flops, so its design is one thread per lane on the batch-last layout
 (coalesced loads and stores), the matrix in registers, no shared memory.
 See the source's header for the order of operations.
 
-Build: at first use, ``nvcc`` compiles the source into a shared library with
-a plain C interface under ``build/ida_tpu_torch/`` at the repository root,
-keyed by a hash of the source; ``ctypes`` loads it. A failed build or a
-failed launch raises. The kernel runs only on CUDA tensors; on CPU tensors
-the wrappers run the plain PyTorch versions of ``ops/dense_lu.py``, and on
-any other device they raise. Nothing falls back on a CUDA tensor.
+Build: at first use, ``nvcc`` compiles the source (and ``csrc/small_lu.cuh``,
+the LU device code it shares with the whole-solve kernel) into a shared
+library with a plain C interface under ``build/ida_tpu_torch/`` at the
+repository root, keyed by a hash of the sources (:mod:`._build`); ``ctypes``
+loads it. A failed build or a failed launch raises. The kernel runs only on
+CUDA tensors; on CPU tensors the wrappers run the plain PyTorch versions of
+``ops/dense_lu.py``, and on any other device they raise. Nothing falls back
+on a CUDA tensor.
 
 ``FACTOR_LAUNCHES`` / ``SOLVE_LAUNCHES`` count kernel launches (and only
 those), so a run can show that the solver went through the kernel.
@@ -22,28 +24,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
+from ._build import DTYPE_TAGS, build_library
 from .dense_lu import DenseLU, SMALL_N_UNROLL, lu_factor_unrolled, lu_solve_unrolled
 
 FACTOR_LAUNCHES = 0
 SOLVE_LAUNCHES = 0
-
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "small_lu.cu"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ida_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
-
-_DTYPES = {torch.float64: "f64", torch.float32: "f32"}
 
 
 def reset_launch_counts() -> None:
@@ -52,51 +40,19 @@ def reset_launch_counts() -> None:
     SOLVE_LAUNCHES = 0
 
 
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the small-LU kernel cannot be built")
-
-
 @functools.cache
 def build() -> dict:
     """Compile (once per source hash) and load the kernel library. Returns
-    ``{"path", "seconds", "cached", "log"}``; ``log`` holds nvcc's output
-    (registers and spills per kernel, from ``-Xptxas -v``)."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / digest
-    lib_path = out_dir / "libsmall_lu.so"
-    t0 = time.perf_counter()
-    cached = lib_path.exists()
-    log = ""
-    if not cached:
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libsmall_lu.{os.getpid()}.so"
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True, check=False,
-        )
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        (out_dir / "nvcc.log").write_text(log)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    ``{"lib", "path", "seconds", "cached", "log"}``; ``log`` holds nvcc's
+    output (registers and spills per kernel, from ``-Xptxas -v``)."""
+    info = build_library("small_lu.cu", ("small_lu.cuh",))
     ptrs = [ctypes.c_void_p] * 4
-    for dt in _DTYPES.values():
+    for dt in DTYPE_TAGS.values():
         for name in (f"small_lu_factor_{dt}", f"small_lu_solve_{dt}"):
-            fn = getattr(lib, name)
+            fn = getattr(info["lib"], name)
             fn.argtypes = ptrs + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-    return {
-        "lib": lib, "path": str(lib_path), "cached": cached,
-        "seconds": time.perf_counter() - t0, "log": log,
-    }
+    return info
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype) -> None:
@@ -126,7 +82,7 @@ def lu_factor(a: torch.Tensor) -> DenseLU:
     n = a.shape[0]
     if not 1 <= n <= SMALL_N_UNROLL:
         raise ValueError(f"lu_factor: the kernel takes 1 <= N <= {SMALL_N_UNROLL}, got N={n}")
-    if a.dtype not in _DTYPES:
+    if a.dtype not in DTYPE_TAGS:
         raise TypeError(f"lu_factor: the kernel takes float32 or float64, got {a.dtype}")
     bshape = a.shape[2:]
     bsz = 1
@@ -136,7 +92,7 @@ def lu_factor(a: torch.Tensor) -> DenseLU:
     lu = torch.empty_like(a)
     piv = torch.empty((n,) + tuple(bshape), dtype=torch.int32, device=a.device)
     fail = torch.empty(tuple(bshape), dtype=torch.int32, device=a.device)
-    fn = getattr(build()["lib"], f"small_lu_factor_{_DTYPES[a.dtype]}")
+    fn = getattr(build()["lib"], f"small_lu_factor_{DTYPE_TAGS[a.dtype]}")
     err = fn(a.data_ptr(), lu.data_ptr(), piv.data_ptr(), fail.data_ptr(), n, bsz, _stream(a))
     _raise_on(err, "small_lu_factor")
     global FACTOR_LAUNCHES
@@ -152,7 +108,7 @@ def lu_solve(f: DenseLU, b: torch.Tensor) -> torch.Tensor:
     n = b.shape[0]
     if not 1 <= n <= SMALL_N_UNROLL:
         raise ValueError(f"lu_solve: the kernel takes 1 <= N <= {SMALL_N_UNROLL}, got N={n}")
-    if b.dtype not in _DTYPES:
+    if b.dtype not in DTYPE_TAGS:
         raise TypeError(f"lu_solve: the kernel takes float32 or float64, got {b.dtype}")
     bshape = tuple(b.shape[1:])
     bsz = 1
@@ -162,7 +118,7 @@ def lu_solve(f: DenseLU, b: torch.Tensor) -> torch.Tensor:
     _check(f.lu, "lu_solve(lu)", (n, n) + bshape, b.dtype)
     _check(f.piv, "lu_solve(piv)", (n,) + bshape, torch.int32)
     x = torch.empty_like(b)
-    fn = getattr(build()["lib"], f"small_lu_solve_{_DTYPES[b.dtype]}")
+    fn = getattr(build()["lib"], f"small_lu_solve_{DTYPE_TAGS[b.dtype]}")
     err = fn(f.lu.data_ptr(), f.piv.data_ptr(), b.data_ptr(), x.data_ptr(), n, bsz, _stream(b))
     _raise_on(err, "small_lu_solve")
     global SOLVE_LAUNCHES

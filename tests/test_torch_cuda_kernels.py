@@ -7,7 +7,9 @@ This file imports no JAX, so it also runs on a GPU machine without JAX:
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors: built with ``-fmad=false`` and following the plain version's order
-of operations, it must agree bit for bit.
+of operations, it must agree bit for bit. For the whole-solve kernel
+(``ops.fused_solve``) the plain version is the eager ensemble solve, and
+for each stage kernel (``ops.fused_stages``) the eager stage.
 """
 
 import numpy as np
@@ -15,10 +17,13 @@ import pytest
 import torch
 
 from ida_tpu_torch import constants as C
+from ida_tpu_torch.core.solve import TASK_ONE_STEP
+from ida_tpu_torch.core.solve import solve as core_solve
+from ida_tpu_torch.core.state import IdaOptions
 from ida_tpu_torch.models import ROBERTS_PARAMS, ROBERTS_YY0, roberts_factory
-from ida_tpu_torch.ops import dense_lu, small_lu
-from ida_tpu_torch.parallel import ensemble_init, make_ensemble_solve
-from ida_tpu_torch.tol_control import tol_sv
+from ida_tpu_torch.ops import dense_lu, fused_solve, fused_stages, small_lu
+from ida_tpu_torch.parallel import ensemble_init, make_ensemble_solve, to_native
+from ida_tpu_torch.tol_control import TolControl, tol_sv
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +118,122 @@ def test_ensemble_goes_through_the_kernels(cuda):
     assert bool((ig.cpu() == C.SUCCESS).all()) and bool((ic == C.SUCCESS).all())
     w = 1.0 / (1e-4 * sc.yy.abs() + torch.tensor([1e-8, 1e-6, 1e-6], dtype=torch.float64))
     assert float(((w * (sg.yy.cpu() - sc.yy)) ** 2).mean(dim=1).sqrt().max()) < 1.0
+
+
+ATOL = [1e-8, 1e-6, 1e-6]
+
+
+def _ensemble(bsz, device, dtype=torch.float64):
+    params = np.outer(np.exp(np.linspace(-0.5, 0.5, bsz)), ROBERTS_PARAMS)
+    yy0 = np.tile(ROBERTS_YY0, (bsz, 1))
+    yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
+    return params, ensemble_init(roberts_factory, params, yy0, yp0, device=device, dtype=dtype)
+
+
+def _same_states(a, b):
+    return [f for f, x in zip(a._fields, a)
+            if isinstance(x, torch.Tensor) and not torch.equal(x, getattr(b, f))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_kernel_matches_the_eager_path_bitwise(cuda, dtype):
+    params, st0 = _ensemble(256, cuda, dtype)
+    tol = tol_sv(1e-4, ATOL, device=cuda, dtype=dtype)
+    fused_solve.reset_launch_counts()
+    st, tret, ist = fused_solve.make_fused_solve(roberts_factory, tol)(st0, params, 400.0)
+    assert fused_solve.FUSED_LAUNCHES == 1
+    est, etret, eist = make_ensemble_solve(roberts_factory)(st0, params, tol, 400.0)
+    assert bool((ist == C.SUCCESS).all())
+    assert torch.equal(ist, eist) and torch.equal(tret, etret)
+    if dtype == torch.float64:
+        assert _same_states(st, est) == []
+    else:
+        # f32: the counters; pow in f32 may round apart in a last bit
+        for f in ("nst", "nre", "nje", "nni", "netf", "ncfn"):
+            assert torch.equal(getattr(st, f), getattr(est, f)), f
+
+
+def test_budgeted_kernel_is_bitwise_the_unbudgeted_kernel(cuda):
+    params, st0 = _ensemble(256, cuda)
+    tol = tol_sv(1e-4, ATOL, device=cuda)
+    ref = fused_solve.make_fused_solve(roberts_factory, tol)(st0, params, 400.0)
+    fused_solve.reset_launch_counts()
+    got = fused_solve.make_fused_solve(roberts_factory, tol, attempt_budget=7)(st0, params, 400.0)
+    assert fused_solve.FUSED_INIT_LAUNCHES == 1 and fused_solve.FUSED_CONT_LAUNCHES > 3
+    assert fused_solve.FUSED_LAUNCHES == 0
+    assert _same_states(got[0], ref[0]) == []
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+
+
+def test_budgeted_kernel_launches_are_the_eager_budgeted_calls(cuda):
+    # the plain version of K3/K4: after every launch, the state and the
+    # 9-field carry are bit for bit those of the eager
+    # solve(max_attempts=7, resume_carry=...) call on the same card
+    params, st0 = _ensemble(256, cuda)
+    p = torch.as_tensor(params, device=cuda).t().contiguous()
+    problem, opts = roberts_factory(p), IdaOptions()
+    native = fused_solve.native_clone(st0)
+    inputs = fused_solve.lane_inputs(native, p, tol_sv(1e-4, ATOL, device=cuda), 400.0, 3)
+    tol = TolControl(inputs[1], inputs[2])
+    carry = fused_solve.new_carry(256, torch.float64, cuda, True)
+    eager = (to_native(st0), None, None, None)
+
+    def step(resume):
+        nonlocal eager
+        istate = fused_solve.launch("cont" if resume else "init", native, inputs, carry, opts, 0, 7)
+        eager = core_solve(eager[0], problem, opts, tol, inputs[3], max_attempts=7,
+                           resume_carry=eager[3] if resume else None)
+        assert _same_states(native, eager[0]) == [], resume
+        for f, want in zip(fused_solve.CARRY_FIELDS, eager[3]):
+            assert torch.equal(carry[f], want.to(carry[f].dtype)), (resume, f)
+        return istate
+
+    assert fused_solve.run_until_done(step) > 3
+    assert bool((carry["istate"] == C.SUCCESS).all())
+
+
+@pytest.fixture(scope="module")
+def mid_flight():
+    """Real states after 1 and 8 ONE_STEP calls of the eager path on the
+    card, and the latter with hh x16 (failed attempts)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    params, st = _ensemble(256, "cuda")
+    tol = tol_sv(1e-4, ATOL, device="cuda")
+    fn = make_ensemble_solve(roberts_factory, itask=TASK_ONE_STEP)
+    snaps = {"init": to_native(st)}
+    for k in range(1, 9):
+        st, _, _ = fn(st, params, tol, 400.0)
+        if k in (1, 8):
+            snaps[f"step{k}"] = to_native(st)
+    snaps["hh_x16"] = snaps["step8"]._replace(hh=snaps["step8"].hh * 16.0)
+    return torch.from_numpy(params.T).contiguous().to("cuda"), tol, snaps
+
+
+@pytest.mark.parametrize("stage", sorted(fused_stages.STAGES))
+def test_stage_kernel_matches_its_eager_stage(mid_flight, stage):
+    params, tol, snaps = mid_flight
+    names = ["init"] if stage == "prologue" else ["step1", "step8", "hh_x16"]
+    for name in names:
+        st = snaps[name]
+        if stage in ("nls", "error_test", "complete_step"):
+            # these run inside an attempt: after set_coeffs, predict, tn += hh
+            st, _ = fused_stages.plain_stage("set_coeffs", st, params, tol, 400.0)
+            st = st._replace(tn=st.tn + st.hh)
+        fused_stages.reset_launch_counts()
+        got_st, got = fused_stages.run_stage(stage, st, params, tol, 400.0)
+        assert fused_stages.STAGE_LAUNCHES[stage] == 1
+        ref_st, ref = fused_stages.plain_stage(stage, st, params, tol, 400.0)
+        assert _same_states(got_st, ref_st) == [], (name, stage)
+        for k, v in ref.items():
+            assert torch.equal(got[k].to(v.dtype), v), (name, stage, k)
+
+
+def test_fused_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    params, st0 = _ensemble(8, cuda)
+    tol = tol_sv(1e-4, ATOL, device=cuda)
+    fn = fused_solve.make_fused_solve(roberts_factory, tol)
+    with pytest.raises(ValueError):
+        fn(st0._replace(phi=st0.phi.transpose(1, 2)), params, 4.0)
+    with pytest.raises(TypeError):
+        fn(st0._replace(kk=st0.kk.long()), params, 4.0)

@@ -1,0 +1,249 @@
+"""``ida_tpu_torch.ops.make_fused_solve`` on CPU tensors, where it runs its
+plain version (the eager ``core.solve``, with the budgeted host loop when a
+budget is given), against the JAX package:
+
+* f32, B=8, tout 0.4, unbudgeted and with ``attempt_budget=6``, against
+  ``ida_tpu.ops.fused_solve.make_fused_solve(..., tile=4, interpret=True)``
+  as tests/test_fused_solve.py runs it: istate and tret exactly, yy to
+  rtol 2e-2 / atol 1e-6 (that file's own tolerance between the kernel and
+  the default path). nst is held to one step per lane: the jitted f32 JAX
+  solve (the kernel and the default path alike) contracts multiply-adds
+  into FMAs, and at this input one lane takes one step more there than in
+  the JAX solve run op by op;
+* f32 and f64 against the JAX ``core_solve`` run op by op: bit for bit.
+
+Then the wrapper's contract: what it raises on, counters that only kernel
+launches move, the batch-leading layout and dtypes it returns, and the stage
+list of the K5 harness against the stage kernels that
+``csrc/fused_solve.cu`` exports (the kernels themselves run only on a GPU;
+see tests/test_torch_cuda_kernels.py).
+"""
+
+import dataclasses
+import pathlib
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ida_tpu.core.solve import solve as jsolve
+from ida_tpu.core.state import IdaOptions as JOptions
+from ida_tpu.models import ROBERTS_PARAMS, ROBERTS_YY0
+from ida_tpu.models import roberts_factory as jroberts
+from ida_tpu.ops.fused_solve import make_fused_solve as jmake_fused_solve
+from ida_tpu.parallel import ensemble_init as jensemble_init
+from ida_tpu.tol_control import TolControl as JTol
+from ida_tpu.tol_control import tol_sv as jtol_sv
+from ida_tpu_torch import constants as C
+from ida_tpu_torch.core.solve import solve as tsolve
+from ida_tpu_torch.core.state import IdaOptions, IdaState
+from ida_tpu_torch.models import roberts_factory as troberts
+from ida_tpu_torch.ops import fused_solve, fused_stages, make_fused_solve
+from ida_tpu_torch.parallel import ensemble_init, make_ensemble_solve, to_native
+from ida_tpu_torch.tol_control import TolControl, tol_sv
+
+torch.set_num_threads(1)
+
+B = 8
+ATOL32 = [1e-6, 1e-6, 1e-6]
+ATOL = [1e-8, 1e-6, 1e-6]
+COUNTERS = ("nst", "nre", "nje", "nni", "netf", "ncfn")
+CU = pathlib.Path(fused_solve.__file__).resolve().parent.parent / "csrc" / "fused_solve.cu"
+
+
+def _inputs(b, scale=None):
+    scale = np.linspace(0.9, 1.1, b) if scale is None else scale
+    params = np.outer(scale, ROBERTS_PARAMS)
+    yy0 = np.tile(ROBERTS_YY0, (b, 1))
+    yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
+    return params, yy0, yp0
+
+
+def _port_fused(dtype, budget, atol, tout=0.4, b=B, scale=None):
+    params, yy0, yp0 = _inputs(b, scale)
+    st = ensemble_init(troberts, params, yy0, yp0, device="cpu", dtype=dtype)
+    tol = tol_sv(1e-4, atol, device="cpu", dtype=dtype)
+    return st, make_fused_solve(troberts, tol, attempt_budget=budget)(st, params, tout)
+
+
+@pytest.fixture(scope="module", params=[None, 6], ids=["unbudgeted", "budget6"])
+def jax_fused_f32(request):
+    """The JAX package's fused Pallas kernel in interpret mode, f32, tile 4."""
+    dtype = jnp.float32
+    params, yy0, yp0 = (jnp.asarray(a, dtype) for a in _inputs(B))
+    tol = jtol_sv(1e-4, jnp.asarray(ATOL32, dtype), dtype=dtype)
+    opts = JOptions()
+    states = jensemble_init(jroberts, params, yy0, yp0, dtype=dtype, opts=opts)
+    fused = jmake_fused_solve(jroberts, tol, opts, tile=4, interpret=True,
+                              attempt_budget=request.param)
+    return request.param, fused(states, params, 0.4)
+
+
+def test_plain_version_matches_the_jax_fused_kernel_f32(jax_fused_f32):
+    budget, (jst, jtret, jist) = jax_fused_f32
+    _, (st, tret, ist) = _port_fused(torch.float32, budget, ATOL32)
+    np.testing.assert_array_equal(ist.numpy(), np.asarray(jist))
+    np.testing.assert_array_equal(tret.numpy(), np.asarray(jtret))
+    assert np.abs(st.nst.numpy() - np.asarray(jst.nst)).max() <= 1
+    np.testing.assert_allclose(st.yy.numpy(), np.asarray(jst.yy), rtol=2e-2, atol=1e-6)
+
+
+@pytest.fixture(scope="module", params=["float32", "float64"])
+def jax_op_by_op(request):
+    """The JAX batch-native core_solve, B=8 to tout 0.4, op by op, with the
+    tolerances of the f32 comparison above (f32) or of the port's slice
+    (f64)."""
+    dtype = jnp.dtype(request.param)
+    atol = ATOL32 if request.param == "float32" else ATOL
+    params, yy0, yp0 = (jnp.asarray(a, dtype) for a in _inputs(B))
+    st = jensemble_init(jroberts, params, yy0, yp0, dtype=dtype, opts=JOptions())
+    st = jax.tree_util.tree_map(lambda x: jnp.moveaxis(x, 0, -1), st)
+    tol = JTol(jnp.full((B,), 1e-4, dtype), jnp.tile(jnp.asarray(atol, dtype)[:, None], (1, B)))
+    with jax.disable_jit():
+        out = jsolve(st, jroberts(params.T), JOptions(), tol, jnp.full((B,), 0.4, dtype))
+    return getattr(torch, request.param), atol, out
+
+
+@pytest.mark.parametrize("budget", [None, 6], ids=["unbudgeted", "budget6"])
+def test_plain_version_is_bitwise_the_op_by_op_reference(jax_op_by_op, budget):
+    dtype, atol, (jst, jtret, jist) = jax_op_by_op
+    _, (st, tret, ist) = _port_fused(dtype, budget, atol)
+    assert bool((ist == C.SUCCESS).all())
+    np.testing.assert_array_equal(ist.numpy(), np.asarray(jist))
+    np.testing.assert_array_equal(tret.numpy(), np.asarray(jtret))
+    for f in COUNTERS + ("yy", "yp", "phi", "psi", "hh", "tn", "kused"):
+        np.testing.assert_array_equal(
+            getattr(st, f).numpy(), np.moveaxis(np.asarray(getattr(jst, f)), -1, 0), err_msg=f)
+
+
+@pytest.mark.parametrize("budget", [None, 1, 7])
+def test_plain_version_is_the_eager_ensemble_solve(budget):
+    # heterogeneous lanes to tout 400: the fused entry point's plain version
+    # (budgeted or not) is bit for bit the eager ensemble solve
+    scale = np.exp(np.linspace(-1.0, 1.0, 6))
+    st0, (st, tret, ist) = _port_fused(torch.float64, budget, ATOL, tout=400.0, b=6, scale=scale)
+    params = _inputs(6, scale)[0]
+    ref = make_ensemble_solve(troberts)(st0, params, tol_sv(1e-4, ATOL, device="cpu"), 400.0)
+    assert torch.equal(tret, ref[1]) and torch.equal(ist, ref[2])
+    for f, x in zip(ref[0]._fields, ref[0]):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(getattr(st, f), x), f
+
+
+def test_launch_counters_stay_at_zero_on_the_cpu():
+    fused_solve.reset_launch_counts()
+    fused_stages.reset_launch_counts()
+    _port_fused(torch.float64, 3, ATOL)
+    st = to_native(ensemble_init(troberts, *_inputs(2), device="cpu"))
+    fused_stages.run_stage("prologue", st, torch.from_numpy(_inputs(2)[0].T),
+                           tol_sv(1e-4, ATOL, device="cpu"), 0.4)
+    assert (fused_solve.FUSED_LAUNCHES, fused_solve.FUSED_INIT_LAUNCHES,
+            fused_solve.FUSED_CONT_LAUNCHES) == (0, 0, 0)
+    assert not any(fused_stages.STAGE_LAUNCHES.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_returns_the_batch_leading_layout_and_the_input_dtypes(dtype):
+    st0, (st, tret, ist) = _port_fused(dtype, None, ATOL, b=3)
+    assert tret.shape == ist.shape == (3,) and tret.dtype == dtype and ist.dtype == torch.int32
+    for f, x in zip(st0._fields, st0):
+        if isinstance(x, torch.Tensor):
+            y = getattr(st, f)
+            assert (y.shape, y.dtype) == (x.shape, x.dtype), f
+    # the input state is not changed
+    assert int(st0.nst.sum()) == 0 and int(st.nst.sum()) > 0
+
+
+def _call(factory=troberts, dtype=torch.float64, device="cpu", budget=None):
+    params, yy0, yp0 = _inputs(2)
+    st = ensemble_init(troberts, params, yy0, yp0, device="cpu", dtype=dtype)
+    if device != "cpu":
+        st = type(st)(*(x.to(device) if isinstance(x, torch.Tensor) else x for x in st))
+    tol = tol_sv(1e-4, ATOL, device=device, dtype=dtype)
+    return make_fused_solve(factory, tol, attempt_budget=budget)(st, params, 0.4)
+
+
+def _with_roots(params):
+    return dataclasses.replace(troberts(params), nroots=2, root=lambda t, yy, yp: yy[:2])
+
+
+def test_raises_on_a_factory_without_a_compiled_in_model():
+    with pytest.raises(NotImplementedError, match="compiled-in"):
+        _call(factory=lambda p: troberts(p))
+
+
+def test_raises_on_rootfinding():
+    fused_solve.MODELS[_with_roots] = fused_solve.MODELS[troberts]
+    try:
+        with pytest.raises(NotImplementedError, match="nroots"):
+            _call(factory=_with_roots)
+    finally:
+        del fused_solve.MODELS[_with_roots]
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_raises_on_a_dtype_the_kernel_does_not_take(dtype):
+    with pytest.raises(TypeError):
+        _call(dtype=dtype)
+
+
+def test_raises_on_a_device_neither_cpu_nor_cuda():
+    with pytest.raises(ValueError, match="CUDA"):
+        _call(device="meta")
+
+
+def test_raises_on_a_budget_below_one():
+    with pytest.raises(ValueError):
+        make_fused_solve(troberts, tol_sv(1e-4, ATOL, device="cpu"), attempt_budget=0)
+
+
+def test_stage_list_matches_the_stage_kernels_of_the_source():
+    exported = set(re.findall(r"^IDA_STAGE_BOTH\((\w+),", CU.read_text(), re.M))
+    assert exported == set(fused_stages.STAGES)
+    assert set(fused_stages.STAGE_LAUNCHES) == set(fused_stages.STAGES)
+
+
+def test_state_fields_match_the_kernels_pointer_table():
+    src = (CU.parent / "ida_lane.cuh").read_text()
+    block = re.search(r"#define IDA_STATE_FIELDS\(X\)(.*?)\n\n", src, re.S).group(1)
+    assert tuple(re.findall(r"X\((\w+)\)", block)) == fused_solve.STATE_FIELDS
+    assert set(fused_solve.STATE_FIELDS) <= set(IdaState._fields)
+
+
+@pytest.mark.parametrize("stage", sorted(fused_stages.STAGES))
+def test_stage_plain_version_runs_and_returns_every_slot(stage):
+    params, yy0, yp0 = _inputs(3)
+    st = to_native(ensemble_init(troberts, params, yy0, yp0, device="cpu"))
+    p = torch.from_numpy(params.T).contiguous()
+    tol = tol_sv(1e-4, ATOL, device="cpu")
+    if stage != "prologue":
+        st, _ = fused_stages.run_stage("prologue", st, p, tol, 0.4)
+    out_st, out = fused_stages.run_stage(stage, st, p, tol, 0.4)
+    spec = fused_stages.STAGES[stage]
+    assert set(out) == set(spec.floats) | set(spec.ints)
+    assert all(v.shape == (3,) for v in out.values())
+    assert out_st.phi.shape == st.phi.shape
+
+
+def test_attempt_stage_is_one_loop_attempt_of_the_solve():
+    # after the prologue, an attempt (fresh step) then its completion gives
+    # the state of a one-attempt budgeted solve
+    params, yy0, yp0 = _inputs(3)
+    st = to_native(ensemble_init(troberts, params, yy0, yp0, device="cpu"))
+    p = torch.from_numpy(params.T).contiguous()
+    tol = tol_sv(1e-4, ATOL, device="cpu")
+    ref, _, _, _ = tsolve(st, troberts(p), IdaOptions(), TolControl(
+        torch.full((3,), 1e-4, dtype=torch.float64),
+        torch.tensor(ATOL, dtype=torch.float64)[:, None].expand(3, 3)), 0.4, max_attempts=1)
+    s1, o1 = fused_stages.run_stage("prologue", st, p, tol, 0.4)
+    s1 = s1._replace(kk=torch.ones_like(s1.kk), psi=torch.where(
+        torch.arange(6)[:, None] == 0, s1.hh, s1.psi), cj=1.0 / s1.hh)
+    s2, o2 = fused_stages.run_stage("attempt", s1, p, tol, 0.4, {"saved_t": s1.tn})
+    assert torch.equal(o2["success"].bool(), torch.ones(3, dtype=torch.bool))
+    s3, _ = fused_stages.run_stage("complete_step", s2, p, tol, 0.4,
+                                   {"err_k": o2["err_k"], "err_km1": o2["err_km1"], "ck": o2["ck"]})
+    for f in ("phi", "psi", "hh", "kk", "nst", "nni", "nre"):
+        assert torch.equal(getattr(s3, f), getattr(ref, f)), f

@@ -16,6 +16,8 @@ MODULES = [
     "ida_tpu_torch.parallel",
     "ida_tpu_torch.ops",
     "ida_tpu_torch.ops.small_lu",
+    "ida_tpu_torch.ops.fused_solve",
+    "ida_tpu_torch.ops.fused_stages",
     "ida_tpu_torch.core.solve",
     "ida_tpu_torch.models",
     "ida_tpu_torch.utils.convert",
