@@ -8,8 +8,12 @@ tout=400 in f64):
 
 * the eager path, ``ensemble_init`` + ``make_ensemble_solve`` (LU kernels);
 * the fused path, ``ensemble_init`` + ``make_fused_solve`` (one kernel per
-  solve, or the budgeted kernel and its continuation), bit for bit against
-  the eager path's result from the same run, in f64 and (counters) f32;
+  solve, reading the batch-leading state in place and writing a new one, or
+  the budgeted kernel and its continuation), bit for bit against the eager
+  path's result from the same run, in f64 and (counters) f32; its line also
+  gives the solve kernel's registers, stack, spills, shared memory,
+  occupancy and waves, the device events of one call, and how unevenly the
+  lanes of a warp work;
 * the canonical Roberts acceptance lane through both.
 
 Every stage kernel is checked bit for bit against its eager stage on real
@@ -42,6 +46,8 @@ from ida_tpu_torch.ops import _build, dense_lu, fused_solve, fused_stages, small
 from ida_tpu_torch.parallel import ensemble_init, from_native, make_ensemble_solve, to_native
 from ida_tpu_torch.tol_control import TolControl, tol_sv
 
+BLOCK = 64  # threads a block of the whole-solve kernel (csrc/ida_lane.cuh IDA_THREADS)
+
 B = 65536
 B_SMALL = 4096
 TOUT = 400.0
@@ -62,14 +68,19 @@ REPLACES = {
 # float64 outside the tensor cores 34 TFLOP/s, float32 67 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
-# floating-point operations of the solve per event at N = 3, counted by
+# floating-point operations the solve must do per event at N = 3, counted by
 # hand from ida_tpu_torch/csrc/ida_lane.cuh (a division as one operation,
-# pow and sqrt as 20 each): an attempt (set_coeffs ~75, predict ~72, the
-# predictor residual ~12, error_test's three norms and estimates ~106), a
-# Newton iteration (LU solve, norm, rate, residual), an lsetup (Jacobian
-# and LU factor), a completed step (complete_step ~95, stop test, preamble
-# with ewt and norm ~50)
-OPS_PER = {"attempt": 270, "newton": 100, "lsetup": 30, "step": 145}
+# pow and sqrt as 20 each): an attempt (set_coeffs' sums, cj and ck 8, tn 1,
+# predict 66, cjratio, the predictor residual and yy/yp 22, error_test's
+# three norms and estimates 103), a Newton iteration (LU solve 15, scale and
+# ycor 6, norm 29, tests 2), each iteration after a solve's first (rate with
+# pow 24, and the residual that fed it 21), an lsetup (Jacobian 9, LU factor
+# 16), a completed step (complete_step 78, stop test 2, preamble with ewt
+# and norm 39). Work whose amount the counters do not give is left out, so
+# the bound is a little low: the rows 1..kk of set_coeffs' recurrences (8 a
+# row, only on attempts that change the step size or order), its phi
+# scaling, and complete_step's phi rows above the first two.
+OPS_PER = {"attempt": 200, "newton": 52, "newton_more": 45, "lsetup": 25, "step": 119}
 
 
 def emit(phase: str, **fields) -> None:
@@ -96,6 +107,20 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def first_device_activity() -> None:
+    """A short spin kernel at the head of a profiler window: the profiler
+    was seen to drop the first device activity of a window, which must not
+    be one of those measured. :func:`on_card_events` leaves it out."""
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def on_card_events(prof) -> list:
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.key]
+
+
 def kernel_device_ms(fns, rounds: int, name_part: str) -> float:
     """Device time per call of the kernels whose name holds ``name_part``,
     from torch.profiler, over ``rounds`` passes through ``fns`` (one call
@@ -106,6 +131,7 @@ def kernel_device_ms(fns, rounds: int, name_part: str) -> float:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        first_device_activity()
         for _ in range(rounds):
             for fn in fns:
                 fn()
@@ -118,24 +144,47 @@ def kernel_device_ms(fns, rounds: int, name_part: str) -> float:
     return total / 1e3 / (rounds * len(fns))
 
 
-def device_busy(fn) -> dict:
-    """One call of ``fn`` under torch.profiler: its wall, the device time of
-    everything it ran on the card, and the longest of those by name."""
+def call_device_ms(fns, rounds: int) -> float:
+    """Device time per call of everything the calls of ``fns`` ran on the
+    card, from torch.profiler, over ``rounds`` passes (after a warm-up
+    pass): the protocol of :func:`kernel_device_ms` for a library call,
+    which may run several kernels."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        first_device_activity()
+        for _ in range(rounds):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in on_card_events(prof))
+    check(total > 0, "the profiler recorded no device time for the library call")
+    return total / 1e3 / (rounds * len(fns))
+
+
+def device_busy(fn, calls: int = 5) -> dict:
+    """``calls`` calls of ``fn`` under torch.profiler, per call: the wall,
+    the device time of everything it ran on the card, the count of device
+    events, and the longest of those by name."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        first_device_activity()
         t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    on_card = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    dev = sum(e.self_device_time_total for e in on_card) / 1e3
-    return {"profiled_wall_ms": wall * 1e3, "device_ms": dev,
-            "device_events": sum(e.count for e in on_card), "busy_share": dev / (wall * 1e3),
-            "longest": sorted(((e.key[:60], e.self_device_time_total / 1e3) for e in on_card),
-                              key=lambda kv: -kv[1])[:4]}
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / calls
+    on_card = on_card_events(prof)
+    dev = sum(e.self_device_time_total for e in on_card) / 1e3 / calls
+    return {"profiled_wall_ms": wall * 1e3, "device_ms": dev, "calls": calls,
+            "device_events": sum(e.count for e in on_card) / calls,
+            "busy_share": dev / (wall * 1e3),
+            "longest": sorted(((e.key[:60], e.self_device_time_total / 1e3 / calls)
+                               for e in on_card), key=lambda kv: -kv[1])[:4]}
 
 
 def wall_s(fn) -> float:
@@ -157,6 +206,11 @@ def run_ensemble(params, yy0, yp0, device, tout, dtype=torch.float64):
     st = ensemble_init(roberts_factory, params, yy0, yp0, device=device, dtype=dtype)
     tol = tol_sv(1e-4, ATOL, device=device, dtype=dtype)
     return make_ensemble_solve(roberts_factory)(st, params, tol, tout)
+
+
+def on_card(params, dtype=torch.float64) -> torch.Tensor:
+    """``params`` [B, P] as the fused entry point takes them without a copy."""
+    return torch.as_tensor(params, dtype=dtype, device="cuda").contiguous()
 
 
 def fused_fn(device, dtype=torch.float64, budget=None):
@@ -230,8 +284,11 @@ def phase_build() -> None:
     emit("build", seconds=time.perf_counter() - t0, cached=lu["cached"] and fused["cached"],
          small_lu_seconds=lu["seconds"], library=lu["path"], small_lu_n3_ptxas=lu_ptxas)
     summary = _build.ptxas_summary(fused["log"])
+    separate_pow = [k for k in summary if "torch_pow" in k]
     emit("fused_build", seconds=fused["seconds"], cached=fused["cached"], library=fused["path"],
+         flags=list(fused_solve.BUILD_FLAGS), separately_compiled_pow=separate_pow,
          ptxas={k: v for k, v in summary.items() if "fused" in k or "ida" in k})
+    check(not separate_pow, f"a pow compiled apart is linked into the solve: {separate_pow}")
 
 
 def lu_bound_ms(nbytes: int) -> float:
@@ -304,28 +361,39 @@ def phase_kernels() -> dict:
         "solve": kernel_device_ms([lambda g=g, y=y: small_lu.lu_solve(g, y)
                                    for g, y in zip(f_sets, b_sets)], 4, "solve_kernel"),
     }
-    del a_sets, b_sets, f_sets
-    # the library yardstick (never called by the port): the same batch, batch-leading
+    # the library yardstick (never called by the port): the same batch,
+    # batch-leading; its device time cold by the same protocol (16 input sets
+    # in turn), and its back-to-back CUDA-event time under its own name
     a_lead = a.permute(2, 0, 1).contiguous()
     b_lead = b.t().contiguous().unsqueeze(-1)
     lu_l, piv_l, _ = torch.linalg.lu_factor_ex(a_lead)
-    lib_ms = {
+    lib_wrapper_ms = {
         "factor": cuda_ms(lambda: torch.linalg.lu_factor_ex(a_lead), 200),
         "solve": cuda_ms(lambda: torch.linalg.lu_solve(lu_l, piv_l, b_lead), 200),
     }
+    a_lead_sets = [x.permute(2, 0, 1).contiguous() for x in a_sets]
+    b_lead_sets = [y.t().contiguous().unsqueeze(-1) for y in b_sets]
+    f_lead_sets = [torch.linalg.lu_factor_ex(x)[:2] for x in a_lead_sets]
+    lib_ms = {
+        "factor": call_device_ms([lambda x=x: torch.linalg.lu_factor_ex(x) for x in a_lead_sets], 4),
+        "solve": call_device_ms([lambda g=g, y=y: torch.linalg.lu_solve(g[0], g[1], y)
+                                 for g, y in zip(f_lead_sets, b_lead_sets)], 4),
+    }
+    del a_sets, b_sets, f_sets, a_lead_sets, b_lead_sets, f_lead_sets
     # bytes: each input read once, each output written once
     nbytes = {
         "factor": a.numel() * 8 + a.numel() * 8 + 3 * B * 4 + B * 4,
         "solve": a.numel() * 8 + 3 * B * 4 + b.numel() * 8 + b.numel() * 8,
     }
-    # "ms" is the kernel's own cold device time; the back-to-back CUDA-event
-    # time ("wrapper_ms") is paced by the wrapper's host work
+    # "ms" and "library_ms" are cold device times (profiler); the
+    # back-to-back CUDA-event times ("wrapper_ms", "library_wrapper_ms") are
+    # paced by the host work of each call
     times = {}
     for k in ("factor", "solve"):
         times[k] = {"ms": dev_ms[k], "wrapper_ms": (t[f"{k}_kernel_1"] + t[f"{k}_kernel_2"]) / 2,
                     "plain_ms": (t[f"{k}_plain_1"] + t[f"{k}_plain_2"]) / 2,
-                    "library_ms": lib_ms[k], "bound_ms": lu_bound_ms(nbytes[k]),
-                    "bound_by": "bytes"}
+                    "library_ms": lib_ms[k], "library_wrapper_ms": lib_wrapper_ms[k],
+                    "bound_ms": lu_bound_ms(nbytes[k]), "bound_by": "bytes"}
     emit("kernel_times", n=3, batch=B, dtype="float64", runs_ms=t, bytes=nbytes, **times)
     return {k: {"max_abs_err": errs[k], **times[k]} for k in errs}
 
@@ -483,18 +551,19 @@ def eager_stage(stage, st, params, tol, aux=None):
 def solve_ops(totals: dict) -> float:
     attempts = totals["nst"] + totals["netf"] + totals["ncfn"]
     return (attempts * OPS_PER["attempt"] + totals["nni"] * OPS_PER["newton"]
+            + max(totals["nni"] - attempts, 0) * OPS_PER["newton_more"]
             + totals["nje"] * OPS_PER["lsetup"] + totals["nst"] * OPS_PER["step"])
 
 
-def solve_bound(native, ops: float) -> tuple[float, str]:
-    """The least time for a launch's work: the state (batch-native, B lanes)
-    read and written once, with params, tolerances and tout read once, over
-    the memory rate, against the operations over the peak rate of the
-    dtype."""
-    bsz = native.tn.shape[-1]
-    nbytes = 2 * state_bytes(native) + bsz * (3 + 1 + 3 + 1) * native.phi.element_size()
+def solve_bound(st, ops: float) -> tuple[float, str]:
+    """The least time for a launch's work: the state (B lanes) read and
+    written once, with params read once (the tolerances and tout travel by
+    value), over the memory rate, against the operations over the peak rate
+    of the dtype."""
+    bsz = st.tn.shape[0]
+    nbytes = 2 * state_bytes(st) + bsz * 3 * st.phi.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[native.dtype] * 1e3
+    t_ops = ops / PEAK_FLOPS[st.dtype] * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
@@ -502,31 +571,63 @@ def counter_totals(st) -> dict:
     return {f: int(getattr(st, f).sum()) for f in COUNTERS}
 
 
-def bare_launch_ms(st0, params) -> float:
-    """CUDA-event time of one bare K2 launch (no clone, no layout moves) on
-    a fresh batch-native copy of ``st0``."""
-    native = fused_solve.native_clone(st0)
-    inputs = fused_solve.lane_inputs(native, torch.as_tensor(params, device="cuda").t(),
-                                     tol_sv(1e-4, ATOL, device="cuda"), TOUT, 3)
-    carry = fused_solve.new_carry(native.tn.shape[-1], native.dtype, native.phi.device, False)
+def shared_tol(n: int = 3, dtype=torch.float64):
+    return fused_solve.tol_inputs(tol_sv(1e-4, ATOL, device="cuda", dtype=dtype), n, 1, dtype,
+                                  torch.device("cuda"))
+
+
+def bare_launch_ms(st0, p_b) -> float:
+    """CUDA-event time of one bare K2 launch: the arguments are checked and
+    the result allocated before the first event, so the window holds the
+    launch alone."""
+    dst = fused_solve.empty_result(st0)
+    carry = fused_solve.new_carry(st0.tn.shape[0], st0.dtype, st0.phi.device, False)
+    go = fused_solve.prepare_launch("", st0, dst, p_b, shared_tol(), TOUT, carry, IdaOptions(),
+                                    0, None)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
     ev[0].record()
-    fused_solve.launch("", native, inputs, carry, IdaOptions(), 0, None)
+    go()
     ev[1].record()
     torch.cuda.synchronize()
     return ev[0].elapsed_time(ev[1])
 
 
+def solve_kernel_ptxas() -> dict:
+    """Registers, stack and spills of the f64 solve kernel (shared
+    tolerances) from the build's ptxas log."""
+    summary = _build.ptxas_summary(fused_solve.build()["log"])
+    # the f64, shared-tolerance instantiation: ...RealIdEE..., ...Lb0EE...
+    hits = {k: v for k, v in summary.items()
+            if "fused_solve_kernel" in k and "RealIdEE" in k and "Lb0E" in k}
+    check(len(hits) == 1, f"the f64 solve kernel's ptxas line: found {sorted(hits)} "
+                          f"among {sorted(k for k in summary if 'fused_solve_kernel' in k)}")
+    return next(iter(hits.values()))
+
+
+def warp_divergence(st) -> dict:
+    """How unevenly the lanes of a warp work, from the result's counters:
+    over each group of 32 consecutive lanes, the largest over the mean count
+    of attempts (nst + netf + ncfn) and of Newton iterations (nni); the
+    median and the worst group. A warp runs as long as its slowest lane."""
+    out = {}
+    for name, x in (("attempts", st.nst + st.netf + st.ncfn), ("nni", st.nni)):
+        g = x[: x.numel() // 32 * 32].reshape(-1, 32).double()
+        ratio = g.max(dim=1).values / g.mean(dim=1)
+        out[name] = {"median": float(ratio.median()), "worst": float(ratio.max())}
+    return out
+
+
 def phase_fused_slice(eager: dict) -> dict:
     params, yy0, yp0 = ensemble_inputs(B)
     st0 = ensemble_init(roberts_factory, params, yy0, yp0, device="cuda")
+    p_b = on_card(params)
     fn = fused_fn("cuda")
-    fn(st0, params, TOUT)  # warm-up
+    fn(st0, p_b, TOUT)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_solve.reset_launch_counts()
-    out = fn(st0, params, TOUT)
+    out = fn(st0, p_b, TOUT)
     torch.cuda.synchronize()
     launches = fused_solve.FUSED_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
@@ -539,28 +640,45 @@ def phase_fused_slice(eager: dict) -> dict:
     mismatch = [f for f in st._fields if isinstance(getattr(st, f), torch.Tensor)
                 and not same(getattr(st, f), getattr(est, f))]
     err = max_abs_diff(st, est)
+    # out of place: the input state still is the initial one
+    fresh = ensemble_init(roberts_factory, params, yy0, yp0, device="cuda")
+    input_changed = [f for f in st0._fields if isinstance(getattr(st0, f), torch.Tensor)
+                     and not same(getattr(st0, f), getattr(fresh, f))]
 
-    walls = [wall_s(lambda: fn(st0, params, TOUT)) for _ in range(3)]
+    walls = [wall_s(lambda: fn(st0, p_b, TOUT)) for _ in range(3)]
     wall = statistics.median(walls)
-    kernel_runs = [bare_launch_ms(st0, params) for _ in range(3)]
+    walls_numpy_params = [wall_s(lambda: fn(st0, params, TOUT)) for _ in range(3)]
+    kernel_runs = [bare_launch_ms(st0, p_b) for _ in range(3)]
     kernel_ms = statistics.median(kernel_runs)
     eager_walls = [wall_s(lambda: run_ensemble(params, yy0, yp0, "cuda", TOUT)) for _ in range(2)]
-    busy = device_busy(lambda: fn(st0, params, TOUT))
+    busy = device_busy(lambda: fn(st0, p_b, TOUT))
+    check(busy["device_events"] > 0, "the profiler recorded no device event of the fused call")
     totals = counter_totals(st)
-    bound, bound_by = solve_bound(to_native(st0), solve_ops(totals))
+    bound, bound_by = solve_bound(st0, solve_ops(totals))
+    occ = fused_solve.occupancy(torch.float64)
+    blocks = -(-B // occ["threads"])
+    slots = occ["blocks_per_sm"] * occ["sms"]
     emit("fused_slice", batch=B, tout=TOUT, dtype="float64", lanes_success=n_ok,
          istate_equal=same(istate, eistate), tret_equal=same(tret, etret),
          counters_equal=ok_counters, bitwise_equal=ok_fields, fields_differ=mismatch,
+         input_fields_changed=input_changed,
          max_abs_err=err, wall_s=wall, walls_s=walls, steps_per_s=totals["nst"] / wall,
+         walls_s_numpy_params=walls_numpy_params,
          kernel_ms=kernel_ms, kernel_runs_ms=kernel_runs, launches=launches,
          peak_mem_bytes=peak, eager_wall_s=eager["wall_s"],
          eager_walls_s_same_process=eager_walls, bound_ms=bound, bound_by=bound_by,
-         ops=solve_ops(totals), profiled=busy, **totals)
+         ops=solve_ops(totals), profiled=busy, device_events_per_call=busy["device_events"],
+         solve_kernel={**solve_kernel_ptxas(), **occ, "blocks": blocks, "block_slots": slots,
+                       "waves": blocks / slots},
+         warp_divergence=warp_divergence(st), **totals)
     check(n_ok == B, f"fused: {B - n_ok} lanes did not return SUCCESS")
     check(same(istate, eistate) and same(tret, etret), "fused istate/tret != eager")
     check(all(ok_counters.values()), f"fused counters != eager: {ok_counters}")
     check(all(ok_fields.values()), f"fused yy/yp/phi != eager: {ok_fields}")
+    check(not mismatch, f"fused state fields != eager: {mismatch}")
+    check(not input_changed, f"the fused solve changed its input state: {input_changed}")
     check(launches == 1, f"fused kernel launches {launches}")
+    check(occ["threads"] == BLOCK, f"the kernel's block is {occ['threads']} threads, not {BLOCK}")
     return {"launches": launches, "ms": kernel_ms, "plain_ms": eager["wall_s"] * 1e3,
             "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err}
 
@@ -585,12 +703,13 @@ def phase_fused_budgeted() -> dict:
     # the headline with budget 32: launches and wall through the entry point
     params, yy0, yp0 = ensemble_inputs(B)
     st0 = ensemble_init(roberts_factory, params, yy0, yp0, device="cuda")
+    p_b = on_card(params)
     fn = fused_fn("cuda", budget=32)
-    fn(st0, params, TOUT)
+    fn(st0, p_b, TOUT)
     fused_solve.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = fn(st0, params, TOUT)
+    out = fn(st0, p_b, TOUT)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"init": fused_solve.FUSED_INIT_LAUNCHES, "cont": fused_solve.FUSED_CONT_LAUNCHES}
@@ -598,25 +717,29 @@ def phase_fused_budgeted() -> dict:
 
     # launch by launch against the plain version, the eager
     # solve(max_attempts=32) and its resumes on the same card: after each
-    # launch the state and the 9-field carry are bit for bit the eager
-    # call's; each launch's CUDA-event time beside the eager call's wall
-    p = torch.as_tensor(params, device="cuda").t().contiguous()
+    # launch (K3 out of place, K4 in place on its result) the state and the
+    # 9-field carry are bit for bit the eager call's; each launch's
+    # CUDA-event time beside the eager call's wall
+    p = p_b.t().contiguous()
     prob = roberts_factory(p)
-    native = fused_solve.native_clone(st0)
-    inputs = fused_solve.lane_inputs(native, p, tol_sv(1e-4, ATOL, device="cuda"), TOUT, 3)
-    tol_n = TolControl(inputs[1], inputs[2])
-    carry = fused_solve.new_carry(B, native.dtype, native.phi.device, True)
     eager_out = (to_native(st0), None, None, None)
+    inputs = fused_solve.lane_inputs(eager_out[0], p, tol_sv(1e-4, ATOL, device="cuda"), TOUT, 3)
+    tol_n = TolControl(inputs[1], inputs[2])
+    dst = fused_solve.empty_result(st0)
+    carry = fused_solve.new_carry(B, dst.dtype, dst.phi.device, True)
+    tol_in = shared_tol()
     runs = []
 
     def step(resume: bool) -> torch.Tensor:
         nonlocal eager_out
         kind = "cont" if resume else "init"
-        ops_before = solve_ops(counter_totals(native))
+        ops_before = solve_ops(counter_totals(dst)) if resume else 0
+        go = fused_solve.prepare_launch(kind, dst if resume else st0, dst, p_b, tol_in, TOUT,
+                                        carry, IdaOptions(), 0, 32)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
         ev[0].record()
-        istate = fused_solve.launch(kind, native, inputs, carry, IdaOptions(), 0, 32)
+        istate = go()
         ev[1].record()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -625,9 +748,10 @@ def phase_fused_budgeted() -> dict:
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         eager_carry = dict(zip(fused_solve.CARRY_FIELDS, eager_out[3]))
+        native = to_native(dst)
         diff = first_difference(native, eager_out[0], carry, eager_carry)
         runs.append({"kind": kind, "ms": ev[0].elapsed_time(ev[1]), "plain_ms": plain_ms,
-                     "ops": solve_ops(counter_totals(native)) - ops_before, "first_difference": diff,
+                     "ops": solve_ops(counter_totals(dst)) - ops_before, "first_difference": diff,
                      "max_abs_err": max_abs_diff(native, eager_out[0], carry, eager_carry)})
         check(diff is None, f"budget 32, launch {len(runs)} ({kind}): {diff} != the eager call's")
         return istate
@@ -639,8 +763,8 @@ def phase_fused_budgeted() -> dict:
     final_ok = not differ and same(out[1], etret) and same(out[2], eistate)
     init, cont = runs[0], runs[1:]
     ops_cont = statistics.mean(r["ops"] for r in cont)
-    bound_init, by_init = solve_bound(native, init["ops"])
-    bound_cont, by_cont = solve_bound(native, ops_cont)
+    bound_init, by_init = solve_bound(st0, init["ops"])
+    bound_cont, by_cont = solve_bound(st0, ops_cont)
     emit("fused_budgeted_headline", batch=B, attempt_budget=32, wall_s=wall, launches=launches,
          per_launch=runs, entry_point_equals_eager_budgeted=final_ok, fields_differ=differ,
          bound_init_ms=bound_init, bound_cont_ms=bound_cont)

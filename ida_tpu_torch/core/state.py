@@ -17,6 +17,7 @@ import torch
 
 from .. import constants as C
 from ..problem import IdaProblem
+from ..utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,14 +161,16 @@ def init_state(
     yy0,
     yp0,
     *,
-    device,
+    device=None,
     dtype: torch.dtype = torch.float64,
 ) -> IdaState:
     """Initial state (reference ``Ida::new``, src/lib.rs:278-405): phi[0] = y0,
     phi[1] = y'0, defaults elsewhere. ``yy0``/``yp0`` are [N] for one lane or
     [*batch, N] for a batch-leading ensemble (every field then gains the
     leading ``batch`` axes). Only the dense/full path is ported, so unlike
-    the reference no option changes a shape and none is taken."""
+    the reference no option changes a shape and none is taken. ``device``
+    None is the current CUDA device (raises when there is none)."""
+    device = resolve_device(device)
     n = problem.n
     yy0 = torch.as_tensor(yy0, dtype=dtype, device=device)
     yp0 = torch.as_tensor(yp0, dtype=dtype, device=device)

@@ -1,5 +1,5 @@
 // The whole IDA solve in one kernel for Hopper (sm_90a): one thread per
-// ensemble lane, batch-last state, the attempt loop on the device.
+// ensemble lane, the attempt loop on the device.
 //
 // Replaces the Pallas TPU kernels of ida_tpu/ops/fused_solve.py:
 //   K2  make_fused_solve -> kern (the whole core.solve per 1024-lane tile),
@@ -11,24 +11,42 @@
 // the whole-solve kernel calls, alone.
 //
 // The TPU kernel was float32 only and packed the state into two [rows, TILE]
-// buffers; this one reads the batch-native IdaState fields where they lie,
-// in their own dtypes (f64 or f32 reals, int32 order/status fields, int64
-// counters), and updates them in place (the wrapper hands it clones).
+// buffers. The solve kernel here reads the IdaState fields where the entry
+// point has them, batch-leading ([B, ...]) and in their own dtypes (f64 or
+// f32 reals, int32 order/status fields, int64 counters), and writes a
+// batch-leading result out of place (K2, K3) or in place (K4), so the
+// wrapper moves no layout around the launch; rtol, atol and tout, shared by
+// every lane, travel by value in the argument struct. The stage kernels keep
+// the batch-native layout ([..., B]) of the eager core they are held against.
 //
 // What bounds it: operations, not bytes. A lane's state (about 0.9 KB in
 // f64) is read once and written once, while its solve is tens of thousands
 // of dependent floating-point operations (a few hundred per step attempt,
-// about a hundred per Newton iteration). In practice the chain of attempts
-// waits on latency: the lane's state is indexed by its order (phi[kk]), so
-// it lives in local memory (L1, then L2), and the lanes of a warp diverge.
-// The design keeps one thread per lane, 128 threads a block, so
-// consecutive lanes load and store consecutive addresses; registers, stack
-// and spills per entry point are in the nvcc log beside the library
-// (-Xptxas -v).
+// about a hundred per Newton iteration, with f64 divisions, sqrt and pow).
+// Each lane's chain is serial, no operation may be fused into a
+// multiply-add, and f64 division, sqrt and pow are long instruction
+// sequences, so what the kernel spends is instructions of one thread, not
+// memory traffic. The design keeps that count down:
+// * the state never goes through local memory: the rows indexed by the
+//   run-time order live in dynamic shared memory as [row][thread]
+//   (6 * (N + 5) reals a thread: 24 KB a block of 64 at N = 3 in f64), the
+//   rest in registers (every device function is inlined, ida_lane.cuh);
+// * __launch_bounds__(IDA_THREADS, IDA_MIN_BLOCKS) = (64, 4): the f64
+//   kernel needs 226 registers to hold a lane without spilling, which allows
+//   256 threads an SM. Measured on an H100 (65,536 lanes, f64), every
+//   spill-free shape (blocks of 32, 64, 128, 256) takes 0.99-1.03 ms, while
+//   capping the registers for more warps an SM costs more in spill traffic
+//   than the warps hide: 1.15 ms at 168 registers (3 blocks of 128), 1.2 ms
+//   at 128 (4 blocks of 128, one wave). Among the spill-free shapes,
+//   blocks of 64 spread a small batch over more SMs than larger blocks do;
+// * pow and sqrt are inlined: the file is one translation unit built with
+//   nvcc's default -fmad=true, as PyTorch's kernels are, and the solve's own
+//   arithmetic keeps one rounding per operation through ida::Real
+//   (rounded.cuh).
+// Registers, stack and spills per entry point are in the nvcc log beside the
+// library (-Xptxas -v); fused_solve_occupancy reports the resident blocks.
 //
-// Parity with the eager port on the card is bit for bit (see ida_lane.cuh):
-// build with -fmad=false and -dc, and link with torch_pow.cu built apart
-// with -fmad=true.
+// Parity with the eager port on the card is bit for bit (see ida_lane.cuh).
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError(); none allocates or synchronizes. `model` selects the
@@ -43,7 +61,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+using ida::kThreads;
+// what one block may ask for (the SM's 228 KB less 1 KB a block)
+constexpr size_t kMaxSharedBytes = 227 * 1024;
 
 // Robertson kinetics, ida_tpu_torch/models/roberts.py (params [k1, k2, k3]
 // per lane), in the eager code's order of operations.
@@ -106,40 +126,58 @@ __device__ __forceinline__ void store_carry(const ida::CarryRefs& r, long long b
   ((T*)r.itgt)[b] = c.itgt;
 }
 
+}  // namespace
+
+// The arguments of one launch of the whole solve (ops/fused_solve.py
+// SolveArgs mirrors it): the batch-leading state read (`in`) and written
+// (`out`, the same table for a launch in place), params [B, P], the
+// tolerances and tout, the carry, the options, the batch size and the
+// attempt budget of a budgeted launch.
+struct IdaSolveArgs {
+  ida::StateRefs in, out;
+  const void* params;
+  ida::TolArgs tol;
+  ida::CarryRefs carry;
+  ida::Opts opts;
+  long long B;
+  int budget;
+};
+
+namespace {
+
 // K2 (budget INT_MAX, resume 0), K3 (budget, resume 0), K4 (budget, resume 1)
-template <typename T, class M>
-__global__ void __launch_bounds__(kThreads)
-fused_solve_kernel(ida::StateRefs s, const void* params, const void* rtol, const void* atol,
-                   const void* tout, ida::CarryRefs carry, ida::Opts opts, long long B,
-                   int budget, int resume) {
+template <typename T, class M, bool LaneTol>
+__global__ void __launch_bounds__(IDA_THREADS, IDA_MIN_BLOCKS)
+fused_solve_kernel(const __grid_constant__ IdaSolveArgs a, int budget, int resume) {
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  if (b >= a.B) return;
   ida::Lane<T, M::N> L;
   ida::Ctx<T, M> c;
   ida::Carry<T> cr;
-  ida::load_lane<T, M::N>(s, b, B, L);
-  ida::load_ctx<T, M>(params, rtol, atol, tout, opts, b, B, c);
+  ida::load_lane<T, M::N, ida::BatchLeading>(a.in, a.out, b, a.B, L);
+  ida::load_ctx<T, M, LaneTol>(a.params, a.tol, a.opts, b, c);
   if (resume) {
-    load_carry<T>(carry, b, cr);
+    load_carry<T>(a.carry, b, cr);
   } else {
     ida::solve_prologue<T, M>(L, c, cr);
   }
   for (int n = 0; n < budget && cr.istate == ida::CONTINUE; ++n)
     ida::attempt_loop_body<T, M>(L, c, cr);
   ida::solve_epilogue<T, M>(L, cr);
-  ida::store_lane<T, M::N>(s, b, B, L);
-  store_carry<T>(carry, b, cr);
+  ida::store_lane<T, M::N, ida::BatchLeading>(a.in, a.out, b, a.B, L);
+  store_carry<T>(a.carry, b, cr);
 }
 
-// K5: the stages. aux_f [*, B] (T) and aux_i [*, B] (int32) carry each
-// stage's extra inputs and outputs, in the slots that
-// ida_tpu_torch/ops/fused_stages.py STAGES names.
+// K5: the stages, in place on a batch-native state. aux_f [*, B] (T) and
+// aux_i [*, B] (int32) carry each stage's extra inputs and outputs, in the
+// slots that ida_tpu_torch/ops/fused_stages.py STAGES names.
 enum Stage { SET_COEFFS, NLS, ERROR_TEST, COMPLETE_STEP, ATTEMPT, PROLOGUE, STOPTEST, GETSOL };
 
 template <typename T, class M, int S>
-__global__ void __launch_bounds__(kThreads)
-fused_stage_kernel(ida::StateRefs s, const void* params, const void* rtol, const void* atol,
-                   const void* tout, void* aux_f, void* aux_i, ida::Opts opts, long long B) {
+__global__ void __launch_bounds__(IDA_THREADS)
+fused_stage_kernel(const __grid_constant__ ida::StateRefs s, const void* params, const void* rtol,
+                   const void* atol, const void* tout, void* aux_f, void* aux_i, ida::Opts opts,
+                   long long B) {
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   T* af = (T*)aux_f;
@@ -148,8 +186,8 @@ fused_stage_kernel(ida::StateRefs s, const void* params, const void* rtol, const
 #define AI(k) ai[(long long)(k) * B + b]
   ida::Lane<T, M::N> L;
   ida::Ctx<T, M> c;
-  ida::load_lane<T, M::N>(s, b, B, L);
-  ida::load_ctx<T, M>(params, rtol, atol, tout, opts, b, B, c);
+  ida::load_lane<T, M::N, ida::BatchLast>(s, s, b, B, L);
+  ida::load_ctx_native<T, M>(params, rtol, atol, tout, opts, b, B, c);
   if (S == SET_COEFFS) {
     AF(0) = ida::set_coeffs<T, M>(L);
     ida::predict<T, M>(L);
@@ -188,20 +226,39 @@ fused_stage_kernel(ida::StateRefs s, const void* params, const void* rtol, const
   }
 #undef AF
 #undef AI
-  ida::store_lane<T, M::N>(s, b, B, L);
+  ida::store_lane<T, M::N, ida::BatchLast>(s, s, b, B, L);
 }
 
 inline unsigned grid_for(long long B) { return (unsigned)((B + kThreads - 1) / kThreads); }
 
-template <typename T>
-int launch_solve(const ida::StateRefs* s, const void* params, const void* rtol, const void* atol,
-                 const void* tout, const ida::CarryRefs* carry, const ida::Opts* opts, int model,
-                 long long B, int budget, int resume, void* stream) {
-  if (model != 0 || budget < 1) return (int)cudaErrorInvalidValue;
-  if (B <= 0) return (int)cudaSuccess;
-  fused_solve_kernel<T, Roberts><<<grid_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      *s, params, rtol, atol, tout, *carry, *opts, B, budget, resume);
+// Let `kernel` use `bytes` of dynamic shared memory; an error when one block
+// of this model and dtype does not fit an SM.
+template <class K>
+int allow_shared(K kernel, size_t bytes) {
+  if (bytes > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+template <typename T, bool LaneTol>
+int launch_solve_as(const IdaSolveArgs& a, int budget, int resume, void* stream) {
+  constexpr size_t shared = ida::Hist<T, Roberts::N>::kBytes;
+  auto kernel = fused_solve_kernel<T, Roberts, LaneTol>;
+  const int err = allow_shared(kernel, shared);
+  if (err != (int)cudaSuccess) return err;
+  kernel<<<grid_for(a.B), kThreads, shared, (cudaStream_t)stream>>>(a, budget, resume);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_solve(const IdaSolveArgs* a, int model, int budget, int resume, void* stream) {
+  static_assert(Roberts::N <= ida::MAXN, "a by-value atol carries MAXN components");
+  if (model != 0 || budget < 1) return (int)cudaErrorInvalidValue;
+  if ((a->tol.rtol_lanes == nullptr) != (a->tol.atol_lanes == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (a->B <= 0) return (int)cudaSuccess;
+  return a->tol.rtol_lanes ? launch_solve_as<T, true>(*a, budget, resume, stream)
+                           : launch_solve_as<T, false>(*a, budget, resume, stream);
 }
 
 template <typename T, int S>
@@ -210,46 +267,68 @@ int launch_stage(const ida::StateRefs* s, const void* params, const void* rtol, 
                  long long B, void* stream) {
   if (model != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaSuccess;
-  fused_stage_kernel<T, Roberts, S><<<grid_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+  constexpr size_t shared = ida::Hist<T, Roberts::N>::kBytes;
+  auto kernel = fused_stage_kernel<T, Roberts, S>;
+  const int err = allow_shared(kernel, shared);
+  if (err != (int)cudaSuccess) return err;
+  kernel<<<grid_for(B), kThreads, shared, (cudaStream_t)stream>>>(
       *s, params, rtol, atol, tout, aux_f, aux_i, *opts, B);
   return (int)cudaGetLastError();
 }
+
+// The solve kernel's occupancy on the current device: resident blocks an SM
+// at its registers and shared memory, and the SM count.
+template <typename T>
+int solve_occupancy(int* blocks_per_sm, int* shared_bytes, int* threads, int* sms) {
+  constexpr size_t shared = ida::Hist<T, Roberts::N>::kBytes;
+  auto kernel = fused_solve_kernel<T, Roberts, false>;
+  int err = allow_shared(kernel, shared);
+  if (err != (int)cudaSuccess) return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads,
+                                                           shared);
+  if (err != (int)cudaSuccess) return err;
+  int device = 0;
+  err = (int)cudaGetDevice(&device);
+  if (err != (int)cudaSuccess) return err;
+  *shared_bytes = (int)shared;
+  *threads = kThreads;
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
+using f64 = ida::Real<double>;
+using f32 = ida::Real<float>;
 
 }  // namespace
 
 extern "C" {
 
-#define IDA_SOLVE_ARGS                                                                      \
-  const ida::StateRefs *s, const void *params, const void *rtol, const void *atol,         \
-      const void *tout, const ida::CarryRefs *carry, const ida::Opts *opts, int model,      \
-      long long B
-#define IDA_SOLVE_ENTRY(dt, T)                                                              \
-  int fused_solve_##dt(IDA_SOLVE_ARGS, void* stream) {                                      \
-    return launch_solve<T>(s, params, rtol, atol, tout, carry, opts, model, B, INT_MAX, 0,  \
-                           stream);                                                         \
+#define IDA_SOLVE_ENTRY(dt)                                                                 \
+  int fused_solve_##dt(const IdaSolveArgs* a, int model, void* stream) {                    \
+    return launch_solve<dt>(a, model, INT_MAX, 0, stream);                                  \
   }                                                                                         \
-  int fused_solve_init_##dt(IDA_SOLVE_ARGS, int budget, void* stream) {                     \
-    return launch_solve<T>(s, params, rtol, atol, tout, carry, opts, model, B, budget, 0,   \
-                           stream);                                                         \
+  int fused_solve_init_##dt(const IdaSolveArgs* a, int model, void* stream) {               \
+    return launch_solve<dt>(a, model, a->budget, 0, stream);                                \
   }                                                                                         \
-  int fused_solve_cont_##dt(IDA_SOLVE_ARGS, int budget, void* stream) {                     \
-    return launch_solve<T>(s, params, rtol, atol, tout, carry, opts, model, B, budget, 1,   \
-                           stream);                                                         \
+  int fused_solve_cont_##dt(const IdaSolveArgs* a, int model, void* stream) {               \
+    return launch_solve<dt>(a, model, a->budget, 1, stream);                                \
+  }                                                                                         \
+  int fused_solve_occupancy_##dt(int* blocks_per_sm, int* shared_bytes, int* threads,       \
+                                 int* sms) {                                                \
+    return solve_occupancy<dt>(blocks_per_sm, shared_bytes, threads, sms);                  \
   }
 
-IDA_SOLVE_ENTRY(f64, double)
-IDA_SOLVE_ENTRY(f32, float)
+IDA_SOLVE_ENTRY(f64)
+IDA_SOLVE_ENTRY(f32)
 
-#define IDA_STAGE_ENTRY(name, S, dt, T)                                                     \
+#define IDA_STAGE_ENTRY(name, S, dt)                                                        \
   int fused_stage_##name##_##dt(const ida::StateRefs* s, const void* params,                \
                                 const void* rtol, const void* atol, const void* tout,       \
                                 void* aux_f, void* aux_i, const ida::Opts* opts, int model, \
                                 long long B, void* stream) {                                \
-    return launch_stage<T, S>(s, params, rtol, atol, tout, aux_f, aux_i, opts, model, B,    \
-                              stream);                                                      \
+    return launch_stage<dt, S>(s, params, rtol, atol, tout, aux_f, aux_i, opts, model, B,   \
+                               stream);                                                     \
   }
-#define IDA_STAGE_BOTH(name, S) \
-  IDA_STAGE_ENTRY(name, S, f64, double) IDA_STAGE_ENTRY(name, S, f32, float)
+#define IDA_STAGE_BOTH(name, S) IDA_STAGE_ENTRY(name, S, f64) IDA_STAGE_ENTRY(name, S, f32)
 
 IDA_STAGE_BOTH(set_coeffs, SET_COEFFS)
 IDA_STAGE_BOTH(nls, NLS)

@@ -1,20 +1,39 @@
 // The IDA solve of ONE lane (one DAE instance) as device code: the port's
 // eager routines (ida_tpu_torch/core/*.py), each written as a __device__
 // function of the same name and in the same order of operations, for a lane
-// whose whole state lives in a struct held by its thread.
+// whose state is held by its thread.
+//
+// Where the state lives (an H100 SM has 64 K registers and 227 KB of shared
+// memory, and local memory falls through a small L1 to L2):
+// * the order-indexed history (phi, psi, alpha, beta, sigma, gamma: 6 rows
+//   each, indexed by the run-time order kk) lies in dynamic shared memory as
+//   [row][thread], so a warp reads one row as 32 consecutive words, without
+//   bank conflicts even when its lanes are at different orders;
+// * the vectors and scalars every attempt touches are members of Lane, with
+//   compile-time indices only; every function here is inlined into its
+//   kernel, so they stay in registers;
+// * the cold fields (hin, hmax_inv, epcon, tstop, h0u, tretlast, tolsf,
+//   toutc, taskc) stay in device memory and are read and written where they
+//   are used; the seven int64 counters are carried as this launch's int32
+//   increments and added to the field at the store.
 //
 // Parity with the eager port on the card is bit for bit, so:
-// * every operation rounds once, as one torch op does: build with
-//   -fmad=false (no multiply-add is contracted), keep -prec-div and
-//   -prec-sqrt at their defaults, never --use_fast_math;
+// * T is ida::Real (rounded.cuh): every + - * / rounds once, as one torch
+//   op does, through intrinsics the compiler never contracts, while the
+//   file is built with nvcc's default -fmad=true so that pow and sqrt are
+//   torch.pow's and torch.sqrt's; -prec-div and -prec-sqrt stay at their
+//   defaults, never --use_fast_math;
 // * sums run left to right over all rows, adding the zeros of masked rows
 //   (utils/numerics.py sum0), and masks multiply (x * 1.0, x * 0.0) where the
-//   eager code multiplies;
+//   eager code multiplies: a masked row still adds its signed zero, or its
+//   NaN when the row holds an inf, so predict and get_solution walk all six
+//   rows. Work whose result is discarded is skipped: set_coeffs computes
+//   rows 0..kk of its recurrences and none when nothing is stored (each row
+//   depends on lower rows only), complete_step leaves the rows above
+//   kused + 1 alone;
 // * `c / t` in torch is `reciprocal(t) * c`; every such numerator on this
 //   path is a power of two (1, 0.5, 2, -1), so a plain division rounds the
 //   same; `restore` multiplies by the rounded 1/beta as the eager code does;
-// * sqrt is CUDA's, as torch.sqrt calls it; pow is torch_pow, CUDA's pow
-//   compiled apart with -fmad=true as torch.pow is (torch_pow.cu);
 // * Python constants enter in double and are rounded to T once, as a torch
 //   op with a Python scalar does (e.g. 100.0 * eps is a double product).
 // The eager loops compute some values for lanes that are masked out (the
@@ -29,16 +48,26 @@
 
 #include <cuda_runtime.h>
 
+#include "rounded.cuh"
 #include "small_lu.cuh"
 
-// pow as torch.pow rounds it on the card; defined in torch_pow.cu, which is
-// compiled on its own with -fmad=true and linked in
-__device__ double torch_pow(double base, double exponent);
-__device__ float torch_pow(float base, float exponent);
+// threads a block, and the resident blocks an SM the solve kernel is
+// compiled for (its register cap is 65,536 / (threads * blocks), at most 255)
+#ifndef IDA_THREADS
+#define IDA_THREADS 64
+#endif
+#ifndef IDA_MIN_BLOCKS
+#define IDA_MIN_BLOCKS 4
+#endif
+
+// the block's dynamic shared memory: the history rows, [row][thread]
+extern __shared__ __align__(16) unsigned char ida_shared[];
 
 namespace ida {
 
+constexpr int kThreads = IDA_THREADS;
 constexpr int MXORDP1 = 6;  // rows of phi (constants.py)
+constexpr int MAXN = 16;    // most components a by-value atol carries
 
 // status codes (ida_tpu_torch/constants.py)
 constexpr int CONTINUE = 99, SUCCESS = 0, TSTOP_RETURN = 1;
@@ -62,8 +91,12 @@ struct Opts {
 
 // torch.finfo(dtype).eps
 template <typename T> struct Eps;
-template <> struct Eps<double> { static constexpr double v = 2.220446049250313e-16; };
-template <> struct Eps<float> { static constexpr double v = 1.1920928955078125e-07; };
+template <> struct Eps<Real<double>> { static constexpr double v = 2.220446049250313e-16; };
+template <> struct Eps<Real<float>> { static constexpr double v = 1.1920928955078125e-07; };
+
+// sum of 1/(i+1) for i < K, left to right in double (coeffs.py alphas)
+template <int K> struct Harmonic { static constexpr double v = Harmonic<K - 1>::v + 1.0 / K; };
+template <> struct Harmonic<0> { static constexpr double v = 0.0; };
 
 // torch.maximum / torch.minimum: NaN propagates
 template <typename T> __device__ __forceinline__ T tmax(T a, T b) {
@@ -89,13 +122,26 @@ template <typename T> __device__ __forceinline__ T tsign(T a) {
   X(hmax_inv) X(epcon) X(tstop) X(tstop_set) X(nst) X(nre) X(ncfn) X(netf)      \
   X(nni) X(nsetups) X(nje) X(toutc) X(taskc) X(status)
 
-// Device pointers to the batch-native fields ([..., B], B last): reals in
-// the state's dtype, kk..ns/piv/taskc/status int32, counters int64,
-// tstop_set bool as uint8. Passed to a kernel by value.
+// Device pointers to the state's fields: reals in the state's dtype,
+// kk..ns/piv/taskc/status int32, counters int64, tstop_set bool as uint8.
+// The layout (which axis is the batch) is a template argument of the code
+// that reads them.
 struct StateRefs {
 #define IDA_PTR(name) void* name;
   IDA_STATE_FIELDS(IDA_PTR)
 #undef IDA_PTR
+};
+
+// Where a lane's row of a field with `rows` rows a lane lies.
+struct BatchLeading {  // [B, rows]: the entry points' layout
+  __device__ static __forceinline__ long long at(int row, int rows, long long b, long long B) {
+    return b * rows + row;
+  }
+};
+struct BatchLast {  // [rows, B]: the batch-native layout of the eager core
+  __device__ static __forceinline__ long long at(int row, int rows, long long b, long long B) {
+    return (long long)row * B + b;
+  }
 };
 
 // The attempt loop's carry (core/solve.py _Loop minus the state), [B] each.
@@ -112,22 +158,49 @@ struct CarryRefs {
   void* itgt;     // T
 };
 
+// The history rows of one lane: a column of the block's [kRows][kThreads]
+// array in shared memory.
+template <typename T, int N>
+struct Hist {
+  static constexpr int kPsi = MXORDP1 * N, kAlpha = kPsi + MXORDP1, kBeta = kAlpha + MXORDP1;
+  static constexpr int kSigma = kBeta + MXORDP1, kGamma = kSigma + MXORDP1;
+  static constexpr int kRows = kGamma + MXORDP1;
+  static constexpr size_t kBytes = sizeof(T) * kRows * kThreads;
+  T* col;
+  __device__ __forceinline__ T& row(int r) const { return col[r * kThreads]; }
+  __device__ __forceinline__ T& phi(int j, int n) const { return row(j * N + n); }
+  __device__ __forceinline__ T& psi(int i) const { return row(kPsi + i); }
+  __device__ __forceinline__ T& alpha(int i) const { return row(kAlpha + i); }
+  __device__ __forceinline__ T& beta(int i) const { return row(kBeta + i); }
+  __device__ __forceinline__ T& sigma(int i) const { return row(kSigma + i); }
+  __device__ __forceinline__ T& gamma(int i) const { return row(kGamma + i); }
+};
+
 // One lane's state.
 template <typename T, int N>
 struct Lane {
-  T phi[MXORDP1][N];
-  T psi[MXORDP1], alpha[MXORDP1], beta[MXORDP1], sigma[MXORDP1], gamma[MXORDP1];
+  Hist<T, N> h;
   T ee[N], yy[N], yp[N], yypredict[N], yppredict[N], ewt[N], savres[N];
-  T tn, hh, hused, rr, h0u, tretlast, tolsf;
+  T tn, hh, hused, rr;
   int kk, kused, knew, phase, ns;
   T cj, cjlast, cjold, cjratio, ss, oldnrm, eps_newt, toldel;
   T lu[N][N];
   int piv[N];
-  T hin, hmax_inv, epcon, tstop;
   bool tstop_set;
-  long long nst, nre, ncfn, netf, nni, nsetups, nje;
-  T toutc;
-  int taskc, status;
+  // the counters as this launch's increments; `stepped`: nst > 0 at the load
+  int nst, nre, ncfn, netf, nni, nsetups, nje;
+  bool stepped;
+  // the cold fields, in device memory (the table the launch writes)
+  const StateRefs* io;
+  long long b;
+#define IDA_COLD(name, ty) \
+  __device__ __forceinline__ ty& name() const { return ((ty*)io->name)[b]; }
+  IDA_COLD(hin, T) IDA_COLD(hmax_inv, T) IDA_COLD(epcon, T) IDA_COLD(tstop, T)
+  IDA_COLD(h0u, T) IDA_COLD(tretlast, T) IDA_COLD(tolsf, T) IDA_COLD(toutc, T)
+  IDA_COLD(taskc, int) IDA_COLD(status, int)
+#undef IDA_COLD
+  // nst == 0, of the true total
+  __device__ __forceinline__ bool no_step_yet() const { return !stepped && nst == 0; }
 };
 
 // The lane's problem data: parameters, tolerances, tout, options.
@@ -151,74 +224,129 @@ struct Carry {
 
 // ---------------------------------------------------------------- I/O
 
-template <typename T, int N>
-__device__ __forceinline__ void load_lane(const StateRefs& s, long long b, long long B,
-                                          Lane<T, N>& L) {
-#define LD_SCALAR(name, ty) L.name = ((const ty*)s.name)[b];
+// Load lane b of `in` (layout Lay). The cold fields are read and written
+// through `out` from here on, so they are copied there first when the
+// launch is out of place.
+template <typename T, int N, class Lay>
+__device__ __forceinline__ void load_lane(const StateRefs& in, const StateRefs& out, long long b,
+                                          long long B, Lane<T, N>& L) {
+  using H = Hist<T, N>;
+  L.h.col = (T*)ida_shared + threadIdx.x;
+  L.io = &out;
+  L.b = b;
+#define LD_SCALAR(name, ty) L.name = ((const ty*)in.name)[b];
 #define LD_VEC(name, K) \
-  for (int i = 0; i < K; ++i) L.name[i] = ((const T*)s.name)[(long long)i * B + b];
-  for (int j = 0; j < MXORDP1; ++j)
-    for (int i = 0; i < N; ++i) L.phi[j][i] = ((const T*)s.phi)[(long long)(j * N + i) * B + b];
-  LD_VEC(psi, MXORDP1) LD_VEC(alpha, MXORDP1) LD_VEC(beta, MXORDP1) LD_VEC(sigma, MXORDP1)
-  LD_VEC(gamma, MXORDP1)
+  _Pragma("unroll") for (int i = 0; i < K; ++i) \
+    L.name[i] = ((const T*)in.name)[Lay::at(i, K, b, B)];
+#define LD_HIST(name, K) \
+  _Pragma("unroll") for (int i = 0; i < K; ++i) \
+    L.h.name(i) = ((const T*)in.name)[Lay::at(i, K, b, B)];
+#pragma unroll
+  for (int r = 0; r < MXORDP1 * N; ++r)
+    L.h.row(r) = ((const T*)in.phi)[Lay::at(r, MXORDP1 * N, b, B)];
+  LD_HIST(psi, MXORDP1) LD_HIST(alpha, MXORDP1) LD_HIST(beta, MXORDP1) LD_HIST(sigma, MXORDP1)
+  LD_HIST(gamma, MXORDP1)
   LD_VEC(ee, N) LD_VEC(yy, N) LD_VEC(yp, N) LD_VEC(yypredict, N) LD_VEC(yppredict, N)
   LD_VEC(ewt, N) LD_VEC(savres, N)
-  LD_SCALAR(tn, T) LD_SCALAR(hh, T) LD_SCALAR(hused, T) LD_SCALAR(rr, T) LD_SCALAR(h0u, T)
-  LD_SCALAR(tretlast, T) LD_SCALAR(tolsf, T)
+  LD_SCALAR(tn, T) LD_SCALAR(hh, T) LD_SCALAR(hused, T) LD_SCALAR(rr, T)
   LD_SCALAR(kk, int) LD_SCALAR(kused, int) LD_SCALAR(knew, int) LD_SCALAR(phase, int)
   LD_SCALAR(ns, int)
   LD_SCALAR(cj, T) LD_SCALAR(cjlast, T) LD_SCALAR(cjold, T) LD_SCALAR(cjratio, T)
   LD_SCALAR(ss, T) LD_SCALAR(oldnrm, T) LD_SCALAR(eps_newt, T) LD_SCALAR(toldel, T)
+#pragma unroll
   for (int i = 0; i < N; ++i)
-    for (int j = 0; j < N; ++j) L.lu[i][j] = ((const T*)s.lu)[(long long)(i * N + j) * B + b];
-  for (int i = 0; i < N; ++i) L.piv[i] = ((const int*)s.piv)[(long long)i * B + b];
-  LD_SCALAR(hin, T) LD_SCALAR(hmax_inv, T) LD_SCALAR(epcon, T) LD_SCALAR(tstop, T)
-  L.tstop_set = ((const unsigned char*)s.tstop_set)[b] != 0;
-  LD_SCALAR(nst, long long) LD_SCALAR(nre, long long) LD_SCALAR(ncfn, long long)
-  LD_SCALAR(netf, long long) LD_SCALAR(nni, long long) LD_SCALAR(nsetups, long long)
-  LD_SCALAR(nje, long long)
-  LD_SCALAR(toutc, T) LD_SCALAR(taskc, int) LD_SCALAR(status, int)
+#pragma unroll
+    for (int j = 0; j < N; ++j) L.lu[i][j] = ((const T*)in.lu)[Lay::at(i * N + j, N * N, b, B)];
+#pragma unroll
+  for (int i = 0; i < N; ++i) L.piv[i] = ((const int*)in.piv)[Lay::at(i, N, b, B)];
+  L.tstop_set = ((const unsigned char*)in.tstop_set)[b] != 0;
+  L.stepped = ((const long long*)in.nst)[b] > 0;
+  L.nst = L.nre = L.ncfn = L.netf = L.nni = L.nsetups = L.nje = 0;
+  if (in.status != out.status) {
+#define CP_COLD(name, ty) ((ty*)out.name)[b] = ((const ty*)in.name)[b];
+    CP_COLD(hin, T) CP_COLD(hmax_inv, T) CP_COLD(epcon, T) CP_COLD(tstop, T) CP_COLD(h0u, T)
+    CP_COLD(tretlast, T) CP_COLD(tolsf, T) CP_COLD(toutc, T) CP_COLD(taskc, int)
+    CP_COLD(status, int)
+#undef CP_COLD
+  }
 #undef LD_SCALAR
 #undef LD_VEC
+#undef LD_HIST
 }
 
-template <typename T, int N>
-__device__ __forceinline__ void store_lane(const StateRefs& s, long long b, long long B,
-                                           const Lane<T, N>& L) {
-#define ST_SCALAR(name, ty) ((ty*)s.name)[b] = L.name;
+// Store the lane into `out`; the counters are `in`'s plus the increments.
+template <typename T, int N, class Lay>
+__device__ __forceinline__ void store_lane(const StateRefs& in, const StateRefs& out, long long b,
+                                           long long B, const Lane<T, N>& L) {
+#define ST_SCALAR(name, ty) ((ty*)out.name)[b] = L.name;
 #define ST_VEC(name, K) \
-  for (int i = 0; i < K; ++i) ((T*)s.name)[(long long)i * B + b] = L.name[i];
-  for (int j = 0; j < MXORDP1; ++j)
-    for (int i = 0; i < N; ++i) ((T*)s.phi)[(long long)(j * N + i) * B + b] = L.phi[j][i];
-  ST_VEC(psi, MXORDP1) ST_VEC(alpha, MXORDP1) ST_VEC(beta, MXORDP1) ST_VEC(sigma, MXORDP1)
-  ST_VEC(gamma, MXORDP1)
+  _Pragma("unroll") for (int i = 0; i < K; ++i) \
+    ((T*)out.name)[Lay::at(i, K, b, B)] = L.name[i];
+#define ST_HIST(name, K) \
+  _Pragma("unroll") for (int i = 0; i < K; ++i) \
+    ((T*)out.name)[Lay::at(i, K, b, B)] = L.h.name(i);
+#define ST_COUNT(name) \
+  ((long long*)out.name)[b] = ((const long long*)in.name)[b] + (long long)L.name;
+#pragma unroll
+  for (int r = 0; r < MXORDP1 * N; ++r)
+    ((T*)out.phi)[Lay::at(r, MXORDP1 * N, b, B)] = L.h.row(r);
+  ST_HIST(psi, MXORDP1) ST_HIST(alpha, MXORDP1) ST_HIST(beta, MXORDP1) ST_HIST(sigma, MXORDP1)
+  ST_HIST(gamma, MXORDP1)
   ST_VEC(ee, N) ST_VEC(yy, N) ST_VEC(yp, N) ST_VEC(yypredict, N) ST_VEC(yppredict, N)
   ST_VEC(ewt, N) ST_VEC(savres, N)
-  ST_SCALAR(tn, T) ST_SCALAR(hh, T) ST_SCALAR(hused, T) ST_SCALAR(rr, T) ST_SCALAR(h0u, T)
-  ST_SCALAR(tretlast, T) ST_SCALAR(tolsf, T)
+  ST_SCALAR(tn, T) ST_SCALAR(hh, T) ST_SCALAR(hused, T) ST_SCALAR(rr, T)
   ST_SCALAR(kk, int) ST_SCALAR(kused, int) ST_SCALAR(knew, int) ST_SCALAR(phase, int)
   ST_SCALAR(ns, int)
   ST_SCALAR(cj, T) ST_SCALAR(cjlast, T) ST_SCALAR(cjold, T) ST_SCALAR(cjratio, T)
   ST_SCALAR(ss, T) ST_SCALAR(oldnrm, T) ST_SCALAR(eps_newt, T) ST_SCALAR(toldel, T)
+#pragma unroll
   for (int i = 0; i < N; ++i)
-    for (int j = 0; j < N; ++j) ((T*)s.lu)[(long long)(i * N + j) * B + b] = L.lu[i][j];
-  for (int i = 0; i < N; ++i) ((int*)s.piv)[(long long)i * B + b] = L.piv[i];
-  ST_SCALAR(hin, T) ST_SCALAR(hmax_inv, T) ST_SCALAR(epcon, T) ST_SCALAR(tstop, T)
-  ((unsigned char*)s.tstop_set)[b] = L.tstop_set ? 1 : 0;
-  ST_SCALAR(nst, long long) ST_SCALAR(nre, long long) ST_SCALAR(ncfn, long long)
-  ST_SCALAR(netf, long long) ST_SCALAR(nni, long long) ST_SCALAR(nsetups, long long)
-  ST_SCALAR(nje, long long)
-  ST_SCALAR(toutc, T) ST_SCALAR(taskc, int) ST_SCALAR(status, int)
+#pragma unroll
+    for (int j = 0; j < N; ++j) ((T*)out.lu)[Lay::at(i * N + j, N * N, b, B)] = L.lu[i][j];
+#pragma unroll
+  for (int i = 0; i < N; ++i) ((int*)out.piv)[Lay::at(i, N, b, B)] = L.piv[i];
+  ((unsigned char*)out.tstop_set)[b] = L.tstop_set ? 1 : 0;
+  ST_COUNT(nst) ST_COUNT(nre) ST_COUNT(ncfn) ST_COUNT(netf) ST_COUNT(nni) ST_COUNT(nsetups)
+  ST_COUNT(nje)
 #undef ST_SCALAR
 #undef ST_VEC
+#undef ST_HIST
+#undef ST_COUNT
 }
 
+// The tolerances and tout of a launch of the whole solve, by value (shared
+// by every lane), with per-lane rtol [B] and atol [B, N] for a caller whose
+// tolerances differ by lane.
+struct TolArgs {
+  double rtol, atol[MAXN], tout;
+  const void* rtol_lanes;
+  const void* atol_lanes;
+};
+
+// params [B, P] batch-leading, tolerances from `tol`
+template <typename T, class M, bool LaneTol>
+__device__ __forceinline__ void load_ctx(const void* params, const TolArgs& tol, const Opts& opts,
+                                         long long b, Ctx<T, M>& c) {
+#pragma unroll
+  for (int i = 0; i < M::P; ++i) c.p[i] = ((const T*)params)[b * M::P + i];
+  c.rtol = LaneTol ? ((const T*)tol.rtol_lanes)[b] : T(tol.rtol);
+#pragma unroll
+  for (int i = 0; i < M::N; ++i)
+    c.atol[i] = LaneTol ? ((const T*)tol.atol_lanes)[b * M::N + i] : T(tol.atol[i]);
+  c.tout = T(tol.tout);
+  c.opts = opts;
+}
+
+// batch-native: params [P, B], rtol [B], atol [N, B], tout [B]
 template <typename T, class M>
-__device__ __forceinline__ void load_ctx(const void* params, const void* rtol, const void* atol,
-                                         const void* tout, const Opts& opts, long long b,
-                                         long long B, Ctx<T, M>& c) {
+__device__ __forceinline__ void load_ctx_native(const void* params, const void* rtol,
+                                                const void* atol, const void* tout,
+                                                const Opts& opts, long long b, long long B,
+                                                Ctx<T, M>& c) {
+#pragma unroll
   for (int i = 0; i < M::P; ++i) c.p[i] = ((const T*)params)[(long long)i * B + b];
   c.rtol = ((const T*)rtol)[b];
+#pragma unroll
   for (int i = 0; i < M::N; ++i) c.atol[i] = ((const T*)atol)[(long long)i * B + b];
   c.tout = ((const T*)tout)[b];
   c.opts = opts;
@@ -238,7 +366,7 @@ __device__ __forceinline__ T wrms_norm_bnd(const T (&x)[M::N], const T (&w)[M::N
     const T sq = t * t;
     acc = (i == 0) ? sq : acc + sq;
   }
-  return ::sqrt(acc / T(M::N));
+  return sqrt_of(acc / T(M::N));
 }
 
 // error_test.py _norm: the suppressalg mask when the options ask for it
@@ -260,14 +388,21 @@ template <typename T, int N>
 __device__ __forceinline__ bool ewt_invalid(const T (&ewt)[N]) {
   bool bad = false;
 #pragma unroll
-  for (int i = 0; i < N; ++i) bad = bad || !(ewt[i] > T(0)) || !isfinite(ewt[i]);
+  for (int i = 0; i < N; ++i) bad = bad || !(ewt[i] > T(0)) || !finite(ewt[i]);
   return bad;
+}
+
+// row j of phi, out of shared memory
+template <typename T, int N>
+__device__ __forceinline__ void phi_row(const Lane<T, N>& L, int j, T (&out)[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) out[n] = L.h.phi(j, n);
 }
 
 // ---------------------------------------------------------------- coeffs.py
 
 template <typename T, class M>
-__device__ __noinline__ T set_coeffs(Lane<T, M::N>& L) {
+__device__ __forceinline__ T set_coeffs(Lane<T, M::N>& L) {
   constexpr int N = M::N;
   int ns_new = (L.hh != L.hused || L.kk != L.kused) ? 0 : L.ns;
   ns_new = min(ns_new + 1, L.kused + 2);
@@ -276,81 +411,108 @@ __device__ __noinline__ T set_coeffs(Lane<T, M::N>& L) {
   const T hh = L.hh;
   const int kk = L.kk;
 
-  T psi_n[MXORDP1], alpha_r[MXORDP1], beta_r[MXORDP1], sigma_r[MXORDP1], gamma_r[MXORDP1];
-  psi_n[0] = hh;
-  for (int i = 1; i < MXORDP1; ++i) psi_n[i] = L.psi[i - 1] + hh;
-  alpha_r[0] = T(1);
-  for (int i = 1; i < MXORDP1; ++i) alpha_r[i] = hh / psi_n[i];
-  beta_r[0] = T(1);
-  sigma_r[0] = T(1);
-  gamma_r[0] = T(0);
-  for (int i = 1; i < MXORDP1; ++i) {
-    beta_r[i] = beta_r[i - 1] * psi_n[i - 1] / L.psi[i - 1];
-    sigma_r[i] = (T(i) * sigma_r[i - 1]) * alpha_r[i];
-    gamma_r[i] = gamma_r[i - 1] + alpha_r[i - 1] / hh;
-  }
-  for (int i = 0; i < MXORDP1; ++i) {
-    if (update && i <= kk) {
-      L.psi[i] = psi_n[i];
-      L.alpha[i] = alpha_r[i];
-      L.beta[i] = beta_r[i];
-      L.sigma[i] = sigma_r[i];
-      L.gamma[i] = gamma_r[i];
+  // rows 0..kk of psi/alpha/beta/sigma/gamma; row i needs rows below it
+  // and the old psi[i-1] only, and rows above kk are never stored
+  if (update && kk >= 0) {
+    T psi_old = L.h.psi(0);  // the old psi[i-1]
+    T psi_n = hh, alpha_r = T(1), beta_r = T(1), sigma_r = T(1), gamma_r = T(0);
+    L.h.psi(0) = psi_n;
+    L.h.alpha(0) = alpha_r;
+    L.h.beta(0) = beta_r;
+    L.h.sigma(0) = sigma_r;
+    L.h.gamma(0) = gamma_r;
+#pragma unroll
+    for (int i = 1; i < MXORDP1; ++i) {
+      if (i <= kk) {
+        const T psi_old_here = L.h.psi(i);
+        beta_r = beta_r * psi_n / psi_old;
+        gamma_r = gamma_r + alpha_r / hh;
+        psi_n = psi_old + hh;
+        alpha_r = hh / psi_n;
+        sigma_r = (T(i) * sigma_r) * alpha_r;
+        L.h.psi(i) = psi_n;
+        L.h.alpha(i) = alpha_r;
+        L.h.beta(i) = beta_r;
+        L.h.sigma(i) = sigma_r;
+        L.h.gamma(i) = gamma_r;
+        psi_old = psi_old_here;
+      }
     }
   }
 
   // alphas in double, cast to T; alpha0 in T (both sums over all rows)
   double s = 0.0;
   T a0 = T(0);
+#pragma unroll
   for (int i = 0; i < MXORDP1; ++i) {
-    const double inv = (i < kk) ? 1.0 / (double(i) + 1.0) : 0.0;
-    s = (i == 0) ? inv : s + inv;
-    const T ai = (i < kk) ? L.alpha[i] : T(0);
+    T ai = T(0);
+    if (i < kk) ai = L.h.alpha(i);
     a0 = (i == 0) ? ai : a0 + ai;
   }
+  s = (kk >= 1) ? Harmonic<1>::v : s;
+  s = (kk >= 2) ? Harmonic<2>::v : s;
+  s = (kk >= 3) ? Harmonic<3>::v : s;
+  s = (kk >= 4) ? Harmonic<4>::v : s;
+  s = (kk >= 5) ? Harmonic<5>::v : s;
+  s = (kk >= 6) ? Harmonic<6>::v : s;
   const T alphas = -T(s);
   const T alpha0 = -a0;
 
   L.cjlast = L.cj;
   L.cj = (-alphas) / L.hh;
 
-  const T alpha_kk = L.alpha[kk];
+  const T alpha_kk = L.h.alpha(kk);
   T ck = absval(alpha_kk + alphas - alpha0);
   ck = tmax(ck, alpha_kk);
 
+#pragma unroll
   for (int i = 0; i < MXORDP1; ++i) {
     if (i >= L.ns && i <= kk) {
-      for (int n = 0; n < N; ++n) L.phi[i][n] = L.phi[i][n] * L.beta[i];
+      const T beta_i = L.h.beta(i);
+#pragma unroll
+      for (int n = 0; n < N; ++n) L.h.phi(i, n) = L.h.phi(i, n) * beta_i;
     }
   }
   return ck;
 }
 
 template <typename T, class M>
-__device__ __noinline__ void predict(Lane<T, M::N>& L) {
+__device__ __forceinline__ void predict(Lane<T, M::N>& L) {
   constexpr int N = M::N;
-  for (int n = 0; n < N; ++n) {
-    T yy = T(0), yp = T(0);
-    for (int j = 0; j < MXORDP1; ++j) {
-      const T a = L.phi[j][n] * ((j <= L.kk) ? T(1) : T(0));
-      const T g = L.phi[j][n] * ((j >= 1 && j <= L.kk) ? L.gamma[j] : T(0));
-      yy = (j == 0) ? a : yy + a;
-      yp = (j == 0) ? g : yp + g;
+  T yy[N], yp[N];
+#pragma unroll
+  for (int j = 0; j < MXORDP1; ++j) {
+    const T one = (j <= L.kk) ? T(1) : T(0);
+    T gam = T(0);
+    if (j >= 1 && j <= L.kk) gam = L.h.gamma(j);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const T ph = L.h.phi(j, n);
+      const T a = ph * one;
+      const T g = ph * gam;
+      yy[n] = (j == 0) ? a : yy[n] + a;
+      yp[n] = (j == 0) ? g : yp[n] + g;
     }
-    L.yypredict[n] = yy;
-    L.yppredict[n] = yp;
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    L.yypredict[n] = yy[n];
+    L.yppredict[n] = yp[n];
   }
 }
 
 template <typename T, class M>
-__device__ __noinline__ void restore(Lane<T, M::N>& L, T saved_t) {
+__device__ __forceinline__ void restore(Lane<T, M::N>& L, T saved_t) {
   constexpr int N = M::N;
+#pragma unroll
   for (int i = 0; i < MXORDP1 - 1; ++i)
-    if (i < L.kk) L.psi[i] = L.psi[i + 1] - L.hh;
+    if (i < L.kk) L.h.psi(i) = L.h.psi(i + 1) - L.hh;
+#pragma unroll
   for (int i = 0; i < MXORDP1; ++i) {
     if (i >= L.ns && i <= L.kk) {
-      const T inv = T(1) / L.beta[i];
-      for (int n = 0; n < N; ++n) L.phi[i][n] = L.phi[i][n] * inv;
+      const T inv = T(1) / L.h.beta(i);
+#pragma unroll
+      for (int n = 0; n < N; ++n) L.h.phi(i, n) = L.h.phi(i, n) * inv;
     }
   }
   L.tn = saved_t;
@@ -358,14 +520,17 @@ __device__ __noinline__ void restore(Lane<T, M::N>& L, T saved_t) {
 
 template <typename T, class M>
 __device__ __forceinline__ void reset(Lane<T, M::N>& L) {
-  for (int n = 0; n < M::N; ++n) L.phi[1][n] = L.phi[1][n] * L.rr;
-  L.psi[0] = L.hh;
+#pragma unroll
+  for (int n = 0; n < M::N; ++n) L.h.phi(1, n) = L.h.phi(1, n) * L.rr;
+  L.h.psi(0) = L.hh;
 }
 
 // ---------------------------------------------------------------- interp.py
 
+// y(t) and y'(t) into yy/yp; false, and nothing written, when t is not legal
 template <typename T, class M>
-__device__ __noinline__ bool get_solution(Lane<T, M::N>& L, T t) {
+__device__ __forceinline__ bool get_solution(const Lane<T, M::N>& L, T t, T (&yy)[M::N],
+                                             T (&yp)[M::N]) {
   constexpr int N = M::N;
   // check_t_legal
   const T tfuzz = T(100.0 * Eps<T>::v) * (absval(L.tn) + absval(L.hh)) * tsign(L.hh);
@@ -376,15 +541,17 @@ __device__ __noinline__ bool get_solution(Lane<T, M::N>& L, T t) {
   // interpolate
   const int kord = max(L.kused, 1);
   const T delt = t - L.tn;
-  T c = T(1), d = T(0), gam = delt / L.psi[0];
+  T c = T(1), d = T(0), gam = delt / L.h.psi(0);
   T cv[MXORDP1], dv[MXORDP1];
   cv[0] = c;
   dv[0] = T(0);
+#pragma unroll
   for (int j = 1; j < MXORDP1; ++j) {
     if (kord >= j) {
-      const T d_new = d * gam + c / L.psi[j - 1];
+      const T psi_jm1 = L.h.psi(j - 1);
+      const T d_new = d * gam + c / psi_jm1;
       const T c_new = c * gam;
-      const T gam_new = (delt + L.psi[j - 1]) / L.psi[j];
+      const T gam_new = (delt + psi_jm1) / L.h.psi(j);
       c = c_new;
       d = d_new;
       gam = gam_new;
@@ -395,18 +562,34 @@ __device__ __noinline__ bool get_solution(Lane<T, M::N>& L, T t) {
       dv[j] = T(0);
     }
   }
-  for (int n = 0; n < N; ++n) {
-    T yy = T(0), yp = T(0);
-    for (int j = 0; j < MXORDP1; ++j) {
-      const T a = ((j <= kord) ? cv[j] : T(0)) * L.phi[j][n];
-      const T g = dv[j] * L.phi[j][n];
-      yy = (j == 0) ? a : yy + a;
-      yp = (j == 0) ? g : yp + g;
+#pragma unroll
+  for (int j = 0; j < MXORDP1; ++j) {
+    const T cj = (j <= kord) ? cv[j] : T(0);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const T ph = L.h.phi(j, n);
+      const T a = cj * ph;
+      const T g = dv[j] * ph;
+      yy[n] = (j == 0) ? a : yy[n] + a;
+      yp[n] = (j == 0) ? g : yp[n] + g;
     }
-    L.yy[n] = yy;
-    L.yp[n] = yp;
   }
   return true;
+}
+
+// get_solution into the lane's yy/yp; they keep their values when t is not legal
+template <typename T, class M>
+__device__ __forceinline__ bool get_solution(Lane<T, M::N>& L, T t) {
+  T yy[M::N], yp[M::N];
+  const bool ok = get_solution<T, M>(L, t, yy, yp);
+  if (ok) {
+#pragma unroll
+    for (int n = 0; n < M::N; ++n) {
+      L.yy[n] = yy[n];
+      L.yp[n] = yp[n];
+    }
+  }
+  return ok;
 }
 
 // ---------------------------------------------------------------- nls.py
@@ -415,7 +598,6 @@ __device__ __noinline__ bool get_solution(Lane<T, M::N>& L, T t) {
 // caller's variables.
 template <typename T, class M>
 __device__ __forceinline__ void _newton_iterate(const Lane<T, M::N>& L, const Ctx<T, M>& c,
-                                                const T (&lu)[M::N][M::N], const int (&piv)[M::N],
                                                 T cjratio, T (&ycor)[M::N], T (&delta)[M::N],
                                                 T& oldnrm, T& ss, int& istatus, int& knni,
                                                 int& kre) {
@@ -426,8 +608,10 @@ __device__ __forceinline__ void _newton_iterate(const Lane<T, M::N>& L, const Ct
   while (istatus == NL_CONTINUE) {
     const bool first = m == 0;
     T x[N];
+#pragma unroll
     for (int i = 0; i < N; ++i) x[i] = -delta[i];
-    lu_solve_dev<T, N>(lu, piv, x);
+    lu_solve_dev<T, N>(L.lu, L.piv, x);
+#pragma unroll
     for (int i = 0; i < N; ++i) {
       x[i] = x[i] * scale;
       ycor[i] = ycor[i] + x[i];
@@ -436,8 +620,8 @@ __device__ __forceinline__ void _newton_iterate(const Lane<T, M::N>& L, const Ct
     const T delnrm = wrms_norm_bnd<T, M>(x, L.ewt, false);
     oldnrm = first ? delnrm : oldnrm;
     const bool conv_direct = first && (delnrm <= T(1.0e-4) * L.toldel);
-    const T expo = T(1) / T(max(m, 1));
-    const T rate = first ? T(0) : torch_pow(delnrm / oldnrm, expo);
+    T rate = T(0);
+    if (!first) rate = pow_of(delnrm / oldnrm, T(1) / T(max(m, 1)));
     const bool diverged = !first && (rate > T(RATEMAX));
     ss = !first ? rate / (T(1) - rate) : ss;
     const bool converged = conv_direct || (ss * delnrm <= L.eps_newt);
@@ -450,16 +634,19 @@ __device__ __forceinline__ void _newton_iterate(const Lane<T, M::N>& L, const Ct
     const bool keep = istatus == NL_CONTINUE;
     if (keep) {
       T yy[N], yp[N], r[N];
+#pragma unroll
       for (int i = 0; i < N; ++i) {
         yy[i] = L.yypredict[i] + ycor[i];
         yp[i] = L.yppredict[i] + L.cj * ycor[i];
       }
       M::res(c.p, L.tn, yy, yp, r);
       bool rok = true;
-      for (int i = 0; i < N; ++i) rok = rok && isfinite(r[i]);
+#pragma unroll
+      for (int i = 0; i < N; ++i) rok = rok && finite(r[i]);
       if (!rok) {
         istatus = NL_RES_RECVR;
       } else {
+#pragma unroll
         for (int i = 0; i < N; ++i) delta[i] = r[i];
       }
     }
@@ -470,9 +657,9 @@ __device__ __forceinline__ void _newton_iterate(const Lane<T, M::N>& L, const Ct
 
 // nonlinear_solve for an active lane; returns REC_NONE (ok) or a REC_* kind.
 template <typename T, class M>
-__device__ __noinline__ int nonlinear_solve(Lane<T, M::N>& L, const Ctx<T, M>& c) {
+__device__ __forceinline__ int nonlinear_solve(Lane<T, M::N>& L, const Ctx<T, M>& c) {
   constexpr int N = M::N;
-  const bool first = L.nst == 0;
+  const bool first = L.no_step_yet();
   const T cjold0 = first ? L.cj : L.cjold;
   T ss = first ? T(20) : L.ss;
   const T cjratio0 = L.cj / cjold0;
@@ -480,18 +667,12 @@ __device__ __noinline__ int nonlinear_solve(Lane<T, M::N>& L, const Ctx<T, M>& c
   bool call_lsetup = first || (cjratio0 < T(lo)) || (cjratio0 > T(1.0 / lo));
   ss = (L.cj != L.cjlast) ? T(100) : ss;
 
-  // linear-solver carry (_Lin)
-  T lu[N][N];
-  int piv[N];
-  for (int i = 0; i < N; ++i) {
-    piv[i] = L.piv[i];
-    for (int j = 0; j < N; ++j) lu[i][j] = L.lu[i][j];
-  }
+  // the linear-solver carry (_Lin): L.lu and L.piv in place, and
   T cjold = cjold0, cjratio = cjratio0;
-  long long nje = L.nje, nsetups = L.nsetups;
 
   // inner carry (_Inner)
   T ycor[N], delta[N];
+#pragma unroll
   for (int i = 0; i < N; ++i) {
     ycor[i] = T(0);
     delta[i] = L.savres[i];
@@ -507,23 +688,23 @@ __device__ __noinline__ int nonlinear_solve(Lane<T, M::N>& L, const Ctx<T, M>& c
     M::res(c.p, L.tn, L.yypredict, L.yppredict, r);
     kre = kre + 1;
     bool res_bad = false;
-    for (int i = 0; i < N; ++i) res_bad = res_bad || !isfinite(r[i]);
+#pragma unroll
+    for (int i = 0; i < N; ++i) res_bad = res_bad || !finite(r[i]);
 
     const bool do_setup = call_lsetup && !res_bad;
     bool setup_fail = false;
     if (do_setup) {
       // _lsetup: J at the predictor, LU-factored
-      T J[N][N];
-      M::jac(c.p, L.tn, L.cj, L.yypredict, L.yppredict, r, J);
+      M::jac(c.p, L.tn, L.cj, L.yypredict, L.yppredict, r, L.lu);
       bool jfinite = true;
+#pragma unroll
       for (int i = 0; i < N; ++i)
-        for (int j = 0; j < N; ++j) jfinite = jfinite && isfinite(J[i][j]);
-      const int failc = lu_factor_dev<T, N>(J, piv);
-      for (int i = 0; i < N; ++i)
-        for (int j = 0; j < N; ++j) lu[i][j] = J[i][j];
+#pragma unroll
+        for (int j = 0; j < N; ++j) jfinite = jfinite && finite(L.lu[i][j]);
+      const int failc = lu_factor_dev<T, N>(L.lu, L.piv);
       setup_fail = (failc > 0) || !jfinite;
-      nje += 1;
-      nsetups += 1;
+      L.nje += 1;
+      L.nsetups += 1;
       cjold = L.cj;
       cjratio = T(1);
       ss = T(20);
@@ -531,6 +712,7 @@ __device__ __noinline__ int nonlinear_solve(Lane<T, M::N>& L, const Ctx<T, M>& c
     jcur = jcur || do_setup;
 
     // a fresh inner carry
+#pragma unroll
     for (int i = 0; i < N; ++i) {
       ycor[i] = T(0);
       delta[i] = r[i];
@@ -539,7 +721,7 @@ __device__ __noinline__ int nonlinear_solve(Lane<T, M::N>& L, const Ctx<T, M>& c
     int istatus = NL_CONTINUE;
     const bool skip_newton = setup_fail || res_bad;
     if (!skip_newton)
-      _newton_iterate<T, M>(L, c, lu, piv, cjratio, ycor, delta, oldnrm, ss, istatus, knni, kre);
+      _newton_iterate<T, M>(L, c, cjratio, ycor, delta, oldnrm, ss, istatus, knni, kre);
 
     const bool recvr = istatus == NL_CONV_RECVR || istatus == NL_LSOLVE_RECVR ||
                        istatus == NL_RES_RECVR;
@@ -551,18 +733,13 @@ __device__ __noinline__ int nonlinear_solve(Lane<T, M::N>& L, const Ctx<T, M>& c
   }
 
   // fold the loop-local pieces back into the state
-  for (int i = 0; i < N; ++i) {
-    L.piv[i] = piv[i];
-    for (int j = 0; j < N; ++j) L.lu[i][j] = lu[i][j];
-  }
   L.cjold = cjold;
   L.cjratio = cjratio;
-  L.nje = nje;
-  L.nsetups = nsetups;
   L.nni = L.nni + knni;
   L.nre = L.nre + kre;
   L.oldnrm = oldnrm;
   L.ss = ss;
+#pragma unroll
   for (int i = 0; i < N; ++i) {
     L.savres[i] = delta[i];
     L.ee[i] = ycor[i];
@@ -582,8 +759,8 @@ __device__ __noinline__ int nonlinear_solve(Lane<T, M::N>& L, const Ctx<T, M>& c
 // ---------------------------------------------------------------- error_test.py
 
 template <typename T, class M>
-__device__ __noinline__ bool error_test(Lane<T, M::N>& L, const Ctx<T, M>& c, T ck, T& err_k,
-                                        T& err_km1) {
+__device__ __forceinline__ bool error_test(Lane<T, M::N>& L, const Ctx<T, M>& c, T ck, T& err_k,
+                                           T& err_km1) {
   constexpr int N = M::N;
   const int kk = L.kk;
   const T kkf = T(kk);
@@ -591,19 +768,20 @@ __device__ __noinline__ bool error_test(Lane<T, M::N>& L, const Ctx<T, M>& c, T 
   const int km2 = max(kk - 2, 0);
 
   T delta1[N], delta2[N];
+#pragma unroll
   for (int i = 0; i < N; ++i) {
-    delta1[i] = L.phi[kk][i] + L.ee[i];
-    delta2[i] = delta1[i] + L.phi[km1][i];
+    delta1[i] = L.h.phi(kk, i) + L.ee[i];
+    delta2[i] = delta1[i] + L.h.phi(km1, i);
   }
   const T enorm_k = norm<T, M>(c, L.ee, L.ewt);
   const T enorm_km1 = norm<T, M>(c, delta1, L.ewt);
   const T enorm_km2 = norm<T, M>(c, delta2, L.ewt);
 
-  err_k = L.sigma[kk] * enorm_k;
+  err_k = L.h.sigma(kk) * enorm_k;
   const T terr_k = err_k * (kkf + T(1));
-  const T err_km1_val = L.sigma[km1] * enorm_km1;
+  const T err_km1_val = L.h.sigma(km1) * enorm_km1;
   const T terr_km1 = kkf * err_km1_val;
-  const T err_km2 = L.sigma[km2] * enorm_km2;
+  const T err_km2 = L.h.sigma(km2) * enorm_km2;
   const T terr_km2 = (kkf - T(1)) * err_km2;
 
   const int knew_gt2 = (tmax(terr_km1, terr_km2) <= terr_k) ? kk - 1 : kk;
@@ -618,22 +796,23 @@ __device__ __noinline__ bool error_test(Lane<T, M::N>& L, const Ctx<T, M>& c, T 
 // ---------------------------------------------------------------- complete_step.py
 
 template <typename T, class M>
-__device__ __noinline__ void complete_step(Lane<T, M::N>& L, const Ctx<T, M>& c, T err_k,
-                                           T err_km1, T ck) {
+__device__ __forceinline__ void complete_step(Lane<T, M::N>& L, const Ctx<T, M>& c, T err_k,
+                                              T err_km1, T ck) {
   constexpr int N = M::N;
   const int maxord = c.opts.maxord;
-  const long long nst = L.nst + 1;
+  const bool had_steps = !L.no_step_yet();  // nst + 1 > 1
   const int kdiff = L.kk - L.kused;
   const int kused = L.kk;
   const T hused = L.hh;
+  const T hmax_inv = L.hmax_inv();
 
   const int phase = (L.knew == L.kk - 1 || L.kk == maxord) ? 1 : L.phase;
 
   // phase 0: raise order and double step
   T hnew0 = T(2) * L.hh;
-  const T tmp0 = absval(hnew0) * L.hmax_inv;
+  const T tmp0 = absval(hnew0) * hmax_inv;
   hnew0 = (tmp0 > T(1)) ? hnew0 / tmp0 : hnew0;
-  const bool grow = (phase == 0) && (nst > 1);
+  const bool grow = (phase == 0) && had_steps;
   const int kk_p0 = grow ? L.kk + 1 : L.kk;
   const T hh_p0 = grow ? hnew0 : L.hh;
   const T rr_p0 = L.rr;
@@ -642,7 +821,8 @@ __device__ __noinline__ void complete_step(Lane<T, M::N>& L, const Ctx<T, M>& c,
   const T kkf = T(L.kk);
   const int kp1 = min(L.kk + 1, MXORDP1 - 1);
   T dif[N];
-  for (int i = 0; i < N; ++i) dif[i] = L.ee[i] - L.phi[kp1][i];
+#pragma unroll
+  for (int i = 0; i < N; ++i) dif[i] = L.ee[i] - L.h.phi(kp1, i);
   const T enorm_kp1 = norm<T, M>(c, dif, L.ewt);
   const T err_kp1 = enorm_kp1 / (kkf + T(2));
 
@@ -663,9 +843,9 @@ __device__ __noinline__ void complete_step(Lane<T, M::N>& L, const Ctx<T, M>& c,
   const T err_knew = (action == RAISE) ? err_kp1 : ((action == LOWER) ? err_km1 : err_k);
 
   const T base = T(2) * err_knew + T(1.0e-4);
-  const T rr_p1 = torch_pow(base, T(-1) / (T(kk_p1) + T(1)));
+  const T rr_p1 = pow_of(base, T(-1) / (T(kk_p1) + T(1)));
   T hnew1 = T(2) * L.hh;
-  const T tmp1 = absval(hnew1) * L.hmax_inv;
+  const T tmp1 = absval(hnew1) * hmax_inv;
   hnew1 = (tmp1 > T(1)) ? hnew1 / tmp1 : hnew1;
   const T rr_clamped = tmax(T(0.5), tmin(T(0.9), rr_p1));
   const T hh_p1 = (rr_p1 >= T(2)) ? hnew1 : ((rr_p1 <= T(1)) ? L.hh * rr_clamped : L.hh);
@@ -676,22 +856,29 @@ __device__ __noinline__ void complete_step(Lane<T, M::N>& L, const Ctx<T, M>& c,
   const T hh = in_phase0 ? hh_p0 : hh_p1;
   const T rr = in_phase0 ? rr_p0 : rr_p1_out;
 
-  // phi: save ee into phi[kused+1], and the recurrence over rows kused..0
+  // phi: save ee into phi[kused+1], and the recurrence over rows kused..0;
+  // the rows above stay as they are
   const bool save = kused < maxord;
-  for (int n = 0; n < N; ++n) {
-    T tmp = L.ee[n];
-    for (int j = MXORDP1 - 1; j >= 0; --j) {
-      const bool active = kused >= j;
-      const T new_tmp = tmp + L.phi[j][n];
-      T row = active ? new_tmp : L.phi[j][n];
-      row = (save && kused + 1 == j) ? L.ee[n] : row;
-      tmp = active ? new_tmp : tmp;
-      L.phi[j][n] = row;
+  T tmp[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) tmp[n] = L.ee[n];
+#pragma unroll
+  for (int j = MXORDP1 - 1; j >= 0; --j) {
+    if (save && kused + 1 == j) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) L.h.phi(j, n) = L.ee[n];
+    } else if (kused >= j) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        tmp[n] = tmp[n] + L.h.phi(j, n);
+        L.h.phi(j, n) = tmp[n];
+      }
     }
   }
+#pragma unroll
   for (int n = 0; n < N; ++n) L.ee[n] = L.ee[n] * ck;
 
-  L.nst = nst;
+  L.nst += 1;
   L.kused = kused;
   L.hused = hused;
   L.phase = phase;
@@ -712,7 +899,7 @@ __device__ __forceinline__ int _handle_n_flag(Lane<T, M::N>& L, const Ctx<T, M>&
   const int nef_new = nef + 1;
   const T err_knew = (L.kk == L.knew) ? err_k : err_km1;
   const int kk1 = L.knew;
-  T rr1 = T(0.9) * torch_pow(T(2) * err_knew + T(1.0e-4), T(-1) / (T(kk1) + T(1)));
+  T rr1 = T(0.9) * pow_of(T(2) * err_knew + T(1.0e-4), T(-1) / (T(kk1) + T(1)));
   rr1 = tmax(T(0.25), tmin(T(0.9), rr1));
   const int kk_etf = (nef_new >= 3) ? 1 : kk1;
   const T rr_etf = (nef_new == 1) ? rr1 : T(0.25);
@@ -747,11 +934,11 @@ __device__ __forceinline__ int _handle_n_flag(Lane<T, M::N>& L, const Ctx<T, M>&
 // step_begin for a lane that begins a fresh step
 template <typename T, class M>
 __device__ __forceinline__ void step_begin(Lane<T, M::N>& L) {
-  if (L.nst == 0) {
+  if (L.no_step_yet()) {
     L.kk = 1;
     L.kused = 0;
     L.hused = T(0);
-    L.psi[0] = L.hh;
+    L.h.psi(0) = L.hh;
     L.cj = T(1) / L.hh;
     L.phase = 0;
     L.ns = 0;
@@ -765,15 +952,17 @@ struct AttemptOut {
 
 // attempt_once for an active lane: ck/err_k/err_km1 out, ncf/nef in-out
 template <typename T, class M>
-__device__ __noinline__ AttemptOut attempt_once(Lane<T, M::N>& L, const Ctx<T, M>& c, T saved_t,
-                                                int& ncf, int& nef, T& ck, T& err_k,
-                                                T& err_km1) {
+__device__ __forceinline__ AttemptOut attempt_once(Lane<T, M::N>& L, const Ctx<T, M>& c,
+                                                   T saved_t, int& ncf, int& nef, T& ck, T& err_k,
+                                                   T& err_km1) {
   ck = set_coeffs<T, M>(L);
 
   // advance tn, clamping to tstop against roundoff
   T tn = L.tn + L.hh;
-  const bool past_tstop = L.tstop_set && ((tn - L.tstop) * L.hh > T(0));
-  tn = past_tstop ? L.tstop : tn;
+  if (L.tstop_set) {
+    const T tstop = L.tstop();
+    tn = ((tn - tstop) * L.hh > T(0)) ? tstop : tn;
+  }
   L.tn = tn;
 
   predict<T, M>(L);
@@ -791,7 +980,7 @@ __device__ __noinline__ AttemptOut attempt_once(Lane<T, M::N>& L, const Ctx<T, M
   if (!success) {
     restore<T, M>(L, saved_t);
     fatal = _handle_n_flag<T, M>(L, c, kind, err_k, err_km1, ncf, nef);
-    if (fatal == CONTINUE && L.nst == 0) reset<T, M>(L);
+    if (fatal == CONTINUE && L.no_step_yet()) reset<T, M>(L);
   }
   return {success, fatal};
 }
@@ -800,85 +989,90 @@ __device__ __noinline__ AttemptOut attempt_once(Lane<T, M::N>& L, const Ctx<T, M
 
 // _first_call_init; returns istate (CONTINUE unless an input check fails)
 template <typename T, class M>
-__device__ __noinline__ int _first_call_init(Lane<T, M::N>& L, const Ctx<T, M>& c) {
+__device__ __forceinline__ int _first_call_init(Lane<T, M::N>& L, const Ctx<T, M>& c) {
   constexpr int N = M::N;
   int istate = CONTINUE;
   const T tout = c.tout;
+  const T tstop = L.tstop(), hmax_inv = L.hmax_inv(), epcon = L.epcon();
 
-  ewt_set<T, M>(c, L.phi[0], L.ewt);
+  T phi0[N], phi1[N];
+  phi_row<T, N>(L, 0, phi0);
+  phi_row<T, N>(L, 1, phi1);
+  ewt_set<T, M>(c, phi0, L.ewt);
   if (ewt_invalid<T, N>(L.ewt)) istate = BAD_EWT;
 
   const T tdist = absval(tout - L.tn);
   const T troundoff = T(2.0 * Eps<T>::v) * (absval(L.tn) + absval(tout));
   if (tdist == T(0) || tdist < troundoff) istate = ILL_INPUT;
 
-  T hh = L.hin;
+  T hh = L.hin();
   if (hh != T(0) && (tout - L.tn) * hh < T(0)) istate = ILL_INPUT;
   T hh_auto = T(0.001) * tdist;
-  const T ypnorm = norm<T, M>(c, L.phi[1], L.ewt);
+  const T ypnorm = norm<T, M>(c, phi1, L.ewt);
   hh_auto = (ypnorm > T(2) / hh_auto) ? T(0.5) / ypnorm : hh_auto;
   hh_auto = (tout < L.tn) ? -hh_auto : hh_auto;
   hh = (hh == T(0)) ? hh_auto : hh;
 
-  const T rh = absval(hh) * L.hmax_inv;
+  const T rh = absval(hh) * hmax_inv;
   hh = (rh > T(1)) ? hh / rh : hh;
 
-  if (L.tstop_set && (L.tstop - L.tn) * hh <= T(0)) istate = ILL_INPUT;
-  const bool clamp = L.tstop_set && ((L.tn + hh - L.tstop) * hh > T(0));
-  hh = clamp ? (L.tstop - L.tn) * T(1.0 - 4.0 * Eps<T>::v) : hh;
+  if (L.tstop_set && (tstop - L.tn) * hh <= T(0)) istate = ILL_INPUT;
+  const bool clamp = L.tstop_set && ((L.tn + hh - tstop) * hh > T(0));
+  hh = clamp ? (tstop - L.tn) * T(1.0 - 4.0 * Eps<T>::v) : hh;
 
   L.hh = hh;
-  L.h0u = hh;
+  L.h0u() = hh;
   L.kk = 0;
   L.kused = 0;
-  for (int n = 0; n < N; ++n) L.phi[1][n] = L.phi[1][n] * hh;
-  L.eps_newt = L.epcon;
-  L.toldel = T(1.0e-4) * L.epcon;
+#pragma unroll
+  for (int n = 0; n < N; ++n) L.h.phi(1, n) = phi1[n] * hh;
+  L.eps_newt = epcon;
+  L.toldel = T(1.0e-4) * epcon;
   return istate;
 }
 
 // hh clamp to land on tstop (both stop tests)
 template <typename T, class M>
 __device__ __forceinline__ void _tstop_clamp(Lane<T, M::N>& L, int istate) {
-  const bool clamp =
-      L.tstop_set && istate == CONTINUE && ((L.tn + L.hh - L.tstop) * L.hh > T(0));
-  L.hh = clamp ? (L.tstop - L.tn) * T(1.0 - 4.0 * Eps<T>::v) : L.hh;
+  if (L.tstop_set && istate == CONTINUE) {
+    const T tstop = L.tstop();
+    const bool clamp = (L.tn + L.hh - tstop) * L.hh > T(0);
+    L.hh = clamp ? (tstop - L.tn) * T(1.0 - 4.0 * Eps<T>::v) : L.hh;
+  }
 }
 
 // _stop_test1, TASK_NORMAL; returns istate, updates tret
 template <typename T, class M>
-__device__ __noinline__ int _stop_test1(Lane<T, M::N>& L, T tout, T& tret) {
-  constexpr int N = M::N;
-  const bool bad_tstop = L.tstop_set && ((L.tn - L.tstop) * L.hh > T(0));
+__device__ __forceinline__ int _stop_test1(Lane<T, M::N>& L, T tout, T& tret) {
+  const T tstop = L.tstop(), tretlast = L.tretlast();
+  const bool bad_tstop = L.tstop_set && ((L.tn - tstop) * L.hh > T(0));
   int istate = bad_tstop ? ILL_INPUT : CONTINUE;
   const T troundoff = T(100.0 * Eps<T>::v) * (absval(L.tn) + absval(L.hh));
 
-  const bool hit_prev = tout == L.tretlast;
+  const bool hit_prev = tout == tretlast;
   const bool past_tout = (L.tn - tout) * L.hh >= T(0);
-  const bool at_tstop = L.tstop_set && (absval(L.tn - L.tstop) <= troundoff);
+  const bool at_tstop = L.tstop_set && (absval(L.tn - tstop) <= troundoff);
   const bool sel_tstop = at_tstop && !(hit_prev || past_tout);
 
-  // y(tout), and whether tout is legal for interpolation
-  T yy0[N], yp0[N];
-  for (int n = 0; n < N; ++n) {
-    yy0[n] = L.yy[n];
-    yp0[n] = L.yp[n];
-  }
-  const bool ok = get_solution<T, M>(L, tout);
+  // y(tout), kept when tout is past and legal for interpolation; else
+  // y(tstop) for a lane that stops there
+  T yy[M::N], yp[M::N];
+  const bool ok = get_solution<T, M>(L, tout, yy, yp);
   const bool sel_tout = past_tout && ok && !hit_prev;
-  if (!sel_tout) {
-    for (int n = 0; n < N; ++n) {
-      L.yy[n] = yy0[n];
-      L.yp[n] = yp0[n];
+  if (sel_tout) {
+#pragma unroll
+    for (int n = 0; n < M::N; ++n) {
+      L.yy[n] = yy[n];
+      L.yp[n] = yp[n];
     }
   }
-  if (sel_tstop) get_solution<T, M>(L, L.tstop);
+  if (sel_tstop) get_solution<T, M>(L, tstop);
 
   const bool hit_or_past = hit_prev || past_tout;
-  const T newret = hit_or_past ? tout : (sel_tstop ? L.tstop : tret);
+  const T newret = hit_or_past ? tout : (sel_tstop ? tstop : tret);
   const bool returning = hit_or_past || sel_tstop;
   tret = returning ? newret : tret;
-  L.tretlast = returning ? newret : L.tretlast;
+  if (returning) L.tretlast() = newret;
   L.tstop_set = L.tstop_set && !sel_tstop;
   const int code = hit_or_past ? ((past_tout && !(hit_prev || ok)) ? BAD_T : SUCCESS)
                                : (sel_tstop ? TSTOP_RETURN : CONTINUE);
@@ -889,17 +1083,22 @@ __device__ __noinline__ int _stop_test1(Lane<T, M::N>& L, T tout, T& tret) {
 
 // _stop_test2, TASK_NORMAL, interpolation deferred; returns istate
 template <typename T, class M>
-__device__ __noinline__ int _stop_test2(Lane<T, M::N>& L, T tout, T& tret, int& ikind, T& itgt) {
-  const T troundoff = T(100.0 * Eps<T>::v) * (absval(L.tn) + absval(L.hh));
-  const bool at_tstop = L.tstop_set && (absval(L.tn - L.tstop) <= troundoff);
+__device__ __forceinline__ int _stop_test2(Lane<T, M::N>& L, T tout, T& tret, int& ikind,
+                                           T& itgt) {
+  bool sel_tstop = false;
+  T tstop = T(0);
   const bool past_tout = (L.tn - tout) * L.hh >= T(0);
-  const bool sel_tstop = at_tstop && !past_tout;
+  if (L.tstop_set) {
+    tstop = L.tstop();
+    const T troundoff = T(100.0 * Eps<T>::v) * (absval(L.tn) + absval(L.hh));
+    sel_tstop = (absval(L.tn - tstop) <= troundoff) && !past_tout;
+  }
   ikind = (past_tout || sel_tstop) ? 1 : 0;
-  itgt = past_tout ? tout : (sel_tstop ? L.tstop : T(0));
-  const T newret = past_tout ? tout : (sel_tstop ? L.tstop : tret);
+  itgt = past_tout ? tout : (sel_tstop ? tstop : T(0));
+  const T newret = past_tout ? tout : (sel_tstop ? tstop : tret);
   const bool returning = past_tout || sel_tstop;
   tret = returning ? newret : tret;
-  L.tretlast = returning ? newret : L.tretlast;
+  if (returning) L.tretlast() = newret;
   L.tstop_set = L.tstop_set && !sel_tstop;
   const int istate = past_tout ? SUCCESS : (sel_tstop ? TSTOP_RETURN : CONTINUE);
   _tstop_clamp<T, M>(L, istate);
@@ -908,26 +1107,26 @@ __device__ __noinline__ int _stop_test2(Lane<T, M::N>& L, T tout, T& tret, int& 
 
 // _step_preamble for a lane about to start a new step
 template <typename T, class M>
-__device__ __noinline__ void _step_preamble(Lane<T, M::N>& L, const Ctx<T, M>& c,
-                                            Carry<T>& cr) {
+__device__ __forceinline__ void _step_preamble(Lane<T, M::N>& L, const Ctx<T, M>& c,
+                                               Carry<T>& cr) {
   constexpr int N = M::N;
   const bool too_much = cr.nstloc >= c.opts.mxstep;
   bool ewt_bad = false;
-  if (L.nst > 0) {
-    T ewt[N];
-    ewt_set<T, M>(c, L.phi[0], ewt);
-    ewt_bad = ewt_invalid<T, N>(ewt);
-    for (int n = 0; n < N; ++n) L.ewt[n] = ewt[n];
+  T phi0[N];
+  phi_row<T, N>(L, 0, phi0);
+  if (!L.no_step_yet()) {
+    ewt_set<T, M>(c, phi0, L.ewt);
+    ewt_bad = ewt_invalid<T, N>(L.ewt);
   }
-  const T nrm = norm<T, M>(c, L.phi[0], L.ewt);
+  const T nrm = norm<T, M>(c, phi0, L.ewt);
   const T tolsf = T(Eps<T>::v) * nrm;
   const bool too_acc = tolsf > T(1);
-  if (too_acc) L.tolsf = tolsf * T(10);
+  if (too_acc) L.tolsf() = tolsf * T(10);
 
   if (too_much || ewt_bad || too_acc) {
     cr.istate = too_much ? TOO_MUCH_WORK : (ewt_bad ? BAD_EWT : TOO_MUCH_ACC);
     cr.tret = L.tn;
-    L.tretlast = L.tn;
+    L.tretlast() = L.tn;
     cr.ikind = 1;
     cr.itgt = L.tn;
   }
@@ -937,11 +1136,10 @@ __device__ __noinline__ void _step_preamble(Lane<T, M::N>& L, const Ctx<T, M>& c
 template <typename T, class M>
 __device__ __forceinline__ void solve_prologue(Lane<T, M::N>& L, const Ctx<T, M>& c,
                                                Carry<T>& cr) {
-  L.toutc = c.tout;
-  L.taskc = 0;
-  L.status = CONTINUE;
+  L.toutc() = c.tout;
+  L.taskc() = 0;
   cr.tret = L.tn;
-  const bool first = L.nst == 0;
+  const bool first = L.no_step_yet();
   cr.istate = first ? _first_call_init<T, M>(L, c) : CONTINUE;
   if (!first) cr.istate = _stop_test1<T, M>(L, c.tout, cr.tret);
   cr.nstloc = 0;
@@ -972,7 +1170,7 @@ __device__ __forceinline__ void attempt_loop_body(Lane<T, M::N>& L, const Ctx<T,
     cr.ikind = 1;
     cr.itgt = L.tn;
     cr.tret = L.tn;
-    L.tretlast = L.tn;
+    L.tretlast() = L.tn;
     cr.istate = a.fatal;
   }
   if (a.success) cr.nstloc += 1;
@@ -988,7 +1186,7 @@ __device__ __forceinline__ void attempt_loop_body(Lane<T, M::N>& L, const Ctx<T,
 template <typename T, class M>
 __device__ __forceinline__ void solve_epilogue(Lane<T, M::N>& L, const Carry<T>& cr) {
   if (cr.ikind > 0) get_solution<T, M>(L, cr.itgt);
-  L.status = cr.istate;
+  L.status() = cr.istate;
 }
 
 }  // namespace ida

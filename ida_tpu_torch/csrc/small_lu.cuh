@@ -6,18 +6,19 @@
 // ida_tpu/ops/dense_lu.py lu_factor_unrolled / lu_solve_unrolled (and the
 // port's ida_tpu_torch/ops/dense_lu.py): first-max pivot on strict '>',
 // multiplier 1/pivot with a zero pivot replaced by 1 and its column recorded,
-// column-oriented back substitution. Compiled with -fmad=false, no
-// multiply-add is contracted, so the results equal the plain PyTorch version
-// bit for bit. N is a template parameter and every loop is unrolled, and
-// pivoting is by selects, so the matrix stays in registers where the caller
-// keeps it there.
+// column-oriented back substitution. No multiply-add may be contracted, so
+// that the results equal the plain PyTorch version bit for bit: small_lu.cu
+// instantiates T as double or float and is built with -fmad=false;
+// fused_solve.cu, built -fmad=true, instantiates T as ida::Real (rounded.cuh),
+// whose operators are the never-contracted intrinsics. N is a template
+// parameter and every loop is unrolled, and pivoting is by selects, so the
+// matrix stays in registers where the caller keeps it there.
 
 #pragma once
 
-namespace ida {
+#include "rounded.cuh"
 
-__device__ __forceinline__ double absval(double v) { return fabs(v); }
-__device__ __forceinline__ float absval(float v) { return fabsf(v); }
+namespace ida {
 
 // Factor m in place (PA = LU packed SUNDIALS-style); piv[k] is the row
 // swapped with row k at step k. Returns 0, or the 1-based column of the first

@@ -5,15 +5,18 @@ TPU kernels K2 (``make_fused_solve`` -> ``kern``), K3 and K4 (the budgeted
 ``fn_init.kern`` / ``fn_cont.kern``) become one hand-written kernel for
 Hopper, one thread per lane, with the attempt loop on the device. Unlike the
 TPU kernel (float32 only, state packed into two buffers, 1024-lane tiles) it
-reads the batch-native ``IdaState`` fields in their own dtypes, float64 or
-float32, and takes any batch size.
+reads the ``IdaState`` fields in their own dtypes, float64 or float32, and
+takes any batch size.
 
-On CUDA tensors ``fn`` clones the batch-native state and launches the kernel
-on the clones (in place): once, or with ``attempt_budget`` the budgeted
-kernel and then its continuation until no lane is CONTINUE. On CPU tensors
-it runs the plain version: the eager ``core.solve`` (with the same budgeted
-host loop when a budget is given). On any other device, and on what the
-kernel does not take, it raises; nothing falls back on a CUDA tensor.
+On CUDA tensors ``fn`` does nothing on the card but allocate the result and
+launch: the kernel reads the batch-leading state and ``params_b`` where they
+lie and writes a batch-leading result out of place; ``rtol``, ``atol`` and
+``tout`` travel by value. With ``attempt_budget`` it launches the budgeted
+kernel and then its continuation, in place on that result, until no lane is
+CONTINUE. On CPU tensors ``fn`` runs the plain version: the eager
+``core.solve`` (with the same budgeted host loop when a budget is given).
+On any other device, and on what the kernel does not take, it raises;
+nothing falls back on a CUDA tensor.
 
 ``FUSED_LAUNCHES``, ``FUSED_INIT_LAUNCHES`` and ``FUSED_CONT_LAUNCHES`` count
 the kernel launches (and only those).
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -40,6 +44,12 @@ FUSED_CONT_LAUNCHES = 0
 
 # the compiled-in models: factory -> (model id of the kernel, N, P)
 MODELS = {roberts_factory: (0, 3, 3)}
+# how fused_solve.cu is built: nvcc's default contraction, as PyTorch's own
+# kernels are, so that the inlined pow and sqrt are torch.pow's and
+# torch.sqrt's; the solve's own arithmetic rounds once per operation through
+# csrc/rounded.cuh
+BUILD_FLAGS = ("-fmad=true",)
+MAXN = 16  # csrc/ida_lane.cuh MAXN: the components a by-value atol carries
 
 # csrc/ida_lane.cuh IDA_STATE_FIELDS, in its order
 STATE_FIELDS = (
@@ -72,6 +82,30 @@ class Opts(ctypes.Structure):
                 ("maxord", "mxstep", "maxncf", "maxnef", "maxnlsit", "suppressalg")]
 
 
+class TolArgs(ctypes.Structure):
+    """csrc/ida_lane.cuh TolArgs."""
+    _fields_ = [("rtol", ctypes.c_double), ("atol", ctypes.c_double * MAXN),
+                ("tout", ctypes.c_double), ("rtol_lanes", ctypes.c_void_p),
+                ("atol_lanes", ctypes.c_void_p)]
+
+
+class SolveArgs(ctypes.Structure):
+    """csrc/fused_solve.cu IdaSolveArgs."""
+    _fields_ = [("src", StateRefs), ("dst", StateRefs), ("params", ctypes.c_void_p),
+                ("tol", TolArgs), ("carry", CarryRefs), ("opts", Opts),
+                ("B", ctypes.c_longlong), ("budget", ctypes.c_int)]
+
+
+class TolInputs(NamedTuple):
+    """The tolerances as a launch takes them: ``rtol`` and ``atol`` ([N]) as
+    Python floats when every lane shares them, else None and the per-lane
+    tensors ``rtol_lanes`` [B], ``atol_lanes`` [B, N]."""
+    rtol: float | None
+    atol: tuple | None
+    rtol_lanes: torch.Tensor | None = None
+    atol_lanes: torch.Tensor | None = None
+
+
 def reset_launch_counts() -> None:
     global FUSED_LAUNCHES, FUSED_INIT_LAUNCHES, FUSED_CONT_LAUNCHES
     FUSED_LAUNCHES = FUSED_INIT_LAUNCHES = FUSED_CONT_LAUNCHES = 0
@@ -79,24 +113,35 @@ def reset_launch_counts() -> None:
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument types of the solve entry points of ``lib``."""
-    solve_args = [ctypes.POINTER(StateRefs)] + [ctypes.c_void_p] * 4 + [
-        ctypes.POINTER(CarryRefs), ctypes.POINTER(Opts), ctypes.c_int, ctypes.c_longlong]
     for dt in DTYPE_TAGS.values():
         for kind in ("", "_init", "_cont"):
             fn = getattr(lib, f"fused_solve{kind}_{dt}")
-            fn.argtypes = solve_args + ([ctypes.c_int] if kind else []) + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.POINTER(SolveArgs), ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        fn = getattr(lib, f"fused_solve_occupancy_{dt}")
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+        fn.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
 def build() -> dict:
-    """Compile (once per hash of the sources) and load the kernel library;
-    see :func:`._build.build_library`."""
-    info = build_library("fused_solve.cu", ("ida_lane.cuh", "small_lu.cuh"),
-                         fmad_sources=("torch_pow.cu",))
+    """Compile (once per hash of the sources and flags) and load the kernel
+    library; see :func:`._build.build_library`."""
+    info = build_library("fused_solve.cu", ("ida_lane.cuh", "small_lu.cuh", "rounded.cuh"),
+                         flags=BUILD_FLAGS)
     bind(info["lib"])
     return info
+
+
+def occupancy(dtype: torch.dtype) -> dict:
+    """The solve kernel's occupancy on the current card: threads a block,
+    dynamic shared bytes a block, resident blocks an SM, and the SM count."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    name = f"fused_solve_occupancy_{DTYPE_TAGS[dtype]}"
+    raise_on(getattr(build()["lib"], name)(*(ctypes.byref(v) for v in vals)), name)
+    blocks, shared, threads, sms = (v.value for v in vals)
+    return {"threads": threads, "dynamic_shared_bytes": shared, "blocks_per_sm": blocks, "sms": sms}
 
 
 def model_of(problem_factory) -> tuple[int, int, int]:
@@ -131,20 +176,22 @@ def _expected_dtype(field: str, dtype: torch.dtype) -> torch.dtype:
     return dtype
 
 
-def state_refs(native: IdaState) -> StateRefs:
-    """Pointer table of a batch-native state on the card; checks every field
-    the kernel touches (device, dtype, contiguity, trailing batch axis)."""
-    dtype, bsz = native.dtype, native.tn.shape[-1]
+def state_refs(state: IdaState, batch_axis: int) -> StateRefs:
+    """Pointer table of a state on the card, batch-leading (``batch_axis``
+    0) or batch-native (-1); checks every field the kernel touches (device,
+    dtype, contiguity, the batch axis)."""
+    dtype, bsz = state.dtype, state.tn.shape[batch_axis]
     ptrs = {}
     for f in STATE_FIELDS:
-        x = getattr(native, f)
+        x = getattr(state, f)
         want = _expected_dtype(f, dtype)
         if not x.is_cuda:
             raise ValueError(f"fused_solve: state.{f} is on {x.device}, not on the card")
         if x.dtype != want:
             raise TypeError(f"fused_solve: state.{f} is {x.dtype}, the kernel takes {want}")
-        if not x.is_contiguous() or x.dim() < 1 or x.shape[-1] != bsz:
-            raise ValueError(f"fused_solve: state.{f} must be contiguous [..., {bsz}]")
+        if not x.is_contiguous() or x.dim() < 1 or x.shape[batch_axis] != bsz:
+            shape = f"[{bsz}, ...]" if batch_axis == 0 else f"[..., {bsz}]"
+            raise ValueError(f"fused_solve: state.{f} must be contiguous {shape}")
         ptrs[f] = x.data_ptr()
     return StateRefs(**ptrs)
 
@@ -163,9 +210,31 @@ def raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({torch.cuda.get_device_name()})")
 
 
+def tol_inputs(tol: TolControl, n: int, bsz: int, dtype, dev) -> TolInputs:
+    """``tol`` as the solve kernel takes it: by value when every lane shares
+    it (rtol a scalar, atol a scalar or [N]), as contiguous per-lane tensors
+    when either is per lane (rtol [B], atol [B, N]); raises on any other
+    shape. Reading shared values off a CUDA tensor synchronizes, so a caller
+    does it once per ``tol``."""
+    rtol, atol = torch.as_tensor(tol.rtol), torch.as_tensor(tol.atol)
+    if n > MAXN:
+        raise ValueError(f"fused_solve: at most {MAXN} components, got {n}")
+    if rtol.dim() == 0 and (atol.dim() == 0 or tuple(atol.shape) == (n,)):
+        return TolInputs(float(rtol), tuple(atol.expand(n).tolist()))
+    if tuple(rtol.shape) in ((), (bsz,)) and tuple(atol.shape) in ((), (n,), (bsz, n)):
+        return TolInputs(
+            None, None,
+            rtol.to(device=dev, dtype=dtype).expand(bsz).contiguous(),
+            atol.to(device=dev, dtype=dtype).expand(bsz, n).contiguous())
+    raise ValueError(
+        f"fused_solve: tol must be shared (rtol [], atol [] or [{n}]) or per lane (rtol "
+        f"[{bsz}], atol [{bsz}, {n}]), got rtol {tuple(rtol.shape)}, atol {tuple(atol.shape)}")
+
+
 def lane_inputs(native: IdaState, params, tol: TolControl, tout, n: int):
-    """Per-lane kernel inputs on the state's device and dtype: params [P, B]
-    (from batch-last params), rtol [B], atol [N, B], tout [B]."""
+    """Batch-native per-lane inputs on the state's device and dtype (the
+    stage kernels' and the plain version's): params [P, B] (from batch-last
+    params), rtol [B], atol [N, B], tout [B]."""
     dtype, dev, bsz = native.dtype, native.phi.device, native.tn.shape[-1]
 
     def lanes(x, shape):
@@ -192,7 +261,7 @@ def new_carry(bsz: int, dtype, dev, full: bool) -> dict:
 
 
 def native_clone(states_b: IdaState) -> IdaState:
-    """Batch-leading -> batch-native copies the kernel may update in place."""
+    """Batch-leading -> batch-native copies (the plain version's input)."""
     return IdaState(*(
         x.movedim(0, -1).clone(memory_format=torch.contiguous_format)
         if isinstance(x, torch.Tensor) else x
@@ -200,28 +269,64 @@ def native_clone(states_b: IdaState) -> IdaState:
     ))
 
 
-def launch(kind: str, native: IdaState, inputs, carry: dict, opts: IdaOptions, model: int,
-           budget: int | None) -> torch.Tensor:
-    """One launch of the whole-solve kernel on the batch-native ``native``
-    (in place) and ``carry``: ``kind`` "" (K2), "init" (K3) or "cont" (K4,
-    resuming ``carry``). Returns the istate it writes."""
-    global FUSED_LAUNCHES, FUSED_INIT_LAUNCHES, FUSED_CONT_LAUNCHES
+def empty_result(states_b: IdaState) -> IdaState:
+    """The state a launch writes: a new tensor for every field the kernel
+    touches, the input's own tensor for every other."""
+    touched = set(STATE_FIELDS)
+    return IdaState(*(x.new_empty(x.shape) if f in touched else x
+                      for f, x in zip(states_b._fields, states_b)))
+
+
+def prepare_launch(kind: str, src: IdaState, dst: IdaState, params_b: torch.Tensor,
+                   tol: TolInputs, tout: float, carry: dict, opts: IdaOptions, model: int,
+                   budget: int | None):
+    """Check the arguments of one launch of the whole-solve kernel and return
+    ``go``: each ``go()`` launches it once and returns the istate it writes.
+    ``kind`` is "" (K2), "init" (K3) or "cont" (K4, resuming ``carry``); the
+    kernel reads the batch-leading ``src`` and ``params_b`` [B, P] and writes
+    ``dst`` (``src`` itself for a launch in place) and ``carry``."""
     lib = build()["lib"]
-    dt = DTYPE_TAGS[native.dtype]
+    dt = DTYPE_TAGS[src.dtype]
     name = f"fused_solve_{dt}" if kind == "" else f"fused_solve_{kind}_{dt}"
-    refs = CarryRefs(**{f: t.data_ptr() for f, t in carry.items()})
-    args = [ctypes.byref(state_refs(native)), *(t.data_ptr() for t in inputs), ctypes.byref(refs),
-            ctypes.byref(opts_struct(opts)), model, native.tn.shape[-1]]
-    if budget is not None:
-        args.append(budget)
-    raise_on(getattr(lib, name)(*args, stream_of(native.tn)), name)
-    if kind == "":
-        FUSED_LAUNCHES += 1
-    elif kind == "init":
-        FUSED_INIT_LAUNCHES += 1
+    bsz = src.tn.shape[0]
+    if (params_b.dtype != src.dtype or params_b.device != src.phi.device
+            or not params_b.is_contiguous() or params_b.dim() != 2 or params_b.shape[0] != bsz):
+        raise ValueError(f"{name}: params must be contiguous [{bsz}, P] {src.dtype} on the card")
+    src_refs = state_refs(src, 0)
+    if tol.rtol_lanes is None:
+        tol_args = TolArgs(tol.rtol, (ctypes.c_double * MAXN)(*tol.atol), float(tout), None, None)
     else:
-        FUSED_CONT_LAUNCHES += 1
-    return carry["istate"]
+        tol_args = TolArgs(0.0, (ctypes.c_double * MAXN)(), float(tout),
+                           tol.rtol_lanes.data_ptr(), tol.atol_lanes.data_ptr())
+    args = SolveArgs(src_refs, src_refs if dst is src else state_refs(dst, 0),
+                     params_b.data_ptr(), tol_args,
+                     CarryRefs(**{f: t.data_ptr() for f, t in carry.items()}), opts_struct(opts),
+                     bsz, 0 if budget is None else budget)
+    fn, stream = getattr(lib, name), stream_of(src.tn)
+
+    def go() -> torch.Tensor:
+        global FUSED_LAUNCHES, FUSED_INIT_LAUNCHES, FUSED_CONT_LAUNCHES
+        raise_on(fn(ctypes.byref(args), model, stream), name)
+        if kind == "":
+            FUSED_LAUNCHES += 1
+        elif kind == "init":
+            FUSED_INIT_LAUNCHES += 1
+        else:
+            FUSED_CONT_LAUNCHES += 1
+        return carry["istate"]
+
+    # ``args`` holds addresses only: keep every tensor the kernel reads or
+    # writes alive as long as ``go`` is
+    go.tensors = (src, dst, params_b, tol, carry)
+    return go
+
+
+def launch(kind: str, src: IdaState, dst: IdaState, params_b: torch.Tensor, tol: TolInputs,
+           tout: float, carry: dict, opts: IdaOptions, model: int,
+           budget: int | None) -> torch.Tensor:
+    """One launch of the whole-solve kernel (:func:`prepare_launch`, then the
+    launch). Returns the istate it writes."""
+    return prepare_launch(kind, src, dst, params_b, tol, tout, carry, opts, model, budget)()
 
 
 def run_until_done(step) -> int:
@@ -239,14 +344,17 @@ def run_until_done(step) -> int:
     return runs
 
 
-def _solve_cuda(native: IdaState, inputs, opts, model, budget):
-    carry = new_carry(native.tn.shape[-1], native.dtype, native.phi.device, budget is not None)
+def _solve_cuda(states_b: IdaState, params_b, tol: TolInputs, tout, opts, model, budget):
+    dst = empty_result(states_b)
+    carry = new_carry(states_b.tn.shape[0], states_b.dtype, states_b.phi.device,
+                      budget is not None)
     if budget is None:
-        launch("", native, inputs, carry, opts, model, None)
+        launch("", states_b, dst, params_b, tol, tout, carry, opts, model, None)
     else:
-        run_until_done(lambda resume: launch("cont" if resume else "init", native, inputs, carry,
-                                             opts, model, budget))
-    return carry["tret"], carry["istate"]
+        run_until_done(lambda resume: launch(
+            "cont" if resume else "init", dst if resume else states_b, dst, params_b, tol, tout,
+            carry, opts, model, budget))
+    return dst, carry["tret"], carry["istate"]
 
 
 def _solve_plain(native: IdaState, problem, opts, tol, tout, budget):
@@ -272,13 +380,16 @@ def make_fused_solve(problem_factory, tol: TolControl, opts: IdaOptions = IdaOpt
     ``tile`` and ``interpret``).
 
     ``states_b`` is a batch-leading IdaState (``ensemble_init``, float64 or
-    float32), ``params_b`` [B, P], ``tout`` a number; ``tol`` is shared by
-    every lane. ``attempt_budget`` bounds each launch to that many step
-    attempts; the host relaunches the continuation until every lane is done,
-    bit for bit the unbudgeted result."""
+    float32), ``params_b`` [B, P], ``tout`` a number; the result is a new
+    state, the input is not changed. ``tol`` is shared by every lane (rtol a
+    scalar, atol a scalar or [N]) or per lane (rtol [B], atol [B, N]).
+    ``attempt_budget`` bounds each launch to that many step attempts; the
+    host relaunches the continuation until every lane is done, bit for bit
+    the unbudgeted result."""
     model, n, _ = model_of(problem_factory)
     if attempt_budget is not None and attempt_budget < 1:
         raise ValueError(f"attempt_budget must be at least 1, got {attempt_budget}")
+    tol_on_card: dict = {}  # (B, dtype, device) -> TolInputs, made at the first such call
 
     def fn(states_b: IdaState, params_b, tout):
         dtype, dev = states_b.dtype, states_b.phi.device
@@ -287,22 +398,38 @@ def make_fused_solve(problem_factory, tol: TolControl, opts: IdaOptions = IdaOpt
         for f, x in zip(states_b._fields, states_b):
             if isinstance(x, torch.Tensor) and not x.is_contiguous():
                 raise ValueError(f"fused_solve: state.{f} is not contiguous")
-        p = torch.as_tensor(params_b, dtype=dtype, device=dev).t().contiguous()
-        problem = problem_factory(p)
-        if problem.nroots:
-            raise NotImplementedError(
-                "fused_solve: rootfinding (nroots > 0) is not supported in the fused kernel "
-                "path; use parallel.make_ensemble_solve for problems with events"
-            )
-        native = native_clone(states_b)
-        inputs = lane_inputs(native, p, tol, tout, n)
+        p_b = torch.as_tensor(params_b, dtype=dtype, device=dev).contiguous()
         if dev.type == "cpu":
+            p = p_b.t().contiguous()
+            problem = problem_factory(p)
+            _check_no_roots(problem)
+            native = native_clone(states_b)
+            inputs = lane_inputs(native, p, _native_tol(tol, n), tout, n)
             st, tret, istate = _solve_plain(native, problem, opts,
                                             TolControl(inputs[1], inputs[2]), inputs[3],
                                             attempt_budget)
-        else:
-            tret, istate = _solve_cuda(native, inputs, opts, model, attempt_budget)
-            st = native
-        return from_native(st), tret, istate
+            return from_native(st), tret, istate
+        key = (states_b.tn.shape[0], dtype, dev)
+        if key not in tol_on_card:
+            # once, not at every call: a factory may copy a tensor to the card
+            # and reading the tolerances off their tensors synchronizes
+            _check_no_roots(problem_factory(p_b.t()))
+            tol_on_card[key] = tol_inputs(tol, n, key[0], dtype, dev)
+        return _solve_cuda(states_b, p_b, tol_on_card[key], tout, opts, model, attempt_budget)
 
     return fn
+
+
+def _check_no_roots(problem) -> None:
+    if problem.nroots:
+        raise NotImplementedError(
+            "fused_solve: rootfinding (nroots > 0) is not supported in the fused kernel "
+            "path; use parallel.make_ensemble_solve for problems with events"
+        )
+
+
+def _native_tol(tol: TolControl, n: int) -> TolControl:
+    """``tol`` for the batch-native plain version: a per-lane atol [B, N]
+    becomes [N, B]; shared tolerances pass as they are."""
+    atol = torch.as_tensor(tol.atol)
+    return TolControl(tol.rtol, atol.t() if atol.dim() == 2 else atol)

@@ -45,7 +45,7 @@ def build() -> dict:
     """Compile (once per source hash) and load the kernel library. Returns
     ``{"lib", "path", "seconds", "cached", "log"}``; ``log`` holds nvcc's
     output (registers and spills per kernel, from ``-Xptxas -v``)."""
-    info = build_library("small_lu.cu", ("small_lu.cuh",))
+    info = build_library("small_lu.cu", ("small_lu.cuh", "rounded.cuh"))
     ptrs = [ctypes.c_void_p] * 4
     for dt in DTYPE_TAGS.values():
         for name in (f"small_lu_factor_{dt}", f"small_lu_solve_{dt}"):

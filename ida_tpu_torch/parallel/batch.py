@@ -19,6 +19,7 @@ from ..core.solve import TASK_NORMAL, solve
 from ..core.state import IdaOptions, IdaState, init_state
 from ..problem import IdaProblem
 from ..tol_control import TolControl
+from ..utils.device import resolve_device
 
 ProblemFactory = Callable[[Any], IdaProblem]
 
@@ -48,11 +49,13 @@ def ensemble_init(
     yy0,
     yp0,
     *,
-    device,
+    device=None,
     dtype: torch.dtype = torch.float64,
 ) -> IdaState:
     """Batch-leading IdaState for ``params`` [B, P], ``yy0``/``yp0`` [B, N]
-    (the JAX package's vmap of ``init_state``)."""
+    (the JAX package's vmap of ``init_state``). ``device`` None is the
+    current CUDA device (raises when there is none)."""
+    device = resolve_device(device)
     params = torch.as_tensor(params, dtype=dtype, device=device)
     problem = problem_factory(params.t())
     return init_state(problem, yy0, yp0, device=device, dtype=dtype)

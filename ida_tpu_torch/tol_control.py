@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from .utils.device import resolve_device
+
 
 class TolControl(NamedTuple):
     """Scalar relative tolerance + scalar-or-vector absolute tolerance."""
@@ -24,16 +26,20 @@ class TolControl(NamedTuple):
         return 1.0 / (self.rtol * ycur.abs() + self.atol)
 
 
-def tol_ss(rtol: float, atol: float, *, device, dtype=torch.float64) -> TolControl:
-    """Scalar rtol + scalar atol (reference ``TolControlSS``)."""
+def tol_ss(rtol: float, atol: float, *, device=None, dtype=torch.float64) -> TolControl:
+    """Scalar rtol + scalar atol (reference ``TolControlSS``). ``device``
+    None is the current CUDA device (raises when there is none)."""
+    device = resolve_device(device)
     return TolControl(
         torch.as_tensor(rtol, dtype=dtype, device=device),
         torch.as_tensor(atol, dtype=dtype, device=device),
     )
 
 
-def tol_sv(rtol: float, atol, *, device, dtype=torch.float64) -> TolControl:
-    """Scalar rtol + vector atol (reference ``TolControlSV``)."""
+def tol_sv(rtol: float, atol, *, device=None, dtype=torch.float64) -> TolControl:
+    """Scalar rtol + vector atol (reference ``TolControlSV``). ``device``
+    None is the current CUDA device (raises when there is none)."""
+    device = resolve_device(device)
     return TolControl(
         torch.as_tensor(rtol, dtype=dtype, device=device),
         torch.as_tensor(atol, dtype=dtype, device=device),

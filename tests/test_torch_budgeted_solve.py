@@ -32,6 +32,7 @@ from ida_tpu_torch.core.solve import TASK_ONE_STEP, TASK_NORMAL
 from ida_tpu_torch.core.solve import solve as tsolve
 from ida_tpu_torch.core.state import IdaOptions, init_state
 from ida_tpu_torch.models import roberts_factory as troberts
+from ida_tpu_torch.ops import make_fused_solve
 from ida_tpu_torch.parallel import ensemble_init, to_native
 from ida_tpu_torch.tol_control import TolControl, tol_sv
 
@@ -186,3 +187,29 @@ def test_resume_carry_requires_a_budget():
         tsolve(st, prob, IdaOptions(), tol, 4.0, resume_carry=carry)
     with pytest.raises(ValueError):
         tsolve(st, prob, IdaOptions(), tol, 4.0, max_attempts=0)
+
+
+@pytest.mark.parametrize("tol_form", ["shared", "per-lane"])
+def test_fused_entry_budgeted_plain_version_is_its_unbudgeted_one(tol_form):
+    # the fused entry point's budgeted host loop on CPU tensors (the plain
+    # version of K3/K4), with the tolerances shared or per lane (rtol [B],
+    # atol [B, N]): bit for bit the unbudgeted call, and the input untouched
+    b = 5
+    params = np.outer(np.exp(np.linspace(-0.5, 0.5, b)), ROBERTS_PARAMS)
+    yy0 = np.tile(ROBERTS_YY0, (b, 1))
+    yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
+    st0 = ensemble_init(troberts, params, yy0, yp0, device="cpu")
+    tol = tol_sv(1e-4, ATOL, device="cpu")
+    if tol_form == "per-lane":
+        scale = torch.linspace(0.5, 2.0, b, dtype=torch.float64)
+        tol = TolControl(tol.rtol * scale, tol.atol * scale[:, None])
+    ref = make_fused_solve(troberts, tol)(st0, params, 4.0)
+    got = make_fused_solve(troberts, tol, attempt_budget=4)(st0, params, 4.0)
+    assert bool((ref[2] == C.SUCCESS).all()) and int(st0.nst.sum()) == 0
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    for f, x in zip(ref[0]._fields, ref[0]):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(getattr(got[0], f), x), f
+    if tol_form == "per-lane":
+        # lanes with different tolerances take different steps
+        assert len(set(ref[0].nst.tolist())) > 1

@@ -6,8 +6,10 @@ This file imports no JAX, so it also runs on a GPU machine without JAX:
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-tensors: built with ``-fmad=false`` and following the plain version's order
-of operations, it must agree bit for bit. For the whole-solve kernel
+tensors: following the plain version's order of operations with one rounding
+per operation (``-fmad=false`` for the LU kernels, the never-contracted
+intrinsics of ``csrc/rounded.cuh`` for the whole-solve kernel), it must agree
+bit for bit. For the whole-solve kernel
 (``ops.fused_solve``) the plain version is the eager ensemble solve, and
 for each stage kernel (``ops.fused_stages``) the eager stage.
 """
@@ -22,7 +24,7 @@ from ida_tpu_torch.core.solve import solve as core_solve
 from ida_tpu_torch.core.state import IdaOptions
 from ida_tpu_torch.models import ROBERTS_PARAMS, ROBERTS_YY0, roberts_factory
 from ida_tpu_torch.ops import dense_lu, fused_solve, fused_stages, small_lu
-from ida_tpu_torch.parallel import ensemble_init, make_ensemble_solve, to_native
+from ida_tpu_torch.parallel import ensemble_init, from_native, make_ensemble_solve, to_native
 from ida_tpu_torch.tol_control import TolControl, tol_sv
 
 pytestmark = pytest.mark.cuda
@@ -166,30 +168,78 @@ def test_budgeted_kernel_is_bitwise_the_unbudgeted_kernel(cuda):
 
 
 def test_budgeted_kernel_launches_are_the_eager_budgeted_calls(cuda):
-    # the plain version of K3/K4: after every launch, the state and the
-    # 9-field carry are bit for bit those of the eager
-    # solve(max_attempts=7, resume_carry=...) call on the same card
+    # the plain version of K3/K4: after every launch (K3 out of place, K4 in
+    # place on its result), the state and the 9-field carry are bit for bit
+    # those of the eager solve(max_attempts=7, resume_carry=...) call on the
+    # same card
     params, st0 = _ensemble(256, cuda)
-    p = torch.as_tensor(params, device=cuda).t().contiguous()
+    p_b = torch.as_tensor(params, device=cuda).contiguous()
+    p = p_b.t().contiguous()
     problem, opts = roberts_factory(p), IdaOptions()
-    native = fused_solve.native_clone(st0)
-    inputs = fused_solve.lane_inputs(native, p, tol_sv(1e-4, ATOL, device=cuda), 400.0, 3)
-    tol = TolControl(inputs[1], inputs[2])
-    carry = fused_solve.new_carry(256, torch.float64, cuda, True)
     eager = (to_native(st0), None, None, None)
+    inputs = fused_solve.lane_inputs(eager[0], p, tol_sv(1e-4, ATOL, device=cuda), 400.0, 3)
+    tol = TolControl(inputs[1], inputs[2])
+    tol_in = fused_solve.tol_inputs(tol_sv(1e-4, ATOL, device=cuda), 3, 256, torch.float64, cuda)
+    dst = fused_solve.empty_result(st0)
+    carry = fused_solve.new_carry(256, torch.float64, cuda, True)
 
     def step(resume):
         nonlocal eager
-        istate = fused_solve.launch("cont" if resume else "init", native, inputs, carry, opts, 0, 7)
+        istate = fused_solve.launch("cont" if resume else "init", dst if resume else st0, dst,
+                                    p_b, tol_in, 400.0, carry, opts, 0, 7)
         eager = core_solve(eager[0], problem, opts, tol, inputs[3], max_attempts=7,
                            resume_carry=eager[3] if resume else None)
-        assert _same_states(native, eager[0]) == [], resume
+        assert _same_states(to_native(dst), eager[0]) == [], resume
         for f, want in zip(fused_solve.CARRY_FIELDS, eager[3]):
             assert torch.equal(carry[f], want.to(carry[f].dtype)), (resume, f)
         return istate
 
     assert fused_solve.run_until_done(step) > 3
     assert bool((carry["istate"] == C.SUCCESS).all())
+
+
+@pytest.mark.parametrize("bsz", [1, 129, 200])
+def test_fused_kernel_takes_batches_that_do_not_fill_a_block(cuda, bsz):
+    params, st0 = _ensemble(bsz, cuda)
+    tol = tol_sv(1e-4, ATOL, device=cuda)
+    before = [x.clone() if isinstance(x, torch.Tensor) else x for x in st0]
+    st, tret, ist = fused_solve.make_fused_solve(roberts_factory, tol)(st0, params, 400.0)
+    est, etret, eist = make_ensemble_solve(roberts_factory)(st0, params, tol, 400.0)
+    assert _same_states(st, est) == []
+    assert torch.equal(ist, eist) and torch.equal(tret, etret)
+    # out of place: the input keeps its bits, untouched fields pass through
+    for f, x, was in zip(st0._fields, st0, before):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, was), f
+            assert (getattr(st, f) is x) == (f not in fused_solve.STATE_FIELDS), f
+
+
+def test_fused_kernel_takes_per_lane_tolerances(cuda):
+    params, st0 = _ensemble(256, cuda)
+    rng = np.random.default_rng(11)
+    rtol = torch.from_numpy(1e-4 * np.exp(rng.uniform(-1, 1, 256))).to(cuda)
+    atol = torch.from_numpy(np.array(ATOL) * np.exp(rng.uniform(-1, 1, (256, 3)))).to(cuda)
+    st, tret, ist = fused_solve.make_fused_solve(roberts_factory, TolControl(rtol, atol))(
+        st0, params, 400.0)
+    p = torch.as_tensor(params, device=cuda).t().contiguous()
+    ref = core_solve(to_native(st0), roberts_factory(p), IdaOptions(),
+                     TolControl(rtol, atol.t().contiguous()),
+                     torch.full((256,), 400.0, dtype=torch.float64, device=cuda))
+    assert _same_states(st, from_native(ref[0])) == []
+    assert torch.equal(ist, ref[2]) and torch.equal(tret, ref[1])
+
+
+def test_solve_kernel_occupancy_is_reported(cuda):
+    occ = fused_solve.occupancy(torch.float64)
+    assert occ["threads"] == 64 and occ["blocks_per_sm"] >= 1
+    assert occ["dynamic_shared_bytes"] == 64 * 8 * 6 * (3 + 5)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    params, _ = _ensemble(4, cuda)
+    yy0 = np.tile(ROBERTS_YY0, (4, 1))
+    st = ensemble_init(roberts_factory, params, yy0, np.zeros_like(yy0))
+    assert st.phi.is_cuda and tol_sv(1e-4, ATOL).rtol.is_cuda
 
 
 @pytest.fixture(scope="module")

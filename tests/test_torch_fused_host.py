@@ -2,16 +2,21 @@
 the eager port on the CPU, bit for bit.
 
 ``csrc/fused_solve.cu`` (with ``ida_lane.cuh``, ``small_lu.cuh`` and
-``torch_pow.cu``) is compiled with the host's C++ compiler: the CUDA
-keywords are defined away, each ``kernel<<<grid, threads, 0,
-stream>>>(...)`` becomes a loop over blocks and threads, and
-``-ffp-contract=off`` keeps every operation
-rounded once, as ``-fmad=false`` does on the card. On the CPU the eager
-port calls the C library's ``pow`` and an IEEE ``sqrt``, as the host build
-does, so in float64 the two must agree in every bit. This checks the
-device code's logic, its pointer table (``ops.fused_solve.STATE_FIELDS``)
-and the wrapper's budgeted host loop in the CPU tests; the kernel itself
-runs only on a GPU (tests/test_torch_cuda_kernels.py, ``chip_smoke.py``).
+``rounded.cuh``) is compiled with the host's C++ compiler: the CUDA keywords
+are defined away, the rounding intrinsics (``__dmul_rn`` ...) become the
+plain operators, the block's dynamic shared memory becomes a static array
+(the threads of a block run one after another, each on its own column), each
+``kernel<<<grid, threads, shared, stream>>>(...)`` becomes a loop over blocks
+and threads, and ``-ffp-contract=off`` keeps every operation rounded once, as
+the intrinsics do on the card. On the CPU the eager port calls the C
+library's ``pow`` and an IEEE ``sqrt``, as the host build does, so in float64
+the two must agree in every bit. This checks the device code's logic, its
+pointer tables and argument struct (``ops.fused_solve.STATE_FIELDS``,
+``SolveArgs``), the batch-leading out-of-place entry and the wrapper's
+budgeted host loop in the CPU tests; the kernel itself runs only on a GPU
+(tests/test_torch_cuda_kernels.py, ``chip_smoke.py``). A bypass of the
+rounding type cannot show here, where nothing contracts: on the card the
+stage checks and the launch-by-launch check of ``chip_smoke.py`` catch it.
 """
 
 import ctypes
@@ -42,21 +47,41 @@ _STUB = r"""
 #pragma once
 #include <math.h>
 #include <cmath>
+#include <cstddef>
 #include <algorithm>
 using std::min; using std::max; using std::isfinite;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8, cudaDevAttrMultiProcessorCount = 16 };
 struct HostDim { unsigned x = 0; };
 static thread_local HostDim blockIdx, threadIdx, blockDim;
 inline int cudaGetLastError() { return 0; }
+template <class K> int cudaFuncSetAttribute(K, int, int) { return 0; }
+template <class K> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 1;
+  return 0;
+}
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 """
 _PRELUDE = r"""
 #define __device__
 #define __global__
+#define __shared__
+#define __grid_constant__
+#define __align__(x)
 #define __forceinline__ inline
-#define __noinline__ __attribute__((noinline))
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #include <cuda_runtime.h>
+alignas(16) unsigned char ida_shared[227 * 1024];
 template <class F, class... A>
 void host_launch(unsigned grid, unsigned threads, F f, A... a) {
   blockDim.x = threads;
@@ -73,16 +98,14 @@ def host_lib(tmp_path_factory):
         pytest.skip("no host C++ compiler")
     out = tmp_path_factory.mktemp("fused_host")
     (out / "cuda_runtime.h").write_text(_STUB)
-    src, n = re.subn(r"(\w+<[^;{}]*?>)<<<([^,]+), ([^,]+), 0, \(cudaStream_t\)stream>>>\(",
+    src, n = re.subn(r"(\w+)<<<([^,]+), ([^,]+), [^,]+, \(cudaStream_t\)stream>>>\(",
                      r"host_launch(\2, \3, \1, ", (CSRC / "fused_solve.cu").read_text())
     assert n == 2  # the solve kernel and the stage kernel
     (out / "fused_solve_host.cpp").write_text(_PRELUDE + src)
-    (out / "torch_pow_host.cpp").write_text(_PRELUDE + (CSRC / "torch_pow.cu").read_text())
     lib_path = out / "libfused_solve_host.so"
     proc = subprocess.run(
         [cxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC", "-I", str(out),
-         "-I", str(CSRC), "-o", str(lib_path), str(out / "fused_solve_host.cpp"),
-         str(out / "torch_pow_host.cpp")],
+         "-I", str(CSRC), "-o", str(lib_path), str(out / "fused_solve_host.cpp")],
         capture_output=True, text=True, check=False)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return ctypes.CDLL(str(lib_path))
@@ -94,8 +117,8 @@ def on_host(host_lib, monkeypatch):
     fused_solve.bind(host_lib)
     monkeypatch.setattr(fused_solve, "build", lambda: {"lib": host_lib})
     monkeypatch.setattr(fused_solve, "stream_of", lambda t: 0)
-    monkeypatch.setattr(fused_solve, "state_refs", lambda native: fused_solve.StateRefs(
-        **{f: getattr(native, f).data_ptr() for f in fused_solve.STATE_FIELDS}))
+    monkeypatch.setattr(fused_solve, "state_refs", lambda st, batch_axis: fused_solve.StateRefs(
+        **{f: getattr(st, f).data_ptr() for f in fused_solve.STATE_FIELDS}))
     fused_stages._bind.cache_clear()
     yield
     fused_stages._bind.cache_clear()
@@ -103,12 +126,14 @@ def on_host(host_lib, monkeypatch):
     fused_stages.reset_launch_counts()
 
 
-def _kernel_solve(st_b, params, tout, opts, budget=None):
-    native = fused_solve.native_clone(st_b)
-    p = torch.as_tensor(params).t().contiguous()
-    inputs = fused_solve.lane_inputs(native, p, tol_sv(1e-4, ATOL, device="cpu"), tout, 3)
-    tret, istate = fused_solve._solve_cuda(native, inputs, opts, 0, budget)
-    return from_native(native), tret, istate
+def _kernel_solve(st_b, params, tout, opts, budget=None, tol=None):
+    """The kernel's entry as ``make_fused_solve`` drives it on the card:
+    batch-leading in, out of place, tolerances by value."""
+    p_b = torch.as_tensor(params).contiguous()
+    bsz = st_b.tn.shape[0]
+    tol_in = fused_solve.tol_inputs(tol or tol_sv(1e-4, ATOL, device="cpu"), 3, bsz,
+                                    torch.float64, torch.device("cpu"))
+    return fused_solve._solve_cuda(st_b, p_b, tol_in, tout, opts, 0, budget)
 
 
 def _differ(a, b):
@@ -157,33 +182,87 @@ def test_host_build_is_bitwise_the_eager_solve(on_host, opts):
 
 
 def test_host_build_budgeted_launches_are_the_eager_budgeted_calls(on_host):
-    # after every launch of the budgeted kernel (K3, then K4) the state and
-    # the 9-field carry are bit for bit those of the eager
-    # solve(max_attempts=3) call the launch stands for; a first solve to
-    # tout 4, then a continuing one to 40
+    # after every launch of the budgeted kernel (K3 out of place, then K4 in
+    # place on its result) the state and the 9-field carry are bit for bit
+    # those of the eager solve(max_attempts=3) call the launch stands for; a
+    # first solve to tout 4, then a continuing one to 40
     params, st0 = _stress_inputs()
-    p = torch.as_tensor(params).t().contiguous()
+    p_b = torch.as_tensor(params).contiguous()
+    p = p_b.t().contiguous()
     problem, opts = roberts_factory(p), IdaOptions()
-    native, eager_st = fused_solve.native_clone(st0), to_native(st0)
+    tol_in = fused_solve.tol_inputs(tol_sv(1e-4, ATOL, device="cpu"), 3, 16, torch.float64,
+                                    torch.device("cpu"))
+    src, eager_st = st0, to_native(st0)
     for tout in (4.0, 40.0):
-        inputs = fused_solve.lane_inputs(native, p, tol_sv(1e-4, ATOL, device="cpu"), tout, 3)
+        inputs = fused_solve.lane_inputs(eager_st, p, tol_sv(1e-4, ATOL, device="cpu"), tout, 3)
         tol = TolControl(inputs[1], inputs[2])
         carry = fused_solve.new_carry(16, torch.float64, "cpu", True)
+        dst = fused_solve.empty_result(src)
         eager = (eager_st, None, None, None)
 
         def step(resume):
             nonlocal eager
-            istate = fused_solve.launch("cont" if resume else "init", native, inputs, carry,
-                                        opts, 0, 3)
+            istate = fused_solve.launch("cont" if resume else "init", dst if resume else src, dst,
+                                        p_b, tol_in, tout, carry, opts, 0, 3)
             eager = core_solve(eager[0], problem, opts, tol, inputs[3], max_attempts=3,
                                resume_carry=eager[3] if resume else None)
-            assert _differ(native, eager[0]) == [], (tout, resume)
+            assert _differ(to_native(dst), eager[0]) == [], (tout, resume)
             for f, want in zip(fused_solve.CARRY_FIELDS, eager[3]):
                 assert torch.equal(carry[f], want.to(carry[f].dtype)), (tout, resume, f)
             return istate
 
         assert fused_solve.run_until_done(step) > 3
-        eager_st = eager[0]
+        src, eager_st = dst, eager[0]
+
+
+@pytest.mark.parametrize("bsz", [1, 129, 200])
+def test_host_build_takes_batches_that_do_not_fill_a_block(on_host, bsz):
+    # 64 threads a block: one lane, one lane over two blocks, three blocks and a bit
+    params = np.outer(np.exp(np.linspace(-0.3, 0.3, bsz)), ROBERTS_PARAMS)
+    yy0 = np.tile(ROBERTS_YY0, (bsz, 1))
+    yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
+    st0 = ensemble_init(roberts_factory, params, yy0, yp0, device="cpu")
+    ref = make_ensemble_solve(roberts_factory)(st0, params, tol_sv(1e-4, ATOL, device="cpu"), 0.4)
+    got = _kernel_solve(st0, params, 0.4, IdaOptions())
+    assert got[1].shape == got[2].shape == (bsz,)
+    assert _differ(got[0], ref[0]) == []
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+
+
+@pytest.mark.parametrize("budget", [None, 3], ids=["unbudgeted", "budget3"])
+def test_host_build_leaves_its_input_state_untouched(on_host, budget):
+    # out of place: every input tensor keeps its bits; fields the solve never
+    # touches pass through as the same tensors, the others are new ones
+    params, st0 = _stress_inputs()
+    before = [x.clone() if isinstance(x, torch.Tensor) else x for x in st0]
+    got, _, _ = _kernel_solve(st0, params, 4.0, IdaOptions(), budget=budget)
+    assert int(got.nst.sum()) > 0
+    for f, x, was in zip(st0._fields, st0, before):
+        if not isinstance(x, torch.Tensor):
+            continue
+        assert torch.equal(x, was, ), f
+        assert (getattr(got, f) is x) == (f not in fused_solve.STATE_FIELDS), f
+
+
+def test_host_build_takes_per_lane_tolerances(on_host):
+    # rtol [B] and atol [B, N] travel as tensors, not by value
+    params, st0 = _stress_inputs()
+    rng = np.random.default_rng(11)
+    rtol = torch.from_numpy(1e-4 * np.exp(rng.uniform(-1, 1, 16)))
+    atol = torch.from_numpy(np.array(ATOL) * np.exp(rng.uniform(-1, 1, (16, 3))))
+    tol = TolControl(rtol, atol)
+    assert fused_solve.tol_inputs(tol, 3, 16, torch.float64, torch.device("cpu")).rtol is None
+    got = _kernel_solve(st0, params, 4.0, IdaOptions(), tol=tol)
+    p = torch.as_tensor(params).t().contiguous()
+    ref = core_solve(to_native(st0), roberts_factory(p), IdaOptions(),
+                     TolControl(rtol, atol.t().contiguous()), torch.full((16,), 4.0).double())
+    assert _differ(got[0], from_native(ref[0])) == []
+    assert torch.equal(got[2], ref[2])
+    plain = fused_solve.make_fused_solve(roberts_factory, tol)(st0, params, 4.0)
+    assert _differ(plain[0], got[0]) == [] and torch.equal(plain[2], got[2])
+    with pytest.raises(ValueError, match="tol must be"):
+        fused_solve.tol_inputs(TolControl(rtol[:5], atol), 3, 16, torch.float64,
+                               torch.device("cpu"))
 
 
 def test_host_build_gives_the_canonical_lane(on_host):
@@ -230,3 +309,90 @@ def test_host_build_of_each_stage_is_bitwise_its_eager_stage(on_host, mid_flight
         assert _differ(got_st, ref_st) == [], (name, stage)
         for k, v in ref.items():
             assert torch.equal(got[k].to(v.dtype), v), (name, stage, k)
+
+
+_REAL_OPS = r"""
+#include "rounded.cuh"
+template <typename S>
+static void real_ops(const S* a, const S* b, S* out, int n) {
+  using R = ida::Real<S>;
+  for (int i = 0; i < n; ++i) {
+    R x, y;
+    x.v = a[i];
+    y.v = b[i];
+    out[0 * n + i] = (x + y).v;
+    out[1 * n + i] = (x - y).v;
+    out[2 * n + i] = (x * y).v;
+    out[3 * n + i] = (x / y).v;
+    out[4 * n + i] = (-x).v;
+    out[5 * n + i] = ida::absval(x).v;
+    out[6 * n + i] = ida::sqrt_of(ida::absval(x)).v;
+    out[7 * n + i] = R(0.1).v;
+    out[8 * n + i] = (S)((x < y) + 2 * (x <= y) + 4 * (x == y) + 8 * (x != y) + 16 * (x > y)
+                         + 32 * (x >= y) + 64 * ida::finite(x));
+  }
+}
+extern "C" void real_ops_f64(const double* a, const double* b, double* out, int n) {
+  real_ops<double>(a, b, out, n);
+}
+extern "C" void real_ops_f32(const float* a, const float* b, float* out, int n) {
+  real_ops<float>(a, b, out, n);
+}
+"""
+_OPS = ("add", "sub", "mul", "div", "neg", "abs", "sqrt", "const", "compare")
+
+
+@pytest.fixture(scope="module")
+def real_ops(tmp_path_factory):
+    """ida::Real's operators (csrc/rounded.cuh, host build) on random pairs,
+    with zeros, infinities, NaNs and subnormals among them: {dtype: (a, b,
+    out[9, n])}."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    out = tmp_path_factory.mktemp("real_ops")
+    (out / "cuda_runtime.h").write_text(_STUB)
+    (out / "real_ops.cpp").write_text(_PRELUDE.split("alignas")[0] + _REAL_OPS)
+    lib_path = out / "libreal_ops.so"
+    proc = subprocess.run(
+        [cxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC", "-I", str(out),
+         "-I", str(CSRC), "-o", str(lib_path), str(out / "real_ops.cpp")],
+        capture_output=True, text=True, check=False)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lib = ctypes.CDLL(str(lib_path))
+    rng = np.random.default_rng(7)
+    results = {}
+    for dt, name in ((np.float64, "real_ops_f64"), (np.float32, "real_ops_f32")):
+        special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, np.finfo(dt).tiny / 4, 1.0], dt)
+        a = np.concatenate([(rng.normal(size=2000) * 10.0 ** rng.integers(-30, 30, 2000)).astype(dt),
+                            np.repeat(special, len(special))])
+        b = np.concatenate([(rng.normal(size=2000) * 10.0 ** rng.integers(-30, 30, 2000)).astype(dt),
+                            np.tile(special, len(special))])
+        res = np.empty((len(_OPS), a.size), dt)
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+        fn.restype = None
+        fn(a.ctypes.data, b.ctypes.data, res.ctypes.data, a.size)
+        results[dt] = (a, b, res)
+    return results
+
+
+@pytest.mark.parametrize("dt", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("op", _OPS)
+def test_rounding_type_operator_is_numpys(real_ops, op, dt):
+    # each operator of ida::Real rounds once, as numpy's (IEEE) does, bit for
+    # bit, NaN for NaN
+    a, b, res = real_ops[dt]
+    with np.errstate(all="ignore"):
+        want = {
+            "add": lambda: a + b, "sub": lambda: a - b, "mul": lambda: a * b,
+            "div": lambda: a / b, "neg": lambda: -a, "abs": lambda: np.abs(a),
+            "sqrt": lambda: np.sqrt(np.abs(a)), "const": lambda: np.full_like(a, dt(0.1)),
+            "compare": lambda: ((a < b) + 2 * (a <= b) + 4 * (a == b) + 8 * (a != b)
+                                + 16 * (a > b) + 32 * (a >= b) + 64 * np.isfinite(a)).astype(dt),
+        }[op]()
+    got = res[_OPS.index(op)]
+    assert want.dtype == got.dtype
+    bits = np.uint64 if dt == np.float64 else np.uint32
+    same = (got.view(bits) == want.view(bits)) | (np.isnan(got) & np.isnan(want))
+    assert bool(same.all()), (op, a[~same][:3], b[~same][:3], got[~same][:3], want[~same][:3])

@@ -19,6 +19,7 @@ list of the K5 harness against the stage kernels that
 see tests/test_torch_cuda_kernels.py).
 """
 
+import ctypes
 import dataclasses
 import pathlib
 import re
@@ -39,11 +40,11 @@ from ida_tpu.tol_control import TolControl as JTol
 from ida_tpu.tol_control import tol_sv as jtol_sv
 from ida_tpu_torch import constants as C
 from ida_tpu_torch.core.solve import solve as tsolve
-from ida_tpu_torch.core.state import IdaOptions, IdaState
+from ida_tpu_torch.core.state import IdaOptions, IdaState, init_state
 from ida_tpu_torch.models import roberts_factory as troberts
 from ida_tpu_torch.ops import fused_solve, fused_stages, make_fused_solve
 from ida_tpu_torch.parallel import ensemble_init, make_ensemble_solve, to_native
-from ida_tpu_torch.tol_control import TolControl, tol_sv
+from ida_tpu_torch.tol_control import TolControl, tol_ss, tol_sv
 
 torch.set_num_threads(1)
 
@@ -247,3 +248,82 @@ def test_attempt_stage_is_one_loop_attempt_of_the_solve():
                                    {"err_k": o2["err_k"], "err_km1": o2["err_km1"], "ck": o2["ck"]})
     for f in ("phi", "psi", "hh", "kk", "nst", "nni", "nre"):
         assert torch.equal(getattr(s3, f), getattr(ref, f)), f
+
+
+def test_the_kernel_is_one_translation_unit_with_inlined_pow():
+    # no source is compiled apart for pow; the solve is built with nvcc's
+    # default contraction and rounds through csrc/rounded.cuh; every device
+    # function is inlined into its kernel
+    csrc = CU.parent
+    assert not (csrc / "torch_pow.cu").exists()
+    assert fused_solve.BUILD_FLAGS == ("-fmad=true",)
+    lane = (csrc / "ida_lane.cuh").read_text()
+    assert "torch_pow" not in lane + CU.read_text()
+    assert "__noinline__" not in lane + CU.read_text()
+    assert "::pow(" in (csrc / "rounded.cuh").read_text()
+    assert '#include "rounded.cuh"' in (csrc / "small_lu.cuh").read_text()
+
+
+def test_solve_args_mirror_the_kernels_argument_struct():
+    block = re.search(r"struct IdaSolveArgs \{(.*?)\};", CU.read_text(), re.S).group(1)
+    names = re.findall(r"(\w+)(?:, (\w+))?;", block)
+    flat = [n for pair in names for n in pair if n]
+    assert flat == ["in", "out", "params", "tol", "carry", "opts", "B", "budget"]
+    assert [f for f, _ in fused_solve.SolveArgs._fields_] == [
+        "src", "dst", "params", "tol", "carry", "opts", "B", "budget"]
+    lane = (CU.parent / "ida_lane.cuh").read_text()
+    assert f"constexpr int MAXN = {fused_solve.MAXN};" in lane
+    assert [f for f, _ in fused_solve.TolArgs._fields_] == [
+        "rtol", "atol", "tout", "rtol_lanes", "atol_lanes"]
+    assert ctypes.sizeof(fused_solve.TolArgs) == 8 * (fused_solve.MAXN + 4)
+
+
+@pytest.mark.parametrize("form", ["scalar", "vector", "per-lane-rtol", "per-lane-atol"])
+def test_tolerances_travel_by_value_unless_per_lane(form):
+    cpu, f64 = torch.device("cpu"), torch.float64
+    rtol = torch.tensor(1e-4, dtype=f64)
+    atol = torch.tensor(ATOL, dtype=f64)
+    if form == "scalar":
+        t = fused_solve.tol_inputs(TolControl(rtol, torch.tensor(1e-6, dtype=f64)), 3, 5, f64, cpu)
+        assert (t.rtol, t.atol, t.rtol_lanes) == (1e-4, (1e-6,) * 3, None)
+    elif form == "vector":
+        t = fused_solve.tol_inputs(TolControl(rtol.float(), atol), 3, 5, f64, cpu)
+        assert t.rtol == float(np.float32(1e-4)) and t.atol == tuple(ATOL) and t.atol_lanes is None
+    else:
+        lanes = TolControl(rtol.expand(5), atol) if form == "per-lane-rtol" else TolControl(
+            rtol, atol.expand(5, 3))
+        t = fused_solve.tol_inputs(lanes, 3, 5, f64, cpu)
+        assert t.rtol is None and t.rtol_lanes.shape == (5,) and t.atol_lanes.shape == (5, 3)
+        assert t.rtol_lanes.is_contiguous() and t.atol_lanes.is_contiguous()
+    with pytest.raises(ValueError, match="tol must be"):
+        fused_solve.tol_inputs(TolControl(rtol, atol[:2]), 3, 5, f64, cpu)
+
+
+def test_result_allocation_covers_the_touched_fields_only():
+    st = ensemble_init(troberts, *_inputs(2), device="cpu")
+    out = fused_solve.empty_result(st)
+    for f, x in zip(st._fields, st):
+        if isinstance(x, torch.Tensor):
+            y = getattr(out, f)
+            assert (y is x) == (f not in fused_solve.STATE_FIELDS), f
+            assert (y.shape, y.dtype, y.device) == (x.shape, x.dtype, x.device), f
+
+
+@pytest.mark.parametrize("entry", ["ensemble_init", "init_state", "tol_ss", "tol_sv"])
+def test_entry_points_name_the_card_by_default(entry):
+    # device=None is the current CUDA device; without one the entry point
+    # raises, it never carries on on the CPU
+    params, yy0, yp0 = _inputs(2)
+    calls = {
+        "ensemble_init": lambda **kw: ensemble_init(troberts, params, yy0, yp0, **kw).phi,
+        "init_state": lambda **kw: init_state(
+            troberts(torch.as_tensor(params[0])), yy0[0], yp0[0], **kw).phi,
+        "tol_ss": lambda **kw: tol_ss(1e-4, 1e-6, **kw).atol,
+        "tol_sv": lambda **kw: tol_sv(1e-4, ATOL, **kw).atol,
+    }
+    assert calls[entry](device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert calls[entry]().is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            calls[entry]()
