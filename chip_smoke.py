@@ -14,7 +14,15 @@ tout=400 in f64):
   gives the solve kernel's registers, stack, spills, shared memory,
   occupancy and waves, the device events of one call, and how unevenly the
   lanes of a warp work;
-* the canonical Roberts acceptance lane through both.
+* the canonical Roberts acceptance lane through both;
+* rootfinding at the same width (``roots_slice``: ``EnsembleIDA`` with roots
+  on, re-entered after its ROOT_RETURNs, 256 lanes against a CPU run);
+* dense output (``dense_slice``: one ``solve_dense`` over 12 decades at
+  B=65,536, its rows bit for bit 12 chained launches of the whole-solve
+  kernel; ``dense_events``: the event buffer against the re-entry form);
+* the user surface (``user_surface``: ``IDA`` over 12 decades with roots
+  against the pinned idaRoberts_dns counters, ``solve_dae``, ``EnsembleIDA``
+  against the harness, ``report_failures``).
 
 Every stage kernel is checked bit for bit against its eager stage on real
 mid-flight states first, so a parity break is localized. It prints one JSON
@@ -37,13 +45,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ida_tpu_torch import IDA, IdaSolveStatus, solve_dae
 from ida_tpu_torch import constants as C
-from ida_tpu_torch.core.solve import TASK_ONE_STEP
+from ida_tpu_torch.core import root as core_root
+from ida_tpu_torch.core.solve import TASK_ONE_STEP, solve_dense
 from ida_tpu_torch.core.solve import solve as core_solve
 from ida_tpu_torch.core.state import IdaOptions
-from ida_tpu_torch.models import ROBERTS_PARAMS, ROBERTS_YP0, ROBERTS_YY0, roberts_factory
+from ida_tpu_torch.models import (ROBERTS_PARAMS, ROBERTS_YP0, ROBERTS_YY0, roberts_factory,
+                                  roberts_problem)
 from ida_tpu_torch.ops import _build, dense_lu, fused_solve, fused_stages, small_lu
-from ida_tpu_torch.parallel import ensemble_init, from_native, make_ensemble_solve, to_native
+from ida_tpu_torch.parallel import (EnsembleIDA, ensemble_init, from_native, make_ensemble_solve,
+                                    to_native)
 from ida_tpu_torch.tol_control import TolControl, tol_sv
 
 BLOCK = 64  # threads a block of the whole-solve kernel (csrc/ida_lane.cuh IDA_THREADS)
@@ -55,6 +67,13 @@ ATOL = [1e-8, 1e-6, 1e-6]
 CANONICAL_NST = [29, 43, 68, 95, 126, 161, 202, 250, 293, 325, 348, 362]
 CANONICAL_TOTALS = {"nst": 362, "nre": 537, "nje": 60, "nni": 537, "netf": 15, "ncfn": 0}
 COUNTERS = ("nst", "nre", "nje", "nni", "netf", "ncfn")
+DECADES = [0.4 * 10**k for k in range(12)]
+# SUNDIALS idaRoberts_dns with its two root functions, as tests/test_roberts_e2e.py
+# and tests/test_root_oracle.py pin it: the counters exactly, the root times
+# to the tolerances given there
+ROOTED_TOTALS = {**CANONICAL_TOTALS, "nge": 404}
+ROOT_EVENTS = [(2.6402e-01, 1e-3, [0, 1]), (2.0788e7, 1e-2, [-1, 0])]
+CHECK_ANS = [5.2083474251394888e-08, 2.0833390772616859e-13, 9.9999994791631752e-01]
 LU_SOURCE = "ida_tpu_torch/csrc/small_lu.cu"
 LU_REPLACES = "ida_tpu/ops/pallas_lu.py:28"
 FUSED_SOURCE = "ida_tpu_torch/csrc/fused_solve.cu"
@@ -413,7 +432,8 @@ def phase_slice() -> dict:
     n_ok = int((istate == C.SUCCESS).sum())
     emit("slice", batch=B, tout=TOUT, dtype="float64", wall_s=wall, lanes_success=n_ok,
          steps_per_s=totals["nst"] / wall, launches=launches,
-         peak_mem_bytes=torch.cuda.max_memory_allocated(), **totals)
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         attempts_max_lane=int((st.nst + st.netf + st.ncfn).max()), **totals)
     check(n_ok == B, f"{B - n_ok} lanes did not return SUCCESS")
     check(bool((tret == TOUT).all()), "tret != tout")
     check(bool(torch.isfinite(st.yy).all()) and tuple(st.yy.shape) == (B, 3), "bad yy")
@@ -438,6 +458,13 @@ def phase_card_vs_cpu() -> None:
     check(float(wrms.max()) < 1.0, f"card vs CPU WRMS {wrms.max()}")
 
 
+def check_ans_wrms(yy: np.ndarray) -> float:
+    """The acceptance metric of idaRoberts_dns at t = 4e10 (WRMS < 1)."""
+    reference = np.array(CHECK_ANS)
+    ewt = 1.0 / (1e-4 * np.abs(reference) + 10.0 * np.array(ATOL))
+    return float(np.sqrt(np.mean((ewt * (yy - reference)) ** 2)))
+
+
 def canonical(fn, label: str) -> None:
     """One lane at nominal params, decade by decade to 4e10: the canonical
     per-decade steps, the C idaRoberts_dns totals and check_ans."""
@@ -449,9 +476,7 @@ def canonical(fn, label: str) -> None:
         check(int(istate[0]) == C.SUCCESS, f"{label} decade {k}: istate {int(istate[0])}")
         nst.append(int(st.nst[0]))
     totals = {f: int(getattr(st, f)[0]) for f in COUNTERS}
-    reference = np.array([5.2083474251394888e-08, 2.0833390772616859e-13, 9.9999994791631752e-01])
-    ewt = 1.0 / (1e-4 * np.abs(reference) + 10.0 * np.array(ATOL))
-    err = float(np.sqrt(np.mean((ewt * (st.yy[0].cpu().numpy() - reference)) ** 2)))
+    err = check_ans_wrms(st.yy[0].cpu().numpy())
     emit(label, nst_per_decade=nst, canonical=CANONICAL_NST, totals=totals,
          check_ans_wrms=err, tret=float(tret[0]))
     check(nst == CANONICAL_NST, f"{label}: per-decade nst {nst} != {CANONICAL_NST}")
@@ -802,29 +827,327 @@ def phase_fused_canonical() -> None:
     fn = fused_fn("cuda")
     canonical(fn, "fused_canonical_lane")
 
+# ------------------------------------------- roots, dense output, user surface
+
+
+def roots_factory(p):
+    return roberts_factory(p, with_roots=True)
+
+
+def lu_launches() -> dict:
+    return {"factor": small_lu.FACTOR_LAUNCHES, "solve": small_lu.SOLVE_LAUNCHES}
+
+
+def run_rooted(params, yy0, yp0, device, tout, max_calls=4) -> dict:
+    """``EnsembleIDA`` with roots on, called again while any lane returns
+    ROOT_RETURN (the loop of bench.py::run_roberts_roots). Per lane: how
+    often it returned a root, and the time and signs of its last one."""
+    ens = EnsembleIDA(roots_factory, params, yy0, yp0, tol_sv(1e-4, ATOL, device=device),
+                      device=device)
+    bsz = len(params)
+    n_root = np.zeros(bsz, np.int64)
+    t_root = np.zeros(bsz)
+    iroots = np.zeros((bsz, 2), np.int64)
+    calls, wall = 0, 0.0
+    while True:
+        check(calls < max_calls, f"still ROOT_RETURN lanes after {calls} solve calls")
+        t0 = time.perf_counter()
+        tret, istate = ens.solve(tout)  # returns host arrays: synchronizes
+        wall += time.perf_counter() - t0
+        calls += 1
+        hit = istate == C.ROOT_RETURN
+        if not hit.any():
+            break
+        n_root += hit
+        t_root[hit] = tret[hit]
+        iroots[hit] = ens.states.iroots.cpu().numpy()[hit]
+    return {"ens": ens, "tret": tret, "istate": istate, "calls": calls, "wall_s": wall,
+            "n_root": n_root, "t_root": t_root, "iroots": iroots}
+
+
+def phase_roots_slice(eager: dict) -> dict:
+    params, yy0, yp0 = ensemble_inputs(B)
+    run_rooted(params, yy0, yp0, "cuda", TOUT)  # warm-up
+    torch.cuda.synchronize()
+    small_lu.reset_launch_counts()
+    core_root.reset_pass_count()
+    out = run_rooted(params, yy0, yp0, "cuda", TOUT)
+    launches, passes = lu_launches(), core_root.ILLINOIS_PASSES
+    st = out["ens"].states
+    totals = {f: int(getattr(st, f).sum()) for f in COUNTERS + ("nge",)}
+    n_ok = int((out["istate"] == C.SUCCESS).sum())
+    once = int((out["n_root"] == 1).sum())
+    on_g1 = int((out["iroots"] == np.array([0, 1])).all(axis=1).sum())
+    # the device's share of the wall, and the same for the solve without
+    # roots beside it (its events a call are the yardstick for what the root
+    # checks add). These windows hold ~100,000 device events each and take
+    # the profiler most of a minute to digest, so they come after every
+    # phase that profiles a handful of launches: such a short window was seen
+    # to come back empty right after a long one
+    busy = device_busy(lambda: run_rooted(params, yy0, yp0, "cuda", TOUT), calls=1)
+    busy_eager = device_busy(lambda: run_ensemble(params, yy0, yp0, "cuda", TOUT), calls=1)
+    check(busy["device_events"] > 0 and busy_eager["device_events"] > 0,
+          "the profiler recorded no device event of the eager solves")
+
+    # 256 evenly spaced lanes against the port's own CPU run
+    lanes = np.linspace(0, B - 1, 256).astype(int)
+    cpu = run_rooted(params[lanes], yy0[lanes], yp0[lanes], "cpu", TOUT)
+    sc = cpu["ens"].states
+    exact = {f: bool((getattr(st, f)[lanes].cpu() == getattr(sc, f)).all()) for f in ("nst", "nge")}
+    exact["iroots"] = bool((out["iroots"][lanes] == cpu["iroots"]).all())
+    exact["n_root"] = bool((out["n_root"][lanes] == cpu["n_root"]).all())
+    ycpu = sc.yy.numpy()
+    w = 1.0 / (1e-4 * np.abs(ycpu) + np.array(ATOL))
+    wrms = float(np.sqrt(np.mean((w * (st.yy[lanes].cpu().numpy() - ycpu)) ** 2, axis=1)).max())
+    # the root time on the scale of the relative tolerance
+    t_err = float((np.abs(out["t_root"][lanes] - cpu["t_root"]) / (1e-4 * cpu["t_root"])).max())
+    emit("roots_slice", batch=B, tout=TOUT, dtype="float64", wall_s=out["wall_s"],
+         eager_no_roots_wall_s=eager["wall_s"], solve_calls=out["calls"], lanes_success=n_ok,
+         lanes_one_root=once, lanes_root_on_g1=on_g1, steps_per_s=totals["nst"] / out["wall_s"],
+         illinois_passes=passes, launches=launches,
+         attempts_max_lane=int((st.nst + st.netf + st.ncfn).max()), root_time_min=float(out["t_root"].min()),
+         root_time_max=float(out["t_root"].max()), profiled=busy, busy_share=busy["busy_share"],
+         profiled_without_roots=busy_eager,
+         card_vs_cpu={"lanes": 256, "exact": exact, "max_wrms_yy": wrms,
+                      "max_root_time_err_over_rtol": t_err}, **totals)
+    check(n_ok == B, f"roots_slice: {B - n_ok} lanes did not end SUCCESS")
+    check(bool((out["tret"] == TOUT).all()), "roots_slice: tret != tout")
+    check(once == B, f"roots_slice: {B - once} lanes did not return exactly one root")
+    check(on_g1 == B, f"roots_slice: {B - on_g1} lanes' root is not g1 rising (iroots [0, +1])")
+    check(0.2 < out["t_root"].min() and out["t_root"].max() < 0.35, "roots_slice: root times")
+    check(totals["nst"] == eager["totals"]["nst"], "roots_slice: roots changed the steps taken")
+    check(all(exact.values()), f"roots_slice: card != CPU on 256 lanes: {exact}")
+    check(wrms < 1.0 and t_err < 1.0, f"roots_slice: card vs CPU WRMS {wrms}, root time {t_err}")
+    check(launches["factor"] > 0 and launches["solve"] > 0, f"LU kernels not launched: {launches}")
+    return {"launches": launches}
+
+
+def native_setup(factory, params, yy0, yp0):
+    """Batch-native state, problem and tolerances on the card (the layout
+    ``solve`` and ``solve_dense`` take; bench.py::_native_setup)."""
+    st = to_native(ensemble_init(factory, params, yy0, yp0, device="cuda"))
+    p = on_card(params).t().contiguous()
+    inputs = fused_solve.lane_inputs(st, p, tol_sv(1e-4, ATOL, device="cuda"), TOUT, 3)
+    return st, factory(p), TolControl(inputs[1], inputs[2])
+
+
+def phase_dense_slice() -> dict:
+    params, yy0, yp0 = ensemble_inputs(B)
+    # B is even, so no lane of the sweep sits at the nominal parameters: the
+    # middle lane is put there, to carry the canonical per-decade steps
+    mid = B // 2
+    params[mid] = ROBERTS_PARAMS
+    yp0[mid] = ROBERTS_YP0
+
+    def run(touts=DECADES):
+        st, prob, tol = native_setup(roberts_factory, params, yy0, yp0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve_dense(st, prob, IdaOptions(), tol, touts)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    run()  # warm-up
+    small_lu.reset_launch_counts()
+    (st, tret, ist, yy, yp, nst), wall = run()
+    launches = lu_launches()
+    # the busy share from the first four decades only: the profiler takes
+    # minutes to digest the ~360,000 device events of all twelve
+    busy = device_busy(lambda: run(DECADES[:4]), calls=1)
+    check(busy["device_events"] > 0, "the profiler recorded no device event of solve_dense")
+
+    # the scan form at full width: 12 chained launches of the whole-solve
+    # kernel (bit for bit the eager solve, lane by lane)
+    fn = fused_fn("cuda")
+    sk = ensemble_init(roberts_factory, params, yy0, yp0, device="cuda")
+    p_b = on_card(params)
+    fused_solve.reset_launch_counts()
+    differ, chain_ms = [], 0.0
+    for k, tout in enumerate(DECADES):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        sk, ktret, kist = fn(sk, p_b, tout)
+        ev[1].record()
+        torch.cuda.synchronize()
+        chain_ms += ev[0].elapsed_time(ev[1])
+        pairs = {"tret": (tret[k], ktret), "istate": (ist[k], kist), "yy": (yy[k], sk.yy.t()),
+                 "yp": (yp[k], sk.yp.t()), "nst": (nst[k], sk.nst)}
+        differ += [f"row {k}: {name}" for name, (a, b) in pairs.items() if not same(a, b.contiguous())]
+    n_ok = int((ist == C.SUCCESS).sum())
+    attempts = st.nst + st.netf + st.ncfn
+    total_nst = int(st.nst.sum())
+    emit("dense_slice", batch=B, rows=len(DECADES), dtype="float64", wall_s=wall,
+         rows_success=n_ok, steps_per_s=total_nst / wall, nst=total_nst,
+         attempts_total=int(attempts.sum()), attempts_max_lane=int(attempts.max()),
+         launches=launches, scan_form_kernel_launches=fused_solve.FUSED_LAUNCHES,
+         scan_form_ms=chain_ms, rows_differ_from_scan_form=differ[:8],
+         nominal_lane_nst=nst[:, mid].tolist(), profiled_first_4_decades=busy,
+         busy_share=busy["busy_share"])
+    check(n_ok == len(DECADES) * B, f"dense_slice: {len(DECADES) * B - n_ok} rows not SUCCESS")
+    check(fused_solve.FUSED_LAUNCHES == len(DECADES), "dense_slice: the scan form's launches")
+    check(not differ, f"dense_slice: rows != 12 chained whole-solve launches: {differ[:8]}")
+    check(nst[:, mid].tolist() == CANONICAL_NST, f"dense_slice: nominal lane {nst[:, mid].tolist()}")
+    check(launches["factor"] > 0 and launches["solve"] > 0, f"LU kernels not launched: {launches}")
+    return {"launches": launches, "scan_form_launches": fused_solve.FUSED_LAUNCHES}
+
+
+def phase_dense_events() -> None:
+    # ties of the sign-change scan on the card: equal fractions, and no sign
+    # change at all, pick component 0
+    glo = torch.tensor([[-1.0, 1.0], [-1.0, 1.0]], device="cuda")
+    gnew = torch.tensor([[1.0, 2.0], [1.0, 2.0]], device="cuda")
+    act = torch.ones_like(glo, dtype=torch.bool)
+    _, sgn, imax = core_root._scan(act, torch.zeros_like(glo, dtype=torch.int32), glo, gnew)
+    check(sgn.tolist() == [True, False] and imax.tolist() == [0, 0], f"_scan ties: {imax.tolist()}")
+
+    max_events = 4
+    params, yy0, yp0 = ensemble_inputs(B_SMALL)
+    st0, prob, tol = native_setup(roots_factory, params, yy0, yp0)
+    out = solve_dense(st0, prob, IdaOptions(), tol, DECADES, max_events=max_events)
+    ev = out[6]
+    s0, p0, t0 = native_setup(roberts_factory, params, yy0, yp0)
+    plain_nst = solve_dense(s0, p0, IdaOptions(), t0, DECADES)[5]
+
+    # the re-entry form on the same lanes: every ROOT_RETURN of every call
+    st = st0
+    count = torch.zeros(B_SMALL, dtype=torch.int32, device="cuda")
+    slot = torch.arange(max_events, dtype=torch.int32, device="cuda").reshape(-1, 1)
+    ev_t = torch.zeros_like(ev.t)
+    ev_ir, ev_yy = torch.zeros_like(ev.iroots), torch.zeros_like(ev.yy)
+    calls = 0
+    for tout in DECADES:
+        while True:
+            st, tret, ist = core_solve(st, prob, IdaOptions(), tol, tout)
+            calls += 1
+            hit = ist == C.ROOT_RETURN
+            if not bool(hit.any()):
+                break
+            row = (slot == count) & hit
+            ev_t = torch.where(row, tret, ev_t)
+            ev_ir = torch.where(row.unsqueeze(1), st.iroots.unsqueeze(0), ev_ir)
+            ev_yy = torch.where(row.unsqueeze(1), st.yy.unsqueeze(0), ev_yy)
+            count = count + hit.to(torch.int32)
+        check(bool((ist == C.SUCCESS).all()), f"re-entry form: a lane failed toward {tout}")
+    equal = {"t": same(ev.t, ev_t), "iroots": same(ev.iroots, ev_ir), "yy": same(ev.yy, ev_yy),
+             "count": same(ev.count, count), "rows_nst": same(out[5], plain_nst)}
+    counts = sorted(set(ev.count.tolist()))
+    emit("dense_events", batch=B_SMALL, max_events=max_events, events_per_lane=counts,
+         reentry_solve_calls=calls, rows_success=int((out[2] == C.SUCCESS).sum()), equal=equal,
+         first_event=[float(ev.t[0].min()), float(ev.t[0].max())],
+         second_event=[float(ev.t[1].min()), float(ev.t[1].max())])
+    check(all(equal.values()), f"dense_events: != the re-entry form: {equal}")
+    check(counts == [2], f"dense_events: events per lane {counts}")
+    check(bool((out[2] == C.SUCCESS).all()), "dense_events: a row is not SUCCESS")
+    check(bool((ev.iroots[0] == torch.tensor([[0], [1]], device="cuda")).all())
+          and bool((ev.iroots[1] == torch.tensor([[-1], [0]], device="cuda")).all()),
+          "dense_events: the signs of the two events")
+
+
+def phase_user_surface() -> None:
+    # --- IDA, one lane on the card, as examples/roberts.py drives it ---
+    tol = tol_sv(1e-4, ATOL)
+    ida = IDA(roberts_problem(), ROBERTS_YY0, ROBERTS_YP0, tol)
+    t0 = time.perf_counter()
+    roots, iout, tout = [], 0, 0.4
+    while iout < 12:
+        tret, status = ida.solve(tout)
+        if status == IdaSolveStatus.Root:
+            roots.append((tret, ida.get_root_info().tolist()))
+            continue
+        check(status == IdaSolveStatus.Success, f"IDA: {status} toward {tout}")
+        iout += 1
+        tout *= 10.0
+    wall = time.perf_counter() - t0
+    got = {"nst": ida.get_num_steps(), "nre": ida.get_num_res_evals(),
+           "nje": ida.get_num_jac_evals(), "nni": ida.get_num_nonlin_solv_iters(),
+           "netf": ida.get_num_err_test_fails(), "ncfn": ida.get_num_nonlin_solv_conv_fails(),
+           "nge": ida.get_num_g_evals()}
+    err = check_ans_wrms(ida.get_yy())
+    t_in = ida.get_current_time() - 0.5 * ida.get_last_step()
+    dky_equal = bool(np.array_equal(ida.get_dky(t_in, 0), ida.get_solution(t_in)[0]))
+    emit("user_surface_ida", device=str(ida.device), wall_s=wall, roots=roots, counters=got,
+         pinned=ROOTED_TOTALS, check_ans_wrms=err, tret=tret, get_dky0_equals_get_solution=dky_equal)
+    check(got == ROOTED_TOTALS, f"IDA counters {got} != {ROOTED_TOTALS}")
+    check(len(roots) == len(ROOT_EVENTS), f"IDA found {len(roots)} roots")
+    for (t, ir), (t_ref, rtol, ir_ref) in zip(roots, ROOT_EVENTS):
+        check(abs(t - t_ref) <= rtol * t_ref and ir == ir_ref, f"IDA root {t} {ir}")
+    check(tret == 4.0e10 and err < 1.0, f"IDA: tret {tret}, check_ans WRMS {err}")
+    check(dky_equal, "get_dky(t, 0) != get_solution(t)[0]")
+
+    # --- solve_dae with an event function ---
+    prob = roberts_problem()
+    sol = solve_dae(prob.res, (0.0, 4.0e3), ROBERTS_YY0, ROBERTS_YP0, t_eval=DECADES[:5],
+                    rtol=1e-4, atol=ATOL, jac=prob.jac, roots=prob.root)
+    emit("user_surface_solve_dae", success=sol.success, t=sol.t.tolist(),
+         t_events=sol.t_events.tolist(), stats=sol.stats)
+    check(sol.success and sol.t.tolist() == DECADES[:5], f"solve_dae: {sol.message}")
+    check(sol.t_events.tolist() == [roots[0][0]], f"solve_dae events {sol.t_events.tolist()}")
+    check(bool(np.isfinite(sol.y).all()) and sol.y.shape == (5, 3), "solve_dae: y")
+
+    # --- EnsembleIDA against the harness of the slice phase, same lanes ---
+    params, yy0, yp0 = ensemble_inputs(B_SMALL)
+    ens = EnsembleIDA(roberts_factory, params, yy0, yp0, tol)
+    tret_e, ist_e = ens.solve(TOUT)
+    hst, htret, hist = run_ensemble(params, yy0, yp0, "cuda", TOUT)
+    est = ens.states
+    differ = [f for f in hst._fields if isinstance(getattr(hst, f), torch.Tensor)
+              and not same(getattr(est, f), getattr(hst, f))]
+    ok = (not differ and np.array_equal(tret_e, htret.cpu().numpy())
+          and np.array_equal(ist_e, hist.cpu().numpy()))
+    # --- report_failures: five steps are not enough for anybody ---
+    bad = EnsembleIDA(roberts_factory, params, yy0, yp0, tol, IdaOptions(mxstep=5))
+    _, ist_b = bad.solve(TOUT)
+    rows = bad.report_failures(ist_b)
+    names = sorted({r["status_name"] for r in rows})
+    emit("user_surface_ensemble", batch=B_SMALL, equals_harness=ok, fields_differ=differ,
+         lanes_success=int((ist_e == C.SUCCESS).sum()), failures_reported=len(rows),
+         failure_names=names, first_line=bad.format_failures(ist_b).splitlines()[0])
+    check(ok, f"EnsembleIDA.solve != ensemble_init + make_ensemble_solve: {differ}")
+    check(len(rows) == B_SMALL and names == ["TOO_MUCH_WORK"]
+          and [r["lane"] for r in rows] == list(range(B_SMALL)), "report_failures with mxstep=5")
+    check(all(r["nst"] == 5 for r in rows), "report_failures: nst")
+
+
+def timed(phase, *args):
+    """Run a phase and print how long it took."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    emit("phase_seconds", name=phase.__name__, seconds=time.perf_counter() - t0)
+    return out
+
 
 def main() -> None:
     smi = phase_device()
-    phase_build()
-    lu = phase_kernels()
-    eager = phase_slice()
-    phase_card_vs_cpu()
-    phase_canonical()
-    stages = phase_fused_stages()
-    fused = phase_fused_slice(eager)
-    budgeted = phase_fused_budgeted()
-    phase_fused_f32()
-    phase_fused_canonical()
+    timed(phase_build)
+    lu = timed(phase_kernels)
+    eager = timed(phase_slice)
+    timed(phase_card_vs_cpu)
+    timed(phase_canonical)
+    stages = timed(phase_fused_stages)
+    fused = timed(phase_fused_slice, eager)
+    budgeted = timed(phase_fused_budgeted)
+    timed(phase_fused_f32)
+    timed(phase_fused_canonical)
+    rooted = timed(phase_roots_slice, eager)
+    dense = timed(phase_dense_slice)
+    timed(phase_dense_events)
+    timed(phase_user_surface)
 
+    # "launches" is the count of the eager headline (phase slice) for the LU
+    # kernels and of the fused headline for the solve kernel; the counts of
+    # the two new paths stand beside them
     rows = [
         {"name": f"small_lu_{k}", "route": "cuda", "source": LU_SOURCE, "replaces": LU_REPLACES,
-         "launches": eager["launches"][k], "max_abs_err": lu[k]["max_abs_err"], "ms": lu[k]["ms"],
+         "launches": eager["launches"][k], "launches_roots_slice": rooted["launches"][k],
+         "launches_dense_slice": dense["launches"][k],
+         "max_abs_err": lu[k]["max_abs_err"], "ms": lu[k]["ms"],
          "plain_ms": lu[k]["plain_ms"], "bound_ms": lu[k]["bound_ms"], "bound_by": "bytes",
          "library_ms": lu[k]["library_ms"]}
         for k in ("factor", "solve")
     ]
     rows.append({"name": "fused_solve", "route": "cuda", "source": FUSED_SOURCE,
                  "replaces": REPLACES["fused_solve"], "launches": fused["launches"],
+                 "launches_dense_slice_scan_form": dense["scan_form_launches"],
                  "max_abs_err": fused["max_abs_err"], "ms": fused["ms"], "plain_ms": fused["plain_ms"],
                  "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"], "library_ms": None})
     for kind in ("init", "cont"):

@@ -86,3 +86,12 @@ STATUS_NAMES = {
     BAD_T: "BAD_T",
     CLOSE_ROOTS: "CLOSE_ROOTS",
 }
+
+
+def not_ported(what: str, item: int, module: str) -> NotImplementedError:
+    """The error every entry point raises for a feature of ``ida_tpu`` that
+    this port does not have yet: it names the ROADMAP.md Queue 1 item (and
+    the ``ida_tpu`` module) whose port lifts it."""
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item}, {module})"
+    )

@@ -2,7 +2,8 @@
 
 Port of ``ida_tpu/core/interp.py`` (reference ``get_solution``,
 src/lib.rs:1274-1343): evaluate y(t), y'(t) from the divided-difference
-array phi and the step sums psi.
+array phi and the step sums psi; and ``get_dky`` (src/lib.rs:424-529), the
+general k-th-derivative variant.
 """
 
 from __future__ import annotations
@@ -69,3 +70,41 @@ def get_solution(state: IdaState, t: torch.Tensor) -> Tuple[IdaState, torch.Tens
     yy = torch.where(ok, yy, state.yy)
     yp = torch.where(ok, yp, state.yp)
     return state._replace(yy=yy, yp=yp), ok
+
+
+def get_dky(state: IdaState, t: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k-th derivative of the interpolating polynomial at t (reference
+    src/lib.rs:424-529, with C IDAGetDky's index bounds, not the reference's
+    off-by-one). ``k`` is a Python int, 0 <= k <= kused.
+
+    Returns (dky [N, *batch], ok); ok is False where t lies outside the last
+    step or k > kused for the lane."""
+    kused = state.kused
+    ok = check_t_legal(state, t) & (kused >= k)
+
+    delt = t - state.tn
+    zero = torch.zeros_like(delt)
+    cjk = [zero] * C.MXORDP1
+    cjk_1 = [zero] * C.MXORDP1
+    psij_1 = zero
+
+    for i in range(0, k + 1):
+        if i == 0:
+            cjk[0] = torch.ones_like(delt)
+        else:
+            # c_i^(i) = prod_{j<=i} j / psi_{j-1} (src/lib.rs:486-494)
+            cjk[i] = cjk[i - 1] * i / state.psi[i - 1]
+            psij_1 = state.psi[i - 1]
+        # update c_j^(i) for j = i+1 ..= kused - k + i (src/lib.rs:499-503)
+        for j in range(i + 1, C.MXORDP1):
+            active = kused - k + i >= j
+            val = (i * cjk_1[j - 1] + cjk[j - 1] * (delt + psij_1)) / state.psi[j - 1]
+            cjk[j] = torch.where(active, val, cjk[j])
+            psij_1 = torch.where(active, state.psi[j - 1], psij_1)
+        cjk_1 = list(cjk)
+
+    idx = kidx(state)
+    cvec = torch.stack(cjk)
+    sel = torch.where((idx >= k) & (idx <= kused), cvec, torch.zeros_like(cvec))
+    dky = sum0(sel.unsqueeze(1) * state.phi)
+    return dky, ok

@@ -25,8 +25,9 @@ class IdaOptions:
     """Solver options (reference ``Ida::new`` defaults, src/lib.rs:309-317).
 
     This port covers the C-parity dense direct path: ``linear_solver`` must
-    be "dense" and ``ls_precision`` "full"; ``fast_math`` and ``debug_trace``
-    must be False. Any other value raises."""
+    be "dense" and ``ls_precision`` "full"; ``fast_math`` must be False. Any
+    other value raises. ``debug_trace`` dumps the state before every step
+    attempt into the active ``utils.trace.DataTrace``."""
 
     maxord: int = C.MAXORD_DEFAULT  # max BDF order (1..5)
     mxstep: int = C.MXSTEP_DEFAULT  # max internal steps per solve() call
@@ -34,6 +35,7 @@ class IdaOptions:
     maxnef: int = C.MXNEF  # max error-test failures per step
     maxnlsit: int = C.MAXNLSIT  # max Newton iterations per attempt
     suppressalg: bool = False  # exclude algebraic vars from error tests
+    max_root_iters: int = 100  # hard bound on the Illinois root search loop
     linear_solver: str = "dense"
     ls_precision: str = "full"
     fast_math: bool = False
@@ -46,8 +48,6 @@ class IdaOptions:
             raise NotImplementedError(f"ls_precision={self.ls_precision!r}: only 'full' is ported")
         if self.fast_math:
             raise NotImplementedError("fast_math=True is not ported")
-        if self.debug_trace:
-            raise NotImplementedError("debug_trace=True is not ported")
         if not 1 <= self.maxord <= C.MAXORD_DEFAULT:
             raise ValueError(f"maxord must lie in 1..{C.MAXORD_DEFAULT}, got {self.maxord}")
 

@@ -15,6 +15,7 @@ import torch
 
 from .. import constants as C
 from ..utils.numerics import pow_
+from ..utils.trace import TRACE_FIELDS, trace_sink
 from .coeffs import kidx, predict, reset, restore, set_coeffs
 from .error_test import error_test
 from .nls import nonlinear_solve
@@ -126,6 +127,9 @@ def attempt_once(
     (success=False, fatal=CONTINUE, ncf/nef unchanged)."""
     if active is None:
         active = torch.ones(state.tn.shape, dtype=torch.bool, device=state.tn.device)
+    if opts.debug_trace:
+        # per-attempt state dump (reference src/lib.rs:635-639)
+        trace_sink(**{f: getattr(state, f) for f in TRACE_FIELDS})
 
     st, ck = set_coeffs(state, mask=active)
 

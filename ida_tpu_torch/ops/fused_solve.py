@@ -389,6 +389,9 @@ def make_fused_solve(problem_factory, tol: TolControl, opts: IdaOptions = IdaOpt
     model, n, _ = model_of(problem_factory)
     if attempt_budget is not None and attempt_budget < 1:
         raise ValueError(f"attempt_budget must be at least 1, got {attempt_budget}")
+    if opts.debug_trace:
+        raise ValueError("fused_solve: the kernel cannot dump per-attempt states "
+                         "(debug_trace=True); trace the eager solve")
     tol_on_card: dict = {}  # (B, dtype, device) -> TolInputs, made at the first such call
 
     def fn(states_b: IdaState, params_b, tout):

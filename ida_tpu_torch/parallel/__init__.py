@@ -1,3 +1,3 @@
-from .batch import ensemble_init, from_native, make_ensemble_solve, to_native
+from .batch import EnsembleIDA, ensemble_init, from_native, make_ensemble_solve, to_native
 
-__all__ = ["ensemble_init", "from_native", "make_ensemble_solve", "to_native"]
+__all__ = ["EnsembleIDA", "ensemble_init", "from_native", "make_ensemble_solve", "to_native"]

@@ -1,7 +1,7 @@
 """Ensemble (batch) integration: many independent DAE instances in lockstep.
 
-Port of ``ida_tpu/parallel/batch.py``'s ``ensemble_init`` and
-``make_ensemble_solve``. The public layout is the JAX package's: states,
+Port of ``ida_tpu/parallel/batch.py``'s ``ensemble_init``,
+``make_ensemble_solve`` and ``EnsembleIDA``. The public layout is the JAX package's: states,
 params and results are batch-LEADING. Inside, one batch-native solve runs
 over states whose batch axis is TRAILING (the layout of
 ``bench.py::_native_setup``), which also makes the LU kernel's loads
@@ -13,13 +13,16 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
-from ..core.solve import TASK_NORMAL, solve
+from .. import constants as C
+from ..core.solve import TASK_NORMAL, TASK_ONE_STEP, solve, solve_dense
 from ..core.state import IdaOptions, IdaState, init_state
 from ..problem import IdaProblem
 from ..tol_control import TolControl
 from ..utils.device import resolve_device
+from ..utils.tree import masked_while_loop
 
 ProblemFactory = Callable[[Any], IdaProblem]
 
@@ -73,16 +76,184 @@ def make_ensemble_solve(
     def fn(states: IdaState, params, tol: TolControl, tout):
         native = to_native(states)
         dtype, dev = native.dtype, native.phi.device
-        bsz = native.tn.shape[0]
-        n = native.yy.shape[0]
         p = torch.as_tensor(params, dtype=dtype, device=dev).t().contiguous()
-        rtol = torch.as_tensor(tol.rtol, dtype=dtype, device=dev)
-        atol = torch.as_tensor(tol.atol, dtype=dtype, device=dev)
-        tol_native = TolControl(
-            rtol=rtol.expand(bsz),
-            atol=(atol.reshape(-1, 1) if atol.dim() else atol).expand(n, bsz),
-        )
+        tol_native = _native_shared_tol(tol, native)
         st, tret, istate = solve(native, problem_factory(p), opts, tol_native, tout, itask)
         return from_native(st), tret, istate
 
     return fn
+
+
+def _native_shared_tol(tol: TolControl, native: IdaState) -> TolControl:
+    """A tolerance shared by every lane (scalar rtol, scalar or [N] atol) as
+    the batch-native core takes it: rtol [B], atol [N, B] (views)."""
+    dtype, dev = native.dtype, native.phi.device
+    n, bsz = native.yy.shape
+    rtol = torch.as_tensor(tol.rtol, dtype=dtype, device=dev)
+    atol = torch.as_tensor(tol.atol, dtype=dtype, device=dev)
+    return TolControl(
+        rtol=rtol.expand(bsz),
+        atol=(atol.reshape(-1, 1) if atol.dim() else atol).expand(n, bsz),
+    )
+
+
+class EnsembleIDA:
+    """Stateful convenience wrapper over the batch-native solver (host side).
+
+    Port of ``ida_tpu.parallel.EnsembleIDA``: drives a [B]-batch and exposes
+    per-lane statuses instead of exceptions (for a single instance prefer
+    :class:`ida_tpu_torch.IDA`). ``params`` [B, P], ``yy0``/``yp0`` [B, N]
+    and ``tol`` (shared by every lane) are as the JAX class takes them;
+    results come back as numpy arrays, batch-leading. The problem is built
+    once, from the batch-last params, and the state is kept batch-native on
+    the device between calls (``states`` gives the batch-leading view).
+    ``device`` None is the current CUDA device. Sharding over several cards
+    (the JAX class's ``mesh``) is not ported yet (ROADMAP.md Queue 1 item
+    13)."""
+
+    def __init__(
+        self,
+        problem_factory: ProblemFactory,
+        params: Any,
+        yy0,
+        yp0,
+        tol: TolControl,
+        options: IdaOptions = IdaOptions(),
+        *,
+        dtype: torch.dtype = torch.float64,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.factory = problem_factory
+        self.options = options
+        self.params = torch.as_tensor(params, dtype=dtype, device=self.device)
+        self.problem = problem_factory(self.params.t().contiguous())
+        self._native = to_native(init_state(self.problem, yy0, yp0, device=self.device, dtype=dtype))
+        self.tol = tol
+        self._tol_native = _native_shared_tol(tol, self._native)
+
+    @property
+    def states(self) -> IdaState:
+        """The batch-leading IdaState (a copy in that layout)."""
+        return from_native(self._native)
+
+    def solve(self, tout: float, one_step: bool = False):
+        """Advance every lane toward ``tout`` (or by one internal step each
+        with ``one_step``). Returns (tret[B], istate[B]) as numpy arrays;
+        lane failures are status codes, not exceptions."""
+        itask = TASK_ONE_STEP if one_step else TASK_NORMAL
+        self._native, tret, istate = solve(
+            self._native, self.problem, self.options, self._tol_native, tout, itask
+        )
+        return tret.cpu().numpy(), istate.cpu().numpy()
+
+    def solve_grid(self, touts, fused: bool | None = None, max_events: int = 0):
+        """Dense trajectory output for the whole ensemble: sweep a monotone
+        time grid (see ``IDA.solve_grid``). ``touts`` is [T] (shared grid) or
+        [T, B] (per-lane grids). Returns numpy ``(tret [T, B], istate [T, B],
+        yy [T, B, N], yp [T, B, N])``.
+
+        ``fused=None`` selects the dense-output form
+        (``core.solve.solve_dense``) when the problem has no roots, or when
+        it has roots AND ``max_events > 0``; then the return gains a
+        trailing per-lane :class:`~ida_tpu_torch.core.solve.DenseEvents`
+        (leading axis B) holding every root crossing in the swept span.
+        Lanes advance through their rows independently instead of waiting
+        for the whole batch at every row; row values are bit for bit the
+        same either way."""
+        nroots = self.problem.nroots
+        if fused is None:
+            fused = nroots == 0 or max_events > 0
+        if max_events > 0 and not fused:
+            raise ValueError(
+                "solve_grid: the scan form (fused=False) cannot record events; drop "
+                "fused=False, or use solve() for ROOT_RETURN-driven stepping"
+            )
+        st = self._native
+        touts = torch.as_tensor(touts, dtype=st.dtype, device=self.device)
+
+        def lead(x):  # [T, (N,) B] -> numpy [T, B(, N)]
+            return x.movedim(-1, 1).cpu().numpy()
+
+        if fused:
+            out = solve_dense(st, self.problem, self.options, self._tol_native, touts,
+                              max_events=max_events if nroots else 0)
+            self._native = out[0]
+            rows = tuple(lead(x) for x in out[1:5])
+            if nroots:
+                # events keep a leading B (per-lane buffers)
+                return rows + (type(out[6])(*(x.movedim(-1, 0).cpu().numpy() for x in out[6])),)
+            return rows
+
+        rows = []
+        for k in range(touts.shape[0]):
+            tout = touts[k]
+            st, tret, ist = solve(st, self.problem, self.options, self._tol_native, tout)
+            # continue lanes stopped at a root crossing (per-lane masked;
+            # finished lanes freeze): dense output samples the grid, it does
+            # not stop at events
+            st, tret, ist = masked_while_loop(
+                lambda c: c[2] == C.ROOT_RETURN,
+                lambda c: solve(c[0], self.problem, self.options, self._tol_native, tout),
+                (st, tret, ist),
+            )
+            rows.append((tret, ist, st.yy, st.yp))
+        self._native = st
+        return tuple(lead(torch.stack([r[j] for r in rows])) for j in range(4))
+
+    def calc_ic(self, icopt: str, tout1: float):
+        raise C.not_ported("EnsembleIDA.calc_ic (consistent initial conditions)", 10,
+                           "core/calc_ic.py")
+
+    @property
+    def yy(self):
+        return self._native.yy.t().cpu().numpy()
+
+    @property
+    def nst(self):
+        return self._native.nst.cpu().numpy()
+
+    def status_names(self, istate) -> list[str]:
+        return [C.STATUS_NAMES.get(int(s), str(int(s))) for s in istate]
+
+    def report_failures(self, istate=None) -> list[dict]:
+        """Host-side decode of failed lanes: which lane failed, why, at what
+        t, after how many steps. Pass the ``istate`` array returned by
+        :meth:`solve`, or omit it to use the statuses stored in the states.
+
+        Returns one dict per failed lane:
+        ``{lane, status, status_name, t, nst, hh, hused, kused, ncfn, netf}``.
+        The fields come off the device in one transfer."""
+        st = self._native
+        dt = torch.float64  # holds the int32 fields and counters below 2**53 exactly
+        table = torch.stack(
+            [x.to(dt) for x in (st.status, st.tn, st.nst, st.hh, st.hused, st.kused, st.ncfn,
+                                st.netf)]
+        ).cpu().numpy()
+        status = table[0].astype(np.int64) if istate is None else np.asarray(istate)
+        tn, nst, hh, hused, kused, ncfn, netf = table[1:]
+        return [
+            {
+                "lane": int(i),
+                "status": int(status[i]),
+                "status_name": C.STATUS_NAMES.get(int(status[i]), str(int(status[i]))),
+                "t": float(tn[i]),
+                "nst": int(nst[i]),
+                "hh": float(hh[i]),
+                "hused": float(hused[i]),
+                "kused": int(kused[i]),
+                "ncfn": int(ncfn[i]),
+                "netf": int(netf[i]),
+            }
+            for i in np.nonzero(status < 0)[0]
+        ]
+
+    def format_failures(self, istate=None) -> str:
+        """Readable multi-line report of :meth:`report_failures` (empty
+        string when every lane is healthy)."""
+        return "\n".join(
+            f"lane {r['lane']}: {r['status_name']} at t={r['t']:.6e} "
+            f"(nst={r['nst']}, h={r['hh']:.3e}, last h={r['hused']:.3e}, "
+            f"k={r['kused']}, ncfn={r['ncfn']}, netf={r['netf']})"
+            for r in self.report_failures(istate)
+        )

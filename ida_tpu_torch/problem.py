@@ -20,6 +20,8 @@ from typing import Callable, Optional
 
 import torch
 
+from .constants import not_ported
+
 ResFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 JacFn = Callable[
     [torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor
@@ -35,9 +37,14 @@ class IdaProblem:
       res: residual ``(t, yy, yp) -> F`` of shape [N, *batch].
       jac: optional analytic ``(t, cj, yy, yp, rr) -> J`` of shape
         [N, N, *batch]; forward-mode AD of ``res`` when None.
-      root: optional root function (not supported by this port's solve yet).
+      root: optional root function ``(t, yy, yp) -> g`` of shape
+        [nroots, *batch]; sign changes of each component are located as
+        events during ``solve`` (``core/root.py``).
       nroots: number of root functions.
       id: optional bool [N]: differential (True) vs algebraic (False).
+      quad, nquad: quadrature right-hand side and its size. Quadratures
+        (``core/quad.py`` of ``ida_tpu``) are not ported yet: ``nquad > 0``
+        raises NotImplementedError (ROADMAP.md Queue 1 item 10).
     """
 
     n: int
@@ -46,10 +53,14 @@ class IdaProblem:
     root: Optional[Callable] = None
     nroots: int = 0
     id: Optional[torch.Tensor] = None
+    quad: Optional[Callable] = None
+    nquad: int = 0
 
     def __post_init__(self):
         if self.root is None and self.nroots:
             raise ValueError("nroots > 0 requires a root function")
+        if self.quad is not None or self.nquad:
+            raise not_ported("quadratures (IdaProblem.quad, nquad > 0)", 10, "core/quad.py")
 
     def jtimes(self, t, cj, yy, yp, v) -> torch.Tensor:
         """Matrix-free J v = (dF/dy) v + cj (dF/dy') v via one jvp."""

@@ -5,6 +5,9 @@ loops run until every lane is done and each body application is masked, so
 finished lanes are frozen. Leaves are tensors whose TRAILING axes are the
 batch (the batch-native layout), or ``()`` for empty slots. A loop
 condition becomes a host-side ``bool(...)``: one device sync per iteration.
+
+``bounded_fori_loop`` (the fixed-trip form ``IdaOptions.unroll_roots``
+selects for reverse-mode AD) is not ported: it comes with the sensitivities.
 """
 
 from __future__ import annotations
@@ -18,7 +21,13 @@ T = TypeVar("T")
 
 def tree_where(pred: torch.Tensor, new_tree: T, old_tree: T) -> T:
     """Elementwise select over matching NamedTuples (or tuples) of tensors.
-    ``pred`` broadcasts against each leaf from the right (trailing batch)."""
+    ``pred`` broadcasts against each leaf from the right (trailing batch).
+    A leaf that is the same tensor object on both sides (a field that
+    ``_replace`` left alone) is returned as it is: no select is launched for
+    it, and the result is the same bit for bit. Nothing in the core writes a
+    tensor in place, so sharing the object is safe."""
+    if new_tree is old_tree:
+        return old_tree
     if isinstance(new_tree, torch.Tensor):
         return torch.where(pred, new_tree, old_tree)
     leaves = [tree_where(pred, n, o) for n, o in zip(new_tree, old_tree)]
@@ -62,4 +71,23 @@ def masked_while_loop(
     while bool(active.any()):
         c = tree_where(active, body_fn(c), c)
         active = cond_fn(c)
+    return c
+
+
+def bounded_while_loop(
+    cond_fn: Callable[[T], torch.Tensor],
+    body_fn: Callable[[T], T],
+    init: T,
+    max_iters: int,
+) -> T:
+    """:func:`masked_while_loop` with a hard iteration bound (the safety net
+    of the root search, whose convergence is mathematically, not
+    structurally, guaranteed)."""
+    c = init
+    n = 0
+    active = cond_fn(c)
+    while n < max_iters and bool(active.any()):
+        c = tree_where(active, body_fn(c), c)
+        active = cond_fn(c)
+        n += 1
     return c

@@ -287,3 +287,78 @@ def test_fused_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fn(st0._replace(phi=st0.phi.transpose(1, 2)), params, 4.0)
     with pytest.raises(TypeError):
         fn(st0._replace(kk=st0.kk.long()), params, 4.0)
+
+
+# ------------------------------- roots, dense output and the user surface
+
+
+def _rooted(p):
+    return roberts_factory(p, with_roots=True)
+
+
+def test_scan_ties_pick_the_first_component_on_the_card(cuda):
+    from ida_tpu_torch.core.root import _scan
+
+    glo = torch.tensor([[-1.0, 1.0], [-1.0, 1.0]], device=cuda)
+    gnew = torch.tensor([[1.0, 2.0], [1.0, 2.0]], device=cuda)
+    act = torch.ones_like(glo, dtype=torch.bool)
+    _, sgnchg, imax = _scan(act, torch.zeros_like(glo, dtype=torch.int32), glo, gnew)
+    assert sgnchg.tolist() == [True, False] and imax.tolist() == [0, 0]
+
+
+def test_rooted_ensemble_on_the_card_equals_the_cpu_run(cuda):
+    from ida_tpu_torch.parallel import EnsembleIDA
+
+    bsz = 64
+    params = np.outer(np.exp(np.linspace(-0.2, 0.2, bsz)), ROBERTS_PARAMS)
+    yy0 = np.tile(ROBERTS_YY0, (bsz, 1))
+    yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ens = EnsembleIDA(_rooted, params, yy0, yp0, tol_sv(1e-4, ATOL, device=dev), device=dev)
+        first = ens.solve(0.4)
+        iroots = ens.states.iroots.cpu().numpy()
+        runs[dev] = (first, iroots, ens.solve(0.4), ens.solve(400.0), ens.states)
+    (g1, gi, g2, g3, gst), (c1, ci, c2, c3, cst) = runs["cuda"], runs["cpu"]
+    assert g1[1].tolist() == c1[1].tolist() == [C.ROOT_RETURN] * bsz
+    assert gi.tolist() == ci.tolist() == [[0, 1]] * bsz
+    np.testing.assert_allclose(g1[0], c1[0], rtol=1e-9, atol=0)
+    assert g2[1].tolist() == g3[1].tolist() == [C.SUCCESS] * bsz and g3[0].tolist() == [400.0] * bsz
+    for f in ("nst", "nge", "nre", "nni"):
+        assert torch.equal(getattr(gst, f).cpu(), getattr(cst, f)), f
+
+
+def test_solve_dense_rows_equal_chained_solve_kernel_launches(cuda):
+    from ida_tpu_torch.core.solve import solve_dense
+
+    bsz, touts = 256, [0.4, 4.0, 40.0, 400.0]
+    params = np.outer(np.exp(np.linspace(-0.2, 0.2, bsz)), ROBERTS_PARAMS)
+    yy0 = np.tile(ROBERTS_YY0, (bsz, 1))
+    yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
+    tol = tol_sv(1e-4, ATOL, device=cuda)
+    lead = ensemble_init(roberts_factory, params, yy0, yp0, device=cuda)
+    p = torch.as_tensor(params, device=cuda).t().contiguous()
+    native = to_native(lead)
+    inputs = fused_solve.lane_inputs(native, p, tol, 400.0, 3)
+    out = solve_dense(native, roberts_factory(p), IdaOptions(), TolControl(inputs[1], inputs[2]), touts)
+    fn = fused_solve.make_fused_solve(roberts_factory, tol)
+    for k, tout in enumerate(touts):
+        lead, tret, ist = fn(lead, params, tout)
+        assert torch.equal(out[1][k], tret) and torch.equal(out[2][k], ist)
+        assert torch.equal(out[3][k], lead.yy.t()) and torch.equal(out[4][k], lead.yp.t())
+        assert torch.equal(out[5][k], lead.nst)
+
+
+def test_ida_runs_on_the_card_by_default(cuda):
+    from ida_tpu_torch import IDA, IdaSolveStatus
+    from ida_tpu_torch.models import ROBERTS_YP0, roberts_problem
+
+    ida = IDA(roberts_problem(), ROBERTS_YY0, ROBERTS_YP0, tol_sv(1e-4, ATOL))
+    assert ida.device.type == "cuda" and ida.state.phi.is_cuda
+    tret, status = ida.solve(0.4)
+    assert status == IdaSolveStatus.Root and ida.get_root_info().tolist() == [0, 1]
+    assert abs(tret - 0.2640160014306263) < 1e-9 * tret
+    assert ida.solve(0.4) == (0.4, IdaSolveStatus.Success)
+    assert (ida.get_num_steps(), ida.get_num_g_evals()) == (29, 44)
+    t = ida.get_current_time() - 0.5 * ida.get_last_step()
+    assert np.array_equal(ida.get_dky(t, 0), ida.get_solution(t)[0])

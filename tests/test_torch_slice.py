@@ -221,7 +221,6 @@ def test_dtype_is_preserved(dtype):
         {"ls_precision": "single"},
         {"ls_precision": "refined"},
         {"fast_math": True},
-        {"debug_trace": True},
     ],
     ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()),
 )
