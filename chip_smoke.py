@@ -22,7 +22,15 @@ tout=400 in f64):
   kernel; ``dense_events``: the event buffer against the re-entry form);
 * the user surface (``user_surface``: ``IDA`` over 12 decades with roots
   against the pinned idaRoberts_dns counters, ``solve_dae``, ``EnsembleIDA``
-  against the harness, ``report_failures``).
+  against the harness, ``report_failures``);
+* the Krylov path at the published widths of BASELINE configs 4 and 5:
+  heat2d 100 x 100 through ``IDA`` (SPGMR, diagonal preconditioner) against
+  the port's CPU run of the same solve (``heat2d_spgmr``), 64 heat2d lanes
+  batch-native (``heat2d_batched``), foodweb 20 x 20 through ``IDA.calc_ic``
+  and four legs (``foodweb``), 128 foodweb lanes through batch-native
+  ``calc_ic`` and the legs (``foodweb_batched``), with the LU kernel's
+  launches counted on both foodweb paths and the kernel held against its
+  plain version at N = 2 on the foodweb blocks (``kernel_n2_foodweb_blocks``).
 
 Every stage kernel is checked bit for bit against its eager stage on real
 mid-flight states first, so a parity break is localized. It prints one JSON
@@ -51,12 +59,15 @@ from ida_tpu_torch.core import root as core_root
 from ida_tpu_torch.core.solve import TASK_ONE_STEP, solve_dense
 from ida_tpu_torch.core.solve import solve as core_solve
 from ida_tpu_torch.core.state import IdaOptions
-from ida_tpu_torch.models import (ROBERTS_PARAMS, ROBERTS_YP0, ROBERTS_YY0, roberts_factory,
-                                  roberts_problem)
+from ida_tpu_torch.core.calc_ic import IC_YA_YDP_INIT
+from ida_tpu_torch.core.calc_ic import calc_ic as core_calc_ic
+from ida_tpu_torch.models import (ROBERTS_PARAMS, ROBERTS_YP0, ROBERTS_YY0, foodweb,
+                                  foodweb_ic, foodweb_problem, heat2d_ic, heat2d_problem,
+                                  roberts_factory, roberts_problem)
 from ida_tpu_torch.ops import _build, dense_lu, fused_solve, fused_stages, small_lu
 from ida_tpu_torch.parallel import (EnsembleIDA, ensemble_init, from_native, make_ensemble_solve,
                                     to_native)
-from ida_tpu_torch.tol_control import TolControl, tol_sv
+from ida_tpu_torch.tol_control import TolControl, tol_ss, tol_sv
 
 BLOCK = 64  # threads a block of the whole-solve kernel (csrc/ida_lane.cuh IDA_THREADS)
 
@@ -1108,6 +1119,204 @@ def phase_user_surface() -> None:
     check(all(r["nst"] == 5 for r in rows), "report_failures: nst")
 
 
+# --------------------------------------------- the Krylov path and calc_ic
+
+HEAT_M = 100  # BASELINE config 4 (idaHeat2D_kry at 100 x 100, N = 10,000)
+HEAT_TOUT = 0.16
+HEAT_B = 64  # bench.py::run_heat2d_batched
+FOOD_M = 20  # BASELINE config 5 (idaFoodWeb_kry at 20 x 20, N = 800)
+FOOD_B = 128  # bench.py::run_foodweb_batched
+FOOD_TOUTS = [1e-3, 4e-3, 1.6e-2, 6.4e-2]
+# ida_tpu's own counts on its last recorded run (BENCH_DETAIL.json, a TPU
+# run): printed beside the card's as a cross-check, never a gate, because
+# the order of a sum moves Krylov counts
+JAX_COUNTS = {"heat2d": {"nst": 173, "nli": 1006}, "foodweb": {"nst": 43, "nli": 102}}
+KRYLOV = ("nst", "nni", "nli", "nps", "ncfl", "netf", "ncfn", "nje")
+
+
+def heat2d_opts() -> IdaOptions:
+    return IdaOptions(linear_solver="spgmr", mxstep=20000)
+
+
+def foodweb_opts() -> IdaOptions:
+    return IdaOptions(linear_solver="spgmr", mxstep=5000, krylov_maxl=12, krylov_max_restarts=10)
+
+
+def krylov_counts(st) -> dict:
+    return {f: int(getattr(st, f).sum()) for f in KRYLOV}
+
+
+def heat2d_ida(device) -> IDA:
+    u0, up0 = heat2d_ic(HEAT_M)
+    return IDA(heat2d_problem(HEAT_M, device=device), u0, up0,
+               tol_ss(1e-5, 1e-8, device=device), heat2d_opts(), device=device)
+
+
+def phase_heat2d_spgmr() -> None:
+    """One 100 x 100 instance through ``IDA`` (bench.py::run_heat2d), held
+    against the port's CPU run of the same solve."""
+    ida = heat2d_ida("cuda")
+    wall = wall_s(lambda: ida.solve(HEAT_TOUT))
+    got = krylov_counts(ida.state)
+    cpu = heat2d_ida("cpu")
+    t0 = time.perf_counter()
+    cpu.solve(HEAT_TOUT)
+    cpu_wall = time.perf_counter() - t0
+    # WRMS of the difference under the card run's own weights
+    yy, ewt = ida.state.yy.cpu(), ida.state.ewt.cpu()
+    wrms = float(torch.sqrt(torch.mean(((yy - cpu.state.yy) * ewt) ** 2)))
+    emit("heat2d_spgmr", grid=f"{HEAT_M}x{HEAT_M}", n=HEAT_M * HEAT_M, tout=HEAT_TOUT,
+         gs="modified", wall_s=wall, steps_per_s=got["nst"] / wall, **got,
+         cpu=krylov_counts(cpu.state), cpu_wall_s=cpu_wall, wrms_card_vs_cpu=wrms,
+         ida_tpu_tpu_run=JAX_COUNTS["heat2d"])
+    check(ida.get_current_time() >= HEAT_TOUT, "heat2d_spgmr: did not reach tout")
+    check(got["nje"] == 0 and got["nli"] > 0, f"heat2d_spgmr: nje {got['nje']}, nli {got['nli']}")
+    check(bool(torch.isfinite(ida.state.yy).all()), "heat2d_spgmr: yy not finite")
+    check(wrms < 1.0, f"heat2d_spgmr: card vs CPU WRMS {wrms}")
+
+
+def phase_heat2d_batched() -> None:
+    """B = 64 instances, u0 x linspace(0.9, 1.1, B), batch-native
+    ``ensemble_init`` + ``core.solve`` (bench.py::run_heat2d_batched)."""
+    u0, up0 = heat2d_ic(HEAT_M)
+    prob = heat2d_problem(HEAT_M)
+    opts = heat2d_opts()
+    tol = tol_ss(1e-5, 1e-8)
+    scales = np.linspace(0.9, 1.1, HEAT_B)
+
+    st0 = to_native(ensemble_init(lambda p: prob, scales[:, None], u0[None] * scales[:, None],
+                                  up0[None] * scales[:, None], opts=opts))
+    out = {}
+    wall = wall_s(lambda: out.update(r=core_solve(st0, prob, opts, tol, HEAT_TOUT)))
+    st, tret, istate = out["r"]
+    nst = int(st.nst.sum())
+    # the device's busy share over a short steady window: one more internal
+    # step of every lane from the end state, three times (a few thousand
+    # events, which the profiler digests in seconds)
+    busy = device_busy(lambda: core_solve(st, prob, opts, tol, 1.0, TASK_ONE_STEP), calls=3)
+    emit("heat2d_batched", grid=f"{HEAT_M}x{HEAT_M}", batch=HEAT_B, tout=HEAT_TOUT, wall_s=wall,
+         total_steps=nst, agg_steps_per_s=nst / wall, **krylov_counts(st),
+         lanes_success=int((istate == C.SUCCESS).sum()), busy_window="one step from the end state",
+         **busy)
+    check(bool((istate == C.SUCCESS).all()), "heat2d_batched: a lane is not SUCCESS")
+    check(bool(torch.isfinite(st.yy).all()), "heat2d_batched: yy not finite")
+
+
+def predator_ratio_err(yy: np.ndarray) -> float:
+    """max |c_pred / (EE c_prey) - 1| (tests/test_foodweb.py:24-33)."""
+    c = yy.reshape(-1, 2)
+    return float(np.abs(c[:, 1] / (foodweb.EE * c[:, 0]) - 1.0).max())
+
+
+def phase_foodweb() -> dict:
+    """One 20 x 20 instance through ``IDA``: calc_ic("ya_ydp"), then the
+    four legs of bench.py::run_foodweb."""
+    c0, cp0 = foodweb_ic(FOOD_M, FOOD_M)
+    ida = IDA(foodweb_problem(FOOD_M, FOOD_M), c0, cp0, tol_ss(1e-5, 1e-5), foodweb_opts())
+    small_lu.reset_launch_counts()
+    ic_wall = wall_s(lambda: ida.calc_ic("ya_ydp", tout1=FOOD_TOUTS[0]))
+    ic_err = predator_ratio_err(ida.get_consistent_ic()[0])
+    statuses = []
+    wall = wall_s(lambda: statuses.extend(ida.solve(t)[1].name for t in FOOD_TOUTS))
+    launches = lu_launches()
+    got = krylov_counts(ida.state)
+    end_err = predator_ratio_err(ida.get_yy())
+    emit("foodweb", grid=f"{FOOD_M}x{FOOD_M}", n=2 * FOOD_M * FOOD_M, calc_ic_wall_s=ic_wall,
+         legs_wall_s=wall, steps_per_s=got["nst"] / wall, statuses=statuses, **got,
+         predator_ratio_err_ic=ic_err, predator_ratio_err_end=end_err, lu_launches=launches,
+         ida_tpu_tpu_run=JAX_COUNTS["foodweb"])
+    check(statuses == ["Success"] * 4, f"foodweb: {statuses}")
+    check(ic_err < 1e-3 and end_err < 1e-2, f"foodweb: predator ratio {ic_err}, {end_err}")
+    check(got["nje"] == 0 and got["nps"] > 0, f"foodweb: nje {got['nje']}, nps {got['nps']}")
+    check(launches["factor"] > 0 and launches["solve"] > 0, f"foodweb: LU kernels {launches}")
+    return {"launches": launches}
+
+
+def phase_foodweb_batched() -> dict:
+    """B = 128 instances, prey x linspace(0.95, 1.05, B): batch-native
+    calc_ic, then the four legs (bench.py::run_foodweb_batched)."""
+    c0, cp0 = foodweb_ic(FOOD_M, FOOD_M)
+    prob = foodweb_problem(FOOD_M, FOOD_M)
+    opts = foodweb_opts()
+    tol = tol_ss(1e-5, 1e-5)
+    ids = prob.id.cpu().numpy()
+    scales = np.linspace(0.95, 1.05, FOOD_B)
+    c0b = np.stack([c0 * np.where(ids, s, 1.0) for s in scales])
+    st = to_native(ensemble_init(lambda p: prob, scales[:, None], c0b, np.tile(cp0, (FOOD_B, 1)),
+                                 opts=opts))
+    small_lu.reset_launch_counts()
+    out = {}
+    ic_wall = wall_s(lambda: out.update(ic=core_calc_ic(st, prob, opts, tol, IC_YA_YDP_INIT,
+                                                        FOOD_TOUTS[0])))
+    st, ok = out["ic"]
+    ic_launches = lu_launches()
+    ists = []
+
+    def legs():
+        nonlocal st
+        for t in FOOD_TOUTS:
+            st, _, ist = core_solve(st, prob, opts, tol, t)
+            ists.append(ist)
+
+    wall = wall_s(legs)
+    launches = lu_launches()
+    nst = int(st.nst.sum())
+    lanes_ok = int((ok & torch.stack(ists).eq(C.SUCCESS).all(dim=0)).sum())
+    emit("foodweb_batched", grid=f"{FOOD_M}x{FOOD_M}", batch=FOOD_B, calc_ic_wall_s=ic_wall,
+         legs_wall_s=wall, total_steps=nst, agg_steps_per_s=nst / wall, **krylov_counts(st),
+         lanes_ok=lanes_ok, calc_ic_ok=int(ok.sum()), lu_launches_calc_ic=ic_launches,
+         lu_launches=launches, predator_ratio_err_end=predator_ratio_err(st.yy.t().cpu().numpy()))
+    check(lanes_ok == FOOD_B, f"foodweb_batched: {FOOD_B - lanes_ok} lanes not ok and SUCCESS")
+    check(launches["factor"] > 0 and launches["solve"] > 0, f"foodweb_batched: LU kernels {launches}")
+    return {"launches": launches, "state": st}
+
+
+def phase_kernels_n2(food: dict) -> dict:
+    """K1 at N = 2 on the foodweb blocks of one lsetup, both batch axes
+    ([2, 2, 400, 128]): kernel against its plain version bit for bit, its
+    device time, its bound and torch.linalg's time on the same blocks."""
+    st = food["state"]
+    # at the last legs' state, with each lane's cj of its last lsetup
+    blocks = foodweb.prec_blocks(FOOD_M, FOOD_M, st.cjold, st.yy)
+    rb = st.yy.reshape((FOOD_M * FOOD_M, 2, FOOD_B)).movedim(1, 0).contiguous()
+    f, g = small_lu.lu_factor(blocks), dense_lu.lu_factor_unrolled(blocks)
+    x, y = small_lu.lu_solve(f, rb), dense_lu.lu_solve_unrolled(g, rb)
+    torch.cuda.synchronize()
+    ok = {"factor": same(f.lu, g.lu) and same(f.piv, g.piv) and same(f.fail_col, g.fail_col),
+          "solve": same(x, y)}
+    errs = {"factor": float((f.lu - g.lu).abs().max()), "solve": float((x - y).abs().max())}
+    m = blocks[0, 0].numel()
+    # cold, as at N = 3: 64 input sets in turn move ~250 MB a pass, five
+    # times the L2, so every launch reads its input from HBM
+    sets = [(blocks.clone(), rb.clone()) for _ in range(64)]
+    f_sets = [small_lu.lu_factor(a) for a, _ in sets]
+    dev_ms = {
+        "factor": kernel_device_ms([lambda a=a: small_lu.lu_factor(a) for a, _ in sets], 2,
+                                   "factor_kernel"),
+        "solve": kernel_device_ms([lambda h=h, b=b: small_lu.lu_solve(h, b)
+                                   for h, (_, b) in zip(f_sets, sets)], 2, "solve_kernel"),
+    }
+    plain_ms = {"factor": cuda_ms(lambda: dense_lu.lu_factor_unrolled(blocks), 20),
+                "solve": cuda_ms(lambda: dense_lu.lu_solve_unrolled(g, rb), 20)}
+    # the library yardstick (never called by the port), batch-leading, cold
+    # by the same protocol
+    lead = [(a.reshape(2, 2, m).permute(2, 0, 1).contiguous(),
+             b.reshape(2, m).t().contiguous().unsqueeze(-1)) for a, b in sets]
+    f_lead = [torch.linalg.lu_factor_ex(a)[:2] for a, _ in lead]
+    lib_ms = {"factor": call_device_ms([lambda a=a: torch.linalg.lu_factor_ex(a) for a, _ in lead], 2),
+              "solve": call_device_ms([lambda h=h, b=b: torch.linalg.lu_solve(h[0], h[1], b)
+                                       for h, (_, b) in zip(f_lead, lead)], 2)}
+    nbytes = {"factor": 4 * m * 8 + 4 * m * 8 + 2 * m * 4 + m * 4,
+              "solve": 4 * m * 8 + 2 * m * 4 + 2 * m * 8 + 2 * m * 8}
+    rows = {k: {"max_abs_err": errs[k], "ms": dev_ms[k], "plain_ms": plain_ms[k],
+                "bound_ms": lu_bound_ms(nbytes[k]), "bound_by": "bytes", "library_ms": lib_ms[k]}
+            for k in ("factor", "solve")}
+    emit("kernel_n2_foodweb_blocks", shape=list(blocks.shape), systems=m, bitwise_equal=ok,
+         bytes=nbytes, **rows)
+    check(ok["factor"] and ok["solve"], f"K1 at N = 2 != its plain version: {ok}")
+    return rows
+
+
 def timed(phase, *args):
     """Run a phase and print how long it took."""
     t0 = time.perf_counter()
@@ -1132,6 +1341,11 @@ def main() -> None:
     dense = timed(phase_dense_slice)
     timed(phase_dense_events)
     timed(phase_user_surface)
+    timed(phase_heat2d_spgmr)
+    timed(phase_heat2d_batched)
+    food = timed(phase_foodweb)
+    food_b = timed(phase_foodweb_batched)
+    n2 = timed(phase_kernels_n2, food_b)
 
     # "launches" is the count of the eager headline (phase slice) for the LU
     # kernels and of the fused headline for the solve kernel; the counts of
@@ -1143,6 +1357,14 @@ def main() -> None:
          "max_abs_err": lu[k]["max_abs_err"], "ms": lu[k]["ms"],
          "plain_ms": lu[k]["plain_ms"], "bound_ms": lu[k]["bound_ms"], "bound_by": "bytes",
          "library_ms": lu[k]["library_ms"]}
+        for k in ("factor", "solve")
+    ]
+    # K1 at N = 2 on the foodweb preconditioner's blocks: the launches of
+    # the single foodweb run, with those of the batched one beside them
+    rows += [
+        {"name": f"small_lu_{k}_n2_foodweb", "route": "cuda", "source": LU_SOURCE,
+         "replaces": LU_REPLACES, "launches": food["launches"][k],
+         "launches_foodweb_batched": food_b["launches"][k], **n2[k]}
         for k in ("factor", "solve")
     ]
     rows.append({"name": "fused_solve", "route": "cuda", "source": FUSED_SOURCE,

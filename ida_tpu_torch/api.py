@@ -83,9 +83,9 @@ def solve_dae(
       res: residual ``(t, y, yp) -> F`` of shape [N] (torch tensors).
       t_span: (t0, tf).
       y0: initial state [N].
-      yp0: initial derivative [N]. ``yp0=None`` (consistent initial
-        conditions computed by IDACalcIC) is not ported yet: it raises
-        NotImplementedError, as does ``calc_ic``.
+      yp0: initial derivative [N]. May be None when ``id`` is given: then
+        consistent (y0_algebraic, yp0) are computed with IDACalcIC
+        (``icopt="ya_ydp"``) before integrating.
       t_eval: output grid inside t_span (default: just [tf]). Must be
         monotone increasing (or decreasing for backward integration).
       rtol, atol: scalar rtol; atol scalar or per-component [N].
@@ -94,9 +94,12 @@ def solve_dae(
       roots: optional event function ``(t, y, yp) -> g [nroots]``; located
         crossings are collected into ``t_events``/``y_events`` and the
         sweep continues through them.
-      id: optional bool [N], True for differential variables.
+      id: optional bool [N], True for differential variables (enables
+        ``calc_ic="ya_ydp"``).
       options: advanced :class:`IdaOptions` (suppressalg, maxord, ...).
       dtype: torch.float64 (default) or torch.float32.
+      calc_ic: force an IDACalcIC pass before integrating, "ya_ydp" or "y"
+        (default: "ya_ydp" only when ``yp0`` is None).
       device: where to run; None is the current CUDA device.
 
     Returns:
@@ -112,9 +115,14 @@ def solve_dae(
         probe = roots(torch.as_tensor(t0, dtype=dtype, device=device), y0, torch.zeros_like(y0))
         nroots = int(probe.shape[0]) if probe.dim() else 1
 
-    if yp0 is None or calc_ic is not None:
-        raise C.not_ported("solve_dae with yp0=None or calc_ic (consistent initial conditions)",
-                          10, "core/calc_ic.py")
+    if yp0 is None:
+        if id is None and calc_ic != "y":
+            raise ValueError(
+                "yp0=None requires `id` (differential-variable mask) so consistent ICs can be "
+                "computed with calc_ic='ya_ydp'"
+            )
+        yp0 = torch.zeros_like(y0)
+        calc_ic = calc_ic or "ya_ydp"
     yp0 = torch.as_tensor(yp0, dtype=dtype, device=device)
 
     problem = IdaProblem(
@@ -131,6 +139,9 @@ def solve_dae(
         t_eval = np.asarray(t_eval, dtype=np.float64)
         if t_eval.ndim != 1 or t_eval.size == 0:
             raise ValueError("t_eval must be a non-empty 1-D grid")
+
+    if calc_ic is not None:
+        ida.calc_ic(calc_ic, float(t_eval[0]))
 
     t_events: list[float] = []
     y_events: list[np.ndarray] = []

@@ -1,16 +1,19 @@
-"""Nonlinear system solution for one step attempt (L3 layer), dense path.
+"""Nonlinear system solution for one step attempt (L3 layer).
 
-Port of ``ida_tpu/core/nls.py`` for ``linear_solver="dense"``,
-``ls_precision="full"`` (reference ``nonlinear_solve`` src/lib.rs:787-890,
-``crates/nonlinear/src/newton.rs:51-167``, ``src/ida_nls.rs:105-266``,
-``src/ida_ls.rs:232-455``). The outer (retry with a fresh Jacobian) and
-inner (Newton iteration) loops are masked while loops: every lane runs its
-own iteration count, finished lanes are frozen. The LU factor and solve go
-through ``ops.dense_lu.lu_factor_auto``/``lu_solve_auto``: the CUDA kernel
-on the card, the plain version on the CPU.
+Port of ``ida_tpu/core/nls.py`` for ``linear_solver`` "dense" and "spgmr"
+at ``ls_precision="full"`` (reference ``nonlinear_solve``
+src/lib.rs:787-890, ``crates/nonlinear/src/newton.rs:51-167``,
+``src/ida_nls.rs:105-266``, ``src/ida_ls.rs:232-455``). The outer (retry
+with a fresh Jacobian) and inner (Newton iteration) loops are masked while
+loops: every lane runs its own iteration count, finished lanes are frozen.
+The dense LU factor and solve go through
+``ops.dense_lu.lu_factor_auto``/``lu_solve_auto`` (the CUDA kernel on the
+card up to N = 16); the Krylov path runs ``ops.spgmr.spgmr_solve`` on jvps
+of the residual with the problem's preconditioner.
 
-Not ported here: the inequality-constraints block (ida_tpu/core/nls.py:636-681) and the
-Krylov, band and mixed-precision linear solvers.
+Not ported here: the inequality-constraints block
+(ida_tpu/core/nls.py:636-681), the band solver and the mixed-precision
+modes.
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ import torch
 from .. import constants as C
 from ..norms import wrms_norm_bnd
 from ..ops.dense_lu import DenseLU, lu_factor_auto, lu_solve_auto
+from ..ops.spgmr import spgmr_solve
 from ..problem import IdaProblem
-from ..utils.numerics import pow_
+from ..utils.numerics import pow_, sqrt_
 from ..utils.tree import masked_while_loop, tree_where
 from .state import IdaOptions, IdaState
 
@@ -47,6 +51,7 @@ class _Lin(NamedTuple):
 
     lu: torch.Tensor
     piv: torch.Tensor
+    pdata: object
     cjold: torch.Tensor
     cjratio: torch.Tensor
     nje: torch.Tensor
@@ -54,18 +59,27 @@ class _Lin(NamedTuple):
 
 
 class _Inner(NamedTuple):
-    """Carry of the inner Newton iteration: only what it mutates. yy/yp are
-    ``predict + ycor`` and savres equals ``delta`` (dense path), so they are
-    rebuilt where needed. Counters tally in local int32 lanes."""
+    """Carry of the inner Newton iteration: only what it mutates. On the
+    dense path yy/yp are ``predict + ycor`` and savres equals ``delta``, so
+    they are rebuilt where needed and, with the Krylov counters, carry
+    ``()``. Counters tally in local int32 lanes."""
 
     ycor: torch.Tensor
     delta: torch.Tensor
+    yy: object  # () on the dense path
+    yp: object  # () on the dense path
+    savres: object  # () on the dense path (== delta there)
     oldnrm: torch.Tensor
     ss: torch.Tensor
     curiter: torch.Tensor  # int32 m
     istatus: torch.Tensor  # int32
     knni: torch.Tensor  # int32 Newton iterations this nonlinear_solve
     kre: torch.Tensor  # int32 residual evaluations this nonlinear_solve
+    knli: object  # () on the dense path; int32 lanes under spgmr
+    knps: object
+    kncfl: object
+    knjtsetup: object
+    knjtimes: object
 
 
 class _Outer(NamedTuple):
@@ -78,18 +92,25 @@ class _Outer(NamedTuple):
 
 
 def _lsetup(
-    state: IdaState, problem: IdaProblem, lin: _Lin, yy, yp, savres
+    state: IdaState, problem: IdaProblem, opts: IdaOptions, lin: _Lin, yy, yp, savres
 ) -> Tuple[_Lin, torch.Tensor]:
     """idaNlsLSetup + idaLsSetup (reference src/ida_nls.rs:156-187,
-    src/ida_ls.rs:232-290): J = dF/dy + cj*dF/dy' at the predictor, LU-factored."""
-    j = problem.sys_jacobian(state.tn, state.cj, yy, yp, savres)
-    f = lu_factor_auto(j)
-    # singular (pivot == 0) OR non-finite Jacobian => recoverable lsetup
-    # failure (a NaN pivot passes the == 0 test)
-    fail = (f.fail_col > 0) | ~torch.isfinite(j).all(dim=0).all(dim=0)
+    src/ida_ls.rs:232-290). Dense: J = dF/dy + cj*dF/dy' at the predictor,
+    LU-factored. SPGMR: refresh the preconditioner (the operator itself is
+    matrix-free, always current)."""
+    if opts.linear_solver == "dense":
+        j = problem.sys_jacobian(state.tn, state.cj, yy, yp, savres)
+        f = lu_factor_auto(j)
+        # singular (pivot == 0) OR non-finite Jacobian => recoverable lsetup
+        # failure (a NaN pivot passes the == 0 test)
+        fail = (f.fail_col > 0) | ~torch.isfinite(j).all(dim=0).all(dim=0)
+        lin = lin._replace(lu=f.lu, piv=f.piv, nje=lin.nje + 1)
+    else:
+        if problem.prec_setup is not None:
+            lin = lin._replace(pdata=problem.prec_setup(state.tn, state.cj, yy, yp, savres))
+        fail = torch.zeros_like(state.cj, dtype=torch.bool)
     lin = lin._replace(
-        lu=f.lu, piv=f.piv, nje=lin.nje + 1, nsetups=lin.nsetups + 1,
-        cjold=state.cj, cjratio=torch.ones_like(state.cj),
+        nsetups=lin.nsetups + 1, cjold=state.cj, cjratio=torch.ones_like(state.cj),
     )
     return lin, fail
 
@@ -105,9 +126,49 @@ def _newton_iterate(
     yypredict, yppredict = state.yypredict, state.yppredict
     bnd = cj.dim()
     zero = torch.zeros_like(cj)
-    # idaLsSolve's cj-change correction (reference src/ida_ls.rs:406-410)
-    scale = torch.where(lin.cjratio != 1.0, 2.0 / (1.0 + lin.cjratio), torch.ones_like(cj))
-    factored = DenseLU(lin.lu, lin.piv, torch.zeros(cj.shape, dtype=torch.int32, device=cj.device))
+    dense = opts.linear_solver == "dense"
+    if dense:
+        # idaLsSolve's cj-change correction (reference src/ida_ls.rs:406-410)
+        scale = torch.where(lin.cjratio != 1.0, 2.0 / (1.0 + lin.cjratio), torch.ones_like(cj))
+        factored = DenseLU(lin.lu, lin.piv, torch.zeros(cj.shape, dtype=torch.int32, device=cj.device))
+    else:
+        # the Krylov tolerance sqrt(N) * eplifac * eps_newt (reference
+        # ida_ls.rs:211, 337)
+        sqrt_n = sqrt_(torch.full((), problem.n, dtype=cj.dtype, device=cj.device))
+        ltol = sqrt_n * opts.eplifac * eps_newt
+        psolve = None
+        if problem.prec_solve is not None:
+            def psolve(r):
+                return problem.prec_solve(lin.pdata, r, cj)
+
+    def lsolve(c: _Inner, b, first):
+        """idaLsSolve (reference src/ida_ls.rs:298-455). On the first Newton
+        iteration of an attempt a Krylov solve that only reduced the
+        residual (SUNLS_RES_REDUCED) is accepted."""
+        if dense:
+            return c, lu_solve_auto(factored, b) * scale, None
+        yy, yp = c.yy, c.yp
+        jdata = None
+        if problem.jtimes_setup is not None:
+            # C idaLsSolve calls the user jtsetup once per linear solve
+            jdata = problem.jtimes_setup(tn, cj, yy, yp, c.savres)
+            c = c._replace(knjtsetup=c.knjtsetup + 1)
+
+        def atimes(v):
+            return problem.jtimes(tn, cj, yy, yp, v, jdata)
+
+        res = spgmr_solve(
+            atimes, b, ltol, psolve=psolve, s1=ewt, s2=ewt, maxl=opts.krylov_maxl,
+            max_restarts=opts.krylov_max_restarts, gs=opts.krylov_gs,
+            active=c.istatus == _CONTINUE,
+        )
+        c = c._replace(
+            knli=c.knli + res.nli, knps=c.knps + res.nps, knjtimes=c.knjtimes + res.natimes,
+            # C idaLsSolve counts EVERY linear non-success, the reduced
+            # solves the first iteration accepts included
+            kncfl=c.kncfl + (~res.converged).to(torch.int32),
+        )
+        return c, res.x, res.converged | (first & res.reduced)
 
     def cond(c: _Inner) -> torch.Tensor:
         return c.istatus == _CONTINUE
@@ -115,7 +176,7 @@ def _newton_iterate(
     def body(c: _Inner) -> _Inner:
         m = c.curiter
         first = m == 0
-        x = lu_solve_auto(factored, -c.delta) * scale
+        c, x, lok = lsolve(c, -c.delta, first)
         ycor = c.ycor + x
 
         # --- convergence test (idaNlsConvTest) ---
@@ -136,17 +197,26 @@ def _newton_iterate(
             _CONV_RECVR,
             torch.where(converged, _OK, torch.where(exhausted, _CONV_RECVR, continuing)),
         )
+        if lok is not None:
+            # a failed linear solve is its own recoverable kind (C
+            # IDA_LSOLVE_RECVR)
+            istatus = torch.where(lok, istatus, _LSOLVE_RECVR)
 
         # re-evaluate the residual only if iterating again; a non-finite
         # result ends the Newton loop with the recoverable-residual kind
         keep = istatus == _CONTINUE
-        r = problem.res(tn, yypredict + ycor, yppredict + cj * ycor)
+        yy = yypredict + ycor
+        yp = yppredict + cj * ycor
+        r = problem.res(tn, yy, yp)
         rbad = keep & ~_res_ok(r)
         istatus = torch.where(rbad, _RES_RECVR, istatus)
         keep_w = keep & ~rbad
-        return _Inner(
+        return c._replace(
             ycor=ycor,
             delta=torch.where(keep_w, r, c.delta),
+            yy=() if dense else torch.where(keep_w, yy, c.yy),
+            yp=() if dense else torch.where(keep_w, yp, c.yp),
+            savres=() if dense else torch.where(keep_w, r, c.savres),
             oldnrm=oldnrm,
             ss=ss,
             curiter=curiter,
@@ -182,17 +252,24 @@ def nonlinear_solve(
     ss = torch.where(state.cj != state.cjlast, torch.full_like(ss, 100.0), ss)
 
     lin0 = _Lin(
-        lu=state.lu, piv=state.piv, cjold=cjold, cjratio=cjratio,
+        lu=state.lu, piv=state.piv, pdata=state.pdata, cjold=cjold, cjratio=cjratio,
         nje=state.nje, nsetups=state.nsetups,
     )
     zero_i = torch.zeros(bshape, dtype=torch.int32, device=dev)
+    dense = opts.linear_solver == "dense"
 
-    def fresh_inner(knni, delta, ss, kre) -> _Inner:
+    def fresh_inner(prev: _Inner | None, delta, yy, yp, ss, kre) -> _Inner:
+        def krylov(name):
+            return () if dense else (zero_i if prev is None else getattr(prev, name))
+
         return _Inner(
-            ycor=torch.zeros_like(state.yy), delta=delta, oldnrm=state.oldnrm, ss=ss,
-            curiter=zero_i,
+            ycor=torch.zeros_like(state.yy), delta=delta,
+            yy=() if dense else yy, yp=() if dense else yp, savres=() if dense else delta,
+            oldnrm=state.oldnrm, ss=ss, curiter=zero_i,
             istatus=torch.where(active, _CONTINUE, _OK).to(torch.int32),
-            knni=knni, kre=kre,
+            knni=zero_i if prev is None else prev.knni, kre=kre,
+            knli=krylov("knli"), knps=krylov("knps"), kncfl=krylov("kncfl"),
+            knjtsetup=krylov("knjtsetup"), knjtimes=krylov("knjtimes"),
         )
 
     # --- outer loop: residual -> (lsetup?) -> Newton; one retry with a
@@ -209,7 +286,7 @@ def nonlinear_solve(
         # skips the lsetup (no Jacobian at a non-finite point)
         res_bad = ~_res_ok(r)
 
-        lin2, setup_fail = _lsetup(state, problem, c.lin, yy, yp, r)
+        lin2, setup_fail = _lsetup(state, problem, opts, c.lin, yy, yp, r)
         do_setup = c.call_lsetup & ~res_bad
         lin = tree_where(do_setup, lin2, c.lin)
         # lsetup refreshes ss to 20 (src/ida_nls.rs:179)
@@ -217,7 +294,7 @@ def nonlinear_solve(
         setup_fail = do_setup & setup_fail
         jcur = c.jcur | do_setup
 
-        inner0 = fresh_inner(c.inner.knni, r, ss, kre)
+        inner0 = fresh_inner(c.inner, r, yy, yp, ss, kre)
         inner_out = _newton_iterate(state, problem, opts, lin, inner0)
         skip_newton = setup_fail | res_bad
         inner = tree_where(~skip_newton, inner_out, inner0)
@@ -241,7 +318,7 @@ def nonlinear_solve(
         )
 
     init = _Outer(
-        inner=fresh_inner(zero_i, state.savres, ss, zero_i),
+        inner=fresh_inner(None, state.savres, state.yy, state.yp, ss, zero_i),
         lin=lin0,
         ss=ss,
         call_lsetup=call_lsetup,
@@ -255,17 +332,26 @@ def nonlinear_solve(
     # fold the loop-local pieces back into the state (inactive lanes keep
     # every field: their loops never ran)
     a = active
+    cdt = state.nni.dtype  # widen the local int32 tallies
     state = state._replace(
-        lu=lin.lu, piv=lin.piv,
+        lu=lin.lu, piv=lin.piv, pdata=lin.pdata,
         cjold=torch.where(a, lin.cjold, state.cjold),
         cjratio=torch.where(a, lin.cjratio, state.cjratio),
         nje=lin.nje, nsetups=lin.nsetups,
-        nni=state.nni + inner.knni.to(state.nni.dtype),
-        nre=state.nre + inner.kre.to(state.nre.dtype),
+        nni=state.nni + inner.knni.to(cdt),
+        nre=state.nre + inner.kre.to(cdt),
         oldnrm=torch.where(a, inner.oldnrm, state.oldnrm),
         ss=torch.where(a, inner.ss, state.ss),
-        savres=inner.delta,
+        savres=inner.delta if dense else inner.savres,
     )
+    if not dense:
+        state = state._replace(
+            nli=state.nli + inner.knli.to(cdt),
+            nps=state.nps + inner.knps.to(cdt),
+            ncfl=state.ncfl + inner.kncfl.to(cdt),
+            njtsetup=state.njtsetup + inner.knjtsetup.to(cdt),
+            njtimes=state.njtimes + inner.knjtimes.to(cdt),
+        )
 
     # apply the final correction (src/lib.rs:845-849)
     ee = torch.where(a, inner.ycor, state.ee)

@@ -24,10 +24,15 @@ from ..utils.device import resolve_device
 class IdaOptions:
     """Solver options (reference ``Ida::new`` defaults, src/lib.rs:309-317).
 
-    This port covers the C-parity dense direct path: ``linear_solver`` must
-    be "dense" and ``ls_precision`` "full"; ``fast_math`` must be False. Any
-    other value raises. ``debug_trace`` dumps the state before every step
-    attempt into the active ``utils.trace.DataTrace``."""
+    ``linear_solver`` is "dense" (batched LU) or "spgmr" (matrix-free
+    restarted GMRES, ``ops/spgmr.py``: ``krylov_maxl`` basis vectors,
+    ``krylov_max_restarts`` restarts, Arnoldi by ``krylov_gs`` "modified"
+    Gram-Schmidt or "classical" CGS2, linear tolerance factor ``eplifac``).
+    The band solver, the mixed-precision modes (``ls_precision`` other than
+    "full", ``krylov_storage="bfloat16"``) and ``fast_math`` raise
+    NotImplementedError naming their ROADMAP item. ``debug_trace`` dumps
+    the state before every step attempt into the active
+    ``utils.trace.DataTrace``."""
 
     maxord: int = C.MAXORD_DEFAULT  # max BDF order (1..5)
     mxstep: int = C.MXSTEP_DEFAULT  # max internal steps per solve() call
@@ -36,18 +41,33 @@ class IdaOptions:
     maxnlsit: int = C.MAXNLSIT  # max Newton iterations per attempt
     suppressalg: bool = False  # exclude algebraic vars from error tests
     max_root_iters: int = 100  # hard bound on the Illinois root search loop
-    linear_solver: str = "dense"
+    linear_solver: str = "dense"  # "dense" | "spgmr"
     ls_precision: str = "full"
+    krylov_storage: str = "compute"  # GMRES basis dtype ("compute": the state's)
+    krylov_maxl: int = 5  # GMRES subspace dimension (SUNDIALS default)
+    krylov_max_restarts: int = 5  # GMRES restarts (SUNDIALS default)
+    krylov_gs: str = "modified"  # "modified" (MGS) | "classical" (CGS2)
+    eplifac: float = 0.05  # linear tolerance factor (reference ida_ls.rs:211)
     fast_math: bool = False
     debug_trace: bool = False
 
     def __post_init__(self):
-        if self.linear_solver != "dense":
-            raise NotImplementedError(f"linear_solver={self.linear_solver!r}: only 'dense' is ported")
+        if self.linear_solver == "band":
+            raise C.not_ported("linear_solver='band'", 11, "ops/banded.py")
+        if self.linear_solver not in ("dense", "spgmr"):
+            raise ValueError(f"linear_solver must be 'dense' or 'spgmr', got {self.linear_solver!r}")
         if self.ls_precision != "full":
-            raise NotImplementedError(f"ls_precision={self.ls_precision!r}: only 'full' is ported")
+            raise C.not_ported(f"ls_precision={self.ls_precision!r} (mixed precision)", 11,
+                               "the mixed modes of core/nls.py")
+        if self.krylov_storage != "compute":
+            raise C.not_ported(f"krylov_storage={self.krylov_storage!r}", 11,
+                               "ops/spgmr.py storage_dtype")
+        if self.krylov_gs not in ("modified", "classical"):
+            raise ValueError(f"krylov_gs must be 'modified' or 'classical', got {self.krylov_gs!r}")
+        if self.krylov_maxl < 1 or self.krylov_max_restarts < 0:
+            raise ValueError("krylov_maxl must be at least 1 and krylov_max_restarts at least 0")
         if self.fast_math:
-            raise NotImplementedError("fast_math=True is not ported")
+            raise C.not_ported("fast_math=True", 13, "the unscaled-phi path of core/")
         if not 1 <= self.maxord <= C.MAXORD_DEFAULT:
             raise ValueError(f"maxord must lie in 1..{C.MAXORD_DEFAULT}, got {self.maxord}")
 
@@ -98,9 +118,9 @@ class IdaState(NamedTuple):
     toldel: torch.Tensor
 
     # --- linear-solver state (reference src/ida_ls.rs:22-31) ---
-    lu: torch.Tensor  # [N, N] factored J
-    piv: torch.Tensor  # [N] int32 pivots
-    pdata: object  # preconditioner state (Krylov path; () here)
+    lu: torch.Tensor  # [N, N] factored J (dense; [0, 0] under spgmr)
+    piv: torch.Tensor  # [N] int32 pivots (dense; [0] under spgmr)
+    pdata: object  # preconditioner state: a tuple of tensors, () without one
     ls_tn: torch.Tensor  # [] time of the last lsetup (refined mode only)
     ls_cj: torch.Tensor  # [] cj of the last lsetup (refined mode only)
     ls_yy: torch.Tensor  # [0] (refined mode only)
@@ -163,12 +183,15 @@ def init_state(
     *,
     device=None,
     dtype: torch.dtype = torch.float64,
+    opts: IdaOptions = IdaOptions(),
 ) -> IdaState:
     """Initial state (reference ``Ida::new``, src/lib.rs:278-405): phi[0] = y0,
     phi[1] = y'0, defaults elsewhere. ``yy0``/``yp0`` are [N] for one lane or
     [*batch, N] for a batch-leading ensemble (every field then gains the
-    leading ``batch`` axes). Only the dense/full path is ported, so unlike
-    the reference no option changes a shape and none is taken. ``device``
+    leading ``batch`` axes). ``opts`` sizes the linear-solver workspace: the
+    dense factor [N, N] and pivots [N], or nothing ([0, 0], [0]) under
+    spgmr, whose preconditioner state ``pdata`` starts as the problem's
+    ``prec_zero()`` (each leaf in the state's dtype, on its device). ``device``
     None is the current CUDA device (raises when there is none)."""
     device = resolve_device(device)
     n = problem.n
@@ -186,6 +209,14 @@ def init_state(
     zeros_k1 = full((C.MXORDP1,), 0.0)
     zeros_n = full((n,), 0.0)
     phi = torch.cat([yy0.unsqueeze(-2), yp0.unsqueeze(-2), full((C.MXORDP1 - 2, n), 0.0)], dim=-2)
+    nls = n if opts.linear_solver == "dense" else 0
+    pdata = ()
+    if problem.prec_setup is not None:
+        pdata = tuple(
+            x.to(device=device, dtype=dtype if x.is_floating_point() else x.dtype)
+            .expand(b + tuple(x.shape)).clone()
+            for x in problem.prec_zero()
+        )
     i32, i64 = torch.int32, torch.int64
     return IdaState(
         phi=phi, psi=zeros_k1, alpha=zeros_k1, beta=zeros_k1, sigma=zeros_k1, gamma=zeros_k1,
@@ -196,7 +227,7 @@ def init_state(
         phase=full((), 0, i32), ns=full((), 0, i32),
         cj=zero, cjlast=zero, cjold=zero, cjratio=zero, ss=zero, oldnrm=zero,
         eps_newt=zero, toldel=zero,
-        lu=full((n, n), 0.0), piv=full((n,), 0, i32), pdata=(),
+        lu=full((nls, nls), 0.0), piv=full((nls,), 0, i32), pdata=pdata,
         ls_tn=zero, ls_cj=zero, ls_yy=full((0,), 0.0), ls_yp=full((0,), 0.0),
         hin=zero, hmax_inv=full((), C.HMAX_INV_DEFAULT), epcon=full((), C.EPCON),
         tstop=zero, tstop_set=full((), False, torch.bool), constraints=zeros_n,

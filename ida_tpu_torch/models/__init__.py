@@ -1,3 +1,5 @@
+from .foodweb import foodweb_ic, foodweb_problem
+from .heat2d import heat2d_ic, heat2d_problem
 from .roberts import (
     ROBERTS_PARAMS,
     ROBERTS_YP0,
@@ -6,4 +8,7 @@ from .roberts import (
     roberts_problem,
 )
 
-__all__ = ["ROBERTS_PARAMS", "ROBERTS_YP0", "ROBERTS_YY0", "roberts_factory", "roberts_problem"]
+__all__ = [
+    "ROBERTS_PARAMS", "ROBERTS_YP0", "ROBERTS_YY0", "foodweb_ic", "foodweb_problem",
+    "heat2d_ic", "heat2d_problem", "roberts_factory", "roberts_problem",
+]

@@ -11,9 +11,10 @@ pivots [N, *batch], ``fail_col`` [*batch] (0 on success, else the 1-based
 column of the first zero pivot).
 
 The functions here are the plain PyTorch versions. ``lu_factor_auto`` and
-``lu_solve_auto`` are what the solver calls: on a CUDA tensor they launch
-the hand-written kernel of :mod:`ida_tpu_torch.ops.small_lu` (N <= 16) and
-raise for anything else; on a CPU tensor they run the plain versions.
+``lu_solve_auto`` are what the solver calls: up to N = 16 they go to
+:mod:`ida_tpu_torch.ops.small_lu` (the hand-written kernel on a CUDA
+tensor, the unrolled plain version on a CPU tensor); larger systems (the
+consistent-IC Jacobian of a PDE model) take the looped form on any device.
 """
 
 from __future__ import annotations
@@ -33,71 +34,66 @@ class DenseLU(NamedTuple):
     fail_col: torch.Tensor  # [*batch] int32
 
 
-def _iota(n: int, ndim: int, device) -> torch.Tensor:
-    return torch.arange(n, dtype=torch.int32, device=device).reshape((n,) + (1,) * ndim)
+def _swap_rows(mat: torch.Tensor, k: int, l: torch.Tensor) -> None:
+    """In place, per lane: row l := row k, then row k := the old row l
+    (a no-op where l == k)."""
+    index = l.long().reshape((1,) * (mat.dim() - l.dim()) + tuple(l.shape))
+    index = index.expand((1,) + tuple(mat.shape[1:]))
+    row_k = mat[k].clone()
+    row_l = torch.gather(mat, 0, index).squeeze(0)
+    mat.scatter_(0, index, row_k.unsqueeze(0))
+    mat[k] = row_l
 
 
 def lu_factor(a: torch.Tensor) -> DenseLU:
     """LU-factor [N, N, *batch], ``denseGETRF`` order (reference
-    crates/linear/src/dense.rs:86-158): one rank-1 update per column."""
+    crates/linear/src/dense.rs:86-158): one rank-1 update per column, made
+    in place on a copy of ``a`` and only over the trailing block, so a
+    column costs O((N-k)^2) and no [N, N, *batch] copy. Every entry sees the
+    operations of the masked whole-matrix form in the same order: the same
+    factors, bit for bit."""
     n = a.shape[0]
     if a.shape[1] != n:
         raise ValueError(f"lu_factor expects square matrices, got {tuple(a.shape)}")
     bshape = a.shape[2:]
-    idx = _iota(n, len(bshape), a.device)  # [n, *1]
-    mat = a
+    mat = a.clone()
     piv = []
     fail = torch.zeros(bshape, dtype=torch.int32, device=a.device)
     for k in range(n):
-        col = mat[:, k]
-        masked_abs = torch.where(idx >= k, col.abs(), torch.full_like(col, float("-inf")))
-        l = torch.argmax(masked_abs, dim=0).to(torch.int32)  # first max wins
+        # pivot: the first max of |a[i, k]| for i >= k
+        l = (torch.argmax(mat[k:, k].abs(), dim=0) + k).to(torch.int32)
         piv.append(l)
-        sel_l = idx == l  # [n, *batch] one-hot of the pivot row
-        pivot_val = torch.gather(col, 0, l.long().unsqueeze(0)).squeeze(0)
+        pivot_val = torch.gather(mat[:, k], 0, l.long().unsqueeze(0)).squeeze(0)
         zero_piv = pivot_val == 0.0
         fail = torch.where((fail == 0) & zero_piv, k + 1, fail)
+        _swap_rows(mat, k, l)
 
-        # swap full rows k and l (no-op when l == k)
-        row_k = mat[k]
-        row_l = torch.gather(mat, 0, l.long().reshape((1, 1) + bshape).expand((1,) + mat.shape[1:])).squeeze(0)
-        mat = torch.where(sel_l.unsqueeze(1), row_k.unsqueeze(0), mat)
-        mat = torch.cat([mat[:k], row_l.unsqueeze(0), mat[k + 1 :]])
-
-        # scale sub-diagonal entries of column k by 1/pivot
+        # scale the sub-diagonal of column k by 1/pivot
         safe_piv = torch.where(zero_piv, torch.ones_like(pivot_val), mat[k, k])
         mult = 1.0 / safe_piv
-        col_k = mat[:, k]
-        col_scaled = torch.where(idx > k, col_k * mult, col_k)
-        mat = torch.cat([mat[:, :k], col_scaled.unsqueeze(1), mat[:, k + 1 :]], dim=1)
+        mat[k + 1 :, k] = mat[k + 1 :, k] * mult
 
         # trailing-submatrix rank-1 update: a[i,j] -= a[i,k] * a[k,j]
-        update = col_scaled.unsqueeze(1) * mat[k].unsqueeze(0)
-        mask = (idx > k).unsqueeze(1) & (idx > k).unsqueeze(0)
-        mat = mat - torch.where(mask, update, torch.zeros_like(update))
+        mat[k + 1 :, k + 1 :] -= mat[k + 1 :, k].unsqueeze(1) * mat[k, k + 1 :].unsqueeze(0)
     return DenseLU(mat, torch.stack(piv), fail)
 
 
 def lu_solve(f: DenseLU, b: torch.Tensor) -> torch.Tensor:
     """Solve ``A x = b`` for b [N, *batch] from a factorization,
-    ``denseGETRS`` order (reference crates/linear/src/dense.rs:165-206)."""
+    ``denseGETRS`` order (reference crates/linear/src/dense.rs:165-206), in
+    place on a copy of ``b``."""
     n = b.shape[0]
-    idx = _iota(n, b.dim() - 1, b.device)
     lu, piv = f.lu, f.piv
+    x = b.clone()
     for k in range(n):
-        pk = piv[k]
-        bk = b[k]
-        bpk = torch.gather(b, 0, pk.long().unsqueeze(0)).squeeze(0)
-        b = torch.where(idx == pk, bk.unsqueeze(0), b)
-        b = torch.cat([b[:k], bpk.unsqueeze(0), b[k + 1 :]])
+        _swap_rows(x, k, piv[k])
     for k in range(n - 1):
-        b = b - torch.where(idx > k, lu[:, k] * b[k], torch.zeros_like(b))
-    for i in range(n - 1):
-        k = n - 1 - i
-        bk = b[k] / lu[k, k]
-        b = torch.cat([b[:k], bk.unsqueeze(0), b[k + 1 :]])
-        b = b - torch.where(idx < k, lu[:, k] * bk, torch.zeros_like(b))
-    return torch.cat([(b[0] / lu[0, 0]).unsqueeze(0), b[1:]])
+        x[k + 1 :] -= lu[k + 1 :, k] * x[k]
+    for k in range(n - 1, 0, -1):
+        x[k] = x[k] / lu[k, k]
+        x[:k] -= lu[:k, k] * x[k]
+    x[0] = x[0] / lu[0, 0]
+    return x
 
 
 def lu_factor_unrolled(a: torch.Tensor) -> DenseLU:
@@ -181,12 +177,13 @@ SMALL_N_UNROLL = 16
 
 
 def lu_factor_auto(a: torch.Tensor) -> DenseLU:
-    """The solver's factor: the CUDA kernel on a CUDA tensor (N <= 16, else
-    raises); on a CPU tensor the unrolled form up to N = 16, the looped one
-    above."""
+    """The solver's factor, dispatched by size: N <= 16 goes to
+    ``small_lu`` (the CUDA kernel on a CUDA tensor, the unrolled form on a
+    CPU tensor), larger N to the looped :func:`lu_factor` on any device
+    (``ida_tpu``'s ``lu_factor_auto`` does the same)."""
     from . import small_lu
 
-    if a.shape[0] <= SMALL_N_UNROLL or a.device.type != "cpu":
+    if a.shape[0] <= SMALL_N_UNROLL:
         return small_lu.lu_factor(a)
     return lu_factor(a)
 
@@ -195,6 +192,6 @@ def lu_solve_auto(f: DenseLU, b: torch.Tensor) -> torch.Tensor:
     """The solver's solve; dispatch as :func:`lu_factor_auto`."""
     from . import small_lu
 
-    if b.shape[0] <= SMALL_N_UNROLL or b.device.type != "cpu":
+    if b.shape[0] <= SMALL_N_UNROLL:
         return small_lu.lu_solve(f, b)
     return lu_solve(f, b)

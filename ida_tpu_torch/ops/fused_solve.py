@@ -385,7 +385,13 @@ def make_fused_solve(problem_factory, tol: TolControl, opts: IdaOptions = IdaOpt
     scalar, atol a scalar or [N]) or per lane (rtol [B], atol [B, N]).
     ``attempt_budget`` bounds each launch to that many step attempts; the
     host relaunches the continuation until every lane is done, bit for bit
-    the unbudgeted result."""
+    the unbudgeted result. The kernel compiles in the dense direct solver:
+    options for any other linear solver raise."""
+    if opts.linear_solver != "dense":
+        raise NotImplementedError(
+            f"fused_solve: the kernel's linear solver is the compiled-in dense LU; "
+            f"linear_solver={opts.linear_solver!r} runs on the eager path (core.solve.solve)"
+        )
     model, n, _ = model_of(problem_factory)
     if attempt_budget is not None and attempt_budget < 1:
         raise ValueError(f"attempt_budget must be at least 1, got {attempt_budget}")

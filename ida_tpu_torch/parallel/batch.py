@@ -17,6 +17,8 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from ..core.calc_ic import IC_CODES
+from ..core.calc_ic import calc_ic as core_calc_ic
 from ..core.solve import TASK_NORMAL, TASK_ONE_STEP, solve, solve_dense
 from ..core.state import IdaOptions, IdaState, init_state
 from ..problem import IdaProblem
@@ -28,12 +30,12 @@ ProblemFactory = Callable[[Any], IdaProblem]
 
 
 def _move_batch(states: IdaState, src: int, dst: int) -> IdaState:
-    return IdaState(
-        *(
-            x.movedim(src, dst).contiguous() if isinstance(x, torch.Tensor) else x
-            for x in states
-        )
-    )
+    def move(x):
+        if isinstance(x, torch.Tensor):
+            return x.movedim(src, dst).contiguous()
+        return tuple(move(y) for y in x)  # pdata: a tuple of tensors, or ()
+
+    return IdaState(*(move(x) for x in states))
 
 
 def to_native(states: IdaState) -> IdaState:
@@ -54,14 +56,16 @@ def ensemble_init(
     *,
     device=None,
     dtype: torch.dtype = torch.float64,
+    opts: IdaOptions = IdaOptions(),
 ) -> IdaState:
     """Batch-leading IdaState for ``params`` [B, P], ``yy0``/``yp0`` [B, N]
-    (the JAX package's vmap of ``init_state``). ``device`` None is the
-    current CUDA device (raises when there is none)."""
+    (the JAX package's vmap of ``init_state``; ``opts`` sizes the linear
+    solver's workspace). ``device`` None is the current CUDA device (raises
+    when there is none)."""
     device = resolve_device(device)
     params = torch.as_tensor(params, dtype=dtype, device=device)
     problem = problem_factory(params.t())
-    return init_state(problem, yy0, yp0, device=device, dtype=dtype)
+    return init_state(problem, yy0, yp0, device=device, dtype=dtype, opts=opts)
 
 
 def make_ensemble_solve(
@@ -128,7 +132,8 @@ class EnsembleIDA:
         self.options = options
         self.params = torch.as_tensor(params, dtype=dtype, device=self.device)
         self.problem = problem_factory(self.params.t().contiguous())
-        self._native = to_native(init_state(self.problem, yy0, yp0, device=self.device, dtype=dtype))
+        self._native = to_native(init_state(self.problem, yy0, yp0, device=self.device,
+                                            dtype=dtype, opts=options))
         self.tol = tol
         self._tol_native = _native_shared_tol(tol, self._native)
 
@@ -202,8 +207,14 @@ class EnsembleIDA:
         return tuple(lead(torch.stack([r[j] for r in rows])) for j in range(4))
 
     def calc_ic(self, icopt: str, tout1: float):
-        raise C.not_ported("EnsembleIDA.calc_ic (consistent initial conditions)", 10,
-                           "core/calc_ic.py")
+        """Per-lane consistent initial conditions (IDACalcIC on every lane
+        at once). ``icopt`` is "ya_ydp" or "y". Returns a numpy bool [B]
+        success mask; a lane that fails keeps its guesses."""
+        self._native, ok = core_calc_ic(
+            self._native, self.problem, self.options, self._tol_native, IC_CODES[icopt],
+            torch.as_tensor(tout1, dtype=self._native.dtype, device=self.device),
+        )
+        return ok.cpu().numpy()
 
     @property
     def yy(self):

@@ -42,6 +42,15 @@ class IdaProblem:
         events during ``solve`` (``core/root.py``).
       nroots: number of root functions.
       id: optional bool [N]: differential (True) vs algebraic (False).
+      prec_setup, prec_solve, prec_zero: the Krylov path's preconditioner
+        (C IDASetPreconditioner): ``prec_setup(t, cj, yy, yp, rr) -> pdata``
+        (a tuple of tensors, the factored P), ``prec_solve(pdata, r, cj) ->
+        z`` approximately P^-1 r, and ``prec_zero() -> pdata`` of one lane
+        (the state's initial value).
+      jtimes_setup, jtimes_fn: a user Jacobian-times-vector (C
+        IDASetJacTimes): ``jtimes_setup(t, cj, yy, yp, rr) -> jdata`` and
+        ``jtimes_fn(jdata, t, cj, yy, yp, v) -> J v``; one jvp of ``res``
+        when absent.
       quad, nquad: quadrature right-hand side and its size. Quadratures
         (``core/quad.py`` of ``ida_tpu``) are not ported yet: ``nquad > 0``
         raises NotImplementedError (ROADMAP.md Queue 1 item 10).
@@ -53,6 +62,11 @@ class IdaProblem:
     root: Optional[Callable] = None
     nroots: int = 0
     id: Optional[torch.Tensor] = None
+    prec_setup: Optional[Callable] = None
+    prec_solve: Optional[Callable] = None
+    prec_zero: Optional[Callable] = None
+    jtimes_setup: Optional[Callable] = None
+    jtimes_fn: Optional[Callable] = None
     quad: Optional[Callable] = None
     nquad: int = 0
 
@@ -61,9 +75,16 @@ class IdaProblem:
             raise ValueError("nroots > 0 requires a root function")
         if self.quad is not None or self.nquad:
             raise not_ported("quadratures (IdaProblem.quad, nquad > 0)", 10, "core/quad.py")
+        if self.prec_setup is not None and (self.prec_solve is None or self.prec_zero is None):
+            raise ValueError("prec_setup requires prec_solve and prec_zero")
+        if self.jtimes_setup is not None and self.jtimes_fn is None:
+            raise ValueError("jtimes_setup requires jtimes_fn")
 
-    def jtimes(self, t, cj, yy, yp, v) -> torch.Tensor:
-        """Matrix-free J v = (dF/dy) v + cj (dF/dy') v via one jvp."""
+    def jtimes(self, t, cj, yy, yp, v, jdata=None) -> torch.Tensor:
+        """Matrix-free J v = (dF/dy) v + cj (dF/dy') v via one jvp, or the
+        user ``jtimes_fn`` when given."""
+        if self.jtimes_fn is not None:
+            return self.jtimes_fn(jdata, t, cj, yy, yp, v)
         return torch.func.jvp(lambda y, ydot: self.res(t, y, ydot), (yy, yp), (v, cj * v))[1]
 
     def sys_jacobian(self, t, cj, yy, yp, rr) -> torch.Tensor:

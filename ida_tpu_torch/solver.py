@@ -23,6 +23,8 @@ import torch
 
 from . import constants as C
 from .core import interp
+from .core.calc_ic import IC_CODES
+from .core.calc_ic import calc_ic as core_calc_ic
 from .core.solve import TASK_NORMAL, TASK_ONE_STEP, solve_dense
 from .core.solve import solve as core_solve
 from .core.state import IdaOptions, init_state
@@ -87,7 +89,7 @@ class IDA:
             torch.as_tensor(tol.rtol, dtype=dtype, device=self.device),
             torch.as_tensor(tol.atol, dtype=dtype, device=self.device),
         )
-        self.state = init_state(problem, yy0, yp0, device=self.device, dtype=dtype)
+        self.state = init_state(problem, yy0, yp0, device=self.device, dtype=dtype, opts=options)
         if t0 != 0.0:
             self.state = self.state._replace(tn=self._real(t0), tlo=self._real(t0))
         self._perf0 = (0, 0, 0, 0, 0)
@@ -109,7 +111,8 @@ class IDA:
             tstop_set=st.tstop_set, constraints=st.constraints,
             constraints_set=st.constraints_set, rootdir=st.rootdir,
         )
-        self.state = init_state(self.problem, yy0, yp0, device=self.device, dtype=st.dtype)
+        self.state = init_state(self.problem, yy0, yp0, device=self.device, dtype=st.dtype,
+                                opts=self.options)
         self.state = self.state._replace(tn=self._real(t0), tlo=self._real(t0), **keep)
         self._perf0 = (0, 0, 0, 0, 0)
 
@@ -146,10 +149,20 @@ class IDA:
     # consistent initial conditions (C IDACalcIC)
     # ------------------------------------------------------------------
     def calc_ic(self, icopt: str, tout1: float) -> None:
-        raise C.not_ported("IDA.calc_ic (consistent initial conditions)", 10, "core/calc_ic.py")
+        """Compute consistent initial conditions before the first solve.
+        ``icopt`` is "ya_ydp" (the algebraic y and the differential y', which
+        needs ``problem.id``) or "y" (all of y given y'). Raises
+        :class:`IdaError` (CONV_FAIL) when it fails; the state is then left
+        as it was."""
+        state, ok = core_calc_ic(self.state, self.problem, self.options, self.tol,
+                                 IC_CODES[icopt], self._real(tout1))
+        if not bool(ok):
+            raise IdaError(C.CONV_FAIL, t=float(self.state.tn))
+        self.state = state
 
     def get_consistent_ic(self):
-        raise C.not_ported("IDA.get_consistent_ic", 10, "core/calc_ic.py")
+        """(y0, y'0) after calc_ic (C IDAGetConsistentIC), numpy [N] each."""
+        return self.state.phi[0].cpu().numpy(), self.state.phi[1].cpu().numpy()
 
     # ------------------------------------------------------------------
     # main entry point (reference impl_solve.rs:69)

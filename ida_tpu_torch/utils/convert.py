@@ -1,17 +1,19 @@
 """Carry states, parameters and tolerances over from numpy.
 
 The tests hand both packages identical inputs: a JAX-package state becomes
-``{f: np.asarray(getattr(st, f)) for f in st._fields}`` and goes through
-:func:`state_from_numpy`. Each field keeps its dtype. ``batch`` names where
-the given arrays carry their batch axis: "leading" (a vmapped ensemble,
-moved to the back here) or "trailing" (already batch-native, or a single
-unbatched lane). The results are batch-native, the layout the core routines
-and ``core.solve.solve`` take. The root fields ([R] per lane: glo, ghi, grout,
-iroots, rootdir, gactive) travel like any other.
+per-field numpy arrays (:func:`state_fields`; the preconditioner state
+``pdata`` a tuple of them) and goes through :func:`state_from_numpy`. Each
+field keeps its dtype. ``batch`` names where the given arrays carry their
+batch axis: "leading" (a vmapped ensemble, moved to the back here) or
+"trailing" (already batch-native, or a single unbatched lane). The results
+are batch-native, the layout the core routines and ``core.solve.solve``
+take. The root fields ([R] per lane: glo, ghi, grout, iroots, rootdir,
+gactive) travel like any other.
 
 :func:`ida_from_numpy` and :func:`ensemble_from_numpy` build the port's
 ``IDA`` and ``EnsembleIDA`` from the numpy ``y0, yp0, params, tol`` the JAX
-objects take, so one seed feeds both packages.
+objects take (and the same ``IdaOptions`` fields, the Krylov ones
+included), so one seed feeds both packages.
 """
 
 from __future__ import annotations
@@ -37,13 +39,23 @@ def _tensor(arr, device, batch: str) -> torch.Tensor:
 def state_from_numpy(
     fields: Mapping[str, np.ndarray], *, device, batch: str = "leading"
 ) -> IdaState:
-    """Port ``IdaState`` from per-field numpy arrays (``pdata`` becomes ())."""
+    """Port ``IdaState`` from per-field numpy arrays. ``pdata`` is a tuple
+    of arrays (the preconditioner state, leaf by leaf in ``ida_tpu``'s
+    layout) or empty."""
     return IdaState(
         **{
-            f: () if f == "pdata" else _tensor(fields[f], device, batch)
+            f: tuple(_tensor(x, device, batch) for x in fields[f]) if f == "pdata"
+            else _tensor(fields[f], device, batch)
             for f in IdaState._fields
         }
     )
+
+
+def state_fields(st) -> dict:
+    """An ``ida_tpu`` state as the per-field numpy arrays
+    :func:`state_from_numpy` takes (``pdata`` as a tuple of arrays)."""
+    return {f: tuple(np.asarray(x) for x in st.pdata) if f == "pdata" else np.asarray(getattr(st, f))
+            for f in st._fields}
 
 
 def params_from_numpy(params: np.ndarray, *, device, batch: str = "leading") -> torch.Tensor:

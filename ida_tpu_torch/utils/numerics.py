@@ -6,7 +6,15 @@
   split the axis over several accumulators (CUDA) or a cascade (CPU), which
   rounds differently. Step-size decisions hinge on the last bit (a 1-ulp
   predictor difference once turned 362 canonical steps into 375), so the
-  order is written out.
+  order is written out. XLA:CPU adds sequentially only up to about 32
+  terms; beyond that it vectorizes, in an order no sequential loop
+  reproduces. A longer axis (the grid of a PDE model, N = 10,000) is
+  added as a pairwise tree instead, zero-padded to a power of two and
+  halved log2 times: about log2(N) launches, and elementwise additions only,
+  so the card and the CPU round every partial sum alike. ``torch.sum``
+  would not: its order differs between the two, and the step sequence of
+  a 100 x 100 heat solve hangs on the last bits of its norms (reversing
+  the order of the sums moved its steps from 167 to 183).
 * :func:`sqrt_` is ``sqrt``. ATen's vectorized CPU ``sqrt`` for float64 is
   not correctly rounded (about 1.3% of inputs differ by an ulp from IEEE
   ``sqrt``, which XLA:CPU, numpy and C use), so CPU tensors go through
@@ -29,8 +37,22 @@ import numpy as np
 import torch
 
 
+# the longest axis :func:`sum0` adds term by term
+SEQUENTIAL_SUM_MAX = 32
+
+
 def sum0(t: torch.Tensor) -> torch.Tensor:
-    """Sum over the leading axis, strictly left to right."""
+    """Sum over the leading axis: strictly left to right up to
+    ``SEQUENTIAL_SUM_MAX`` terms, a pairwise tree beyond (see module doc)."""
+    n = t.shape[0]
+    if n > SEQUENTIAL_SUM_MAX:
+        size = 1 << (n - 1).bit_length()
+        if size != n:
+            t = torch.cat([t, t.new_zeros((size - n,) + tuple(t.shape[1:]))])
+        while size > 1:
+            size //= 2
+            t = t[:size] + t[size:]
+        return t[0]
     acc = t[0]
     for i in range(1, t.shape[0]):
         acc = acc + t[i]

@@ -36,6 +36,8 @@ from ida_tpu_torch.ops import make_fused_solve
 from ida_tpu_torch.parallel import ensemble_init, to_native
 from ida_tpu_torch.tol_control import TolControl, tol_sv
 
+# one intra-op thread: the tests' tensors are small, and the suite runs in
+# parallel workers, each of which would otherwise start a pool per core
 torch.set_num_threads(1)
 
 ATOL = [1e-8, 1e-6, 1e-6]

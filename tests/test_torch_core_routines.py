@@ -44,6 +44,8 @@ from ida_tpu_torch.parallel import ensemble_init as tensemble_init
 from ida_tpu_torch.problem import IdaProblem as TProblem
 from ida_tpu_torch.utils.convert import params_from_numpy, state_from_numpy
 
+# one intra-op thread: the tests' tensors are small, and the suite runs in
+# parallel workers, each of which would otherwise start a pool per core
 torch.set_num_threads(1)
 
 RTOL = 1e-13

@@ -27,6 +27,10 @@ from ida_tpu_torch.ops import dense_lu, fused_solve, fused_stages, small_lu
 from ida_tpu_torch.parallel import ensemble_init, from_native, make_ensemble_solve, to_native
 from ida_tpu_torch.tol_control import TolControl, tol_sv
 
+# one intra-op thread: the tests' tensors are small, and the suite runs in
+# parallel workers, each of which would otherwise start a pool per core
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -90,8 +94,12 @@ def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
         small_lu.lu_solve(f._replace(piv=f.piv.long()), b)
     with pytest.raises(ValueError):
         small_lu.lu_solve(f, b[:, :100].contiguous())
-    with pytest.raises(ValueError):
-        dense_lu.lu_factor_auto(torch.zeros((20, 20, 8), dtype=torch.float64, device=cuda))
+    # above N = 16 the solver's dispatch takes the looped LU by size, on the
+    # card too, and launches no kernel
+    big = torch.from_numpy(np.random.default_rng(20).normal(size=(20, 20, 8))).to(cuda)
+    small_lu.reset_launch_counts()
+    g = dense_lu.lu_factor_auto(big)
+    assert torch.equal(g.lu, dense_lu.lu_factor(big).lu) and small_lu.FACTOR_LAUNCHES == 0
 
 
 def test_lu_factor_solve_solves_on_the_card(cuda):
@@ -362,3 +370,49 @@ def test_ida_runs_on_the_card_by_default(cuda):
     assert (ida.get_num_steps(), ida.get_num_g_evals()) == (29, 44)
     t = ida.get_current_time() - 0.5 * ida.get_last_step()
     assert np.array_equal(ida.get_dky(t, 0), ida.get_solution(t)[0])
+
+
+def test_kernel_at_n2_with_two_batch_axes_matches_plain_bitwise(cuda):
+    # the foodweb preconditioner's blocks: [2, 2, npts, B], factored and
+    # solved as npts x B systems in one launch each
+    from ida_tpu_torch.models.foodweb import prec_blocks
+
+    rng = np.random.default_rng(2)
+    yy = torch.from_numpy(rng.uniform(1.0, 2.0, size=(2 * 36, 5))).to(cuda)
+    cj = torch.from_numpy(rng.uniform(10.0, 1e3, size=5)).to(cuda)
+    blocks = prec_blocks(6, 6, cj, yy)
+    assert tuple(blocks.shape) == (2, 2, 36, 5) and blocks.is_contiguous()
+    b = torch.from_numpy(rng.normal(size=(2, 36, 5))).to(cuda)
+    small_lu.reset_launch_counts()
+    f, g = small_lu.lu_factor(blocks), dense_lu.lu_factor_unrolled(blocks)
+    x, y = small_lu.lu_solve(f, b), dense_lu.lu_solve_unrolled(g, b)
+    torch.cuda.synchronize()
+    assert (small_lu.FACTOR_LAUNCHES, small_lu.SOLVE_LAUNCHES) == (1, 1)
+    assert torch.equal(f.lu, g.lu) and torch.equal(f.piv, g.piv)
+    assert torch.equal(f.fail_col, g.fail_col) and torch.equal(x, y)
+
+
+def test_spgmr_on_the_card_matches_the_cpu(cuda):
+    # a batch of diagonally dominant systems with a diagonal preconditioner;
+    # every sum over the long axis (the products with A included) is the
+    # same pairwise tree on both devices, so the counters agree exactly
+    from ida_tpu_torch.ops.spgmr import spgmr_solve
+    from ida_tpu_torch.utils.numerics import sum0
+
+    rng = np.random.default_rng(3)
+    n, bsz = 300, 4
+    a = np.eye(n)[:, :, None] * 4.0 + rng.normal(size=(n, n, bsz)) * 0.05
+    d = np.abs(rng.normal(size=(n, bsz))) + 1.0
+    b = rng.normal(size=(n, bsz))
+
+    def run(device):
+        at, dt, bt = (torch.from_numpy(v).to(device) for v in (a, d, b))
+        w = 1.0 / (dt + 1.0)
+        return spgmr_solve(lambda v: sum0((at * v[None]).movedim(1, 0)), bt, torch.tensor(1e-10, device=device),
+                           psolve=lambda r: r / dt, s1=w, s2=w, maxl=5, max_restarts=10)
+
+    gpu, cpu = run(cuda), run("cpu")
+    for k in ("converged", "nli", "nps", "natimes"):
+        assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
+    assert bool(cpu.converged.all())
+    torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=1e-12, atol=1e-12)

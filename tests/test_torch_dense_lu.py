@@ -19,6 +19,8 @@ from ida_tpu.ops import dense_lu as jlu
 from ida_tpu_torch.ops import dense_lu as tlu
 from ida_tpu_torch.ops import small_lu
 
+# one intra-op thread: the tests' tensors are small, and the suite runs in
+# parallel workers, each of which would otherwise start a pool per core
 torch.set_num_threads(1)
 
 B = 16

@@ -40,6 +40,8 @@ from ida_tpu_torch.tol_control import TolControl
 from ida_tpu_torch.utils.convert import params_from_numpy, state_from_numpy
 from ida_tpu_torch.utils.tree import tree_where
 
+# one intra-op thread: the tests' tensors are small, and the suite runs in
+# parallel workers, each of which would otherwise start a pool per core
 torch.set_num_threads(1)
 
 ATOL = [1e-8, 1e-6, 1e-6]

@@ -46,6 +46,8 @@ from ida_tpu_torch.ops import fused_solve, fused_stages, make_fused_solve
 from ida_tpu_torch.parallel import ensemble_init, make_ensemble_solve, to_native
 from ida_tpu_torch.tol_control import TolControl, tol_ss, tol_sv
 
+# one intra-op thread: the tests' tensors are small, and the suite runs in
+# parallel workers, each of which would otherwise start a pool per core
 torch.set_num_threads(1)
 
 B = 8
@@ -174,6 +176,13 @@ def _with_roots(params):
 def test_raises_on_a_factory_without_a_compiled_in_model():
     with pytest.raises(NotImplementedError, match="compiled-in"):
         _call(factory=lambda p: troberts(p))
+
+
+def test_raises_on_krylov_options():
+    # the kernel compiles in the dense LU: spgmr options must not reach it
+    with pytest.raises(NotImplementedError, match="linear_solver='spgmr'"):
+        make_fused_solve(troberts, tol_sv(1e-4, ATOL, device="cpu"),
+                         IdaOptions(linear_solver="spgmr"))
 
 
 def test_raises_on_rootfinding():

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports with JAX unavailable and never
 imports ``jax`` or ``ida_tpu`` (the machine with the GPU has no JAX)."""
 
+import json
 import pathlib
 import re
 import subprocess
@@ -28,25 +29,50 @@ MODULES = [
 ]
 
 
-@pytest.mark.parametrize("module", MODULES)
-def test_imports_without_jax(module):
+@pytest.fixture(scope="module")
+def imports_without_jax():
+    """One interpreter where ``jax`` and ``ida_tpu`` cannot be imported (an
+    import of either raises) imports every module in turn: per module, the
+    error it raised or None, and which jax modules were loaded at the end."""
     code = (
-        "import sys; sys.modules['jax'] = None; sys.modules['ida_tpu'] = None\n"
-        f"import importlib; importlib.import_module({module!r})\n"
-        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m] is not None]\n"
+        "import importlib, json, sys\n"
+        "sys.modules['jax'] = None; sys.modules['ida_tpu'] = None\n"
+        "out = {}\n"
+        f"for m in {MODULES!r}:\n"
+        "    try:\n"
+        "        importlib.import_module(m); out[m] = None\n"
+        "    except Exception as e:\n"
+        "        out[m] = repr(e)\n"
+        "out['jax loaded'] = [m for m, v in sys.modules.items() if v is not None\n"
+        "                     and m.split('.')[0] in ('jax', 'ida_tpu')]\n"
+        "out['loaded'] = sorted(m for m in sys.modules if m.startswith('ida_tpu_torch'))\n"
+        "print(json.dumps(out))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_imports_without_jax(imports_without_jax, module):
+    assert imports_without_jax[module] is None, imports_without_jax[module]
+    assert imports_without_jax["jax loaded"] == []
+    if module == "ida_tpu_torch.models":
+        assert {"ida_tpu_torch.models.heat2d", "ida_tpu_torch.models.foodweb"} <= set(
+            imports_without_jax["loaded"])
 
 
 def test_importing_the_package_brings_the_user_surface():
-    # importing the package pulls in the user surface and what it stands on
+    # importing the package pulls in the user surface and what it stands on,
+    # the Krylov solver and consistent initial conditions included (and the
+    # "ida_tpu_torch.models" case above imports heat2d and foodweb)
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['ida_tpu'] = None\n"
         "import ida_tpu_torch\n"
-        "need = ['solver', 'api', 'core.root', 'core.interp', 'utils.trace']\n"
+        "need = ['solver', 'api', 'core.root', 'core.interp', 'utils.trace', 'core.calc_ic',\n"
+        "        'ops.spgmr']\n"
         "missing = [m for m in need if 'ida_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )
@@ -57,7 +83,8 @@ def test_importing_the_package_brings_the_user_surface():
 
 
 def test_the_example_and_the_smoke_script_import_no_jax():
-    for name in ("chip_smoke.py", "examples/roberts_torch.py"):
+    for name in ("chip_smoke.py", "examples/roberts_torch.py", "examples/heat2d_torch.py",
+                 "examples/foodweb_torch.py"):
         bad = [line for line in (ROOT / name).read_text().splitlines() if _FORBIDDEN.match(line)]
         assert not bad, (name, bad)
 
@@ -72,6 +99,20 @@ def test_the_example_runs_on_the_cpu():
     assert out.count("<- root") == 2 and "roots found: [0, 1]" in out and "roots found: [-1, 0]" in out
     assert "Number of steps                        362" in out
     assert "Number of root fn. evaluations         404" in out and "(PASS)" in out
+
+
+def test_the_krylov_example_runs_on_the_cpu():
+    # foodweb at a 4 x 4 grid: calc_ic, then SPGMR with the block-diagonal
+    # preconditioner over eight output times
+    proc = subprocess.run(
+        [sys.executable, "examples/foodweb_torch.py", "--device", "cpu", "--grid", "4"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env={**__import__("os").environ, "PYTHONPATH": str(ROOT)},
+    )
+    assert proc.returncode == 0, proc.stderr
+    rows = [line.split() for line in proc.stdout.splitlines() if line[:10].strip().startswith("0.")]
+    assert len(rows) == 8 and rows[-1][0] == "0.1280"
+    assert "Jacobian evaluations = 0" in proc.stdout
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|ida_tpu)(\.|\s|$)")

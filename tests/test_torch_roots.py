@@ -35,6 +35,8 @@ from ida_tpu_torch.models import roberts_problem as troberts_problem
 from ida_tpu_torch.problem import IdaProblem as TProblem
 from ida_tpu_torch.utils.convert import params_from_numpy, state_from_numpy, tol_from_numpy
 
+# one intra-op thread: the tests' tensors are small, and the suite runs in
+# parallel workers, each of which would otherwise start a pool per core
 torch.set_num_threads(1)
 
 B = 8

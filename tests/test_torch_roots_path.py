@@ -33,6 +33,8 @@ from ida_tpu_torch.problem import IdaProblem as TProblem
 from ida_tpu_torch.tol_control import TolControl, tol_sv
 from ida_tpu_torch.utils.convert import params_from_numpy
 
+# one intra-op thread: the tests' tensors are small, and the suite runs in
+# parallel workers, each of which would otherwise start a pool per core
 torch.set_num_threads(1)
 
 ATOL = [1e-8, 1e-6, 1e-6]

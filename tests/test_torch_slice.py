@@ -33,6 +33,8 @@ from ida_tpu_torch.parallel import ensemble_init, make_ensemble_solve
 from ida_tpu_torch.tol_control import tol_sv
 from ida_tpu_torch.utils.convert import params_from_numpy, state_from_numpy, tol_from_numpy
 
+# one intra-op thread: the tests' tensors are small, and the suite runs in
+# parallel workers, each of which would otherwise start a pool per core
 torch.set_num_threads(1)
 
 B = 8
@@ -59,6 +61,13 @@ def jax_native():
     return st, prob, tol
 
 
+@pytest.fixture(scope="module")
+def jax_normal_solve(jax_native):
+    """The jitted TASK_NORMAL solve, compiled once for the module's tests."""
+    _, prob, tol = jax_native
+    return jax.jit(lambda s, t: jsolve(s, prob, JOptions(), tol, t, TASK_NORMAL))
+
+
 def _port_solve(tout, itask=TASK_NORMAL, steps=1):
     params, yy0, yp0 = _inputs(B)
     st = ensemble_init(troberts, params, yy0, yp0, device="cpu")
@@ -77,11 +86,24 @@ def _assert_exact(ref, got, tret_rtol=0.0):
         np.testing.assert_array_equal(getattr(tst, f).numpy(), np.asarray(getattr(jst, f)), err_msg=f)
 
 
-@pytest.mark.parametrize("tout", [0.4, 400.0])
-def test_ensemble_matches_op_by_op_reference(jax_native, tout):
+@pytest.fixture(scope="module")
+def jax_op_by_op(jax_native):
+    """The op-by-op JAX solve to 0.4, and from there on to 400: a return at
+    tout interpolates and leaves the step sequence alone, so the second is
+    the solve straight to 400 (the port's own two runs agree in every
+    field), for the cost of the steps past 0.4."""
     st, prob, tol = jax_native
+    refs = {}
     with jax.disable_jit():
-        ref = jsolve(st, prob, JOptions(), tol, jnp.full((B,), tout), TASK_NORMAL)
+        for tout in (0.4, 400.0):
+            refs[tout] = jsolve(st, prob, JOptions(), tol, jnp.full((B,), tout), TASK_NORMAL)
+            st = refs[tout][0]
+    return refs
+
+
+@pytest.mark.parametrize("tout", [0.4, 400.0])
+def test_ensemble_matches_op_by_op_reference(jax_op_by_op, tout):
+    ref = jax_op_by_op[tout]
     got = _port_solve(tout)
     assert bool((got[2] == C.SUCCESS).all())
     _assert_exact(ref, got)
@@ -91,11 +113,9 @@ def test_ensemble_matches_op_by_op_reference(jax_native, tout):
 
 
 @pytest.mark.parametrize("tout", [0.4, 400.0])
-def test_ensemble_counters_match_jitted_reference(jax_native, tout):
+def test_ensemble_counters_match_jitted_reference(jax_native, jax_normal_solve, tout):
     st, prob, tol = jax_native
-    ref = jax.jit(lambda s, t: jsolve(s, prob, JOptions(), tol, t, TASK_NORMAL))(
-        st, jnp.full((B,), tout)
-    )
+    ref = jax_normal_solve(st, jnp.full((B,), tout))
     _assert_exact(ref, _port_solve(tout))
 
 
@@ -108,11 +128,11 @@ def test_one_step_task_matches_jitted_reference(jax_native):
     _assert_exact((st, tret, ist), _port_solve(400.0, itask=TASK_ONE_STEP, steps=5), tret_rtol=1e-13)
 
 
-def test_core_solve_on_inputs_converted_from_jax(jax_native):
+def test_core_solve_on_inputs_converted_from_jax(jax_native, jax_normal_solve):
     # the JAX package's own batch-native state, params and tolerances,
     # carried over field by field, through the port's core solve
     st, prob, tol = jax_native
-    ref = jax.jit(lambda s: jsolve(s, prob, JOptions(), tol, jnp.full((B,), 4.0), TASK_NORMAL))(st)
+    ref = jax_normal_solve(st, jnp.full((B,), 4.0))
     params, _, _ = _inputs(B)
     got = tsolve(
         state_from_numpy({f: np.asarray(getattr(st, f)) for f in st._fields}, device="cpu", batch="trailing"),
@@ -216,10 +236,11 @@ def test_dtype_is_preserved(dtype):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"linear_solver": "spgmr"},
         {"linear_solver": "band"},
         {"ls_precision": "single"},
         {"ls_precision": "refined"},
+        {"linear_solver": "spgmr", "ls_precision": "single"},
+        {"linear_solver": "spgmr", "krylov_storage": "bfloat16"},
         {"fast_math": True},
     ],
     ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()),

@@ -26,6 +26,8 @@ from ida_tpu_torch.parallel import EnsembleIDA
 from ida_tpu_torch.tol_control import tol_sv
 from ida_tpu_torch.utils import trace as ttrace
 
+# one intra-op thread: the tests' tensors are small, and the suite runs in
+# parallel workers, each of which would otherwise start a pool per core
 torch.set_num_threads(1)
 
 ATOL = np.array([1e-8, 1e-6, 1e-6])
