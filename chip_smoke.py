@@ -30,7 +30,20 @@ tout=400 in f64):
   and four legs (``foodweb``), 128 foodweb lanes through batch-native
   ``calc_ic`` and the legs (``foodweb_batched``), with the LU kernel's
   launches counted on both foodweb paths and the kernel held against its
-  plain version at N = 2 on the foodweb blocks (``kernel_n2_foodweb_blocks``).
+  plain version at N = 2 on the foodweb blocks (``kernel_n2_foodweb_blocks``);
+* inequality constraints: the stage kernels on constrained mid-flight
+  states (``constrained_stages``), and the headline's lanes held >= 0 at
+  rtol 1e-2 over 12 decades through the eager solve, the whole-solve kernel
+  and its budgeted form, bit for bit at every output, with the nominal
+  lane's pinned counters (``constrained_headline``);
+* quadratures on the headline (``quadrature_headline``), and the headline
+  saved at 0.4, loaded back and solved on, bit for bit the uninterrupted
+  solve (``checkpoint_resume``);
+* the band solver on heat2d 10 x 10 (idaHeat2D_bnd) through ``IDA`` and at
+  B = 4,096, with one band factor and solve at 100 x 100 timed
+  (``band_heat2d``, ``band_factor_solve``), and SPGMR with the BBD
+  preconditioner on heat2d 20 x 20 in 4 blocks, one lane and B = 256
+  (``bbd_heat2d``).
 
 Every stage kernel is checked bit for bit against its eager stage on real
 mid-flight states first, so a parity break is localized. It prints one JSON
@@ -44,16 +57,19 @@ limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
-from ida_tpu_torch import IDA, IdaSolveStatus, solve_dae
+from ida_tpu_torch import IDA, IdaProblem, IdaSolveStatus, solve_dae
 from ida_tpu_torch import constants as C
 from ida_tpu_torch.core import root as core_root
 from ida_tpu_torch.core.solve import TASK_ONE_STEP, solve_dense
@@ -61,13 +77,16 @@ from ida_tpu_torch.core.solve import solve as core_solve
 from ida_tpu_torch.core.state import IdaOptions
 from ida_tpu_torch.core.calc_ic import IC_YA_YDP_INIT
 from ida_tpu_torch.core.calc_ic import calc_ic as core_calc_ic
+from ida_tpu_torch.core.quad import get_quad
 from ida_tpu_torch.models import (ROBERTS_PARAMS, ROBERTS_YP0, ROBERTS_YY0, foodweb,
                                   foodweb_ic, foodweb_problem, heat2d_ic, heat2d_problem,
                                   roberts_factory, roberts_problem)
-from ida_tpu_torch.ops import _build, dense_lu, fused_solve, fused_stages, small_lu
+from ida_tpu_torch.ops import _build, dense_lu, fused_solve, fused_stages, make_bbd_prec, small_lu
+from ida_tpu_torch.ops.banded import band_factor, band_solve, band_sys_jacobian, band_to_dense
 from ida_tpu_torch.parallel import (EnsembleIDA, ensemble_init, from_native, make_ensemble_solve,
                                     to_native)
 from ida_tpu_torch.tol_control import TolControl, tol_ss, tol_sv
+from ida_tpu_torch.utils.checkpoint import load_state, save_state
 
 BLOCK = 64  # threads a block of the whole-solve kernel (csrc/ida_lane.cuh IDA_THREADS)
 
@@ -612,14 +631,15 @@ def shared_tol(n: int = 3, dtype=torch.float64):
                                   torch.device("cuda"))
 
 
-def bare_launch_ms(st0, p_b) -> float:
-    """CUDA-event time of one bare K2 launch: the arguments are checked and
+def bare_launch_ms(st0, p_b, tol_in=None) -> float:
+    """CUDA-event time of one bare K2 launch to TOUT (the headline's shared
+    tolerances unless ``tol_in`` is given): the arguments are checked and
     the result allocated before the first event, so the window holds the
     launch alone."""
     dst = fused_solve.empty_result(st0)
     carry = fused_solve.new_carry(st0.tn.shape[0], st0.dtype, st0.phi.device, False)
-    go = fused_solve.prepare_launch("", st0, dst, p_b, shared_tol(), TOUT, carry, IdaOptions(),
-                                    0, None)
+    go = fused_solve.prepare_launch("", st0, dst, p_b, tol_in or shared_tol(), TOUT, carry,
+                                    IdaOptions(), 0, None)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
     ev[0].record()
@@ -1317,6 +1337,468 @@ def phase_kernels_n2(food: dict) -> dict:
     return rows
 
 
+# --------------- constraints, band and BBD, quadratures and checkpoints
+
+C_RTOL = 1e-2  # the constraints probe: Roberts held >= 0 at a loose tolerance
+C_ATOL = [1e-5, 1e-3, 1e-3]
+# ida_tpu's counts of the probe's nominal lane over 12 decades (its CPU run,
+# tests/test_torch_constraints.py), pinned here: this script imports no JAX
+C_PROBE = {"nst": 148, "nre": 219}
+K2_PR5_MS = 1.025  # the unconstrained K2 headline launch, PERF.md (PR 5's run)
+BAND_M = 10  # idaHeat2D_bnd: a 10 x 10 grid, mu = ml = 10
+BAND_B = 4096
+BAND_BIG_M = 100  # one band factor and solve at heat2d 100 x 100, mu = ml = 100
+BBD_M = 20  # idaHeat2D_kry_bbd_p: 20 x 20 on 4 subdomains (strips of 5 grid rows)
+BBD_B = 256
+CHECKPOINT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def constrained(st):
+    return st._replace(constraints=torch.ones_like(st.constraints),
+                       constraints_set=torch.ones_like(st.constraints_set))
+
+
+def constrained_stage_states():
+    """Mid-flight states of the probe (B_SMALL lanes, every y >= 0): after
+    step 2, where the next Newton iterate dips below zero by less than the
+    Newton tolerance (the correction is pulled back inside), and after step
+    72 with h x16, where it dips by more (the attempt fails)."""
+    params, yy0, yp0 = ensemble_inputs(B_SMALL)
+    st = constrained(ensemble_init(roberts_factory, params, yy0, yp0, device="cuda"))
+    tol = tol_sv(C_RTOL, C_ATOL, device="cuda")
+    fn = make_ensemble_solve(roberts_factory, itask=TASK_ONE_STEP)
+    snaps = {}
+    for k in range(1, 73):
+        st, _, _ = fn(st, params, tol, 4.0e10)
+        if k == 2:
+            snaps["step2"] = to_native(st)
+    last = to_native(st)
+    snaps["step72_hh_x16"] = last._replace(hh=last.hh * 16.0)
+    return torch.as_tensor(params, device="cuda").t().contiguous(), tol, snaps
+
+
+def phase_constrained_stages() -> dict:
+    """K5 on constrained states: each stage kernel bit for bit its eager
+    stage (the chain inside one attempt, and the attempt, stop tests and
+    interpolation on the state itself), with the block biting both ways."""
+    params, tol, snaps = constrained_stage_states()
+    fused_stages.reset_launch_counts()
+    fails, errs, kinds = {}, {}, {}
+
+    def compare(name, stage, st, aux=None):
+        st_e, out_e = fused_stages.plain_stage(stage, st, params, tol, 4.0e10, aux)
+        st_k, out_k = fused_stages.run_stage(stage, st, params, tol, 4.0e10, aux=aux)
+        torch.cuda.synchronize()
+        diff = first_difference(st_k, st_e, out_k, out_e)
+        if diff is not None:
+            fails[f"{name}/{stage}"] = diff
+        errs[stage] = max(errs.get(stage, 0.0), max_abs_diff(st_k, st_e, out_k, out_e))
+        return st_e, out_e
+
+    for name, st in snaps.items():
+        for stage in ("attempt", "stoptest", "getsol"):
+            compare(name, stage, st)
+        s1, o1 = compare(name, "set_coeffs", st)
+        s2, o2 = compare(name, "nls", s1._replace(tn=s1.tn + s1.hh))
+        s3, o3 = compare(name, "error_test", s2, {"ck": o1["ck"]})
+        compare(name, "complete_step", s3, {"err_k": o3["err_k"], "err_km1": o3["err_km1"],
+                                            "ck": o1["ck"]})
+        nl = o2["nl_status"]
+        kinds[name] = {"rec_constraint": int((nl == C.REC_CONSTRAINT).sum()),
+                       # an iterate below zero that passed: its correction was
+                       # pulled back inside (the eager block changes ee only)
+                       "pulled_back": int(((s2.yy < 0).any(dim=0) & (nl == C.REC_NONE)).sum())}
+    launches = {k: v for k, v in fused_stages.STAGE_LAUNCHES.items() if v}
+    emit("constrained_stages", batch=B_SMALL, rtol=C_RTOL, atol=C_ATOL, checks=7 * len(snaps),
+         first_differences=fails, nls_kinds=kinds, launches=launches, max_abs_err=errs)
+    check(not fails, f"stage kernels differ from the eager stages on constrained states: {fails}")
+    check(kinds["step72_hh_x16"]["rec_constraint"] > 0, "no REC_CONSTRAINT among the stage inputs")
+    check(kinds["step2"]["pulled_back"] > 0, "no pulled-back correction among the stage inputs")
+    check(len(launches) == 7, f"stage launches {launches}")
+    return {"launches": launches, "max_abs_err": errs}
+
+
+def constrained_chain(st0, fn_by_route: dict) -> dict:
+    """Each route over the 12 decades from ``st0``: per route its result at
+    each output time and the wall of all 12 calls."""
+    out = {}
+    for route, fn in fn_by_route.items():
+        st, rows = st0, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for tout in DECADES:
+            st, tret, ist = fn(st, tout)
+            rows.append((st, tret, ist))
+        torch.cuda.synchronize()
+        out[route] = {"rows": rows, "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def phase_constrained_headline() -> dict:
+    """The headline's B = 65,536 lanes held >= 0 at rtol 1e-2 over 12
+    decades, through the eager solve, K2 and K3/K4 at budgets 32 and 7: the kernels
+    bit for bit the eager solve at every output, every y >= 0 to the rounding
+    of the constraint's correction (-eps * atol), the nominal lane's exactly
+    and with ida_tpu's 148 steps and 219 residual evaluations."""
+    params, yy0, yp0 = ensemble_inputs(B)
+    st0 = constrained(ensemble_init(roberts_factory, params, yy0, yp0, device="cuda"))
+    p_b = on_card(params)
+    tol = tol_sv(C_RTOL, C_ATOL, device="cuda")
+    eager = make_ensemble_solve(roberts_factory)
+    k2 = fused_solve.make_fused_solve(roberts_factory, tol)
+    # budget 32 (the headline's), and 7: a decade of this probe takes fewer
+    # than 32 attempts, so only the smaller budget resumes (K4)
+    k34 = fused_solve.make_fused_solve(roberts_factory, tol, attempt_budget=32)
+    k34_b7 = fused_solve.make_fused_solve(roberts_factory, tol, attempt_budget=7)
+    routes = {"eager": lambda st, t: eager(st, params, tol, t),
+              "k2": lambda st, t: k2(st, p_b, t), "k34": lambda st, t: k34(st, p_b, t),
+              "k34_b7": lambda st, t: k34_b7(st, p_b, t)}
+    for fn in routes.values():  # warm-up
+        fn(st0, DECADES[0])
+    small_lu.reset_launch_counts()
+    fused_solve.reset_launch_counts()
+    runs = constrained_chain(st0, routes)
+    lu_l = lu_launches()
+    launches = {"k2": fused_solve.FUSED_LAUNCHES, "init": fused_solve.FUSED_INIT_LAUNCHES,
+                "cont": fused_solve.FUSED_CONT_LAUNCHES}
+    # IDA holds the constraints on the Newton iterates, to the rounding of the
+    # correction that pulls a small violation back: late decades, where y1
+    # and y2 are ~0, give values of -1e-37 to -1e-22 in ida_tpu run op by op
+    # as here (one such lane checked on the CPU). The gate: every output
+    # above -eps * atol, and exactly >= 0 for the nominal lane
+    floor = -torch.finfo(torch.float64).eps * torch.tensor(C_ATOL, device="cuda")
+    differ, negative, below_floor, ok_lanes, y_min = [], 0, 0, B, 0.0
+    for k, tout in enumerate(DECADES):
+        est, etret, eist = runs["eager"]["rows"][k]
+        for route in ("k2", "k34", "k34_b7"):
+            st, tret, ist = runs[route]["rows"][k]
+            fields = [f for f in est._fields if isinstance(getattr(est, f), torch.Tensor)
+                      and not same(getattr(st, f), getattr(est, f))]
+            if not (same(tret, etret) and same(ist, eist)):
+                fields.append("tret/istate")
+            differ += [f"{route} decade {k}: {f}" for f in fields]
+        negative += int((est.yy < 0).any(dim=1).sum())
+        below_floor += int((est.yy < floor).any(dim=1).sum())
+        y_min = min(y_min, float(est.yy.min()))
+        ok_lanes = min(ok_lanes, int((eist == C.SUCCESS).sum()))
+    est = runs["eager"]["rows"][-1][0]
+    totals = counter_totals(est)
+    err = max(max_abs_diff(runs[r]["rows"][-1][0], est) for r in ("k2", "k34", "k34_b7"))
+
+    # the nominal lane alone (B = 1), eager and K2
+    one = constrained(ensemble_init(roberts_factory, ROBERTS_PARAMS[None], ROBERTS_YY0[None],
+                                    ROBERTS_YP0[None], device="cuda"))
+    lane = constrained_chain(one, {
+        "eager": lambda st, t: eager(st, ROBERTS_PARAMS[None], tol, t),
+        "k2": lambda st, t: k2(st, on_card(ROBERTS_PARAMS[None]), t)})
+    nominal = {r: {f: int(getattr(lane[r]["rows"][-1][0], f)[0]) for f in ("nst", "nre")}
+               for r in lane}
+    nominal_min_y = min(float(row[0].yy.min()) for row in lane["eager"]["rows"])
+    lane_same = not [f for f in one._fields if isinstance(getattr(one, f), torch.Tensor)
+                     and not same(getattr(lane["k2"]["rows"][-1][0], f),
+                                  getattr(lane["eager"]["rows"][-1][0], f))]
+
+    # K2 from the start to tout = 400 at the probe's tolerances, constrained,
+    # beside the same lanes without constraints (CUDA events, 3 each, in turns)
+    tol_in = fused_solve.tol_inputs(tol, 3, 1, torch.float64, torch.device("cuda"))
+    st_free = ensemble_init(roberts_factory, params, yy0, yp0, device="cuda")
+    k2_ms, free_ms = [], []
+    for _ in range(3):
+        free_ms.append(bare_launch_ms(st_free, p_b, tol_in))
+        k2_ms.append(bare_launch_ms(st0, p_b, tol_in))
+    ptxas = solve_kernel_ptxas()
+    emit("constrained_headline", batch=B, rtol=C_RTOL, atol=C_ATOL, decades=len(DECADES),
+         walls_s={r: runs[r]["wall_s"] for r in runs}, lanes_success_min=ok_lanes,
+         outputs_with_negative_y=negative, outputs_below_minus_eps_atol=below_floor,
+         min_output_y=y_min, nominal_lane_min_y=nominal_min_y, fields_differ=differ[:8],
+         launches=launches,
+         lu_launches=lu_l, max_abs_err=err, nominal_lane=nominal, nominal_pinned=C_PROBE,
+         nominal_lane_k2_equals_eager=lane_same,
+         k2_to_400_ms={"constrained": k2_ms, "same_lanes_unconstrained": free_ms},
+         k2_headline_pr5_ms=K2_PR5_MS,
+         solve_kernel_ptxas=ptxas, steps_per_s_eager=totals["nst"] / runs["eager"]["wall_s"],
+         **totals)
+    check(not differ, f"constrained_headline: the kernels differ from the eager solve: {differ[:8]}")
+    check(ok_lanes == B, f"constrained_headline: {B - ok_lanes} lanes not SUCCESS")
+    check(below_floor == 0, f"constrained_headline: {below_floor} outputs below -eps * atol")
+    check(nominal_min_y >= 0.0, f"constrained_headline: the nominal lane's y {nominal_min_y}")
+    check(all(v == C_PROBE for v in nominal.values()), f"nominal lane {nominal} != {C_PROBE}")
+    check(lane_same, "constrained_headline: the nominal lane's K2 state != eager")
+    check(launches["k2"] == 12 and launches["init"] == 24 and launches["cont"] > 0,
+          f"constrained_headline: kernel launches {launches}")
+    check(lu_l["factor"] > 0 and lu_l["solve"] > 0, f"LU kernels not launched: {lu_l}")
+    return {"launches": launches, "lu_launches": lu_l, "k2_ms": statistics.median(k2_ms)}
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts the operators dispatched to a kernel (views, which launch
+    nothing, left out): about the kernel launches of eager code."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view:
+            self.ops += 1
+        return func(*args, **(kwargs or {}))
+
+
+def count_ops(fn) -> int:
+    with OpCounter() as counter:
+        fn()
+    return counter.ops
+
+
+def heat2d_band_opts(m) -> IdaOptions:
+    return IdaOptions(linear_solver="band", band_mu=m, band_ml=m, mxstep=20000)
+
+
+def heat2d_lanes(m, bsz, opts, prob):
+    """``bsz`` heat2d instances, u0 x linspace(0.9, 1.1, bsz), batch-native on
+    the card (bench.py::run_heat2d_batched's sweep), the middle lane at
+    scale 1 (the single lane's own problem)."""
+    u0, up0 = heat2d_ic(m)
+    scales = np.linspace(0.9, 1.1, bsz)
+    scales[bsz // 2] = 1.0
+    return scales, to_native(ensemble_init(lambda p: prob, scales[:, None],
+                                           u0[None] * scales[:, None], up0[None] * scales[:, None],
+                                           opts=opts, device="cuda"))
+
+
+def cpu_lanes(m, scales, opts, prob_cpu, lanes, tout, tol_args):
+    """The same lanes on the CPU (lanes are independent, so a batch of a few
+    gives each lane's own result)."""
+    u0, up0 = heat2d_ic(m)
+    sc = scales[lanes]
+    st = to_native(ensemble_init(lambda p: prob_cpu, sc[:, None], u0[None] * sc[:, None],
+                                 up0[None] * sc[:, None], opts=opts, device="cpu"))
+    return core_solve(st, prob_cpu, opts, tol_ss(*tol_args, device="cpu"), tout)
+
+
+def wrms_lanes(y, y_ref, rtol, atol) -> float:
+    """Largest WRMS over lanes of y - y_ref ([N, lanes]) under weights of
+    y_ref."""
+    w = 1.0 / (rtol * y_ref.abs() + atol)
+    return float(torch.sqrt(torch.mean(((y - y_ref) * w) ** 2, dim=0)).max())
+
+
+def phase_band_heat2d() -> None:
+    """heat2d at idaHeat2D_bnd's grid (10 x 10, mu = ml = 10) on the band
+    solver: one lane through ``IDA`` (on the card, and against it the band
+    and the dense solver on the CPU), and B = 4,096 lanes batch-native."""
+    m = BAND_M
+    opts = heat2d_band_opts(m)
+    u0, up0 = heat2d_ic(m)
+    idas, walls = {}, {}
+    for name, dev, o in (("band", "cuda", opts), ("band_cpu", "cpu", opts),
+                         ("dense_cpu", "cpu", IdaOptions(mxstep=20000))):
+        ida = IDA(heat2d_problem(m, use_prec=False, device=dev), u0, up0,
+                  tol_ss(1e-5, 1e-8, device=dev), o, device=dev)
+        t0 = time.perf_counter()
+        ida.solve(HEAT_TOUT)  # returns host numbers: synchronizes
+        walls[name] = time.perf_counter() - t0
+        idas[name] = ida
+    got = krylov_counts(idas["band"].state)
+    yb = idas["band"].state.yy.cpu().unsqueeze(1)
+    wrms_cpu = wrms_lanes(yb, idas["band_cpu"].state.yy.unsqueeze(1), 1e-5, 1e-8)
+    wrms_dense = wrms_lanes(yb, idas["dense_cpu"].state.yy.unsqueeze(1), 1e-5, 1e-8)
+
+    prob = heat2d_problem(m, use_prec=False, device="cuda")
+    scales, st0 = heat2d_lanes(m, BAND_B, opts, prob)
+    out = {}
+    wall_b = wall_s(lambda: out.update(r=core_solve(st0, prob, opts,
+                                                    tol_ss(1e-5, 1e-8, device="cuda"), HEAT_TOUT)))
+    st, tret, istate = out["r"]
+    lanes = np.linspace(0, BAND_B - 1, 4).astype(int)
+    sc, _, ic = cpu_lanes(m, scales, opts, heat2d_problem(m, use_prec=False, device="cpu"),
+                          lanes, HEAT_TOUT, (1e-5, 1e-8))
+    wrms_b = wrms_lanes(st.yy[:, lanes].cpu(), sc.yy, 1e-5, 1e-8)
+    nst_b = int(st.nst.sum())
+    emit("band_heat2d", grid=f"{m}x{m}", mu=m, ml=m, tout=HEAT_TOUT, walls_s=walls, **got,
+         cpu=krylov_counts(idas["band_cpu"].state), dense_cpu=krylov_counts(idas["dense_cpu"].state),
+         wrms_card_vs_cpu=wrms_cpu, wrms_band_vs_dense=wrms_dense,
+         batched={"batch": BAND_B, "wall_s": wall_b, "total_steps": nst_b,
+                  "agg_steps_per_s": nst_b / wall_b, "lanes_success": int((istate == C.SUCCESS).sum()),
+                  "cpu_lanes": lanes.tolist(), "wrms_card_vs_cpu": wrms_b,
+                  **krylov_counts(st)})
+    check(idas["band"].get_current_time() >= HEAT_TOUT, "band_heat2d: did not reach tout")
+    check(got["nje"] > 0 and got["nli"] == 0, f"band_heat2d: nje {got['nje']}, nli {got['nli']}")
+    check(wrms_cpu < 1.0 and wrms_dense < 1.0, f"band_heat2d: WRMS {wrms_cpu}, {wrms_dense}")
+    check(bool((istate == C.SUCCESS).all()), "band_heat2d: a batched lane is not SUCCESS")
+    check(bool((ic == C.SUCCESS).all()) and wrms_b < 1.0, f"band_heat2d batched vs CPU {wrms_b}")
+
+
+def phase_band_factor_100() -> dict:
+    """One band factor and one band solve at heat2d 100 x 100 (n = 10,000,
+    mu = ml = 100) on the card, and at 10 x 10: their walls (one call each),
+    their dispatched operators (about their kernel launches; the profiler's
+    device events beside the count at 10 x 10), and the solve's residual."""
+    out = {}
+    for m in (BAND_M, BAND_BIG_M):
+        prob = heat2d_problem(m, use_prec=False, device="cuda")
+        u0, up0 = heat2d_ic(m)
+        yy = torch.as_tensor(u0, device="cuda")
+        yp = torch.as_tensor(up0, device="cuda")
+        zero = torch.zeros((), dtype=torch.float64, device="cuda")
+        cj = torch.tensor(6250.0, dtype=torch.float64, device="cuda")  # 1 / the first step
+        ab = band_sys_jacobian(prob, zero, cj, yy, yp, m, m)
+        rhs = torch.as_tensor(np.random.default_rng(m).standard_normal(m * m), device="cuda")
+        res = {}
+        walls = {"factor": wall_s(lambda: res.update(f=band_factor(ab, m, m))),
+                 "solve": wall_s(lambda: res.update(x=band_solve(res["f"], rhs)))}
+        f, x = res["f"], res["x"]
+        ops = {"factor": count_ops(lambda: band_factor(ab, m, m)),
+               "solve": count_ops(lambda: band_solve(f, rhs))}
+        dense = band_to_dense(ab, m, m)
+        resid = float((dense @ x - rhs).abs().max() / rhs.abs().max())
+        row = {"n": m * m, "walls_s": walls, "dispatched_ops": ops, "relative_residual": resid,
+               "fail_col": int(f.fail_col)}
+        if m == BAND_M:
+            row["device_events"] = {
+                "factor": device_busy(lambda: band_factor(ab, m, m), calls=1)["device_events"],
+                "solve": device_busy(lambda: band_solve(f, rhs), calls=1)["device_events"]}
+        out[f"{m}x{m}"] = row
+        check(resid < 1e-10 and int(f.fail_col) == 0, f"band {m}x{m}: residual {resid}")
+        del dense
+    emit("band_factor_solve", mu_ml="m", **out)
+    return out
+
+
+def bbd_problem(m, device):
+    base = heat2d_problem(m, use_prec=False, device=device)
+    prec = make_bbd_prec(base.res, base.n, m, m, nblocks=4)
+    return IdaProblem(n=base.n, res=base.res, id=base.id, jtimes_fn=base.jtimes_fn, **prec.hooks())
+
+
+def phase_bbd_heat2d() -> None:
+    """heat2d 20 x 20 on SPGMR with the BBD preconditioner (mu = ml = 20, 4
+    blocks of 5 grid rows): one lane through ``IDA`` on the card, on the CPU,
+    and with the diagonal preconditioner; then B = 256 batch-native (each
+    lane SUCCESS, its scale-1 lane against the single lane; the check of
+    the card against the CPU is the single lane's: a batch of lanes on the
+    CPU costs what one does, ~20 s)."""
+    m = BBD_M
+    opts = IdaOptions(linear_solver="spgmr", mxstep=20000)
+    u0, up0 = heat2d_ic(m)
+    idas, walls = {}, {}
+    for name, dev, prob in (("bbd", "cuda", bbd_problem(m, "cuda")),
+                            ("bbd_cpu", "cpu", bbd_problem(m, "cpu")),
+                            ("diag", "cuda", heat2d_problem(m, device="cuda"))):
+        ida = IDA(prob, u0, up0, tol_ss(1e-5, 1e-8, device=dev), opts, device=dev)
+        t0 = time.perf_counter()
+        ida.solve(HEAT_TOUT)  # returns host numbers: synchronizes
+        walls[name] = time.perf_counter() - t0
+        idas[name] = ida
+    got = krylov_counts(idas["bbd"].state)
+    yb = idas["bbd"].state.yy.cpu().unsqueeze(1)
+    wrms_cpu = wrms_lanes(yb, idas["bbd_cpu"].state.yy.unsqueeze(1), 1e-5, 1e-8)
+    wrms_diag = wrms_lanes(yb, idas["diag"].state.yy.cpu().unsqueeze(1), 1e-5, 1e-8)
+
+    prob = bbd_problem(m, "cuda")
+    scales, st0 = heat2d_lanes(m, BBD_B, opts, prob)
+    out = {}
+    wall_b = wall_s(lambda: out.update(r=core_solve(st0, prob, opts,
+                                                    tol_ss(1e-5, 1e-8, device="cuda"), HEAT_TOUT)))
+    st, tret, istate = out["r"]
+    nst_b = int(st.nst.sum())
+    wrms_mid = wrms_lanes(st.yy[:, BBD_B // 2:BBD_B // 2 + 1].cpu(), yb, 1e-5, 1e-8)
+    emit("bbd_heat2d", grid=f"{m}x{m}", mu=m, ml=m, nblocks=4, tout=HEAT_TOUT, walls_s=walls,
+         **got, cpu=krylov_counts(idas["bbd_cpu"].state), diag=krylov_counts(idas["diag"].state),
+         wrms_card_vs_cpu=wrms_cpu, wrms_bbd_vs_diag=wrms_diag,
+         batched={"batch": BBD_B, "wall_s": wall_b, "total_steps": nst_b,
+                  "agg_steps_per_s": nst_b / wall_b, "lanes_success": int((istate == C.SUCCESS).sum()),
+                  "wrms_scale_1_lane_vs_single": wrms_mid, **krylov_counts(st)})
+    check(idas["bbd"].get_current_time() >= HEAT_TOUT, "bbd_heat2d: did not reach tout")
+    check(got["nps"] > 0 and got["nje"] == 0, f"bbd_heat2d: nps {got['nps']}, nje {got['nje']}")
+    check(wrms_cpu < 1.0 and wrms_diag < 1.0, f"bbd_heat2d: WRMS {wrms_cpu}, {wrms_diag}")
+    check(bool((istate == C.SUCCESS).all()), "bbd_heat2d: a batched lane is not SUCCESS")
+    check(wrms_mid < 1.0, f"bbd_heat2d: the batch's scale-1 lane against the single lane {wrms_mid}")
+
+
+def quad_factory(p):
+    """Roberts with the quadratures [y1 + y2 + y3, y1]."""
+    return dataclasses.replace(
+        roberts_factory(p), quad=lambda t, yy, yp: torch.stack([yy[0] + yy[1] + yy[2], yy[0]]),
+        nquad=2)
+
+
+def phase_quadrature_headline(eager: dict) -> dict:
+    """The headline with quadratures attached, eager: every field but yQ the
+    quadrature-free headline's bit for bit, yQ[0] = tn (the integral of
+    y1 + y2 + y3 = 1) in every lane, and ``IDA.get_quad`` on one lane."""
+    params, yy0, yp0 = ensemble_inputs(B)
+    tol = tol_sv(1e-4, ATOL, device="cuda")
+    fn = make_ensemble_solve(quad_factory)
+    st0 = ensemble_init(quad_factory, params, yy0, yp0, device="cuda")
+    small_lu.reset_launch_counts()
+    out = {}
+    wall = wall_s(lambda: out.update(r=fn(st0, params, tol, TOUT)))
+    lu_l = lu_launches()
+    st, tret, istate = out["r"]
+    est = eager["result"][0]
+    differ = [f for f in st._fields if f != "yQ" and isinstance(getattr(st, f), torch.Tensor)
+              and not same(getattr(st, f), getattr(est, f))]
+    q_err = float(((st.yQ[:, 0] - st.tn).abs() / st.tn.clamp(min=1.0)).max())
+
+    # one lane (the last) through IDA: its yQ and get_quad at tret
+    lane = B - 1
+    ida = IDA(quad_factory(torch.as_tensor(params[lane], device="cuda")), yy0[lane], yp0[lane],
+              tol, device="cuda")
+    ida.solve(TOUT)
+    lane_same = bool(same(ida.state.yQ, st.yQ[lane]))
+    q_ida = ida.get_quad()
+    q_core = get_quad(to_native(st), quad_factory(on_card(params).t().contiguous()),
+                      tret)[:, lane].cpu().numpy()
+    emit("quadrature_headline", batch=B, tout=TOUT, nquad=2, wall_s=wall,
+         eager_no_quad_wall_s=eager["wall_s"], fields_differ=differ,
+         max_rel_err_yq0_vs_tn=q_err, lane=lane, ida_yq_equals_lane=lane_same,
+         ida_get_quad=q_ida.tolist(), core_get_quad=q_core.tolist(), lu_launches=lu_l,
+         lanes_success=int((istate == C.SUCCESS).sum()))
+    check(not differ, f"quadrature_headline: fields other than yQ differ: {differ}")
+    check(q_err < 1e-9, f"quadrature_headline: yQ[0] off tn by {q_err} (relative)")
+    check(lane_same and np.array_equal(q_ida, q_core), "quadrature_headline: IDA.get_quad lane")
+    check(bool((istate == C.SUCCESS).all()), "quadrature_headline: a lane is not SUCCESS")
+    return {"lu_launches": lu_l}
+
+
+def phase_checkpoint_resume() -> dict:
+    """The headline saved at tout 0.4, loaded back onto the card and solved to
+    400: bit for bit the solve that was never interrupted."""
+    params, yy0, yp0 = ensemble_inputs(B)
+    tol = tol_sv(1e-4, ATOL, device="cuda")
+    fn = make_ensemble_solve(roberts_factory)
+    st0 = ensemble_init(roberts_factory, params, yy0, yp0, device="cuda")
+    small_lu.reset_launch_counts()
+    mid, _, _ = fn(st0, params, tol, 0.4)
+    straight, stret, sist = fn(mid, params, tol, TOUT)
+    CHECKPOINT_DIR.mkdir(parents=True, exist_ok=True)
+    path = CHECKPOINT_DIR / "headline_0.4.npz"
+    t0 = time.perf_counter()
+    save_state(str(path), mid)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_state(str(path), device="cuda")
+    load_s = time.perf_counter() - t0
+    resumed, rtret, rist = fn(back, params, tol, TOUT)
+    torch.cuda.synchronize()
+    lu_l = lu_launches()
+    loaded_differ = [f for f in mid._fields if isinstance(getattr(mid, f), torch.Tensor)
+                     and not same(getattr(back, f), getattr(mid, f))]
+    differ = [f for f in straight._fields if isinstance(getattr(straight, f), torch.Tensor)
+              and not same(getattr(resumed, f), getattr(straight, f))]
+    nbytes = path.stat().st_size
+    path.unlink()
+    emit("checkpoint_resume", batch=B, saved_at=0.4, tout=TOUT, archive_bytes=nbytes,
+         save_s=save_s, load_s=load_s, loaded_on=str(back.phi.device),
+         loaded_fields_differ=loaded_differ, resumed_fields_differ=differ, lu_launches=lu_l)
+    check(back.phi.is_cuda, "checkpoint_resume: the state did not load onto the card")
+    check(not loaded_differ, f"checkpoint_resume: the loaded state differs: {loaded_differ}")
+    check(not differ and same(rtret, stret) and same(rist, sist),
+          f"checkpoint_resume: resumed != uninterrupted: {differ}")
+    return {"lu_launches": lu_l}
+
+
 def timed(phase, *args):
     """Run a phase and print how long it took."""
     t0 = time.perf_counter()
@@ -1346,14 +1828,25 @@ def main() -> None:
     food = timed(phase_foodweb)
     food_b = timed(phase_foodweb_batched)
     n2 = timed(phase_kernels_n2, food_b)
+    c_stages = timed(phase_constrained_stages)
+    c_head = timed(phase_constrained_headline)
+    quad = timed(phase_quadrature_headline, eager)
+    resume = timed(phase_checkpoint_resume)
+    timed(phase_band_heat2d)
+    timed(phase_band_factor_100)
+    timed(phase_bbd_heat2d)
 
     # "launches" is the count of the eager headline (phase slice) for the LU
     # kernels and of the fused headline for the solve kernel; the counts of
-    # the two new paths stand beside them
+    # the other paths stand beside them (the band and BBD paths run none of
+    # these kernels)
     rows = [
         {"name": f"small_lu_{k}", "route": "cuda", "source": LU_SOURCE, "replaces": LU_REPLACES,
          "launches": eager["launches"][k], "launches_roots_slice": rooted["launches"][k],
          "launches_dense_slice": dense["launches"][k],
+         "launches_constrained_headline": c_head["lu_launches"][k],
+         "launches_quadrature_headline": quad["lu_launches"][k],
+         "launches_checkpoint_resume": resume["lu_launches"][k],
          "max_abs_err": lu[k]["max_abs_err"], "ms": lu[k]["ms"],
          "plain_ms": lu[k]["plain_ms"], "bound_ms": lu[k]["bound_ms"], "bound_by": "bytes",
          "library_ms": lu[k]["library_ms"]}
@@ -1370,15 +1863,19 @@ def main() -> None:
     rows.append({"name": "fused_solve", "route": "cuda", "source": FUSED_SOURCE,
                  "replaces": REPLACES["fused_solve"], "launches": fused["launches"],
                  "launches_dense_slice_scan_form": dense["scan_form_launches"],
+                 "launches_constrained_headline": c_head["launches"]["k2"],
+                 "constrained_to_400_ms": c_head["k2_ms"],
                  "max_abs_err": fused["max_abs_err"], "ms": fused["ms"], "plain_ms": fused["plain_ms"],
                  "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"], "library_ms": None})
     for kind in ("init", "cont"):
         rows.append({"name": f"fused_solve_{kind}", "route": "cuda", "source": FUSED_SOURCE,
                      "replaces": REPLACES[f"fused_solve_{kind}"], **budgeted[kind],
+                     "launches_constrained_headline": c_head["launches"][kind],
                      "library_ms": None})
     for stage, t in stages["times"].items():
         rows.append({"name": f"fused_stage_{stage}", "route": "cuda", "source": FUSED_SOURCE,
                      "replaces": REPLACES["stage"], "launches": stages["launches"][stage],
+                     "launches_constrained_stages": c_stages["launches"].get(stage, 0),
                      "max_abs_err": stages["max_abs_err"][stage], "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": None})
     print(json.dumps({"kernels": rows}), flush=True)

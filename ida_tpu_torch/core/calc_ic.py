@@ -34,7 +34,7 @@ import torch
 from .. import constants as C
 from ..norms import wrms_norm_bnd
 from ..ops.dense_lu import lu_factor_auto, lu_solve_auto
-from ..problem import IdaProblem
+from ..problem import JVP_CHUNK_ELEMENTS, IdaProblem
 from ..utils.tree import masked_while_loop
 from .state import IdaOptions, IdaState
 
@@ -61,11 +61,6 @@ class _Search(NamedTuple):
     fn: torch.Tensor
 
 
-# elements of one intermediate of the batched jvp (2**25 f64: 256 MB); the
-# unit tangents go through in chunks of at most this size
-_JVP_CHUNK_ELEMENTS = 1 << 25
-
-
 def ic_jacobian(problem: IdaProblem, t0, yy, yp, cj, id_mask, icopt: int) -> torch.Tensor:
     """The exact Jacobian of the IC system with respect to its unknowns,
     [N, N, *batch]: of ``e -> res(t0, yy + (1-id) e, yp + cj id e)``
@@ -84,7 +79,7 @@ def ic_jacobian(problem: IdaProblem, t0, yy, yp, cj, id_mask, icopt: int) -> tor
     zero = torch.zeros_like(yy)
     units = torch.eye(n, dtype=yy.dtype, device=yy.device)
     units = units.reshape((n, n) + (1,) * (yy.dim() - 1)).expand((n,) + tuple(yy.shape))
-    chunk = max(1, min(n, _JVP_CHUNK_ELEMENTS // yy.numel()))
+    chunk = max(1, min(n, JVP_CHUNK_ELEMENTS // yy.numel()))
     cols = torch.func.vmap(lambda u: torch.func.jvp(f, (zero,), (u,))[1], chunk_size=chunk)(units)
     return cols.movedim(0, 1).contiguous()  # [column, row, ...] -> [row, column, ...]
 

@@ -1,19 +1,21 @@
 """Nonlinear system solution for one step attempt (L3 layer).
 
-Port of ``ida_tpu/core/nls.py`` for ``linear_solver`` "dense" and "spgmr"
-at ``ls_precision="full"`` (reference ``nonlinear_solve``
+Port of ``ida_tpu/core/nls.py`` for ``linear_solver`` "dense", "band" and
+"spgmr" at ``ls_precision="full"`` (reference ``nonlinear_solve``
 src/lib.rs:787-890, ``crates/nonlinear/src/newton.rs:51-167``,
 ``src/ida_nls.rs:105-266``, ``src/ida_ls.rs:232-455``). The outer (retry
 with a fresh Jacobian) and inner (Newton iteration) loops are masked while
 loops: every lane runs its own iteration count, finished lanes are frozen.
 The dense LU factor and solve go through
 ``ops.dense_lu.lu_factor_auto``/``lu_solve_auto`` (the CUDA kernel on the
-card up to N = 16); the Krylov path runs ``ops.spgmr.spgmr_solve`` on jvps
-of the residual with the problem's preconditioner.
-
-Not ported here: the inequality-constraints block
-(ida_tpu/core/nls.py:636-681), the band solver and the mixed-precision
-modes.
+card up to N = 16), the band factor and solve through ``ops.banded``
+(SUNDIALS ``bandGETRF``/``bandGETRS`` on a Jacobian of mu + ml + 1 colored
+jvps); the Krylov path runs ``ops.spgmr.spgmr_solve`` on jvps of the
+residual with the problem's preconditioner. After the Newton loops the
+inequality-constraints block (C IDA ``IDANls``) checks the new iterate of
+every lane whose ``constraints_set`` is on: a small violation is pulled
+back inside, a large one fails the attempt with REC_CONSTRAINT and the
+step ratio ``rr`` it asks for. The mixed-precision modes are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from .. import constants as C
 from ..norms import wrms_norm_bnd
+from ..ops.banded import BandLU, band_factor, band_solve, band_sys_jacobian
 from ..ops.dense_lu import DenseLU, lu_factor_auto, lu_solve_auto
 from ..ops.spgmr import spgmr_solve
 from ..problem import IdaProblem
@@ -96,11 +99,17 @@ def _lsetup(
 ) -> Tuple[_Lin, torch.Tensor]:
     """idaNlsLSetup + idaLsSetup (reference src/ida_nls.rs:156-187,
     src/ida_ls.rs:232-290). Dense: J = dF/dy + cj*dF/dy' at the predictor,
-    LU-factored. SPGMR: refresh the preconditioner (the operator itself is
-    matrix-free, always current)."""
-    if opts.linear_solver == "dense":
-        j = problem.sys_jacobian(state.tn, state.cj, yy, yp, savres)
-        f = lu_factor_auto(j)
+    LU-factored. Band: the same J in band storage from mu + ml + 1 colored
+    jvps, band-factored. SPGMR: refresh the preconditioner (the operator
+    itself is matrix-free, always current)."""
+    if opts.linear_solver in ("dense", "band"):
+        if opts.linear_solver == "dense":
+            j = problem.sys_jacobian(state.tn, state.cj, yy, yp, savres)
+            f = lu_factor_auto(j)
+        else:
+            j = band_sys_jacobian(problem, state.tn, state.cj, yy, yp, opts.band_mu,
+                                  opts.band_ml)
+            f = band_factor(j, opts.band_mu, opts.band_ml)
         # singular (pivot == 0) OR non-finite Jacobian => recoverable lsetup
         # failure (a NaN pivot passes the == 0 test)
         fail = (f.fail_col > 0) | ~torch.isfinite(j).all(dim=0).all(dim=0)
@@ -126,11 +135,23 @@ def _newton_iterate(
     yypredict, yppredict = state.yypredict, state.yppredict
     bnd = cj.dim()
     zero = torch.zeros_like(cj)
-    dense = opts.linear_solver == "dense"
+    # "dense" here means DIRECT (dense or band): both drop the
+    # reconstructable carry and the Krylov counters
+    dense = opts.linear_solver in ("dense", "band")
     if dense:
         # idaLsSolve's cj-change correction (reference src/ida_ls.rs:406-410)
         scale = torch.where(lin.cjratio != 1.0, 2.0 / (1.0 + lin.cjratio), torch.ones_like(cj))
-        factored = DenseLU(lin.lu, lin.piv, torch.zeros(cj.shape, dtype=torch.int32, device=cj.device))
+        no_fail = torch.zeros(cj.shape, dtype=torch.int32, device=cj.device)
+        if opts.linear_solver == "dense":
+            factored = DenseLU(lin.lu, lin.piv, no_fail)
+
+            def direct_solve(b):
+                return lu_solve_auto(factored, b)
+        else:
+            banded = BandLU(lin.lu, lin.piv, no_fail, opts.band_mu, opts.band_ml)
+
+            def direct_solve(b):
+                return band_solve(banded, b)
     else:
         # the Krylov tolerance sqrt(N) * eplifac * eps_newt (reference
         # ida_ls.rs:211, 337)
@@ -146,7 +167,7 @@ def _newton_iterate(
         iteration of an attempt a Krylov solve that only reduced the
         residual (SUNLS_RES_REDUCED) is accepted."""
         if dense:
-            return c, lu_solve_auto(factored, b) * scale, None
+            return c, direct_solve(b) * scale, None
         yy, yp = c.yy, c.yp
         jdata = None
         if problem.jtimes_setup is not None:
@@ -256,7 +277,7 @@ def nonlinear_solve(
         nje=state.nje, nsetups=state.nsetups,
     )
     zero_i = torch.zeros(bshape, dtype=torch.int32, device=dev)
-    dense = opts.linear_solver == "dense"
+    dense = opts.linear_solver in ("dense", "band")  # direct
 
     def fresh_inner(prev: _Inner | None, delta, yy, yp, ss, kre) -> _Inner:
         def krylov(name):
@@ -374,4 +395,47 @@ def nonlinear_solve(
         ),
     )
     nl_status = torch.where(active, nl_status, C.REC_NONE).to(torch.int32)
-    return state, nl_status
+    if not opts.enable_constraints:
+        # the block below is an identity for lanes without constraints set
+        return state, nl_status
+    return _constraints(state, problem, active, ee, yy, nl_status)
+
+
+def _constraints(state: IdaState, problem: IdaProblem, active, ee, yy, nl_status):
+    """The inequality-constraints block (C IDA ``IDANls``; ida_tpu's
+    core/nls.py:628-681), every product in its order. Codes: 2 => y > 0,
+    1 => y >= 0, -1 => y <= 0, -2 => y < 0, 0 => none. A lane whose
+    constraints are set and whose Newton loop converged to a violating
+    iterate either pulls the correction back inside (a violation vector
+    within the Newton tolerance) or fails the attempt with REC_CONSTRAINT
+    and rr = max(0.9 * min quotient(phi[0], phi[0] - y), 0.1)."""
+    dtype = state.dtype
+    cvec = state.constraints
+    viol = (
+        ((cvec == 2.0) & (yy <= 0.0))
+        | ((cvec == 1.0) & (yy < 0.0))
+        | ((cvec == -1.0) & (yy > 0.0))
+        | ((cvec == -2.0) & (yy >= 0.0))
+    )
+    check = state.constraints_set & (nl_status == C.REC_NONE) & active
+    failed = check & viol.any(dim=0)
+
+    mm = viol.to(dtype)
+    strict = (cvec.abs() >= 1.5).to(dtype)
+    v = mm * (yy - 0.1 * strict * cvec / state.ewt)
+    vnorm = wrms_norm_bnd(v, state.ewt, problem.n, state.tn.dim())
+    small = vnorm <= state.eps_newt
+    # a small violation: the correction pulled back inside (ee only; phi is
+    # rebuilt from ee in complete_step)
+    ee = torch.where(failed & small, ee - v, ee)
+
+    # a large one: shrink h by the smallest quotient; torch.amin and
+    # torch.maximum propagate NaN as jnp.min and jnp.maximum do
+    phi0 = state.phi[0]
+    denom = mm * (phi0 - yy)
+    quot = torch.where(denom != 0.0, phi0 / denom, torch.full_like(denom, float("inf")))
+    minq = torch.amin(quot, dim=0)
+    rr_c = torch.maximum(0.9 * minq, torch.full_like(minq, 0.1))
+    recvr = failed & ~small
+    state = state._replace(ee=ee, rr=torch.where(recvr, rr_c, state.rr))
+    return state, torch.where(recvr, C.REC_CONSTRAINT, nl_status).to(torch.int32)

@@ -18,6 +18,7 @@ into a per-lane event buffer instead of returning at each.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Tuple
 
 import torch
@@ -30,6 +31,7 @@ from .coeffs import kidx
 from .complete_step import complete_step
 from .error_test import _norm
 from .interp import _eps, check_t_legal, get_solution, interpolate
+from .quad import accumulate_quad
 from .root import r_check1, r_check2, r_check3
 from .state import IdaOptions, IdaState
 from .step import attempt_once, step_begin
@@ -285,6 +287,16 @@ def _step_preamble(state: IdaState, problem, opts, tol, nstloc, istate, tret, ik
     return state, istate, tret, ikind, itgt
 
 
+def _constraints_opts(state: IdaState, opts: IdaOptions) -> IdaOptions:
+    """``opts`` without the constraints block when no lane has constraints
+    set: the block is then an identity, so the result is the same bit for
+    bit, and the eager path launches none of its operations (one host read
+    a call)."""
+    if opts.enable_constraints and not bool(state.constraints_set.any()):
+        return dataclasses.replace(opts, enable_constraints=False)
+    return opts
+
+
 def _run_attempt_loop(init: _Loop, problem, opts, tol, tout, itask: int, max_attempts=None):
     """The flattened internal loop over step ATTEMPTS (impl_solve.rs:246-373
     + src/lib.rs:613-711): each iteration is one attempt; a lane that lands
@@ -312,6 +324,10 @@ def _run_attempt_loop(init: _Loop, problem, opts, tol, tout, itask: int, max_att
 
         # success epilogue (src/lib.rs:697-708), mask folded in
         st2 = complete_step(st2, problem, opts, err_k, err_km1, ck=ck, mask=success)
+        # quadratures over the accepted step: the post-complete_step phi/psi
+        # are the interpolant C IDAGetSolution evaluates for it
+        if problem.nquad > 0:
+            st2 = accumulate_quad(st2, problem, success)
 
         # on fatal attempt failure: y(tn) (deferred), tret = tn
         ikind = torch.where(step_failed, 1, c.ikind)
@@ -405,6 +421,7 @@ def solve(
         raise ValueError(f"max_attempts must be at least 1, got {max_attempts}")
     dtype, dev, bshape = state.dtype, state.phi.device, state.tn.shape
     tout = torch.broadcast_to(torch.as_tensor(tout, dtype=dtype, device=dev), bshape)
+    opts = _constraints_opts(state, opts)
     if resume_carry is not None:
         if max_attempts is None:
             raise ValueError("resume_carry requires max_attempts")
@@ -571,6 +588,7 @@ def solve_dense(
         )
     n_ev = int(max_events) if has_roots else 0
     dtype, dev, bshape = state.dtype, state.phi.device, state.tn.shape
+    opts = _constraints_opts(state, opts)
     bnd = len(bshape)
     touts = torch.as_tensor(touts, dtype=dtype, device=dev)
     n_rows = int(touts.shape[0])
@@ -824,6 +842,8 @@ def solve_dense(
         )
         step_failed = fatal != C.CONTINUE
         st2 = complete_step(st2, problem, opts, err_k, err_km1, ck=ck, mask=success)
+        if problem.nquad > 0:
+            st2 = accumulate_quad(st2, problem, success)
         nstloc = torch.where(success, c.nstloc + 1, c.nstloc)
         ok = success & att
 

@@ -24,11 +24,15 @@ from ..utils.device import resolve_device
 class IdaOptions:
     """Solver options (reference ``Ida::new`` defaults, src/lib.rs:309-317).
 
-    ``linear_solver`` is "dense" (batched LU) or "spgmr" (matrix-free
-    restarted GMRES, ``ops/spgmr.py``: ``krylov_maxl`` basis vectors,
-    ``krylov_max_restarts`` restarts, Arnoldi by ``krylov_gs`` "modified"
-    Gram-Schmidt or "classical" CGS2, linear tolerance factor ``eplifac``).
-    The band solver, the mixed-precision modes (``ls_precision`` other than
+    ``linear_solver`` is "dense" (batched LU), "band" (banded LU,
+    ``ops/banded.py``, with half-bandwidths ``band_mu`` and ``band_ml``) or
+    "spgmr" (matrix-free restarted GMRES, ``ops/spgmr.py``: ``krylov_maxl``
+    basis vectors, ``krylov_max_restarts`` restarts, Arnoldi by
+    ``krylov_gs`` "modified" Gram-Schmidt or "classical" CGS2, linear
+    tolerance factor ``eplifac``). ``enable_constraints`` False leaves the
+    inequality-constraints block of the Newton layer out (bit for bit the
+    same for a state without constraints; ``IDA.set_constraints`` then
+    refuses). The mixed-precision modes (``ls_precision`` other than
     "full", ``krylov_storage="bfloat16"``) and ``fast_math`` raise
     NotImplementedError naming their ROADMAP item. ``debug_trace`` dumps
     the state before every step attempt into the active
@@ -41,33 +45,37 @@ class IdaOptions:
     maxnlsit: int = C.MAXNLSIT  # max Newton iterations per attempt
     suppressalg: bool = False  # exclude algebraic vars from error tests
     max_root_iters: int = 100  # hard bound on the Illinois root search loop
-    linear_solver: str = "dense"  # "dense" | "spgmr"
+    linear_solver: str = "dense"  # "dense" | "band" | "spgmr"
+    band_mu: int = 0  # upper half-bandwidth (linear_solver="band")
+    band_ml: int = 0  # lower half-bandwidth (linear_solver="band")
     ls_precision: str = "full"
     krylov_storage: str = "compute"  # GMRES basis dtype ("compute": the state's)
     krylov_maxl: int = 5  # GMRES subspace dimension (SUNDIALS default)
     krylov_max_restarts: int = 5  # GMRES restarts (SUNDIALS default)
     krylov_gs: str = "modified"  # "modified" (MGS) | "classical" (CGS2)
     eplifac: float = 0.05  # linear tolerance factor (reference ida_ls.rs:211)
+    enable_constraints: bool = True  # False: no inequality-constraints block
     fast_math: bool = False
     debug_trace: bool = False
 
     def __post_init__(self):
-        if self.linear_solver == "band":
-            raise C.not_ported("linear_solver='band'", 11, "ops/banded.py")
-        if self.linear_solver not in ("dense", "spgmr"):
-            raise ValueError(f"linear_solver must be 'dense' or 'spgmr', got {self.linear_solver!r}")
+        if self.linear_solver not in ("dense", "band", "spgmr"):
+            raise ValueError(
+                f"linear_solver must be 'dense', 'band' or 'spgmr', got {self.linear_solver!r}")
+        if self.band_mu < 0 or self.band_ml < 0:
+            raise ValueError("band_mu and band_ml must be at least 0")
         if self.ls_precision != "full":
-            raise C.not_ported(f"ls_precision={self.ls_precision!r} (mixed precision)", 11,
+            raise C.not_ported(f"ls_precision={self.ls_precision!r} (mixed precision)", 5,
                                "the mixed modes of core/nls.py")
         if self.krylov_storage != "compute":
-            raise C.not_ported(f"krylov_storage={self.krylov_storage!r}", 11,
+            raise C.not_ported(f"krylov_storage={self.krylov_storage!r}", 5,
                                "ops/spgmr.py storage_dtype")
         if self.krylov_gs not in ("modified", "classical"):
             raise ValueError(f"krylov_gs must be 'modified' or 'classical', got {self.krylov_gs!r}")
         if self.krylov_maxl < 1 or self.krylov_max_restarts < 0:
             raise ValueError("krylov_maxl must be at least 1 and krylov_max_restarts at least 0")
         if self.fast_math:
-            raise C.not_ported("fast_math=True", 13, "the unscaled-phi path of core/")
+            raise C.not_ported("fast_math=True", 7, "the unscaled-phi path of core/")
         if not 1 <= self.maxord <= C.MAXORD_DEFAULT:
             raise ValueError(f"maxord must lie in 1..{C.MAXORD_DEFAULT}, got {self.maxord}")
 
@@ -118,8 +126,8 @@ class IdaState(NamedTuple):
     toldel: torch.Tensor
 
     # --- linear-solver state (reference src/ida_ls.rs:22-31) ---
-    lu: torch.Tensor  # [N, N] factored J (dense; [0, 0] under spgmr)
-    piv: torch.Tensor  # [N] int32 pivots (dense; [0] under spgmr)
+    lu: torch.Tensor  # [N, N] factored J (dense; band [2*ml+mu+1, N]; [0, 0] under spgmr)
+    piv: torch.Tensor  # [N] int32 pivots (dense; band row offsets; [0] under spgmr)
     pdata: object  # preconditioner state: a tuple of tensors, () without one
     ls_tn: torch.Tensor  # [] time of the last lsetup (refined mode only)
     ls_cj: torch.Tensor  # [] cj of the last lsetup (refined mode only)
@@ -166,7 +174,7 @@ class IdaState(NamedTuple):
     taskc: torch.Tensor  # int32 saved itask
 
     # --- quadrature accumulator ---
-    yQ: torch.Tensor  # [1]
+    yQ: torch.Tensor  # [max(nquad, 1)] running integral of quad() from t0 to tn
 
     # --- outcome lane (replaces Rust Result) ---
     status: torch.Tensor  # int32, constants.CONTINUE while stepping
@@ -189,8 +197,9 @@ def init_state(
     phi[1] = y'0, defaults elsewhere. ``yy0``/``yp0`` are [N] for one lane or
     [*batch, N] for a batch-leading ensemble (every field then gains the
     leading ``batch`` axes). ``opts`` sizes the linear-solver workspace: the
-    dense factor [N, N] and pivots [N], or nothing ([0, 0], [0]) under
-    spgmr, whose preconditioner state ``pdata`` starts as the problem's
+    dense factor [N, N] and pivots [N], the band factor [2*ml+mu+1, N] and
+    pivots [N], or nothing ([0, 0], [0]) under spgmr, whose
+    preconditioner state ``pdata`` starts as the problem's
     ``prec_zero()`` (each leaf in the state's dtype, on its device). ``device``
     None is the current CUDA device (raises when there is none)."""
     device = resolve_device(device)
@@ -209,7 +218,12 @@ def init_state(
     zeros_k1 = full((C.MXORDP1,), 0.0)
     zeros_n = full((n,), 0.0)
     phi = torch.cat([yy0.unsqueeze(-2), yp0.unsqueeze(-2), full((C.MXORDP1 - 2, n), 0.0)], dim=-2)
-    nls = n if opts.linear_solver == "dense" else 0
+    if opts.linear_solver == "dense":
+        lu_shape, npiv = (n, n), n
+    elif opts.linear_solver == "band":
+        lu_shape, npiv = (2 * opts.band_ml + opts.band_mu + 1, n), n
+    else:
+        lu_shape, npiv = (0, 0), 0
     pdata = ()
     if problem.prec_setup is not None:
         pdata = tuple(
@@ -227,7 +241,7 @@ def init_state(
         phase=full((), 0, i32), ns=full((), 0, i32),
         cj=zero, cjlast=zero, cjold=zero, cjratio=zero, ss=zero, oldnrm=zero,
         eps_newt=zero, toldel=zero,
-        lu=full((nls, nls), 0.0), piv=full((nls,), 0, i32), pdata=pdata,
+        lu=full(lu_shape, 0.0), piv=full((npiv,), 0, i32), pdata=pdata,
         ls_tn=zero, ls_cj=zero, ls_yy=full((0,), 0.0), ls_yp=full((0,), 0.0),
         hin=zero, hmax_inv=full((), C.HMAX_INV_DEFAULT), epcon=full((), C.EPCON),
         tstop=zero, tstop_set=full((), False, torch.bool), constraints=zeros_n,
@@ -243,6 +257,6 @@ def init_state(
         # C IDA semantics: roots start active
         gactive=full((r,), True, torch.bool),
         irfnd=full((), False, torch.bool), taskc=full((), 0, i32),
-        yQ=full((1,), 0.0),
+        yQ=full((max(problem.nquad, 1),), 0.0),
         status=full((), C.CONTINUE, i32),
     )

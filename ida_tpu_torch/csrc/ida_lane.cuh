@@ -42,7 +42,10 @@
 // keeps and counts.
 //
 // Only TASK_NORMAL and the dense direct linear solver are covered; roots
-// (nroots > 0) are not.
+// (nroots > 0) are not. The inequality constraints are: a lane whose
+// constraints_set is on runs the block at the end of nonlinear_solve, reading
+// its constraint codes from device memory there (they are read nowhere else,
+// so they take no register across the attempt loop).
 
 #pragma once
 
@@ -85,8 +88,9 @@ constexpr int NL_RES_RECVR = 4, NL_LSOLVE_RECVR = 5;
 // order actions (core/complete_step.py)
 constexpr int LOWER = 0, MAINTAIN = 1, RAISE = 2;
 
+// IdaOptions as the kernel takes them; `constraints` is enable_constraints
 struct Opts {
-  int maxord, mxstep, maxncf, maxnef, maxnlsit, suppressalg;
+  int maxord, mxstep, maxncf, maxnef, maxnlsit, suppressalg, constraints;
 };
 
 // torch.finfo(dtype).eps
@@ -112,18 +116,21 @@ template <typename T> __device__ __forceinline__ T tsign(T a) {
 // The state fields the solve reads or writes (core/state.py IdaState), in
 // the order of the pointer table the wrapper passes (ops/fused_solve.py
 // STATE_FIELDS must list the same names in the same order). Fields the solve
-// never touches (roots, yQ, constraints, the Krylov and refined-mode
-// buffers) are not passed and pass through.
+// never touches (roots, yQ, the Krylov and refined-mode buffers) are not
+// passed and pass through; the constraints are read, and copied to the
+// result of a launch out of place.
 #define IDA_STATE_FIELDS(X)                                                     \
   X(phi) X(psi) X(alpha) X(beta) X(sigma) X(gamma) X(ee) X(yy) X(yp)            \
   X(yypredict) X(yppredict) X(ewt) X(savres) X(tn) X(hh) X(hused) X(rr) X(h0u)  \
   X(tretlast) X(tolsf) X(kk) X(kused) X(knew) X(phase) X(ns) X(cj) X(cjlast)    \
   X(cjold) X(cjratio) X(ss) X(oldnrm) X(eps_newt) X(toldel) X(lu) X(piv) X(hin) \
-  X(hmax_inv) X(epcon) X(tstop) X(tstop_set) X(nst) X(nre) X(ncfn) X(netf)      \
-  X(nni) X(nsetups) X(nje) X(toutc) X(taskc) X(status)
+  X(hmax_inv) X(epcon) X(tstop) X(tstop_set) X(constraints) X(constraints_set)  \
+  X(nst) X(nre) X(ncfn) X(netf) X(nni) X(nsetups) X(nje) X(toutc) X(taskc)       \
+  X(status)
 
 // Device pointers to the state's fields: reals in the state's dtype,
-// kk..ns/piv/taskc/status int32, counters int64, tstop_set bool as uint8.
+// kk..ns/piv/taskc/status int32, counters int64, tstop_set and
+// constraints_set bool as uint8.
 // The layout (which axis is the batch) is a template argument of the code
 // that reads them.
 struct StateRefs {
@@ -134,11 +141,13 @@ struct StateRefs {
 
 // Where a lane's row of a field with `rows` rows a lane lies.
 struct BatchLeading {  // [B, rows]: the entry points' layout
+  static constexpr bool kLast = false;
   __device__ static __forceinline__ long long at(int row, int rows, long long b, long long B) {
     return b * rows + row;
   }
 };
 struct BatchLast {  // [rows, B]: the batch-native layout of the eager core
+  static constexpr bool kLast = true;
   __device__ static __forceinline__ long long at(int row, int rows, long long b, long long B) {
     return (long long)row * B + b;
   }
@@ -190,9 +199,12 @@ struct Lane {
   // the counters as this launch's increments; `stepped`: nst > 0 at the load
   int nst, nre, ncfn, netf, nni, nsetups, nje;
   bool stepped;
-  // the cold fields, in device memory (the table the launch writes)
+  // the cold fields, in device memory (the table the launch writes), and
+  // where the lane lies in it (a compile-time layout, so B folds away for
+  // the batch-leading entry points)
   const StateRefs* io;
-  long long b;
+  long long b, B;
+  bool batch_last;
 #define IDA_COLD(name, ty) \
   __device__ __forceinline__ ty& name() const { return ((ty*)io->name)[b]; }
   IDA_COLD(hin, T) IDA_COLD(hmax_inv, T) IDA_COLD(epcon, T) IDA_COLD(tstop, T)
@@ -201,6 +213,13 @@ struct Lane {
 #undef IDA_COLD
   // nst == 0, of the true total
   __device__ __forceinline__ bool no_step_yet() const { return !stepped && nst == 0; }
+  // the inequality constraints, read where the block uses them
+  __device__ __forceinline__ bool constraints_set() const {
+    return ((const unsigned char*)io->constraints_set)[b] != 0;
+  }
+  __device__ __forceinline__ T constraint(int i) const {
+    return ((const T*)io->constraints)[batch_last ? (long long)i * B + b : b * N + i];
+  }
 };
 
 // The lane's problem data: parameters, tolerances, tout, options.
@@ -234,6 +253,8 @@ __device__ __forceinline__ void load_lane(const StateRefs& in, const StateRefs& 
   L.h.col = (T*)ida_shared + threadIdx.x;
   L.io = &out;
   L.b = b;
+  L.B = B;
+  L.batch_last = Lay::kLast;
 #define LD_SCALAR(name, ty) L.name = ((const ty*)in.name)[b];
 #define LD_VEC(name, K) \
   _Pragma("unroll") for (int i = 0; i < K; ++i) \
@@ -266,8 +287,13 @@ __device__ __forceinline__ void load_lane(const StateRefs& in, const StateRefs& 
 #define CP_COLD(name, ty) ((ty*)out.name)[b] = ((const ty*)in.name)[b];
     CP_COLD(hin, T) CP_COLD(hmax_inv, T) CP_COLD(epcon, T) CP_COLD(tstop, T) CP_COLD(h0u, T)
     CP_COLD(tretlast, T) CP_COLD(tolsf, T) CP_COLD(toutc, T) CP_COLD(taskc, int)
-    CP_COLD(status, int)
+    CP_COLD(status, int) CP_COLD(constraints_set, unsigned char)
 #undef CP_COLD
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const long long at = Lay::at(i, N, b, B);
+      ((T*)out.constraints)[at] = ((const T*)in.constraints)[at];
+    }
   }
 #undef LD_SCALAR
 #undef LD_VEC
@@ -655,6 +681,67 @@ __device__ __forceinline__ void _newton_iterate(const Lane<T, M::N>& L, const Ct
   }
 }
 
+// nls.py _constraints, component i of the violation vector v = mm * (y -
+// 0.1 * strict * c / ewt), mm = 1 where bit i of `viol` is set, else 0
+template <typename T, int N>
+__device__ __forceinline__ T constraint_v(const Lane<T, N>& L, int i, unsigned viol) {
+  const T c = L.constraint(i);
+  const T mm = ((viol >> i) & 1u) ? T(1) : T(0);
+  const T strict = (absval(c) >= T(1.5)) ? T(1) : T(0);
+  return mm * (L.yy[i] - T(0.1) * strict * c / L.ewt[i]);
+}
+
+// nls.py _constraints for a lane with constraints set whose Newton loop
+// converged (codes 2: y > 0, 1: y >= 0, -1: y <= 0, -2: y < 0, 0: none).
+// Returns REC_NONE (no violation, or a small one pulled back inside through
+// ee) or REC_CONSTRAINT with the step ratio rr it asks for. A lane without a
+// violation leaves here unchanged, as the eager block's selects leave it.
+// The violations are a bit mask and v is recomputed where it is used (the
+// same operations, so the same bits): the block holds no arrays of its own
+// beside the lane's (measured on an H100: K2 at 234 registers with it, 226
+// without, no spills; a form with mm[] and v[] arrays took 242).
+template <typename T, class M>
+__device__ __forceinline__ int constraints(Lane<T, M::N>& L) {
+  constexpr int N = M::N;
+  unsigned viol = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const T c = L.constraint(i), y = L.yy[i];
+    const bool v = (c == T(2) && y <= T(0)) || (c == T(1) && y < T(0)) ||
+                   (c == T(-1) && y > T(0)) || (c == T(-2) && y >= T(0));
+    viol |= (v ? 1u : 0u) << i;
+  }
+  if (viol == 0) return REC_NONE;
+
+  // wrms_norm_bnd(v, ewt): sqrt(sum0((v * ewt)^2) / N)
+  T acc = T(0);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const T t = constraint_v<T, N>(L, i, viol) * L.ewt[i];
+    const T sq = t * t;
+    acc = (i == 0) ? sq : acc + sq;
+  }
+  if (sqrt_of(acc / T(N)) <= L.eps_newt) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) L.ee[i] = L.ee[i] - constraint_v<T, N>(L, i, viol);
+    return REC_NONE;
+  }
+  // the smallest quotient phi[0] / (mm * (phi[0] - y)), inf where the
+  // denominator is 0; NaN propagates through tmin and tmax as through
+  // torch.amin and torch.maximum
+  T minq = T(0);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const T phi0 = L.h.phi(0, i);
+    const T mm = ((viol >> i) & 1u) ? T(1) : T(0);
+    const T denom = mm * (phi0 - L.yy[i]);
+    const T q = (denom != T(0)) ? phi0 / denom : T(INFINITY);
+    minq = (i == 0) ? q : tmin(minq, q);
+  }
+  L.rr = tmax(T(0.9) * minq, T(0.1));
+  return REC_CONSTRAINT;
+}
+
 // nonlinear_solve for an active lane; returns REC_NONE (ok) or a REC_* kind.
 template <typename T, class M>
 __device__ __forceinline__ int nonlinear_solve(Lane<T, M::N>& L, const Ctx<T, M>& c) {
@@ -747,13 +834,17 @@ __device__ __forceinline__ int nonlinear_solve(Lane<T, M::N>& L, const Ctx<T, M>
     L.yp[i] = L.yppredict[i] + L.cj * ycor[i];
   }
 
-  return ostatus == NL_OK
-             ? REC_NONE
-             : (ostatus == NL_LSETUP_RECVR
-                    ? REC_LSETUP
-                    : (ostatus == NL_RES_RECVR
-                           ? REC_RESIDUAL
-                           : (ostatus == NL_LSOLVE_RECVR ? REC_LSOLVE : REC_CONV)));
+  const int nl_status =
+      ostatus == NL_OK
+          ? REC_NONE
+          : (ostatus == NL_LSETUP_RECVR
+                 ? REC_LSETUP
+                 : (ostatus == NL_RES_RECVR
+                        ? REC_RESIDUAL
+                        : (ostatus == NL_LSOLVE_RECVR ? REC_LSOLVE : REC_CONV)));
+  return (nl_status == REC_NONE && c.opts.constraints && L.constraints_set())
+             ? constraints<T, M>(L)
+             : nl_status;
 }
 
 // ---------------------------------------------------------------- error_test.py

@@ -57,11 +57,12 @@ STATE_FIELDS = (
     "yppredict", "ewt", "savres", "tn", "hh", "hused", "rr", "h0u", "tretlast", "tolsf",
     "kk", "kused", "knew", "phase", "ns", "cj", "cjlast", "cjold", "cjratio", "ss", "oldnrm",
     "eps_newt", "toldel", "lu", "piv", "hin", "hmax_inv", "epcon", "tstop", "tstop_set",
-    "nst", "nre", "ncfn", "netf", "nni", "nsetups", "nje", "toutc", "taskc", "status",
+    "constraints", "constraints_set", "nst", "nre", "ncfn", "netf", "nni", "nsetups", "nje",
+    "toutc", "taskc", "status",
 )
 _INT32 = {"kk", "kused", "knew", "phase", "ns", "piv", "taskc", "status"}
 _INT64 = {"nst", "nre", "ncfn", "netf", "nni", "nsetups", "nje"}
-_BOOL = {"tstop_set"}
+_BOOL = {"tstop_set", "constraints_set"}
 
 # the attempt loop's carry (core/solve.py _Loop minus the state), in order
 CARRY_FIELDS = ("tret", "istate", "nstloc", "saved_t", "ncf", "nef", "fresh", "ikind", "itgt")
@@ -78,8 +79,10 @@ class CarryRefs(ctypes.Structure):
 
 
 class Opts(ctypes.Structure):
+    """csrc/ida_lane.cuh Opts (``constraints`` is ``enable_constraints``)."""
     _fields_ = [(f, ctypes.c_int) for f in
-                ("maxord", "mxstep", "maxncf", "maxnef", "maxnlsit", "suppressalg")]
+                ("maxord", "mxstep", "maxncf", "maxnef", "maxnlsit", "suppressalg",
+                 "constraints")]
 
 
 class TolArgs(ctypes.Structure):
@@ -198,7 +201,7 @@ def state_refs(state: IdaState, batch_axis: int) -> StateRefs:
 
 def opts_struct(opts: IdaOptions) -> Opts:
     return Opts(opts.maxord, opts.mxstep, opts.maxncf, opts.maxnef, opts.maxnlsit,
-                int(opts.suppressalg))
+                int(opts.suppressalg), int(opts.enable_constraints))
 
 
 def stream_of(t: torch.Tensor) -> int:
@@ -385,8 +388,10 @@ def make_fused_solve(problem_factory, tol: TolControl, opts: IdaOptions = IdaOpt
     scalar, atol a scalar or [N]) or per lane (rtol [B], atol [B, N]).
     ``attempt_budget`` bounds each launch to that many step attempts; the
     host relaunches the continuation until every lane is done, bit for bit
-    the unbudgeted result. The kernel compiles in the dense direct solver:
-    options for any other linear solver raise."""
+    the unbudgeted result. A lane whose ``constraints_set`` is on runs the
+    inequality-constraints block as the eager solve does (unless
+    ``opts.enable_constraints`` is False). The kernel compiles in the dense
+    direct solver: options for any other linear solver raise."""
     if opts.linear_solver != "dense":
         raise NotImplementedError(
             f"fused_solve: the kernel's linear solver is the compiled-in dense LU; "

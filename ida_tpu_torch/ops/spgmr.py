@@ -88,7 +88,7 @@ def spgmr_solve(
     back with x = 0, converged False and zero counts, for the caller to
     discard."""
     if storage_dtype is not None:
-        raise not_ported("spgmr_solve(storage_dtype=...)", 11, "ops/spgmr.py")
+        raise not_ported("spgmr_solve(storage_dtype=...)", 5, "ops/spgmr.py")
     if gs not in ("modified", "classical"):
         raise ValueError(f"gs must be 'modified' or 'classical', got {gs!r}")
     lane = b.shape[1:]

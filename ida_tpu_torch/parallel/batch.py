@@ -113,7 +113,7 @@ class EnsembleIDA:
     the device between calls (``states`` gives the batch-leading view).
     ``device`` None is the current CUDA device. Sharding over several cards
     (the JAX class's ``mesh``) is not ported yet (ROADMAP.md Queue 1 item
-    13)."""
+    7)."""
 
     def __init__(
         self,

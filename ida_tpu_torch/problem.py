@@ -9,8 +9,9 @@ every argument carries the trailing batch axes: ``yy`` is [N, *batch],
 An analytic Jacobian is optional: the Newton iterate is
 ``y = yypredict + e``, ``y' = yppredict + cj*e``, so J is the Jacobian of
 the residual with respect to the correction ``e``, taken by forward-mode AD
-(one ``torch.func.jvp`` per column; lanes are independent, so each column's
-jvp serves every lane at once).
+(the N unit tangents through one vmapped ``torch.func.jvp``, as ``ida_tpu``
+takes ``jacfwd``; lanes are independent, so each column serves every lane
+at once). The residual must therefore be vmap-able, as a JAX residual is.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ from typing import Callable, Optional
 
 import torch
 
-from .constants import not_ported
+# elements of one intermediate of a batched jvp (2**25 f64: 256 MB); unit
+# tangents go through in chunks of at most this size
+JVP_CHUNK_ELEMENTS = 1 << 25
 
 ResFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 JacFn = Callable[
@@ -51,9 +54,9 @@ class IdaProblem:
         IDASetJacTimes): ``jtimes_setup(t, cj, yy, yp, rr) -> jdata`` and
         ``jtimes_fn(jdata, t, cj, yy, yp, v) -> J v``; one jvp of ``res``
         when absent.
-      quad, nquad: quadrature right-hand side and its size. Quadratures
-        (``core/quad.py`` of ``ida_tpu``) are not ported yet: ``nquad > 0``
-        raises NotImplementedError (ROADMAP.md Queue 1 item 10).
+      quad, nquad: quadratures along the solution (the IDAS quadrature
+        role, ``core/quad.py``): ``quad(t, yy, yp) -> [nquad, *batch]``,
+        integrated over every accepted step into ``state.yQ``.
     """
 
     n: int
@@ -73,8 +76,8 @@ class IdaProblem:
     def __post_init__(self):
         if self.root is None and self.nroots:
             raise ValueError("nroots > 0 requires a root function")
-        if self.quad is not None or self.nquad:
-            raise not_ported("quadratures (IdaProblem.quad, nquad > 0)", 10, "core/quad.py")
+        if self.quad is None and self.nquad:
+            raise ValueError("nquad > 0 requires a quad function")
         if self.prec_setup is not None and (self.prec_solve is None or self.prec_zero is None):
             raise ValueError("prec_setup requires prec_solve and prec_zero")
         if self.jtimes_setup is not None and self.jtimes_fn is None:
@@ -98,10 +101,13 @@ class IdaProblem:
         def f_of_e(e):
             return self.res(t, yy + e, yp + cj * e)
 
+        # the N unit tangents through one vmapped jvp (ida_tpu's jacfwd), in
+        # chunks: each column is its own jvp's, at a fraction of the launches
+        n = self.n
         zero = torch.zeros_like(yy)
-        cols = []
-        for j in range(self.n):
-            unit = torch.zeros_like(yy)
-            unit[j] = 1.0
-            cols.append(torch.func.jvp(f_of_e, (zero,), (unit,))[1])
-        return torch.stack(cols, dim=1)
+        units = torch.eye(n, dtype=yy.dtype, device=yy.device)
+        units = units.reshape((n, n) + (1,) * (yy.dim() - 1)).expand((n,) + tuple(yy.shape))
+        chunk = max(1, min(n, JVP_CHUNK_ELEMENTS // max(yy.numel(), 1)))
+        cols = torch.func.vmap(lambda u: torch.func.jvp(f_of_e, (zero,), (u,))[1],
+                               chunk_size=chunk)(units)
+        return cols.movedim(0, 1).contiguous()  # [column, row, ...] -> [row, column, ...]

@@ -23,6 +23,7 @@ import torch
 
 from . import constants as C
 from .core import interp
+from .core import quad as core_quad
 from .core.calc_ic import IC_CODES
 from .core.calc_ic import calc_ic as core_calc_ic
 from .core.solve import TASK_NORMAL, TASK_ONE_STEP, solve_dense
@@ -142,8 +143,18 @@ class IDA:
         self.state = self.state._replace(epcon=self._real(epcon))
 
     def set_constraints(self, constraints) -> None:
-        raise C.not_ported("IDA.set_constraints (inequality constraints)", 10,
-                          "the constraints block of core/nls.py")
+        """Inequality constraints on y (C IDASetConstraints), one code per
+        component: 2 => y > 0, 1 => y >= 0, -1 => y <= 0, -2 => y < 0, 0 =>
+        none. Refused under ``IdaOptions(enable_constraints=False)``."""
+        if not self.options.enable_constraints:
+            raise ValueError(
+                "IdaOptions(enable_constraints=False) leaves the constraints block out of the "
+                "solver; build it with enable_constraints=True"
+            )
+        self.state = self.state._replace(
+            constraints=self._real(constraints).reshape(self.state.constraints.shape),
+            constraints_set=self._flag(True),
+        )
 
     # ------------------------------------------------------------------
     # consistent initial conditions (C IDACalcIC)
@@ -367,4 +378,13 @@ class IDA:
         return self.state.iroots.cpu().numpy()
 
     def get_quad(self, t: float | None = None):
-        raise C.not_ported("IDA.get_quad (quadratures)", 10, "core/quad.py")
+        """The quadratures ``int q dt`` from t0 to ``t`` (default: the last
+        return time), IDAS IDAGetQuad; needs ``problem.nquad > 0``. As for
+        get_solution, ``t`` must lie within the last step. numpy [nquad]."""
+        if self.problem.nquad == 0:
+            raise ValueError("problem has no quadratures (nquad == 0)")
+        st = self.state
+        tt = st.tretlast if t is None else self._real(t)
+        if not bool(interp.check_t_legal(st, tt)):
+            raise IdaError(C.BAD_T, t=float(tt))
+        return core_quad.get_quad(st, self.problem, tt).cpu().numpy()

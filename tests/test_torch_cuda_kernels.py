@@ -416,3 +416,41 @@ def test_spgmr_on_the_card_matches_the_cpu(cuda):
         assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
     assert bool(cpu.converged.all())
     torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=1e-12, atol=1e-12)
+
+
+def _constrained(bsz, device):
+    """``bsz`` lanes of the constraints probe (rtol 1e-2, every y >= 0), the
+    last lane at the nominal parameters."""
+    params, st = _ensemble(bsz, device)
+    params[-1] = ROBERTS_PARAMS
+    st = ensemble_init(roberts_factory, params, np.tile(ROBERTS_YY0, (bsz, 1)),
+                       params[:, :1] * np.array([-1.0, 1.0, 0.0]), device=device)
+    st = st._replace(constraints=torch.ones_like(st.constraints),
+                     constraints_set=torch.ones_like(st.constraints_set))
+    return params, st
+
+
+def test_fused_kernel_keeps_the_constraints(cuda):
+    # the constraints probe over 12 decades: K2 and the budgeted K3/K4 bit
+    # for bit the eager solve in every field, y >= 0, and the nominal lane's
+    # 148 steps and 219 residual evaluations (ida_tpu's)
+    params, st0 = _constrained(256, cuda)
+    tol = tol_sv(1e-2, [1e-5, 1e-3, 1e-3], device=cuda)
+    fused = fused_solve.make_fused_solve(roberts_factory, tol)
+    budgeted = fused_solve.make_fused_solve(roberts_factory, tol, attempt_budget=32)
+    eager = make_ensemble_solve(roberts_factory)
+    k2 = k34 = e = st0
+    for k in range(12):
+        tout = 0.4 * 10**k
+        k2, tret, ist = fused(k2, params, tout)
+        k34, tret_b, ist_b = budgeted(k34, params, tout)
+        e, etret, eist = eager(e, params, tol, tout)
+        assert _same_states(k2, e) == [] and _same_states(k34, e) == [], tout
+        assert torch.equal(ist, eist) and torch.equal(ist_b, eist) and torch.equal(tret, etret)
+        # y >= 0 to the rounding of the correction that pulls a violation
+        # back (late decades give -1e-37 here as in ida_tpu run op by op);
+        # exactly for the nominal lane
+        floor = -torch.finfo(torch.float64).eps * torch.tensor([1e-5, 1e-3, 1e-3], device=cuda)
+        assert bool((eist == C.SUCCESS).all()) and bool((e.yy >= floor).all())
+        assert bool((e.yy[-1] >= 0.0).all())
+    assert int(e.nst[-1]) == 148 and int(e.nre[-1]) == 219

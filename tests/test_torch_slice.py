@@ -236,7 +236,7 @@ def test_dtype_is_preserved(dtype):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"linear_solver": "band"},
+        {"linear_solver": "band", "ls_precision": "single"},
         {"ls_precision": "single"},
         {"ls_precision": "refined"},
         {"linear_solver": "spgmr", "ls_precision": "single"},

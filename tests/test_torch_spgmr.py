@@ -122,7 +122,7 @@ def test_inactive_lanes_are_not_solved():
 def test_storage_dtype_and_unknown_gs_refused():
     a = _plain()
     b = torch.from_numpy(a["b"])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         spgmr_solve(lambda v: v, b, torch.tensor(1e-10), storage_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="gs"):
         spgmr_solve(lambda v: v, b, torch.tensor(1e-10), gs="householder")
