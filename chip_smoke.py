@@ -39,6 +39,15 @@ tout=400 in f64):
 * quadratures on the headline (``quadrature_headline``), and the headline
   saved at 0.4, loaded back and solved on, bit for bit the uninterrupted
   solve (``checkpoint_resume``);
+* sensitivities (``ida_tpu_torch.sensitivity``): the transposed-solve
+  kernel against its plain version (``kernels_t``); bench.py's
+  adjoint_batched, per-lane gradients of 4,096 Roberts lanes through the
+  eager solve (K1 forward, ``small_lu_solve_t`` backward), against the CPU
+  and central differences, with ``remat_attempts`` and under ``safe_ad``
+  (``adjoint_batched``); its adjoint_continuous at 1,024 lanes against the
+  discrete gradients (``adjoint_continuous``); forward sensitivities, the
+  Hessian-vector product and the gradient through ``calc_ic`` on one lane
+  against differences (``sensitivity_lane``);
 * the band solver on heat2d 10 x 10 (idaHeat2D_bnd) through ``IDA`` and at
   B = 4,096, with one band factor and solve at 100 x 100 timed
   (``band_heat2d``, ``band_factor_solve``), and SPGMR with the BBD
@@ -69,7 +78,7 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ida_tpu_torch import IDA, IdaProblem, IdaSolveStatus, solve_dae
+from ida_tpu_torch import IDA, IdaProblem, IdaSolveStatus, sensitivity, solve_dae
 from ida_tpu_torch import constants as C
 from ida_tpu_torch.core import root as core_root
 from ida_tpu_torch.core.solve import TASK_ONE_STEP, solve_dense
@@ -85,7 +94,9 @@ from ida_tpu_torch.ops import _build, dense_lu, fused_solve, fused_stages, make_
 from ida_tpu_torch.ops.banded import band_factor, band_solve, band_sys_jacobian, band_to_dense
 from ida_tpu_torch.parallel import (EnsembleIDA, ensemble_init, from_native, make_ensemble_solve,
                                     to_native)
+from ida_tpu_torch.parallel.batch import _native_shared_tol
 from ida_tpu_torch.tol_control import TolControl, tol_ss, tol_sv
+from ida_tpu_torch.utils.ad_mode import safe_ad
 from ida_tpu_torch.utils.checkpoint import load_state, save_state
 
 BLOCK = 64  # threads a block of the whole-solve kernel (csrc/ida_lane.cuh IDA_THREADS)
@@ -1799,6 +1810,311 @@ def phase_checkpoint_resume() -> dict:
     return {"lu_launches": lu_l}
 
 
+# --------------------------------------------- sensitivities (the adjoints)
+
+ADJ_B = 4096  # bench.py::run_adjoint_batched (bench.py:517-559)
+ADJ_CONT_B = 1024  # bench.py::run_adjoint_continuous (bench.py:562-611)
+ADJ_TOUT = 4.0
+ADJ_ATTEMPTS = 120
+ADJ_W = [1.0, 2.0, 3.0]
+ADJ_GRID = np.logspace(-4, np.log10(ADJ_TOUT), 64)
+ADJ_LANES = 8  # spread lanes held against the CPU and central differences
+T_SOURCE = LU_SOURCE
+
+
+def adjoint_params(b: int) -> np.ndarray:
+    return np.outer(np.exp(np.linspace(-0.05, 0.05, b)), ROBERTS_PARAMS)
+
+
+def adjoint_maps(device):
+    """``bench.py``'s per-lane maps and loss <[1, 2, 3], y(tout)>."""
+    yy0 = torch.tensor(ROBERTS_YY0, dtype=torch.float64, device=device)
+    dirn = torch.tensor([-1.0, 1.0, 0.0], dtype=torch.float64, device=device)
+    w = torch.tensor(ADJ_W, dtype=torch.float64, device=device)
+    return (lambda p: yy0), (lambda p: p[0] * dirn), (lambda y: (y * w).sum())
+
+
+def run_adjoint_batched(params, device, opts=None):
+    yy0_of, yp0_of, loss_of = adjoint_maps(device)
+    return sensitivity.batched_adjoint_gradient(
+        roberts_factory, params, yy0_of, yp0_of, tol_sv(1e-4, ATOL, device=device), ADJ_TOUT,
+        loss_of, opts=opts, max_attempts=ADJ_ATTEMPTS, device=device)
+
+
+def adjoint_forward(params, device, opts=IdaOptions(unroll_newton=True), tout=ADJ_TOUT):
+    """The eager forward solve of the lanes ``params`` [B, P] (the adjoint's
+    primal): the batch-native state."""
+    yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
+    st = to_native(ensemble_init(roberts_factory, params, np.tile(ROBERTS_YY0, (len(params), 1)),
+                                 yp0, device=device, opts=opts))
+    p = torch.as_tensor(params, dtype=torch.float64, device=device).t().contiguous()
+    tol = tol_sv(1e-4, ATOL, device=device)
+    out = core_solve(st, roberts_factory(p), opts, _native_shared_tol(tol, st), tout,
+                     max_attempts=ADJ_ATTEMPTS)
+    return out[0], out[2]
+
+
+def central_differences(params, eps_rel=1e-6):
+    """d<w, y(tout)>/dp of each lane of ``params`` [L, P] by central
+    differences on the card (tests/test_adjoint.py:44-50: eps = 1e-6 p_i),
+    all 2 P L perturbed lanes in one batch-native eager solve."""
+    lanes, n_p = params.shape
+    shifted = []
+    for sign in (1.0, -1.0):
+        for i in range(n_p):
+            q = params.copy()
+            q[:, i] *= 1.0 + sign * eps_rel
+            shifted.append(q)
+    st, ist = adjoint_forward(np.concatenate(shifted), "cuda")
+    check(bool((ist == C.SUCCESS).all()), "a perturbed lane failed")
+    loss = (st.yy * torch.tensor(ADJ_W, dtype=torch.float64, device="cuda")[:, None]).sum(0)
+    loss = loss.cpu().numpy().reshape(2, n_p, lanes)
+    eps = eps_rel * params.T  # [P, L]
+    return ((loss[0] - loss[1]) / (2 * eps)).T
+
+
+def rel_err(a, b, floor=1e-12) -> float:
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), floor)))
+
+
+def phase_kernels_t() -> dict:
+    """The transposed solve ``small_lu_solve_t`` (the backward of every LU
+    solve) against its plain version on the card, bit for bit, at N = 3, 2
+    and 6 on B = 65,536 lanes, with its time at N = 3 beside its bound and
+    ``torch.linalg.lu_solve(..., adjoint=True)``'s."""
+    err = 0.0
+    for n in (3, 2, 6):
+        rng = np.random.default_rng(40 + n)
+        a = torch.from_numpy(rng.normal(size=(n, n, B)) + 3.0 * np.eye(n)[:, :, None]).to("cuda")
+        g = torch.from_numpy(rng.normal(size=(n, B))).to("cuda")
+        f = small_lu.lu_factor(a)
+        lam, ref = small_lu.lu_solve_t(f, g), dense_lu.lu_solve_unrolled_t(f, g)
+        torch.cuda.synchronize()
+        e = float((lam - ref).abs().max())
+        emit("kernel_t_vs_plain", n=n, batch=B, bitwise_equal=same(lam, ref), max_abs_err=e)
+        check(same(lam, ref), f"small_lu_solve_t != its plain version at n={n}")
+        err = max(err, e)
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.normal(size=(3, 3, B)) + 3.0 * np.eye(3)[:, :, None]).to("cuda")
+    g = torch.from_numpy(rng.normal(size=(3, B))).to("cuda")
+    f = small_lu.lu_factor(a)
+    runs = {}
+    for key, fn, reps in [("plain_1", lambda: dense_lu.lu_solve_unrolled_t(f, g), 50),
+                          ("kernel_1", lambda: small_lu.lu_solve_t(f, g), 500),
+                          ("kernel_2", lambda: small_lu.lu_solve_t(f, g), 500),
+                          ("plain_2", lambda: dense_lu.lu_solve_unrolled_t(f, g), 50)]:
+        runs[key] = cuda_ms(fn, reps)
+    # cold, as K1's rows: 16 input sets in turn move ~140 MB a pass
+    sets = [(small_lu.lu_factor(a.clone()), g.clone()) for _ in range(16)]
+    ms = kernel_device_ms([lambda h=h, y=y: small_lu.lu_solve_t(h, y) for h, y in sets], 4,
+                          "solve_t_kernel")
+    lead = [(h.lu.permute(2, 0, 1).contiguous(), h.piv.t().contiguous() + 1,
+             y.t().contiguous().unsqueeze(-1)) for h, y in sets]
+    lib_ms = call_device_ms([lambda x=x: torch.linalg.lu_solve(x[0], x[1], x[2], adjoint=True)
+                             for x in lead], 4)
+    # the library's answer is the same transposed solve
+    lu_l, piv_l, _ = torch.linalg.lu_factor_ex(a.permute(2, 0, 1).contiguous())
+    lib = torch.linalg.lu_solve(lu_l, piv_l, g.t().contiguous().unsqueeze(-1), adjoint=True)
+    lib_err = float((lib.squeeze(-1).t() - small_lu.lu_solve_t(f, g)).abs().max())
+    del sets, lead
+    nbytes = a.numel() * 8 + 3 * B * 4 + g.numel() * 8 + g.numel() * 8  # lu, piv, g in; lam out
+    row = {"max_abs_err": err, "ms": ms, "wrapper_ms": (runs["kernel_1"] + runs["kernel_2"]) / 2,
+           "plain_ms": (runs["plain_1"] + runs["plain_2"]) / 2, "library_ms": lib_ms,
+           "bound_ms": lu_bound_ms(nbytes), "bound_by": "bytes"}
+    emit("kernel_t_times", n=3, batch=B, dtype="float64", runs_ms=runs, bytes=nbytes,
+         bytes_per_lane=nbytes // B, library_max_abs_diff=lib_err, **row)
+    check(lib_err < 1e-10, f"small_lu_solve_t disagrees with torch.linalg: {lib_err}")
+    return row
+
+
+def phase_adjoint_batched() -> dict:
+    """bench.py's adjoint_batched: 4,096 Roberts lanes, per-lane losses and
+    gradients through the eager solve, K1 forward and its transposed solve
+    backward; against the CPU and central differences on spread lanes; the
+    same with remat_attempts; the primal under safe_ad bit for bit."""
+    params = adjoint_params(ADJ_B)
+    run_adjoint_batched(params[:64], "cuda", IdaOptions(remat_attempts=False))  # warm-up
+    torch.cuda.synchronize()
+    out = {}
+    for remat in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        small_lu.reset_launch_counts()
+        t0 = time.perf_counter()
+        vals, grads, ist = run_adjoint_batched(params, "cuda", IdaOptions(remat_attempts=remat))
+        torch.cuda.synchronize()
+        out[remat] = {"wall_s": time.perf_counter() - t0, "vals": vals, "grads": grads, "ist": ist,
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "launches": {"factor": small_lu.FACTOR_LAUNCHES, "solve": small_lu.SOLVE_LAUNCHES,
+                                   "solve_t": small_lu.SOLVE_T_LAUNCHES}}
+    plain, remat = out[False], out[True]
+    vals, grads, ist = plain["vals"], plain["grads"], plain["ist"]
+    n_ok = int((ist == C.SUCCESS).sum())
+    finite = int(torch.isfinite(grads).all(dim=1).sum())
+    remat_err = rel_err(remat["grads"].cpu().numpy(), grads.cpu().numpy(), floor=1e-300)
+
+    # eight spread lanes: the port's CPU run and central differences on the card
+    idx = np.linspace(0, ADJ_B - 1, ADJ_LANES).astype(int)
+    t0 = time.perf_counter()
+    vc, gc, ic = run_adjoint_batched(params[idx], "cpu")
+    cpu_s = time.perf_counter() - t0
+    st_g, _ = adjoint_forward(params[idx], "cuda")
+    st_c, _ = adjoint_forward(params[idx], "cpu")
+    nst_same = bool(torch.equal(st_g.nst.cpu(), st_c.nst) and torch.equal(st_g.nre.cpu(), st_c.nre))
+    g8 = grads[idx].cpu().numpy()
+    cpu_err = rel_err(g8, gc.numpy())
+    val_err = rel_err(vals[idx].cpu().numpy(), vc.numpy())
+    fd = central_differences(params[idx])
+    fd_err = rel_err(g8, fd)
+
+    # the primal under safe_ad is the eager solve without it, bit for bit
+    fwd_s = wall_s(lambda: adjoint_forward(params, "cuda"))  # the primal alone, no graph
+    st_plain, _ = adjoint_forward(params, "cuda")
+    with safe_ad():
+        st_safe, _ = adjoint_forward(params, "cuda")
+    primal_same = first_difference(st_plain, st_safe, {}, {}) is None
+    loss_primal = torch.func.vmap(adjoint_maps("cuda")[2])(st_plain.yy.t())
+
+    emit("adjoint_batched", batch=ADJ_B, tout=ADJ_TOUT, max_attempts=ADJ_ATTEMPTS,
+         wall_s=plain["wall_s"], grads_per_s=ADJ_B / plain["wall_s"], primal_wall_s=fwd_s,
+         peak_mem_bytes=plain["peak_mem_bytes"], launches=plain["launches"],
+         remat_wall_s=remat["wall_s"], remat_grads_per_s=ADJ_B / remat["wall_s"],
+         remat_peak_mem_bytes=remat["peak_mem_bytes"], remat_launches=remat["launches"],
+         remat_max_rel_err=remat_err, lanes_ok=n_ok, lanes_finite=finite,
+         nst_max=int(st_plain.nst.max()), nst_total=int(st_plain.nst.sum()),
+         spread_lanes=idx.tolist(), cpu_wall_s=cpu_s, cpu_counters_same=nst_same,
+         cpu_max_rel_err_grad=cpu_err, cpu_max_rel_err_val=val_err, fd_max_rel_err=fd_err,
+         primal_safe_ad_bitwise=primal_same,
+         val_vs_primal_max_abs=float((vals - loss_primal).abs().max()),
+         grad_lane0=grads[0].tolist())
+    check(n_ok == ADJ_B, f"{ADJ_B - n_ok} adjoint lanes did not return SUCCESS")
+    check(finite == ADJ_B, f"{ADJ_B - finite} lanes have non-finite gradients")
+    check(bool((ic == C.SUCCESS).all()), "a CPU adjoint lane failed")
+    check(val_err < 1e-10 and (cpu_err < 1e-6 or not nst_same),
+          f"card vs CPU: values {val_err}, gradients {cpu_err} (counters same: {nst_same})")
+    check(fd_err < 5e-4, f"gradients vs central differences: {fd_err}")
+    check(remat_err < 1e-12, f"remat_attempts changed the gradients: {remat_err}")
+    check(remat["peak_mem_bytes"] < plain["peak_mem_bytes"],
+          f"remat_attempts did not lower peak memory: {remat['peak_mem_bytes']} vs {plain['peak_mem_bytes']}")
+    check(primal_same, "the primal under safe_ad differs from the plain eager solve")
+    check(bool(torch.equal(vals, loss_primal)), "the adjoint's losses are not the eager primal's")
+    lau = plain["launches"]
+    check(lau["factor"] > 0 and lau["solve"] > 0 and lau["solve_t"] > 0,
+          f"K1 or small_lu_solve_t not launched: {lau}")
+    return {"launches": lau, "wall_s": plain["wall_s"], "params": params, "grads": grads}
+
+
+def phase_adjoint_continuous(discrete: dict) -> dict:
+    """bench.py's adjoint_continuous: 1,024 lanes, dense checkpoints on a
+    64-point log grid, the adjoint DAE backward, KKT terminal conditions
+    through K1 at N = 6; 64 lanes against the discrete adjoint."""
+    params = adjoint_params(ADJ_CONT_B)
+    yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
+    _, _, loss_of = adjoint_maps("cuda")
+    sizes = []
+    factor = small_lu.lu_factor
+
+    def noted(a):
+        sizes.append(a.shape[0])
+        return factor(a)
+
+    def run(p, y0):
+        return sensitivity.batched_continuous_adjoint(
+            roberts_factory, p, ROBERTS_YY0, y0, tol_sv(1e-4, ATOL, device="cuda"), ADJ_TOUT,
+            loss_of, grid=ADJ_GRID, opts=IdaOptions(mxstep=20000), device="cuda")
+
+    run(params[:16], yp0[:16])  # warm-up
+    torch.cuda.synchronize()
+    small_lu.reset_launch_counts()
+    small_lu.lu_factor = noted
+    try:
+        t0 = time.perf_counter()
+        loss, gp, gy0, istf, istb = run(params, yp0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        small_lu.lu_factor = factor
+    launches = {"factor": small_lu.FACTOR_LAUNCHES, "solve": small_lu.SOLVE_LAUNCHES,
+                "factor_n6": sizes.count(6)}
+    ok = int(((istf == 0) & (istb == 0)).sum())
+    finite = int(torch.isfinite(gp).all(dim=1).sum())
+    idx = np.linspace(0, ADJ_CONT_B - 1, 64).astype(int)
+    _, g_disc, i_disc = run_adjoint_batched(params[idx], "cuda")
+    err = rel_err(gp[idx].cpu().numpy(), g_disc.cpu().numpy())
+    emit("adjoint_continuous", batch=ADJ_CONT_B, tout=ADJ_TOUT, grid=len(ADJ_GRID), wall_s=wall,
+         grads_per_s=ADJ_CONT_B / wall, discrete_wall_s_4096=discrete["wall_s"],
+         lanes_ok=ok, lanes_finite=finite, launches=launches,
+         vs_discrete_lanes=64, vs_discrete_max_rel_err=err, grad_lane0=gp[0].tolist())
+    check(ok == ADJ_CONT_B, f"{ADJ_CONT_B - ok} continuous-adjoint lanes failed")
+    check(finite == ADJ_CONT_B, f"{ADJ_CONT_B - finite} lanes have non-finite gradients")
+    check(bool((i_disc == 0).all()), "a discrete lane failed")
+    check(err < 2e-2, f"continuous vs discrete gradients: {err}")
+    check(launches["factor_n6"] > 0, f"K1 not launched at N = 6 (KKT): {launches}")
+    return {"launches": launches, "wall_s": wall}
+
+
+def phase_sensitivity_lane() -> None:
+    """One lane on the card: forward_sensitivity, adjoint_hvp and
+    adjoint_gradient(ic=...) against central differences."""
+    p0 = np.asarray(ROBERTS_PARAMS)
+    tol = tol_sv(1e-4, ATOL, device="cuda")
+    yy0_of, yp0_of, loss_of = adjoint_maps("cuda")
+
+    # forward sensitivity along k1 (tests/test_sensitivity.py:20-32)
+    v = np.array([1.0, 0.0, 0.0])
+    t0 = time.perf_counter()
+    y, dy = sensitivity.forward_sensitivity(roberts_factory, p0, yy0_of, yp0_of, tol, ADJ_TOUT, v,
+                                            device="cuda")
+    fwd_s = time.perf_counter() - t0
+    eps = 1e-7
+    st, ist = adjoint_forward(np.stack([p0 + eps * v, p0 - eps * v]), "cuda", IdaOptions())
+    yy = st.yy.cpu().numpy()
+    fd = (yy[:, 0] - yy[:, 1]) / (2 * eps)
+    fwd_err = rel_err(dy.cpu().numpy(), fd, floor=1e-30)
+
+    # the Hessian-vector product along k1 (tests/test_second_order.py)
+    t0 = time.perf_counter()
+    g, hvp, ist_h = sensitivity.adjoint_hvp(roberts_factory, p0, yy0_of, yp0_of, tol, ADJ_TOUT,
+                                            loss_of, v, max_attempts=ADJ_ATTEMPTS, device="cuda")
+    hvp_s = time.perf_counter() - t0
+    eps = 4e-7 * p0[0]
+    _, gpm, _ = run_adjoint_batched(np.stack([p0 + eps * v, p0 - eps * v]), "cuda")
+    gpm = gpm.cpu().numpy()
+    fd_h = (gpm[0] - gpm[1]) / (2 * eps)
+    hvp_err = abs(float(hvp[0]) - fd_h[0]) / max(abs(fd_h[0]), 1e-10)
+
+    # through calc_ic (tests/test_ic_sensitivity.py:75-110)
+    yy_bad = torch.tensor([1.0, 0.0, 0.3], dtype=torch.float64, device="cuda")
+    yp_bad = torch.zeros(3, dtype=torch.float64, device="cuda")
+    t0 = time.perf_counter()
+    _, g_ic, ist_ic = sensitivity.adjoint_gradient(
+        roberts_factory, p0, lambda p: yy_bad, lambda p: yp_bad, tol, ADJ_TOUT, loss_of,
+        max_attempts=ADJ_ATTEMPTS, ic=("ya_ydp", 0.4), device="cuda")
+    ic_s = time.perf_counter() - t0
+    shifted = []
+    for sign in (1.0, -1.0):
+        for i in range(3):
+            q = p0.copy()
+            q[i] *= 1.0 + sign * 1e-6
+            shifted.append(q)
+    vals, _, ist_fd = sensitivity.batched_adjoint_gradient(
+        roberts_factory, np.stack(shifted), lambda p: yy_bad, lambda p: yp_bad, tol, ADJ_TOUT,
+        loss_of, max_attempts=ADJ_ATTEMPTS, ic=("ya_ydp", 0.4), device="cuda")
+    vals = vals.cpu().numpy().reshape(2, 3)
+    fd_ic = (vals[0] - vals[1]) / (2e-6 * p0)
+    ic_err = rel_err(g_ic.cpu().numpy(), fd_ic)
+    emit("sensitivity_lane", tout=ADJ_TOUT, forward_s=fwd_s, forward_max_rel_err=fwd_err,
+         dy=dy.tolist(), hvp_s=hvp_s, hvp=hvp.tolist(), hvp_fd=fd_h.tolist(),
+         hvp_rel_err=hvp_err, ic_s=ic_s, grad_ic=g_ic.tolist(), fd_ic=fd_ic.tolist(),
+         ic_max_rel_err=ic_err)
+    check(bool((ist == C.SUCCESS).all()), "a forward-difference lane failed")
+    check(fwd_err < 1e-5, f"forward sensitivity vs differences: {fwd_err}")
+    check(int(ist_h) == 0 and bool(torch.isfinite(hvp).all()), "adjoint_hvp failed")
+    check(hvp_err < 5e-3, f"hvp vs differences of the gradient: {hvp_err}")
+    check(int(ist_ic) == 0 and bool((ist_fd == 0).all()), "the IC adjoint failed")
+    check(ic_err < 5e-4, f"adjoint through calc_ic vs differences: {ic_err}")
+
+
 def timed(phase, *args):
     """Run a phase and print how long it took."""
     t0 = time.perf_counter()
@@ -1811,6 +2127,7 @@ def main() -> None:
     smi = phase_device()
     timed(phase_build)
     lu = timed(phase_kernels)
+    lu_t = timed(phase_kernels_t)
     eager = timed(phase_slice)
     timed(phase_card_vs_cpu)
     timed(phase_canonical)
@@ -1832,6 +2149,9 @@ def main() -> None:
     c_head = timed(phase_constrained_headline)
     quad = timed(phase_quadrature_headline, eager)
     resume = timed(phase_checkpoint_resume)
+    adj = timed(phase_adjoint_batched)
+    adj_c = timed(phase_adjoint_continuous, adj)
+    timed(phase_sensitivity_lane)
     timed(phase_band_heat2d)
     timed(phase_band_factor_100)
     timed(phase_bbd_heat2d)
@@ -1847,11 +2167,20 @@ def main() -> None:
          "launches_constrained_headline": c_head["lu_launches"][k],
          "launches_quadrature_headline": quad["lu_launches"][k],
          "launches_checkpoint_resume": resume["lu_launches"][k],
+         "launches_adjoint_batched": adj["launches"][k],
+         "launches_adjoint_continuous": adj_c["launches"][k],
          "max_abs_err": lu[k]["max_abs_err"], "ms": lu[k]["ms"],
          "plain_ms": lu[k]["plain_ms"], "bound_ms": lu[k]["bound_ms"], "bound_by": "bytes",
          "library_ms": lu[k]["library_ms"]}
         for k in ("factor", "solve")
     ]
+    # the transposed solve: the backward of every K1 solve under autograd;
+    # its launches are those of adjoint_batched's backward. No TPU kernel
+    # has a backward: ida_tpu's gradient differentiates the jnp arithmetic
+    # of lu_solve_unrolled, which is what "replaces" names
+    rows.append({"name": "small_lu_solve_t", "route": "cuda", "source": T_SOURCE,
+                 "replaces": "ida_tpu/ops/dense_lu.py:146", "launches": adj["launches"]["solve_t"],
+                 **lu_t})
     # K1 at N = 2 on the foodweb preconditioner's blocks: the launches of
     # the single foodweb run, with those of the batched one beside them
     rows += [

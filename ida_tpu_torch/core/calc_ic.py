@@ -34,7 +34,7 @@ import torch
 from .. import constants as C
 from ..norms import wrms_norm_bnd
 from ..ops.dense_lu import lu_factor_auto, lu_solve_auto
-from ..problem import JVP_CHUNK_ELEMENTS, IdaProblem
+from ..problem import IdaProblem, jacobian
 from ..utils.tree import masked_while_loop
 from .state import IdaOptions, IdaState
 
@@ -64,10 +64,8 @@ class _Search(NamedTuple):
 def ic_jacobian(problem: IdaProblem, t0, yy, yp, cj, id_mask, icopt: int) -> torch.Tensor:
     """The exact Jacobian of the IC system with respect to its unknowns,
     [N, N, *batch]: of ``e -> res(t0, yy + (1-id) e, yp + cj id e)``
-    (YA_YDP) or ``e -> res(t0, yy + e, yp)`` (Y_INIT), at e = 0. The N unit
-    tangents, shared by every lane, go through one jvp under
-    ``torch.func.vmap`` (in chunks): a column's values are those of its own
-    jvp, and N jvps would cost N times the host's launches."""
+    (YA_YDP) or ``e -> res(t0, yy + e, yp)`` (Y_INIT), at e = 0, by
+    :func:`ida_tpu_torch.problem.jacobian` (one vmapped jvp)."""
     if icopt == IC_YA_YDP_INIT:
         def f(e):
             return problem.res(t0, yy + (1.0 - id_mask) * e, yp + cj * id_mask * e)
@@ -75,13 +73,7 @@ def ic_jacobian(problem: IdaProblem, t0, yy, yp, cj, id_mask, icopt: int) -> tor
         def f(e):
             return problem.res(t0, yy + e, yp)
 
-    n = problem.n
-    zero = torch.zeros_like(yy)
-    units = torch.eye(n, dtype=yy.dtype, device=yy.device)
-    units = units.reshape((n, n) + (1,) * (yy.dim() - 1)).expand((n,) + tuple(yy.shape))
-    chunk = max(1, min(n, JVP_CHUNK_ELEMENTS // yy.numel()))
-    cols = torch.func.vmap(lambda u: torch.func.jvp(f, (zero,), (u,))[1], chunk_size=chunk)(units)
-    return cols.movedim(0, 1).contiguous()  # [column, row, ...] -> [row, column, ...]
+    return jacobian(f, torch.zeros_like(yy))
 
 
 def calc_ic(

@@ -17,6 +17,7 @@ from typing import Tuple
 import torch
 
 from .. import constants as C
+from ..utils.ad_mode import smask_den
 from ..utils.numerics import sum0
 from ..utils.tree import take1
 from .state import IdaState
@@ -56,14 +57,14 @@ def set_coeffs(state: IdaState, mask: torch.Tensor | None = None) -> Tuple[IdaSt
     psi_n = torch.cat([hh.unsqueeze(0), psi_o[:-1] + hh])
     alpha_rows = [one]
     for i in range(1, C.MXORDP1):
-        alpha_rows.append(hh / psi_n[i])
+        alpha_rows.append(hh / smask_den(psi_n[i]))
     beta_rows = [one]
     sigma_rows = [one]
     gamma_rows = [torch.zeros_like(hh)]
     for i in range(1, C.MXORDP1):
-        beta_rows.append(beta_rows[i - 1] * psi_n[i - 1] / psi_o[i - 1])
+        beta_rows.append(beta_rows[i - 1] * psi_n[i - 1] / smask_den(psi_o[i - 1]))
         sigma_rows.append((i * sigma_rows[i - 1]) * alpha_rows[i])
-        gamma_rows.append(gamma_rows[i - 1] + alpha_rows[i - 1] / hh)
+        gamma_rows.append(gamma_rows[i - 1] + alpha_rows[i - 1] / smask_den(hh))
 
     idx = kidx(state)
     row_act = update & (idx <= kk)
@@ -82,7 +83,7 @@ def set_coeffs(state: IdaState, mask: torch.Tensor | None = None) -> Tuple[IdaSt
 
     # leading coefficient cj, saving cjlast (src/lib.rs:758-760)
     cjlast = torch.where(mask, state.cj, state.cjlast)
-    cj = torch.where(mask, -alphas / state.hh, state.cj)
+    cj = torch.where(mask, -alphas / smask_den(state.hh), state.cj)
 
     # error coefficient ck (src/lib.rs:762-764)
     alpha_kk = take1(alpha, kk)
@@ -125,7 +126,7 @@ def restore(state: IdaState, saved_t: torch.Tensor, mask: torch.Tensor | None = 
     psi = torch.where((idx < state.kk) & mask, shifted, state.psi)
     # phi rows ns..kk multiplied by 1/beta
     unscale = (idx >= state.ns) & (idx <= state.kk) & mask
-    phi = state.phi * torch.where(unscale, 1.0 / state.beta, torch.ones_like(state.beta)).unsqueeze(1)
+    phi = state.phi * torch.where(unscale, 1.0 / smask_den(state.beta), torch.ones_like(state.beta)).unsqueeze(1)
     return state._replace(tn=torch.where(mask, saved_t, state.tn), psi=psi, phi=phi)
 
 

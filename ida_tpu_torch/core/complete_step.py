@@ -13,7 +13,7 @@ import torch
 
 from .. import constants as C
 from ..problem import IdaProblem
-from ..utils.numerics import pow_
+from ..utils.ad_mode import smask_den, spow
 from ..utils.tree import take_row
 from .error_test import _norm
 from .state import IdaOptions, IdaState
@@ -46,7 +46,7 @@ def complete_step(
     # ---- phase 0: raise order and double step (impl_complete_step.rs:43-52)
     hnew0 = 2.0 * state.hh
     tmp0 = hnew0.abs() * state.hmax_inv
-    hnew0 = torch.where(tmp0 > 1.0, hnew0 / tmp0, hnew0)
+    hnew0 = torch.where(tmp0 > 1.0, hnew0 / smask_den(tmp0), hnew0)
     do_startup_grow = (phase == 0) & (nst > 1)
     kk_p0 = torch.where(do_startup_grow, state.kk + 1, state.kk)
     hh_p0 = torch.where(do_startup_grow, hnew0, state.hh)
@@ -88,10 +88,10 @@ def complete_step(
 
     # stepsize ratio rr = (2*err_knew + 1e-4)^(-1/(kk+1)) (:126-146)
     base = 2.0 * err_knew + 1.0e-4
-    rr_p1 = pow_(base, -1.0 / (kk_p1.to(dtype) + 1.0))
+    rr_p1 = spow(base, -1.0 / (kk_p1.to(dtype) + 1.0))
     hnew1_double = 2.0 * state.hh
     tmp1 = hnew1_double.abs() * state.hmax_inv
-    hnew1_double = torch.where(tmp1 > 1.0, hnew1_double / tmp1, hnew1_double)
+    hnew1_double = torch.where(tmp1 > 1.0, hnew1_double / smask_den(tmp1), hnew1_double)
     rr_clamped = torch.maximum(torch.full_like(rr_p1, 0.5), torch.minimum(torch.full_like(rr_p1, 0.9), rr_p1))
     hh_p1 = torch.where(
         rr_p1 >= 2.0,

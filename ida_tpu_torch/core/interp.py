@@ -13,6 +13,7 @@ from typing import Tuple
 import torch
 
 from .. import constants as C
+from ..utils.ad_mode import smask_den
 from ..utils.numerics import sum0
 from .coeffs import kidx
 from .state import IdaState
@@ -39,15 +40,15 @@ def interpolate(state: IdaState, t: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     c = torch.ones_like(delt)
     d = torch.zeros_like(delt)
     zero = torch.zeros_like(delt)
-    gam = delt / state.psi[0]
+    gam = delt / smask_den(state.psi[0])
 
     cvals = [c] + [zero] * (C.MXORDP1 - 1)
     dvals = [zero] * C.MXORDP1
     for j in range(1, C.MXORDP1):
         active = kord >= j
-        d_new = d * gam + c / state.psi[j - 1]
+        d_new = d * gam + c / smask_den(state.psi[j - 1])
         c_new = c * gam
-        gam_new = (delt + state.psi[j - 1]) / state.psi[j]
+        gam_new = (delt + state.psi[j - 1]) / smask_den(state.psi[j])
         c = torch.where(active, c_new, c)
         d = torch.where(active, d_new, d)
         gam = torch.where(active, gam_new, gam)
@@ -93,12 +94,12 @@ def get_dky(state: IdaState, t: torch.Tensor, k: int) -> Tuple[torch.Tensor, tor
             cjk[0] = torch.ones_like(delt)
         else:
             # c_i^(i) = prod_{j<=i} j / psi_{j-1} (src/lib.rs:486-494)
-            cjk[i] = cjk[i - 1] * i / state.psi[i - 1]
+            cjk[i] = cjk[i - 1] * i / smask_den(state.psi[i - 1])
             psij_1 = state.psi[i - 1]
         # update c_j^(i) for j = i+1 ..= kused - k + i (src/lib.rs:499-503)
         for j in range(i + 1, C.MXORDP1):
             active = kused - k + i >= j
-            val = (i * cjk_1[j - 1] + cjk[j - 1] * (delt + psij_1)) / state.psi[j - 1]
+            val = (i * cjk_1[j - 1] + cjk[j - 1] * (delt + psij_1)) / smask_den(state.psi[j - 1])
             cjk[j] = torch.where(active, val, cjk[j])
             psij_1 = torch.where(active, state.psi[j - 1], psij_1)
         cjk_1 = list(cjk)

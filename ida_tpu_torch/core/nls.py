@@ -30,7 +30,8 @@ from ..ops.banded import BandLU, band_factor, band_solve, band_sys_jacobian
 from ..ops.dense_lu import DenseLU, lu_factor_auto, lu_solve_auto
 from ..ops.spgmr import spgmr_solve
 from ..problem import IdaProblem
-from ..utils.numerics import pow_, sqrt_
+from ..utils.ad_mode import is_safe_ad, smask_den, spow
+from ..utils.numerics import sqrt_
 from ..utils.tree import masked_while_loop, tree_where
 from .state import IdaOptions, IdaState
 
@@ -205,9 +206,9 @@ def _newton_iterate(
         oldnrm = torch.where(first, delnrm, c.oldnrm)
         conv_direct = first & (delnrm <= 1.0e-4 * toldel)
         expo = 1.0 / m.clamp(min=1).to(cj.dtype)
-        rate = torch.where(first, zero, pow_(delnrm / oldnrm, expo))
+        rate = torch.where(first, zero, spow(delnrm / smask_den(oldnrm), expo))
         diverged = ~first & (rate > C.RATEMAX)
-        ss = torch.where(~first, rate / (1.0 - rate), c.ss)
+        ss = torch.where(~first, rate / smask_den(1.0 - rate), c.ss)
         converged = conv_direct | (ss * delnrm <= eps_newt)
 
         curiter = m + 1
@@ -246,6 +247,11 @@ def _newton_iterate(
             kre=c.kre + keep.to(torch.int32),
         )
 
+    if opts.unroll_newton:
+        c = inner0
+        for _ in range(opts.maxnlsit):
+            c = tree_where(cond(c), body(c), c)
+        return c
     return masked_while_loop(cond, body, inner0)
 
 
@@ -267,7 +273,7 @@ def nonlinear_solve(
     ss = torch.where(first, torch.full_like(state.ss, 20.0), state.ss)
 
     # lsetup decision from the cj ratio (src/lib.rs:804-812)
-    cjratio = state.cj / cjold
+    cjratio = state.cj / smask_den(cjold)
     lo = (1.0 - C.XRATE) / (1.0 + C.XRATE)
     call_lsetup = (first | (cjratio < lo) | (cjratio > 1.0 / lo)) & active
     ss = torch.where(state.cj != state.cjlast, torch.full_like(ss, 100.0), ss)
@@ -347,7 +353,15 @@ def nonlinear_solve(
         # inactive lanes start terminal so the Newton loops never touch them
         ostatus=torch.where(active, _CONTINUE, _OK).to(torch.int32),
     )
-    out = masked_while_loop(cond, body, init)
+    if opts.unroll_newton:
+        # the retry loop runs at most twice (one retry with a fresh
+        # Jacobian sets jcur, so the second pass always ends it): two masked
+        # passes are exact
+        out = init
+        for _ in range(2):
+            out = tree_where(cond(out), body(out), out)
+    else:
+        out = masked_while_loop(cond, body, init)
     inner, lin = out.inner, out.lin
 
     # fold the loop-local pieces back into the state (inactive lanes keep
@@ -433,7 +447,11 @@ def _constraints(state: IdaState, problem: IdaProblem, active, ee, yy, nl_status
     # torch.maximum propagate NaN as jnp.min and jnp.maximum do
     phi0 = state.phi[0]
     denom = mm * (phi0 - yy)
-    quot = torch.where(denom != 0.0, phi0 / denom, torch.full_like(denom, float("inf")))
+    # under safe_ad: guard the discarded 0-division and use a finite
+    # no-quotient sentinel (SUNDIALS N_VMinQuotient's BIG_REAL): an inf
+    # primal would make the backward 0 * inf = nan
+    sentinel = torch.finfo(dtype).max if is_safe_ad() else float("inf")
+    quot = torch.where(denom != 0.0, phi0 / smask_den(denom), torch.full_like(denom, sentinel))
     minq = torch.amin(quot, dim=0)
     rr_c = torch.maximum(0.9 * minq, torch.full_like(minq, 0.1))
     recvr = failed & ~small

@@ -22,7 +22,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..problem import IdaProblem
-from ..utils.tree import bounded_while_loop, take1, tree_where
+from ..utils.ad_mode import smask_den, smask_pos
+from ..utils.tree import bounded_fori_loop, bounded_while_loop, take1, tree_where
 from .interp import _eps, interpolate
 from .state import IdaOptions, IdaState
 
@@ -52,7 +53,7 @@ def _scan(gactive, rootdir, glo, gnew) -> Tuple[torch.Tensor, torch.Tensor, torc
     zroot = (active & (gnew.abs() == 0.0)).any(dim=0)
     chg = active & (gnew.abs() != 0.0) & (glo * gnew < 0.0)
     # no-chg lanes may divide by zero; the where discards the quotient
-    gfrac = torch.where(chg, (gnew / (gnew - glo)).abs(), torch.zeros_like(gnew))
+    gfrac = torch.where(chg, (gnew / smask_den(gnew - glo)).abs(), torch.zeros_like(gnew))
     sgnchg = chg.any(dim=0)
     # first maximal index: strict > against the running maximum, written out
     # because torch.argmax promises no tie order on every backend
@@ -201,12 +202,12 @@ def _root_find(
         glo_i = take1(st.glo, c.imax)
         # done/converged lanes may divide by zero here; the loop's merge
         # discards what they compute
-        tmid = st.thi - (st.thi - st.tlo) * ghi_i / (ghi_i - alph * glo_i)
+        tmid = st.thi - (st.thi - st.tlo) * ghi_i / smask_den(ghi_i - alph * glo_i)
 
         # inward nudges (reference :453-470); 0.5 / x is exact as
         # reciprocal(x) * 0.5
         fracint = (st.thi - st.tlo).abs() / st.ttol
-        fracsub = torch.where(fracint > 5.0, torch.full_like(fracint, 0.1), 0.5 / fracint)
+        fracsub = torch.where(fracint > 5.0, torch.full_like(fracint, 0.1), 0.5 / smask_pos(fracint))
         tmid = torch.where(
             (tmid - st.tlo).abs() < 0.5 * st.ttol, st.tlo + fracsub * (st.thi - st.tlo), tmid
         )
@@ -245,7 +246,8 @@ def _root_find(
         done=~sgnchg,
     )
     # bounded: ttol convergence is guaranteed mathematically, not structurally
-    st = bounded_while_loop(cond, body, init, opts.max_root_iters).state
+    loop = bounded_fori_loop if opts.unroll_roots else bounded_while_loop
+    st = loop(cond, body, init, opts.max_root_iters).state
 
     # found-root epilogue (reference :554-575)
     dirok2 = st.rootdir.to(dtype) * st.glo <= 0.0

@@ -22,10 +22,12 @@ import dataclasses
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from .. import constants as C
 from ..problem import IdaProblem
 from ..tol_control import TolControl
+from ..utils.ad_mode import smask_den
 from ..utils.tree import take1, tree_where
 from .coeffs import kidx
 from .complete_step import complete_step
@@ -76,13 +78,13 @@ def _first_call_init(
     istate = torch.where((hh != 0.0) & ((tout - state.tn) * hh < 0.0), C.ILL_INPUT, istate)
     hh_auto = 0.001 * tdist
     ypnorm = _norm(state, problem, opts, state.phi[1])
-    hh_auto = torch.where(ypnorm > 2.0 / hh_auto, 0.5 / ypnorm, hh_auto)
+    hh_auto = torch.where(ypnorm > 2.0 / smask_den(hh_auto), 0.5 / smask_den(ypnorm), hh_auto)
     hh_auto = torch.where(tout < state.tn, -hh_auto, hh_auto)
     hh = torch.where(hh == 0.0, hh_auto, hh)
 
     # hmax clamp (impl_solve.rs:135-138)
     rh = hh.abs() * state.hmax_inv
-    hh = torch.where(rh > 1.0, hh / rh, hh)
+    hh = torch.where(rh > 1.0, hh / smask_den(rh), hh)
 
     # tstop guard (impl_solve.rs:140-155)
     bad_tstop = state.tstop_set & ((state.tstop - state.tn) * hh <= 0.0)
@@ -373,10 +375,19 @@ def _run_attempt_loop(init: _Loop, problem, opts, tol, tout, itask: int, max_att
             ikind=ikind, itgt=itgt,
         )
 
+    step = body
+    if opts.remat_attempts and torch.is_grad_enabled():
+        # autograd keeps only the carry of each attempt and recomputes its
+        # internals (Newton iterates, factors) in the backward pass
+        def step(c: _Loop) -> _Loop:
+            return torch.utils.checkpoint.checkpoint(body, c, use_reentrant=False)
+
     c = init
     n = 0
+    # the early exit once no lane continues stays: further masked attempts
+    # would add nothing, to the result or to a gradient
     while (max_attempts is None or n < max_attempts) and bool((c.istate == C.CONTINUE).any()):
-        c = body(c)
+        c = step(c)
         n += 1
     # the deferred interpolation; a budgeted call applies it to the returned
     # state but not to the carry (only finished lanes have ikind > 0, and

@@ -32,9 +32,17 @@ class IdaOptions:
     tolerance factor ``eplifac``). ``enable_constraints`` False leaves the
     inequality-constraints block of the Newton layer out (bit for bit the
     same for a state without constraints; ``IDA.set_constraints`` then
-    refuses). The mixed-precision modes (``ls_precision`` other than
-    "full", ``krylov_storage="bfloat16"``) and ``fast_math`` raise
-    NotImplementedError naming their ROADMAP item. ``debug_trace`` dumps
+    refuses). ``unroll_newton`` runs the Newton loops a fixed number of
+    masked passes (``maxnlsit`` inner, 2 outer) and ``unroll_roots`` the
+    Illinois root search ``max_root_iters`` masked passes, with no host read
+    between them; both are bit for bit the while forms in every lane (the
+    adjoint path of ``sensitivity.py`` sets both, as ``ida_tpu``'s does).
+    ``remat_attempts`` recomputes each step attempt in the backward pass
+    (``torch.utils.checkpoint``): autograd then keeps only the attempt
+    loop's carry, not every Newton iterate and factor; no effect on a solve
+    that is not differentiated. The mixed-precision modes (``ls_precision``
+    other than "full", ``krylov_storage="bfloat16"``) and ``fast_math``
+    raise NotImplementedError naming their ROADMAP item. ``debug_trace`` dumps
     the state before every step attempt into the active
     ``utils.trace.DataTrace``."""
 
@@ -55,6 +63,9 @@ class IdaOptions:
     krylov_gs: str = "modified"  # "modified" (MGS) | "classical" (CGS2)
     eplifac: float = 0.05  # linear tolerance factor (reference ida_ls.rs:211)
     enable_constraints: bool = True  # False: no inequality-constraints block
+    unroll_newton: bool = False  # fixed masked passes of the Newton loops
+    unroll_roots: bool = False  # fixed masked passes of the Illinois loop
+    remat_attempts: bool = False  # recompute each attempt in the backward
     fast_math: bool = False
     debug_trace: bool = False
 

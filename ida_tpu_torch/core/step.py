@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 from .. import constants as C
-from ..utils.numerics import pow_
+from ..utils.ad_mode import smask_den, spow
 from ..utils.trace import TRACE_FIELDS, trace_sink
 from .coeffs import kidx, predict, reset, restore, set_coeffs
 from .error_test import error_test
@@ -44,7 +44,7 @@ def _handle_n_flag(
     nef_new = nef + 1
     err_knew = torch.where(state.kk == state.knew, err_k, err_km1)
     kk1 = state.knew
-    rr1 = 0.9 * pow_(2.0 * err_knew + 1.0e-4, -1.0 / (kk1.to(dtype) + 1.0))
+    rr1 = 0.9 * spow(2.0 * err_knew + 1.0e-4, -1.0 / (kk1.to(dtype) + 1.0))
     rr1 = torch.maximum(torch.full_like(rr1, 0.25), torch.minimum(torch.full_like(rr1, 0.9), rr1))
     # nef == 1 -> (knew, rr1); nef == 2 -> (knew, 0.25); nef >= 3 -> (1, 0.25)
     kk_etf = torch.where(nef_new >= 3, 1, kk1)
@@ -107,7 +107,7 @@ def step_begin(state: IdaState, mask: torch.Tensor | None = None) -> IdaState:
         kused=torch.where(first, 0, state.kused),
         hused=torch.where(first, torch.zeros_like(state.hused), state.hused),
         psi=torch.where(first & (kidx(state) == 0), state.hh, state.psi),
-        cj=torch.where(first, 1.0 / state.hh, state.cj),
+        cj=torch.where(first, 1.0 / smask_den(state.hh), state.cj),
         phase=torch.where(first, 0, state.phase),
         ns=torch.where(first, 0, state.ns),
     )

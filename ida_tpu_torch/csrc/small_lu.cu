@@ -1,5 +1,6 @@
 // Batched small-N dense LU factor and solve for Hopper (sm_90a), one thread
-// per system, batch-last layout.
+// per system, batch-last layout, and the transposed solve A^T lam = g from
+// the same packed factors (the backward of the solve under autograd).
 //
 // Replaces ida_tpu/ops/pallas_lu.py::_lu_solve_kernel (the Pallas TPU
 // kernel behind pallas_lu_solve). Unlike that kernel, factor and solve are
@@ -19,8 +20,14 @@
 // is unrolled, pivoting is by selects, so nothing is indexed dynamically).
 // At large N the factor's N*N registers spill; that is accepted here.
 //
+// The transposed solve (small_lu_solve_t) has no TPU counterpart: no Pallas
+// kernel of ida_tpu has a backward (its gradient differentiates the jnp
+// arithmetic of lu_solve_unrolled). It is the same shape of work as the
+// solve, so it has the same design; it reads lu, piv and g (132 bytes a lane
+// at N = 3 in f64, with lam written) and is bound by those bytes.
+//
 // Layouts (B lanes): a, lu [N, N, B]; piv [N, B] int32; fail [B] int32;
-// rhs, x [N, B]. Each entry point returns cudaGetLastError() after launching
+// rhs, x, g, lam [N, B]. Each entry point returns cudaGetLastError() after launching
 // on the given stream; it allocates nothing and does not synchronize.
 
 #include <cuda_runtime.h>
@@ -78,6 +85,29 @@ solve_kernel(const T* __restrict__ lu, const int* __restrict__ piv,
   for (int i = 0; i < N; ++i) x[(long long)i * B + b] = v[i];
 }
 
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+solve_t_kernel(const T* __restrict__ lu, const int* __restrict__ piv,
+               const T* __restrict__ g, T* __restrict__ lam, long long B) {
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  T m[N][N];
+  int p[N];
+  T v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    v[i] = g[(long long)i * B + b];
+    p[i] = piv[(long long)i * B + b];
+#pragma unroll
+    for (int j = 0; j < N; ++j) m[i][j] = lu[(long long)(i * N + j) * B + b];
+  }
+
+  ida::lu_solve_t_dev<T, N>(m, p, v);
+
+#pragma unroll
+  for (int i = 0; i < N; ++i) lam[(long long)i * B + b] = v[i];
+}
+
 inline unsigned grid_for(long long B) { return (unsigned)((B + kThreads - 1) / kThreads); }
 
 template <typename T>
@@ -121,6 +151,27 @@ int solve(const void* lu, const void* piv, const void* rhs, void* x, int n, long
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int solve_t(const void* lu, const void* piv, const void* g, void* lam, int n, long long B,
+            void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  const T* plu = (const T*)lu;
+  const int* pp = (const int*)piv;
+  const T* pg = (const T*)g;
+  T* pl = (T*)lam;
+  switch (n) {
+#define IDA_CASE(NN) \
+  case NN: solve_t_kernel<T, NN><<<grid_for(B), kThreads, 0, s>>>(plu, pp, pg, pl, B); break;
+    IDA_CASE(1) IDA_CASE(2) IDA_CASE(3) IDA_CASE(4) IDA_CASE(5) IDA_CASE(6) IDA_CASE(7)
+    IDA_CASE(8) IDA_CASE(9) IDA_CASE(10) IDA_CASE(11) IDA_CASE(12) IDA_CASE(13)
+    IDA_CASE(14) IDA_CASE(15) IDA_CASE(16)
+#undef IDA_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -143,6 +194,16 @@ int small_lu_solve_f64(const void* lu, const void* piv, const void* rhs, void* x
 int small_lu_solve_f32(const void* lu, const void* piv, const void* rhs, void* x, int n,
                        long long B, void* stream) {
   return solve<float>(lu, piv, rhs, x, n, B, stream);
+}
+
+int small_lu_solve_t_f64(const void* lu, const void* piv, const void* g, void* lam, int n,
+                         long long B, void* stream) {
+  return solve_t<double>(lu, piv, g, lam, n, B, stream);
+}
+
+int small_lu_solve_t_f32(const void* lu, const void* piv, const void* g, void* lam, int n,
+                         long long B, void* stream) {
+  return solve_t<float>(lu, piv, g, lam, n, B, stream);
 }
 
 }  // extern "C"

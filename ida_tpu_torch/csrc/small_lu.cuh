@@ -100,4 +100,36 @@ __device__ __forceinline__ void lu_solve_dev(const T (&lu)[N][N], const int (&pi
   v[0] = v[0] / lu[0][0];
 }
 
+// Solve A^T v = g in place from the factorization of A (PA = LU, so
+// A^T = U^T L^T P): forward substitution with U^T, back substitution with the
+// unit L^T, both column-oriented, then the pivot sequence undone from the
+// last swap to the first. The order of operations is
+// ida_tpu_torch/ops/dense_lu.py lu_solve_unrolled_t.
+template <typename T, int N>
+__device__ __forceinline__ void lu_solve_t_dev(const T (&lu)[N][N], const int (&piv)[N], T (&v)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    v[k] = v[k] / lu[k][k];
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) v[i] = v[i] - lu[k][i] * v[k];
+  }
+
+#pragma unroll
+  for (int k = N - 1; k > 0; --k)
+#pragma unroll
+    for (int i = 0; i < k; ++i) v[i] = v[i] - lu[k][i] * v[k];
+
+#pragma unroll
+  for (int k = N - 1; k >= 0; --k) {
+    const int pk = piv[k];
+    const T vk = v[k];
+    T vpk = vk;
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) vpk = (pk == i) ? v[i] : vpk;
+    v[k] = vpk;
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) v[i] = (pk == i) ? vk : v[i];
+  }
+}
+
 }  // namespace ida

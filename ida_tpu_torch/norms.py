@@ -11,14 +11,15 @@ from __future__ import annotations
 
 import torch
 
-from .utils.numerics import sqrt_, sum0
+from .utils.ad_mode import ssqrt
+from .utils.numerics import sum0
 
 
 def _mean_sqrt(sq: torch.Tensor, n: int) -> torch.Tensor:
     # divide by a tensor, not a Python number: on CUDA, ATen turns a
     # division by a CPU scalar into a multiply by its reciprocal, which
     # rounds differently from the reference's true division
-    return sqrt_(sq / torch.full_like(sq, n))
+    return ssqrt(sq / torch.full_like(sq, n))
 
 
 def wrms_norm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,8 @@ from .banded import (
 )
 from .bbd import BBDPrec, make_bbd_prec
 from .dense_lu import (
-    DenseLU, lu_factor, lu_factor_auto, lu_factor_unrolled, lu_solve, lu_solve_auto,
-    lu_solve_unrolled,
+    DenseLU, lu_factor, lu_factor_auto, lu_factor_unrolled, lu_solve, lu_solve_auto, lu_solve_t,
+    lu_solve_t_auto, lu_solve_unrolled, lu_solve_unrolled_t,
 )
 from .small_lu import lu_factor_solve
 
@@ -13,7 +13,8 @@ __all__ = [
     "BBDPrec", "BandLU", "band_factor", "band_from_dense", "band_jacobian", "band_rows",
     "band_solve", "band_sys_jacobian", "band_to_dense", "make_bbd_prec",
     "DenseLU", "lu_factor", "lu_factor_auto", "lu_factor_solve", "lu_factor_unrolled",
-    "lu_solve", "lu_solve_auto", "lu_solve_unrolled", "make_fused_solve",
+    "lu_solve", "lu_solve_auto", "lu_solve_t", "lu_solve_t_auto", "lu_solve_unrolled",
+    "lu_solve_unrolled_t", "make_fused_solve",
 ]
 
 

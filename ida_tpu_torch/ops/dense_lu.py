@@ -15,6 +15,25 @@ The functions here are the plain PyTorch versions. ``lu_factor_auto`` and
 :mod:`ida_tpu_torch.ops.small_lu` (the hand-written kernel on a CUDA
 tensor, the unrolled plain version on a CPU tensor); larger systems (the
 consistent-IC Jacobian of a PDE model) take the looped form on any device.
+
+Gradients. The two ``_auto`` functions are ``torch.autograd.Function``s, so
+reverse and forward mode go through the kernel (``ida_tpu`` differentiates
+the jnp arithmetic of its solve instead; no TPU kernel has a backward). The
+packed ``lu`` stands in for the matrix ``a`` it factors: the factor's
+derivative passes a cotangent (or tangent) of ``lu`` on to ``a`` unchanged,
+and the solve ``x = A^-1 b`` gives ``lu`` the cotangent of ``A``,
+``-lambda x^T`` with ``lambda = A^-T g`` (:func:`lu_solve_unrolled_t`, the
+kernel ``small_lu_solve_t`` on the card), and ``b`` the cotangent
+``lambda``; its tangent is ``A^-1 (b' - A' x)``. That holds because nothing
+but a solve, or a per-lane select or copy, reads ``lu``: the solver keeps it
+in its state across steps, and a gradient then reaches the Jacobian of the
+step that factored it. Each derivative calls the pair of Functions again,
+so a backward is itself differentiable (Hessian-vector products). Pivots
+and ``fail_col`` are integers and carry no derivative. Under
+``utils.ad_mode.safe_ad`` a zero pivot is divided as 1 in both solves
+(``ida_tpu/ops/dense_lu.py:170-226``'s ``smask_den``, applied once to the
+factors), so a lane whose matrix is singular or was never factored keeps a
+finite cotangent.
 """
 
 from __future__ import annotations
@@ -22,6 +41,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..utils.ad_mode import is_safe_ad
+from ..utils.numerics import differentiated
 
 
 class DenseLU(NamedTuple):
@@ -172,26 +194,207 @@ def lu_solve_unrolled(f: DenseLU, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x)
 
 
+def lu_solve_t(f: DenseLU, g: torch.Tensor) -> torch.Tensor:
+    """Solve ``A^T lam = g`` for g [N, *batch] from the factorization of A
+    (PA = LU, so A^T = U^T L^T P): forward substitution with U^T, back
+    substitution with the unit L^T, then the row swaps undone in reverse
+    order. Looped, for any N."""
+    n = g.shape[0]
+    lu, piv = f.lu, f.piv
+    z = list(g.unbind(0))
+    for k in range(n):
+        z[k] = z[k] / lu[k, k]
+        for i in range(k + 1, n):
+            z[i] = z[i] - lu[k, i] * z[k]
+    for k in range(n - 1, 0, -1):
+        for i in range(k):
+            z[i] = z[i] - lu[k, i] * z[k]
+    w = torch.stack(z)
+    for k in range(n - 1, -1, -1):
+        _swap_rows(w, k, piv[k])
+    return w
+
+
+def lu_solve_unrolled_t(f: DenseLU, g: torch.Tensor) -> torch.Tensor:
+    """Companion transposed solve to :func:`lu_solve_unrolled`: the
+    arithmetic of :func:`lu_solve_t` with the swaps by selects; the plain
+    version of the kernel ``small_lu_solve_t`` (``csrc/small_lu.cuh``
+    ``lu_solve_t_dev``), which does the same operations in the same order."""
+    n = g.shape[0]
+    lu = f.lu
+    piv = [f.piv[i] for i in range(n)]
+    z = [g[i] for i in range(n)]
+
+    # forward substitution with U^T, column-oriented
+    for k in range(n):
+        z[k] = z[k] / lu[k, k]
+        for i in range(k + 1, n):
+            z[i] = z[i] - lu[k, i] * z[k]
+    # back substitution with the unit L^T, column-oriented
+    for k in range(n - 1, 0, -1):
+        for i in range(k):
+            z[i] = z[i] - lu[k, i] * z[k]
+    # undo the pivot sequence: swap k with piv[k], k from N-1 down to 0
+    for k in range(n - 1, -1, -1):
+        pk = piv[k]
+        zk = z[k]
+        zpk = zk
+        for i in range(k + 1, n):
+            zpk = torch.where(pk == i, z[i], zpk)
+        z[k] = zpk
+        for i in range(k + 1, n):
+            z[i] = torch.where(pk == i, zk, z[i])
+    return torch.stack(z)
+
+
 # the kernel (and the unrolled plain form) covers N up to this size
 SMALL_N_UNROLL = 16
+
+
+def _factor_any(a: torch.Tensor) -> DenseLU:
+    from . import small_lu
+
+    if a.shape[0] <= SMALL_N_UNROLL:
+        return small_lu.lu_factor(a.contiguous())
+    return lu_factor(a)
+
+
+def _guarded(lu: torch.Tensor) -> torch.Tensor:
+    """``lu`` with zero pivots read as 1 under safe_ad (module doc)."""
+    if not is_safe_ad():
+        return lu
+    n = lu.shape[0]
+    idx = torch.arange(n, device=lu.device)
+    diag = lu[idx, idx]
+    out = lu.clone()
+    out[idx, idx] = torch.where(diag == 0.0, torch.ones_like(diag), diag)
+    return out
+
+
+def _solve_any(lu: torch.Tensor, piv: torch.Tensor, b: torch.Tensor, transposed: bool = False):
+    """x = A^-1 b (or A^-T b) from the packed factors, without autograd: the
+    kernel on a CUDA tensor up to N = 16, else the plain versions."""
+    from . import small_lu
+
+    # the kernels take contiguous tensors; a cotangent often is not (the
+    # expanded ones of a sum's backward)
+    f = DenseLU(_guarded(lu).contiguous(), piv.contiguous(), piv.new_zeros(()))
+    b = b.contiguous()
+    if b.shape[0] <= SMALL_N_UNROLL:
+        return small_lu.lu_solve_t(f, b) if transposed else small_lu.lu_solve(f, b)
+    return lu_solve_t(f, b) if transposed else lu_solve(f, b)
+
+
+def _outer(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Per lane ``u v^T``: [N, *batch] x [N, *batch] -> [N, N, *batch]."""
+    return u.unsqueeze(1) * v.unsqueeze(0)
+
+
+def _matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Per lane ``m v``: [N, N, *batch] x [N, *batch] -> [N, *batch]."""
+    return (m * v.unsqueeze(0)).sum(dim=1)
+
+
+class _Factor(torch.autograd.Function):
+    """The factorization; ``lu`` carries the derivative of ``a`` (module doc)."""
+
+    @staticmethod
+    def forward(a):
+        f = _factor_any(a.detach())
+        return f.lu, f.piv, f.fail_col
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[1], output[2])
+
+    @staticmethod
+    def backward(ctx, g_lu, g_piv, g_fail):
+        return g_lu
+
+    @staticmethod
+    def jvp(ctx, t_a):
+        return t_a, None, None
+
+
+class _Solve(torch.autograd.Function):
+    """x = A^-1 b from the packed factors of A."""
+
+    @staticmethod
+    def forward(lu, piv, b):
+        return _solve_any(lu.detach(), piv, b.detach())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        lu, piv, _ = inputs
+        ctx.save_for_backward(lu, piv, output)
+        ctx.save_for_forward(lu, piv, output)
+
+    @staticmethod
+    def backward(ctx, g):
+        lu, piv, x = ctx.saved_tensors
+        lam = _SolveT.apply(lu, piv, g)
+        return -_outer(lam, x), None, lam
+
+    @staticmethod
+    def jvp(ctx, t_lu, t_piv, t_b):
+        lu, piv, x = ctx.saved_tensors
+        rhs = torch.zeros_like(x) if t_b is None else t_b
+        if t_lu is not None:
+            rhs = rhs - _matvec(t_lu, x)
+        return _solve_any(lu, piv, rhs)
+
+
+class _SolveT(torch.autograd.Function):
+    """lam = A^-T g from the packed factors of A: the backward of
+    :class:`_Solve`, and differentiable in turn."""
+
+    @staticmethod
+    def forward(lu, piv, g):
+        return _solve_any(lu.detach(), piv, g.detach(), transposed=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        lu, piv, _ = inputs
+        ctx.save_for_backward(lu, piv, output)
+        ctx.save_for_forward(lu, piv, output)
+
+    @staticmethod
+    def backward(ctx, g_lam):
+        lu, piv, lam = ctx.saved_tensors
+        mu = _Solve.apply(lu, piv, g_lam)
+        return -_outer(lam, mu), None, mu
+
+    @staticmethod
+    def jvp(ctx, t_lu, t_piv, t_g):
+        lu, piv, lam = ctx.saved_tensors
+        rhs = torch.zeros_like(lam) if t_g is None else t_g
+        if t_lu is not None:
+            rhs = rhs - _matvec(t_lu.transpose(0, 1), lam)
+        return _solve_any(lu, piv, rhs, transposed=True)
 
 
 def lu_factor_auto(a: torch.Tensor) -> DenseLU:
     """The solver's factor, dispatched by size: N <= 16 goes to
     ``small_lu`` (the CUDA kernel on a CUDA tensor, the unrolled form on a
     CPU tensor), larger N to the looped :func:`lu_factor` on any device
-    (``ida_tpu``'s ``lu_factor_auto`` does the same)."""
-    from . import small_lu
-
-    if a.shape[0] <= SMALL_N_UNROLL:
-        return small_lu.lu_factor(a)
-    return lu_factor(a)
+    (``ida_tpu``'s ``lu_factor_auto`` does the same). Differentiable
+    (module doc); the Function runs only when a derivative is taken."""
+    if differentiated(a):
+        return DenseLU(*_Factor.apply(a))
+    return _factor_any(a)
 
 
 def lu_solve_auto(f: DenseLU, b: torch.Tensor) -> torch.Tensor:
-    """The solver's solve; dispatch as :func:`lu_factor_auto`."""
-    from . import small_lu
+    """The solver's solve; dispatch as :func:`lu_factor_auto`.
+    Differentiable in ``f.lu`` and ``b`` (module doc)."""
+    if differentiated(f.lu, b):
+        return _Solve.apply(f.lu, f.piv, b)
+    return _solve_any(f.lu, f.piv, b)
 
-    if b.shape[0] <= SMALL_N_UNROLL:
-        return small_lu.lu_solve(f, b)
-    return lu_solve(f, b)
+
+def lu_solve_t_auto(f: DenseLU, g: torch.Tensor) -> torch.Tensor:
+    """``A^-T g`` from the factorization of A; dispatch and derivatives as
+    :func:`lu_solve_auto`."""
+    if differentiated(f.lu, g):
+        return _SolveT.apply(f.lu, f.piv, g)
+    return _solve_any(f.lu, f.piv, g, transposed=True)

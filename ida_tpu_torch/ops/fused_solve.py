@@ -16,7 +16,11 @@ kernel and then its continuation, in place on that result, until no lane is
 CONTINUE. On CPU tensors ``fn`` runs the plain version: the eager
 ``core.solve`` (with the same budgeted host loop when a budget is given).
 On any other device, and on what the kernel does not take, it raises;
-nothing falls back on a CUDA tensor.
+nothing falls back on a CUDA tensor. The kernels are forward-only, as the
+TPU kernels are: ``fn`` raises on a state, params or tolerances that carry a
+derivative (``requires_grad``, or a forward-mode tangent) on either device,
+and never detaches them; ``sensitivity.adjoint_gradient`` takes gradients
+through the eager solve.
 
 ``FUSED_LAUNCHES``, ``FUSED_INIT_LAUNCHES`` and ``FUSED_CONT_LAUNCHES`` count
 the kernel launches (and only those).
@@ -29,6 +33,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+from torch.autograd import forward_ad
 
 from .. import constants as C
 from ..core.solve import TASK_NORMAL, solve
@@ -406,6 +411,7 @@ def make_fused_solve(problem_factory, tol: TolControl, opts: IdaOptions = IdaOpt
     tol_on_card: dict = {}  # (B, dtype, device) -> TolInputs, made at the first such call
 
     def fn(states_b: IdaState, params_b, tout):
+        _refuse_derivatives(states_b, params_b, tol)
         dtype, dev = states_b.dtype, states_b.phi.device
         check_dtype(dtype)
         check_device(dev)
@@ -432,6 +438,20 @@ def make_fused_solve(problem_factory, tol: TolControl, opts: IdaOptions = IdaOpt
         return _solve_cuda(states_b, p_b, tol_on_card[key], tout, opts, model, attempt_budget)
 
     return fn
+
+
+def _refuse_derivatives(states_b: IdaState, params_b, tol: TolControl) -> None:
+    """Raise on an input that carries a derivative (module doc)."""
+    named = [(f"state.{f}", x) for f, x in zip(states_b._fields, states_b)]
+    named += [("params", params_b), ("tol.rtol", tol.rtol), ("tol.atol", tol.atol)]
+    for name, x in named:
+        if not isinstance(x, torch.Tensor):
+            continue
+        if x.requires_grad or forward_ad.unpack_dual(x).tangent is not None:
+            raise ValueError(
+                f"fused_solve: {name} carries a derivative, and the whole-solve kernel is "
+                "forward-only; take gradients through the eager solve "
+                "(ida_tpu_torch.sensitivity.adjoint_gradient)")
 
 
 def _check_no_roots(problem) -> None:

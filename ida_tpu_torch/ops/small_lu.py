@@ -16,8 +16,14 @@ CUDA tensors; on CPU tensors the wrappers run the plain PyTorch versions of
 ``ops/dense_lu.py``, and on any other device they raise. Nothing falls back
 on a CUDA tensor.
 
-``FACTOR_LAUNCHES`` / ``SOLVE_LAUNCHES`` count kernel launches (and only
-those), so a run can show that the solver went through the kernel.
+``lu_solve_t`` launches ``small_lu_solve_t``, the transposed solve
+``A^T lam = g`` from the same packed factors: the backward of every solve
+under autograd (``ops/dense_lu.py``'s Functions). Its plain version is
+``dense_lu.lu_solve_unrolled_t``.
+
+``FACTOR_LAUNCHES`` / ``SOLVE_LAUNCHES`` / ``SOLVE_T_LAUNCHES`` count kernel
+launches (and only those), so a run can show that the solver went through
+the kernel.
 """
 
 from __future__ import annotations
@@ -28,16 +34,19 @@ import functools
 import torch
 
 from ._build import DTYPE_TAGS, build_library
-from .dense_lu import DenseLU, SMALL_N_UNROLL, lu_factor_unrolled, lu_solve_unrolled
+from .dense_lu import (DenseLU, SMALL_N_UNROLL, lu_factor_unrolled, lu_solve_unrolled,
+                       lu_solve_unrolled_t)
 
 FACTOR_LAUNCHES = 0
 SOLVE_LAUNCHES = 0
+SOLVE_T_LAUNCHES = 0
 
 
 def reset_launch_counts() -> None:
-    global FACTOR_LAUNCHES, SOLVE_LAUNCHES
+    global FACTOR_LAUNCHES, SOLVE_LAUNCHES, SOLVE_T_LAUNCHES
     FACTOR_LAUNCHES = 0
     SOLVE_LAUNCHES = 0
+    SOLVE_T_LAUNCHES = 0
 
 
 @functools.cache
@@ -48,7 +57,7 @@ def build() -> dict:
     info = build_library("small_lu.cu", ("small_lu.cuh", "rounded.cuh"))
     ptrs = [ctypes.c_void_p] * 4
     for dt in DTYPE_TAGS.values():
-        for name in (f"small_lu_factor_{dt}", f"small_lu_solve_{dt}"):
+        for name in (f"small_lu_factor_{dt}", f"small_lu_solve_{dt}", f"small_lu_solve_t_{dt}"):
             fn = getattr(info["lib"], name)
             fn.argtypes = ptrs + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -100,30 +109,47 @@ def lu_factor(a: torch.Tensor) -> DenseLU:
     return DenseLU(lu, piv, fail)
 
 
+def _solve_launch(f: DenseLU, b: torch.Tensor, kernel: str) -> torch.Tensor:
+    """Launch ``small_lu_<kernel>_<dtype>`` on b [N, *batch] and the factors."""
+    n = b.shape[0]
+    if not 1 <= n <= SMALL_N_UNROLL:
+        raise ValueError(f"lu_{kernel}: the kernel takes 1 <= N <= {SMALL_N_UNROLL}, got N={n}")
+    if b.dtype not in DTYPE_TAGS:
+        raise TypeError(f"lu_{kernel}: the kernel takes float32 or float64, got {b.dtype}")
+    bshape = tuple(b.shape[1:])
+    bsz = 1
+    for s in bshape:
+        bsz *= s
+    _check(b, f"lu_{kernel}(b)", (n,) + bshape, b.dtype)
+    _check(f.lu, f"lu_{kernel}(lu)", (n, n) + bshape, b.dtype)
+    _check(f.piv, f"lu_{kernel}(piv)", (n,) + bshape, torch.int32)
+    x = torch.empty_like(b)
+    fn = getattr(build()["lib"], f"small_lu_{kernel}_{DTYPE_TAGS[b.dtype]}")
+    err = fn(f.lu.data_ptr(), f.piv.data_ptr(), b.data_ptr(), x.data_ptr(), n, bsz, _stream(b))
+    _raise_on(err, f"small_lu_{kernel}")
+    return x
+
+
 def lu_solve(f: DenseLU, b: torch.Tensor) -> torch.Tensor:
     """Solve from a factorization, b [N, *batch]. Kernel on CUDA; plain
     version on CPU."""
     if b.device.type == "cpu":
         return lu_solve_unrolled(f, b)
-    n = b.shape[0]
-    if not 1 <= n <= SMALL_N_UNROLL:
-        raise ValueError(f"lu_solve: the kernel takes 1 <= N <= {SMALL_N_UNROLL}, got N={n}")
-    if b.dtype not in DTYPE_TAGS:
-        raise TypeError(f"lu_solve: the kernel takes float32 or float64, got {b.dtype}")
-    bshape = tuple(b.shape[1:])
-    bsz = 1
-    for s in bshape:
-        bsz *= s
-    _check(b, "lu_solve(b)", (n,) + bshape, b.dtype)
-    _check(f.lu, "lu_solve(lu)", (n, n) + bshape, b.dtype)
-    _check(f.piv, "lu_solve(piv)", (n,) + bshape, torch.int32)
-    x = torch.empty_like(b)
-    fn = getattr(build()["lib"], f"small_lu_solve_{DTYPE_TAGS[b.dtype]}")
-    err = fn(f.lu.data_ptr(), f.piv.data_ptr(), b.data_ptr(), x.data_ptr(), n, bsz, _stream(b))
-    _raise_on(err, "small_lu_solve")
+    x = _solve_launch(f, b, "solve")
     global SOLVE_LAUNCHES
     SOLVE_LAUNCHES += 1
     return x
+
+
+def lu_solve_t(f: DenseLU, g: torch.Tensor) -> torch.Tensor:
+    """Solve ``A^T lam = g`` from the factorization of A, g [N, *batch].
+    Kernel on CUDA; plain version on CPU."""
+    if g.device.type == "cpu":
+        return lu_solve_unrolled_t(f, g)
+    lam = _solve_launch(f, g, "solve_t")
+    global SOLVE_T_LAUNCHES
+    SOLVE_T_LAUNCHES += 1
+    return lam
 
 
 def lu_factor_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -20,10 +20,32 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+from torch.autograd import forward_ad
 
 # elements of one intermediate of a batched jvp (2**25 f64: 256 MB); unit
 # tangents go through in chunks of at most this size
 JVP_CHUNK_ELEMENTS = 1 << 25
+
+def jacobian(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """d fn / d x at ``x`` of a lane-separable map [N, *batch] -> [N, *batch],
+    as [N (rows), N (columns), *batch]. The N unit tangents, shared by every
+    lane, go through one jvp under ``torch.func.vmap`` (in chunks): a
+    column's values are those of its own jvp, and N jvps would cost N times
+    the host's launches. Inside an open forward-mode level
+    (``forward_ad.dual_level``, as in ``sensitivity.forward_sensitivity``),
+    where ``torch.func.jvp`` cannot open another, the rows come from vmapped
+    vjps instead: the same matrix, whose own tangent then follows that
+    level."""
+    n = x.shape[0]
+    units = torch.eye(n, dtype=x.dtype, device=x.device)
+    units = units.reshape((n, n) + (1,) * (x.dim() - 1)).expand((n,) + tuple(x.shape))
+    chunk = max(1, min(n, JVP_CHUNK_ELEMENTS // max(x.numel(), 1)))
+    if forward_ad._current_level >= 0:
+        _, pull = torch.func.vjp(fn, x)
+        return torch.func.vmap(lambda u: pull(u)[0], chunk_size=chunk)(units)
+    cols = torch.func.vmap(lambda u: torch.func.jvp(fn, (x,), (u,))[1], chunk_size=chunk)(units)
+    return cols.movedim(0, 1).contiguous()  # [column, row, ...] -> [row, column, ...]
+
 
 ResFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 JacFn = Callable[
@@ -101,13 +123,5 @@ class IdaProblem:
         def f_of_e(e):
             return self.res(t, yy + e, yp + cj * e)
 
-        # the N unit tangents through one vmapped jvp (ida_tpu's jacfwd), in
-        # chunks: each column is its own jvp's, at a fraction of the launches
-        n = self.n
-        zero = torch.zeros_like(yy)
-        units = torch.eye(n, dtype=yy.dtype, device=yy.device)
-        units = units.reshape((n, n) + (1,) * (yy.dim() - 1)).expand((n,) + tuple(yy.shape))
-        chunk = max(1, min(n, JVP_CHUNK_ELEMENTS // max(yy.numel(), 1)))
-        cols = torch.func.vmap(lambda u: torch.func.jvp(f_of_e, (zero,), (u,))[1],
-                               chunk_size=chunk)(units)
-        return cols.movedim(0, 1).contiguous()  # [column, row, ...] -> [row, column, ...]
+        # ida_tpu's jacfwd: the N unit tangents through one vmapped jvp
+        return jacobian(f_of_e, torch.zeros_like(yy))

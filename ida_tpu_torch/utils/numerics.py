@@ -25,6 +25,17 @@
   rates this solver computes, while XLA:CPU and C IDA both call the C
   library. On CUDA tensors it is ``torch.pow`` (CUDA's ``pow``, which need
   not round like the C library's).
+
+On CPU tensors both leave torch (numpy, ``ctypes``), so each is a
+``torch.autograd.Function`` there: the forward keeps the values above bit for
+bit, and the derivatives are plain torch, written with differentiable
+operations so that a backward can itself be differentiated (the Hessian-vector
+product of ``sensitivity.adjoint_hvp``): ``sqrt``'s is ``0.5 / sqrt(x)``,
+``pow``'s ``expo * pow(base, expo - 1)`` for the base and ``log(base) * out``
+for a tensor exponent, the forms ``ida_tpu``'s ``jax.grad`` takes. An op that
+leaves torch without such a Function drops the graph or raises under autograd.
+Where no derivative is being taken (:func:`differentiated`), the plain call
+runs without the Function's overhead.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.autograd import forward_ad
 
 
 # the longest axis :func:`sum0` adds term by term
@@ -59,11 +71,44 @@ def sum0(t: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def differentiated(*tensors: torch.Tensor) -> bool:
+    """True when autograd would record an operation on ``tensors``: a
+    forward-mode level is open, or grad mode is on and one of them requires
+    grad."""
+    return forward_ad._current_level >= 0 or (
+        torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+
+
+class _SqrtCPU(torch.autograd.Function):
+    """numpy's correctly rounded ``sqrt`` on a CPU tensor, differentiable."""
+
+    @staticmethod
+    def forward(x):
+        return torch.from_numpy(np.asarray(np.sqrt(x.detach().numpy())))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+        ctx.save_for_forward(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (0.5 / y)
+
+    @staticmethod
+    def jvp(ctx, t):
+        (y,) = ctx.saved_tensors
+        return t * (0.5 / y)
+
+
 def sqrt_(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded elementwise square root (see module doc)."""
     if x.device.type != "cpu":
         return torch.sqrt(x)
-    return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
+    if differentiated(x):
+        return _SqrtCPU.apply(x)
+    return _SqrtCPU.forward(x)
 
 
 @functools.cache
@@ -74,11 +119,49 @@ def _libm_pow():
     return fn
 
 
-def pow_(base: torch.Tensor, expo: torch.Tensor) -> torch.Tensor:
-    """Elementwise ``base ** expo`` in ``base``'s dtype (see module doc)."""
-    if base.device.type != "cpu":
-        return torch.pow(base, expo)
-    b, e = torch.broadcast_tensors(base, expo.to(base.dtype))
+def _libm_pow_values(b: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     fn = _libm_pow()
     vals = [fn(x, y) for x, y in zip(b.reshape(-1).tolist(), e.reshape(-1).tolist())]
-    return torch.tensor(vals, dtype=base.dtype).reshape(b.shape)
+    return torch.tensor(vals, dtype=b.dtype).reshape(b.shape)
+
+
+class _PowCPU(torch.autograd.Function):
+    """The C library's ``pow`` on CPU tensors of one shape, differentiable."""
+
+    @staticmethod
+    def forward(base, expo):
+        return _libm_pow_values(base.detach(), expo.detach())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
+        ctx.save_for_forward(*inputs, output)
+
+    @staticmethod
+    def backward(ctx, g):
+        base, expo, out = ctx.saved_tensors
+        g_base = g * (expo * pow_(base, expo - 1.0)) if ctx.needs_input_grad[0] else None
+        g_expo = g * (torch.log(base) * out) if ctx.needs_input_grad[1] else None
+        return g_base, g_expo
+
+    @staticmethod
+    def jvp(ctx, t_base, t_expo):
+        base, expo, out = ctx.saved_tensors
+        tan = torch.zeros_like(out)
+        if t_base is not None:
+            tan = tan + t_base * (expo * pow_(base, expo - 1.0))
+        if t_expo is not None:
+            tan = tan + t_expo * (torch.log(base) * out)
+        return tan
+
+
+def pow_(base: torch.Tensor, expo) -> torch.Tensor:
+    """Elementwise ``base ** expo`` in ``base``'s dtype (see module doc);
+    ``expo`` is a tensor or a number."""
+    if base.device.type != "cpu":
+        return torch.pow(base, expo)
+    expo = torch.as_tensor(expo, dtype=base.dtype)
+    b, e = torch.broadcast_tensors(base, expo.to(base.dtype))
+    if differentiated(b, e):
+        return _PowCPU.apply(b, e)
+    return _libm_pow_values(b, e)

@@ -6,8 +6,9 @@ finished lanes are frozen. Leaves are tensors whose TRAILING axes are the
 batch (the batch-native layout), or ``()`` for empty slots. A loop
 condition becomes a host-side ``bool(...)``: one device sync per iteration.
 
-``bounded_fori_loop`` (the fixed-trip form ``IdaOptions.unroll_roots``
-selects for reverse-mode AD) is not ported: it comes with the sensitivities.
+``bounded_fori_loop`` is the fixed-trip form that ``IdaOptions.unroll_roots``
+selects: no host read at all, at the cost of masked passes after the last
+lane is done.
 """
 
 from __future__ import annotations
@@ -90,4 +91,20 @@ def bounded_while_loop(
         c = tree_where(active, body_fn(c), c)
         active = cond_fn(c)
         n += 1
+    return c
+
+
+def bounded_fori_loop(
+    cond_fn: Callable[[T], torch.Tensor],
+    body_fn: Callable[[T], T],
+    init: T,
+    max_iters: int,
+) -> T:
+    """The fixed-trip form of :func:`bounded_while_loop` (``ida_tpu``'s
+    reverse-differentiable form): the same masked body, always ``max_iters``
+    passes, each a no-op for lanes whose condition has turned false, so no
+    lane's arithmetic changes and no pass reads the host."""
+    c = init
+    for _ in range(max_iters):
+        c = tree_where(cond_fn(c), body_fn(c), c)
     return c

@@ -1,0 +1,159 @@
+"""The continuous adjoint (``ida_tpu_torch.sensitivity.continuous_adjoint``:
+forward dense-output checkpoints, the adjoint DAE integrated from T down to
+t0, gradients by backward quadratures) and the routing between the two
+adjoints (``adjoint_gradient_auto``), against ``ida_tpu``.
+
+Checked three ways: analytically (exponential decay,
+tests/test_continuous_adjoint.py:29-40), against ``ida_tpu``'s
+``continuous_adjoint`` on one Roberts lane (module-scoped, a 16-point
+log-spaced grid to tout 0.4; held to rtol 1e-6, since the jitted JAX run
+contracts multiply-adds), and the batch-native form lane by lane against
+the single lane. The backward integration itself is held to
+tests/test_direction.py's gate.
+"""
+
+from functools import partial
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import ida_tpu.sensitivity as jsens
+from ida_tpu.core.state import IdaOptions as JaxOptions
+from ida_tpu.models import roberts_factory as jax_roberts_factory
+from ida_tpu.tol_control import tol_sv as jax_tol_sv
+from ida_tpu_torch import IDA, IdaSolveStatus
+from ida_tpu_torch import sensitivity as S
+from ida_tpu_torch.core.state import IdaOptions
+from ida_tpu_torch.models import ROBERTS_PARAMS, ROBERTS_YY0, roberts_factory
+from ida_tpu_torch.problem import IdaProblem
+from ida_tpu_torch.tol_control import tol_ss, tol_sv
+
+# one intra-op thread: the tests' tensors are small, and the suite runs in
+# parallel workers, each of which would otherwise start a pool per core
+torch.set_num_threads(1)
+
+ATOL = [1e-8, 1e-6, 1e-6]
+TOUT = 0.4
+W = np.array([1.0, 2.0, 3.0])
+GRID = np.logspace(-4, np.log10(TOUT), 16)
+OPTS = IdaOptions(mxstep=20000)
+TOL = tol_sv(1e-4, ATOL, device="cpu")
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x, dtype=np.float64))
+
+
+def loss_of(y):
+    return (y * _t(W)).sum()
+
+
+def _yp0(p):
+    return _t(p)[:1] * _t([-1.0, 1.0, 0.0])
+
+
+def _decay_factory(p):
+    def res(t, y, yp):
+        return yp + p * y
+
+    return IdaProblem(n=1, res=res)
+
+
+def test_backward_integration_as_ida_tpu_gates_it():
+    """tests/test_direction.py:20-28 on the port: from t0 = 0 down to -2,
+    negative steps throughout, y(-2) = y0 exp(2)."""
+
+    def res(t, yy, yp):
+        return yp + yy
+
+    y0 = np.array([1.0, 2.0])
+    ida = IDA(IdaProblem(n=2, res=res), y0, -y0, tol_ss(1e-8, 1e-10, device="cpu"),
+              device="cpu")
+    tret, status = ida.solve(-2.0)
+    assert status == IdaSolveStatus.Success and tret == -2.0
+    assert ida.get_last_step() < 0
+    np.testing.assert_allclose(np.asarray(ida.get_yy()), y0 * np.exp(2.0), rtol=1e-5)
+
+
+def test_exponential_decay_analytic():
+    T = 2.0
+    loss, gp, gy0, istf, istb = S.continuous_adjoint(
+        _decay_factory, 0.7, _t([1.0]), _t([-0.7]), tol_ss(1e-10, 1e-12, device="cpu"), T,
+        lambda y: y[0], device="cpu")
+    assert int(istf) == 0 and int(istb) == 0
+    ref = np.exp(-0.7 * T)
+    np.testing.assert_allclose(float(loss), ref, rtol=1e-8)
+    np.testing.assert_allclose(float(gp), -T * ref, rtol=1e-7)
+    np.testing.assert_allclose(gy0.numpy(), [ref], rtol=1e-7)
+
+
+@pytest.fixture(scope="module")
+def jax_continuous():
+    p0 = jnp.asarray(ROBERTS_PARAMS)
+    out = jsens.continuous_adjoint(
+        jax_roberts_factory, p0, jnp.asarray(ROBERTS_YY0), p0[:1] * jnp.asarray([-1.0, 1.0, 0.0]),
+        jax_tol_sv(1e-4, jnp.asarray(ATOL)), TOUT, lambda y: jnp.sum(y * W),
+        grid=jnp.asarray(GRID), opts=JaxOptions(mxstep=20000))
+    return [np.asarray(x) for x in out]
+
+
+def _port_lane(p):
+    return S.continuous_adjoint(roberts_factory, p, ROBERTS_YY0, _yp0(p), TOL, TOUT, loss_of,
+                                grid=GRID, opts=OPTS, device="cpu")
+
+
+def test_roberts_lane_matches_ida_tpu(jax_continuous):
+    loss, gp, gy0, istf, istb = _port_lane(ROBERTS_PARAMS)
+    jloss, jgp, jgy0, jistf, jistb = jax_continuous
+    assert int(istf) == int(jistf) == 0 and int(istb) == int(jistb) == 0
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-10)
+    np.testing.assert_allclose(gp.numpy(), jgp, rtol=1e-6)
+    np.testing.assert_allclose(gy0.numpy(), jgy0, rtol=1e-6, atol=1e-12)
+
+
+def test_batched_continuous_adjoint_is_lane_for_lane_the_single_lane():
+    """The batch-native form (one forward and one backward solve for every
+    lane; the KKT system [2N, 2N, B]) against single-lane runs."""
+    params = np.outer([0.95, 1.0, 1.05], ROBERTS_PARAMS)
+    loss, gp, gy0, istf, istb = S.batched_continuous_adjoint(
+        roberts_factory, params, ROBERTS_YY0, params[:, :1] * np.array([-1.0, 1.0, 0.0]), TOL,
+        TOUT, loss_of, grid=GRID, opts=OPTS, device="cpu")
+    assert gp.shape == (3, 3) and gy0.shape == (3, 3)
+    assert np.all(istf.numpy() == 0) and np.all(istb.numpy() == 0)
+    for b in range(3):
+        l1, g1, y1, f1, b1 = _port_lane(params[b])
+        np.testing.assert_allclose(float(loss[b]), float(l1), rtol=1e-12)
+        np.testing.assert_allclose(gp[b].numpy(), g1.numpy(), rtol=1e-9)
+        np.testing.assert_allclose(gy0[b].numpy(), y1.numpy(), rtol=1e-9, atol=1e-15)
+
+
+def test_adjoint_gradient_auto_routes_as_ida_tpu(jax_continuous):
+    """Forced continuous (crossover 0) is ``continuous_adjoint``, forced
+    discrete is ``adjoint_gradient``; the default window picks continuous
+    at 120 attempts; a problem with roots always takes the discrete tape
+    (tests/test_adjoint.py:166-220)."""
+    args = (roberts_factory, ROBERTS_PARAMS, ROBERTS_YY0, _yp0(ROBERTS_PARAMS), TOL, TOUT, loss_of)
+    lc, gc, ic_ = S.adjoint_gradient_auto(*args, max_attempts=120, crossover=0, grid=GRID,
+                                          opts=OPTS, device="cpu")
+    ld, gd, id_ = S.adjoint_gradient_auto(*args, max_attempts=120, crossover=10**9,
+                                          device="cpu")
+    assert int(ic_) == 0 and int(id_) == 0
+    np.testing.assert_allclose(gc.numpy(), jax_continuous[1], rtol=1e-6)
+    _, g_disc, _ = S.adjoint_gradient(roberts_factory, ROBERTS_PARAMS,
+                                      lambda p: _t(ROBERTS_YY0), lambda p: _yp0(ROBERTS_PARAMS),
+                                      TOL, TOUT, loss_of, max_attempts=120, device="cpu")
+    assert torch.equal(gd, g_disc)
+    np.testing.assert_allclose(float(lc), float(ld), rtol=5e-4)
+    np.testing.assert_allclose(gc.numpy(), gd.numpy(), rtol=2e-2)
+    la, ga, ia = S.adjoint_gradient_auto(*args, max_attempts=120, grid=GRID, opts=OPTS,
+                                         device="cpu")
+    assert int(ia) == 0 and torch.equal(ga, gc)
+
+    rooted = partial(roberts_factory, with_roots=True)
+    lr, gr, ir = S.adjoint_gradient_auto(rooted, *args[1:], max_attempts=120, crossover=0,
+                                         device="cpu")
+    assert int(ir) == 2  # ROOT_RETURN: the discrete tape ran (continuous refuses roots)
+    with pytest.raises(ValueError, match="rootfinding"):
+        S.continuous_adjoint(rooted, *args[1:], device="cpu")

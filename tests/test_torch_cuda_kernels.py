@@ -102,6 +102,67 @@ def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
     assert torch.equal(g.lu, dense_lu.lu_factor(big).lu) and small_lu.FACTOR_LAUNCHES == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1, 2, 3, 6, 13, 16])
+def test_transposed_solve_kernel_matches_plain_bitwise(cuda, n, dtype):
+    """``small_lu_solve_t`` (A^T lam = g from K1's factors) against
+    ``dense_lu.lu_solve_unrolled_t`` on the same CUDA tensors."""
+    a, g = _system(n, dtype, cuda, seed=7)
+    f = small_lu.lu_factor(a)
+    small_lu.reset_launch_counts()
+    lam = small_lu.lu_solve_t(f, g)
+    torch.cuda.synchronize()
+    assert small_lu.SOLVE_T_LAUNCHES == 1
+    assert torch.equal(lam, dense_lu.lu_solve_unrolled_t(f, g))
+    if dtype == torch.float64:
+        lead = a.permute(2, 0, 1).transpose(1, 2)
+        want = torch.linalg.solve(lead, g.t().unsqueeze(-1)).squeeze(-1).t()
+        assert torch.allclose(lam, want, rtol=1e-10, atol=1e-12)
+
+
+def test_lu_function_gradcheck_on_the_card(cuda):
+    """The LU Functions' derivatives through K1 and ``small_lu_solve_t``:
+    reverse, forward and second order at N = 3, B = 5, f64; the backward
+    launches the transposed-solve kernel and never the plain version."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.normal(size=(3, 3, 5)) + 3.0 * np.eye(3)[:, :, None]).to(cuda)
+    b = torch.from_numpy(rng.normal(size=(3, 5))).to(cuda)
+    a.requires_grad_()
+    b.requires_grad_()
+
+    def solve(a, b):
+        return dense_lu.lu_solve_auto(dense_lu.lu_factor_auto(a), b)
+
+    assert torch.autograd.gradcheck(solve, (a, b), check_forward_ad=True)
+    assert torch.autograd.gradgradcheck(solve, (a, b))
+    small_lu.reset_launch_counts()
+    x = solve(a, b)
+    torch.autograd.grad(x.sum(), (a, b))
+    assert (small_lu.FACTOR_LAUNCHES, small_lu.SOLVE_LAUNCHES, small_lu.SOLVE_T_LAUNCHES) == (1, 1, 1)
+
+
+def test_adjoint_gradient_on_the_card_matches_the_cpu(cuda):
+    """``sensitivity.adjoint_gradient`` on one Roberts lane: the card (K1 and
+    its transposed solve) against the CPU run of the same lane."""
+    from ida_tpu_torch.sensitivity import adjoint_gradient
+
+    def run(dev):
+        w = torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64, device=dev)
+        return adjoint_gradient(
+            roberts_factory, ROBERTS_PARAMS,
+            lambda p: torch.tensor(ROBERTS_YY0, dtype=torch.float64, device=dev),
+            lambda p: p[0] * torch.tensor([-1.0, 1.0, 0.0], dtype=torch.float64, device=dev),
+            tol_sv(1e-4, [1e-8, 1e-6, 1e-6], device=dev), 0.4, lambda y: (y * w).sum(),
+            max_attempts=48, device=dev)
+
+    small_lu.reset_launch_counts()
+    v, g, ist = run(cuda)
+    assert int(ist) == 0 and small_lu.SOLVE_T_LAUNCHES > 0
+    vc, gc, _ = run("cpu")
+    assert torch.allclose(v.cpu(), vc, rtol=1e-12)
+    assert torch.allclose(g.cpu(), gc, rtol=1e-9)
+
+
 def test_lu_factor_solve_solves_on_the_card(cuda):
     rng = np.random.default_rng(5)
     a = rng.normal(size=(512, 5, 5)) + 3.0 * np.eye(5)

@@ -30,6 +30,8 @@ MODULES = [
     "ida_tpu_torch.ops.bbd",
     "ida_tpu_torch.core.quad",
     "ida_tpu_torch.utils.checkpoint",
+    "ida_tpu_torch.utils.ad_mode",
+    "ida_tpu_torch.sensitivity",
 ]
 
 
@@ -140,7 +142,8 @@ _NOT_PORTED = re.compile(r"not_ported\((?:[^()]|\([^()]*\))*?,\s*(\d+)\s*,", re.
 def test_every_not_ported_raise_names_a_current_roadmap_item():
     # each raise of a feature still to port names the ROADMAP.md Queue 1 item
     # that lifts it: after the constraints, band/BBD, quadratures and
-    # checkpoints (items 1-3, done) the open items are 4-7
+    # checkpoints (items 1-3) and the sensitivities (item 4), the open items
+    # are 5-7
     calls = {
         f"{path.relative_to(ROOT)}": [int(n) for n in _NOT_PORTED.findall(path.read_text())]
         for path in sorted(PKG.rglob("*.py"))
