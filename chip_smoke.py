@@ -30,7 +30,9 @@ tout=400 in f64):
   and four legs (``foodweb``), 128 foodweb lanes through batch-native
   ``calc_ic`` and the legs (``foodweb_batched``), with the LU kernel's
   launches counted on both foodweb paths and the kernel held against its
-  plain version at N = 2 on the foodweb blocks (``kernel_n2_foodweb_blocks``);
+  plain version at N = 2 on the foodweb blocks, on the three layouts it
+  reads there, with one ``prec_solve`` shown to run that one kernel and no
+  copy (``kernel_n2_foodweb_blocks``);
 * inequality constraints: the stage kernels on constrained mid-flight
   states (``constrained_stages``), and the headline's lanes held >= 0 at
   rtol 1e-2 over 12 decades through the eager solve, the whole-solve kernel
@@ -92,6 +94,7 @@ from ida_tpu_torch.models import (ROBERTS_PARAMS, ROBERTS_YP0, ROBERTS_YY0, food
                                   roberts_factory, roberts_problem)
 from ida_tpu_torch.ops import _build, dense_lu, fused_solve, fused_stages, make_bbd_prec, small_lu
 from ida_tpu_torch.ops.banded import band_factor, band_solve, band_sys_jacobian, band_to_dense
+from ida_tpu_torch.tools import kernel_variants
 from ida_tpu_torch.parallel import (EnsembleIDA, ensemble_init, from_native, make_ensemble_solve,
                                     to_native)
 from ida_tpu_torch.parallel.batch import _native_shared_tol
@@ -181,27 +184,39 @@ def on_card_events(prof) -> list:
             and "spin_kernel" not in e.key]
 
 
+# (name, launches the profiler recorded, launches made) of every
+# kernel_device_ms window: late in a long run the profiler was seen to
+# record only some of a window's launches
+PROFILER_COUNTS = []
+
+
 def kernel_device_ms(fns, rounds: int, name_part: str) -> float:
-    """Device time per call of the kernels whose name holds ``name_part``,
-    from torch.profiler, over ``rounds`` passes through ``fns`` (one call
-    each, after a warm-up pass). Raises when the profiler records no device
-    time."""
+    """Device time per launch of the kernels whose name holds ``name_part``,
+    from torch.profiler, over ``rounds`` passes through ``fns`` (one launch
+    each, after a warm-up pass), averaged over the launches the profiler
+    recorded. Raises when it records none."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        first_device_activity()
-        for _ in range(rounds):
-            for fn in fns:
-                fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for evt in prof.key_averages():
-        if name_part in evt.key:
-            total += getattr(evt, "device_time_total", getattr(evt, "cuda_time_total", 0.0))
-    check(total > 0, f"the profiler recorded no device time for {name_part}")
-    return total / 1e3 / (rounds * len(fns))
+    total, count = 0.0, 0
+    for _ in range(3):  # a window that recorded nothing is taken again
+        with torch.profiler.profile(activities=acts) as prof:
+            first_device_activity()
+            for _ in range(rounds):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            dev = getattr(evt, "device_time_total", getattr(evt, "cuda_time_total", 0.0))
+            if name_part in evt.key and dev > 0:
+                total += dev
+                count += evt.count
+        PROFILER_COUNTS.append((name_part, count, rounds * len(fns)))
+        if count:
+            break
+    check(count > 0, f"the profiler recorded no device time for {name_part}")
+    return total / 1e3 / count
 
 
 def call_device_ms(fns, rounds: int) -> float:
@@ -1305,28 +1320,48 @@ def phase_foodweb_batched() -> dict:
 def phase_kernels_n2(food: dict) -> dict:
     """K1 at N = 2 on the foodweb blocks of one lsetup, both batch axes
     ([2, 2, 400, 128]): kernel against its plain version bit for bit, its
-    device time, its bound and torch.linalg's time on the same blocks."""
+    device time, its bound and torch.linalg's time on the same blocks. The
+    solve is held and timed on three layouts: batch-last contiguous,
+    ``ida_tpu``'s pdata (lu [400, 2, 2, 128], piv [400, 2, 128], r [800,
+    128], as a checkpoint loads them) and the views ``foodweb.prec_solve``
+    hands it on the path; then one ``prec_solve`` call (profiled in a fresh
+    process) must be one device event, the solve."""
     st = food["state"]
     # at the last legs' state, with each lane's cj of its last lsetup
     blocks = foodweb.prec_blocks(FOOD_M, FOOD_M, st.cjold, st.yy)
-    rb = st.yy.reshape((FOOD_M * FOOD_M, 2, FOOD_B)).movedim(1, 0).contiguous()
+    r = st.yy.clone()  # [800, 128], a right-hand side in the path's layout
+    rb = r.reshape((FOOD_M * FOOD_M, 2, FOOD_B)).movedim(1, 0).contiguous()
     f, g = small_lu.lu_factor(blocks), dense_lu.lu_factor_unrolled(blocks)
-    x, y = small_lu.lu_solve(f, rb), dense_lu.lu_solve_unrolled(g, rb)
+    pdata_f = dense_lu.DenseLU(f.lu.movedim((0, 1), (1, 2)).contiguous().movedim((1, 2), (0, 1)),
+                               f.piv.movedim(0, 1).contiguous().movedim(1, 0), None)
+    layouts = {  # name -> (factors, right-hand side)
+        "contiguous": (f, rb),
+        "pdata": (pdata_f, r.reshape(rb.shape[1], 2, FOOD_B).movedim(1, 0)),
+        "prec_solve": (f, r.reshape(rb.shape[1], 2, FOOD_B).movedim(1, 0)),
+    }
+    x = {k: small_lu.lu_solve(*v) for k, v in layouts.items()}
+    y = dense_lu.lu_solve_unrolled(g, rb)
     torch.cuda.synchronize()
     ok = {"factor": same(f.lu, g.lu) and same(f.piv, g.piv) and same(f.fail_col, g.fail_col),
-          "solve": same(x, y)}
-    errs = {"factor": float((f.lu - g.lu).abs().max()), "solve": float((x - y).abs().max())}
+          **{f"solve_{k}": same(v.contiguous(), y) for k, v in x.items()}}
+    errs = {"factor": float((f.lu - g.lu).abs().max()),
+            "solve": max(float((v - y).abs().max()) for v in x.values())}
     m = blocks[0, 0].numel()
-    # cold, as at N = 3: 64 input sets in turn move ~250 MB a pass, five
+    # cold, as at N = 3: 64 input sets in turn move ~240 MB a pass, five
     # times the L2, so every launch reads its input from HBM
     sets = [(blocks.clone(), rb.clone()) for _ in range(64)]
     f_sets = [small_lu.lu_factor(a) for a, _ in sets]
     dev_ms = {
         "factor": kernel_device_ms([lambda a=a: small_lu.lu_factor(a) for a, _ in sets], 2,
                                    "factor_kernel"),
-        "solve": kernel_device_ms([lambda h=h, b=b: small_lu.lu_solve(h, b)
-                                   for h, (_, b) in zip(f_sets, sets)], 2, "solve_kernel"),
     }
+    for k, (h0, b0) in layouts.items():
+        like = [(dense_lu.DenseLU(h0.lu.clone(memory_format=torch.preserve_format),
+                                  h0.piv.clone(memory_format=torch.preserve_format), None),
+                 b0.clone(memory_format=torch.preserve_format)) for _ in range(64)]
+        dev_ms[f"solve_{k}"] = kernel_device_ms([lambda h=h, b=b: small_lu.lu_solve(h, b)
+                                                 for h, b in like], 2, "solve_kernel")
+        del like
     plain_ms = {"factor": cuda_ms(lambda: dense_lu.lu_factor_unrolled(blocks), 20),
                 "solve": cuda_ms(lambda: dense_lu.lu_solve_unrolled(g, rb), 20)}
     # the library yardstick (never called by the port), batch-leading, cold
@@ -1337,14 +1372,34 @@ def phase_kernels_n2(food: dict) -> dict:
     lib_ms = {"factor": call_device_ms([lambda a=a: torch.linalg.lu_factor_ex(a) for a, _ in lead], 2),
               "solve": call_device_ms([lambda h=h, b=b: torch.linalg.lu_solve(h[0], h[1], b)
                                        for h, (_, b) in zip(f_lead, lead)], 2)}
+    del sets, f_sets, lead, f_lead
     nbytes = {"factor": 4 * m * 8 + 4 * m * 8 + 2 * m * 4 + m * 4,
               "solve": 4 * m * 8 + 2 * m * 4 + 2 * m * 8 + 2 * m * 8}
-    rows = {k: {"max_abs_err": errs[k], "ms": dev_ms[k], "plain_ms": plain_ms[k],
-                "bound_ms": lu_bound_ms(nbytes[k]), "bound_by": "bytes", "library_ms": lib_ms[k]}
-            for k in ("factor", "solve")}
+    # one foodweb.prec_solve on the card, profiled in a fresh process: late
+    # in this run the profiler records only some launches of a short window,
+    # or none (the layouts it hands the kernel are held above)
+    prec = kernel_variants.prec_solve_events(str(Path(__file__).resolve().parent))
+    # "ms" of the solve is the layout the path launches it on
+    rows = {
+        "factor": {"max_abs_err": errs["factor"], "ms": dev_ms["factor"],
+                   "plain_ms": plain_ms["factor"], "bound_ms": lu_bound_ms(nbytes["factor"]),
+                   "bound_by": "bytes", "library_ms": lib_ms["factor"]},
+        "solve": {"max_abs_err": errs["solve"], "ms": dev_ms["solve_prec_solve"],
+                  "ms_contiguous": dev_ms["solve_contiguous"],
+                  "ms_pdata_layout": dev_ms["solve_pdata"], "plain_ms": plain_ms["solve"],
+                  "bound_ms": lu_bound_ms(nbytes["solve"]), "bound_by": "bytes",
+                  "library_ms": lib_ms["solve"],
+                  "prec_solve_device_events_per_call": prec["device_events_per_call"],
+                  "prec_solve_device_ms_per_call": prec["device_ms_per_call"]},
+    }
     emit("kernel_n2_foodweb_blocks", shape=list(blocks.shape), systems=m, bitwise_equal=ok,
-         bytes=nbytes, **rows)
-    check(ok["factor"] and ok["solve"], f"K1 at N = 2 != its plain version: {ok}")
+         bytes=nbytes, layouts={k: small_lu.solve_layout(h.lu, h.piv, b, x[k]).as_dict()
+                                for k, (h, b) in layouts.items()},
+         prec_solve=prec, **rows)
+    check(all(ok.values()), f"K1 at N = 2 != its plain version: {ok}")
+    names = list(prec["kernels"])
+    check(prec["calls_recorded"] > 0 and len(names) == 1 and "solve_kernel" in names[0],
+          f"foodweb.prec_solve is not one K1 solve and nothing else: {prec}")
     return rows
 
 
@@ -2207,6 +2262,8 @@ def main() -> None:
                      "launches_constrained_stages": c_stages["launches"].get(stage, 0),
                      "max_abs_err": stages["max_abs_err"][stage], "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": None})
+    emit("profiler_counts", windows=[{"kernel": k, "recorded": c, "launched": n}
+                                     for k, c, n in PROFILER_COUNTS])
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,12 @@ The preconditioner is block-diagonal over grid points: at each point the
 2 x 2 reaction Jacobian with cj on the prey row, factored and solved by
 ``ops.dense_lu.lu_factor_auto``/``lu_solve_auto``, which on the card is the
 batched small-LU kernel (``csrc/small_lu.cu``) over npts x batch systems.
-The kernel takes [2, 2, npts, *batch]; ``pdata`` keeps ``ida_tpu``'s
-layout, (lu [npts, 2, 2, *batch], piv [npts, 2, *batch]), as views of it.
+``pdata`` keeps ``ida_tpu``'s shapes, (lu [npts, 2, 2, *batch], piv
+[npts, 2, *batch]), as views of the factor's [2, 2, npts, *batch] output
+(a checkpoint loads them contiguous). The solve kernel reads either layout,
+and the right-hand side [npts * 2, *batch], by strides, and writes its
+result in the right-hand side's layout: ``prec_solve`` is one launch and
+copies nothing.
 The Krylov path's J v is given in closed form (``jtimes_fn``): the values
 of a jvp of ``res``, bit for bit, at a fraction of its host time.
 
@@ -152,9 +156,11 @@ def foodweb_problem(mx: int = 20, my: int = 20, use_prec: bool = True, *, device
         return (f.lu.movedim((0, 1), (1, 2)), f.piv.movedim(0, 1))
 
     def prec_solve(pdata, r, cj):
+        # views only: the kernel reads pdata and r as they lie and writes
+        # its result in r's layout, so the reshape back copies nothing
         lu, piv = pdata
-        rb = r.reshape((npts, NS) + r.shape[1:]).movedim(1, 0).contiguous()
-        f = DenseLU(lu.movedim((1, 2), (0, 1)).contiguous(), piv.movedim(1, 0).contiguous(), None)
+        rb = r.reshape((npts, NS) + r.shape[1:]).movedim(1, 0)
+        f = DenseLU(lu.movedim((1, 2), (0, 1)), piv.movedim(1, 0), None)
         return lu_solve_auto(f, rb).movedim(0, 1).reshape(r.shape)
 
     def prec_zero():

@@ -276,13 +276,16 @@ def _solve_any(lu: torch.Tensor, piv: torch.Tensor, b: torch.Tensor, transposed:
     kernel on a CUDA tensor up to N = 16, else the plain versions."""
     from . import small_lu
 
-    # the kernels take contiguous tensors; a cotangent often is not (the
-    # expanded ones of a sum's backward)
-    f = DenseLU(_guarded(lu).contiguous(), piv.contiguous(), piv.new_zeros(()))
-    b = b.contiguous()
-    if b.shape[0] <= SMALL_N_UNROLL:
-        return small_lu.lu_solve_t(f, b) if transposed else small_lu.lu_solve(f, b)
-    return lu_solve_t(f, b) if transposed else lu_solve(f, b)
+    f = DenseLU(_guarded(lu), piv, None)  # no solve reads fail_col
+    if b.shape[0] > SMALL_N_UNROLL:
+        return lu_solve_t(f, b) if transposed else lu_solve(f, b)
+    if b.is_cuda and not small_lu.reads(f, b):
+        # the kernels read the solver's and the preconditioners' layouts as
+        # they lie; a layout they cannot express (a cotangent that a sum's
+        # backward expanded along some lane axes only) is copied here
+        f = DenseLU(f.lu.contiguous(), f.piv.contiguous(), f.fail_col)
+        b = b.contiguous()
+    return small_lu.lu_solve_t(f, b) if transposed else small_lu.lu_solve(f, b)
 
 
 def _outer(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -120,6 +120,65 @@ def test_transposed_solve_kernel_matches_plain_bitwise(cuda, n, dtype):
         assert torch.allclose(lam, want, rtol=1e-10, atol=1e-12)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("layout", ["contiguous", "pdata", "factor_view"])
+@pytest.mark.parametrize("kernel", ["solve", "solve_t"])
+def test_solve_kernels_bitwise_on_each_layout(cuda, kernel, layout, dtype):
+    """The solve and the transposed solve read each layout by strides
+    (``tests/test_torch_lu_layouts.py::operands``: batch-last contiguous,
+    ``ida_tpu``'s pdata, the factor's own views as ``foodweb.prec_solve``
+    hands them) at N = 1..16 and B = 1 (one lane), 129 (lane by lane, a
+    block not filled) and 200 (pairs of lanes), one launch each, bit for
+    bit their plain versions, the result in the right-hand side's layout."""
+    from test_torch_lu_layouts import operands
+
+    launch = small_lu.lu_solve if kernel == "solve" else small_lu.lu_solve_t
+    plain = dense_lu.lu_solve_unrolled if kernel == "solve" else dense_lu.lu_solve_unrolled_t
+    for n in range(1, 17):
+        for bsz in (1, 129, 200):
+            f, b = operands(layout, n, bsz, dtype)
+            f = dense_lu.DenseLU(f.lu.to(cuda), f.piv.to(cuda), None)
+            b = b.to(cuda)
+            small_lu.reset_launch_counts()
+            x = launch(f, b)
+            torch.cuda.synchronize()
+            assert small_lu.SOLVE_LAUNCHES + small_lu.SOLVE_T_LAUNCHES == 1
+            assert x.stride() == b.stride()
+            assert torch.equal(x, plain(f, b)), (n, bsz)
+
+
+def test_prec_solve_is_one_launch_and_no_copy_on_the_card(cuda):
+    """One ``foodweb.prec_solve`` at 20 x 20, B = 128 runs one device
+    kernel, the K1 solve, and gives the CPU's bits."""
+    from ida_tpu_torch.models import foodweb_ic, foodweb_problem
+
+    c0, _ = foodweb_ic(20, 20)
+    rng = np.random.default_rng(5)
+    yy = torch.from_numpy(np.outer(c0, np.linspace(0.95, 1.05, 128)))
+    cj = torch.from_numpy(1e3 * (1.0 + rng.random(128)))
+    r = torch.from_numpy(rng.normal(size=(800, 128)))
+    out, args = {}, {}
+    for dev in ("cpu", cuda):
+        prob = foodweb_problem(20, 20, device=dev)
+        y, c = yy.to(dev), cj.to(dev)
+        args[str(dev)] = (prob.prec_setup(0.0, c, y, torch.zeros_like(y), torch.zeros_like(y)),
+                          r.to(dev), c)
+        out[str(dev)] = prob.prec_solve(*args[str(dev)])
+    torch.cuda.synchronize()
+    small_lu.reset_launch_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(1000)  # the profiler may drop a window's first device activity
+        torch.cuda.synchronize()
+        prob.prec_solve(*args["cuda"])
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key}
+    assert small_lu.SOLVE_LAUNCHES == 1
+    assert sum(kernels.values()) == 1 and "solve_kernel" in next(iter(kernels)), kernels
+    assert torch.equal(out["cuda"].cpu(), out["cpu"])
+
+
 def test_lu_function_gradcheck_on_the_card(cuda):
     """The LU Functions' derivatives through K1 and ``small_lu_solve_t``:
     reverse, forward and second order at N = 3, B = 5, f64; the backward
