@@ -54,7 +54,21 @@ tout=400 in f64):
   B = 4,096, with one band factor and solve at 100 x 100 timed
   (``band_heat2d``, ``band_factor_solve``), and SPGMR with the BBD
   preconditioner on heat2d 20 x 20 in 4 blocks, one lane and B = 256
-  (``bbd_heat2d``).
+  (``bbd_heat2d``);
+* the non-parity modes and the rest of the surface: K1 at this slice's
+  shapes against its plain version (float32 N = 3, the float32 N = 2 solve
+  in the Krylov "single" layout, float64 N = 10; ``kernels_modes``); the
+  headline under ``ls_precision`` "single" and "refined", K1's float32
+  launches counted, two lanes against the CPU counter for counter
+  (``mixed_headline``); the headline with ``fast_math`` timed in turns with
+  parity, every lane within tolerance of it (``fast_f64``); heat2d 100 x
+  100 under "single" with CGS2, with a bfloat16 basis and at B = 128
+  (``heat2d_mixed``); foodweb 20 x 20, B = 128, under "single"
+  (``foodweb_mixed``); the slider-crank example, K1 at N = 10
+  (``slider_crank``); the stratified solve over two decades of rates, bit
+  for bit the plain one (``stratified``); the headline under
+  ``utils.profiling.profile``, each ``ida.<name>`` scope's host and device
+  ms, and what the scopes cost (``profile_scopes``).
 
 Every stage kernel is checked bit for bit against its eager stage on real
 mid-flight states first, so a parity break is localized. It prints one JSON
@@ -91,15 +105,17 @@ from ida_tpu_torch.core.calc_ic import calc_ic as core_calc_ic
 from ida_tpu_torch.core.quad import get_quad
 from ida_tpu_torch.models import (ROBERTS_PARAMS, ROBERTS_YP0, ROBERTS_YY0, foodweb,
                                   foodweb_ic, foodweb_problem, heat2d_ic, heat2d_problem,
-                                  roberts_factory, roberts_problem)
+                                  roberts_factory, roberts_problem, slider_crank_ic,
+                                  slider_crank_problem)
 from ida_tpu_torch.ops import _build, dense_lu, fused_solve, fused_stages, make_bbd_prec, small_lu
 from ida_tpu_torch.ops.banded import band_factor, band_solve, band_sys_jacobian, band_to_dense
 from ida_tpu_torch.tools import kernel_variants
 from ida_tpu_torch.parallel import (EnsembleIDA, ensemble_init, from_native, make_ensemble_solve,
-                                    to_native)
+                                    make_stratified_solve, pilot_cost, to_native)
 from ida_tpu_torch.parallel.batch import _native_shared_tol
 from ida_tpu_torch.tol_control import TolControl, tol_ss, tol_sv
 from ida_tpu_torch.utils.ad_mode import safe_ad
+from ida_tpu_torch.utils import profiling
 from ida_tpu_torch.utils.checkpoint import load_state, save_state
 
 BLOCK = 64  # threads a block of the whole-solve kernel (csrc/ida_lane.cuh IDA_THREADS)
@@ -117,6 +133,7 @@ DECADES = [0.4 * 10**k for k in range(12)]
 # to the tolerances given there
 ROOTED_TOTALS = {**CANONICAL_TOTALS, "nge": 404}
 ROOT_EVENTS = [(2.6402e-01, 1e-3, [0, 1]), (2.0788e7, 1e-2, [-1, 0])]
+ROOTS_PROFILE_TOUT = 4.0  # roots_slice's profiled windows: the root (0.22-0.32) and a decade on
 CHECK_ANS = [5.2083474251394888e-08, 2.0833390772616859e-13, 9.9999994791631752e-01]
 LU_SOURCE = "ida_tpu_torch/csrc/small_lu.cu"
 LU_REPLACES = "ida_tpu/ops/pallas_lu.py:28"
@@ -179,9 +196,19 @@ def first_device_activity() -> None:
 
 
 def on_card_events(prof) -> list:
-    return [e for e in prof.key_averages()
+    return device_activities(prof.key_averages())
+
+
+def device_activities(averages) -> list:
+    """The device activities among a profiler window's ``key_averages()``:
+    the kernels, copies and fills, not the spin kernel, and not the
+    ``ida.<name>`` scopes, which the profiler also lays on the device's
+    timeline (``utils/profiling.py``) as ranges spanning the kernels they
+    launch."""
+    return [e for e in averages
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-            and "spin_kernel" not in e.key]
+            and "spin_kernel" not in e.key and not e.key.startswith("ida.")
+            and not getattr(e, "is_user_annotation", False)]
 
 
 # (name, launches the profiler recorded, launches made) of every
@@ -937,12 +964,14 @@ def phase_roots_slice(eager: dict) -> dict:
     on_g1 = int((out["iroots"] == np.array([0, 1])).all(axis=1).sum())
     # the device's share of the wall, and the same for the solve without
     # roots beside it (its events a call are the yardstick for what the root
-    # checks add). These windows hold ~100,000 device events each and take
-    # the profiler most of a minute to digest, so they come after every
-    # phase that profiles a handful of launches: such a short window was seen
-    # to come back empty right after a long one
-    busy = device_busy(lambda: run_rooted(params, yy0, yp0, "cuda", TOUT), calls=1)
-    busy_eager = device_busy(lambda: run_ensemble(params, yy0, yp0, "cuda", TOUT), calls=1)
+    # checks add), over the first decades, which hold the root (to tout 400
+    # the two windows held ~120,000 and ~90,000 device events and took the
+    # profiler over a minute each to digest). Windows this long come after
+    # every phase that profiles a handful of launches: such a short window
+    # was seen to come back empty right after a long one
+    busy = device_busy(lambda: run_rooted(params, yy0, yp0, "cuda", ROOTS_PROFILE_TOUT), calls=1)
+    busy_eager = device_busy(lambda: run_ensemble(params, yy0, yp0, "cuda", ROOTS_PROFILE_TOUT),
+                             calls=1)
     check(busy["device_events"] > 0 and busy_eager["device_events"] > 0,
           "the profiler recorded no device event of the eager solves")
 
@@ -963,8 +992,8 @@ def phase_roots_slice(eager: dict) -> dict:
          lanes_one_root=once, lanes_root_on_g1=on_g1, steps_per_s=totals["nst"] / out["wall_s"],
          illinois_passes=passes, launches=launches,
          attempts_max_lane=int((st.nst + st.netf + st.ncfn).max()), root_time_min=float(out["t_root"].min()),
-         root_time_max=float(out["t_root"].max()), profiled=busy, busy_share=busy["busy_share"],
-         profiled_without_roots=busy_eager,
+         root_time_max=float(out["t_root"].max()), profiled_to=ROOTS_PROFILE_TOUT, profiled=busy,
+         busy_share=busy["busy_share"], profiled_without_roots=busy_eager,
          card_vs_cpu={"lanes": 256, "exact": exact, "max_wrms_yy": wrms,
                       "max_root_time_err_over_rtol": t_err}, **totals)
     check(n_ok == B, f"roots_slice: {B - n_ok} lanes did not end SUCCESS")
@@ -1416,6 +1445,7 @@ BAND_B = 4096
 BAND_BIG_M = 100  # one band factor and solve at heat2d 100 x 100, mu = ml = 100
 BBD_M = 20  # idaHeat2D_kry_bbd_p: 20 x 20 on 4 subdomains (strips of 5 grid rows)
 BBD_B = 256
+BBD_TOUT = 0.04  # the second of the heat legs' outputs (0.01, 0.04, 0.16)
 CHECKPOINT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
@@ -1753,7 +1783,7 @@ def phase_bbd_heat2d() -> None:
                             ("diag", "cuda", heat2d_problem(m, device="cuda"))):
         ida = IDA(prob, u0, up0, tol_ss(1e-5, 1e-8, device=dev), opts, device=dev)
         t0 = time.perf_counter()
-        ida.solve(HEAT_TOUT)  # returns host numbers: synchronizes
+        ida.solve(BBD_TOUT)  # returns host numbers: synchronizes
         walls[name] = time.perf_counter() - t0
         idas[name] = ida
     got = krylov_counts(idas["bbd"].state)
@@ -1765,17 +1795,17 @@ def phase_bbd_heat2d() -> None:
     scales, st0 = heat2d_lanes(m, BBD_B, opts, prob)
     out = {}
     wall_b = wall_s(lambda: out.update(r=core_solve(st0, prob, opts,
-                                                    tol_ss(1e-5, 1e-8, device="cuda"), HEAT_TOUT)))
+                                                    tol_ss(1e-5, 1e-8, device="cuda"), BBD_TOUT)))
     st, tret, istate = out["r"]
     nst_b = int(st.nst.sum())
     wrms_mid = wrms_lanes(st.yy[:, BBD_B // 2:BBD_B // 2 + 1].cpu(), yb, 1e-5, 1e-8)
-    emit("bbd_heat2d", grid=f"{m}x{m}", mu=m, ml=m, nblocks=4, tout=HEAT_TOUT, walls_s=walls,
+    emit("bbd_heat2d", grid=f"{m}x{m}", mu=m, ml=m, nblocks=4, tout=BBD_TOUT, walls_s=walls,
          **got, cpu=krylov_counts(idas["bbd_cpu"].state), diag=krylov_counts(idas["diag"].state),
          wrms_card_vs_cpu=wrms_cpu, wrms_bbd_vs_diag=wrms_diag,
          batched={"batch": BBD_B, "wall_s": wall_b, "total_steps": nst_b,
                   "agg_steps_per_s": nst_b / wall_b, "lanes_success": int((istate == C.SUCCESS).sum()),
                   "wrms_scale_1_lane_vs_single": wrms_mid, **krylov_counts(st)})
-    check(idas["bbd"].get_current_time() >= HEAT_TOUT, "bbd_heat2d: did not reach tout")
+    check(idas["bbd"].get_current_time() >= BBD_TOUT, "bbd_heat2d: did not reach tout")
     check(got["nps"] > 0 and got["nje"] == 0, f"bbd_heat2d: nps {got['nps']}, nje {got['nje']}")
     check(wrms_cpu < 1.0 and wrms_diag < 1.0, f"bbd_heat2d: WRMS {wrms_cpu}, {wrms_diag}")
     check(bool((istate == C.SUCCESS).all()), "bbd_heat2d: a batched lane is not SUCCESS")
@@ -2170,6 +2200,455 @@ def phase_sensitivity_lane() -> None:
     check(ic_err < 5e-4, f"adjoint through calc_ic vs differences: {ic_err}")
 
 
+# ---------- mixed precision, fast_math, slider-crank, stratified, scopes
+
+MIXED_MODES = ("single", "refined")
+HEAT_B_MIXED = 128  # bench.py heat2d_100x100_batched_mixed
+SLIDER_TEND, SLIDER_NOUT = 10.0, 20  # examples/slider_crank_torch.py
+# the example's CPU run (ida_tpu's examples/slider_crank.py prints the same)
+SLIDER_CPU = {"nst": 222, "ke_avg": 0.33366266}
+STRAT_CHUNKS = 4
+PROFILE_DIR = CHECKPOINT_DIR / "trace"
+
+
+def mixed_inputs(b: int):
+    """The headline's lanes, the last at the nominal parameters."""
+    params, yy0, yp0 = ensemble_inputs(b)
+    params[-1] = ROBERTS_PARAMS
+    yp0[-1] = ROBERTS_YP0
+    return params, yy0, yp0
+
+
+def run_mode(params, yy0, yp0, device, tout, opts: IdaOptions):
+    st = ensemble_init(roberts_factory, params, yy0, yp0, device=device, opts=opts)
+    tol = tol_sv(1e-4, ATOL, device=device)
+    return make_ensemble_solve(roberts_factory, opts)(st, params, tol, tout)
+
+
+def k1_launches() -> dict:
+    """``small_lu.LAUNCHES`` as "kernel_tag_nN" -> launches."""
+    return {f"{k}_{tag}_n{n}": c for (k, tag, n), c in sorted(small_lu.LAUNCHES.items())}
+
+
+def k1_times(a: torch.Tensor, b: torch.Tensor, sets: int, rounds: int) -> dict:
+    """K1's factor and solve on ``a`` [N, N, *lanes], ``b`` [N, *lanes]
+    (contiguous, one dtype): each bit for bit its plain version, its cold
+    device time (``sets`` input sets in turn, more bytes than the L2), the
+    plain version's back-to-back time, torch.linalg's cold device time on the
+    same systems batch-leading, and the bytes bound (each input read once,
+    each output written once)."""
+    n, es = a.shape[0], a.element_size()
+    m = b[0].numel()
+    f, g = small_lu.lu_factor(a), dense_lu.lu_factor_unrolled(a)
+    x, y = small_lu.lu_solve(f, b), dense_lu.lu_solve_unrolled(g, b)
+    torch.cuda.synchronize()
+    ok = {"factor": same(f.lu, g.lu) and same(f.piv, g.piv) and same(f.fail_col, g.fail_col),
+          "solve": same(x, y)}
+    errs = {"factor": float((f.lu - g.lu).abs().max()), "solve": float((x - y).abs().max())}
+    a_sets = [a.clone() for _ in range(sets)]
+    b_sets = [b.clone() for _ in range(sets)]
+    f_sets = [small_lu.lu_factor(v) for v in a_sets]
+    dev = {"factor": kernel_device_ms([lambda v=v: small_lu.lu_factor(v) for v in a_sets], rounds,
+                                      "factor_kernel"),
+           "solve": kernel_device_ms([lambda h=h, v=v: small_lu.lu_solve(h, v)
+                                      for h, v in zip(f_sets, b_sets)], rounds, "solve_kernel")}
+    plain = {"factor": cuda_ms(lambda: dense_lu.lu_factor_unrolled(a), 20),
+             "solve": cuda_ms(lambda: dense_lu.lu_solve_unrolled(g, b), 20)}
+    lead = [(v.reshape(n, n, m).permute(2, 0, 1).contiguous(),
+             w.reshape(n, m).t().contiguous().unsqueeze(-1)) for v, w in zip(a_sets, b_sets)]
+    f_lead = [torch.linalg.lu_factor_ex(v)[:2] for v, _ in lead]
+    lib = {"factor": call_device_ms([lambda v=v: torch.linalg.lu_factor_ex(v) for v, _ in lead],
+                                    rounds),
+           "solve": call_device_ms([lambda h=h, w=w: torch.linalg.lu_solve(h[0], h[1], w)
+                                    for h, (_, w) in zip(f_lead, lead)], rounds)}
+    nbytes = {"factor": 2 * n * n * m * es + n * m * 4 + m * 4,
+              "solve": n * n * m * es + n * m * 4 + 2 * n * m * es}
+    return {k: {"bitwise_equal": ok[k], "max_abs_err": errs[k], "ms": dev[k],
+                "plain_ms": plain[k], "bound_ms": lu_bound_ms(nbytes[k]), "bound_by": "bytes",
+                "library_ms": lib[k], "bytes": nbytes[k]} for k in ("factor", "solve")}
+
+
+def phase_kernels_modes() -> dict:
+    """K1 at the new shapes of this slice's paths, each against its plain
+    version: float32 N = 3 at B = 65,536 ("single" and "refined"), the
+    float32 N = 2 solve on the foodweb blocks in the layout the Krylov
+    "single" path hands it (the float64 factors cast to float32), and float64
+    N = 10 on one lane (slider-crank)."""
+    rng = np.random.default_rng(31)
+    a3 = torch.from_numpy(rng.normal(size=(3, 3, B)) + 3.0 * np.eye(3)[:, :, None])
+    b3 = torch.from_numpy(rng.normal(size=(3, B)))
+    # float32 N = 3: 32 sets (75 MB a factor pass) keep every launch cold
+    f32_n3 = k1_times(a3.to("cuda", torch.float32), b3.to("cuda", torch.float32), 32, 4)
+    a10 = torch.from_numpy(rng.normal(size=(10, 10, 1)) + 3.0 * np.eye(10)[:, :, None])
+    b10 = torch.from_numpy(rng.normal(size=(10, 1)))
+    f64_n10 = k1_times(a10.to("cuda"), b10.to("cuda"), 64, 4)
+
+    # float32 N = 2 on foodweb's blocks as prec_solve reads them under
+    # "single": factored in float64, cast with their strides kept
+    c0, _ = foodweb_ic(FOOD_M, FOOD_M)
+    yy = torch.from_numpy(np.outer(c0, np.linspace(0.95, 1.05, FOOD_B))).cuda()
+    cj = torch.from_numpy(1e3 * (1.0 + rng.random(FOOD_B))).cuda()
+    prob = foodweb_problem(FOOD_M, FOOD_M)
+    lu_view, piv_view = prob.prec_setup(0.0, cj, yy, torch.zeros_like(yy), torch.zeros_like(yy))
+    lu32 = lu_view.to(torch.float32)  # core/nls.py's cast: the strides kept
+    r = torch.from_numpy(rng.normal(size=(2 * FOOD_M * FOOD_M, FOOD_B))).cuda().float()
+    rb = r.reshape(FOOD_M * FOOD_M, 2, FOOD_B).movedim(1, 0)
+    # the views foodweb.prec_solve hands the solve
+    h = dense_lu.DenseLU(lu32.movedim((1, 2), (0, 1)), piv_view.movedim(1, 0), None)
+    x, y = small_lu.lu_solve(h, rb), dense_lu.lu_solve_unrolled(h, rb)
+    torch.cuda.synchronize()
+    n2_ok = same(x.contiguous(), y.contiguous())
+    layout = small_lu.solve_layout(h.lu, h.piv, rb, x).as_dict()
+    sets = [(dense_lu.DenseLU(h.lu.clone(memory_format=torch.preserve_format), h.piv, None),
+             rb.clone(memory_format=torch.preserve_format)) for _ in range(128)]
+    m = FOOD_M * FOOD_M * FOOD_B
+    n2 = {"bitwise_equal": n2_ok, "max_abs_err": float((x - y).abs().max()),
+          "ms": kernel_device_ms([lambda h=h, v=v: small_lu.lu_solve(h, v) for h, v in sets], 2,
+                                 "solve_kernel"),
+          "plain_ms": cuda_ms(lambda: dense_lu.lu_solve_unrolled(h, rb), 20),
+          "bound_ms": lu_bound_ms(4 * m * 4 + 2 * m * 4 + 4 * m * 4), "bound_by": "bytes",
+          "bytes": 4 * m * 4 + 2 * m * 4 + 4 * m * 4}
+    lead = [(v.lu.movedim((0, 1), (-2, -1)).reshape(m, 2, 2).contiguous(),
+             v.piv.movedim(0, -1).reshape(m, 2).contiguous() + 1,
+             w.movedim(0, -1).reshape(m, 2, 1).contiguous()) for v, w in sets[:64]]
+    n2["library_ms"] = call_device_ms([lambda t=t: torch.linalg.lu_solve(t[0], t[1], t[2])
+                                       for t in lead], 2)
+    del sets, lead
+    emit("kernels_modes", f32_n3=f32_n3, f64_n10=f64_n10, f32_n2_prec_solve=n2, n2_layout=layout)
+    for name, rows in (("f32 N=3", f32_n3), ("f64 N=10", f64_n10)):
+        check(all(v["bitwise_equal"] for v in rows.values()), f"K1 {name} != its plain version")
+    check(n2_ok, "K1 float32 N=2 solve != its plain version")
+    return {"f32_n3": f32_n3, "f64_n10": f64_n10, "f32_n2": n2}
+
+
+def phase_mixed_headline(eager: dict, k1: dict) -> dict:
+    """The headline (B = 65,536, tout 400, f64 state) under ls_precision
+    "single" and "refined": K1's float32 factor and solve at N = 3, the
+    lu carry in float32; the first and the nominal lane against the port's
+    CPU run of those lanes, counter for counter."""
+    params, yy0, yp0 = mixed_inputs(B)
+    lanes = [0, B - 1]
+    # walls in turns with the full mode in this phase: full, single,
+    # refined, refined, single, full; counts and results from the first of
+    # each
+    walls, res, counts = {m: [] for m in ("full",) + MIXED_MODES}, {}, {}
+    for mode in ("full",) + MIXED_MODES + MIXED_MODES[::-1] + ("full",):
+        opts = IdaOptions(ls_precision=mode)
+        small_lu.reset_launch_counts()
+        walls[mode].append(wall_s(lambda: res.setdefault(mode, []).append(
+            run_mode(params, yy0, yp0, "cuda", TOUT, opts))))
+        counts.setdefault(mode, k1_launches())
+    full_nst = int(res["full"][0][0].nst.sum())
+    out = {}
+    for mode in MIXED_MODES:
+        opts = IdaOptions(ls_precision=mode)
+        wall = min(walls[mode])
+        launches = counts[mode]
+        st, tret, ist = res[mode][0]
+        totals = {f: int(getattr(st, f).sum()) for f in COUNTERS}
+        n_ok = int((ist == C.SUCCESS).sum())
+        sc, _, ic = run_mode(params[lanes], yy0[lanes], yp0[lanes], "cpu", TOUT, opts)
+        card = {f: getattr(st, f)[lanes].cpu().tolist() for f in COUNTERS}
+        cpu = {f: getattr(sc, f).tolist() for f in COUNTERS}
+        lu_bytes = st.lu.numel() * st.lu.element_size()
+        # the device's busy share over one more internal step of every lane
+        native = to_native(st)
+        prob = roberts_factory(torch.as_tensor(params, device="cuda").t().contiguous())
+        tol = _native_shared_tol(tol_sv(1e-4, ATOL, device="cuda"), native)
+        busy = device_busy(lambda: core_solve(native, prob, opts, tol, 4.0e3, TASK_ONE_STEP),
+                           calls=3)
+        out[mode] = {"wall_s": wall, "launches": launches}
+        emit("mixed_headline", mode=mode, batch=B, tout=TOUT, wall_s=wall, walls_s=walls[mode],
+             walls_full_s=walls["full"], wall_vs_full=wall / min(walls["full"]),
+             nst_full=full_nst, eager_headline_wall_s=eager["wall_s"],
+             steps_per_s=totals["nst"] / wall,
+             lanes_success=n_ok, **totals, k1_launches=launches, lu_dtype=str(st.lu.dtype),
+             lu_carry_bytes=lu_bytes, lu_carry_bytes_f64=2 * lu_bytes, lanes_checked=lanes,
+             card_counters=card, cpu_counters=cpu, k1_f32_n3=k1["f32_n3"],
+             busy_window="one step from the end state", **busy)
+        check(n_ok == B, f"mixed_headline {mode}: {B - n_ok} lanes not SUCCESS")
+        check(bool(torch.isfinite(st.yy).all()), f"mixed_headline {mode}: yy not finite")
+        check(st.lu.dtype == torch.float32, f"mixed_headline {mode}: lu is {st.lu.dtype}")
+        check(launches.get("factor_f32_n3", 0) > 0 and launches.get("solve_f32_n3", 0) > 0,
+              f"mixed_headline {mode}: K1 float32 not launched: {launches}")
+        check(not any("f64" in k for k in launches),
+              f"mixed_headline {mode}: a float64 LU launched: {launches}")
+        check(card == cpu, f"mixed_headline {mode}: lanes {lanes} {card} != CPU {cpu}")
+    return out
+
+
+def phase_fast_f64(eager: dict) -> dict:
+    """The headline with fast_math (bench.py's fast_f64 leg), timed in turns
+    with the parity headline in this process (parity, fast, fast, parity):
+    every lane within rtol 1e-3 / atol 1e-10 of parity; the canonical lane
+    over 12 decades within check_ans."""
+    params, yy0, yp0 = ensemble_inputs(B)
+    walls, res = {"parity": [], "fast": []}, {}
+    for mode in ("parity", "fast", "fast", "parity"):
+        opts = IdaOptions(fast_math=mode == "fast")
+        small_lu.reset_launch_counts()
+        walls[mode].append(wall_s(lambda: res.update({mode: run_mode(params, yy0, yp0, "cuda",
+                                                                      TOUT, opts)})))
+        if mode == "fast":
+            launches = lu_launches()
+    (sf, _, i_f), (sp, _, i_p) = res["fast"], res["parity"]
+    n_ok = int(((i_f == C.SUCCESS) & (i_p == C.SUCCESS)).sum())
+    excess = ((sf.yy - sp.yy).abs() - (1e-3 * sp.yy.abs() + 1e-10)).max()
+    rel = ((sf.yy - sp.yy).abs() / sp.yy.abs().clamp(min=1e-300)).amax(dim=0).tolist()
+    nst_f, nst_p = int(sf.nst.sum()), int(sp.nst.sum())
+    # the canonical lane over 12 decades
+    opts = IdaOptions(fast_math=True)
+    tol = tol_sv(1e-4, ATOL, device="cuda")
+    solve = make_ensemble_solve(roberts_factory, opts)
+    st = ensemble_init(roberts_factory, ROBERTS_PARAMS[None], ROBERTS_YY0[None], ROBERTS_YP0[None],
+                       device="cuda", opts=opts)
+    nst_dec = []
+    for k in range(12):
+        st, tret, istate = solve(st, ROBERTS_PARAMS[None], tol, 0.4 * 10**k)
+        check(int(istate[0]) == C.SUCCESS, f"fast_f64 canonical decade {k}: {int(istate[0])}")
+        nst_dec.append(int(st.nst[0]))
+    err = check_ans_wrms(st.yy[0].cpu().numpy())
+    emit("fast_f64", batch=B, tout=TOUT, walls_fast_s=walls["fast"], walls_parity_s=walls["parity"],
+         steps_per_s_fast=nst_f / min(walls["fast"]), steps_per_s_parity=nst_p / min(walls["parity"]),
+         nst_fast=nst_f, nst_parity=nst_p, lanes_success=n_ok,
+         lanes_nst_differ=int((sf.nst != sp.nst).sum()), max_excess_over_tol=float(excess),
+         max_rel_diff_per_component=rel, lu_launches=launches, canonical_nst_per_decade=nst_dec,
+         canonical_check_ans_wrms=err, eager_parity_wall_s=eager["wall_s"])
+    check(n_ok == B, f"fast_f64: {B - n_ok} lanes not SUCCESS")
+    check(float(excess) <= 0.0, f"fast_f64: a lane beyond rtol 1e-3 / atol 1e-10 of parity: {excess}")
+    check(err < 1.0, f"fast_f64: canonical lane check_ans WRMS {err}")
+    check(launches["factor"] > 0 and launches["solve"] > 0, f"fast_f64: LU kernels {launches}")
+    return {"launches": launches}
+
+
+def phase_heat2d_mixed() -> None:
+    """heat2d 100 x 100 under ls_precision "single": one lane through IDA with
+    CGS2 (bench.py's heat2d_100x100_spgmr_mixed) and with a bfloat16 basis,
+    each against the port's CPU run of the same solve; then B = 128
+    batch-native (heat2d_100x100_batched_mixed), lane 0 against its CPU run.
+    The counters are printed beside the CPU's, and the gate is the WRMS of
+    the difference under the CPU state's weights below 10, the bound
+    ``ida_tpu``'s tests/test_mixed_precision.py sets between two runs of
+    one problem on different step sequences (a broken float32 solve gives
+    100+): the eager path's ``pow`` is CUDA's on the card and the C
+    library's on the CPU (``utils/numerics``), and one ulp of the step
+    ratio after an error-test failure (hh at step 99 of the "single" MGS
+    run, found by replaying that step on both) parts the step sequences."""
+    u0, up0 = heat2d_ic(HEAT_M)
+    tol = (1e-5, 1e-8)
+    legs = {"single_cgs2": dict(ls_precision="single", krylov_gs="classical"),
+            "single_bf16": dict(ls_precision="single", krylov_storage="bfloat16")}
+    for name, kw in legs.items():
+        opts = IdaOptions(linear_solver="spgmr", mxstep=20000, **kw)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            ida = IDA(heat2d_problem(HEAT_M, device=dev), u0, up0, tol_ss(*tol, device=dev), opts,
+                      device=dev)
+            runs[dev] = (wall_s(lambda: ida.solve(HEAT_TOUT)) if dev == "cuda"
+                         else _host_wall(lambda: ida.solve(HEAT_TOUT)), krylov_counts(ida.state),
+                         ida.state.yy.cpu())
+        (wall, got, yy), (cpu_wall, cpu, yc) = runs["cuda"], runs["cpu"]
+        wrms = wrms_card_vs_cpu(yy, yc, *tol)
+        emit("heat2d_mixed", leg=name, grid=f"{HEAT_M}x{HEAT_M}", tout=HEAT_TOUT, wall_s=wall,
+             steps_per_s=got["nst"] / wall, **got, cpu=cpu, cpu_wall_s=cpu_wall,
+             counters_equal_cpu=got == cpu, wrms_card_vs_cpu=wrms)
+        check(bool(torch.isfinite(yy).all()), f"heat2d_mixed {name}: yy not finite")
+        check(wrms < 10.0, f"heat2d_mixed {name}: card vs CPU WRMS {wrms}")
+
+    prob = heat2d_problem(HEAT_M)
+    opts = IdaOptions(linear_solver="spgmr", mxstep=20000, ls_precision="single")
+    scales = np.linspace(0.9, 1.1, HEAT_B_MIXED)
+    st0 = to_native(ensemble_init(lambda p: prob, scales[:, None], u0[None] * scales[:, None],
+                                  up0[None] * scales[:, None], opts=opts))
+    res = {}
+    wall = wall_s(lambda: res.update(r=core_solve(st0, prob, opts, tol_ss(*tol), HEAT_TOUT)))
+    st, tret, istate = res["r"]
+    prob_c = heat2d_problem(HEAT_M, device="cpu")
+    s1 = to_native(ensemble_init(lambda p: prob_c, scales[:1, None], u0[None] * scales[0],
+                                 up0[None] * scales[0], opts=opts, device="cpu"))
+    sc, _, _ = core_solve(s1, prob_c, opts, tol_ss(*tol, device="cpu"), HEAT_TOUT)
+    lane0 = {f: int(getattr(st, f)[0]) for f in KRYLOV}
+    cpu0 = {f: int(getattr(sc, f)[0]) for f in KRYLOV}
+    wrms = wrms_card_vs_cpu(st.yy[:, 0].cpu(), sc.yy[:, 0], *tol)
+    nst = int(st.nst.sum())
+    emit("heat2d_mixed", leg="batched_single", grid=f"{HEAT_M}x{HEAT_M}", batch=HEAT_B_MIXED,
+         tout=HEAT_TOUT, wall_s=wall, total_steps=nst, agg_steps_per_s=nst / wall,
+         **krylov_counts(st), lanes_success=int((istate == C.SUCCESS).sum()), lane0=lane0,
+         lane0_cpu=cpu0, lane0_counters_equal_cpu=lane0 == cpu0, lane0_wrms_card_vs_cpu=wrms)
+    check(bool((istate == C.SUCCESS).all()), "heat2d_mixed batched: a lane is not SUCCESS")
+    check(wrms < 10.0, f"heat2d_mixed batched: lane 0 card vs CPU WRMS {wrms}")
+
+
+def wrms_card_vs_cpu(yy: torch.Tensor, yc: torch.Tensor, rtol: float, atol: float) -> float:
+    """WRMS of the card's state against the CPU's under the CPU state's
+    error weights."""
+    w = 1.0 / (rtol * yc.abs() + atol)
+    return float(torch.sqrt(torch.mean(((yy.to(yc.dtype) - yc) * w) ** 2)))
+
+
+def _host_wall(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def phase_foodweb_mixed() -> dict:
+    """foodweb 20 x 20, B = 128, Krylov "single" (bench.py's
+    foodweb_20x20_batched_mixed): batch-native calc_ic and four legs; the
+    preconditioner's solve is K1's float32 solve at N = 2 (its factor stays
+    float64: prec_setup runs in the state's dtype), one launch and no copy
+    a prec_solve (profiled in a fresh process)."""
+    c0, cp0 = foodweb_ic(FOOD_M, FOOD_M)
+    prob = foodweb_problem(FOOD_M, FOOD_M)
+    opts = dataclasses.replace(foodweb_opts(), ls_precision="single")
+    tol = tol_ss(1e-5, 1e-5)
+    ids = prob.id.cpu().numpy()
+    scales = np.linspace(0.95, 1.05, FOOD_B)
+    c0b = np.stack([c0 * np.where(ids, s, 1.0) for s in scales])
+    st = to_native(ensemble_init(lambda p: prob, scales[:, None], c0b, np.tile(cp0, (FOOD_B, 1)),
+                                 opts=opts))
+    small_lu.reset_launch_counts()
+    out = {}
+    ic_wall = wall_s(lambda: out.update(ic=core_calc_ic(st, prob, opts, tol, IC_YA_YDP_INIT,
+                                                        FOOD_TOUTS[0])))
+    st, ok = out["ic"]
+    ists = []
+
+    def legs():
+        nonlocal st
+        for t in FOOD_TOUTS:
+            st, _, ist = core_solve(st, prob, opts, tol, t)
+            ists.append(ist)
+
+    wall = wall_s(legs)
+    launches = k1_launches()
+    nst = int(st.nst.sum())
+    lanes_ok = int((ok & torch.stack(ists).eq(C.SUCCESS).all(dim=0)).sum())
+    prec = kernel_variants.prec_solve_events(str(Path(__file__).resolve().parent), "float32")
+    emit("foodweb_mixed", grid=f"{FOOD_M}x{FOOD_M}", batch=FOOD_B, calc_ic_wall_s=ic_wall,
+         legs_wall_s=wall, total_steps=nst, agg_steps_per_s=nst / wall, **krylov_counts(st),
+         lanes_ok=lanes_ok, k1_launches=launches, prec_solve_f32=prec,
+         predator_ratio_err_end=predator_ratio_err(st.yy.t().cpu().numpy()))
+    check(lanes_ok == FOOD_B, f"foodweb_mixed: {FOOD_B - lanes_ok} lanes not ok and SUCCESS")
+    check(launches.get("solve_f32_n2", 0) > 0, f"foodweb_mixed: no float32 N=2 solve: {launches}")
+    names = list(prec["kernels"])
+    check(prec["calls_recorded"] > 0 and len(names) == 1 and "solve_kernel" in names[0]
+          and "float" in names[0],
+          f"foodweb_mixed: a float32 prec_solve is not one K1 solve and nothing else: {prec}")
+    return {"launches": launches}
+
+
+def phase_slider_crank() -> dict:
+    """examples/slider_crank_torch.py on the card: 20 outputs to t = 10, the
+    kinetic energy as a quadrature; the AD Jacobian factored by K1 at N = 10
+    every lsetup."""
+    base = slider_crank_problem()
+    prob = dataclasses.replace(
+        base, quad=lambda t, yy, yp: torch.stack([0.5 * (yy[3] * yy[3] + yy[4] * yy[4]
+                                                         + 2.0 * yy[5] * yy[5])]), nquad=1)
+    yy0, yp0 = slider_crank_ic()
+    ida = IDA(prob, yy0, yp0, tol_ss(1e-6, 1e-6), IdaOptions(mxstep=100000, suppressalg=True))
+    small_lu.reset_launch_counts()
+    statuses = []
+    wall = wall_s(lambda: statuses.extend(
+        ida.solve(float(t))[1].name for t in np.linspace(SLIDER_TEND / SLIDER_NOUT, SLIDER_TEND,
+                                                         SLIDER_NOUT)))
+    launches = k1_launches()
+    y = ida.get_yy()
+    gnorm = float(np.hypot(y[1] - np.cos(y[2]) - 0.5 * np.cos(y[0]), -np.sin(y[2]) - 0.5 * np.sin(y[0])))
+    ke = float(ida.get_quad()[0]) / SLIDER_TEND
+    nst = ida.get_num_steps()
+    emit("slider_crank", tend=SLIDER_TEND, outputs=SLIDER_NOUT, wall_s=wall, steps_per_s=nst / wall,
+         nst=nst, nre=ida.get_num_res_evals(), nje=ida.get_num_jac_evals(),
+         netf=ida.get_num_err_test_fails(), ke_avg=ke, position_constraint=gnorm,
+         k1_launches=launches, cpu_example=SLIDER_CPU)
+    check(statuses == ["Success"] * SLIDER_NOUT, f"slider_crank: {statuses}")
+    check(gnorm < 1e-7, f"slider_crank: the position constraint drifted: {gnorm}")
+    check(abs(ke - SLIDER_CPU["ke_avg"]) < 1e-5, f"slider_crank: mean KE {ke}")
+    check(launches.get("factor_f64_n10", 0) >= ida.get_num_jac_evals() > 0
+          and launches.get("solve_f64_n10", 0) > 0, f"slider_crank: K1 N=10 {launches}")
+    return {"launches": launches}
+
+
+def phase_stratified() -> None:
+    """The headline's lanes spread over two decades of rates and shuffled:
+    pilot_cost at 0.4, make_stratified_solve in 4 chunks against the plain
+    solve, bit for bit in every lane and field, walls side by side."""
+    scale = np.logspace(-1.0, 1.0, B)[np.random.default_rng(11).permutation(B)]
+    params = np.outer(scale, ROBERTS_PARAMS)
+    yy0 = np.tile(ROBERTS_YY0, (B, 1))
+    yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
+    tol = tol_sv(1e-4, ATOL, device="cuda")
+    st0 = ensemble_init(roberts_factory, params, yy0, yp0)
+    out = {}
+    pilot = wall_s(lambda: out.update(key=pilot_cost(roberts_factory, st0, params, tol, 0.4)))
+    strat = make_stratified_solve(roberts_factory, n_chunks=STRAT_CHUNKS)
+    plain = make_ensemble_solve(roberts_factory)
+    walls = {"plain": [], "stratified": []}
+    for name in ("plain", "stratified", "stratified", "plain"):
+        fn = (lambda: out.update(s=strat(st0, params, tol, TOUT, out["key"]))) if name == "stratified" \
+            else (lambda: out.update(p=plain(st0, params, tol, TOUT)))
+        walls[name].append(wall_s(fn))
+    (ss, ts, is_), (sp, tp, ip) = out["s"], out["p"]
+    differ = [f for f in sp._fields if isinstance(getattr(sp, f), torch.Tensor)
+              and not same(getattr(ss, f), getattr(sp, f))]
+    nst = sp.nst.cpu().numpy()
+    order = np.argsort(out["key"].cpu().numpy(), kind="stable")
+    chunk_max = [int(x.max()) for x in np.array_split(nst[order], STRAT_CHUNKS)]
+    emit("stratified", batch=B, chunks=STRAT_CHUNKS, rate_spread="logspace(-1, 1)",
+         pilot_wall_s=pilot, walls_plain_s=walls["plain"], walls_stratified_s=walls["stratified"],
+         total_steps=int(nst.sum()), max_lane_steps=int(nst.max()), chunk_max_steps=chunk_max,
+         lanes_success=int((ip == C.SUCCESS).sum()), fields_differ=differ)
+    check(not differ and same(ts, tp) and same(is_, ip),
+          f"stratified: not bit for bit the plain solve: {differ}")
+    check(bool((ip == C.SUCCESS).all()), "stratified: a lane is not SUCCESS")
+
+
+def phase_profile_scopes(eager: dict) -> None:
+    """The headline under utils.profiling.profile: per ida.<name> scope its
+    calls, host ms, the device ms of the kernels launched inside it and the
+    span it covers on the device's timeline; and what the scopes cost on the
+    headline's wall without a profiler (ENABLED on and off in turns, two
+    rounds)."""
+    params, yy0, yp0 = ensemble_inputs(B)
+    walls = {True: [], False: []}
+    try:
+        for on in (True, False, False, True):
+            profiling.ENABLED = on
+            walls[on].append(wall_s(lambda: run_ensemble(params, yy0, yp0, "cuda", TOUT)))
+    finally:
+        profiling.ENABLED = True
+    with profiling.profile(str(PROFILE_DIR)) as prof:
+        wall = wall_s(lambda: run_ensemble(params, yy0, yp0, "cuda", TOUT))
+    check(prof is not None, "profile_scopes: the profiler did not start")
+    scopes = {}
+    averages = prof.key_averages()  # digesting a window this long takes most of a minute
+    for e in averages:
+        if not e.key.startswith("ida."):
+            continue
+        row = scopes.setdefault(e.key, {})
+        dev = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            row["device_span_ms"] = dev  # the range the profiler lays on the device
+        else:
+            row.update(calls=e.count, host_ms=e.cpu_time_total / 1e3, device_ms=dev)
+    dev_total = sum(e.self_device_time_total for e in device_activities(averages)) / 1e3
+    emit("profile_scopes", batch=B, tout=TOUT, profiled_wall_s=wall, device_ms=dev_total,
+         scopes=scopes, walls_scopes_on_s=walls[True], walls_scopes_off_s=walls[False],
+         scope_cost_share_of_min=(min(walls[True]) - min(walls[False])) / min(walls[False]),
+         scope_cost_share_of_median=(statistics.median(walls[True])
+                                     - statistics.median(walls[False]))
+         / statistics.median(walls[False]),
+         trace=str(PROFILE_DIR / "trace.json"))
+    check(len(scopes) > 0, "profile_scopes: the trace holds no ida.<name> scope")
+    check({"ida.step.attempt", "ida.nonlinear_solve", "ida.lsetup"} <= set(scopes),
+          f"profile_scopes: scopes missing: {sorted(scopes)}")
+    check(all("host_ms" in v for v in scopes.values()),
+          f"profile_scopes: a scope without its host event: {scopes}")
+    check(scopes["ida.step.attempt"].get("device_ms", 0.0) > 0.0,
+          "profile_scopes: no device time inside ida.step.attempt")
+
+
 def timed(phase, *args):
     """Run a phase and print how long it took."""
     t0 = time.perf_counter()
@@ -2210,6 +2689,14 @@ def main() -> None:
     timed(phase_band_heat2d)
     timed(phase_band_factor_100)
     timed(phase_bbd_heat2d)
+    k1_modes = timed(phase_kernels_modes)
+    mixed = timed(phase_mixed_headline, eager, k1_modes)
+    fast = timed(phase_fast_f64, eager)
+    timed(phase_heat2d_mixed)
+    food_m = timed(phase_foodweb_mixed)
+    slider = timed(phase_slider_crank)
+    timed(phase_stratified)
+    timed(phase_profile_scopes, eager)
 
     # "launches" is the count of the eager headline (phase slice) for the LU
     # kernels and of the fused headline for the solve kernel; the counts of
@@ -2224,6 +2711,7 @@ def main() -> None:
          "launches_checkpoint_resume": resume["lu_launches"][k],
          "launches_adjoint_batched": adj["launches"][k],
          "launches_adjoint_continuous": adj_c["launches"][k],
+         "launches_fast_f64": fast["launches"][k],
          "max_abs_err": lu[k]["max_abs_err"], "ms": lu[k]["ms"],
          "plain_ms": lu[k]["plain_ms"], "bound_ms": lu[k]["bound_ms"], "bound_by": "bytes",
          "library_ms": lu[k]["library_ms"]}
@@ -2244,6 +2732,24 @@ def main() -> None:
          "launches_foodweb_batched": food_b["launches"][k], **n2[k]}
         for k in ("factor", "solve")
     ]
+    # K1 at this slice's new shapes: float32 N = 3 (the mixed_headline's
+    # "single" run, its "refined" run beside it), the float32 N = 2 solve of
+    # foodweb_mixed, and float64 N = 10 on slider-crank's one lane
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for k in ("factor", "solve"):
+        rows.append({"name": f"small_lu_{k}_f32_n3", "route": "cuda", "source": LU_SOURCE,
+                     "replaces": LU_REPLACES,
+                     "launches": mixed["single"]["launches"].get(f"{k}_f32_n3", 0),
+                     "launches_refined": mixed["refined"]["launches"].get(f"{k}_f32_n3", 0),
+                     **{x: k1_modes["f32_n3"][k][x] for x in keep}})
+    rows.append({"name": "small_lu_solve_f32_n2_foodweb", "route": "cuda", "source": LU_SOURCE,
+                 "replaces": LU_REPLACES, "launches": food_m["launches"].get("solve_f32_n2", 0),
+                 **{x: k1_modes["f32_n2"][x] for x in keep}})
+    for k in ("factor", "solve"):
+        rows.append({"name": f"small_lu_{k}_n10_slider_crank", "route": "cuda",
+                     "source": LU_SOURCE, "replaces": LU_REPLACES,
+                     "launches": slider["launches"].get(f"{k}_f64_n10", 0),
+                     **{x: k1_modes["f64_n10"][k][x] for x in keep}})
     rows.append({"name": "fused_solve", "route": "cuda", "source": FUSED_SOURCE,
                  "replaces": REPLACES["fused_solve"], "launches": fused["launches"],
                  "launches_dense_slice_scan_form": dense["scan_form_launches"],

@@ -8,6 +8,11 @@ row is the reference's, in its order.
 
 ``mask``: lanes with mask=False pass through bit for bit, so a self-masked
 loop body needs no full-state merge afterwards.
+
+``fast_math`` (``IdaOptions.fast_math``, not C-parity): phi stays unscaled
+in the state; :func:`phi_star_scale` gives the phi -> phi-star row factors
+that :func:`predict`, the error test and ``complete_step`` fold in, and
+:func:`restore` has no phi to un-scale.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 from .. import constants as C
 from ..utils.ad_mode import smask_den
 from ..utils.numerics import sum0
+from ..utils.profiling import scope
 from ..utils.tree import take1
 from .state import IdaState
 
@@ -35,9 +41,20 @@ def _ones_mask(state: IdaState) -> torch.Tensor:
     return torch.ones(state.tn.shape, dtype=torch.bool, device=state.tn.device)
 
 
-def set_coeffs(state: IdaState, mask: torch.Tensor | None = None) -> Tuple[IdaState, torch.Tensor]:
+def phi_star_scale(state: IdaState) -> torch.Tensor:
+    """The phi -> phi-star row scale of fast_math: beta on rows ns..kk,
+    exactly 1 elsewhere ([K1, *batch])."""
+    idx = kidx(state)
+    sel = (idx >= state.ns) & (idx <= state.kk)
+    return torch.where(sel, state.beta, torch.ones_like(state.beta))
+
+
+@scope("set_coeffs")
+def set_coeffs(state: IdaState, mask: torch.Tensor | None = None,
+               fast_math: bool = False) -> Tuple[IdaState, torch.Tensor]:
     """Method coefficients for the current (hh, kk); returns (state, ck)
-    with ck the variable-stepsize error coefficient."""
+    with ck the variable-stepsize error coefficient. ``fast_math`` leaves
+    phi unscaled (module doc)."""
     dtype = state.dtype
     kk = state.kk
     if mask is None:
@@ -90,9 +107,13 @@ def set_coeffs(state: IdaState, mask: torch.Tensor | None = None) -> Tuple[IdaSt
     ck = torch.abs(alpha_kk + alphas - alpha0)
     ck = torch.maximum(ck, alpha_kk)
 
-    # phi -> phi-star: scale rows ns..kk by beta (src/lib.rs:766-779)
-    scale_row = (idx >= ns) & (idx <= kk) & mask
-    phi = state.phi * torch.where(scale_row, beta, torch.ones_like(beta)).unsqueeze(1)
+    # phi -> phi-star: scale rows ns..kk by beta (src/lib.rs:766-779);
+    # fast_math defers the multiply into the consumers (phi_star_scale)
+    if fast_math:
+        phi = state.phi
+    else:
+        scale_row = (idx >= ns) & (idx <= kk) & mask
+        phi = state.phi * torch.where(scale_row, beta, torch.ones_like(beta)).unsqueeze(1)
 
     state = state._replace(
         ns=ns, psi=psi, alpha=alpha, beta=beta, sigma=sigma, gamma=gamma,
@@ -101,12 +122,20 @@ def set_coeffs(state: IdaState, mask: torch.Tensor | None = None) -> Tuple[IdaSt
     return state, ck
 
 
-def predict(state: IdaState, mask: torch.Tensor | None = None) -> IdaState:
+@scope("predict")
+def predict(state: IdaState, mask: torch.Tensor | None = None,
+            fast_math: bool = False) -> IdaState:
     """yypredict = sum_{j<=kk} phi[j], yppredict = sum_{1<=j<=kk} gamma[j]
-    phi[j] (src/lib.rs:894-959)."""
+    phi[j] (src/lib.rs:894-959). ``fast_math``: phi is unscaled, and
+    :func:`phi_star_scale` goes into the row coefficients (the yy sum is the
+    same bit for bit; the yp sum multiplies phi by (beta * gamma))."""
     idx = kidx(state)
     yy_mask = (idx <= state.kk).to(state.dtype)
     yp_coef = torch.where((idx >= 1) & (idx <= state.kk), state.gamma, torch.zeros_like(state.gamma))
+    if fast_math:
+        s = phi_star_scale(state)
+        yy_mask = yy_mask * s
+        yp_coef = yp_coef * s
     yypredict = sum0(state.phi * yy_mask.unsqueeze(1))
     yppredict = sum0(state.phi * yp_coef.unsqueeze(1))
     if mask is not None:
@@ -115,21 +144,29 @@ def predict(state: IdaState, mask: torch.Tensor | None = None) -> IdaState:
     return state._replace(yypredict=yypredict, yppredict=yppredict)
 
 
-def restore(state: IdaState, saved_t: torch.Tensor, mask: torch.Tensor | None = None) -> IdaState:
+@scope("restore")
+def restore(state: IdaState, saved_t: torch.Tensor, mask: torch.Tensor | None = None,
+            fast_math: bool = False) -> IdaState:
     """Undo a failed step attempt: restore tn and psi, un-scale phi-star back
-    to phi (src/lib.rs:1044-1083)."""
+    to phi (src/lib.rs:1044-1083). ``fast_math``: phi was never scaled and
+    is left as it is."""
     idx = kidx(state)
     if mask is None:
         mask = _ones_mask(state)
     # psi[j-1] = psi[j] - hh for j = 1..kk
     shifted = torch.roll(state.psi, -1, dims=0) - state.hh
     psi = torch.where((idx < state.kk) & mask, shifted, state.psi)
-    # phi rows ns..kk multiplied by 1/beta
-    unscale = (idx >= state.ns) & (idx <= state.kk) & mask
-    phi = state.phi * torch.where(unscale, 1.0 / smask_den(state.beta), torch.ones_like(state.beta)).unsqueeze(1)
+    if fast_math:
+        phi = state.phi
+    else:
+        # phi rows ns..kk multiplied by 1/beta
+        unscale = (idx >= state.ns) & (idx <= state.kk) & mask
+        phi = state.phi * torch.where(unscale, 1.0 / smask_den(state.beta),
+                                      torch.ones_like(state.beta)).unsqueeze(1)
     return state._replace(tn=torch.where(mask, saved_t, state.tn), psi=psi, phi=phi)
 
 
+@scope("reset")
 def reset(state: IdaState, mask: torch.Tensor | None = None) -> IdaState:
     """nst == 0 re-prediction: psi[0] = hh, phi[1] *= rr — C ``IDAReset``
     semantics (only the h-scaled derivative row; the reference's scaling of

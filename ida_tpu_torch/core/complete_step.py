@@ -14,13 +14,16 @@ import torch
 from .. import constants as C
 from ..problem import IdaProblem
 from ..utils.ad_mode import smask_den, spow
+from ..utils.profiling import scope
 from ..utils.tree import take_row
+from .coeffs import phi_star_scale
 from .error_test import _norm
 from .state import IdaOptions, IdaState
 
 _LOWER, _MAINTAIN, _RAISE = 0, 1, 2
 
 
+@scope("complete_step")
 def complete_step(
     state: IdaState,
     problem: IdaProblem,
@@ -108,14 +111,18 @@ def complete_step(
     # ONE phi construction for both updates (each row is touched by exactly
     # one): save ee into phi[kused+1] for a possible order raise
     # (impl_complete_step.rs:152-156), and the recurrence walking rows
-    # kused..0 (:158-176): tmp = ee; tmp += phi[j]; phi[j] = tmp
+    # kused..0 (:158-176): tmp = ee; tmp += phi[j]; phi[j] = tmp. Under
+    # fast_math phi holds unscaled rows: the recurrence takes the phi-star
+    # value phi[j] * s[j] (the one rounding the parity mode's set_coeffs
+    # makes) and writes true phi rows
     phi = state.phi
+    s = phi_star_scale(state) if opts.fast_math else None
     save = (kused < opts.maxord) & mask
     tmp = state.ee
     rows = []
     for j in range(C.MXORDP1 - 1, -1, -1):
         active = (kused >= j) & mask
-        new_tmp = tmp + phi[j]
+        new_tmp = tmp + (phi[j] * s[j].unsqueeze(0) if opts.fast_math else phi[j])
         row = torch.where(active, new_tmp, phi[j])
         row = torch.where(save & (kused + 1 == j), state.ee, row)
         tmp = torch.where(active, new_tmp, tmp)

@@ -13,7 +13,9 @@ import torch
 
 from ..norms import wrms_norm_bnd
 from ..problem import IdaProblem
+from ..utils.profiling import scope
 from ..utils.tree import take1, take_row
+from .coeffs import phi_star_scale
 from .state import IdaOptions, IdaState
 
 
@@ -30,6 +32,7 @@ def _norm(state: IdaState, problem: IdaProblem, opts: IdaOptions, x: torch.Tenso
     return wrms_norm_bnd(x, state.ewt, problem.n, state.tn.dim(), mask)
 
 
+@scope("error_test")
 def error_test(
     state: IdaState,
     problem: IdaProblem,
@@ -43,8 +46,14 @@ def error_test(
     km2 = (kk - 2).clamp(min=0)
 
     # error estimate vectors at orders k, k-1, k-2 (src/lib.rs:982-1007)
-    delta1 = take_row(state.phi, kk) + state.ee
-    delta2 = delta1 + take_row(state.phi, km1)
+    row_k, row_km1 = take_row(state.phi, kk), take_row(state.phi, km1)
+    if opts.fast_math:
+        # phi is unscaled: the two picked rows take their phi-star scale
+        s = phi_star_scale(state)
+        row_k = row_k * take1(s, kk).unsqueeze(0)
+        row_km1 = row_km1 * take1(s, km1).unsqueeze(0)
+    delta1 = row_k + state.ee
+    delta2 = delta1 + row_km1
     enorm_k = _norm(state, problem, opts, state.ee)
     enorm_km1 = _norm(state, problem, opts, delta1)
     enorm_km2 = _norm(state, problem, opts, delta2)

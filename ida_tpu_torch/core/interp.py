@@ -15,6 +15,7 @@ import torch
 from .. import constants as C
 from ..utils.ad_mode import smask_den
 from ..utils.numerics import sum0
+from ..utils.profiling import scope
 from .coeffs import kidx
 from .state import IdaState
 
@@ -32,6 +33,7 @@ def check_t_legal(state: IdaState, t: torch.Tensor) -> torch.Tensor:
     return (t - tp) * state.hh >= 0.0
 
 
+@scope("get_solution.interpolate")
 def interpolate(state: IdaState, t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(yy, yp) at t from phi/psi without legality checks; the cvals/dvals
     recurrences (src/lib.rs:1301-1314) unrolled to the static order bound."""
@@ -73,6 +75,7 @@ def get_solution(state: IdaState, t: torch.Tensor) -> Tuple[IdaState, torch.Tens
     return state._replace(yy=yy, yp=yp), ok
 
 
+@scope("get_dky")
 def get_dky(state: IdaState, t: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """k-th derivative of the interpolating polynomial at t (reference
     src/lib.rs:424-529, with C IDAGetDky's index bounds, not the reference's

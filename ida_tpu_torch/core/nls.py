@@ -15,7 +15,17 @@ residual with the problem's preconditioner. After the Newton loops the
 inequality-constraints block (C IDA ``IDANls``) checks the new iterate of
 every lane whose ``constraints_set`` is on: a small violation is pulled
 back inside, a large one fails the attempt with REC_CONSTRAINT and the
-step ratio ``rr`` it asks for. The mixed-precision modes are not ported.
+step ratio ``rr`` it asks for.
+
+The mixed-precision modes (``IdaOptions.ls_precision``, ``ida_tpu``'s
+``core/nls.py:123-316``): under "single" the dense and band Jacobians are
+evaluated on float32 arguments (with a trailing cast, against a problem
+whose captured float64 parameters promote), factored and solved in float32
+(K1's float32 kernels on the card), and the Krylov iteration runs wholly in
+float32; under "refined" the dense Jacobian is evaluated in the state's
+dtype and factored in float32, and every solve takes one refinement step
+against that Jacobian applied as a jvp of the residual at the saved lsetup
+point. ``krylov_storage="bfloat16"`` stores the GMRES basis in bfloat16.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.autograd import forward_ad
 
 from .. import constants as C
 from ..norms import wrms_norm_bnd
@@ -32,6 +43,7 @@ from ..ops.spgmr import spgmr_solve
 from ..problem import IdaProblem
 from ..utils.ad_mode import is_safe_ad, smask_den, spow
 from ..utils.numerics import sqrt_
+from ..utils.profiling import scope
 from ..utils.tree import masked_while_loop, tree_where
 from .state import IdaOptions, IdaState
 
@@ -42,6 +54,30 @@ _CONV_RECVR = 2  # recoverable: retry with fresh Jacobian or fail the attempt
 _LSETUP_RECVR = 3  # singular/non-finite Jacobian in lsetup
 _RES_RECVR = 4  # non-finite residual (C IDA_RES_RECVR)
 _LSOLVE_RECVR = 5  # failed linear solve (C IDA_LSOLVE_RECVR)
+
+
+def _cast_floats(tree, dtype: torch.dtype):
+    """``tree`` (a tensor, a tuple of them or None) with its floating
+    tensors cast to ``dtype``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_cast_floats(x, dtype) for x in tree)
+    return tree
+
+
+def _res_jvp(problem: IdaProblem, tn, cj, yy, yp, v) -> torch.Tensor:
+    """J v = dF/dy v + cj dF/dy' v at (tn, yy, yp): one jvp of the residual
+    with tangents (v, cj v), the refinement's matrix-free Jacobian. Inside
+    an open forward-mode level (``forward_sensitivity``), where
+    ``torch.func.jvp`` cannot open another, it raises: the refined mode is
+    differentiated in reverse mode only."""
+    if forward_ad._current_level >= 0:
+        raise NotImplementedError(
+            "ls_precision='refined' takes a jvp of the residual in every linear solve, and "
+            "torch.func.jvp cannot run inside an open forward-mode level: differentiate it "
+            "in reverse mode, or use ls_precision='full' or 'single'")
+    return torch.func.jvp(lambda y, ydot: problem.res(tn, y, ydot), (yy, yp), (v, cj * v))[1]
 
 
 def _res_ok(r: torch.Tensor) -> torch.Tensor:
@@ -60,6 +96,9 @@ class _Lin(NamedTuple):
     cjratio: torch.Tensor
     nje: torch.Tensor
     nsetups: torch.Tensor
+    # the lsetup linearization point (tn, cj, yy, yp) under "refined", ()
+    # otherwise: the refinement applies the factored Jacobian as a jvp there
+    ls_pt: object
 
 
 class _Inner(NamedTuple):
@@ -95,6 +134,7 @@ class _Outer(NamedTuple):
     ostatus: torch.Tensor  # int32
 
 
+@scope("lsetup")
 def _lsetup(
     state: IdaState, problem: IdaProblem, opts: IdaOptions, lin: _Lin, yy, yp, savres
 ) -> Tuple[_Lin, torch.Tensor]:
@@ -104,17 +144,28 @@ def _lsetup(
     jvps, band-factored. SPGMR: refresh the preconditioner (the operator
     itself is matrix-free, always current)."""
     if opts.linear_solver in ("dense", "band"):
+        tn, cj = state.tn, state.cj
+        if opts.ls_precision == "single":
+            # the Jacobian on float32 arguments; the trailing cast keeps it
+            # float32 against captured float64 parameters that promote
+            f32 = torch.float32
+            tn, cj, yy, yp, savres = (x.to(f32) for x in (tn, cj, yy, yp, savres))
         if opts.linear_solver == "dense":
-            j = problem.sys_jacobian(state.tn, state.cj, yy, yp, savres)
+            j = problem.sys_jacobian(tn, cj, yy, yp, savres)
+            if opts.ls_precision == "refined":
+                lin = lin._replace(ls_pt=(tn, cj, yy, yp))
+            if opts.ls_precision != "full":
+                j = j.to(torch.float32)
             f = lu_factor_auto(j)
         else:
-            j = band_sys_jacobian(problem, state.tn, state.cj, yy, yp, opts.band_mu,
-                                  opts.band_ml)
+            j = band_sys_jacobian(problem, tn, cj, yy, yp, opts.band_mu, opts.band_ml)
+            if opts.ls_precision == "single":
+                j = j.to(torch.float32)
             f = band_factor(j, opts.band_mu, opts.band_ml)
         # singular (pivot == 0) OR non-finite Jacobian => recoverable lsetup
         # failure (a NaN pivot passes the == 0 test)
         fail = (f.fail_col > 0) | ~torch.isfinite(j).all(dim=0).all(dim=0)
-        lin = lin._replace(lu=f.lu, piv=f.piv, nje=lin.nje + 1)
+        lin = lin._replace(lu=f.lu.to(lin.lu.dtype), piv=f.piv, nje=lin.nje + 1)
     else:
         if problem.prec_setup is not None:
             lin = lin._replace(pdata=problem.prec_setup(state.tn, state.cj, yy, yp, savres))
@@ -125,6 +176,7 @@ def _lsetup(
     return lin, fail
 
 
+@scope("newton_iterate")
 def _newton_iterate(
     state: IdaState, problem: IdaProblem, opts: IdaOptions, lin: _Lin, inner0: _Inner
 ) -> _Inner:
@@ -139,6 +191,7 @@ def _newton_iterate(
     # "dense" here means DIRECT (dense or band): both drop the
     # reconstructable carry and the Krylov counters
     dense = opts.linear_solver in ("dense", "band")
+    dtype = cj.dtype
     if dense:
         # idaLsSolve's cj-change correction (reference src/ida_ls.rs:406-410)
         scale = torch.where(lin.cjratio != 1.0, 2.0 / (1.0 + lin.cjratio), torch.ones_like(cj))
@@ -146,22 +199,46 @@ def _newton_iterate(
         if opts.linear_solver == "dense":
             factored = DenseLU(lin.lu, lin.piv, no_fail)
 
-            def direct_solve(b):
-                return lu_solve_auto(factored, b)
+            def solve_stored(b):
+                return lu_solve_auto(factored, b.to(lin.lu.dtype)).to(dtype)
         else:
             banded = BandLU(lin.lu, lin.piv, no_fail, opts.band_mu, opts.band_ml)
 
+            def solve_stored(b):
+                return band_solve(banded, b.to(lin.lu.dtype)).to(dtype)
+
+        if opts.ls_precision == "refined":
+            # one step of refinement against the lsetup Jacobian applied
+            # matrix-free: x = x0 + LU32^-1 (b - J x0), J v the jvp of the
+            # residual at the saved point with tangents (v, cj v), as
+            # ida_tpu's jax.jvp (not the model's jtimes)
+            s_tn, s_cj, s_yy, s_yp = lin.ls_pt
+
             def direct_solve(b):
-                return band_solve(banded, b)
+                x0 = solve_stored(b)
+                jx0 = _res_jvp(problem, s_tn, s_cj, s_yy, s_yp, x0)
+                return x0 + solve_stored(b - jx0)
+        else:
+            direct_solve = solve_stored
     else:
+        # "single": the whole Krylov iteration in float32 (its callbacks
+        # must keep float32 in float32 out; the trailing casts guard the
+        # carry against promoting closures)
+        ldt = torch.float32 if opts.ls_precision == "single" else dtype
+        tn_l, cj_l, ewt_l = tn.to(ldt), cj.to(ldt), ewt.to(ldt)
+        storage = torch.bfloat16 if opts.krylov_storage == "bfloat16" else None
         # the Krylov tolerance sqrt(N) * eplifac * eps_newt (reference
         # ida_ls.rs:211, 337)
-        sqrt_n = sqrt_(torch.full((), problem.n, dtype=cj.dtype, device=cj.device))
-        ltol = sqrt_n * opts.eplifac * eps_newt
+        sqrt_n = sqrt_(torch.full((), problem.n, dtype=dtype, device=cj.device))
+        ltol = (sqrt_n * opts.eplifac * eps_newt).to(ldt)
         psolve = None
         if problem.prec_solve is not None:
+            # pdata cast once a Newton loop (its values change only in an
+            # lsetup); a cast to the same dtype returns the tensor itself
+            pdata_l = _cast_floats(lin.pdata, ldt)
+
             def psolve(r):
-                return problem.prec_solve(lin.pdata, r, cj)
+                return problem.prec_solve(pdata_l, r, cj_l).to(ldt)
 
     def lsolve(c: _Inner, b, first):
         """idaLsSolve (reference src/ida_ls.rs:298-455). On the first Newton
@@ -175,15 +252,17 @@ def _newton_iterate(
             # C idaLsSolve calls the user jtsetup once per linear solve
             jdata = problem.jtimes_setup(tn, cj, yy, yp, c.savres)
             c = c._replace(knjtsetup=c.knjtsetup + 1)
+        yy_l, yp_l, jdata_l = yy.to(ldt), yp.to(ldt), _cast_floats(jdata, ldt)
 
         def atimes(v):
-            return problem.jtimes(tn, cj, yy, yp, v, jdata)
+            return problem.jtimes(tn_l, cj_l, yy_l, yp_l, v, jdata_l).to(ldt)
 
         res = spgmr_solve(
-            atimes, b, ltol, psolve=psolve, s1=ewt, s2=ewt, maxl=opts.krylov_maxl,
-            max_restarts=opts.krylov_max_restarts, gs=opts.krylov_gs,
+            atimes, b.to(ldt), ltol, psolve=psolve, s1=ewt_l, s2=ewt_l, maxl=opts.krylov_maxl,
+            max_restarts=opts.krylov_max_restarts, storage_dtype=storage, gs=opts.krylov_gs,
             active=c.istatus == _CONTINUE,
         )
+        res = res._replace(x=res.x.to(dtype))
         c = c._replace(
             knli=c.knli + res.nli, knps=c.knps + res.nps, knjtimes=c.knjtimes + res.natimes,
             # C idaLsSolve counts EVERY linear non-success, the reduced
@@ -255,6 +334,7 @@ def _newton_iterate(
     return masked_while_loop(cond, body, inner0)
 
 
+@scope("nonlinear_solve")
 def nonlinear_solve(
     state: IdaState, problem: IdaProblem, opts: IdaOptions, active: torch.Tensor | None = None
 ) -> Tuple[IdaState, torch.Tensor]:
@@ -281,6 +361,8 @@ def nonlinear_solve(
     lin0 = _Lin(
         lu=state.lu, piv=state.piv, pdata=state.pdata, cjold=cjold, cjratio=cjratio,
         nje=state.nje, nsetups=state.nsetups,
+        ls_pt=((state.ls_tn, state.ls_cj, state.ls_yy, state.ls_yp)
+               if opts.ls_precision == "refined" else ()),
     )
     zero_i = torch.zeros(bshape, dtype=torch.int32, device=dev)
     dense = opts.linear_solver in ("dense", "band")  # direct
@@ -368,6 +450,9 @@ def nonlinear_solve(
     # every field: their loops never ran)
     a = active
     cdt = state.nni.dtype  # widen the local int32 tallies
+    if opts.ls_precision == "refined":
+        state = state._replace(ls_tn=lin.ls_pt[0], ls_cj=lin.ls_pt[1], ls_yy=lin.ls_pt[2],
+                               ls_yp=lin.ls_pt[3])
     state = state._replace(
         lu=lin.lu, piv=lin.piv, pdata=lin.pdata,
         cjold=torch.where(a, lin.cjold, state.cjold),

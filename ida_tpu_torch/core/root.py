@@ -23,6 +23,7 @@ import torch
 
 from ..problem import IdaProblem
 from ..utils.ad_mode import smask_den, smask_pos
+from ..utils.profiling import scope
 from ..utils.tree import bounded_fori_loop, bounded_while_loop, take1, tree_where
 from .interp import _eps, interpolate
 from .state import IdaOptions, IdaState
@@ -66,6 +67,7 @@ def _scan(gactive, rootdir, glo, gnew) -> Tuple[torch.Tensor, torch.Tensor, torc
     return zroot, sgnchg, imax
 
 
+@scope("r_check1")
 def r_check1(state: IdaState, problem: IdaProblem) -> IdaState:
     """Initialization at t0: evaluate g, deactivate exact zeros, try to
     re-activate at t0 + smallh (reference :32-99)."""
@@ -103,6 +105,7 @@ class RootCheckResult(NamedTuple):
     close_roots: torch.Tensor  # bool (r_check2 error condition)
 
 
+@scope("r_check2")
 def r_check2(state: IdaState, problem: IdaProblem) -> RootCheckResult:
     """Re-check for zeros at (and just past) the last root location
     (reference :117-209). Lanes whose last return was not a root
@@ -158,6 +161,7 @@ class _Illinois(NamedTuple):
     done: torch.Tensor  # bool
 
 
+@scope("root_find")
 def _root_find(
     state: IdaState, problem: IdaProblem, opts: IdaOptions
 ) -> Tuple[IdaState, torch.Tensor]:
@@ -264,6 +268,7 @@ def _root_find(
     return state, sgnchg | zroot
 
 
+@scope("r_check3")
 def r_check3(
     state: IdaState, problem: IdaProblem, opts: IdaOptions, task_normal: bool
 ) -> RootCheckResult:

@@ -40,11 +40,25 @@ class IdaOptions:
     ``remat_attempts`` recomputes each step attempt in the backward pass
     (``torch.utils.checkpoint``): autograd then keeps only the attempt
     loop's carry, not every Newton iterate and factor; no effect on a solve
-    that is not differentiated. The mixed-precision modes (``ls_precision``
-    other than "full", ``krylov_storage="bfloat16"``) and ``fast_math``
-    raise NotImplementedError naming their ROADMAP item. ``debug_trace`` dumps
-    the state before every step attempt into the active
-    ``utils.trace.DataTrace``."""
+    that is not differentiated. ``debug_trace`` dumps the state before every
+    step attempt into the active ``utils.trace.DataTrace``.
+
+    The mixed-precision modes (``ida_tpu``'s, not C-parity: an inexact
+    Newton whose f64 residual and error test still gate every step):
+    ``ls_precision`` "full" solves the linear systems in the state's dtype;
+    "single" evaluates the Jacobian and runs the LU factor and solve (dense,
+    band) or the whole Krylov iteration (spgmr) in float32 and casts the
+    correction back; "refined" (dense only) evaluates the Jacobian in the
+    state's dtype, factors and stores it in float32, and refines every
+    solve once against that Jacobian applied as a jvp of the residual at
+    the saved lsetup point (``state.ls_*``): x = x0 + LU32^-1 (b - J x0).
+    Under both, the dense and band factors are stored in float32.
+    ``krylov_storage="bfloat16"`` stores the GMRES basis in bfloat16, every
+    reduction staying in the solve's dtype. ``fast_math`` keeps phi unscaled
+    and folds the phi -> phi-star scaling into its consumers (predict, the
+    error test, complete_step's recurrence; ``coeffs.phi_star_scale``): one
+    [K1, N] pass less an attempt and none on a failure, at the price of a
+    different association, so step sequences need not be C IDA's."""
 
     maxord: int = C.MAXORD_DEFAULT  # max BDF order (1..5)
     mxstep: int = C.MXSTEP_DEFAULT  # max internal steps per solve() call
@@ -56,8 +70,8 @@ class IdaOptions:
     linear_solver: str = "dense"  # "dense" | "band" | "spgmr"
     band_mu: int = 0  # upper half-bandwidth (linear_solver="band")
     band_ml: int = 0  # lower half-bandwidth (linear_solver="band")
-    ls_precision: str = "full"
-    krylov_storage: str = "compute"  # GMRES basis dtype ("compute": the state's)
+    ls_precision: str = "full"  # "full" | "single" | "refined"
+    krylov_storage: str = "compute"  # GMRES basis: "compute" (the solve's dtype) | "bfloat16"
     krylov_maxl: int = 5  # GMRES subspace dimension (SUNDIALS default)
     krylov_max_restarts: int = 5  # GMRES restarts (SUNDIALS default)
     krylov_gs: str = "modified"  # "modified" (MGS) | "classical" (CGS2)
@@ -66,7 +80,7 @@ class IdaOptions:
     unroll_newton: bool = False  # fixed masked passes of the Newton loops
     unroll_roots: bool = False  # fixed masked passes of the Illinois loop
     remat_attempts: bool = False  # recompute each attempt in the backward
-    fast_math: bool = False
+    fast_math: bool = False  # phi kept unscaled (not C-parity)
     debug_trace: bool = False
 
     def __post_init__(self):
@@ -75,25 +89,27 @@ class IdaOptions:
                 f"linear_solver must be 'dense', 'band' or 'spgmr', got {self.linear_solver!r}")
         if self.band_mu < 0 or self.band_ml < 0:
             raise ValueError("band_mu and band_ml must be at least 0")
-        if self.ls_precision != "full":
-            raise C.not_ported(f"ls_precision={self.ls_precision!r} (mixed precision)", 5,
-                               "the mixed modes of core/nls.py")
-        if self.krylov_storage != "compute":
-            raise C.not_ported(f"krylov_storage={self.krylov_storage!r}", 5,
-                               "ops/spgmr.py storage_dtype")
+        if self.ls_precision not in ("full", "single", "refined"):
+            raise ValueError(
+                f"ls_precision must be 'full', 'single' or 'refined', got {self.ls_precision!r}")
+        if self.ls_precision == "refined" and self.linear_solver != "dense":
+            raise ValueError("ls_precision='refined' is implemented for the dense path only")
+        if self.krylov_storage not in ("compute", "bfloat16"):
+            raise ValueError(
+                f"krylov_storage must be 'compute' or 'bfloat16', got {self.krylov_storage!r}")
         if self.krylov_gs not in ("modified", "classical"):
             raise ValueError(f"krylov_gs must be 'modified' or 'classical', got {self.krylov_gs!r}")
         if self.krylov_maxl < 1 or self.krylov_max_restarts < 0:
             raise ValueError("krylov_maxl must be at least 1 and krylov_max_restarts at least 0")
-        if self.fast_math:
-            raise C.not_ported("fast_math=True", 7, "the unscaled-phi path of core/")
         if not 1 <= self.maxord <= C.MAXORD_DEFAULT:
             raise ValueError(f"maxord must lie in 1..{C.MAXORD_DEFAULT}, got {self.maxord}")
 
 
 class IdaState(NamedTuple):
     """Complete integrator state. Per-lane shapes: N = problem size,
-    R = max(nroots, 1), K1 = MXORDP1 = 6. Real fields share one dtype."""
+    R = max(nroots, 1), K1 = MXORDP1 = 6. Real fields share one dtype, but
+    ``lu``: float32 under ``ls_precision`` "single" or "refined" on the
+    dense and band paths (:func:`ls_store_dtype`)."""
 
     # --- BDF history and coefficients (reference src/lib.rs:104-116) ---
     phi: torch.Tensor  # [K1, N] divided differences
@@ -137,13 +153,14 @@ class IdaState(NamedTuple):
     toldel: torch.Tensor
 
     # --- linear-solver state (reference src/ida_ls.rs:22-31) ---
-    lu: torch.Tensor  # [N, N] factored J (dense; band [2*ml+mu+1, N]; [0, 0] under spgmr)
+    lu: torch.Tensor  # [N, N] factored J (dense; band [2*ml+mu+1, N]; [0, 0] under spgmr);
+    #                   float32 under the mixed-precision modes
     piv: torch.Tensor  # [N] int32 pivots (dense; band row offsets; [0] under spgmr)
     pdata: object  # preconditioner state: a tuple of tensors, () without one
     ls_tn: torch.Tensor  # [] time of the last lsetup (refined mode only)
     ls_cj: torch.Tensor  # [] cj of the last lsetup (refined mode only)
-    ls_yy: torch.Tensor  # [0] (refined mode only)
-    ls_yp: torch.Tensor  # [0] (refined mode only)
+    ls_yy: torch.Tensor  # [N] y of the last lsetup ([0] unless refined)
+    ls_yp: torch.Tensor  # [N] y' of the last lsetup ([0] unless refined)
 
     # --- per-lane options ---
     hin: torch.Tensor  # initial step (0 = auto)
@@ -195,6 +212,15 @@ class IdaState(NamedTuple):
         return self.phi.dtype
 
 
+def ls_store_dtype(opts: IdaOptions, dtype: torch.dtype) -> torch.dtype:
+    """The direct solvers' factor storage dtype: float32 under the
+    mixed-precision modes (the float32 factor's image is exact), else the
+    state's."""
+    if opts.linear_solver in ("dense", "band") and opts.ls_precision in ("single", "refined"):
+        return torch.float32
+    return dtype
+
+
 def init_state(
     problem: IdaProblem,
     yy0,
@@ -209,7 +235,9 @@ def init_state(
     [*batch, N] for a batch-leading ensemble (every field then gains the
     leading ``batch`` axes). ``opts`` sizes the linear-solver workspace: the
     dense factor [N, N] and pivots [N], the band factor [2*ml+mu+1, N] and
-    pivots [N], or nothing ([0, 0], [0]) under spgmr, whose
+    pivots [N] (factors in :func:`ls_store_dtype`), the refined mode's
+    linearization point ``ls_yy``/``ls_yp`` [N] ([0] in the other modes), or
+    nothing ([0, 0], [0]) under spgmr, whose
     preconditioner state ``pdata`` starts as the problem's
     ``prec_zero()`` (each leaf in the state's dtype, on its device). ``device``
     None is the current CUDA device (raises when there is none)."""
@@ -235,6 +263,7 @@ def init_state(
         lu_shape, npiv = (2 * opts.band_ml + opts.band_mu + 1, n), n
     else:
         lu_shape, npiv = (0, 0), 0
+    n_ls = n if opts.ls_precision == "refined" else 0
     pdata = ()
     if problem.prec_setup is not None:
         pdata = tuple(
@@ -252,8 +281,8 @@ def init_state(
         phase=full((), 0, i32), ns=full((), 0, i32),
         cj=zero, cjlast=zero, cjold=zero, cjratio=zero, ss=zero, oldnrm=zero,
         eps_newt=zero, toldel=zero,
-        lu=full(lu_shape, 0.0), piv=full((npiv,), 0, i32), pdata=pdata,
-        ls_tn=zero, ls_cj=zero, ls_yy=full((0,), 0.0), ls_yp=full((0,), 0.0),
+        lu=full(lu_shape, 0.0, ls_store_dtype(opts, dtype)), piv=full((npiv,), 0, i32),
+        pdata=pdata, ls_tn=zero, ls_cj=zero, ls_yy=full((n_ls,), 0.0), ls_yp=full((n_ls,), 0.0),
         hin=zero, hmax_inv=full((), C.HMAX_INV_DEFAULT), epcon=full((), C.EPCON),
         tstop=zero, tstop_set=full((), False, torch.bool), constraints=zeros_n,
         constraints_set=full((), False, torch.bool),

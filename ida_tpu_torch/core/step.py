@@ -15,6 +15,7 @@ import torch
 
 from .. import constants as C
 from ..utils.ad_mode import smask_den, spow
+from ..utils.profiling import scope
 from ..utils.trace import TRACE_FIELDS, trace_sink
 from .coeffs import kidx, predict, reset, restore, set_coeffs
 from .error_test import error_test
@@ -96,6 +97,7 @@ def _handle_n_flag(
     return state, ncf, nef, fatal
 
 
+@scope("step.begin")
 def step_begin(state: IdaState, mask: torch.Tensor | None = None) -> IdaState:
     """First-step initialisation at the start of a fresh step
     (src/lib.rs:619-627), restricted to ``mask`` lanes."""
@@ -113,6 +115,7 @@ def step_begin(state: IdaState, mask: torch.Tensor | None = None) -> IdaState:
     )
 
 
+@scope("step.attempt")
 def attempt_once(
     state: IdaState,
     problem,
@@ -131,7 +134,7 @@ def attempt_once(
         # per-attempt state dump (reference src/lib.rs:635-639)
         trace_sink(**{f: getattr(state, f) for f in TRACE_FIELDS})
 
-    st, ck = set_coeffs(state, mask=active)
+    st, ck = set_coeffs(state, mask=active, fast_math=opts.fast_math)
 
     # advance tn, clamping to tstop against roundoff (C semantics)
     tn = st.tn + st.hh
@@ -139,7 +142,7 @@ def attempt_once(
     tn = torch.where(past_tstop, st.tstop, tn)
     st = st._replace(tn=torch.where(active, tn, st.tn))
 
-    st = predict(st, mask=active)
+    st = predict(st, mask=active, fast_math=opts.fast_math)
     st, nl_status = nonlinear_solve(st, problem, opts, active=active)
 
     st, etr = error_test(st, problem, opts, ck, mask=active)
@@ -153,7 +156,7 @@ def attempt_once(
     # failure path: restore, adjust h/k, maybe reset (src/lib.rs:676-689);
     # each routine takes the failure mask, so no full-state select follows
     fail = ~success & active
-    st = restore(st, saved_t, mask=fail)
+    st = restore(st, saved_t, mask=fail, fast_math=opts.fast_math)
     st, ncf_f, nef_f, fatal = _handle_n_flag(st, opts, kind, err_k, err_km1, ncf, nef, mask=fail)
     st = reset(st, mask=fail & (fatal == C.CONTINUE) & (st.nst == 0))
 

@@ -36,6 +36,7 @@ import torch
 from torch.autograd import forward_ad
 
 from .. import constants as C
+from ..constants import not_ported
 from ..core.solve import TASK_NORMAL, solve
 from ..core.state import IdaOptions, IdaState
 from ..models.roberts import roberts_factory
@@ -396,7 +397,15 @@ def make_fused_solve(problem_factory, tol: TolControl, opts: IdaOptions = IdaOpt
     the unbudgeted result. A lane whose ``constraints_set`` is on runs the
     inequality-constraints block as the eager solve does (unless
     ``opts.enable_constraints`` is False). The kernel compiles in the dense
-    direct solver: options for any other linear solver raise."""
+    direct solver in full precision and C-parity arithmetic: options for any
+    other linear solver raise, and the mixed-precision modes and
+    ``fast_math`` (which ``ida_tpu``'s kernel traces) are not ported to it
+    yet."""
+    if opts.ls_precision != "full" or opts.fast_math:
+        mode = (f"ls_precision={opts.ls_precision!r}" if opts.ls_precision != "full"
+                else "fast_math=True")
+        raise not_ported(f"fused_solve with {mode} (the eager solve runs it)", 8,
+                         "ida_tpu/ops/fused_solve.py traces core_solve with opts")
     if opts.linear_solver != "dense":
         raise NotImplementedError(
             f"fused_solve: the kernel's linear solver is the compiled-in dense LU; "

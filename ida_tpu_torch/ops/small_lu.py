@@ -44,11 +44,14 @@ under autograd (``ops/dense_lu.py``'s Functions). Its plain version is
 
 ``FACTOR_LAUNCHES`` / ``SOLVE_LAUNCHES`` / ``SOLVE_T_LAUNCHES`` count kernel
 launches (and only those), so a run can show that the solver went through
-the kernel.
+the kernel; ``LAUNCHES`` counts the same launches by (kernel, dtype tag, N),
+e.g. ``LAUNCHES["factor", "f32", 3]`` (the mixed-precision modes' float32
+factors).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -61,6 +64,7 @@ from .dense_lu import (DenseLU, SMALL_N_UNROLL, lu_factor_unrolled, lu_solve_unr
 FACTOR_LAUNCHES = 0
 SOLVE_LAUNCHES = 0
 SOLVE_T_LAUNCHES = 0
+LAUNCHES: collections.Counter = collections.Counter()  # (kernel, "f32"/"f64", N) -> launches
 
 
 def reset_launch_counts() -> None:
@@ -68,6 +72,7 @@ def reset_launch_counts() -> None:
     FACTOR_LAUNCHES = 0
     SOLVE_LAUNCHES = 0
     SOLVE_T_LAUNCHES = 0
+    LAUNCHES.clear()
 
 
 # lanes of one element a thread moves by one access (csrc/small_lu.cu kPair)
@@ -209,6 +214,7 @@ def lu_factor(a: torch.Tensor) -> DenseLU:
     _raise_on(err, "small_lu_factor")
     global FACTOR_LAUNCHES
     FACTOR_LAUNCHES += 1
+    LAUNCHES["factor", DTYPE_TAGS[a.dtype], n] += 1
     return DenseLU(lu, piv, fail)
 
 
@@ -249,6 +255,7 @@ def lu_solve(f: DenseLU, b: torch.Tensor) -> torch.Tensor:
     x = _solve_launch(f, b, "solve")
     global SOLVE_LAUNCHES
     SOLVE_LAUNCHES += 1
+    LAUNCHES["solve", DTYPE_TAGS[b.dtype], b.shape[0]] += 1
     return x
 
 
@@ -261,6 +268,7 @@ def lu_solve_t(f: DenseLU, g: torch.Tensor) -> torch.Tensor:
     lam = _solve_launch(f, g, "solve_t")
     global SOLVE_T_LAUNCHES
     SOLVE_T_LAUNCHES += 1
+    LAUNCHES["solve_t", DTYPE_TAGS[g.dtype], g.shape[0]] += 1
     return lam
 
 

@@ -25,7 +25,6 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..constants import not_ported
 from ..utils.numerics import sqrt_, sum0
 from ..utils.tree import masked_while_loop
 
@@ -83,16 +82,22 @@ def spgmr_solve(
     ``b`` is [N] or [N, *batch]; convergence, counters and ``x`` come back
     per lane. ``gs`` is "modified" (MGS, the SUNDIALS default) or
     "classical" (CGS2: classical Gram-Schmidt with one full
-    reorthogonalization pass). ``storage_dtype`` (a narrower Krylov basis)
-    is not ported. Lanes whose ``active`` is False are not solved: they come
+    reorthogonalization pass). ``storage_dtype`` (e.g. ``torch.bfloat16``)
+    stores the Krylov basis V in that dtype, cast back to ``b.dtype`` at
+    every read, while every reduction (dot products, norms, the Givens
+    algebra, the back substitution) stays in ``b.dtype``; None stores it in
+    ``b.dtype``. Lanes whose ``active`` is False are not solved: they come
     back with x = 0, converged False and zero counts, for the caller to
     discard."""
-    if storage_dtype is not None:
-        raise not_ported("spgmr_solve(storage_dtype=...)", 5, "ops/spgmr.py")
     if gs not in ("modified", "classical"):
         raise ValueError(f"gs must be 'modified' or 'classical', got {gs!r}")
     lane = b.shape[1:]
     dev = b.device
+    sdt = storage_dtype or b.dtype
+
+    def basis(rows):
+        """V[rows] in the solve's dtype (no copy when stored in it)."""
+        return rows.to(b.dtype)
 
     def prec_scaled(r):
         """s1 * P^{-1} r"""
@@ -110,7 +115,7 @@ def spgmr_solve(
         z = prec_scaled(r)
         nps = nps + 1
         beta = sqrt_(_dot(z, z))
-        V = torch.empty((maxl + 1,) + tuple(b.shape), dtype=b.dtype, device=dev)
+        V = torch.empty((maxl + 1,) + tuple(b.shape), dtype=sdt, device=dev)
         V[0] = torch.where(beta > 0.0, z / beta, z)
         zero = torch.zeros_like(beta)
         H = [[None] * maxl for _ in range(maxl + 1)]  # H[i][j]; None is 0
@@ -123,13 +128,13 @@ def spgmr_solve(
                 break
             jmax = j + 1
             act = ~done
-            w = prec_scaled(atimes(unscale(V[j])))
+            w = prec_scaled(atimes(unscale(basis(V[j]))))
             inc = act.to(torch.int32)
             nps, nli = nps + inc, nli + inc
             if gs == "classical":
                 # CGS2 against V[0..j] (the JAX module contracts the whole
                 # basis, whose rows above j are still zero)
-                vs = V[: j + 1]
+                vs = basis(V[: j + 1])
                 hs = sum0((vs * w).movedim(1, 0))
                 w = w - sum0(hs.unsqueeze(1) * vs)
                 hs2 = sum0((vs * w).movedim(1, 0))
@@ -138,8 +143,9 @@ def spgmr_solve(
             else:
                 col = []
                 for i in range(j + 1):
-                    hij = _dot(w, V[i])
-                    w = w - hij * V[i]
+                    vi = basis(V[i])
+                    hij = _dot(w, vi)
+                    w = w - hij * vi
                     col.append(hij)
             hnorm = sqrt_(_dot(w, w))
             col.append(hnorm)
@@ -173,7 +179,7 @@ def spgmr_solve(
             hjj = H[j][j]
             y[j] = torch.where(hjj != 0.0, s / hjj, zero)
         if jmax:
-            x_new = x + unscale(sum0(torch.stack(y).unsqueeze(1) * V[:jmax]))
+            x_new = x + unscale(sum0(torch.stack(y).unsqueeze(1) * basis(V[:jmax])))
         else:
             x_new = x
         # the true preconditioned scaled residual decides the restart

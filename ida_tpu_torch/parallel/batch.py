@@ -1,7 +1,8 @@
 """Ensemble (batch) integration: many independent DAE instances in lockstep.
 
 Port of ``ida_tpu/parallel/batch.py``'s ``ensemble_init``,
-``make_ensemble_solve`` and ``EnsembleIDA``. The public layout is the JAX package's: states,
+``make_ensemble_solve``, ``EnsembleIDA`` and the stratified solve
+(``make_stratified_solve``, ``pilot_cost``). The public layout is the JAX package's: states,
 params and results are batch-LEADING. Inside, one batch-native solve runs
 over states whose batch axis is TRAILING (the layout of
 ``bench.py::_native_setup``), which also makes the LU kernel's loads
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from ..constants import not_ported
 from ..core.calc_ic import IC_CODES
 from ..core.calc_ic import calc_ic as core_calc_ic
 from ..core.solve import TASK_NORMAL, TASK_ONE_STEP, solve, solve_dense
@@ -112,8 +114,7 @@ class EnsembleIDA:
     once, from the batch-last params, and the state is kept batch-native on
     the device between calls (``states`` gives the batch-leading view).
     ``device`` None is the current CUDA device. Sharding over several cards
-    (the JAX class's ``mesh``) is not ported yet (ROADMAP.md Queue 1 item
-    7)."""
+    (the JAX class's ``mesh``) is not ported yet: a ``mesh`` raises."""
 
     def __init__(
         self,
@@ -126,7 +127,11 @@ class EnsembleIDA:
         *,
         dtype: torch.dtype = torch.float64,
         device=None,
+        mesh=None,
     ):
+        if mesh is not None:
+            raise not_ported("EnsembleIDA(mesh=...) (lanes sharded over several cards)", 7,
+                             "ida_tpu/parallel/mesh.py")
         self.device = resolve_device(device)
         self.factory = problem_factory
         self.options = options
@@ -268,3 +273,77 @@ class EnsembleIDA:
             f"k={r['kused']}, ncfn={r['ncfn']}, netf={r['netf']})"
             for r in self.report_failures(istate)
         )
+
+
+# ----------------------------------------------------------------------
+# Straggler control: the stratified (sorted sub-batch) ensemble solve
+# ----------------------------------------------------------------------
+
+
+def make_stratified_solve(
+    problem_factory: ProblemFactory,
+    opts: IdaOptions = IdaOptions(),
+    *,
+    n_chunks: int = 4,
+):
+    """Build ``fn(states, params, tol, tout, cost_key) -> (states, tret[B],
+    istate[B])`` (``ida_tpu``'s ``make_stratified_solve``): the lanes are
+    sorted by ``cost_key`` [B] (any per-lane cost proxy, e.g. the step
+    counts of :func:`pilot_cost`; a stable sort), ``n_chunks`` contiguous
+    sub-batches of similar cost are solved one after another through
+    :func:`make_ensemble_solve`, so that each runs only as long as its own
+    slowest lane, and the results come back in the original lane order.
+    States and params are batch-leading as in ``make_ensemble_solve``, and
+    ``tol`` is shared by every lane. B must be divisible by ``n_chunks``.
+    The eager solve is lane-independent, so every lane's result is the plain
+    solve's bit for bit; whether the chunks save time depends on how much a
+    lockstep batch pays for its idle lanes (one kernel thread a lane on the
+    card)."""
+    base = make_ensemble_solve(problem_factory, opts)
+
+    def fn(states: IdaState, params, tol: TolControl, tout, cost_key):
+        b = states.tn.shape[0]
+        if b % n_chunks:
+            raise ValueError(f"batch {b} is not divisible into {n_chunks} chunks")
+        dev = states.tn.device
+        order = torch.argsort(torch.as_tensor(cost_key, device=dev), stable=True)
+        inv = torch.argsort(order)
+        params = torch.as_tensor(params, dtype=states.dtype, device=dev)
+
+        def take(x, idx):
+            if isinstance(x, torch.Tensor):
+                return x.index_select(0, idx)
+            return tuple(take(y, idx) for y in x)  # pdata
+
+        states_s, params_s = IdaState(*(take(x, order) for x in states)), params[order]
+        csz = b // n_chunks
+        outs = [base(IdaState(*(take(x, torch.arange(c * csz, (c + 1) * csz, device=dev))
+                                for x in states_s)),
+                     params_s[c * csz:(c + 1) * csz], tol, tout)
+                for c in range(n_chunks)]
+
+        def cat(*xs):
+            if isinstance(xs[0], torch.Tensor):
+                return torch.cat(xs)
+            return tuple(cat(*ys) for ys in zip(*xs))
+
+        st = IdaState(*(take(cat(*fs), inv) for fs in zip(*(o[0] for o in outs))))
+        return st, torch.cat([o[1] for o in outs])[inv], torch.cat([o[2] for o in outs])[inv]
+
+    return fn
+
+
+def pilot_cost(
+    problem_factory: ProblemFactory,
+    states: IdaState,
+    params,
+    tol: TolControl,
+    tout_pilot,
+    opts: IdaOptions = IdaOptions(),
+) -> torch.Tensor:
+    """A cheap per-lane cost key for :func:`make_stratified_solve`: each
+    lane's step count after a solve to the short horizon ``tout_pilot``
+    (early stiffness predicts the total cost of Roberts-class kinetics).
+    Solves a copy: ``states`` is not changed."""
+    st, _, _ = make_ensemble_solve(problem_factory, opts)(states, params, tol, tout_pilot)
+    return st.nst

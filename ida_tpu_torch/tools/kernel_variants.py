@@ -288,6 +288,10 @@ yy = torch.from_numpy(np.outer(c0, scale)).cuda()
 cj = torch.from_numpy(1e3 * (1.0 + rng.random(128))).cuda()
 pdata = prob.prec_setup(0.0, cj, yy, torch.zeros_like(yy), torch.zeros_like(yy))
 r = torch.from_numpy(rng.normal(size=(800, 128))).cuda()
+if len(sys.argv) > 2 and sys.argv[2] == "float32":
+    # the Krylov "single" path: pdata cast once a Newton loop, as core/nls.py does
+    from ida_tpu_torch.core.nls import _cast_floats
+    pdata, r, cj = _cast_floats(pdata, torch.float32), r.float(), cj.float()
 z = prob.prec_solve(pdata, r, cj)
 torch.cuda.synchronize()
 calls = 20
@@ -310,12 +314,14 @@ print(json.dumps({"checkout": sys.argv[1], "calls": calls, "calls_recorded": see
 """
 
 
-def prec_solve_events(checkout: str) -> dict:
+def prec_solve_events(checkout: str, dtype: str = "float64") -> dict:
     """The device events and device time of one ``foodweb.prec_solve`` (20 x
     20, B = 128, on the card) with the port of ``checkout``, from
     torch.profiler in a fresh process, per call (one K1 solve a call, so the
-    recorded solves count the calls the profiler saw)."""
-    proc = subprocess.run([sys.executable, "-c", _PREC_CHILD, checkout], cwd=checkout,
+    recorded solves count the calls the profiler saw). ``dtype`` "float32"
+    solves with the factors and right-hand side cast as the Krylov "single"
+    mode casts them."""
+    proc = subprocess.run([sys.executable, "-c", _PREC_CHILD, checkout, dtype], cwd=checkout,
                           capture_output=True, text=True, timeout=900, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"prec_solve in {checkout}: {proc.stderr[-4000:]}")

@@ -574,3 +574,89 @@ def test_fused_kernel_keeps_the_constraints(cuda):
         assert bool((eist == C.SUCCESS).all()) and bool((e.yy >= floor).all())
         assert bool((e.yy[-1] >= 0.0).all())
     assert int(e.nst[-1]) == 148 and int(e.nre[-1]) == 219
+
+
+# ------------------------- mixed precision, fast_math, slider-crank, scopes
+
+
+def _modes_ensemble(device, opts, bsz=64, tout=4.0):
+    params = np.outer(np.exp(np.linspace(-0.2, 0.2, bsz)), ROBERTS_PARAMS)
+    st = ensemble_init(roberts_factory, params, np.tile(ROBERTS_YY0, (bsz, 1)),
+                       params[:, :1] * np.array([-1.0, 1.0, 0.0]), device=device, opts=opts)
+    return make_ensemble_solve(roberts_factory, opts)(
+        st, params, tol_sv(1e-4, ATOL, device=device), tout)
+
+
+@pytest.mark.parametrize("mode", ["single", "refined"])
+def test_dense_mixed_modes_run_the_float32_kernels(cuda, mode):
+    # "single" and "refined" factor and solve through K1's float32 kernels
+    # at N = 3 and launch no float64 LU; the lanes end within the
+    # integration tolerance of the CPU run of the mode
+    opts = IdaOptions(ls_precision=mode)
+    small_lu.reset_launch_counts()
+    sg, _, ig = _modes_ensemble(cuda, opts)
+    counts = dict(small_lu.LAUNCHES)
+    sc, _, ic = _modes_ensemble("cpu", opts)
+    assert counts.get(("factor", "f32", 3), 0) > 0 and counts.get(("solve", "f32", 3), 0) > 0
+    assert not any(tag == "f64" for _, tag, _ in counts), counts
+    assert sg.lu.dtype == torch.float32 and sg.lu.is_cuda
+    assert bool((ig.cpu() == C.SUCCESS).all()) and bool((ic == C.SUCCESS).all())
+    w = 1.0 / (1e-4 * sc.yy.abs() + torch.tensor(ATOL, dtype=torch.float64))
+    assert float(((w * (sg.yy.cpu() - sc.yy)) ** 2).mean(dim=1).sqrt().max()) < 1.0
+
+
+def test_fast_math_on_the_card_tracks_parity(cuda):
+    sf, _, i_f = _modes_ensemble(cuda, IdaOptions(fast_math=True))
+    sp, _, i_p = _modes_ensemble(cuda, IdaOptions())
+    assert bool((i_f == C.SUCCESS).all()) and bool((i_p == C.SUCCESS).all())
+    diff = (sf.yy - sp.yy).abs().cpu()
+    assert bool((diff <= 1e-3 * sp.yy.abs().cpu() + torch.tensor(ATOL)).all())
+
+
+def test_krylov_single_runs_the_float32_n2_solve(cuda):
+    # foodweb's block preconditioner under Krylov "single": K1's float32
+    # solve at N = 2, no float64 LU launch
+    from ida_tpu_torch import IDA
+    from ida_tpu_torch.models import foodweb_ic, foodweb_problem
+    from ida_tpu_torch.tol_control import tol_ss
+
+    c0, cp0 = foodweb_ic(4, 4)
+    ida = IDA(foodweb_problem(4, 4), c0, cp0, tol_ss(1e-5, 1e-5),
+              IdaOptions(linear_solver="spgmr", ls_precision="single", mxstep=5000))
+    ida.calc_ic("ya_ydp", tout1=1e-3)  # the predators' guess is not consistent
+    small_lu.reset_launch_counts()
+    assert ida.solve(1e-3)[1].name == "Success"
+    counts = dict(small_lu.LAUNCHES)
+    assert counts.get(("solve", "f32", 2), 0) > 0 and counts.get(("factor", "f64", 2), 0) > 0
+    assert not any(k == "solve" and tag == "f64" for k, tag, _ in counts), counts
+
+
+def test_slider_crank_runs_k1_at_n10(cuda):
+    from ida_tpu_torch import IDA
+    from ida_tpu_torch.models import slider_crank_ic, slider_crank_problem
+    from ida_tpu_torch.tol_control import tol_ss
+
+    yy0, yp0 = slider_crank_ic()
+    ida = IDA(slider_crank_problem(), yy0, yp0, tol_ss(1e-6, 1e-6),
+              IdaOptions(mxstep=50000, suppressalg=True))
+    small_lu.reset_launch_counts()
+    assert ida.solve(0.1)[1].name == "Success"
+    # the lsetup runs every outer Newton pass and is kept where it is due,
+    # so factors are launched at least once a Jacobian evaluation
+    assert small_lu.LAUNCHES["factor", "f64", 10] >= ida.get_num_jac_evals() > 0
+    assert small_lu.LAUNCHES["solve", "f64", 10] > 0
+    y = ida.get_yy()
+    assert abs(-np.sin(y[2]) - 0.5 * np.sin(y[0])) < 1e-8
+
+
+def test_profile_records_the_scopes_and_the_card(cuda, tmp_path):
+    from ida_tpu_torch.utils import profiling
+
+    with profiling.profile(str(tmp_path / "trace")) as prof:
+        _modes_ensemble(cuda, IdaOptions(), bsz=256, tout=0.04)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    names = {e.key for e in events}
+    assert {"ida.step.attempt", "ida.lsetup", "ida.nonlinear_solve"} <= names
+    dev = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    assert dev > 0 and (tmp_path / "trace" / "trace.json").exists()

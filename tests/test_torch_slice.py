@@ -236,7 +236,7 @@ def test_dtype_is_preserved(dtype):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"linear_solver": "band", "ls_precision": "single"},
+        {"linear_solver": "band", "band_mu": 2, "band_ml": 2, "ls_precision": "single"},
         {"ls_precision": "single"},
         {"ls_precision": "refined"},
         {"linear_solver": "spgmr", "ls_precision": "single"},
@@ -245,6 +245,21 @@ def test_dtype_is_preserved(dtype):
     ],
     ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()),
 )
-def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        IdaOptions(**kwargs)
+def test_mode_options_build_and_solve(kwargs):
+    # the options that raised before they were ported: each builds, sizes
+    # the state and solves the B = 8 ensemble to 0.4 (held against ida_tpu in
+    # tests/test_torch_mixed_precision.py and test_torch_fast_math.py)
+    params, yy0, yp0 = _inputs(B)
+    tol = tol_sv(1e-4, ATOL, device="cpu")
+    out = {}
+    for opts in (IdaOptions(**kwargs), IdaOptions()):
+        st = ensemble_init(troberts, params, yy0, yp0, device="cpu", opts=opts)
+        st, tret, istate = make_ensemble_solve(troberts, opts)(st, params, tol, 0.4)
+        assert bool((istate == C.SUCCESS).all()) and bool((tret == 0.4).all())
+        out[opts == IdaOptions()] = st
+    opts = IdaOptions(**kwargs)
+    direct = opts.linear_solver != "spgmr" and opts.ls_precision != "full"
+    assert out[False].lu.dtype == (torch.float32 if direct else torch.float64)
+    # within the integration tolerance of the parity solve
+    diff = (out[False].yy - out[True].yy).abs()
+    assert bool((diff <= 1e-3 * out[True].yy.abs() + torch.tensor(ATOL)).all())

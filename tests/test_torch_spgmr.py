@@ -119,10 +119,27 @@ def test_inactive_lanes_are_not_solved():
     assert not res.x[:, 1::2].any()
 
 
-def test_storage_dtype_and_unknown_gs_refused():
+@pytest.mark.parametrize("name", list(CASES))
+def test_bfloat16_basis_storage_matches_ida_tpu(name):
+    # storage_dtype=bfloat16: the basis rounded to bfloat16 at every store
+    # (both round to nearest even), every reduction in float64: the counters
+    # exactly, x to 1e-9 of its scale (XLA's contractions)
+    case = CASES[name]()
+    fn = jax.jit(lambda b_unused: _run(
+        jnp.asarray, lambda *a, **k: jax_spgmr(*a, storage_dtype=jnp.bfloat16, **k), case,
+        "modified", jnp.asarray(1e-10)))
+    ref = fn(0)
+    res = _run(torch.from_numpy, lambda *a, **k: spgmr_solve(*a, storage_dtype=torch.bfloat16, **k),
+               case, "modified", torch.tensor(1e-10, dtype=torch.float64))
+    assert res.x.dtype == torch.float64
+    for k in ("converged", "nli", "nps", "natimes"):
+        assert np.array_equal(getattr(res, k).numpy(), np.asarray(getattr(ref, k))), k
+    scale = np.abs(np.asarray(ref.x)).max()
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(ref.x), rtol=0, atol=1e-9 * scale)
+
+
+def test_unknown_gs_refused():
     a = _plain()
     b = torch.from_numpy(a["b"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        spgmr_solve(lambda v: v, b, torch.tensor(1e-10), storage_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="gs"):
         spgmr_solve(lambda v: v, b, torch.tensor(1e-10), gs="householder")
