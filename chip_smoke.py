@@ -68,7 +68,13 @@ tout=400 in f64):
   (``slider_crank``); the stratified solve over two decades of rates, bit
   for bit the plain one (``stratified``); the headline under
   ``utils.profiling.profile``, each ``ida.<name>`` scope's host and device
-  ms, and what the scopes cost (``profile_scopes``).
+  ms, and what the scopes cost (``profile_scopes``);
+* the whole-solve kernel in every non-parity mode (``fused_modes``):
+  ``fast_math``, ``ls_precision`` "single" and "refined" and their
+  combinations, K2 and budget 32 (K3 + K4) at the headline, each bit for bit
+  the eager solve of the same mode from ``mixed_headline``/``fast_f64``,
+  with a float32-state leg at B = 4,096; each mode's registers, spills,
+  bare-launch time against parity's in turns, and its bound.
 
 Every stage kernel is checked bit for bit against its eager stage on real
 mid-flight states first, so a parity break is localized. It prints one JSON
@@ -144,6 +150,16 @@ REPLACES = {
     "fused_solve_cont": "ida_tpu/ops/fused_solve.py:429",
     "stage": "scripts/bisect_fused.py:154",
 }
+# the whole-solve kernel's non-parity modes (fused_modes), by
+# fused_solve.mode_name
+FUSED_MODES = {
+    "single": IdaOptions(ls_precision="single"),
+    "refined": IdaOptions(ls_precision="refined"),
+    "fast_math": IdaOptions(fast_math=True),
+    "fast_math_single": IdaOptions(fast_math=True, ls_precision="single"),
+    "fast_math_refined": IdaOptions(fast_math=True, ls_precision="refined"),
+}
+B_MODES_F32 = 4096
 # the card's peaks (NVIDIA H100 SXM data sheet, 700 W): memory 3.35 TB/s;
 # float64 outside the tensor cores 34 TFLOP/s, float32 67 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -161,6 +177,12 @@ PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
 # row, only on attempts that change the step size or order), its phi
 # scaling, and complete_step's phi rows above the first two.
 OPS_PER = {"attempt": 200, "newton": 52, "newton_more": 45, "lsetup": 25, "step": 119}
+# of those, the LU's: a solve 15 (a Newton iteration) and a factor 16 (an
+# lsetup), in float32 under ls_precision "single" and "refined"; "refined"
+# adds a Newton iteration a second float32 solve (15), the residual's jvp
+# (17), w = cj x0 and b - J x0 (6) and x0 + dx (3)
+OPS_LU = {"solve": 15, "factor": 16}
+OPS_REFINED_EXTRA = 26
 
 
 def emit(phase: str, **fields) -> None:
@@ -354,8 +376,10 @@ def max_abs_diff(st_a, st_b, out_a: dict | None = None, out_b: dict | None = Non
     return worst
 
 
-def state_bytes(st) -> int:
-    return sum(getattr(st, f).numel() * getattr(st, f).element_size() for f in fused_solve.STATE_FIELDS)
+def state_bytes(st, opts: IdaOptions = IdaOptions()) -> int:
+    """Bytes of the fields a launch in ``opts``' mode reads or writes."""
+    return sum(getattr(st, f).numel() * getattr(st, f).element_size()
+               for f in fused_solve.touched_fields(opts))
 
 
 # ---------------------------------------------------------------- phases
@@ -377,11 +401,14 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    """Both libraries at once, one nvcc each."""
+    """Every library at once, one nvcc each: K1, and the whole-solve kernel
+    in the parity mode and in each mode of FUSED_MODES."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(2 + len(FUSED_MODES)) as pool:
         lu, fused = pool.submit(small_lu.build), pool.submit(fused_solve.build)
+        modes = {m: pool.submit(fused_solve.build_of, o) for m, o in FUSED_MODES.items()}
         lu, fused = lu.result(), fused.result()
+        modes = {m: f.result() for m, f in modes.items()}
     lu_ptxas = {k: v for k, v in _build.ptxas_summary(lu["log"]).items() if "Li3E" in k}
     emit("build", seconds=time.perf_counter() - t0, cached=lu["cached"] and fused["cached"],
          small_lu_seconds=lu["seconds"], library=lu["path"], small_lu_n3_ptxas=lu_ptxas)
@@ -391,6 +418,17 @@ def phase_build() -> None:
          flags=list(fused_solve.BUILD_FLAGS), separately_compiled_pow=separate_pow,
          ptxas={k: v for k, v in summary.items() if "fused" in k or "ida" in k})
     check(not separate_pow, f"a pow compiled apart is linked into the solve: {separate_pow}")
+    # every instantiation of the solve kernel in parity and in every mode:
+    # registers and spills; none may spill
+    ptxas = {"parity": solve_kernels_ptxas(),
+             **{m: solve_kernels_ptxas(o) for m, o in FUSED_MODES.items()}}
+    spills = {f"{m}/{form}": v for m, forms in ptxas.items() for form, v in forms.items()
+              if v.get("spill_stores", 0) or v.get("spill_loads", 0)}
+    emit("fused_modes_build", seconds={m: info["seconds"] for m, info in modes.items()},
+         cached={m: info["cached"] for m, info in modes.items()},
+         flags={m: list(fused_solve.mode_flags(o.fast_math, o.ls_precision))
+                for m, o in FUSED_MODES.items()}, ptxas=ptxas)
+    check(not spills, f"fused_modes_build: solve kernels that spill: {spills}")
 
 
 def lu_bound_ms(nbytes: int) -> float:
@@ -663,15 +701,34 @@ def solve_ops(totals: dict) -> float:
             + totals["nje"] * OPS_PER["lsetup"] + totals["nst"] * OPS_PER["step"])
 
 
-def solve_bound(st, ops: float) -> tuple[float, str]:
+def mode_ops(totals: dict, opts: IdaOptions, dtype: torch.dtype) -> dict:
+    """:func:`solve_ops` of a solve in ``opts``' mode by the type they run
+    in: under "single" and "refined" the LU's operations are float32, and
+    "refined" adds its second solve and jvp a Newton iteration."""
+    ops = solve_ops(totals)
+    if opts.ls_precision == "full":
+        return {dtype: ops}
+    n_solves = totals["nni"] * (2 if opts.ls_precision == "refined" else 1)
+    lu = n_solves * OPS_LU["solve"] + totals["nje"] * OPS_LU["factor"]
+    rest = ops - totals["nni"] * OPS_LU["solve"] - totals["nje"] * OPS_LU["factor"]
+    if opts.ls_precision == "refined":
+        rest += totals["nni"] * OPS_REFINED_EXTRA
+    if dtype == torch.float32:
+        return {torch.float32: rest + lu}
+    return {torch.float64: rest, torch.float32: lu}
+
+
+def solve_bound(st, ops, opts: IdaOptions = IdaOptions()) -> tuple[float, str]:
     """The least time for a launch's work: the state (B lanes) read and
     written once, with params read once (the tolerances and tout travel by
-    value), over the memory rate, against the operations over the peak rate
-    of the dtype."""
+    value), over the memory rate, against the operations (a number, in the
+    state's dtype, or {dtype: operations}) over the peak rate of their
+    type; the fields are those of ``opts``' mode."""
     bsz = st.tn.shape[0]
-    nbytes = 2 * state_bytes(st) + bsz * 3 * st.phi.element_size()
+    nbytes = 2 * state_bytes(st, opts) + bsz * 3 * st.phi.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[st.dtype] * 1e3
+    by_type = ops if isinstance(ops, dict) else {st.dtype: ops}
+    t_ops = sum(n / PEAK_FLOPS[dt] for dt, n in by_type.items()) * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
@@ -684,15 +741,15 @@ def shared_tol(n: int = 3, dtype=torch.float64):
                                   torch.device("cuda"))
 
 
-def bare_launch_ms(st0, p_b, tol_in=None) -> float:
+def bare_launch_ms(st0, p_b, tol_in=None, opts: IdaOptions = IdaOptions()) -> float:
     """CUDA-event time of one bare K2 launch to TOUT (the headline's shared
-    tolerances unless ``tol_in`` is given): the arguments are checked and
-    the result allocated before the first event, so the window holds the
-    launch alone."""
-    dst = fused_solve.empty_result(st0)
+    tolerances unless ``tol_in`` is given) in ``opts``' mode: the arguments
+    are checked and the result allocated before the first event, so the
+    window holds the launch alone."""
+    dst = fused_solve.empty_result(st0, opts)
     carry = fused_solve.new_carry(st0.tn.shape[0], st0.dtype, st0.phi.device, False)
     go = fused_solve.prepare_launch("", st0, dst, p_b, tol_in or shared_tol(), TOUT, carry,
-                                    IdaOptions(), 0, None)
+                                    opts, 0, None)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
     ev[0].record()
@@ -702,16 +759,33 @@ def bare_launch_ms(st0, p_b, tol_in=None) -> float:
     return ev[0].elapsed_time(ev[1])
 
 
-def solve_kernel_ptxas() -> dict:
-    """Registers, stack and spills of the f64 solve kernel (shared
-    tolerances) from the build's ptxas log."""
-    summary = _build.ptxas_summary(fused_solve.build()["log"])
-    # the f64, shared-tolerance instantiation: ...RealIdEE..., ...Lb0EE...
-    hits = {k: v for k, v in summary.items()
-            if "fused_solve_kernel" in k and "RealIdEE" in k and "Lb0E" in k}
-    check(len(hits) == 1, f"the f64 solve kernel's ptxas line: found {sorted(hits)} "
-                          f"among {sorted(k for k in summary if 'fused_solve_kernel' in k)}")
-    return next(iter(hits.values()))
+# the solve kernel's instantiations by their mangled names: the state's
+# dtype (...RealIdEE... f64, ...RealIfEE... f32) and LaneTol last
+# (...Lb0EEEv12IdaSolveArgs... shared tolerances, ...Lb1EEEv... per lane)
+SOLVE_KERNEL_FORMS = {f"{dt}_{tol}": (dtag, ttag)
+                      for dt, dtag in (("f64", "RealIdEE"), ("f32", "RealIfEE"))
+                      for tol, ttag in (("shared_tol", "Lb0EEEv"), ("lane_tol", "Lb1EEEv"))}
+
+
+def solve_kernels_ptxas(opts: IdaOptions = IdaOptions()) -> dict:
+    """Registers, stack and spills of each instantiation of the solve
+    kernel in ``opts``' mode (:data:`SOLVE_KERNEL_FORMS`) from its build's
+    ptxas log."""
+    summary = _build.ptxas_summary(fused_solve.build_of(opts)["log"])
+    out = {}
+    for form, (dtag, ttag) in SOLVE_KERNEL_FORMS.items():
+        hits = {k: v for k, v in summary.items()
+                if "fused_solve_kernel" in k and dtag in k and ttag in k}
+        check(len(hits) == 1, f"the {form} solve kernel's ptxas line: found {sorted(hits)} "
+                              f"among {sorted(k for k in summary if 'fused_solve_kernel' in k)}")
+        out[form] = next(iter(hits.values()))
+    return out
+
+
+def solve_kernel_ptxas(opts: IdaOptions = IdaOptions()) -> dict:
+    """:func:`solve_kernels_ptxas` of the f64 kernel with shared
+    tolerances, the headline's."""
+    return solve_kernels_ptxas(opts)["f64_shared_tol"]
 
 
 def warp_divergence(st) -> dict:
@@ -738,7 +812,7 @@ def phase_fused_slice(eager: dict) -> dict:
     fused_solve.reset_launch_counts()
     out = fn(st0, p_b, TOUT)
     torch.cuda.synchronize()
-    launches = fused_solve.FUSED_LAUNCHES
+    launches = fused_solve.launch_count("solve")
     peak = torch.cuda.max_memory_allocated()
     st, tret, istate = out
     est, etret, eistate = eager["result"]
@@ -799,7 +873,7 @@ def phase_fused_budgeted() -> dict:
     fused_solve.reset_launch_counts()
     got = fused_fn("cuda", budget=7)(st0, params, TOUT)
     torch.cuda.synchronize()
-    n_launch = fused_solve.FUSED_INIT_LAUNCHES + fused_solve.FUSED_CONT_LAUNCHES
+    n_launch = fused_solve.launch_count("init") + fused_solve.launch_count("cont")
     differ = [f for f in ref[0]._fields if isinstance(getattr(ref[0], f), torch.Tensor)
               and not same(getattr(ref[0], f), getattr(got[0], f))]
     ok = not differ and same(ref[1], got[1]) and same(ref[2], got[2])
@@ -821,7 +895,7 @@ def phase_fused_budgeted() -> dict:
     out = fn(st0, p_b, TOUT)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"init": fused_solve.FUSED_INIT_LAUNCHES, "cont": fused_solve.FUSED_CONT_LAUNCHES}
+    launches = {"init": fused_solve.launch_count("init"), "cont": fused_solve.launch_count("cont")}
     check(launches["init"] == 1 and launches["cont"] > 0, f"budgeted launches {launches}")
 
     # launch by launch against the plain version, the eager
@@ -1065,16 +1139,16 @@ def phase_dense_slice() -> dict:
     emit("dense_slice", batch=B, rows=len(DECADES), dtype="float64", wall_s=wall,
          rows_success=n_ok, steps_per_s=total_nst / wall, nst=total_nst,
          attempts_total=int(attempts.sum()), attempts_max_lane=int(attempts.max()),
-         launches=launches, scan_form_kernel_launches=fused_solve.FUSED_LAUNCHES,
+         launches=launches, scan_form_kernel_launches=fused_solve.launch_count("solve"),
          scan_form_ms=chain_ms, rows_differ_from_scan_form=differ[:8],
          nominal_lane_nst=nst[:, mid].tolist(), profiled_first_4_decades=busy,
          busy_share=busy["busy_share"])
     check(n_ok == len(DECADES) * B, f"dense_slice: {len(DECADES) * B - n_ok} rows not SUCCESS")
-    check(fused_solve.FUSED_LAUNCHES == len(DECADES), "dense_slice: the scan form's launches")
+    check(fused_solve.launch_count("solve") == len(DECADES), "dense_slice: the scan form's launches")
     check(not differ, f"dense_slice: rows != 12 chained whole-solve launches: {differ[:8]}")
     check(nst[:, mid].tolist() == CANONICAL_NST, f"dense_slice: nominal lane {nst[:, mid].tolist()}")
     check(launches["factor"] > 0 and launches["solve"] > 0, f"LU kernels not launched: {launches}")
-    return {"launches": launches, "scan_form_launches": fused_solve.FUSED_LAUNCHES}
+    return {"launches": launches, "scan_form_launches": fused_solve.launch_count("solve")}
 
 
 def phase_dense_events() -> None:
@@ -1555,8 +1629,8 @@ def phase_constrained_headline() -> dict:
     fused_solve.reset_launch_counts()
     runs = constrained_chain(st0, routes)
     lu_l = lu_launches()
-    launches = {"k2": fused_solve.FUSED_LAUNCHES, "init": fused_solve.FUSED_INIT_LAUNCHES,
-                "cont": fused_solve.FUSED_CONT_LAUNCHES}
+    launches = {"k2": fused_solve.launch_count("solve"), "init": fused_solve.launch_count("init"),
+                "cont": fused_solve.launch_count("cont")}
     # IDA holds the constraints on the Newton iterates, to the rounding of the
     # correction that pulls a small violation back: late decades, where y1
     # and y2 are ~0, give values of -1e-37 to -1e-22 in ida_tpu run op by op
@@ -2357,7 +2431,7 @@ def phase_mixed_headline(eager: dict, k1: dict) -> dict:
         tol = _native_shared_tol(tol_sv(1e-4, ATOL, device="cuda"), native)
         busy = device_busy(lambda: core_solve(native, prob, opts, tol, 4.0e3, TASK_ONE_STEP),
                            calls=3)
-        out[mode] = {"wall_s": wall, "launches": launches}
+        out[mode] = {"wall_s": wall, "launches": launches, "result": res[mode][0]}
         emit("mixed_headline", mode=mode, batch=B, tout=TOUT, wall_s=wall, walls_s=walls[mode],
              walls_full_s=walls["full"], wall_vs_full=wall / min(walls["full"]),
              nst_full=full_nst, eager_headline_wall_s=eager["wall_s"],
@@ -2418,7 +2492,7 @@ def phase_fast_f64(eager: dict) -> dict:
     check(float(excess) <= 0.0, f"fast_f64: a lane beyond rtol 1e-3 / atol 1e-10 of parity: {excess}")
     check(err < 1.0, f"fast_f64: canonical lane check_ans WRMS {err}")
     check(launches["factor"] > 0 and launches["solve"] > 0, f"fast_f64: LU kernels {launches}")
-    return {"launches": launches}
+    return {"launches": launches, "result": res["fast"], "wall_s": min(walls["fast"])}
 
 
 def phase_heat2d_mixed() -> None:
@@ -2649,6 +2723,148 @@ def phase_profile_scopes(eager: dict) -> None:
           "profile_scopes: no device time inside ida.step.attempt")
 
 
+def mode_launch_times(opts: IdaOptions, st0, p_b, budget: int) -> list:
+    """CUDA-event ms of each launch of a budgeted solve in ``opts``' mode
+    (K3, then K4 in place on its result until no lane is CONTINUE)."""
+    dst = fused_solve.empty_result(st0, opts)
+    carry = fused_solve.new_carry(st0.tn.shape[0], st0.dtype, st0.phi.device, True)
+    tol_in = shared_tol(dtype=st0.dtype)
+    runs = []
+
+    def step(resume: bool) -> torch.Tensor:
+        go = fused_solve.prepare_launch("cont" if resume else "init", dst if resume else st0, dst,
+                                        p_b, tol_in, TOUT, carry, opts, 0, budget)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        istate = go()
+        ev[1].record()
+        torch.cuda.synchronize()
+        runs.append(ev[0].elapsed_time(ev[1]))
+        return istate
+
+    fused_solve.run_until_done(step)
+    return runs
+
+
+def phase_fused_modes(mixed: dict, fast: dict) -> dict:
+    """The whole-solve kernel in each non-parity mode at the headline (B =
+    65,536, tout 400, f64): K2 and budget 32 (K3 + K4) through
+    make_fused_solve, each bit for bit the eager solve of the same mode
+    (the states mixed_headline and fast_f64 computed; the fast_math
+    combinations with "single" and "refined" solved here), every lane
+    SUCCESS; the bare-launch time of each mode in turns with parity's, the
+    K3/K4 launches' times, each mode's registers and spills and its bound;
+    then a float32-state leg at B = 4,096, K2 and budget 7 against the eager
+    float32 solve of each mode."""
+    eager = {"single": ("mixed", mixed["single"]["result"], mixed["single"]["wall_s"]),
+             "refined": ("mixed", mixed["refined"]["result"], mixed["refined"]["wall_s"]),
+             "fast_math": ("headline", fast["result"], fast["wall_s"])}
+    inputs = {"mixed": mixed_inputs(B), "headline": ensemble_inputs(B)}
+    for mode in ("fast_math_single", "fast_math_refined"):
+        opts = FUSED_MODES[mode]
+        res = {}
+        wall = wall_s(lambda: res.update(out=run_mode(*inputs["headline"], "cuda", TOUT, opts)))
+        eager[mode] = ("headline", res["out"], wall)
+    tol = tol_sv(1e-4, ATOL, device="cuda")
+    # parity's bare launch in turns with the modes'
+    st_par = ensemble_init(roberts_factory, *inputs["headline"], device="cuda")
+    p_par = on_card(inputs["headline"][0])
+    starts = {}
+    for mode, (which, _, _) in eager.items():
+        params, yy0, yp0 = inputs[which]
+        starts[mode] = (ensemble_init(roberts_factory, params, yy0, yp0, device="cuda",
+                                      opts=FUSED_MODES[mode]), on_card(params))
+    bare = {m: [] for m in ("parity",) + tuple(eager)}
+    # one launch each first: the first launch of a library just loaded is
+    # cold (10-70 ms on the H100)
+    for mode in eager:
+        bare_launch_ms(*starts[mode], opts=FUSED_MODES[mode])
+    for _ in range(3):
+        bare["parity"].append(bare_launch_ms(st_par, p_par))
+        for mode in eager:
+            bare[mode].append(bare_launch_ms(*starts[mode], opts=FUSED_MODES[mode]))
+    parity_ptxas = solve_kernel_ptxas()
+    rows = {}
+    for mode, (which, (est, etret, eist), eager_wall) in eager.items():
+        opts = FUSED_MODES[mode]
+        st0, p_b = starts[mode]
+        k2 = fused_solve.make_fused_solve(roberts_factory, tol, opts)
+        k34 = fused_solve.make_fused_solve(roberts_factory, tol, opts, attempt_budget=32)
+        times = mode_launch_times(opts, st0, p_b, 32)
+        # the main path: K2, then budget 32, each through the entry point
+        fused_solve.reset_launch_counts()
+        st, tret, ist = k2(st0, p_b, TOUT)
+        sb, tb, ib = k34(st0, p_b, TOUT)
+        torch.cuda.synchronize()
+        launches = {k: fused_solve.MODE_LAUNCHES.get((k, mode), 0)
+                    for k in ("solve", "init", "cont")}
+        other = {k: c for k, c in fused_solve.MODE_LAUNCHES.items() if k[1] != mode}
+        diff_k2 = first_difference(st, est, {"tret": tret, "istate": ist},
+                                   {"tret": etret, "istate": eist})
+        diff_k34 = first_difference(sb, est, {"tret": tb, "istate": ib},
+                                    {"tret": etret, "istate": eist})
+        err = max(max_abs_diff(st, est), max_abs_diff(sb, est))
+        walls = [wall_s(lambda: k2(st0, p_b, TOUT)) for _ in range(3)]
+        totals = counter_totals(st)
+        bound, bound_by = solve_bound(st0, mode_ops(totals, opts, torch.float64), opts)
+        # K3 and K4's bounds: the work of the average launch of each kind
+        per_launch_ops = {dt: n / len(times) for dt, n in
+                          mode_ops(totals, opts, torch.float64).items()}
+        bound_34, by_34 = solve_bound(st0, per_launch_ops, opts)
+        ptxas = solve_kernel_ptxas(opts)
+        n_ok = int((ist == C.SUCCESS).sum())
+        occ = fused_solve.occupancy(torch.float64, opts)
+        rows[mode] = {
+            "solve": {"launches": launches["solve"], "ms": statistics.median(bare[mode]),
+                      "plain_ms": eager_wall * 1e3, "bound_ms": bound, "bound_by": bound_by,
+                      "max_abs_err": err},
+            "init": {"launches": launches["init"], "ms": times[0], "plain_ms": eager_wall * 1e3,
+                     "bound_ms": bound_34, "bound_by": by_34, "max_abs_err": err},
+            "cont": {"launches": launches["cont"], "ms": statistics.mean(times[1:]),
+                     "plain_ms": eager_wall * 1e3, "bound_ms": bound_34, "bound_by": by_34,
+                     "max_abs_err": err},
+        }
+        emit("fused_modes", mode=mode, batch=B, tout=TOUT, dtype="float64", inputs=which,
+             lanes_success=n_ok, first_difference_k2=diff_k2, first_difference_k3_k4=diff_k34,
+             max_abs_err=err, launches=launches, other_modes_launched=str(other),
+             bare_launch_ms=bare[mode], parity_bare_launch_ms=bare["parity"],
+             k3_ms=times[0], k4_ms=times[1:], fused_walls_s=walls, eager_wall_s=eager_wall,
+             eager_over_fused=eager_wall / statistics.median(walls), bound_ms=bound,
+             bound_by=bound_by, ops={str(k): v for k, v in mode_ops(totals, opts,
+                                                                     torch.float64).items()},
+             ptxas=ptxas, parity_ptxas=parity_ptxas, occupancy=occ, lu_dtype=str(st.lu.dtype),
+             **totals)
+        check(diff_k2 is None, f"fused_modes {mode}: K2 {diff_k2} != the eager mode")
+        check(diff_k34 is None, f"fused_modes {mode}: budget 32 {diff_k34} != the eager mode")
+        check(n_ok == B, f"fused_modes {mode}: {B - n_ok} lanes not SUCCESS")
+        check(launches["solve"] == 1 and launches["init"] == 1 and launches["cont"] > 0,
+              f"fused_modes {mode}: launches {launches}")
+        check(not other, f"fused_modes {mode}: another mode's kernel launched: {other}")
+        check(ptxas.get("spill_stores", 0) == 0, f"fused_modes {mode}: the kernel spills: {ptxas}")
+
+    # float32 states at B = 4,096: K2 and budget 7 against the eager mode
+    params, yy0, yp0 = ensemble_inputs(B_MODES_F32)
+    tol32 = tol_sv(1e-4, ATOL, device="cuda", dtype=torch.float32)
+    for mode, opts in FUSED_MODES.items():
+        st0 = ensemble_init(roberts_factory, params, yy0, yp0, device="cuda",
+                            dtype=torch.float32, opts=opts)
+        est, etret, eist = make_ensemble_solve(roberts_factory, opts)(st0, params, tol32, TOUT)
+        got = fused_solve.make_fused_solve(roberts_factory, tol32, opts)(st0, params, TOUT)
+        bud = fused_solve.make_fused_solve(roberts_factory, tol32, opts, attempt_budget=7)(
+            st0, params, TOUT)
+        outs = {"tret": etret, "istate": eist}
+        diff = [first_difference(g[0], est, {"tret": g[1], "istate": g[2]}, outs)
+                for g in (got, bud)]
+        n_ok = int((got[2] == C.SUCCESS).sum())
+        emit("fused_modes_f32", mode=mode, batch=B_MODES_F32, first_difference_k2=diff[0],
+             first_difference_budget7=diff[1], lanes_success=n_ok, nst=int(got[0].nst.sum()),
+             max_abs_err=max(max_abs_diff(g[0], est) for g in (got, bud)))
+        check(diff == [None, None], f"fused_modes_f32 {mode}: {diff} != the eager mode")
+        check(n_ok == B_MODES_F32, f"fused_modes_f32 {mode}: lanes not SUCCESS")
+    return rows
+
+
 def timed(phase, *args):
     """Run a phase and print how long it took."""
     t0 = time.perf_counter()
@@ -2697,6 +2913,7 @@ def main() -> None:
     slider = timed(phase_slider_crank)
     timed(phase_stratified)
     timed(phase_profile_scopes, eager)
+    modes = timed(phase_fused_modes, mixed, fast)
 
     # "launches" is the count of the eager headline (phase slice) for the LU
     # kernels and of the fused headline for the solve kernel; the counts of
@@ -2762,6 +2979,12 @@ def main() -> None:
                      "replaces": REPLACES[f"fused_solve_{kind}"], **budgeted[kind],
                      "launches_constrained_headline": c_head["launches"][kind],
                      "library_ms": None})
+    # the whole-solve kernel in each non-parity mode (fused_modes)
+    for mode, kinds in modes.items():
+        for kind, row in kinds.items():
+            base = "fused_solve" if kind == "solve" else f"fused_solve_{kind}"
+            rows.append({"name": f"{base}_{mode}", "route": "cuda", "source": FUSED_SOURCE,
+                         "replaces": REPLACES[base], **row, "library_ms": None})
     for stage, t in stages["times"].items():
         rows.append({"name": f"fused_stage_{stage}", "route": "cuda", "source": FUSED_SOURCE,
                      "replaces": REPLACES["stage"], "launches": stages["launches"][stage],

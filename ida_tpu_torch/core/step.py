@@ -4,12 +4,13 @@ Port of ``ida_tpu/core/step.py`` (reference ``step`` src/lib.rs:613-711 and
 ``handle_n_flag`` :1120-1244): set_coeffs -> advance tn (tstop roundoff
 clamp, C semantics) -> predict -> nonlinear_solve -> error test; on failure
 restore + handle_n_flag (+ reset while nst == 0). The solve loop in
-``core/solve.py`` calls :func:`attempt_once` once per loop iteration.
+``core/solve.py`` calls :func:`attempt_once` once per loop iteration;
+:func:`step` is the standalone one-internal-step retry machine around it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -17,10 +18,23 @@ from .. import constants as C
 from ..utils.ad_mode import smask_den, spow
 from ..utils.profiling import scope
 from ..utils.trace import TRACE_FIELDS, trace_sink
+from ..utils.tree import masked_while_loop
 from .coeffs import kidx, predict, reset, restore, set_coeffs
+from .complete_step import complete_step
 from .error_test import error_test
 from .nls import nonlinear_solve
 from .state import IdaOptions, IdaState
+
+
+class _Attempt(NamedTuple):
+    state: IdaState
+    ck: torch.Tensor
+    err_k: torch.Tensor
+    err_km1: torch.Tensor
+    ncf: torch.Tensor  # int32 local convergence-failure counter
+    nef: torch.Tensor  # int32 local error-test-failure counter
+    done: torch.Tensor  # bool: success
+    fatal: torch.Tensor  # int32 fatal status (CONTINUE while fine)
 
 
 def _handle_n_flag(
@@ -164,3 +178,40 @@ def attempt_once(
     ncf = torch.where(fail, ncf_f, ncf)
     nef = torch.where(fail, nef_f, nef)
     return st, success, fatal, ck, err_k, err_km1, ncf, nef
+
+
+def step(state: IdaState, problem, opts: IdaOptions) -> IdaState:
+    """Take one internal step of every lane; a lane's fatal failure lands
+    in its ``status`` (``ida_tpu/core/step.py::step``, reference
+    src/lib.rs:613-711). Attempts repeat while a lane has neither succeeded
+    nor failed fatally; the production solve loop calls
+    :func:`attempt_once` directly instead."""
+    saved_t = state.tn
+    state = step_begin(state)
+
+    def cond(c: _Attempt) -> torch.Tensor:
+        return ~c.done & (c.fatal == C.CONTINUE)
+
+    def body(c: _Attempt) -> _Attempt:
+        st, success, fatal, ck, err_k, err_km1, ncf, nef = attempt_once(
+            c.state, problem, opts, saved_t, c.ncf, c.nef)
+        return _Attempt(
+            state=st,
+            ck=torch.where(success, ck, c.ck),
+            err_k=torch.where(success, err_k, c.err_k),
+            err_km1=torch.where(success, err_km1, c.err_km1),
+            ncf=ncf, nef=nef, done=success, fatal=fatal,
+        )
+
+    z = torch.zeros_like(state.tn)
+    zi = torch.zeros(state.tn.shape, dtype=torch.int32, device=state.tn.device)
+    init = _Attempt(state=state, ck=z, err_k=z, err_km1=z, ncf=zi, nef=zi,
+                    done=torch.zeros_like(zi, dtype=torch.bool),
+                    fatal=torch.full_like(zi, C.CONTINUE))
+    out = masked_while_loop(cond, body, init)
+
+    # the success epilogue (src/lib.rs:697-708), under the success mask
+    state = complete_step(out.state, problem, opts, out.err_k, out.err_km1, ck=out.ck,
+                          mask=out.done)
+    # fatal failures land in the status lane
+    return state._replace(status=torch.where(out.done, state.status, out.fatal).to(torch.int32))

@@ -48,6 +48,11 @@
 //
 // Parity with the eager port on the card is bit for bit (see ida_lane.cuh).
 //
+// One library per arithmetic mode: built with -DIDA_FAST_MATH=1 and/or
+// -DIDA_LS_PRECISION=1 ("single") or 2 ("refined") its solve entry points
+// run that mode of IdaOptions (ops/fused_solve.py mode_flags); the parity
+// build (neither flag) is the one that also holds the stage kernels.
+//
 // Each entry point launches on the given stream and returns
 // cudaGetLastError(); none allocates or synchronizes. `model` selects the
 // compiled-in problem (0 = Roberts); any other value returns
@@ -58,6 +63,13 @@
 #include <cuda_runtime.h>
 
 #include "ida_lane.cuh"
+
+#ifndef IDA_FAST_MATH
+#define IDA_FAST_MATH 0
+#endif
+#ifndef IDA_LS_PRECISION
+#define IDA_LS_PRECISION 0
+#endif
 
 namespace {
 
@@ -82,6 +94,22 @@ struct Roberts {
     r[2] = yy[0] + yy[1] + yy[2] - T(1);
   }
 
+  // the tangent of res with tangents (v, w) of (yy, yp), as torch's forward
+  // AD computes it op by op (torch.func.jvp of res: d(a * b) = a' * b + a *
+  // b', the params carry no tangent); the refinement's J v with w = cj v
+  template <typename T>
+  __device__ static void res_jvp(const T (&p)[P], T t, const T (&yy)[N], const T (&yp)[N],
+                                 const T (&v)[N], const T (&w)[N], T (&jv)[N]) {
+    const T a = p[1] * yy[1];
+    const T a_t = p[1] * v[1];
+    const T r0_t = (-p[0]) * v[0] + (a * v[2] + a_t * yy[2]);
+    const T c = p[2] * yy[1];
+    const T c_t = p[2] * v[1];
+    jv[0] = r0_t - w[0];
+    jv[1] = (-r0_t - (c * v[1] + c_t * yy[1])) - w[1];
+    jv[2] = v[0] + v[1] + v[2];
+  }
+
   template <typename T>
   __device__ static void jac(const T (&p)[P], T t, T cj, const T (&yy)[N], const T (&yp)[N],
                              const T (&rr)[N], T (&J)[N][N]) {
@@ -96,6 +124,18 @@ struct Roberts {
     J[2][2] = T(1);
   }
 };
+
+// a model in one arithmetic mode of IdaOptions (ida_lane.cuh)
+template <class Model, bool FastMath, int Ls>
+struct WithMode : Model {
+  static constexpr bool kFastMath = FastMath;
+  static constexpr int kLs = Ls;
+};
+// the mode this library's solve entry points run, and the stage kernels'
+using Solved = WithMode<Roberts, IDA_FAST_MATH != 0, IDA_LS_PRECISION>;
+using Parity = WithMode<Roberts, false, ida::LS_FULL>;
+static_assert(IDA_LS_PRECISION >= ida::LS_FULL && IDA_LS_PRECISION <= ida::LS_REFINED,
+              "IDA_LS_PRECISION is 0 (full), 1 (single) or 2 (refined)");
 
 template <typename T>
 __device__ __forceinline__ void load_carry(const ida::CarryRefs& r, long long b,
@@ -151,10 +191,10 @@ __global__ void __launch_bounds__(IDA_THREADS, IDA_MIN_BLOCKS)
 fused_solve_kernel(const __grid_constant__ IdaSolveArgs a, int budget, int resume) {
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
-  ida::Lane<T, M::N> L;
+  ida::LaneOf<T, M> L;
   ida::Ctx<T, M> c;
   ida::Carry<T> cr;
-  ida::load_lane<T, M::N, ida::BatchLeading>(a.in, a.out, b, a.B, L);
+  ida::load_lane<T, M, ida::BatchLeading>(a.in, a.out, b, a.B, L);
   ida::load_ctx<T, M, LaneTol>(a.params, a.tol, a.opts, b, c);
   if (resume) {
     load_carry<T>(a.carry, b, cr);
@@ -164,7 +204,7 @@ fused_solve_kernel(const __grid_constant__ IdaSolveArgs a, int budget, int resum
   for (int n = 0; n < budget && cr.istate == ida::CONTINUE; ++n)
     ida::attempt_loop_body<T, M>(L, c, cr);
   ida::solve_epilogue<T, M>(L, cr);
-  ida::store_lane<T, M::N, ida::BatchLeading>(a.in, a.out, b, a.B, L);
+  ida::store_lane<T, M, ida::BatchLeading>(a.in, a.out, b, a.B, L);
   store_carry<T>(a.carry, b, cr);
 }
 
@@ -184,9 +224,9 @@ fused_stage_kernel(const __grid_constant__ ida::StateRefs s, const void* params,
   int* ai = (int*)aux_i;
 #define AF(k) af[(long long)(k) * B + b]
 #define AI(k) ai[(long long)(k) * B + b]
-  ida::Lane<T, M::N> L;
+  ida::LaneOf<T, M> L;
   ida::Ctx<T, M> c;
-  ida::load_lane<T, M::N, ida::BatchLast>(s, s, b, B, L);
+  ida::load_lane<T, M, ida::BatchLast>(s, s, b, B, L);
   ida::load_ctx_native<T, M>(params, rtol, atol, tout, opts, b, B, c);
   if (S == SET_COEFFS) {
     AF(0) = ida::set_coeffs<T, M>(L);
@@ -226,7 +266,7 @@ fused_stage_kernel(const __grid_constant__ ida::StateRefs s, const void* params,
   }
 #undef AF
 #undef AI
-  ida::store_lane<T, M::N, ida::BatchLast>(s, s, b, B, L);
+  ida::store_lane<T, M, ida::BatchLast>(s, s, b, B, L);
 }
 
 inline unsigned grid_for(long long B) { return (unsigned)((B + kThreads - 1) / kThreads); }
@@ -243,7 +283,7 @@ int allow_shared(K kernel, size_t bytes) {
 template <typename T, bool LaneTol>
 int launch_solve_as(const IdaSolveArgs& a, int budget, int resume, void* stream) {
   constexpr size_t shared = ida::Hist<T, Roberts::N>::kBytes;
-  auto kernel = fused_solve_kernel<T, Roberts, LaneTol>;
+  auto kernel = fused_solve_kernel<T, Solved, LaneTol>;
   const int err = allow_shared(kernel, shared);
   if (err != (int)cudaSuccess) return err;
   kernel<<<grid_for(a.B), kThreads, shared, (cudaStream_t)stream>>>(a, budget, resume);
@@ -268,7 +308,7 @@ int launch_stage(const ida::StateRefs* s, const void* params, const void* rtol, 
   if (model != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaSuccess;
   constexpr size_t shared = ida::Hist<T, Roberts::N>::kBytes;
-  auto kernel = fused_stage_kernel<T, Roberts, S>;
+  auto kernel = fused_stage_kernel<T, Parity, S>;
   const int err = allow_shared(kernel, shared);
   if (err != (int)cudaSuccess) return err;
   kernel<<<grid_for(B), kThreads, shared, (cudaStream_t)stream>>>(
@@ -281,7 +321,7 @@ int launch_stage(const ida::StateRefs* s, const void* params, const void* rtol, 
 template <typename T>
 int solve_occupancy(int* blocks_per_sm, int* shared_bytes, int* threads, int* sms) {
   constexpr size_t shared = ida::Hist<T, Roberts::N>::kBytes;
-  auto kernel = fused_solve_kernel<T, Roberts, false>;
+  auto kernel = fused_solve_kernel<T, Solved, false>;
   int err = allow_shared(kernel, shared);
   if (err != (int)cudaSuccess) return err;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads,
@@ -320,6 +360,8 @@ extern "C" {
 IDA_SOLVE_ENTRY(f64)
 IDA_SOLVE_ENTRY(f32)
 
+#if IDA_FAST_MATH == 0 && IDA_LS_PRECISION == 0
+
 #define IDA_STAGE_ENTRY(name, S, dt)                                                        \
   int fused_stage_##name##_##dt(const ida::StateRefs* s, const void* params,                \
                                 const void* rtol, const void* atol, const void* tout,       \
@@ -338,5 +380,6 @@ IDA_STAGE_BOTH(attempt, ATTEMPT)
 IDA_STAGE_BOTH(prologue, PROLOGUE)
 IDA_STAGE_BOTH(stoptest, STOPTEST)
 IDA_STAGE_BOTH(getsol, GETSOL)
+#endif
 
 }  // extern "C"

@@ -46,10 +46,28 @@
 // constraints_set is on runs the block at the end of nonlinear_solve, reading
 // its constraint codes from device memory there (they are read nowhere else,
 // so they take no register across the attempt loop).
+//
+// The arithmetic modes of IdaOptions are compile-time members of the model
+// type M (M::kFastMath, M::kLs), so the parity instantiation is the code it
+// was and each mode is an instantiation of its own:
+// * fast_math keeps phi unscaled: set_coeffs and restore leave it alone, and
+//   predict, error_test and complete_step fold the phi-star row scale
+//   (phi_star_s, coeffs.py phi_star_scale) into their products where the
+//   eager code does;
+// * ls_precision "single" and "refined" hold the factor in float32
+//   (Lane::lu is Real<float>) and solve in float32 (small_lu.cuh at float).
+//   "single" evaluates the Jacobian on arguments rounded to float32 (in T,
+//   as the eager code's float64 parameters promote them) and rounds it;
+//   "refined" evaluates it in T, rounds it, saves the lsetup point
+//   (ls_tn, ls_cj, ls_yy, ls_yp: cold fields in device memory) and refines
+//   every solve once, x0 + LU32^-1 (b - J x0), with J x0 the tangent of the
+//   residual at that point (M::res_jvp, torch.func.jvp's formulas).
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "rounded.cuh"
 #include "small_lu.cuh"
@@ -93,6 +111,20 @@ struct Opts {
   int maxord, mxstep, maxncf, maxnef, maxnlsit, suppressalg, constraints;
 };
 
+// IdaOptions.ls_precision, M::kLs
+constexpr int LS_FULL = 0, LS_SINGLE = 1, LS_REFINED = 2;
+
+// a real rounded to float32 to the nearest, as torch's .to(torch.float32),
+// and a float32 widened back to a real of the state's dtype (exact)
+__device__ __forceinline__ Real<float> to_f32(Real<double> a) {
+  Real<float> r;
+  r.v = __double2float_rn(a.v);
+  return r;
+}
+__device__ __forceinline__ Real<float> to_f32(Real<float> a) { return a; }
+__device__ __forceinline__ void widen(Real<float> a, Real<double>& out) { out.v = (double)a.v; }
+__device__ __forceinline__ void widen(Real<float> a, Real<float>& out) { out = a; }
+
 // torch.finfo(dtype).eps
 template <typename T> struct Eps;
 template <> struct Eps<Real<double>> { static constexpr double v = 2.220446049250313e-16; };
@@ -116,9 +148,11 @@ template <typename T> __device__ __forceinline__ T tsign(T a) {
 // The state fields the solve reads or writes (core/state.py IdaState), in
 // the order of the pointer table the wrapper passes (ops/fused_solve.py
 // STATE_FIELDS must list the same names in the same order). Fields the solve
-// never touches (roots, yQ, the Krylov and refined-mode buffers) are not
-// passed and pass through; the constraints are read, and copied to the
-// result of a launch out of place.
+// never touches (roots, yQ, the Krylov buffers) are not passed and pass
+// through; the constraints are read, and copied to the result of a launch
+// out of place. ls_tn, ls_cj, ls_yy and ls_yp are read, written and copied
+// under ls_precision "refined" only: in the other modes their pointers are
+// null and the fields pass through.
 #define IDA_STATE_FIELDS(X)                                                     \
   X(phi) X(psi) X(alpha) X(beta) X(sigma) X(gamma) X(ee) X(yy) X(yp)            \
   X(yypredict) X(yppredict) X(ewt) X(savres) X(tn) X(hh) X(hused) X(rr) X(h0u)  \
@@ -126,7 +160,7 @@ template <typename T> __device__ __forceinline__ T tsign(T a) {
   X(cjold) X(cjratio) X(ss) X(oldnrm) X(eps_newt) X(toldel) X(lu) X(piv) X(hin) \
   X(hmax_inv) X(epcon) X(tstop) X(tstop_set) X(constraints) X(constraints_set)  \
   X(nst) X(nre) X(ncfn) X(netf) X(nni) X(nsetups) X(nje) X(toutc) X(taskc)       \
-  X(status)
+  X(status) X(ls_tn) X(ls_cj) X(ls_yy) X(ls_yp)
 
 // Device pointers to the state's fields: reals in the state's dtype,
 // kk..ns/piv/taskc/status int32, counters int64, tstop_set and
@@ -185,15 +219,16 @@ struct Hist {
   __device__ __forceinline__ T& gamma(int i) const { return row(kGamma + i); }
 };
 
-// One lane's state.
-template <typename T, int N>
+// One lane's state; LuT is the type of the factor (T, or Real<float> under
+// ls_precision "single" and "refined").
+template <typename T, int N, typename LuT = T>
 struct Lane {
   Hist<T, N> h;
   T ee[N], yy[N], yp[N], yypredict[N], yppredict[N], ewt[N], savres[N];
   T tn, hh, hused, rr;
   int kk, kused, knew, phase, ns;
   T cj, cjlast, cjold, cjratio, ss, oldnrm, eps_newt, toldel;
-  T lu[N][N];
+  LuT lu[N][N];
   int piv[N];
   bool tstop_set;
   // the counters as this launch's increments; `stepped`: nst > 0 at the load
@@ -209,18 +244,29 @@ struct Lane {
   __device__ __forceinline__ ty& name() const { return ((ty*)io->name)[b]; }
   IDA_COLD(hin, T) IDA_COLD(hmax_inv, T) IDA_COLD(epcon, T) IDA_COLD(tstop, T)
   IDA_COLD(h0u, T) IDA_COLD(tretlast, T) IDA_COLD(tolsf, T) IDA_COLD(toutc, T)
-  IDA_COLD(taskc, int) IDA_COLD(status, int)
+  IDA_COLD(taskc, int) IDA_COLD(status, int) IDA_COLD(ls_tn, T) IDA_COLD(ls_cj, T)
 #undef IDA_COLD
+  // where component i of a lane's [N] field lies
+  __device__ __forceinline__ long long at(int i) const {
+    return batch_last ? (long long)i * B + b : b * N + i;
+  }
+  // the lsetup point of ls_precision "refined"
+  __device__ __forceinline__ T& ls_yy(int i) const { return ((T*)io->ls_yy)[at(i)]; }
+  __device__ __forceinline__ T& ls_yp(int i) const { return ((T*)io->ls_yp)[at(i)]; }
   // nst == 0, of the true total
   __device__ __forceinline__ bool no_step_yet() const { return !stepped && nst == 0; }
   // the inequality constraints, read where the block uses them
   __device__ __forceinline__ bool constraints_set() const {
     return ((const unsigned char*)io->constraints_set)[b] != 0;
   }
-  __device__ __forceinline__ T constraint(int i) const {
-    return ((const T*)io->constraints)[batch_last ? (long long)i * B + b : b * N + i];
-  }
+  __device__ __forceinline__ T constraint(int i) const { return ((const T*)io->constraints)[at(i)]; }
 };
+
+// the factor's type, and the lane, of model M in its mode
+template <typename T, class M>
+using LuReal = typename std::conditional<M::kLs == LS_FULL, T, Real<float>>::type;
+template <typename T, class M>
+using LaneOf = Lane<T, M::N, LuReal<T, M>>;
 
 // The lane's problem data: parameters, tolerances, tout, options.
 template <typename T, class M>
@@ -246,10 +292,11 @@ struct Carry {
 // Load lane b of `in` (layout Lay). The cold fields are read and written
 // through `out` from here on, so they are copied there first when the
 // launch is out of place.
-template <typename T, int N, class Lay>
+template <typename T, class M, class Lay>
 __device__ __forceinline__ void load_lane(const StateRefs& in, const StateRefs& out, long long b,
-                                          long long B, Lane<T, N>& L) {
-  using H = Hist<T, N>;
+                                          long long B, LaneOf<T, M>& L) {
+  constexpr int N = M::N;
+  using LuT = LuReal<T, M>;
   L.h.col = (T*)ida_shared + threadIdx.x;
   L.io = &out;
   L.b = b;
@@ -277,7 +324,7 @@ __device__ __forceinline__ void load_lane(const StateRefs& in, const StateRefs& 
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int j = 0; j < N; ++j) L.lu[i][j] = ((const T*)in.lu)[Lay::at(i * N + j, N * N, b, B)];
+    for (int j = 0; j < N; ++j) L.lu[i][j] = ((const LuT*)in.lu)[Lay::at(i * N + j, N * N, b, B)];
 #pragma unroll
   for (int i = 0; i < N; ++i) L.piv[i] = ((const int*)in.piv)[Lay::at(i, N, b, B)];
   L.tstop_set = ((const unsigned char*)in.tstop_set)[b] != 0;
@@ -288,11 +335,16 @@ __device__ __forceinline__ void load_lane(const StateRefs& in, const StateRefs& 
     CP_COLD(hin, T) CP_COLD(hmax_inv, T) CP_COLD(epcon, T) CP_COLD(tstop, T) CP_COLD(h0u, T)
     CP_COLD(tretlast, T) CP_COLD(tolsf, T) CP_COLD(toutc, T) CP_COLD(taskc, int)
     CP_COLD(status, int) CP_COLD(constraints_set, unsigned char)
+    if (M::kLs == LS_REFINED) { CP_COLD(ls_tn, T) CP_COLD(ls_cj, T) }
 #undef CP_COLD
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const long long at = Lay::at(i, N, b, B);
       ((T*)out.constraints)[at] = ((const T*)in.constraints)[at];
+      if (M::kLs == LS_REFINED) {
+        ((T*)out.ls_yy)[at] = ((const T*)in.ls_yy)[at];
+        ((T*)out.ls_yp)[at] = ((const T*)in.ls_yp)[at];
+      }
     }
   }
 #undef LD_SCALAR
@@ -301,9 +353,11 @@ __device__ __forceinline__ void load_lane(const StateRefs& in, const StateRefs& 
 }
 
 // Store the lane into `out`; the counters are `in`'s plus the increments.
-template <typename T, int N, class Lay>
+template <typename T, class M, class Lay>
 __device__ __forceinline__ void store_lane(const StateRefs& in, const StateRefs& out, long long b,
-                                           long long B, const Lane<T, N>& L) {
+                                           long long B, const LaneOf<T, M>& L) {
+  constexpr int N = M::N;
+  using LuT = LuReal<T, M>;
 #define ST_SCALAR(name, ty) ((ty*)out.name)[b] = L.name;
 #define ST_VEC(name, K) \
   _Pragma("unroll") for (int i = 0; i < K; ++i) \
@@ -328,7 +382,7 @@ __device__ __forceinline__ void store_lane(const StateRefs& in, const StateRefs&
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int j = 0; j < N; ++j) ((T*)out.lu)[Lay::at(i * N + j, N * N, b, B)] = L.lu[i][j];
+    for (int j = 0; j < N; ++j) ((LuT*)out.lu)[Lay::at(i * N + j, N * N, b, B)] = L.lu[i][j];
 #pragma unroll
   for (int i = 0; i < N; ++i) ((int*)out.piv)[Lay::at(i, N, b, B)] = L.piv[i];
   ((unsigned char*)out.tstop_set)[b] = L.tstop_set ? 1 : 0;
@@ -419,16 +473,23 @@ __device__ __forceinline__ bool ewt_invalid(const T (&ewt)[N]) {
 }
 
 // row j of phi, out of shared memory
-template <typename T, int N>
-__device__ __forceinline__ void phi_row(const Lane<T, N>& L, int j, T (&out)[N]) {
+template <typename T, int N, typename LuT>
+__device__ __forceinline__ void phi_row(const Lane<T, N, LuT>& L, int j, T (&out)[N]) {
 #pragma unroll
   for (int n = 0; n < N; ++n) out[n] = L.h.phi(j, n);
 }
 
 // ---------------------------------------------------------------- coeffs.py
 
+// fast_math's phi -> phi-star scale of row j (coeffs.py phi_star_scale):
+// beta on rows ns..kk, exactly 1 elsewhere
 template <typename T, class M>
-__device__ __forceinline__ T set_coeffs(Lane<T, M::N>& L) {
+__device__ __forceinline__ T phi_star_s(const LaneOf<T, M>& L, int j) {
+  return (j >= L.ns && j <= L.kk) ? L.h.beta(j) : T(1);
+}
+
+template <typename T, class M>
+__device__ __forceinline__ T set_coeffs(LaneOf<T, M>& L) {
   constexpr int N = M::N;
   int ns_new = (L.hh != L.hused || L.kk != L.kused) ? 0 : L.ns;
   ns_new = min(ns_new + 1, L.kused + 2);
@@ -491,26 +552,35 @@ __device__ __forceinline__ T set_coeffs(Lane<T, M::N>& L) {
   T ck = absval(alpha_kk + alphas - alpha0);
   ck = tmax(ck, alpha_kk);
 
+  // phi -> phi-star; fast_math leaves phi unscaled (phi_star_s)
+  if constexpr (!M::kFastMath) {
 #pragma unroll
-  for (int i = 0; i < MXORDP1; ++i) {
-    if (i >= L.ns && i <= kk) {
-      const T beta_i = L.h.beta(i);
+    for (int i = 0; i < MXORDP1; ++i) {
+      if (i >= L.ns && i <= kk) {
+        const T beta_i = L.h.beta(i);
 #pragma unroll
-      for (int n = 0; n < N; ++n) L.h.phi(i, n) = L.h.phi(i, n) * beta_i;
+        for (int n = 0; n < N; ++n) L.h.phi(i, n) = L.h.phi(i, n) * beta_i;
+      }
     }
   }
   return ck;
 }
 
 template <typename T, class M>
-__device__ __forceinline__ void predict(Lane<T, M::N>& L) {
+__device__ __forceinline__ void predict(LaneOf<T, M>& L) {
   constexpr int N = M::N;
   T yy[N], yp[N];
 #pragma unroll
   for (int j = 0; j < MXORDP1; ++j) {
-    const T one = (j <= L.kk) ? T(1) : T(0);
+    T one = (j <= L.kk) ? T(1) : T(0);
     T gam = T(0);
     if (j >= 1 && j <= L.kk) gam = L.h.gamma(j);
+    if constexpr (M::kFastMath) {
+      // the row coefficients take the phi-star scale (coeffs.py predict)
+      const T s = phi_star_s<T, M>(L, j);
+      one = one * s;
+      gam = gam * s;
+    }
 #pragma unroll
     for (int n = 0; n < N; ++n) {
       const T ph = L.h.phi(j, n);
@@ -528,24 +598,27 @@ __device__ __forceinline__ void predict(Lane<T, M::N>& L) {
 }
 
 template <typename T, class M>
-__device__ __forceinline__ void restore(Lane<T, M::N>& L, T saved_t) {
+__device__ __forceinline__ void restore(LaneOf<T, M>& L, T saved_t) {
   constexpr int N = M::N;
 #pragma unroll
   for (int i = 0; i < MXORDP1 - 1; ++i)
     if (i < L.kk) L.h.psi(i) = L.h.psi(i + 1) - L.hh;
+  // fast_math: phi was never scaled
+  if constexpr (!M::kFastMath) {
 #pragma unroll
-  for (int i = 0; i < MXORDP1; ++i) {
-    if (i >= L.ns && i <= L.kk) {
-      const T inv = T(1) / L.h.beta(i);
+    for (int i = 0; i < MXORDP1; ++i) {
+      if (i >= L.ns && i <= L.kk) {
+        const T inv = T(1) / L.h.beta(i);
 #pragma unroll
-      for (int n = 0; n < N; ++n) L.h.phi(i, n) = L.h.phi(i, n) * inv;
+        for (int n = 0; n < N; ++n) L.h.phi(i, n) = L.h.phi(i, n) * inv;
+      }
     }
   }
   L.tn = saved_t;
 }
 
 template <typename T, class M>
-__device__ __forceinline__ void reset(Lane<T, M::N>& L) {
+__device__ __forceinline__ void reset(LaneOf<T, M>& L) {
 #pragma unroll
   for (int n = 0; n < M::N; ++n) L.h.phi(1, n) = L.h.phi(1, n) * L.rr;
   L.h.psi(0) = L.hh;
@@ -555,7 +628,7 @@ __device__ __forceinline__ void reset(Lane<T, M::N>& L) {
 
 // y(t) and y'(t) into yy/yp; false, and nothing written, when t is not legal
 template <typename T, class M>
-__device__ __forceinline__ bool get_solution(const Lane<T, M::N>& L, T t, T (&yy)[M::N],
+__device__ __forceinline__ bool get_solution(const LaneOf<T, M>& L, T t, T (&yy)[M::N],
                                              T (&yp)[M::N]) {
   constexpr int N = M::N;
   // check_t_legal
@@ -605,7 +678,7 @@ __device__ __forceinline__ bool get_solution(const Lane<T, M::N>& L, T t, T (&yy
 
 // get_solution into the lane's yy/yp; they keep their values when t is not legal
 template <typename T, class M>
-__device__ __forceinline__ bool get_solution(Lane<T, M::N>& L, T t) {
+__device__ __forceinline__ bool get_solution(LaneOf<T, M>& L, T t) {
   T yy[M::N], yp[M::N];
   const bool ok = get_solution<T, M>(L, t, yy, yp);
   if (ok) {
@@ -620,10 +693,57 @@ __device__ __forceinline__ bool get_solution(Lane<T, M::N>& L, T t) {
 
 // ---------------------------------------------------------------- nls.py
 
+// x := A^-1 x from the stored factor (nls.py solve_stored): in T, or under
+// "single"/"refined" with x rounded to float32, solved in float32 and widened
+template <typename T, class M>
+__device__ __forceinline__ void solve_stored(const LaneOf<T, M>& L, T (&x)[M::N]) {
+  constexpr int N = M::N;
+  if constexpr (M::kLs == LS_FULL) {
+    lu_solve_dev<T, N>(L.lu, L.piv, x);
+  } else {
+    Real<float> xf[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) xf[i] = to_f32(x[i]);
+    lu_solve_dev<Real<float>, N>(L.lu, L.piv, xf);
+#pragma unroll
+    for (int i = 0; i < N; ++i) widen(xf[i], x[i]);
+  }
+}
+
+// b := the direct solve of b (nls.py direct_solve); under "refined" one step
+// of refinement against the lsetup Jacobian applied as the residual's jvp at
+// the saved point with tangents (x0, ls_cj x0): x0 + LU32^-1 (b - J x0)
+template <typename T, class M>
+__device__ __forceinline__ void direct_solve(const LaneOf<T, M>& L, const Ctx<T, M>& c,
+                                             T (&b)[M::N]) {
+  constexpr int N = M::N;
+  if constexpr (M::kLs == LS_REFINED) {
+    T x0[N], w[N], yy[N], yp[N], jx0[N];
+    const T ls_cj = L.ls_cj();
+#pragma unroll
+    for (int i = 0; i < N; ++i) x0[i] = b[i];
+    solve_stored<T, M>(L, x0);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      w[i] = ls_cj * x0[i];
+      yy[i] = L.ls_yy(i);
+      yp[i] = L.ls_yp(i);
+    }
+    M::res_jvp(c.p, L.ls_tn(), yy, yp, x0, w, jx0);
+#pragma unroll
+    for (int i = 0; i < N; ++i) b[i] = b[i] - jx0[i];
+    solve_stored<T, M>(L, b);
+#pragma unroll
+    for (int i = 0; i < N; ++i) b[i] = x0[i] + b[i];
+  } else {
+    solve_stored<T, M>(L, b);
+  }
+}
+
 // The inner Newton loop (nls.py _newton_iterate); the carry lives in the
 // caller's variables.
 template <typename T, class M>
-__device__ __forceinline__ void _newton_iterate(const Lane<T, M::N>& L, const Ctx<T, M>& c,
+__device__ __forceinline__ void _newton_iterate(const LaneOf<T, M>& L, const Ctx<T, M>& c,
                                                 T cjratio, T (&ycor)[M::N], T (&delta)[M::N],
                                                 T& oldnrm, T& ss, int& istatus, int& knni,
                                                 int& kre) {
@@ -636,7 +756,7 @@ __device__ __forceinline__ void _newton_iterate(const Lane<T, M::N>& L, const Ct
     T x[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) x[i] = -delta[i];
-    lu_solve_dev<T, N>(L.lu, L.piv, x);
+    direct_solve<T, M>(L, c, x);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       x[i] = x[i] * scale;
@@ -683,8 +803,8 @@ __device__ __forceinline__ void _newton_iterate(const Lane<T, M::N>& L, const Ct
 
 // nls.py _constraints, component i of the violation vector v = mm * (y -
 // 0.1 * strict * c / ewt), mm = 1 where bit i of `viol` is set, else 0
-template <typename T, int N>
-__device__ __forceinline__ T constraint_v(const Lane<T, N>& L, int i, unsigned viol) {
+template <typename T, int N, typename LuT>
+__device__ __forceinline__ T constraint_v(const Lane<T, N, LuT>& L, int i, unsigned viol) {
   const T c = L.constraint(i);
   const T mm = ((viol >> i) & 1u) ? T(1) : T(0);
   const T strict = (absval(c) >= T(1.5)) ? T(1) : T(0);
@@ -701,7 +821,7 @@ __device__ __forceinline__ T constraint_v(const Lane<T, N>& L, int i, unsigned v
 // beside the lane's (measured on an H100: K2 at 234 registers with it, 226
 // without, no spills; a form with mm[] and v[] arrays took 242).
 template <typename T, class M>
-__device__ __forceinline__ int constraints(Lane<T, M::N>& L) {
+__device__ __forceinline__ int constraints(LaneOf<T, M>& L) {
   constexpr int N = M::N;
   unsigned viol = 0;
 #pragma unroll
@@ -744,7 +864,7 @@ __device__ __forceinline__ int constraints(Lane<T, M::N>& L) {
 
 // nonlinear_solve for an active lane; returns REC_NONE (ok) or a REC_* kind.
 template <typename T, class M>
-__device__ __forceinline__ int nonlinear_solve(Lane<T, M::N>& L, const Ctx<T, M>& c) {
+__device__ __forceinline__ int nonlinear_solve(LaneOf<T, M>& L, const Ctx<T, M>& c) {
   constexpr int N = M::N;
   const bool first = L.no_step_yet();
   const T cjold0 = first ? L.cj : L.cjold;
@@ -782,13 +902,45 @@ __device__ __forceinline__ int nonlinear_solve(Lane<T, M::N>& L, const Ctx<T, M>
     bool setup_fail = false;
     if (do_setup) {
       // _lsetup: J at the predictor, LU-factored
-      M::jac(c.p, L.tn, L.cj, L.yypredict, L.yppredict, r, L.lu);
+      if constexpr (M::kLs == LS_FULL) {
+        M::jac(c.p, L.tn, L.cj, L.yypredict, L.yppredict, r, L.lu);
+      } else {
+        T J[N][N];
+        if constexpr (M::kLs == LS_SINGLE) {
+          // on arguments rounded to float32, evaluated in T (the float64
+          // params promote them, nls.py _lsetup)
+          T tn_r, cj_r, yy_r[N], yp_r[N], r_r[N];
+          widen(to_f32(L.tn), tn_r);
+          widen(to_f32(L.cj), cj_r);
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            widen(to_f32(L.yypredict[i]), yy_r[i]);
+            widen(to_f32(L.yppredict[i]), yp_r[i]);
+            widen(to_f32(r[i]), r_r[i]);
+          }
+          M::jac(c.p, tn_r, cj_r, yy_r, yp_r, r_r, J);
+        } else {
+          M::jac(c.p, L.tn, L.cj, L.yypredict, L.yppredict, r, J);
+          // the linearization point the refinement's jvp takes
+          L.ls_tn() = L.tn;
+          L.ls_cj() = L.cj;
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            L.ls_yy(i) = L.yypredict[i];
+            L.ls_yp(i) = L.yppredict[i];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+#pragma unroll
+          for (int j = 0; j < N; ++j) L.lu[i][j] = to_f32(J[i][j]);
+      }
       bool jfinite = true;
 #pragma unroll
       for (int i = 0; i < N; ++i)
 #pragma unroll
         for (int j = 0; j < N; ++j) jfinite = jfinite && finite(L.lu[i][j]);
-      const int failc = lu_factor_dev<T, N>(L.lu, L.piv);
+      const int failc = lu_factor_dev<LuReal<T, M>, N>(L.lu, L.piv);
       setup_fail = (failc > 0) || !jfinite;
       L.nje += 1;
       L.nsetups += 1;
@@ -850,7 +1002,7 @@ __device__ __forceinline__ int nonlinear_solve(Lane<T, M::N>& L, const Ctx<T, M>
 // ---------------------------------------------------------------- error_test.py
 
 template <typename T, class M>
-__device__ __forceinline__ bool error_test(Lane<T, M::N>& L, const Ctx<T, M>& c, T ck, T& err_k,
+__device__ __forceinline__ bool error_test(LaneOf<T, M>& L, const Ctx<T, M>& c, T ck, T& err_k,
                                            T& err_km1) {
   constexpr int N = M::N;
   const int kk = L.kk;
@@ -858,11 +1010,19 @@ __device__ __forceinline__ bool error_test(Lane<T, M::N>& L, const Ctx<T, M>& c,
   const int km1 = max(kk - 1, 0);
   const int km2 = max(kk - 2, 0);
 
+  // fast_math: the two picked rows take their phi-star scale
+  const T s_k = M::kFastMath ? phi_star_s<T, M>(L, kk) : T(1);
+  const T s_km1 = M::kFastMath ? phi_star_s<T, M>(L, km1) : T(1);
   T delta1[N], delta2[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    delta1[i] = L.h.phi(kk, i) + L.ee[i];
-    delta2[i] = delta1[i] + L.h.phi(km1, i);
+    T row_k = L.h.phi(kk, i), row_km1 = L.h.phi(km1, i);
+    if constexpr (M::kFastMath) {
+      row_k = row_k * s_k;
+      row_km1 = row_km1 * s_km1;
+    }
+    delta1[i] = row_k + L.ee[i];
+    delta2[i] = delta1[i] + row_km1;
   }
   const T enorm_k = norm<T, M>(c, L.ee, L.ewt);
   const T enorm_km1 = norm<T, M>(c, delta1, L.ewt);
@@ -887,7 +1047,7 @@ __device__ __forceinline__ bool error_test(Lane<T, M::N>& L, const Ctx<T, M>& c,
 // ---------------------------------------------------------------- complete_step.py
 
 template <typename T, class M>
-__device__ __forceinline__ void complete_step(Lane<T, M::N>& L, const Ctx<T, M>& c, T err_k,
+__device__ __forceinline__ void complete_step(LaneOf<T, M>& L, const Ctx<T, M>& c, T err_k,
                                               T err_km1, T ck) {
   constexpr int N = M::N;
   const int maxord = c.opts.maxord;
@@ -948,7 +1108,8 @@ __device__ __forceinline__ void complete_step(Lane<T, M::N>& L, const Ctx<T, M>&
   const T rr = in_phase0 ? rr_p0 : rr_p1_out;
 
   // phi: save ee into phi[kused+1], and the recurrence over rows kused..0;
-  // the rows above stay as they are
+  // the rows above stay as they are. Under fast_math the recurrence takes
+  // the phi-star value phi[j] * s[j] and writes true phi rows
   const bool save = kused < maxord;
   T tmp[N];
 #pragma unroll
@@ -959,9 +1120,12 @@ __device__ __forceinline__ void complete_step(Lane<T, M::N>& L, const Ctx<T, M>&
 #pragma unroll
       for (int n = 0; n < N; ++n) L.h.phi(j, n) = L.ee[n];
     } else if (kused >= j) {
+      const T s = M::kFastMath ? phi_star_s<T, M>(L, j) : T(1);
 #pragma unroll
       for (int n = 0; n < N; ++n) {
-        tmp[n] = tmp[n] + L.h.phi(j, n);
+        T ph = L.h.phi(j, n);
+        if constexpr (M::kFastMath) ph = ph * s;
+        tmp[n] = tmp[n] + ph;
         L.h.phi(j, n) = tmp[n];
       }
     }
@@ -982,7 +1146,7 @@ __device__ __forceinline__ void complete_step(Lane<T, M::N>& L, const Ctx<T, M>&
 
 // failure policy for a lane whose attempt failed; returns the fatal code
 template <typename T, class M>
-__device__ __forceinline__ int _handle_n_flag(Lane<T, M::N>& L, const Ctx<T, M>& c, int kind,
+__device__ __forceinline__ int _handle_n_flag(LaneOf<T, M>& L, const Ctx<T, M>& c, int kind,
                                               T err_k, T err_km1, int& ncf, int& nef) {
   L.phase = 1;
   const bool is_etf = kind == ERROR_TEST_FAIL;
@@ -1024,7 +1188,7 @@ __device__ __forceinline__ int _handle_n_flag(Lane<T, M::N>& L, const Ctx<T, M>&
 
 // step_begin for a lane that begins a fresh step
 template <typename T, class M>
-__device__ __forceinline__ void step_begin(Lane<T, M::N>& L) {
+__device__ __forceinline__ void step_begin(LaneOf<T, M>& L) {
   if (L.no_step_yet()) {
     L.kk = 1;
     L.kused = 0;
@@ -1043,7 +1207,7 @@ struct AttemptOut {
 
 // attempt_once for an active lane: ck/err_k/err_km1 out, ncf/nef in-out
 template <typename T, class M>
-__device__ __forceinline__ AttemptOut attempt_once(Lane<T, M::N>& L, const Ctx<T, M>& c,
+__device__ __forceinline__ AttemptOut attempt_once(LaneOf<T, M>& L, const Ctx<T, M>& c,
                                                    T saved_t, int& ncf, int& nef, T& ck, T& err_k,
                                                    T& err_km1) {
   ck = set_coeffs<T, M>(L);
@@ -1080,7 +1244,7 @@ __device__ __forceinline__ AttemptOut attempt_once(Lane<T, M::N>& L, const Ctx<T
 
 // _first_call_init; returns istate (CONTINUE unless an input check fails)
 template <typename T, class M>
-__device__ __forceinline__ int _first_call_init(Lane<T, M::N>& L, const Ctx<T, M>& c) {
+__device__ __forceinline__ int _first_call_init(LaneOf<T, M>& L, const Ctx<T, M>& c) {
   constexpr int N = M::N;
   int istate = CONTINUE;
   const T tout = c.tout;
@@ -1124,7 +1288,7 @@ __device__ __forceinline__ int _first_call_init(Lane<T, M::N>& L, const Ctx<T, M
 
 // hh clamp to land on tstop (both stop tests)
 template <typename T, class M>
-__device__ __forceinline__ void _tstop_clamp(Lane<T, M::N>& L, int istate) {
+__device__ __forceinline__ void _tstop_clamp(LaneOf<T, M>& L, int istate) {
   if (L.tstop_set && istate == CONTINUE) {
     const T tstop = L.tstop();
     const bool clamp = (L.tn + L.hh - tstop) * L.hh > T(0);
@@ -1134,7 +1298,7 @@ __device__ __forceinline__ void _tstop_clamp(Lane<T, M::N>& L, int istate) {
 
 // _stop_test1, TASK_NORMAL; returns istate, updates tret
 template <typename T, class M>
-__device__ __forceinline__ int _stop_test1(Lane<T, M::N>& L, T tout, T& tret) {
+__device__ __forceinline__ int _stop_test1(LaneOf<T, M>& L, T tout, T& tret) {
   const T tstop = L.tstop(), tretlast = L.tretlast();
   const bool bad_tstop = L.tstop_set && ((L.tn - tstop) * L.hh > T(0));
   int istate = bad_tstop ? ILL_INPUT : CONTINUE;
@@ -1174,7 +1338,7 @@ __device__ __forceinline__ int _stop_test1(Lane<T, M::N>& L, T tout, T& tret) {
 
 // _stop_test2, TASK_NORMAL, interpolation deferred; returns istate
 template <typename T, class M>
-__device__ __forceinline__ int _stop_test2(Lane<T, M::N>& L, T tout, T& tret, int& ikind,
+__device__ __forceinline__ int _stop_test2(LaneOf<T, M>& L, T tout, T& tret, int& ikind,
                                            T& itgt) {
   bool sel_tstop = false;
   T tstop = T(0);
@@ -1198,7 +1362,7 @@ __device__ __forceinline__ int _stop_test2(Lane<T, M::N>& L, T tout, T& tret, in
 
 // _step_preamble for a lane about to start a new step
 template <typename T, class M>
-__device__ __forceinline__ void _step_preamble(Lane<T, M::N>& L, const Ctx<T, M>& c,
+__device__ __forceinline__ void _step_preamble(LaneOf<T, M>& L, const Ctx<T, M>& c,
                                                Carry<T>& cr) {
   constexpr int N = M::N;
   const bool too_much = cr.nstloc >= c.opts.mxstep;
@@ -1225,7 +1389,7 @@ __device__ __forceinline__ void _step_preamble(Lane<T, M::N>& L, const Ctx<T, M>
 
 // the prologue of solve (TASK_NORMAL), up to the loop's initial carry
 template <typename T, class M>
-__device__ __forceinline__ void solve_prologue(Lane<T, M::N>& L, const Ctx<T, M>& c,
+__device__ __forceinline__ void solve_prologue(LaneOf<T, M>& L, const Ctx<T, M>& c,
                                                Carry<T>& cr) {
   L.toutc() = c.tout;
   L.taskc() = 0;
@@ -1245,7 +1409,7 @@ __device__ __forceinline__ void solve_prologue(Lane<T, M::N>& L, const Ctx<T, M>
 
 // one iteration of the attempt loop for an active lane (cr.istate == CONTINUE)
 template <typename T, class M>
-__device__ __forceinline__ void attempt_loop_body(Lane<T, M::N>& L, const Ctx<T, M>& c,
+__device__ __forceinline__ void attempt_loop_body(LaneOf<T, M>& L, const Ctx<T, M>& c,
                                                   Carry<T>& cr) {
   if (cr.fresh) {
     cr.saved_t = L.tn;
@@ -1275,7 +1439,7 @@ __device__ __forceinline__ void attempt_loop_body(Lane<T, M::N>& L, const Ctx<T,
 
 // the deferred interpolation and the status lane, after the loop
 template <typename T, class M>
-__device__ __forceinline__ void solve_epilogue(Lane<T, M::N>& L, const Carry<T>& cr) {
+__device__ __forceinline__ void solve_epilogue(LaneOf<T, M>& L, const Carry<T>& cr) {
   if (cr.ikind > 0) get_solution<T, M>(L, cr.itgt);
   L.status() = cr.istate;
 }

@@ -22,8 +22,15 @@ derivative (``requires_grad``, or a forward-mode tangent) on either device,
 and never detaches them; ``sensitivity.adjoint_gradient`` takes gradients
 through the eager solve.
 
-``FUSED_LAUNCHES``, ``FUSED_INIT_LAUNCHES`` and ``FUSED_CONT_LAUNCHES`` count
-the kernel launches (and only those).
+The arithmetic modes of ``IdaOptions`` that the TPU kernel traces
+(``fast_math``, ``ls_precision`` "single" and "refined") are compiled in:
+each combination is a library of its own, built from the same source with
+:func:`mode_flags` at its first use, and each is bit for bit the eager solve
+under the same options.
+
+``MODE_LAUNCHES`` counts the kernel launches (and only those) by (kernel,
+:func:`mode_name`), e.g. ``("init", "refined")``; :func:`launch_count` sums
+them over the modes.
 """
 
 from __future__ import annotations
@@ -36,7 +43,6 @@ import torch
 from torch.autograd import forward_ad
 
 from .. import constants as C
-from ..constants import not_ported
 from ..core.solve import TASK_NORMAL, solve
 from ..core.state import IdaOptions, IdaState
 from ..models.roberts import roberts_factory
@@ -44,9 +50,7 @@ from ..parallel.batch import from_native
 from ..tol_control import TolControl
 from ._build import DTYPE_TAGS, build_library
 
-FUSED_LAUNCHES = 0
-FUSED_INIT_LAUNCHES = 0
-FUSED_CONT_LAUNCHES = 0
+MODE_LAUNCHES: dict = {}  # ("solve" | "init" | "cont", mode_name) -> launches
 
 # the compiled-in models: factory -> (model id of the kernel, N, P)
 MODELS = {roberts_factory: (0, 3, 3)}
@@ -64,11 +68,16 @@ STATE_FIELDS = (
     "kk", "kused", "knew", "phase", "ns", "cj", "cjlast", "cjold", "cjratio", "ss", "oldnrm",
     "eps_newt", "toldel", "lu", "piv", "hin", "hmax_inv", "epcon", "tstop", "tstop_set",
     "constraints", "constraints_set", "nst", "nre", "ncfn", "netf", "nni", "nsetups", "nje",
-    "toutc", "taskc", "status",
+    "toutc", "taskc", "status", "ls_tn", "ls_cj", "ls_yy", "ls_yp",
 )
+# the lsetup point that ls_precision "refined" saves (core/nls.py): the kernel
+# touches it in that mode only, and in the others it passes through
+LS_FIELDS = ("ls_tn", "ls_cj", "ls_yy", "ls_yp")
 _INT32 = {"kk", "kused", "knew", "phase", "ns", "piv", "taskc", "status"}
 _INT64 = {"nst", "nre", "ncfn", "netf", "nni", "nsetups", "nje"}
 _BOOL = {"tstop_set", "constraints_set"}
+# ls_precision -> csrc/ida_lane.cuh LS_FULL / LS_SINGLE / LS_REFINED
+LS_CODES = {"full": 0, "single": 1, "refined": 2}
 
 # the attempt loop's carry (core/solve.py _Loop minus the state), in order
 CARRY_FIELDS = ("tret", "istate", "nstloc", "saved_t", "ncf", "nef", "fresh", "ikind", "itgt")
@@ -116,8 +125,21 @@ class TolInputs(NamedTuple):
 
 
 def reset_launch_counts() -> None:
-    global FUSED_LAUNCHES, FUSED_INIT_LAUNCHES, FUSED_CONT_LAUNCHES
-    FUSED_LAUNCHES = FUSED_INIT_LAUNCHES = FUSED_CONT_LAUNCHES = 0
+    MODE_LAUNCHES.clear()
+
+
+def launch_count(kind: str) -> int:
+    """Launches of kernel ``kind`` ("solve" K2, "init" K3, "cont" K4) since
+    the last reset, in every mode."""
+    return sum(n for (k, _), n in MODE_LAUNCHES.items() if k == kind)
+
+
+def mode_name(opts: IdaOptions) -> str:
+    """"parity", or the mode's parts: "fast_math", "single", "refined",
+    "fast_math_single", "fast_math_refined"."""
+    parts = (["fast_math"] if opts.fast_math else []) + (
+        [opts.ls_precision] if opts.ls_precision != "full" else [])
+    return "_".join(parts) or "parity"
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -133,22 +155,38 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def mode_flags(fast_math: bool = False, ls_precision: str = "full") -> tuple[str, ...]:
+    """The macros that compile ``fused_solve.cu``'s solve entry points in
+    one arithmetic mode; none for the parity mode."""
+    flags = ("-DIDA_FAST_MATH=1",) if fast_math else ()
+    if ls_precision != "full":
+        flags += (f"-DIDA_LS_PRECISION={LS_CODES[ls_precision]}",)
+    return flags
+
+
 @functools.cache
-def build() -> dict:
+def build(fast_math: bool = False, ls_precision: str = "full") -> dict:
     """Compile (once per hash of the sources and flags) and load the kernel
-    library; see :func:`._build.build_library`."""
+    library of one arithmetic mode; see :func:`._build.build_library`. The
+    parity library (the default) also holds the stage kernels."""
     info = build_library("fused_solve.cu", ("ida_lane.cuh", "small_lu.cuh", "rounded.cuh"),
-                         flags=BUILD_FLAGS)
+                         flags=BUILD_FLAGS + mode_flags(fast_math, ls_precision))
     bind(info["lib"])
     return info
 
 
-def occupancy(dtype: torch.dtype) -> dict:
-    """The solve kernel's occupancy on the current card: threads a block,
-    dynamic shared bytes a block, resident blocks an SM, and the SM count."""
+def build_of(opts: IdaOptions) -> dict:
+    """The library of ``opts``' arithmetic mode (:func:`build`)."""
+    return build(opts.fast_math, opts.ls_precision)
+
+
+def occupancy(dtype: torch.dtype, opts: IdaOptions = IdaOptions()) -> dict:
+    """The solve kernel's occupancy on the current card in ``opts``' mode:
+    threads a block, dynamic shared bytes a block, resident blocks an SM,
+    and the SM count."""
     vals = [ctypes.c_int() for _ in range(4)]
     name = f"fused_solve_occupancy_{DTYPE_TAGS[dtype]}"
-    raise_on(getattr(build()["lib"], name)(*(ctypes.byref(v) for v in vals)), name)
+    raise_on(getattr(build_of(opts)["lib"], name)(*(ctypes.byref(v) for v in vals)), name)
     blocks, shared, threads, sms = (v.value for v in vals)
     return {"threads": threads, "dynamic_shared_bytes": shared, "blocks_per_sm": blocks, "sms": sms}
 
@@ -175,7 +213,14 @@ def check_device(device: torch.device) -> None:
         raise ValueError(f"fused_solve: runs on CUDA (kernel) or CPU (plain version), got {device}")
 
 
-def _expected_dtype(field: str, dtype: torch.dtype) -> torch.dtype:
+def touched_fields(opts: IdaOptions) -> tuple[str, ...]:
+    """The fields a launch in ``opts``' mode reads or writes."""
+    return STATE_FIELDS if opts.ls_precision == "refined" else STATE_FIELDS[:-len(LS_FIELDS)]
+
+
+def _expected_dtype(field: str, dtype: torch.dtype, opts: IdaOptions) -> torch.dtype:
+    if field == "lu" and opts.ls_precision != "full":
+        return torch.float32  # core/state.py ls_store_dtype
     if field in _INT32:
         return torch.int32
     if field in _INT64:
@@ -185,15 +230,16 @@ def _expected_dtype(field: str, dtype: torch.dtype) -> torch.dtype:
     return dtype
 
 
-def state_refs(state: IdaState, batch_axis: int) -> StateRefs:
+def state_refs(state: IdaState, batch_axis: int, opts: IdaOptions = IdaOptions()) -> StateRefs:
     """Pointer table of a state on the card, batch-leading (``batch_axis``
-    0) or batch-native (-1); checks every field the kernel touches (device,
-    dtype, contiguity, the batch axis)."""
+    0) or batch-native (-1); checks every field the kernel touches in
+    ``opts``' mode (device, dtype in that mode, contiguity, the batch axis).
+    The fields it does not touch there are null."""
     dtype, bsz = state.dtype, state.tn.shape[batch_axis]
     ptrs = {}
-    for f in STATE_FIELDS:
+    for f in touched_fields(opts):
         x = getattr(state, f)
-        want = _expected_dtype(f, dtype)
+        want = _expected_dtype(f, dtype, opts)
         if not x.is_cuda:
             raise ValueError(f"fused_solve: state.{f} is on {x.device}, not on the card")
         if x.dtype != want:
@@ -278,10 +324,10 @@ def native_clone(states_b: IdaState) -> IdaState:
     ))
 
 
-def empty_result(states_b: IdaState) -> IdaState:
-    """The state a launch writes: a new tensor for every field the kernel
-    touches, the input's own tensor for every other."""
-    touched = set(STATE_FIELDS)
+def empty_result(states_b: IdaState, opts: IdaOptions = IdaOptions()) -> IdaState:
+    """The state a launch in ``opts``' mode writes: a new tensor for every
+    field the kernel touches there, the input's own tensor for every other."""
+    touched = set(touched_fields(opts))
     return IdaState(*(x.new_empty(x.shape) if f in touched else x
                       for f, x in zip(states_b._fields, states_b)))
 
@@ -294,34 +340,29 @@ def prepare_launch(kind: str, src: IdaState, dst: IdaState, params_b: torch.Tens
     ``kind`` is "" (K2), "init" (K3) or "cont" (K4, resuming ``carry``); the
     kernel reads the batch-leading ``src`` and ``params_b`` [B, P] and writes
     ``dst`` (``src`` itself for a launch in place) and ``carry``."""
-    lib = build()["lib"]
+    lib = build_of(opts)["lib"]
     dt = DTYPE_TAGS[src.dtype]
     name = f"fused_solve_{dt}" if kind == "" else f"fused_solve_{kind}_{dt}"
     bsz = src.tn.shape[0]
     if (params_b.dtype != src.dtype or params_b.device != src.phi.device
             or not params_b.is_contiguous() or params_b.dim() != 2 or params_b.shape[0] != bsz):
         raise ValueError(f"{name}: params must be contiguous [{bsz}, P] {src.dtype} on the card")
-    src_refs = state_refs(src, 0)
+    src_refs = state_refs(src, 0, opts)
     if tol.rtol_lanes is None:
         tol_args = TolArgs(tol.rtol, (ctypes.c_double * MAXN)(*tol.atol), float(tout), None, None)
     else:
         tol_args = TolArgs(0.0, (ctypes.c_double * MAXN)(), float(tout),
                            tol.rtol_lanes.data_ptr(), tol.atol_lanes.data_ptr())
-    args = SolveArgs(src_refs, src_refs if dst is src else state_refs(dst, 0),
+    args = SolveArgs(src_refs, src_refs if dst is src else state_refs(dst, 0, opts),
                      params_b.data_ptr(), tol_args,
                      CarryRefs(**{f: t.data_ptr() for f, t in carry.items()}), opts_struct(opts),
                      bsz, 0 if budget is None else budget)
     fn, stream = getattr(lib, name), stream_of(src.tn)
+    counted = (kind or "solve", mode_name(opts))
 
     def go() -> torch.Tensor:
-        global FUSED_LAUNCHES, FUSED_INIT_LAUNCHES, FUSED_CONT_LAUNCHES
         raise_on(fn(ctypes.byref(args), model, stream), name)
-        if kind == "":
-            FUSED_LAUNCHES += 1
-        elif kind == "init":
-            FUSED_INIT_LAUNCHES += 1
-        else:
-            FUSED_CONT_LAUNCHES += 1
+        MODE_LAUNCHES[counted] = MODE_LAUNCHES.get(counted, 0) + 1
         return carry["istate"]
 
     # ``args`` holds addresses only: keep every tensor the kernel reads or
@@ -354,7 +395,7 @@ def run_until_done(step) -> int:
 
 
 def _solve_cuda(states_b: IdaState, params_b, tol: TolInputs, tout, opts, model, budget):
-    dst = empty_result(states_b)
+    dst = empty_result(states_b, opts)
     carry = new_carry(states_b.tn.shape[0], states_b.dtype, states_b.phi.device,
                       budget is not None)
     if budget is None:
@@ -397,15 +438,11 @@ def make_fused_solve(problem_factory, tol: TolControl, opts: IdaOptions = IdaOpt
     the unbudgeted result. A lane whose ``constraints_set`` is on runs the
     inequality-constraints block as the eager solve does (unless
     ``opts.enable_constraints`` is False). The kernel compiles in the dense
-    direct solver in full precision and C-parity arithmetic: options for any
-    other linear solver raise, and the mixed-precision modes and
-    ``fast_math`` (which ``ida_tpu``'s kernel traces) are not ported to it
-    yet."""
-    if opts.ls_precision != "full" or opts.fast_math:
-        mode = (f"ls_precision={opts.ls_precision!r}" if opts.ls_precision != "full"
-                else "fast_math=True")
-        raise not_ported(f"fused_solve with {mode} (the eager solve runs it)", 8,
-                         "ida_tpu/ops/fused_solve.py traces core_solve with opts")
+    direct solver in each arithmetic mode of ``opts`` (``fast_math`` and
+    ``ls_precision`` "full", "single" or "refined", as ``ida_tpu``'s kernel
+    traces them; the state's ``lu`` is float32 in the last two, as
+    ``ensemble_init(..., opts=opts)`` makes it): options for any other
+    linear solver raise."""
     if opts.linear_solver != "dense":
         raise NotImplementedError(
             f"fused_solve: the kernel's linear solver is the compiled-in dense LU; "
@@ -424,6 +461,7 @@ def make_fused_solve(problem_factory, tol: TolControl, opts: IdaOptions = IdaOpt
         dtype, dev = states_b.dtype, states_b.phi.device
         check_dtype(dtype)
         check_device(dev)
+        _check_mode_state(states_b, opts)
         for f, x in zip(states_b._fields, states_b):
             if isinstance(x, torch.Tensor) and not x.is_contiguous():
                 raise ValueError(f"fused_solve: state.{f} is not contiguous")
@@ -461,6 +499,21 @@ def _refuse_derivatives(states_b: IdaState, params_b, tol: TolControl) -> None:
                 f"fused_solve: {name} carries a derivative, and the whole-solve kernel is "
                 "forward-only; take gradients through the eager solve "
                 "(ida_tpu_torch.sensitivity.adjoint_gradient)")
+
+
+def _check_mode_state(states_b: IdaState, opts: IdaOptions) -> None:
+    """Raise on a state laid out for another arithmetic mode than ``opts``':
+    its ``lu`` in the mode's dtype, and under "refined" an lsetup point of N
+    components a lane (the kernel writes it there)."""
+    want = _expected_dtype("lu", states_b.dtype, opts)
+    n = states_b.yy.shape[1:]
+    bad = states_b.lu.dtype != want or (opts.ls_precision == "refined" and (
+        states_b.ls_yy.shape[1:] != n or states_b.ls_yp.shape[1:] != n))
+    if bad:
+        raise ValueError(
+            f"fused_solve: the state is not laid out for ls_precision={opts.ls_precision!r} "
+            f"(lu {states_b.lu.dtype}, ls_yy {tuple(states_b.ls_yy.shape)}); make it with "
+            "ensemble_init(..., opts=opts)")
 
 
 def _check_no_roots(problem) -> None:

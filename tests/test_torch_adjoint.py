@@ -30,22 +30,27 @@ from ida_tpu_torch.core.state import IdaOptions, init_state
 from ida_tpu_torch.models import ROBERTS_PARAMS, ROBERTS_YY0, roberts_factory
 from ida_tpu_torch.tol_control import tol_sv
 from ida_tpu_torch.utils.ad_mode import safe_ad
+from make_torch_refs import load
 
 # one intra-op thread: the tests' tensors are small, and the suite runs in
 # parallel workers, each of which would otherwise start a pool per core
 torch.set_num_threads(1)
 
+RTOL = 1e-4
 ATOL = [1e-8, 1e-6, 1e-6]
 TOUT = 0.4
 ATTEMPTS = 48
 W = np.array([1.0, 2.0, 3.0])
+# what the pinned reference (jax_ref_live) is computed from
+REF_INPUTS = {"params": ROBERTS_PARAMS, "yy0": ROBERTS_YY0, "rtol": RTOL, "atol": ATOL,
+              "tout": TOUT, "max_attempts": ATTEMPTS, "w": W}
 
 
 def _t(x):
     return torch.as_tensor(np.asarray(x, dtype=np.float64))
 
 
-TOL = tol_sv(1e-4, ATOL, device="cpu")
+TOL = tol_sv(RTOL, ATOL, device="cpu")
 
 
 def yy0_of(p):
@@ -62,7 +67,14 @@ def loss_of(y):
 
 @pytest.fixture(scope="module")
 def jax_ref():
-    jtol = jax_tol_sv(1e-4, jnp.asarray(ATOL))
+    """:func:`jax_ref_live`, pinned by tests/make_torch_refs.py."""
+    return load("adjoint", REF_INPUTS)
+
+
+def jax_ref_live():
+    """``ida_tpu``'s adjoint gradient of the nominal lane to 0.4, and the
+    counters of its forward solve."""
+    jtol = jax_tol_sv(RTOL, jnp.asarray(ATOL))
     p0 = jnp.asarray(ROBERTS_PARAMS)
     jyy0 = lambda p: jnp.asarray(ROBERTS_YY0)  # noqa: E731
     jyp0 = lambda p: p[0] * jnp.asarray([-1.0, 1.0, 0.0])  # noqa: E731

@@ -29,23 +29,29 @@ from ida_tpu.tol_control import tol_sv as jax_tol_sv
 from ida_tpu_torch import sensitivity as S
 from ida_tpu_torch.models import ROBERTS_PARAMS, ROBERTS_YY0, roberts_factory
 from ida_tpu_torch.tol_control import tol_sv
+from make_torch_refs import load
 
 # one intra-op thread: the tests' tensors are small, and the suite runs in
 # parallel workers, each of which would otherwise start a pool per core
 torch.set_num_threads(1)
 
+RTOL = 1e-4
 ATOL = [1e-8, 1e-6, 1e-6]
 TOUT = 0.4
 ATTEMPTS = 48
 W = np.array([1.0, 2.0, 3.0])
 SCALES = np.array([0.98, 1.0, 1.02, 1.05])
-TOL = tol_sv(1e-4, ATOL, device="cpu")
+TOL = tol_sv(RTOL, ATOL, device="cpu")
 # the Hessian-vector product's direction (k1, the O(1) parameter: the k2/k3
 # rows are ~1e-10 and below what differences resolve) and step
 # (tests/test_second_order.py)
 V = np.array([1.0, 0.0, 0.0])
 EPS = 4e-7 * ROBERTS_PARAMS[0]
 FD_PARAMS = np.stack([ROBERTS_PARAMS + EPS * V, ROBERTS_PARAMS - EPS * V])
+# what the pinned reference (jax_batched_live) is computed from
+REF_INPUTS = {"params": ROBERTS_PARAMS, "scales": SCALES, "fd_params": FD_PARAMS,
+              "yy0": ROBERTS_YY0, "rtol": RTOL, "atol": ATOL, "tout": TOUT,
+              "max_attempts": ATTEMPTS, "w": W}
 
 
 def _t(x):
@@ -71,8 +77,13 @@ def _single(p):
 
 @pytest.fixture(scope="module")
 def jax_batched():
+    """:func:`jax_batched_live`, pinned by tests/make_torch_refs.py."""
+    return load("adjoint_batched", REF_INPUTS)
+
+
+def jax_batched_live():
     """``ida_tpu``'s lanes: the four SCALES lanes, then FD_PARAMS."""
-    jtol = jax_tol_sv(1e-4, jnp.asarray(ATOL))
+    jtol = jax_tol_sv(RTOL, jnp.asarray(ATOL))
     params = np.concatenate([np.outer(SCALES, ROBERTS_PARAMS), FD_PARAMS])
     vals, grads, ist = jsens.batched_adjoint_gradient(
         jax_roberts_factory, jnp.asarray(params),

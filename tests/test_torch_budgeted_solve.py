@@ -35,6 +35,7 @@ from ida_tpu_torch.models import roberts_factory as troberts
 from ida_tpu_torch.ops import make_fused_solve
 from ida_tpu_torch.parallel import ensemble_init, to_native
 from ida_tpu_torch.tol_control import TolControl, tol_sv
+from make_torch_refs import load
 
 # one intra-op thread: the tests' tensors are small, and the suite runs in
 # parallel workers, each of which would otherwise start a pool per core
@@ -43,6 +44,12 @@ torch.set_num_threads(1)
 ATOL = [1e-8, 1e-6, 1e-6]
 COUNTERS = ("nst", "nre", "nje", "nni", "netf", "ncfn")
 FLOATS = ("phi", "psi", "yy", "yp", "ee", "tn", "hh", "hused", "rr", "cj", "ewt", "savres")
+RTOL = 1e-4
+# the one-lane budgeted solve of the pinned reference (one_lane_op_by_op_live)
+ONE_LANE_TOUT = 4.0
+ONE_LANE_BUDGET = 7
+REF_INPUTS = {"params": ROBERTS_PARAMS, "yy0": ROBERTS_YY0, "yp0": ROBERTS_YP0, "rtol": RTOL,
+              "atol": ATOL, "tout": ONE_LANE_TOUT, "max_attempts": ONE_LANE_BUDGET}
 
 
 def _port_budgeted(st, prob, tol, tout, budget, itask=TASK_NORMAL):
@@ -71,23 +78,29 @@ def _jax_budgeted(first, again, st):
 
 def _one_lane_port():
     prob = troberts(torch.from_numpy(ROBERTS_PARAMS))
-    return init_state(prob, ROBERTS_YY0, ROBERTS_YP0, device="cpu"), prob, tol_sv(1e-4, ATOL, device="cpu")
+    return init_state(prob, ROBERTS_YY0, ROBERTS_YP0, device="cpu"), prob, tol_sv(RTOL, ATOL, device="cpu")
 
 
 def _one_lane_jax():
     prob = jroberts(jnp.asarray(ROBERTS_PARAMS))
-    return jinit_state(prob, ROBERTS_YY0, ROBERTS_YP0, opts=JOptions()), prob, jtol_sv(1e-4, jnp.asarray(ATOL))
+    return jinit_state(prob, ROBERTS_YY0, ROBERTS_YP0, opts=JOptions()), prob, jtol_sv(RTOL, jnp.asarray(ATOL))
 
 
 @pytest.fixture(scope="module")
 def one_lane_op_by_op():
+    """:func:`one_lane_op_by_op_live`, pinned by tests/make_torch_refs.py."""
+    return load("budgeted_one_lane", REF_INPUTS)
+
+
+def one_lane_op_by_op_live():
     """The JAX budgeted solve of one lane to tout 4, budget 7, op by op."""
     st, prob, tol = _one_lane_jax()
-    tout = jnp.asarray(4.0)
+    tout, budget = jnp.asarray(ONE_LANE_TOUT), ONE_LANE_BUDGET
     with jax.disable_jit():
         return _jax_budgeted(
-            lambda s: jsolve(s, prob, JOptions(), tol, tout, max_attempts=7),
-            lambda s, c: jsolve(s, prob, JOptions(), tol, tout, max_attempts=7, resume_carry=c),
+            lambda s: jsolve(s, prob, JOptions(), tol, tout, max_attempts=budget),
+            lambda s, c: jsolve(s, prob, JOptions(), tol, tout, max_attempts=budget,
+                                resume_carry=c),
             st,
         )
 
@@ -95,7 +108,7 @@ def one_lane_op_by_op():
 def test_one_lane_budget_matches_op_by_op_reference(one_lane_op_by_op):
     jst, jtret, jist, jcalls = one_lane_op_by_op
     st, prob, tol = _one_lane_port()
-    got, tret, ist, calls = _port_budgeted(st, prob, tol, 4.0, 7)
+    got, tret, ist, calls = _port_budgeted(st, prob, tol, ONE_LANE_TOUT, ONE_LANE_BUDGET)
     assert calls == jcalls and calls > 3  # the budget bit
     assert int(ist) == int(jist) == C.SUCCESS
     assert float(tret) == float(jtret)

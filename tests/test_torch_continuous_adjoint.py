@@ -29,17 +29,22 @@ from ida_tpu_torch.core.state import IdaOptions
 from ida_tpu_torch.models import ROBERTS_PARAMS, ROBERTS_YY0, roberts_factory
 from ida_tpu_torch.problem import IdaProblem
 from ida_tpu_torch.tol_control import tol_ss, tol_sv
+from make_torch_refs import load
 
 # one intra-op thread: the tests' tensors are small, and the suite runs in
 # parallel workers, each of which would otherwise start a pool per core
 torch.set_num_threads(1)
 
+RTOL = 1e-4
 ATOL = [1e-8, 1e-6, 1e-6]
 TOUT = 0.4
 W = np.array([1.0, 2.0, 3.0])
 GRID = np.logspace(-4, np.log10(TOUT), 16)
 OPTS = IdaOptions(mxstep=20000)
-TOL = tol_sv(1e-4, ATOL, device="cpu")
+TOL = tol_sv(RTOL, ATOL, device="cpu")
+# what the pinned reference (jax_continuous_live) is computed from
+REF_INPUTS = {"params": ROBERTS_PARAMS, "yy0": ROBERTS_YY0, "rtol": RTOL, "atol": ATOL,
+              "tout": TOUT, "w": W, "grid": GRID, "mxstep": OPTS.mxstep}
 
 
 def _t(x):
@@ -91,11 +96,19 @@ def test_exponential_decay_analytic():
 
 @pytest.fixture(scope="module")
 def jax_continuous():
+    """:func:`jax_continuous_live`, pinned by tests/make_torch_refs.py."""
+    return load("continuous_adjoint", REF_INPUTS)
+
+
+def jax_continuous_live():
+    """``ida_tpu``'s continuous adjoint of the nominal lane: (loss, the
+    parameter gradient, the initial-value gradient, forward and backward
+    istate)."""
     p0 = jnp.asarray(ROBERTS_PARAMS)
     out = jsens.continuous_adjoint(
         jax_roberts_factory, p0, jnp.asarray(ROBERTS_YY0), p0[:1] * jnp.asarray([-1.0, 1.0, 0.0]),
-        jax_tol_sv(1e-4, jnp.asarray(ATOL)), TOUT, lambda y: jnp.sum(y * W),
-        grid=jnp.asarray(GRID), opts=JaxOptions(mxstep=20000))
+        jax_tol_sv(RTOL, jnp.asarray(ATOL)), TOUT, lambda y: jnp.sum(y * W),
+        grid=jnp.asarray(GRID), opts=JaxOptions(mxstep=OPTS.mxstep))
     return [np.asarray(x) for x in out]
 
 

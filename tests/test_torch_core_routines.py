@@ -375,3 +375,50 @@ def test_tolerance_constructors_match_jax():
         (jtol_sv(1e-4, jnp.asarray([1e-8, 1e-6, 1e-6])[:, None]), tol_sv(1e-4, [[1e-8], [1e-6], [1e-6]], device="cpu")),
     ]:
         _assert_same(jt.ewt_set(jnp.asarray(y)), tt.ewt_set(_t(y)), "ewt")
+
+
+@pytest.mark.parametrize(
+    "fast_math,h_scale,maxnef",
+    [(False, 1.0, 10), (True, 1.0, 10), (False, 1e3, 10), (False, 1e3, 1)],
+    ids=["parity", "fast_math", "error_test_retries", "error_test_fatal"],
+)
+def test_standalone_step_is_one_production_one_step_call(fast_math, h_scale, maxnef):
+    # core.step.step, the standalone one-internal-step retry machine (the
+    # solve loop calls attempt_once directly), advances a state exactly as
+    # one production ONE_STEP call does, as tests/test_core_routines.py
+    # holds ida_tpu's: after three ONE_STEP calls, step equals a fourth.
+    # On the same snapshot it equals ida_tpu's step, run op by op so that
+    # XLA contracts nothing into a multiply-add, bit for bit, also
+    # where a step 1000x too long fails its error test and retries, and
+    # where one failure is fatal (maxnef=1)
+    from ida_tpu_torch import IDA, IdaOptions
+    from ida_tpu_torch.core.step import step
+    from ida_tpu_torch.models import ROBERTS_YP0 as TYP0
+    from ida_tpu_torch.models import ROBERTS_YY0 as TYY0
+    from ida_tpu_torch.models import roberts_problem as tproblem
+    from ida_tpu_torch.solver import IdaTask
+    from ida_tpu_torch.tol_control import tol_sv
+
+    opts = IdaOptions(fast_math=fast_math, maxnef=maxnef)
+    ida = IDA(tproblem(with_roots=False, device="cpu"), TYY0, TYP0,
+              tol_sv(1e-4, [1e-8, 1e-6, 1e-6], device="cpu"), opts, device="cpu")
+    for _ in range(3):
+        ida.solve(0.4, itask=IdaTask.OneStep)
+    snap = ida.state
+    snap = snap._replace(hh=snap.hh * h_scale)
+    got = step(snap, ida.problem, opts)
+    with jax.disable_jit():
+        jgot = jst.step(to_jax(snap), roberts_problem(with_roots=False), JOptions(fast_math=fast_math, maxnef=maxnef))
+    for f in JState._fields:
+        if f != "pdata":
+            np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(jgot, f)), err_msg=f)
+    if h_scale == 1.0:
+        assert int(got.status) == 0
+        ida.solve(0.4, itask=IdaTask.OneStep)
+        ref = ida.state
+        for f in ("nst", "kused", "tn", "hused", "phi", "ee", "hh", "kk", "nre", "nni", "netf"):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    elif maxnef == 1:
+        assert int(got.status) != 0 and int(got.netf) == int(snap.netf) + 1
+    else:
+        assert int(got.status) == 0 and int(got.netf) > int(snap.netf)

@@ -253,11 +253,12 @@ def test_ensemble_goes_through_the_kernels(cuda):
 ATOL = [1e-8, 1e-6, 1e-6]
 
 
-def _ensemble(bsz, device, dtype=torch.float64):
+def _ensemble(bsz, device, dtype=torch.float64, opts=IdaOptions()):
     params = np.outer(np.exp(np.linspace(-0.5, 0.5, bsz)), ROBERTS_PARAMS)
     yy0 = np.tile(ROBERTS_YY0, (bsz, 1))
     yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
-    return params, ensemble_init(roberts_factory, params, yy0, yp0, device=device, dtype=dtype)
+    return params, ensemble_init(roberts_factory, params, yy0, yp0, device=device, dtype=dtype,
+                                 opts=opts)
 
 
 def _same_states(a, b):
@@ -271,7 +272,7 @@ def test_fused_kernel_matches_the_eager_path_bitwise(cuda, dtype):
     tol = tol_sv(1e-4, ATOL, device=cuda, dtype=dtype)
     fused_solve.reset_launch_counts()
     st, tret, ist = fused_solve.make_fused_solve(roberts_factory, tol)(st0, params, 400.0)
-    assert fused_solve.FUSED_LAUNCHES == 1
+    assert fused_solve.launch_count("solve") == 1
     est, etret, eist = make_ensemble_solve(roberts_factory)(st0, params, tol, 400.0)
     assert bool((ist == C.SUCCESS).all())
     assert torch.equal(ist, eist) and torch.equal(tret, etret)
@@ -289,8 +290,8 @@ def test_budgeted_kernel_is_bitwise_the_unbudgeted_kernel(cuda):
     ref = fused_solve.make_fused_solve(roberts_factory, tol)(st0, params, 400.0)
     fused_solve.reset_launch_counts()
     got = fused_solve.make_fused_solve(roberts_factory, tol, attempt_budget=7)(st0, params, 400.0)
-    assert fused_solve.FUSED_INIT_LAUNCHES == 1 and fused_solve.FUSED_CONT_LAUNCHES > 3
-    assert fused_solve.FUSED_LAUNCHES == 0
+    assert fused_solve.launch_count("init") == 1 and fused_solve.launch_count("cont") > 3
+    assert fused_solve.launch_count("solve") == 0
     assert _same_states(got[0], ref[0]) == []
     assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
 
@@ -300,15 +301,71 @@ def test_budgeted_kernel_launches_are_the_eager_budgeted_calls(cuda):
     # place on its result), the state and the 9-field carry are bit for bit
     # those of the eager solve(max_attempts=7, resume_carry=...) call on the
     # same card
-    params, st0 = _ensemble(256, cuda)
+    _budgeted_launches_are_the_eager_calls(cuda, IdaOptions())
+
+
+# the whole-solve kernel's non-parity modes: (fast_math, ls_precision)
+NON_PARITY = [(False, "single"), (False, "refined"), (True, "full"), (True, "single"),
+              (True, "refined")]
+
+
+def _mode_id(mode):
+    return "-".join((["fast_math"] if mode[0] else []) + [mode[1]])
+
+
+@pytest.mark.parametrize("budget", [None, 7], ids=["k2", "k3_k4"])
+@pytest.mark.parametrize("mode", NON_PARITY, ids=_mode_id)
+def test_fused_kernel_in_each_mode_is_bitwise_the_eager_mode(cuda, mode, budget):
+    # K2, and K3 + K4 at budget 7, in each mode: every lane SUCCESS and
+    # every field bit for bit the eager solve under the same options on the
+    # card; only that mode's kernels launch
+    opts = IdaOptions(fast_math=mode[0], ls_precision=mode[1])
+    params, st0 = _ensemble(256, cuda, opts=opts)
+    tol = tol_sv(1e-4, ATOL, device=cuda)
+    fused_solve.reset_launch_counts()
+    st, tret, ist = fused_solve.make_fused_solve(roberts_factory, tol, opts,
+                                                 attempt_budget=budget)(st0, params, 400.0)
+    assert {m for _, m in fused_solve.MODE_LAUNCHES} == {fused_solve.mode_name(opts)}
+    assert {k for k, _ in fused_solve.MODE_LAUNCHES} == ({"init", "cont"} if budget else {"solve"})
+    est, etret, eist = make_ensemble_solve(roberts_factory, opts)(st0, params, tol, 400.0)
+    assert bool((ist == C.SUCCESS).all())
+    assert _same_states(st, est) == []
+    assert torch.equal(ist, eist) and torch.equal(tret, etret)
+
+
+@pytest.mark.parametrize("mode", NON_PARITY, ids=_mode_id)
+def test_fused_kernel_in_each_mode_takes_the_eager_steps_in_float32(cuda, mode):
+    # float32 states: the counters, istate and tret, as for parity above
+    opts = IdaOptions(fast_math=mode[0], ls_precision=mode[1])
+    params, st0 = _ensemble(256, cuda, torch.float32, opts)
+    tol = tol_sv(1e-4, ATOL, device=cuda, dtype=torch.float32)
+    st, tret, ist = fused_solve.make_fused_solve(roberts_factory, tol, opts)(st0, params, 400.0)
+    est, etret, eist = make_ensemble_solve(roberts_factory, opts)(st0, params, tol, 400.0)
+    assert bool((ist == C.SUCCESS).all()) and st.lu.dtype == torch.float32
+    assert torch.equal(ist, eist) and torch.equal(tret, etret)
+    for f in ("nst", "nre", "nje", "nni", "netf", "ncfn"):
+        assert torch.equal(getattr(st, f), getattr(est, f)), f
+
+
+@pytest.mark.parametrize("mode", [(True, "full"), (False, "refined"), (True, "refined")],
+                         ids=_mode_id)
+def test_budgeted_kernel_launches_in_the_modes_are_the_eager_budgeted_calls(cuda, mode):
+    # as for parity: under fast_math phi is unscaled at each budget
+    # boundary, under "refined" the lsetup point carries across launches
+    _budgeted_launches_are_the_eager_calls(
+        cuda, IdaOptions(fast_math=mode[0], ls_precision=mode[1]))
+
+
+def _budgeted_launches_are_the_eager_calls(cuda, opts):
+    params, st0 = _ensemble(256, cuda, opts=opts)
     p_b = torch.as_tensor(params, device=cuda).contiguous()
     p = p_b.t().contiguous()
-    problem, opts = roberts_factory(p), IdaOptions()
+    problem = roberts_factory(p)
     eager = (to_native(st0), None, None, None)
     inputs = fused_solve.lane_inputs(eager[0], p, tol_sv(1e-4, ATOL, device=cuda), 400.0, 3)
     tol = TolControl(inputs[1], inputs[2])
     tol_in = fused_solve.tol_inputs(tol_sv(1e-4, ATOL, device=cuda), 3, 256, torch.float64, cuda)
-    dst = fused_solve.empty_result(st0)
+    dst = fused_solve.empty_result(st0, opts)
     carry = fused_solve.new_carry(256, torch.float64, cuda, True)
 
     def step(resume):
@@ -339,7 +396,7 @@ def test_fused_kernel_takes_batches_that_do_not_fill_a_block(cuda, bsz):
     for f, x, was in zip(st0._fields, st0, before):
         if isinstance(x, torch.Tensor):
             assert torch.equal(x, was), f
-            assert (getattr(st, f) is x) == (f not in fused_solve.STATE_FIELDS), f
+            assert (getattr(st, f) is x) == (f not in fused_solve.touched_fields(IdaOptions())), f
 
 
 def test_fused_kernel_takes_per_lane_tolerances(cuda):

@@ -31,7 +31,6 @@ from ida_tpu_torch import constants as C
 from ida_tpu_torch.core.coeffs import phi_star_scale
 from ida_tpu_torch.core.solve import solve as tsolve
 from ida_tpu_torch.models import ROBERTS_PARAMS, roberts_factory, roberts_problem
-from ida_tpu_torch.ops.fused_solve import make_fused_solve
 from ida_tpu_torch.parallel import ensemble_init, to_native
 from ida_tpu_torch.tol_control import TolControl, tol_sv
 
@@ -218,13 +217,3 @@ def test_fast_math_batched():
         assert ist.tolist() == [C.SUCCESS] * b
         outs[fm] = st.yy.numpy()
     np.testing.assert_allclose(outs[True], outs[False], rtol=1e-3, atol=1e-10)
-
-
-@pytest.mark.parametrize("kw", [dict(fast_math=True), dict(ls_precision="single"),
-                                dict(ls_precision="refined")], ids=lambda k: str(k))
-def test_fused_solve_refuses_the_non_parity_modes(kw):
-    # ida_tpu's kernel traces core_solve with these options; the port's K2
-    # compiles in the parity arithmetic: refused when the solve is built,
-    # naming the open ROADMAP item, not later at a float32 lu
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_fused_solve(roberts_factory, tol_sv(1e-4, ATOL, device="cpu"), IdaOptions(**kw))

@@ -73,6 +73,7 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __double2float_rn(double a) { return (float)a; }
 """
 _PRELUDE = r"""
 #define __device__
@@ -93,8 +94,15 @@ void host_launch(unsigned grid, unsigned threads, F f, A... a) {
 """
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+# mode flags (ops.fused_solve.mode_flags) -> the host build of that mode
+_HOST_BUILDS: dict = {}
+
+
+def host_build(tmp_path_factory, flags: tuple = ()) -> ctypes.CDLL:
+    """The host build of ``fused_solve.cu`` with the mode ``flags``, compiled
+    at its first use in the test process."""
+    if flags in _HOST_BUILDS:
+        return _HOST_BUILDS[flags]
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -107,20 +115,28 @@ def host_lib(tmp_path_factory):
     lib_path = out / "libfused_solve_host.so"
     proc = subprocess.run(
         [cxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC", "-I", str(out),
-         "-I", str(CSRC), "-o", str(lib_path), str(out / "fused_solve_host.cpp")],
+         "-I", str(CSRC), *flags, "-o", str(lib_path), str(out / "fused_solve_host.cpp")],
         capture_output=True, text=True, check=False)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    return ctypes.CDLL(str(lib_path))
+    _HOST_BUILDS[flags] = fused_solve.bind(ctypes.CDLL(str(lib_path)))
+    return _HOST_BUILDS[flags]
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return host_build(tmp_path_factory)
 
 
 @pytest.fixture
-def on_host(host_lib, monkeypatch):
-    """Route the wrappers' launches to the host build, on CPU tensors."""
-    fused_solve.bind(host_lib)
-    monkeypatch.setattr(fused_solve, "build", lambda: {"lib": host_lib})
+def on_host(host_lib, tmp_path_factory, monkeypatch):
+    """Route the wrappers' launches to the host build of each mode, on CPU
+    tensors."""
+    monkeypatch.setattr(fused_solve, "build", lambda fast_math=False, ls_precision="full": {
+        "lib": host_build(tmp_path_factory, fused_solve.mode_flags(fast_math, ls_precision))})
     monkeypatch.setattr(fused_solve, "stream_of", lambda t: 0)
-    monkeypatch.setattr(fused_solve, "state_refs", lambda st, batch_axis: fused_solve.StateRefs(
-        **{f: getattr(st, f).data_ptr() for f in fused_solve.STATE_FIELDS}))
+    monkeypatch.setattr(
+        fused_solve, "state_refs", lambda st, batch_axis, opts=IdaOptions(): fused_solve.StateRefs(
+            **{f: getattr(st, f).data_ptr() for f in fused_solve.touched_fields(opts)}))
     fused_stages._bind.cache_clear()
     yield
     fused_stages._bind.cache_clear()
@@ -143,13 +159,13 @@ def _differ(a, b):
             and not torch.equal(x, getattr(b, f))]
 
 
-def _stress_inputs(b=16, seed=5):
+def _stress_inputs(b=16, seed=5, opts=IdaOptions()):
     rng = np.random.default_rng(seed)
     params = np.outer(np.exp(rng.uniform(-3, 3, b)), ROBERTS_PARAMS) * np.exp(
         rng.uniform(-1, 1, (b, 3)))
     yy0 = np.tile(ROBERTS_YY0, (b, 1))
     yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
-    st = ensemble_init(roberts_factory, params, yy0, yp0, device="cpu")
+    st = ensemble_init(roberts_factory, params, yy0, yp0, device="cpu", opts=opts)
     lane = torch.arange(b)
     tstop = torch.where(lane % 3 == 0, 37.5, 0.0).double()
     st = st._replace(tstop=tstop, tstop_set=tstop > 0,
@@ -183,15 +199,63 @@ def test_host_build_is_bitwise_the_eager_solve(on_host, opts):
     assert C.TSTOP_RETURN in codes
 
 
+# the arithmetic modes of IdaOptions the kernel compiles in: (fast_math,
+# ls_precision)
+MODES = [(fm, ls) for fm in (False, True) for ls in ("full", "single", "refined")]
+
+
+def _mode_id(mode):
+    return "-".join((["fast_math"] if mode[0] else []) + [mode[1]])
+
+
+@pytest.mark.parametrize("budget", [None, 7], ids=["unbudgeted", "budget7"])
+@pytest.mark.parametrize("mode", MODES, ids=_mode_id)
+def test_host_build_is_bitwise_the_eager_mode(on_host, mode, budget):
+    # the kernel source built in each mode is the eager solve under the
+    # same options, bit for bit in every field (the float32 lu, the refined
+    # mode's lsetup point): heterogeneous lanes with tstop, hmax and hin set
+    # on some, a first call to tout 4, then a continuing call to 400
+    opts = IdaOptions(fast_math=mode[0], ls_precision=mode[1])
+    params, st0 = _stress_inputs(opts=opts)
+    assert st0.lu.dtype == (torch.float64 if mode[1] == "full" else torch.float32)
+    st_e = st_k = st0
+    for tout in (4.0, 400.0):
+        ref = make_ensemble_solve(roberts_factory, opts)(st_e, params,
+                                                         tol_sv(1e-4, ATOL, device="cpu"), tout)
+        fused_solve.reset_launch_counts()
+        got = _kernel_solve(st_k, params, tout, opts, budget=budget)
+        kinds = ("init", "cont") if budget else ("solve",)
+        assert {k for k, _ in fused_solve.MODE_LAUNCHES} == set(kinds)
+        assert {m for _, m in fused_solve.MODE_LAUNCHES} == {fused_solve.mode_name(opts)}
+        assert _differ(got[0], ref[0]) == [], tout
+        assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+        st_e, st_k = ref[0], got[0]
+    if mode[1] == "refined":
+        assert bool((st_k.ls_cj != 0).all()) and st_k.ls_yy.shape == (16, 3)
+
+
 def test_host_build_budgeted_launches_are_the_eager_budgeted_calls(on_host):
     # after every launch of the budgeted kernel (K3 out of place, then K4 in
     # place on its result) the state and the 9-field carry are bit for bit
     # those of the eager solve(max_attempts=3) call the launch stands for; a
     # first solve to tout 4, then a continuing one to 40
-    params, st0 = _stress_inputs()
+    _budgeted_launches_are_the_eager_calls(IdaOptions())
+
+
+@pytest.mark.parametrize("mode", [(True, "full"), (False, "refined"), (True, "refined")],
+                         ids=_mode_id)
+def test_host_build_budgeted_launches_in_the_modes_are_the_eager_budgeted_calls(on_host, mode):
+    # as above in the modes whose carry differs: under fast_math phi is
+    # unscaled at every budget boundary, under "refined" the lsetup point
+    # carries across launches
+    _budgeted_launches_are_the_eager_calls(IdaOptions(fast_math=mode[0], ls_precision=mode[1]))
+
+
+def _budgeted_launches_are_the_eager_calls(opts):
+    params, st0 = _stress_inputs(opts=opts)
     p_b = torch.as_tensor(params).contiguous()
     p = p_b.t().contiguous()
-    problem, opts = roberts_factory(p), IdaOptions()
+    problem = roberts_factory(p)
     tol_in = fused_solve.tol_inputs(tol_sv(1e-4, ATOL, device="cpu"), 3, 16, torch.float64,
                                     torch.device("cpu"))
     src, eager_st = st0, to_native(st0)
@@ -199,7 +263,7 @@ def test_host_build_budgeted_launches_are_the_eager_budgeted_calls(on_host):
         inputs = fused_solve.lane_inputs(eager_st, p, tol_sv(1e-4, ATOL, device="cpu"), tout, 3)
         tol = TolControl(inputs[1], inputs[2])
         carry = fused_solve.new_carry(16, torch.float64, "cpu", True)
-        dst = fused_solve.empty_result(src)
+        dst = fused_solve.empty_result(src, opts)
         eager = (eager_st, None, None, None)
 
         def step(resume):
@@ -243,7 +307,7 @@ def test_host_build_leaves_its_input_state_untouched(on_host, budget):
         if not isinstance(x, torch.Tensor):
             continue
         assert torch.equal(x, was, ), f
-        assert (getattr(got, f) is x) == (f not in fused_solve.STATE_FIELDS), f
+        assert (getattr(got, f) is x) == (f not in fused_solve.touched_fields(IdaOptions())), f
 
 
 def test_host_build_takes_per_lane_tolerances(on_host):

@@ -143,8 +143,7 @@ def test_launch_counters_stay_at_zero_on_the_cpu():
     st = to_native(ensemble_init(troberts, *_inputs(2), device="cpu"))
     fused_stages.run_stage("prologue", st, torch.from_numpy(_inputs(2)[0].T),
                            tol_sv(1e-4, ATOL, device="cpu"), 0.4)
-    assert (fused_solve.FUSED_LAUNCHES, fused_solve.FUSED_INIT_LAUNCHES,
-            fused_solve.FUSED_CONT_LAUNCHES) == (0, 0, 0)
+    assert not fused_solve.MODE_LAUNCHES
     assert not any(fused_stages.STAGE_LAUNCHES.values())
 
 
@@ -221,6 +220,14 @@ def test_state_fields_match_the_kernels_pointer_table():
     block = re.search(r"#define IDA_STATE_FIELDS\(X\)(.*?)\n\n", src, re.S).group(1)
     assert tuple(re.findall(r"X\((\w+)\)", block)) == fused_solve.STATE_FIELDS
     assert set(fused_solve.STATE_FIELDS) <= set(IdaState._fields)
+    # the refined mode's lsetup point, last; [B, 0] ls_yy/ls_yp outside it
+    assert fused_solve.STATE_FIELDS[-4:] == ("ls_tn", "ls_cj", "ls_yy", "ls_yp")
+    assert ctypes.sizeof(fused_solve.StateRefs) == 8 * len(fused_solve.STATE_FIELDS)
+    for ls, lu in (("full", torch.float64), ("single", torch.float32), ("refined", torch.float32)):
+        opts = IdaOptions(ls_precision=ls)
+        st = ensemble_init(troberts, *_inputs(2), device="cpu", opts=opts)
+        assert st.lu.dtype == fused_solve._expected_dtype("lu", torch.float64, opts) == lu
+        assert st.ls_yy.shape == ((2, 3) if ls == "refined" else (2, 0))
 
 
 @pytest.mark.parametrize("stage", sorted(fused_stages.STAGES))
@@ -273,6 +280,21 @@ def test_the_kernel_is_one_translation_unit_with_inlined_pow():
     assert '#include "rounded.cuh"' in (csrc / "small_lu.cuh").read_text()
 
 
+@pytest.mark.parametrize("made,run", [("full", "single"), ("single", "refined"),
+                                      ("refined", "full")])
+def test_a_state_made_for_another_mode_is_refused(made, run):
+    # the lu dtype and the refined mode's lsetup point follow the options
+    # the state was made with; the kernel would write ls_yy past a [B, 0]
+    # field, so the entry point checks the layout on either device
+    params, yy0, yp0 = _inputs(2)
+    st = ensemble_init(troberts, params, yy0, yp0, device="cpu",
+                       opts=IdaOptions(ls_precision=made))
+    fn = make_fused_solve(troberts, tol_sv(1e-4, ATOL, device="cpu"),
+                          IdaOptions(ls_precision=run))
+    with pytest.raises(ValueError, match="ensemble_init"):
+        fn(st, params, 0.4)
+
+
 def test_solve_args_mirror_the_kernels_argument_struct():
     block = re.search(r"struct IdaSolveArgs \{(.*?)\};", CU.read_text(), re.S).group(1)
     names = re.findall(r"(\w+)(?:, (\w+))?;", block)
@@ -285,6 +307,16 @@ def test_solve_args_mirror_the_kernels_argument_struct():
     assert [f for f, _ in fused_solve.TolArgs._fields_] == [
         "rtol", "atol", "tout", "rtol_lanes", "atol_lanes"]
     assert ctypes.sizeof(fused_solve.TolArgs) == 8 * (fused_solve.MAXN + 4)
+    # the two pointer tables, with the four lsetup-point fields each
+    assert fused_solve.SolveArgs.dst.offset == ctypes.sizeof(fused_solve.StateRefs)
+    # the modes: the macros the source reads, and its ls_precision codes
+    src = CU.read_text()
+    assert "#define IDA_FAST_MATH 0" in src and "#define IDA_LS_PRECISION 0" in src
+    assert "constexpr int LS_FULL = 0, LS_SINGLE = 1, LS_REFINED = 2;" in lane
+    assert fused_solve.LS_CODES == {"full": 0, "single": 1, "refined": 2}
+    assert fused_solve.mode_flags() == ()
+    assert fused_solve.mode_flags(True, "refined") == ("-DIDA_FAST_MATH=1",
+                                                       "-DIDA_LS_PRECISION=2")
 
 
 @pytest.mark.parametrize("form", ["scalar", "vector", "per-lane-rtol", "per-lane-atol"])
@@ -308,13 +340,20 @@ def test_tolerances_travel_by_value_unless_per_lane(form):
         fused_solve.tol_inputs(TolControl(rtol, atol[:2]), 3, 5, f64, cpu)
 
 
-def test_result_allocation_covers_the_touched_fields_only():
-    st = ensemble_init(troberts, *_inputs(2), device="cpu")
-    out = fused_solve.empty_result(st)
+@pytest.mark.parametrize("ls_precision", ["full", "single", "refined"])
+def test_result_allocation_covers_the_touched_fields_only(ls_precision):
+    # the lsetup point (ls_tn, ls_cj, ls_yy, ls_yp) is the kernel's only
+    # under "refined"; in the other modes it passes through
+    opts = IdaOptions(ls_precision=ls_precision)
+    st = ensemble_init(troberts, *_inputs(2), device="cpu", opts=opts)
+    out = fused_solve.empty_result(st, opts)
+    touched = fused_solve.touched_fields(opts)
+    assert set(fused_solve.LS_FIELDS) <= set(touched) if ls_precision == "refined" else (
+        not set(fused_solve.LS_FIELDS) & set(touched))
     for f, x in zip(st._fields, st):
         if isinstance(x, torch.Tensor):
             y = getattr(out, f)
-            assert (y is x) == (f not in fused_solve.STATE_FIELDS), f
+            assert (y is x) == (f not in touched), f
             assert (y.shape, y.dtype, y.device) == (x.shape, x.dtype, x.device), f
 
 

@@ -141,21 +141,35 @@ def test_source_never_imports_jax_or_reference():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("package,home", [("core", "state"), ("utils", "tree")])
+def test_subpackages_export_what_ida_tpus_export(package, home):
+    # ida_tpu/<package>/__init__.py's __all__ (read from its source) is the
+    # port's, each name the object its home module defines
+    import ast
+    import importlib
+
+    tree = ast.parse((ROOT / "ida_tpu" / package / "__init__.py").read_text())
+    want = next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign) and node.targets[0].id == "__all__")
+    mod = importlib.import_module(f"ida_tpu_torch.{package}")
+    src = importlib.import_module(f"ida_tpu_torch.{package}.{home}")
+    assert list(mod.__all__) == list(want)
+    assert all(getattr(mod, name) is getattr(src, name) for name in want)
+
+
 _NOT_PORTED = re.compile(r"not_ported\((?:[^()]|\([^()]*\))*?,\s*(\d+)\s*,", re.S)
 
 
 def test_every_not_ported_raise_names_a_current_roadmap_item():
     # each raise of a feature still to port names the ROADMAP.md Queue 1 item
-    # that lifts it: after the mixed-precision modes, fast_math, the models,
-    # the stratified solve and the profiling scopes, what is left is the
-    # mesh (item 7) and the whole-solve kernel under the non-parity modes
-    # (item 8)
+    # that lifts it: after the whole-solve kernel's non-parity modes, what is
+    # left is the mesh (item 7)
     calls = {
         f"{path.relative_to(ROOT)}": [int(n) for n in _NOT_PORTED.findall(path.read_text())]
         for path in sorted(PKG.rglob("*.py"))
     }
     items = [n for found in calls.values() for n in found]
-    assert sorted(set(items)) == [7, 8], calls
+    assert sorted(set(items)) == [7], calls
     roadmap = (ROOT / "ROADMAP.md").read_text()
     for n in set(items):
         assert re.search(rf"^{n}\. \*\*", roadmap, re.M), f"ROADMAP.md has no Queue 1 item {n}"

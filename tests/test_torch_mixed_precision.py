@@ -43,11 +43,13 @@ from ida_tpu_torch.sensitivity import adjoint_gradient, forward_sensitivity
 from ida_tpu_torch.tol_control import TolControl, tol_ss, tol_sv
 from ida_tpu_torch.utils import checkpoint as ck
 from ida_tpu_torch.utils.convert import state_fields
+from make_torch_refs import load
 
 # one intra-op thread: the tests' tensors are small, and the suite runs in
 # parallel workers, each of which would otherwise start a pool per core
 torch.set_num_threads(1)
 
+RTOL = 1e-4
 ATOL = [1e-8, 1e-6, 1e-6]
 COUNTERS = ("nst", "nre", "nje", "nni", "netf", "ncfn", "nsetups")
 CANONICAL_NST = [29, 43, 68, 95, 126, 161, 202, 250, 293, 325, 348, 362]
@@ -59,13 +61,13 @@ HEAT_TOUTS = (0.01, 0.04, 0.16)
 
 def _port_ida(mode, with_roots=False):
     return port.IDA(roberts_problem(with_roots=with_roots, device="cpu"), ROBERTS_YY0,
-                    ROBERTS_YP0, tol_sv(1e-4, ATOL, device="cpu"),
+                    ROBERTS_YP0, tol_sv(RTOL, ATOL, device="cpu"),
                     IdaOptions(ls_precision=mode), device="cpu")
 
 
 def _jax_ida(mode, with_roots=False):
     return jida.IDA(jax_roberts(with_roots=with_roots), ROBERTS_YY0, ROBERTS_YP0,
-                    jida.tol_sv(1e-4, jnp.asarray(ATOL)),
+                    jida.tol_sv(RTOL, jnp.asarray(ATOL)),
                     options=jida.IdaOptions(ls_precision=mode))
 
 
@@ -153,10 +155,25 @@ def _run_roberts(ida, jax_side=False):
 @pytest.fixture(scope="module")
 def roberts12():
     """The port's "full", "single" and "refined" runs and ida_tpu's jitted
-    "single" and "refined" runs, 12 decades with roots."""
+    "single" and "refined" runs (:func:`jax_roberts12_live`, pinned by
+    tests/make_torch_refs.py), 12 decades with roots."""
     runs = {m: _run_roberts(_port_ida(m, with_roots=True)) for m in ("full", "single", "refined")}
+    return {**runs, **load("mixed_roberts12_jax", REF_INPUTS)}
+
+
+# what the pinned reference (jax_roberts12_live) is computed from: the runs
+# of _jax_ida and _run_roberts, which the port's runs share
+REF_INPUTS = {"yy0": ROBERTS_YY0, "yp0": ROBERTS_YP0, "rtol": RTOL, "atol": ATOL,
+              "modes": ("single", "refined"), "with_roots": True}
+
+
+def jax_roberts12_live():
+    """ida_tpu's jitted "single" and "refined" runs, 12 decades with roots:
+    {"jax_<mode>": (steps, roots, outputs)}."""
+    runs = {}
     for m in ("single", "refined"):
-        runs["jax_" + m] = _run_roberts(_jax_ida(m, with_roots=True), jax_side=True)
+        ida, roots, outputs = _run_roberts(_jax_ida(m, with_roots=True), jax_side=True)
+        runs["jax_" + m] = (int(ida.get_num_steps()), roots, outputs)
     return runs
 
 
@@ -207,8 +224,8 @@ def test_roberts_single_statistics_sane(roberts12):
     assert ida.get_num_res_evals() <= 810
     assert ida.get_num_jac_evals() <= 250
     assert ida.get_num_nonlin_solv_conv_fails() <= 60
-    jida_ = roberts12["jax_single"][0]
-    assert abs(ida.get_num_steps() - jida_.get_num_steps()) <= 0.1 * jida_.get_num_steps()
+    jax_steps = roberts12["jax_single"][0]
+    assert abs(ida.get_num_steps() - jax_steps) <= 0.1 * jax_steps
 
 
 def test_refined_tracks_full_mode_early_decades():

@@ -34,6 +34,7 @@ from ida_tpu_torch.models import roberts_factory as troberts
 from ida_tpu_torch.models import roberts_problem as troberts_problem
 from ida_tpu_torch.problem import IdaProblem as TProblem
 from ida_tpu_torch.utils.convert import params_from_numpy, state_from_numpy, tol_from_numpy
+from make_torch_refs import load
 
 # one intra-op thread: the tests' tensors are small, and the suite runs in
 # parallel workers, each of which would otherwise start a pool per core
@@ -282,11 +283,18 @@ def test_scan_ties_and_no_change_pick_component_zero():
 # ------------------------------------------------------- whole path, op by op
 
 
-def test_rooted_solve_through_first_root_bitwise_op_by_op():
-    """B = 4 batch-native: the call that returns every lane's first root, the
-    re-entry that lands on 0.4, and a further leg, each bit for bit the
-    op-by-op JAX solve (state, tret, istate)."""
-    b = 4
+FIRST_ROOT_LEGS = (0.4, 0.4, 1.0)
+FIRST_ROOT_B = 4
+# what the pinned reference (first_root_op_by_op_live) is computed from
+REF_INPUTS = {"params": _params(FIRST_ROOT_B), "legs": FIRST_ROOT_LEGS, "yy0": ROBERTS_YY0,
+              "rtol": 1e-4, "atol": ATOL}
+
+
+def first_root_op_by_op_live():
+    """The op-by-op JAX solve of B = 4 batch-native rooted lanes: the
+    initial state, then (state, tret, istate) of each call toward
+    FIRST_ROOT_LEGS, and the tolerances."""
+    b = FIRST_ROOT_B
     params = _params(b)
     yy0 = np.tile(ROBERTS_YY0, (b, 1))
     yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
@@ -295,14 +303,28 @@ def test_rooted_solve_through_first_root_bitwise_op_by_op():
     jst = jax.tree_util.tree_map(lambda x: jnp.moveaxis(x, 0, -1), jst)
     jprob = jroberts(jnp.asarray(params.T), with_roots=True)
     jtol = JTol(jnp.full((b,), 1e-4), jnp.tile(jnp.asarray(ATOL)[:, None], (1, b)))
-    tst = to_port(jst)
-    tprob = troberts(params_from_numpy(params, device="cpu"), with_roots=True)
-    ttol = tol_from_numpy({"rtol": np.asarray(jtol.rtol), "atol": np.asarray(jtol.atol)},
-                          device="cpu", batch="trailing")
-    expected = [C.ROOT_RETURN, C.SUCCESS, C.SUCCESS]
-    for tout, code in zip((0.4, 0.4, 1.0), expected):
+    out = {"init": jst, "rtol": jtol.rtol, "atol": jtol.atol, "legs": []}
+    for tout in FIRST_ROOT_LEGS:
         with jax.disable_jit():
             jst, jtret, jist = jsolve(jst, jprob, JOptions(), jtol, jnp.full((b,), tout))
+        out["legs"].append((jst, jtret, jist))
+    return out
+
+
+def test_rooted_solve_through_first_root_bitwise_op_by_op():
+    """B = 4 batch-native: the call that returns every lane's first root, the
+    re-entry that lands on 0.4, and a further leg, each bit for bit the
+    op-by-op JAX solve (state, tret, istate; :func:`first_root_op_by_op_live`,
+    pinned by tests/make_torch_refs.py)."""
+    b = FIRST_ROOT_B
+    params = _params(b)
+    ref = load("roots_first_root", REF_INPUTS)
+    tst = to_port(ref["init"])
+    tprob = troberts(params_from_numpy(params, device="cpu"), with_roots=True)
+    ttol = tol_from_numpy({"rtol": ref["rtol"], "atol": ref["atol"]}, device="cpu",
+                          batch="trailing")
+    expected = [C.ROOT_RETURN, C.SUCCESS, C.SUCCESS]
+    for tout, code, (jst, jtret, jist) in zip(FIRST_ROOT_LEGS, expected, ref["legs"]):
         tst, ttret, tist = tsolve(tst, tprob, IdaOptions(), ttol, tout)
         assert np.asarray(jist).tolist() == [code] * b
         np.testing.assert_array_equal(tist.numpy(), np.asarray(jist))

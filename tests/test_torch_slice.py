@@ -32,6 +32,7 @@ from ida_tpu_torch.models import roberts_factory as troberts
 from ida_tpu_torch.parallel import ensemble_init, make_ensemble_solve
 from ida_tpu_torch.tol_control import tol_sv
 from ida_tpu_torch.utils.convert import params_from_numpy, state_from_numpy, tol_from_numpy
+from make_torch_refs import load
 
 # one intra-op thread: the tests' tensors are small, and the suite runs in
 # parallel workers, each of which would otherwise start a pool per core
@@ -41,6 +42,7 @@ B = 8
 ATOL = [1e-8, 1e-6, 1e-6]
 COUNTERS = ("nst", "nre", "nje", "nni", "netf", "ncfn")
 CANONICAL_NST = [29, 43, 68, 95, 126, 161, 202, 250, 293, 325, 348, 362]
+RTOL = 1e-4
 
 
 def _inputs(b):
@@ -52,12 +54,16 @@ def _inputs(b):
 
 @pytest.fixture(scope="module")
 def jax_native():
+    return _jax_native()
+
+
+def _jax_native():
     """Batch-native JAX states, problem and tolerances for B=8."""
     params, yy0, yp0 = _inputs(B)
     st = jensemble_init(roberts_factory, jnp.asarray(params), jnp.asarray(yy0), jnp.asarray(yp0))
     st = jax.tree_util.tree_map(lambda x: jnp.moveaxis(x, 0, -1), st)
     prob = roberts_factory(jnp.asarray(params.T))
-    tol = JTol(jnp.full((B,), 1e-4), jnp.tile(jnp.asarray(ATOL)[:, None], (1, B)))
+    tol = JTol(jnp.full((B,), RTOL), jnp.tile(jnp.asarray(ATOL)[:, None], (1, B)))
     return st, prob, tol
 
 
@@ -72,7 +78,7 @@ def _port_solve(tout, itask=TASK_NORMAL, steps=1):
     params, yy0, yp0 = _inputs(B)
     st = ensemble_init(troberts, params, yy0, yp0, device="cpu")
     fn = make_ensemble_solve(troberts, itask=itask)
-    tol = tol_sv(1e-4, ATOL, device="cpu")
+    tol = tol_sv(RTOL, ATOL, device="cpu")
     for _ in range(steps):
         st, tret, istate = fn(st, params, tol, tout)
     return st, tret, istate
@@ -87,12 +93,21 @@ def _assert_exact(ref, got, tret_rtol=0.0):
 
 
 @pytest.fixture(scope="module")
-def jax_op_by_op(jax_native):
+def jax_op_by_op():
+    """:func:`jax_op_by_op_live`, pinned by tests/make_torch_refs.py."""
+    return load("slice_op_by_op", REF_INPUTS)
+
+
+# what the pinned reference (jax_op_by_op_live) is computed from
+REF_INPUTS = {**dict(zip(("params", "yy0", "yp0"), _inputs(B))), "rtol": RTOL, "atol": ATOL, "touts": (0.4, 400.0)}
+
+
+def jax_op_by_op_live():
     """The op-by-op JAX solve to 0.4, and from there on to 400: a return at
     tout interpolates and leaves the step sequence alone, so the second is
     the solve straight to 400 (the port's own two runs agree in every
     field), for the cost of the steps past 0.4."""
-    st, prob, tol = jax_native
+    st, prob, tol = _jax_native()
     refs = {}
     with jax.disable_jit():
         for tout in (0.4, 400.0):
