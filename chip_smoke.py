@@ -47,7 +47,9 @@ tout=400 in f64):
   eager solve (K1 forward, ``small_lu_solve_t`` backward), against the CPU
   and central differences, with ``remat_attempts`` and under ``safe_ad``
   (``adjoint_batched``); its adjoint_continuous at 1,024 lanes against the
-  discrete gradients (``adjoint_continuous``); forward sensitivities, the
+  discrete gradients, its KKT solves at N = 6 on K1's group skeleton and
+  16 lanes bit for bit K1's parent dispatch (``adjoint_continuous``);
+  forward sensitivities, the
   Hessian-vector product and the gradient through ``calc_ic`` on one lane
   against differences (``sensitivity_lane``);
 * the band solver on heat2d 10 x 10 (idaHeat2D_bnd) through ``IDA`` and at
@@ -55,16 +57,20 @@ tout=400 in f64):
   (``band_heat2d``, ``band_factor_solve``), and SPGMR with the BBD
   preconditioner on heat2d 20 x 20 in 4 blocks, one lane and B = 256
   (``bbd_heat2d``);
-* the non-parity modes and the rest of the surface: K1 at this slice's
-  shapes against its plain version (float32 N = 3, the float32 N = 2 solve
-  in the Krylov "single" layout, float64 N = 10; ``kernels_modes``); the
+* the non-parity modes and the rest of the surface: K1 at the later
+  paths' shapes against its plain version (float32 N = 3, the float32 N = 2
+  solve in the Krylov "single" layout; float64 N = 10 on one lane and N = 6
+  on 1,024, each on the skeleton the rule names, timed in turns with the
+  parent's dispatch, one thread a lane, built beside it, with its floor:
+  ``kernels_modes``); the
   headline under ``ls_precision`` "single" and "refined", K1's float32
   launches counted, two lanes against the CPU counter for counter
   (``mixed_headline``); the headline with ``fast_math`` timed in turns with
   parity, every lane within tolerance of it (``fast_f64``); heat2d 100 x
   100 under "single" with CGS2, with a bfloat16 basis and at B = 128
   (``heat2d_mixed``); foodweb 20 x 20, B = 128, under "single"
-  (``foodweb_mixed``); the slider-crank example, K1 at N = 10
+  (``foodweb_mixed``); the slider-crank example, K1 at N = 10 on the group
+  skeleton, its first output bit for bit the parent dispatch's
   (``slider_crank``); the stratified solve over two decades of rates, bit
   for bit the plain one (``stratified``); the headline under
   ``utils.profiling.profile``, each ``ida.<name>`` scope's host and device
@@ -88,6 +94,7 @@ limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -400,18 +407,34 @@ def phase_device() -> str:
     return smi
 
 
+# K1 built as the parent dispatched it (one thread a lane everywhere) and
+# with the floor kernels: the few-lane rows' yardsticks
+LU_VARIANTS = {"parent": kernel_variants.K1_VARIANTS["parent"], "floor": kernel_variants.K1_FLOOR}
+LU_LIBS: dict = {}
+
+
 def phase_build() -> None:
-    """Every library at once, one nvcc each: K1, and the whole-solve kernel
-    in the parity mode and in each mode of FUSED_MODES."""
+    """Every library at once, one nvcc each: K1 (and its parent dispatch and
+    floor, LU_VARIANTS), and the whole-solve kernel in the parity mode and in
+    each mode of FUSED_MODES."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2 + len(FUSED_MODES)) as pool:
+    with ThreadPoolExecutor(2 + len(LU_VARIANTS) + len(FUSED_MODES)) as pool:
         lu, fused = pool.submit(small_lu.build), pool.submit(fused_solve.build)
+        variants = {k: pool.submit(_build.build_library, "small_lu.cu", kernel_variants.K1_HEADERS,
+                                   flags=("-fmad=false", *f)) for k, f in LU_VARIANTS.items()}
         modes = {m: pool.submit(fused_solve.build_of, o) for m, o in FUSED_MODES.items()}
         lu, fused = lu.result(), fused.result()
+        LU_LIBS.update({k: f.result() for k, f in variants.items()})
         modes = {m: f.result() for m, f in modes.items()}
+    small_lu.bind(LU_LIBS["parent"]["lib"])
+    kernel_variants.bind_floor(LU_LIBS["floor"]["lib"])
     lu_ptxas = {k: v for k, v in _build.ptxas_summary(lu["log"]).items() if "Li3E" in k}
     emit("build", seconds=time.perf_counter() - t0, cached=lu["cached"] and fused["cached"],
-         small_lu_seconds=lu["seconds"], library=lu["path"], small_lu_n3_ptxas=lu_ptxas)
+         small_lu_seconds=lu["seconds"], library=lu["path"], small_lu_n3_ptxas=lu_ptxas,
+         small_lu_variants={k: {"flags": list(f), "seconds": LU_LIBS[k]["seconds"]}
+                            for k, f in LU_VARIANTS.items()},
+         small_lu_few_lanes_ptxas={k: kernel_variants.k1_ptxas(info["log"])["n6_10_16"]
+                                   for k, info in (("new", lu), ("parent", LU_LIBS["parent"]))})
     summary = _build.ptxas_summary(fused["log"])
     separate_pow = [k for k in summary if "torch_pow" in k]
     emit("fused_build", seconds=fused["seconds"], cached=fused["cached"], library=fused["path"],
@@ -2105,7 +2128,8 @@ def phase_adjoint_batched() -> dict:
         out[remat] = {"wall_s": time.perf_counter() - t0, "vals": vals, "grads": grads, "ist": ist,
                       "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                       "launches": {"factor": small_lu.FACTOR_LAUNCHES, "solve": small_lu.SOLVE_LAUNCHES,
-                                   "solve_t": small_lu.SOLVE_T_LAUNCHES}}
+                                   "solve_t": small_lu.SOLVE_T_LAUNCHES},
+                      "group_launches": k1_launches(small_lu.GROUP_LAUNCHES)}
     plain, remat = out[False], out[True]
     vals, grads, ist = plain["vals"], plain["grads"], plain["ist"]
     n_ok = int((ist == C.SUCCESS).sum())
@@ -2137,7 +2161,7 @@ def phase_adjoint_batched() -> dict:
     emit("adjoint_batched", batch=ADJ_B, tout=ADJ_TOUT, max_attempts=ADJ_ATTEMPTS,
          wall_s=plain["wall_s"], grads_per_s=ADJ_B / plain["wall_s"], primal_wall_s=fwd_s,
          peak_mem_bytes=plain["peak_mem_bytes"], launches=plain["launches"],
-         remat_wall_s=remat["wall_s"], remat_grads_per_s=ADJ_B / remat["wall_s"],
+         group_launches=plain["group_launches"], remat_wall_s=remat["wall_s"], remat_grads_per_s=ADJ_B / remat["wall_s"],
          remat_peak_mem_bytes=remat["peak_mem_bytes"], remat_launches=remat["launches"],
          remat_max_rel_err=remat_err, lanes_ok=n_ok, lanes_finite=finite,
          nst_max=int(st_plain.nst.max()), nst_total=int(st_plain.nst.sum()),
@@ -2160,13 +2184,17 @@ def phase_adjoint_batched() -> dict:
     lau = plain["launches"]
     check(lau["factor"] > 0 and lau["solve"] > 0 and lau["solve_t"] > 0,
           f"K1 or small_lu_solve_t not launched: {lau}")
+    # the rule keeps N = 3 on one thread a lane at 4,096 lanes
+    check(not plain["group_launches"] and not remat["group_launches"],
+          f"adjoint_batched: K1 launched on the group skeleton: {plain['group_launches']}")
     return {"launches": lau, "wall_s": plain["wall_s"], "params": params, "grads": grads}
 
 
 def phase_adjoint_continuous(discrete: dict) -> dict:
     """bench.py's adjoint_continuous: 1,024 lanes, dense checkpoints on a
     64-point log grid, the adjoint DAE backward, KKT terminal conditions
-    through K1 at N = 6; 64 lanes against the discrete adjoint."""
+    through K1 at N = 6 (the solve on the group skeleton); 64 lanes against
+    the discrete adjoint, 16 bit for bit the parent dispatch's."""
     params = adjoint_params(ADJ_CONT_B)
     yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
     _, _, loss_of = adjoint_maps("cuda")
@@ -2182,8 +2210,18 @@ def phase_adjoint_continuous(discrete: dict) -> dict:
             roberts_factory, p, ROBERTS_YY0, y0, tol_sv(1e-4, ATOL, device="cuda"), ADJ_TOUT,
             loss_of, grid=ADJ_GRID, opts=IdaOptions(mxstep=20000), device="cuda")
 
-    run(params[:16], yp0[:16])  # warm-up
+    # the warm-up's 16 lanes, with the parent's dispatch too: bit for bit
+    # (the N = 6 solve on the groups against one thread a lane)
+    warm_groups = []
+    small_lu.reset_launch_counts()
+    warm = run(params[:16], yp0[:16])
+    warm_groups.append(k1_launches(small_lu.GROUP_LAUNCHES))
+    small_lu.reset_launch_counts()
+    with parent_lu():
+        warm_parent = run(params[:16], yp0[:16])
+    warm_groups.append(k1_launches(small_lu.GROUP_LAUNCHES))
     torch.cuda.synchronize()
+    parent_same = all(torch.equal(u, v) for u, v in zip(warm, warm_parent))
     small_lu.reset_launch_counts()
     small_lu.lu_factor = noted
     try:
@@ -2194,7 +2232,10 @@ def phase_adjoint_continuous(discrete: dict) -> dict:
     finally:
         small_lu.lu_factor = factor
     launches = {"factor": small_lu.FACTOR_LAUNCHES, "solve": small_lu.SOLVE_LAUNCHES,
-                "factor_n6": sizes.count(6)}
+                "factor_n6": sizes.count(6), "solve_n6": small_lu.LAUNCHES["solve", "f64", 6],
+                "factor_n6_groups": small_lu.GROUP_LAUNCHES["factor", "f64", 6],
+                "solve_n6_groups": small_lu.GROUP_LAUNCHES["solve", "f64", 6]}
+    groups = k1_launches(small_lu.GROUP_LAUNCHES)
     ok = int(((istf == 0) & (istb == 0)).sum())
     finite = int(torch.isfinite(gp).all(dim=1).sum())
     idx = np.linspace(0, ADJ_CONT_B - 1, 64).astype(int)
@@ -2202,13 +2243,23 @@ def phase_adjoint_continuous(discrete: dict) -> dict:
     err = rel_err(gp[idx].cpu().numpy(), g_disc.cpu().numpy())
     emit("adjoint_continuous", batch=ADJ_CONT_B, tout=ADJ_TOUT, grid=len(ADJ_GRID), wall_s=wall,
          grads_per_s=ADJ_CONT_B / wall, discrete_wall_s_4096=discrete["wall_s"],
-         lanes_ok=ok, lanes_finite=finite, launches=launches,
-         vs_discrete_lanes=64, vs_discrete_max_rel_err=err, grad_lane0=gp[0].tolist())
+         lanes_ok=ok, lanes_finite=finite, launches=launches, group_launches=groups,
+         warm16_group_launches={"new": warm_groups[0], "parent": warm_groups[1]},
+         vs_discrete_lanes=64, vs_discrete_max_rel_err=err, grad_lane0=gp[0].tolist(),
+         lanes16_bitwise_parent=parent_same)
     check(ok == ADJ_CONT_B, f"{ADJ_CONT_B - ok} continuous-adjoint lanes failed")
     check(finite == ADJ_CONT_B, f"{ADJ_CONT_B - finite} lanes have non-finite gradients")
     check(bool((i_disc == 0).all()), "a discrete lane failed")
     check(err < 2e-2, f"continuous vs discrete gradients: {err}")
     check(launches["factor_n6"] > 0, f"K1 not launched at N = 6 (KKT): {launches}")
+    check(launches["solve_n6_groups"] == launches["solve_n6"] > 0,
+          f"the KKT solve at N = 6 not on the group skeleton: {launches}")
+    # the N = 6 solve alone takes the groups: N = 3 keeps one thread a lane
+    check(groups == {"solve_f64_n6": launches["solve_n6"]},
+          f"adjoint_continuous: K1's group launches {groups}")
+    check(warm_groups[0].get("solve_f64_n6", 0) > 0 and not warm_groups[1],
+          f"adjoint_continuous: group launches of the 16 lanes, new and parent: {warm_groups}")
+    check(parent_same, "adjoint_continuous: 16 lanes differ from the parent dispatch's")
     return {"launches": launches, "wall_s": wall}
 
 
@@ -2299,9 +2350,11 @@ def run_mode(params, yy0, yp0, device, tout, opts: IdaOptions):
     return make_ensemble_solve(roberts_factory, opts)(st, params, tol, tout)
 
 
-def k1_launches() -> dict:
-    """``small_lu.LAUNCHES`` as "kernel_tag_nN" -> launches."""
-    return {f"{k}_{tag}_n{n}": c for (k, tag, n), c in sorted(small_lu.LAUNCHES.items())}
+def k1_launches(counts=None) -> dict:
+    """``small_lu.LAUNCHES`` (or ``counts``, e.g. ``GROUP_LAUNCHES``) as
+    "kernel_tag_nN" -> launches."""
+    counts = small_lu.LAUNCHES if counts is None else counts
+    return {f"{k}_{tag}_n{n}": c for (k, tag, n), c in sorted(counts.items())}
 
 
 def k1_times(a: torch.Tensor, b: torch.Tensor, sets: int, rounds: int) -> dict:
@@ -2343,19 +2396,23 @@ def k1_times(a: torch.Tensor, b: torch.Tensor, sets: int, rounds: int) -> dict:
 
 
 def phase_kernels_modes() -> dict:
-    """K1 at the new shapes of this slice's paths, each against its plain
-    version: float32 N = 3 at B = 65,536 ("single" and "refined"), the
-    float32 N = 2 solve on the foodweb blocks in the layout the Krylov
-    "single" path hands it (the float64 factors cast to float32), and float64
-    N = 10 on one lane (slider-crank)."""
+    """K1 at the shapes of the later paths, each against its plain version:
+    float32 N = 3 at B = 65,536 ("single" and "refined"), the float32 N = 2
+    solve on the foodweb blocks in the layout the Krylov "single" path hands
+    it (the float64 factors cast to float32), and the few-lane rows
+    (``kernel_variants.k1_few_lanes``): float64 N = 10 on one lane
+    (slider-crank) and N = 6 on 1,024 lanes (the continuous adjoint), each
+    on the skeleton the rule names, timed in turns with the parent's
+    dispatch, beside its floor and torch.linalg."""
     rng = np.random.default_rng(31)
     a3 = torch.from_numpy(rng.normal(size=(3, 3, B)) + 3.0 * np.eye(3)[:, :, None])
     b3 = torch.from_numpy(rng.normal(size=(3, B)))
     # float32 N = 3: 32 sets (75 MB a factor pass) keep every launch cold
     f32_n3 = k1_times(a3.to("cuda", torch.float32), b3.to("cuda", torch.float32), 32, 4)
-    a10 = torch.from_numpy(rng.normal(size=(10, 10, 1)) + 3.0 * np.eye(10)[:, :, None])
-    b10 = torch.from_numpy(rng.normal(size=(10, 1)))
-    f64_n10 = k1_times(a10.to("cuda"), b10.to("cuda"), 64, 4)
+    # the few-lane rows: f64 N = 10 on one lane (slider-crank) and N = 6 on
+    # 1,024 lanes (the continuous adjoint's KKT systems), the shipped build
+    # and the parent's dispatch in turns, each with its floor
+    few = kernel_variants.k1_few_lanes({"new": small_lu.build(), **LU_LIBS})
 
     # float32 N = 2 on foodweb's blocks as prec_solve reads them under
     # "single": factored in float64, cast with their strides kept
@@ -2388,11 +2445,26 @@ def phase_kernels_modes() -> dict:
     n2["library_ms"] = call_device_ms([lambda t=t: torch.linalg.lu_solve(t[0], t[1], t[2])
                                        for t in lead], 2)
     del sets, lead
-    emit("kernels_modes", f32_n3=f32_n3, f64_n10=f64_n10, f32_n2_prec_solve=n2, n2_layout=layout)
-    for name, rows in (("f32 N=3", f32_n3), ("f64 N=10", f64_n10)):
-        check(all(v["bitwise_equal"] for v in rows.values()), f"K1 {name} != its plain version")
+    emit("kernels_modes", f32_n3=f32_n3, f32_n2_prec_solve=n2, n2_layout=layout, few_lanes=few)
+    check(all(v["bitwise_equal"] for v in f32_n3.values()), "K1 f32 N=3 != its plain version")
     check(n2_ok, "K1 float32 N=2 solve != its plain version")
-    return {"f32_n3": f32_n3, "f64_n10": f64_n10, "f32_n2": n2}
+    for row, out in few.items():
+        check(out["bitwise_equal"], f"K1 {row}: a skeleton differs from its plain version")
+        for k in ("factor", "solve"):
+            group = small_lu.uses_groups(k, "f64", out["n"], out["lanes"])
+            check(out[k]["skeleton_new"] == (f"{k}_group_kernel" if group else f"{k}_kernel"),
+                  f"K1 {row} {k}: the shipped build ran {out[k]['skeleton_new']}")
+    # the rows of the kernels line: the shipped build's time (the mean of
+    # its two turns), its plain version and the library call
+    rows = {row: {k: {"max_abs_err": out[k]["max_abs_err"], "ms": statistics.mean(out[k]["ms"]["new"]),
+                      "plain_ms": out[k]["plain_ms"], "bound_ms": out[k]["bound_ms"],
+                      "bound_by": "bytes", "library_ms": out[k]["library_ms"],
+                      "skeleton": out[k]["skeleton_new"],
+                      "parent_ms": statistics.mean(out[k]["ms"]["parent"]),
+                      "floor_copy_ms": out[k]["floor_copy_ms"],
+                      "floor_empty_ms": out[k]["floor_empty_ms"]} for k in ("factor", "solve")}
+            for row, out in few.items()}
+    return {"f32_n3": f32_n3, "f64_n10": rows["n10_b1"], "f64_n6": rows["n6_b1024"], "f32_n2": n2}
 
 
 def phase_mixed_headline(eager: dict, k1: dict) -> dict:
@@ -2612,22 +2684,50 @@ def phase_foodweb_mixed() -> dict:
     return {"launches": launches}
 
 
+@contextlib.contextmanager
+def parent_lu():
+    """Route K1's wrappers to the parent's dispatch (one thread a lane) for
+    the length of a ``with``: the build the few-lane skeleton is held to."""
+    default = small_lu.build
+    small_lu.build = lambda: LU_LIBS["parent"]
+    try:
+        yield
+    finally:
+        small_lu.build = default
+
+
 def phase_slider_crank() -> dict:
     """examples/slider_crank_torch.py on the card: 20 outputs to t = 10, the
     kinetic energy as a quadrature; the AD Jacobian factored by K1 at N = 10
-    every lsetup."""
+    every lsetup, on the group skeleton; the first output's state bit for
+    bit the parent dispatch's."""
     base = slider_crank_problem()
     prob = dataclasses.replace(
         base, quad=lambda t, yy, yp: torch.stack([0.5 * (yy[3] * yy[3] + yy[4] * yy[4]
                                                          + 2.0 * yy[5] * yy[5])]), nquad=1)
     yy0, yp0 = slider_crank_ic()
-    ida = IDA(prob, yy0, yp0, tol_ss(1e-6, 1e-6), IdaOptions(mxstep=100000, suppressalg=True))
+
+    def new_ida():
+        return IDA(prob, yy0, yp0, tol_ss(1e-6, 1e-6), IdaOptions(mxstep=100000, suppressalg=True))
+
+    first = SLIDER_TEND / SLIDER_NOUT
+    legs, leg_groups = [], []
+    for routing in (contextlib.nullcontext, parent_lu):
+        leg = new_ida()
+        small_lu.reset_launch_counts()
+        with routing():
+            leg.solve(first)
+        legs.append((leg.get_num_steps(), leg.get_yy(), leg.get_yp()))
+        leg_groups.append(k1_launches(small_lu.GROUP_LAUNCHES))
+    parent_same = legs[0][0] == legs[1][0] and all(
+        np.array_equal(u, v) for u, v in zip(legs[0][1:], legs[1][1:]))
+    ida = new_ida()
     small_lu.reset_launch_counts()
     statuses = []
     wall = wall_s(lambda: statuses.extend(
         ida.solve(float(t))[1].name for t in np.linspace(SLIDER_TEND / SLIDER_NOUT, SLIDER_TEND,
                                                          SLIDER_NOUT)))
-    launches = k1_launches()
+    launches, group = k1_launches(), k1_launches(small_lu.GROUP_LAUNCHES)
     y = ida.get_yy()
     gnorm = float(np.hypot(y[1] - np.cos(y[2]) - 0.5 * np.cos(y[0]), -np.sin(y[2]) - 0.5 * np.sin(y[0])))
     ke = float(ida.get_quad()[0]) / SLIDER_TEND
@@ -2635,13 +2735,21 @@ def phase_slider_crank() -> dict:
     emit("slider_crank", tend=SLIDER_TEND, outputs=SLIDER_NOUT, wall_s=wall, steps_per_s=nst / wall,
          nst=nst, nre=ida.get_num_res_evals(), nje=ida.get_num_jac_evals(),
          netf=ida.get_num_err_test_fails(), ke_avg=ke, position_constraint=gnorm,
-         k1_launches=launches, cpu_example=SLIDER_CPU)
+         k1_launches=launches, k1_group_launches=group, cpu_example=SLIDER_CPU,
+         first_output_bitwise_parent=parent_same, first_output_nst=legs[0][0],
+         first_output_group_launches={"new": leg_groups[0], "parent": leg_groups[1]})
     check(statuses == ["Success"] * SLIDER_NOUT, f"slider_crank: {statuses}")
     check(gnorm < 1e-7, f"slider_crank: the position constraint drifted: {gnorm}")
-    check(abs(ke - SLIDER_CPU["ke_avg"]) < 1e-5, f"slider_crank: mean KE {ke}")
+    check(nst == SLIDER_CPU["nst"] and abs(ke - SLIDER_CPU["ke_avg"]) < 1e-5,
+          f"slider_crank: {nst} steps, mean KE {ke}")
     check(launches.get("factor_f64_n10", 0) >= ida.get_num_jac_evals() > 0
           and launches.get("solve_f64_n10", 0) > 0, f"slider_crank: K1 N=10 {launches}")
-    return {"launches": launches}
+    check(all(group.get(k, 0) == launches[k] for k in ("factor_f64_n10", "solve_f64_n10")),
+          f"slider_crank: K1 N=10 not on the group skeleton: {group} of {launches}")
+    check(parent_same, "slider_crank: the first output differs from the parent dispatch's")
+    check(leg_groups[0].get("factor_f64_n10", 0) > 0 and not leg_groups[1],
+          f"slider_crank: group launches of the first output, new and parent: {leg_groups}")
+    return {"launches": launches, "group_launches": group}
 
 
 def phase_stratified() -> None:
@@ -2949,10 +3057,13 @@ def main() -> None:
          "launches_foodweb_batched": food_b["launches"][k], **n2[k]}
         for k in ("factor", "solve")
     ]
-    # K1 at this slice's new shapes: float32 N = 3 (the mixed_headline's
+    # K1 at the later paths' shapes: float32 N = 3 (the mixed_headline's
     # "single" run, its "refined" run beside it), the float32 N = 2 solve of
-    # foodweb_mixed, and float64 N = 10 on slider-crank's one lane
+    # foodweb_mixed, float64 N = 10 on slider-crank's one lane and N = 6 on
+    # adjoint_continuous's 1,024 lanes (each with its skeleton, the parent
+    # dispatch's time in the same turns and its floor)
     keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    few = ("skeleton", "parent_ms", "floor_copy_ms", "floor_empty_ms")
     for k in ("factor", "solve"):
         rows.append({"name": f"small_lu_{k}_f32_n3", "route": "cuda", "source": LU_SOURCE,
                      "replaces": LU_REPLACES,
@@ -2966,7 +3077,14 @@ def main() -> None:
         rows.append({"name": f"small_lu_{k}_n10_slider_crank", "route": "cuda",
                      "source": LU_SOURCE, "replaces": LU_REPLACES,
                      "launches": slider["launches"].get(f"{k}_f64_n10", 0),
-                     **{x: k1_modes["f64_n10"][k][x] for x in keep}})
+                     "launches_group": slider["group_launches"].get(f"{k}_f64_n10", 0),
+                     **{x: k1_modes["f64_n10"][k][x] for x in keep + few}})
+    for k in ("factor", "solve"):
+        rows.append({"name": f"small_lu_{k}_n6_adjoint_continuous", "route": "cuda",
+                     "source": LU_SOURCE, "replaces": LU_REPLACES,
+                     "launches": adj_c["launches"][f"{k}_n6"],
+                     "launches_group": adj_c["launches"][f"{k}_n6_groups"],
+                     **{x: k1_modes["f64_n6"][k][x] for x in keep + few}})
     rows.append({"name": "fused_solve", "route": "cuda", "source": FUSED_SOURCE,
                  "replaces": REPLACES["fused_solve"], "launches": fused["launches"],
                  "launches_dense_slice_scan_form": dense["scan_form_launches"],

@@ -42,11 +42,19 @@ on a CUDA tensor.
 under autograd (``ops/dense_lu.py``'s Functions). Its plain version is
 ``dense_lu.lu_solve_unrolled_t``.
 
+Few lanes: the factor and the solve have a second skeleton, one system per
+group of G threads (G the power of two >= N; a column a thread in the
+factor, a row in the solve), which the source takes where its rule
+(``kGroupRule``) says: from a least N over a range of lane counts, by
+kernel and dtype, read off a sweep on the card. :func:`uses_groups` asks the
+loaded library; the transposed solve keeps one thread a lane.
+
 ``FACTOR_LAUNCHES`` / ``SOLVE_LAUNCHES`` / ``SOLVE_T_LAUNCHES`` count kernel
 launches (and only those), so a run can show that the solver went through
 the kernel; ``LAUNCHES`` counts the same launches by (kernel, dtype tag, N),
 e.g. ``LAUNCHES["factor", "f32", 3]`` (the mixed-precision modes' float32
-factors).
+factors), and ``GROUP_LAUNCHES`` those of them that took the group
+skeleton, as the library that launched them says.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -65,6 +74,7 @@ FACTOR_LAUNCHES = 0
 SOLVE_LAUNCHES = 0
 SOLVE_T_LAUNCHES = 0
 LAUNCHES: collections.Counter = collections.Counter()  # (kernel, "f32"/"f64", N) -> launches
+GROUP_LAUNCHES: collections.Counter = collections.Counter()  # the same, group skeleton only
 
 
 def reset_launch_counts() -> None:
@@ -73,12 +83,30 @@ def reset_launch_counts() -> None:
     SOLVE_LAUNCHES = 0
     SOLVE_T_LAUNCHES = 0
     LAUNCHES.clear()
+    GROUP_LAUNCHES.clear()
+
+
+# the kernel indexes its lanes with 32-bit integers
+MAX_LANES = 2**31 - 1
+# small_lu_uses_groups's code for each kernel
+_RULE_CODES = {"factor": 0, "solve": 1, "solve_t": 2}
+
+
+def uses_groups(kernel: str, tag: str, n: int, lanes: int) -> bool:
+    """Whether the loaded library (``build()``) launches the group skeleton
+    for this factor or solve (``kernel``), dtype tag, N and number of
+    lanes: its rule, ``small_lu_uses_groups``, asked."""
+    return bool(build()["lib"].small_lu_uses_groups(_RULE_CODES[kernel], int(tag == "f32"), n, lanes))
+
+
+def _count(kernel: str, tag: str, n: int, lanes: int) -> None:
+    LAUNCHES[kernel, tag, n] += 1
+    if uses_groups(kernel, tag, n, lanes):
+        GROUP_LAUNCHES[kernel, tag, n] += 1
 
 
 # lanes of one element a thread moves by one access (csrc/small_lu.cu kPair)
 PAIR = 2
-# the kernel indexes its lane groups with 32-bit integers
-MAX_LANES = 2**31 - 1
 
 class SolveLayout(ctypes.Structure):
     """The solves' operand addressing, ``LuSolveLayout`` of
@@ -154,6 +182,8 @@ def bind(lib) -> None:
             fn = getattr(lib, name)
             fn.argtypes = ptrs + [ctypes.c_int, ctypes.POINTER(SolveLayout), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+    lib.small_lu_uses_groups.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong]
+    lib.small_lu_uses_groups.restype = ctypes.c_int
 
 
 @functools.cache
@@ -194,6 +224,15 @@ def lu_factor(a: torch.Tensor) -> DenseLU:
     if a.device.type == "cpu":
         return lu_factor_unrolled(a)
     _on_card(a, "lu_factor")
+    f = _factor_launch(a)
+    global FACTOR_LAUNCHES
+    FACTOR_LAUNCHES += 1
+    _count("factor", DTYPE_TAGS[a.dtype], a.shape[0], f.fail_col.numel())
+    return f
+
+
+def _factor_launch(a: torch.Tensor) -> DenseLU:
+    """Launch ``small_lu_factor_<dtype>`` on a contiguous [N, N, *batch]."""
     n = a.shape[0]
     if not 1 <= n <= SMALL_N_UNROLL:
         raise ValueError(f"lu_factor: the kernel takes 1 <= N <= {SMALL_N_UNROLL}, got N={n}")
@@ -212,9 +251,6 @@ def lu_factor(a: torch.Tensor) -> DenseLU:
     fn = getattr(build()["lib"], f"small_lu_factor_{DTYPE_TAGS[a.dtype]}")
     err = fn(a.data_ptr(), lu.data_ptr(), piv.data_ptr(), fail.data_ptr(), n, bsz, _stream(a))
     _raise_on(err, "small_lu_factor")
-    global FACTOR_LAUNCHES
-    FACTOR_LAUNCHES += 1
-    LAUNCHES["factor", DTYPE_TAGS[a.dtype], n] += 1
     return DenseLU(lu, piv, fail)
 
 
@@ -255,7 +291,7 @@ def lu_solve(f: DenseLU, b: torch.Tensor) -> torch.Tensor:
     x = _solve_launch(f, b, "solve")
     global SOLVE_LAUNCHES
     SOLVE_LAUNCHES += 1
-    LAUNCHES["solve", DTYPE_TAGS[b.dtype], b.shape[0]] += 1
+    _count("solve", DTYPE_TAGS[b.dtype], b.shape[0], math.prod(b.shape[1:]))
     return x
 
 
@@ -268,7 +304,7 @@ def lu_solve_t(f: DenseLU, g: torch.Tensor) -> torch.Tensor:
     lam = _solve_launch(f, g, "solve_t")
     global SOLVE_T_LAUNCHES
     SOLVE_T_LAUNCHES += 1
-    LAUNCHES["solve_t", DTYPE_TAGS[g.dtype], g.shape[0]] += 1
+    _count("solve_t", DTYPE_TAGS[g.dtype], g.shape[0], math.prod(g.shape[1:]))
     return lam
 
 

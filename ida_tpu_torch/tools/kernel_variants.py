@@ -15,12 +15,13 @@ first's. Then it times, on the host clock, the pieces of one
     python3 -m ida_tpu_torch.tools.kernel_variants            # every variant
     python3 -m ida_tpu_torch.tools.kernel_variants t64_b4 t128_b4
 
-**K1** (``k1``): the skeletons of the LU solves of ``csrc/small_lu.cu``.
-Builds the shipped source as it is (``new``), at the first skeleton's
-settings (``parent``: ``-DIDA_LU_VEC=0``: one lane a thread, 128-thread
-blocks, scalar accesses, over the strided addressing) and at the other
-candidates of ``K1_VARIANTS``,
-plus ``-DIDA_LU_FLOOR`` (the floor kernels). For each build in turn (parent,
+**K1** (``k1``): the skeletons of the LU kernels of ``csrc/small_lu.cu``.
+Builds the shipped source as it is (``new``), with the parent's dispatch
+(``parent``: ``-DIDA_LU_GROUP=0``: one thread a lane at every N and lane
+count) and at the other candidates of ``K1_VARIANTS`` (``groups``: the group
+skeleton everywhere; ``first_skeleton``: the first solve skeleton, one lane a thread in
+128-thread blocks, scalar accesses), plus ``-DIDA_LU_FLOOR`` (the floor
+kernels, on the grid of the skeleton the rule picks). For each build in turn (parent,
 new, the others, then the same backwards: old, new, new, old) it holds the
 solves bit for bit against their plain versions and takes their cold device
 time (torch.profiler, the input sets rotated so that every launch reads HBM,
@@ -28,26 +29,44 @@ as ``chip_smoke.py`` does) on: the N = 2 solve at [2, 2, 400, 128] (the
 foodweb preconditioner's blocks at B = 128) contiguous, in ``ida_tpu``'s
 pdata layout, and in the layout ``foodweb.prec_solve`` hands it; the N = 3
 solve and ``small_lu_solve_t`` at B = 65,536; the N = 6 solve at B = 1,024
-(the continuous adjoint's KKT system). Then the floor of those N = 2 bytes
-(a copy in the new skeleton and an empty launch on its grid), the N = 6
-factor's row (kernel, plain version, ``torch.linalg``) and, with ``--parent
+(the continuous adjoint's KKT system), 320 input sets, cold; the float32 N = 3
+solve at 65,536 lanes and N = 2 on foodweb's blocks (the mixed modes). Then
+the floor of those N = 2 and float32 bytes (a copy in the new skeleton and an
+empty launch on its grid), the few-lane rows
+(:data:`FEW_LANES`: N = 10 on one lane, N = 6 on 1,024, factor and solve;
+new and parent in turns, each with its bytes bound, its floor on the
+shipped skeleton's grid, ``torch.linalg``'s time, registers and spills) and,
+with ``--parent
 DIR`` (a checkout of the parent commit), the device events and device time
 of one ``foodweb.prec_solve`` at 20 x 20, B = 128 in DIR and here, in turns
 (parent, new, new, parent), one process each.
 
     python3 -m ida_tpu_torch.tools.kernel_variants k1 [--parent DIR] [VARIANT ...]
+
+``k1 --sweep`` instead times the factor and the solve of the ``parent`` and
+``groups`` builds in turns (parent, groups, groups, parent) over
+:data:`SWEEP_N` x :data:`SWEEP_LANES` in both dtypes, each bit for bit its
+plain version (the sweep behind the rule ``kGroupRule``), then reports the
+registers and spills of both skeletons and a summary of the SASS of the N = 6
+and N = 10 kernels (``cuobjdump``; the listings under ``build/k1_sass/``).
+
+    python3 -m ida_tpu_torch.tools.kernel_variants k1 --sweep
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -174,10 +193,20 @@ def main(names: list[str]) -> None:
 
 # name -> -D flags of csrc/small_lu.cu (``new`` is the shipped build)
 K1_VARIANTS = {
-    "parent": ("-DIDA_LU_VEC=0",),
+    "parent": ("-DIDA_LU_GROUP=0",),
     "new": (),
+    "groups": ("-DIDA_LU_GROUP=2",),
+    "first_skeleton": ("-DIDA_LU_GROUP=0", "-DIDA_LU_VEC=0"),
     "pairs_t128": ("-DIDA_LU_THREADS=128",),
 }
+K1_FLOOR = ("-DIDA_LU_FLOOR",)
+SWEEP_N = tuple(range(1, 17))
+SWEEP_LANES = (1, 32, 1024, 8192, 65536)
+# name -> (N, lanes, input sets): the rows of few lanes (slider-crank's one
+# lane, in L2 as its fresh Jacobian; the continuous adjoint's KKT systems,
+# cold, as the one-thread solve was first timed: 320 sets move ~190 MB a
+# factor pass)
+FEW_LANES = {"n10_b1": (10, 1, 64), "n6_b1024": (6, 1024, 320)}
 K1_HEADERS = ("small_lu.cuh", "rounded.cuh")
 FOOD_NPTS, FOOD_B = 400, 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, 700 W
@@ -189,34 +218,37 @@ def cold_device_ms(fns, rounds: int, name_part: str | None = None) -> float:
     torch.profiler, averaged over the launches it recorded: chip_smoke.py's
     protocol. With no ``name_part``, the device time of everything the calls
     ran per call (a library call may run several kernels). A short spin heads
-    the window (the profiler was seen to drop a window's first activity)."""
+    the window (the profiler was seen to drop a window's first activity), and
+    a window that recorded nothing is taken again, up to three times."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        for _ in range(rounds):
-            for fn in fns:
-                fn()
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key]
-    if name_part is None:
-        return sum(e.self_device_time_total for e in on_card) / 1e3 / (rounds * len(fns))
-    picked = [e for e in on_card if name_part in e.key]
-    count = sum(e.count for e in picked)
-    if count == 0:
-        raise RuntimeError(f"the profiler recorded no device time for {name_part}")
-    return sum(e.self_device_time_total for e in picked) / 1e3 / count
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(rounds):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "spin_kernel" not in e.key]
+        picked = [e for e in on_card if name_part is None or name_part in e.key]
+        count = sum(e.count for e in picked)
+        if count:
+            total = sum(e.self_device_time_total for e in picked) / 1e3
+            return total / (rounds * len(fns)) if name_part is None else total / count
+    raise RuntimeError(f"the profiler recorded no device time for {name_part}")
 
 
 def k1_shapes(device) -> dict:
     """name -> (kernel, sets of (factors, right-hand side), profiler rounds):
     the solves' shapes, 64 sets at N = 2 (~240 MB a pass), 16 at N = 3
     (~140 MB) and 320 at N = 6 (~130 MB), each over the 50 MB of L2, so
-    every launch reads HBM."""
+    every launch reads HBM; the float32 rows 32 sets at N = 3 (~150 MB) and
+    128 at N = 2 (~250 MB)."""
     def factors(n, lanes, seed):
         rng = np.random.default_rng(seed)
         a = rng.normal(size=(n, n) + lanes) + 3.0 * np.eye(n).reshape((n, n) + (1,) * len(lanes))
@@ -240,6 +272,9 @@ def k1_shapes(device) -> dict:
                                   f.piv.clone(memory_format=torch.preserve_format), None),
                  b.clone(memory_format=torch.preserve_format)) for _ in range(count)]
 
+    def f32(f):  # the factors cast as the mixed modes cast them, strides kept
+        return dense_lu.DenseLU(f.lu.to(torch.float32), f.piv, None)
+
     return {
         "n2_contiguous": ("solve", sets(f2, b2, 64), 2),
         "n2_pdata": ("solve", sets(pdata, r2, 64), 2),
@@ -247,6 +282,10 @@ def k1_shapes(device) -> dict:
         "n3": ("solve", sets(f3, b3, 16), 4),
         "n3_solve_t": ("solve_t", sets(f3, b3, 16), 4),
         "n6": ("solve", sets(f6, b6, 320), 2),
+        # the float32 rows of the mixed modes: N = 3 at 65,536 lanes, N = 2
+        # on foodweb's blocks as the Krylov "single" prec_solve reads them
+        "n3_f32": ("solve", sets(f32(f3), b3.float(), 32), 4),
+        "n2_prec_solve_f32": ("solve", sets(f32(f2), r2.float(), 128), 2),
     }
 
 
@@ -260,19 +299,62 @@ def k1_layout(f, b) -> dict:
     return small_lu.solve_layout(f.lu, f.piv, b, torch.empty_like(b)).as_dict()
 
 
-def k1_ptxas(log: str) -> dict:
-    """Registers and spills of the solves at N = 2, 3, 6, and spill store
-    bytes of every kernel that spills, by (kernel, type, N[, lanes])."""
-    def short(name):
-        m = re.search(r"(solve_t_kernel|solve_kernel|factor_kernel)I([df])Li(\d+)E(?:Li(\d+)E)?",
-                      name)
-        return ",".join(g for g in m.groups() if g) if m else name
+_KERNEL_NAME = re.compile(
+    r"(solve_t_kernel|solve_kernel|factor_kernel|factor_group_kernel|solve_group_kernel)"
+    r"I([df])Li(\d+)E(?:Li(\d+)E)?")
 
+
+def _short(name: str) -> str:
+    m = _KERNEL_NAME.search(name)
+    return ",".join(g for g in m.groups() if g) if m else name
+
+
+def k1_ptxas(log: str) -> dict:
+    """Registers and spills of the solves at N = 2, 3, 6, of the factors and
+    the group kernels at N = 6, 10, 16, and spill store bytes of every
+    kernel that spills, by (kernel, type, N[, lanes])."""
     summary = _build.ptxas_summary(log)
-    return {"solves_n2_3_6": {short(k): v for k, v in summary.items()
-                              if "solve" in k and any(f"Li{n}E" in k for n in (2, 3, 6))},
-            "spill_stores": {short(k): v["spill_stores"] for k, v in summary.items()
+    return {"solves_n2_3_6": {_short(k): v for k, v in summary.items()
+                              if re.search(r"solve_(t_)?kernelI", k)
+                              and any(f"Li{n}E" in k for n in (2, 3, 6))},
+            "n6_10_16": {_short(k): v for k, v in summary.items()
+                         if re.search(r"(factor_kernel|group_kernel)I", k)
+                         and any(f"Li{n}E" in k for n in (6, 10, 16))},
+            "spill_stores": {_short(k): v["spill_stores"] for k, v in summary.items()
                              if v.get("spill_stores", 0) > 0}}
+
+
+def k1_sass(info: dict, n_values=(6, 10), out_dir: str = "build/k1_sass") -> dict:
+    """A summary of the SASS of the factor and solve kernels at ``n_values``
+    in a built library (``cuobjdump -sass``): instructions, global loads and
+    stores, the index of the last load and of the first floating-point
+    operation, shuffles, and the opcodes' counts. The listings are written
+    under ``out_dir``."""
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", info["path"]], capture_output=True, text=True,
+                          check=True).stdout
+    os.makedirs(out_dir, exist_ok=True)
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        m = _KERNEL_NAME.search(name)
+        if not m or "solve_t" in m.group(1) or int(m.group(3)) not in n_values:
+            continue
+        ops = [ln.split("*/", 1)[1].strip().rstrip(" ;") for ln in chunk.splitlines()
+               if re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln)]
+        codes = [op.split()[0] if not op.startswith("@") else op.split()[1] for op in ops if op]
+        base = [c.split(".")[0] for c in codes]
+        loads = [i for i, c in enumerate(base) if c == "LDG"]
+        fp = [i for i, c in enumerate(base) if c in ("DADD", "DMUL", "DFMA", "FADD", "FMUL", "FFMA",
+                                                       "MUFU")]
+        short = _short(name)
+        out[short] = {"instructions": len(codes), "LDG": len(loads), "STG": base.count("STG"),
+                      "SHFL": base.count("SHFL"), "last_LDG": max(loads, default=-1),
+                      "first_fp": min(fp, default=-1),
+                      "opcodes": dict(collections.Counter(base).most_common(12))}
+        Path(out_dir, short.replace(",", "_") + Path(info["path"]).parent.name[:6] + ".sass"
+             ).write_text(chunk)
+    return out
 
 
 _PREC_CHILD = r"""
@@ -328,28 +410,265 @@ def prec_solve_events(checkout: str, dtype: str = "float64") -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+def k1_kernel_name(build: str, kernel: str, tag: str, n: int, lanes: int) -> str:
+    """The name (a part of it) of the kernel that ``build`` launches for this
+    factor, solve or transposed solve."""
+    if kernel == "solve_t" or build in ("parent", "first_skeleton"):
+        return f"{kernel}_kernel"
+    if build == "groups" or small_lu.uses_groups(kernel, tag, n, lanes):
+        return f"{kernel}_group_kernel"
+    return f"{kernel}_kernel"
+
+
+def k1_build(names: dict) -> dict:
+    """Build ``small_lu.cu`` with each name's flags, all at once."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        futures = {k: pool.submit(_build.build_library, "small_lu.cu", K1_HEADERS,
+                                  flags=("-fmad=false", *f)) for k, f in names.items()}
+        libs = {k: f.result() for k, f in futures.items()}
+    for info in libs.values():
+        small_lu.bind(info["lib"])
+    emit(build_s=time.perf_counter() - t0, builds={k: list(f) for k, f in names.items()})
+    return libs
+
+
+def bind_floor(lib) -> None:
+    """Argument types of the floor's entry points (``-DIDA_LU_FLOOR``)."""
+    layout = [ctypes.c_int, ctypes.POINTER(small_lu.SolveLayout), ctypes.c_void_p]
+    for dt in ("f64", "f32"):
+        getattr(lib, f"small_lu_copy_{dt}").argtypes = [ctypes.c_void_p] * 4 + layout
+        getattr(lib, f"small_lu_factor_copy_{dt}").argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    lib.small_lu_empty.argtypes = [ctypes.c_int] + layout
+    lib.small_lu_factor_empty.argtypes = [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
+
+
+def _ok(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def k1_sweep(libs: dict, device=torch.device("cuda")) -> None:
+    """The factor and the solve of the ``parent`` and ``groups`` builds in
+    turns (parent, groups, groups, parent) on contiguous [N, N, lanes]
+    systems, over SWEEP_N x SWEEP_LANES in both dtypes: each bit for bit its
+    plain version, its device time (input sets rotated so that the large
+    shapes read HBM; the small ones stay in L2 as a solver's fresh Jacobian
+    does) and its bytes bound. One JSON line a shape."""
+    default_build = small_lu.build
+    try:
+        for dtype in (torch.float64, torch.float32):
+            tag, es = small_lu.DTYPE_TAGS[dtype], torch.finfo(dtype).bits // 8
+            for n in SWEEP_N:
+                for lanes in SWEEP_LANES:
+                    gen = torch.Generator(device).manual_seed(1000 * n + lanes)
+                    eye = 3.0 * torch.eye(n, dtype=dtype, device=device)[:, :, None]
+                    a = torch.randn((n, n, lanes), generator=gen, dtype=dtype, device=device) + eye
+                    b = torch.randn((n, lanes), generator=gen, dtype=dtype, device=device)
+                    nbytes = {"factor": 2 * n * n * lanes * es + (n + 1) * lanes * 4,
+                              "solve": n * n * lanes * es + n * lanes * 4 + 2 * n * lanes * es}
+                    sets = max(2, min(16, math.ceil(150e6 / nbytes["factor"])))
+                    rounds = 4 if lanes <= 8192 else 2
+                    g = dense_lu.lu_factor_unrolled(a)
+                    want = dense_lu.lu_solve_unrolled(g, b)
+                    a_sets = [a.clone() for _ in range(sets)]
+                    fb_sets = [(dense_lu.DenseLU(g.lu.clone(), g.piv.clone(), None), b.clone())
+                               for _ in range(sets)]
+                    ms = {"factor": {"parent": [], "groups": []},
+                          "solve": {"parent": [], "groups": []}}
+                    ok = True
+                    for name in ("parent", "groups", "groups", "parent"):
+                        small_lu.build = lambda info=libs[name]: info
+                        f, x = small_lu.lu_factor(a), small_lu.lu_solve(g, b)
+                        torch.cuda.synchronize()
+                        ok = ok and all(torch.equal(u, v) for u, v in (
+                            (f.lu, g.lu), (f.piv, g.piv), (f.fail_col, g.fail_col), (x, want)))
+                        ms["factor"][name].append(cold_device_ms(
+                            [lambda v=v: small_lu.lu_factor(v) for v in a_sets], rounds,
+                            k1_kernel_name(name, "factor", tag, n, lanes)))
+                        ms["solve"][name].append(cold_device_ms(
+                            [lambda h=h, v=v: small_lu.lu_solve(h, v) for h, v in fb_sets], rounds,
+                            k1_kernel_name(name, "solve", tag, n, lanes)))
+                    emit(sweep="k1", dtype=tag, n=n, lanes=lanes, bitwise_equal=ok,
+                         factor_ms=ms["factor"], solve_ms=ms["solve"],
+                         factor_bound_ms=nbytes["factor"] / HBM_BYTES_PER_S * 1e3,
+                         solve_bound_ms=nbytes["solve"] / HBM_BYTES_PER_S * 1e3,
+                         faster={k: min(v, key=lambda name: min(v[name])) for k, v in ms.items()})
+                    if not ok:
+                        raise SystemExit(f"k1 sweep: a kernel differs from its plain version at "
+                                         f"{tag} N={n} lanes={lanes}")
+                    del a_sets, fb_sets
+                    torch.cuda.empty_cache()
+    finally:
+        small_lu.build = default_build
+
+
+def k1_rule(sweeps: dict[str, list[str]]) -> dict:
+    """The cells behind the rule ``kGroupRule``, from sweep lines
+    (``k1 --sweep`` output), as windows of lane counts:
+    ``sweeps`` maps "factor" and "solve" to the files whose lines count for
+    that kernel. A (kernel, dtype, N, lanes) is a win for the groups where
+    every group time of every file is below every parent time; the window
+    of an (kernel, dtype, N) is its longest run of consecutive measured lane
+    counts that are wins (the lower on a tie), open above when it reaches
+    the largest count measured, and (0, 0) when nothing wins. Returns
+    {(kernel, dtype): [(lo, hi) by N - 1]}."""
+    times: dict = collections.defaultdict(lambda: {"parent": [], "groups": []})
+    for kernel, paths in sweeps.items():
+        for path in paths:
+            for line in Path(path).read_text().splitlines():
+                d = json.loads(line)
+                if d.get("sweep") != "k1":
+                    continue
+                for name, ms in d[f"{kernel}_ms"].items():
+                    times[kernel, d["dtype"], d["n"], d["lanes"]][name] += ms
+    rule = {}
+    for kernel in sweeps:
+        for tag in ("f64", "f32"):
+            windows = []
+            for n in range(1, 17):
+                lanes = sorted(k[3] for k in times if k[:3] == (kernel, tag, n))
+                wins = [bool(times[kernel, tag, n, b]["groups"])
+                        and max(times[kernel, tag, n, b]["groups"])
+                        < min(times[kernel, tag, n, b]["parent"]) for b in lanes]
+                best, run = (0, 0), None
+                for i, w in enumerate(wins + [False]):
+                    if w and run is None:
+                        run = i
+                    elif not w and run is not None:
+                        if i - run > best[1] - best[0]:
+                            best = (run, i)
+                        run = None
+                if best == (0, 0):
+                    windows.append((0, 0))
+                else:
+                    hi = small_lu.MAX_LANES if best[1] == len(lanes) else lanes[best[1] - 1]
+                    windows.append((lanes[best[0]], hi))
+            rule[kernel, tag] = windows
+    return rule
+
+
+def k1_few_lanes(libs: dict, device=torch.device("cuda")) -> dict:
+    """The rows of FEW_LANES, f64: the new and the parent build's factor and
+    solve in turns (parent, new, new, parent), bit for bit the plain
+    versions (``max_abs_err`` the largest difference of either build), each
+    with its device time (the row's input sets in turn), its bytes bound,
+    its floor (a copy of the same bytes and an empty launch, ``floor``, on
+    the grid of the skeleton the new build runs), the plain version's and
+    ``torch.linalg``'s time, and each build's registers and spills for the
+    kernel it launches. Returns {row: {...}}; ``chip_smoke.py`` reports the
+    same rows."""
+    lib = libs["floor"]["lib"]
+    stream = torch.cuda.current_stream().cuda_stream
+    default_build = small_lu.build
+    ptxas = {k: _build.ptxas_summary(libs[k]["log"]) for k in ("parent", "new")}
+    rows = {}
+    for row, (n, lanes, nsets) in FEW_LANES.items():
+        rng = np.random.default_rng(n)
+        a = torch.from_numpy(rng.normal(size=(n, n, lanes)) + 3.0 * np.eye(n)[:, :, None]).to(device)
+        b = torch.from_numpy(rng.normal(size=(n, lanes))).to(device)
+        g = dense_lu.lu_factor_unrolled(a)
+        want = dense_lu.lu_solve_unrolled(g, b)
+        a_sets = [a.clone() for _ in range(nsets)]
+        fb_sets = [(dense_lu.DenseLU(g.lu.clone(), g.piv.clone(), None), b.clone())
+                   for _ in range(nsets)]
+        out = {k: {"ms": {"parent": [], "new": []}, "sets": nsets, "max_abs_err": 0.0}
+               for k in ("factor", "solve")}
+        ok = True
+        try:
+            for name in ("parent", "new", "new", "parent"):
+                small_lu.build = lambda info=libs[name]: info
+                f, x = small_lu.lu_factor(a), small_lu.lu_solve(g, b)
+                torch.cuda.synchronize()
+                ok = ok and all(torch.equal(u, v) for u, v in (
+                    (f.lu, g.lu), (f.piv, g.piv), (f.fail_col, g.fail_col), (x, want)))
+                for k, err in (("factor", (f.lu - g.lu).abs().max()), ("solve", (x - want).abs().max())):
+                    out[k]["max_abs_err"] = max(out[k]["max_abs_err"], float(err))
+                out["factor"]["ms"][name].append(cold_device_ms(
+                    [lambda v=v: small_lu.lu_factor(v) for v in a_sets], 4,
+                    k1_kernel_name(name, "factor", "f64", n, lanes)))
+                out["solve"]["ms"][name].append(cold_device_ms(
+                    [lambda h=h, v=v: small_lu.lu_solve(h, v) for h, v in fb_sets], 4,
+                    k1_kernel_name(name, "solve", "f64", n, lanes)))
+        finally:
+            small_lu.build = default_build
+
+        def factor_copy(v):
+            lu, piv = torch.empty_like(v), torch.empty((n, lanes), dtype=torch.int32, device=device)
+            fail = torch.empty(lanes, dtype=torch.int32, device=device)
+            _ok(lib.small_lu_factor_copy_f64(v.data_ptr(), lu.data_ptr(), piv.data_ptr(),
+                                             fail.data_ptr(), n, lanes, stream), "factor copy")
+
+        def solve_copy(h, v):
+            x = torch.empty_like(v)
+            layout = small_lu.solve_layout(h.lu, h.piv, v, x)
+            _ok(lib.small_lu_copy_f64(h.lu.data_ptr(), h.piv.data_ptr(), v.data_ptr(), x.data_ptr(),
+                                      n, ctypes.byref(layout), stream), "solve copy")
+
+        layout = small_lu.solve_layout(g.lu, g.piv, b, torch.empty_like(b))
+        grid = {k: "_group" if small_lu.uses_groups(k, "f64", n, lanes) else ""
+                for k in ("factor", "solve")}
+        out["factor"].update(
+            floor_copy_ms=cold_device_ms([lambda v=v: factor_copy(v) for v in a_sets], 4,
+                                         f"factor_copy{grid['factor']}_kernel"),
+            floor_empty_ms=cold_device_ms(
+                [lambda: _ok(lib.small_lu_factor_empty(n, 0, lanes, stream), "empty")] * 64, 4,
+                "empty_kernel"),
+            bound_ms=(2 * n * n * lanes * 8 + (n + 1) * lanes * 4) / HBM_BYTES_PER_S * 1e3)
+        out["solve"].update(
+            floor_copy_ms=cold_device_ms([lambda h=h, v=v: solve_copy(h, v) for h, v in fb_sets],
+                                         4, f"copy{grid['solve']}_kernel"),
+            floor_empty_ms=cold_device_ms(
+                [lambda: _ok(lib.small_lu_empty(n, 0, ctypes.byref(layout), stream), "empty")] * 64,
+                4, "empty_kernel"),
+            bound_ms=(n * n * lanes * 8 + n * lanes * 4 + 2 * n * lanes * 8)
+            / HBM_BYTES_PER_S * 1e3)
+        lead = [(v.permute(2, 0, 1).contiguous(), w.t().contiguous().unsqueeze(-1))
+                for v, (_, w) in zip(a_sets, fb_sets)]
+        f_lead = [torch.linalg.lu_factor_ex(v)[:2] for v, _ in lead]
+        out["factor"]["library_ms"] = cold_device_ms(
+            [lambda v=v: torch.linalg.lu_factor_ex(v) for v, _ in lead], 4)
+        out["solve"]["library_ms"] = cold_device_ms(
+            [lambda h=h, w=w: torch.linalg.lu_solve(h[0], h[1], w)
+             for h, (_, w) in zip(f_lead, lead)], 4)
+        out["factor"]["plain_ms"] = statistics.median(
+            event_ms(lambda: dense_lu.lu_factor_unrolled(a)) for _ in range(5))
+        out["solve"]["plain_ms"] = statistics.median(
+            event_ms(lambda: dense_lu.lu_solve_unrolled(g, b)) for _ in range(5))
+        for k in ("factor", "solve"):
+            out[k]["skeleton_new"] = k1_kernel_name("new", k, "f64", n, lanes)
+            out[k]["ptxas"] = {
+                name: {_short(key): v for key, v in ptxas[name].items()
+                       if _short(key).split(",")[:3]
+                       == [k1_kernel_name(name, k, "f64", n, lanes), "d", str(n)]}
+                for name in ("parent", "new")}
+        rows[row] = {"n": n, "lanes": lanes, "dtype": "f64", "bitwise_equal": ok, **out}
+    return rows
+
+
 def k1_main(argv: list[str]) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants k1 needs an NVIDIA GPU")
-    parent = None
-    if argv[:1] == ["--parent"]:
-        parent, argv = argv[1], argv[2:]
+    parent, sweep = None, False
+    while argv[:1] in (["--parent"], ["--sweep"]):
+        if argv[0] == "--sweep":
+            sweep, argv = True, argv[1:]
+        else:
+            parent, argv = argv[1], argv[2:]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    emit(card=smi, torch=torch.__version__, mode="k1")
+    emit(card=smi, torch=torch.__version__, mode="k1 --sweep" if sweep else "k1")
+    if sweep:
+        libs = k1_build({k: K1_VARIANTS[k] for k in ("parent", "groups")})
+        k1_sweep(libs)
+        emit(ptxas={k: k1_ptxas(libs[k]["log"]) for k in libs},
+             sass={k: k1_sass(info) for k, info in libs.items()})
+        return
     chosen = {k: v for k, v in K1_VARIANTS.items()
               if not argv or k in argv or k in ("parent", "new")}
-    builds = {**{k: ("-fmad=false", *v) for k, v in chosen.items()},
-              "floor": ("-fmad=false", "-DIDA_LU_FLOOR")}
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(builds)) as pool:
-        futures = {k: pool.submit(_build.build_library, "small_lu.cu", K1_HEADERS, flags=f)
-                   for k, f in builds.items()}
-        libs = {k: f.result() for k, f in futures.items()}
-    emit(build_s=time.perf_counter() - t0,
-         ptxas={k: k1_ptxas(libs[k]["log"]) for k in ("parent", "new")})
-    for info in libs.values():
-        small_lu.bind(info["lib"])
+    libs = k1_build({**chosen, "floor": K1_FLOOR})
+    emit(ptxas={k: k1_ptxas(libs[k]["log"]) for k in ("parent", "new")})
 
     device = torch.device("cuda")
     shapes = k1_shapes(device)
@@ -367,44 +686,40 @@ def k1_main(argv: list[str]) -> None:
                     x = launch(f, b)
                     torch.cuda.synchronize()
                     bound = k1_bytes(f, b) / HBM_BYTES_PER_S * 1e3
+                    tag, lanes = small_lu.DTYPE_TAGS[b.dtype], math.prod(b.shape[1:])
                     ms = cold_device_ms([lambda f=f, b=b: launch(f, b) for f, b in sets], rounds,
-                                        f"{kernel}_kernel")
+                                        k1_kernel_name(name, kernel, tag, b.shape[0], lanes))
                     row[shape] = {"ms": ms, "bound_ms": bound, "share_of_bound": bound / ms,
                                   "bitwise_equal": bool(torch.equal(x, plain[kernel](f, b))),
                                   "result_strides": list(x.stride())}
-                emit(variant=name, round=rnd, flags=list(builds[name]), **row)
+                emit(variant=name, round=rnd, flags=list(K1_VARIANTS[name]), **row)
                 if not all(v["bitwise_equal"] for v in row.values()):
                     raise SystemExit(f"{name}: a solve differs from its plain version")
     finally:
         small_lu.build = default_build
 
-    # the floor of the N = 2 bytes: the same bytes moved by the new skeleton
-    # with no arithmetic, and an empty launch on the grid of the solve
+    # the floor of the N = 2 and the float32 bytes: the same bytes moved by
+    # the new skeleton with no arithmetic, and an empty launch on its grid
     lib = libs["floor"]["lib"]
-    lib.small_lu_copy_f64.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.POINTER(small_lu.SolveLayout), ctypes.c_void_p]
-    lib.small_lu_copy_f64.restype = ctypes.c_int
-    lib.small_lu_empty.argtypes = [ctypes.POINTER(small_lu.SolveLayout), ctypes.c_void_p]
-    lib.small_lu_empty.restype = ctypes.c_int
+    bind_floor(lib)
     stream = torch.cuda.current_stream().cuda_stream
-    for shape in ("n2_contiguous", "n2_pdata", "n2_prec_solve"):
+    for shape in ("n2_contiguous", "n2_pdata", "n2_prec_solve", "n3_f32", "n2_prec_solve_f32"):
         _, sets, rounds = shapes[shape]
+        f, b = sets[0]
+        n, tag = b.shape[0], small_lu.DTYPE_TAGS[b.dtype]
+        copy_fn = getattr(lib, f"small_lu_copy_{tag}")
 
-        def copy(f, b):
+        def copy(f, b, copy_fn=copy_fn, n=n):
             x = torch.empty_like(b)
             layout = small_lu.solve_layout(f.lu, f.piv, b, x)
-            err = lib.small_lu_copy_f64(f.lu.data_ptr(), f.piv.data_ptr(), b.data_ptr(),
-                                        x.data_ptr(), 2, ctypes.byref(layout), stream)
-            if err:
-                raise RuntimeError(f"small_lu_copy_f64: CUDA error {err}")
+            _ok(copy_fn(f.lu.data_ptr(), f.piv.data_ptr(), b.data_ptr(), x.data_ptr(), n,
+                        ctypes.byref(layout), stream), "small_lu_copy")
             return x
 
-        f, b = sets[0]
         layout = small_lu.solve_layout(f.lu, f.piv, b, torch.empty_like(b))
 
-        def empty(layout=layout):
-            if lib.small_lu_empty(ctypes.byref(layout), stream):
-                raise RuntimeError("small_lu_empty failed")
+        def empty(layout=layout, n=n, f32=int(tag == "f32")):
+            _ok(lib.small_lu_empty(n, f32, ctypes.byref(layout), stream), "small_lu_empty")
 
         x = copy(f, b)
         torch.cuda.synchronize()
@@ -416,28 +731,10 @@ def k1_main(argv: list[str]) -> None:
              copy_share_of_bound=bound / copy_ms, copy_is_rhs=bool(torch.equal(x, b)),
              layout=k1_layout(f, b))
 
-    # the K1 row at N = 6 (the continuous adjoint's KKT factor and solve)
-    _, sets6, _ = shapes["n6"]
-    a6 = [s[0].lu.clone() for s in sets6]  # any matrices of the shape: the factor reads them
-    f, b = sets6[0]
-    lead = [(a.permute(2, 0, 1).contiguous(), y.t().contiguous().unsqueeze(-1))
-            for a, (_, y) in zip(a6, sets6)]
-    f_lead = [torch.linalg.lu_factor_ex(a)[:2] for a, _ in lead]
-    factor_bytes = a6[0].numel() * 8 * 2 + 6 * 1024 * 4 + 1024 * 4
-    emit(n6={
-        "factor_ms": cold_device_ms([lambda a=a: small_lu.lu_factor(a) for a in a6], 4,
-                                    "factor_kernel"),
-        "factor_bound_ms": factor_bytes / HBM_BYTES_PER_S * 1e3,
-        "factor_plain_ms": statistics.median(
-            event_ms(lambda: dense_lu.lu_factor_unrolled(a6[0])) for _ in range(5)),
-        "factor_library_ms": cold_device_ms([lambda a=a: torch.linalg.lu_factor_ex(a)
-                                             for a, _ in lead], 4),
-        "solve_plain_ms": statistics.median(
-            event_ms(lambda: dense_lu.lu_solve_unrolled(f, b)) for _ in range(5)),
-        "solve_library_ms": cold_device_ms(
-            [lambda h=h, y=y: torch.linalg.lu_solve(h[0], h[1], y)
-             for h, (_, y) in zip(f_lead, lead)], 4),
-    })
+    for row, out in k1_few_lanes(libs).items():
+        emit(few_lanes=row, **out)
+        if not out["bitwise_equal"]:
+            raise SystemExit(f"k1 {row}: a kernel differs from its plain version")
 
     if parent is not None:
         for checkout in (parent, ".", ".", parent):

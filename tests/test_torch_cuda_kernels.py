@@ -702,6 +702,9 @@ def test_slider_crank_runs_k1_at_n10(cuda):
     # so factors are launched at least once a Jacobian evaluation
     assert small_lu.LAUNCHES["factor", "f64", 10] >= ida.get_num_jac_evals() > 0
     assert small_lu.LAUNCHES["solve", "f64", 10] > 0
+    # one lane at N = 10: both on the group skeleton
+    for kernel in ("factor", "solve"):
+        assert small_lu.GROUP_LAUNCHES[kernel, "f64", 10] == small_lu.LAUNCHES[kernel, "f64", 10]
     y = ida.get_yy()
     assert abs(-np.sin(y[2]) - 0.5 * np.sin(y[0])) < 1e-8
 
@@ -717,3 +720,139 @@ def test_profile_records_the_scopes_and_the_card(cuda, tmp_path):
     assert {"ida.step.attempt", "ida.lsetup", "ida.nonlinear_solve"} <= names
     dev = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
     assert dev > 0 and (tmp_path / "trace" / "trace.json").exists()
+
+
+def _lane_counts():
+    """1, 2, 3, 31 and 1,024 lanes, and each end of each range of lanes of
+    the rule +- 1."""
+    from test_torch_lu_groups import RULE
+
+    counts = {1, 2, 3, 31, 1024}
+    for _, lo, hi, _ in RULE.values():
+        counts |= {e + d for e in (lo, hi) for d in (-1, 0, 1) if e + d >= 1}
+    return sorted(counts)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_both_skeletons_are_bitwise_the_plain_versions(cuda, dtype):
+    """K1's factor and solve at N = 1..16 on each lane count of
+    :func:`_lane_counts`, so on both sides of every crossover of the rule:
+    bit for bit the plain versions, the launch counted on the skeleton the
+    rule names."""
+    from test_torch_lu_groups import same_bits
+
+    tag = small_lu.DTYPE_TAGS[dtype]
+    for n in range(1, 17):
+        for lanes in _lane_counts():
+            a, b = _system(n, dtype, cuda, bsz=lanes, seed=lanes)
+            small_lu.reset_launch_counts()
+            f, g = small_lu.lu_factor(a), dense_lu.lu_factor_unrolled(a)
+            x, y = small_lu.lu_solve(g, b), dense_lu.lu_solve_unrolled(g, b)
+            torch.cuda.synchronize()
+            assert same_bits(f.lu, g.lu) and torch.equal(f.piv, g.piv), (n, lanes)
+            assert torch.equal(f.fail_col, g.fail_col) and same_bits(x, y), (n, lanes)
+            want = {(k, tag, n): int(small_lu.uses_groups(k, tag, n, lanes))
+                    for k in ("factor", "solve")}
+            assert {k: small_lu.GROUP_LAUNCHES[k] for k in want} == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_both_skeletons_on_adversarial_columns_and_layouts(cuda, dtype):
+    """Ties, NaN at the diagonal and below it, +-0, +-Inf and zero pivots
+    (``fail``) at N = 1..16, factor and solve; then the solve on the one-lane
+    layout (lu [N, N], b [N]) and on ``prec_solve``'s views of a few lanes:
+    each bit for bit its plain version."""
+    from test_torch_lu_groups import adversarial, same_bits
+    from test_torch_lu_layouts import operands
+
+    for n in range(1, 17):
+        for lanes in (1, 12, 1024):
+            a = torch.from_numpy(adversarial(n, max(lanes, 12), 7 * n)[..., :lanes]).to(cuda, dtype)
+            b = torch.from_numpy(np.random.default_rng(n).normal(size=(n, lanes))).to(cuda, dtype)
+            f, g = small_lu.lu_factor(a), dense_lu.lu_factor_unrolled(a)
+            x, y = small_lu.lu_solve(g, b), dense_lu.lu_solve_unrolled(g, b)
+            torch.cuda.synchronize()
+            assert same_bits(f.lu, g.lu) and torch.equal(f.piv, g.piv), (n, lanes)
+            assert torch.equal(f.fail_col, g.fail_col) and same_bits(x, y), (n, lanes)
+        a, b = _system(n, dtype, cuda, bsz=1, seed=3)
+        one = dense_lu.lu_factor_unrolled(a[:, :, 0])
+        assert same_bits(small_lu.lu_factor(a[:, :, 0].contiguous()).lu, one.lu)
+        assert same_bits(small_lu.lu_solve(one, b[:, 0]), dense_lu.lu_solve_unrolled(one, b[:, 0]))
+        for bsz in (1, 3):
+            f, b = operands("factor_view", n, bsz, dtype)
+            f = dense_lu.DenseLU(f.lu.to(cuda), f.piv.to(cuda), None)
+            b = b.to(cuda)
+            x = small_lu.lu_solve(f, b)
+            assert x.stride() == b.stride() and same_bits(x, dense_lu.lu_solve_unrolled(f, b))
+
+
+def test_the_rule_launches_the_skeleton_it_counts(cuda):
+    """The kernel the card runs (torch.profiler's names) is the one
+    ``small_lu.uses_groups`` counts, on both sides of the N = 10 factor's and
+    the N = 6 solve's range ends, at the headline's and foodweb's shapes
+    and at the adjoints' N = 3 (1,024 and 4,096 lanes). A window holds 20 launches: one that holds a single launch was
+    seen to come back empty."""
+    cases = [(3, 65536), (2, 51200), (3, 1024), (3, 4096), (10, 1), (10, 1024), (10, 1025),
+             (6, 1024), (6, 8192), (6, 8193)]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for n, lanes in cases:
+        a, b = _system(n, torch.float64, cuda, bsz=lanes)
+        f = small_lu.lu_factor(a)
+        torch.cuda.synchronize()
+        for kernel, go in (("factor", lambda: small_lu.lu_factor(a)),
+                           ("solve", lambda: small_lu.lu_solve(f, b))):
+            names = {}
+            for _ in range(3):  # a window that recorded nothing is taken again
+                with torch.profiler.profile(activities=acts) as prof:
+                    torch.cuda._sleep(1000)  # the profiler may drop a window's first activity
+                    torch.cuda.synchronize()
+                    for _ in range(20):
+                        go()
+                    torch.cuda.synchronize()
+                names = {e.key: e.count for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA and "spin" not in e.key}
+                if names:
+                    break
+            group = small_lu.uses_groups(kernel, "f64", n, lanes)
+            want = f"{kernel}_group_kernel" if group else f"{kernel}_kernel"
+            assert names and all(want in name for name in names), (n, lanes, names)
+
+
+def test_continuous_adjoint_keeps_its_bits_on_the_group_skeleton(cuda, monkeypatch):
+    """The continuous adjoint (KKT systems at N = 6 through K1) on 16 lanes:
+    the loss and gradients with the shipped build equal, bit for bit, those
+    with the parent's dispatch (``-DIDA_LU_GROUP=0``: one thread a lane),
+    and the shipped build launched its N = 6 solves, and only those, on the
+    groups."""
+    from ida_tpu_torch import sensitivity
+    from ida_tpu_torch.ops import _build
+    from ida_tpu_torch.tol_control import tol_sv as tol
+
+    bsz = 16
+    params = np.outer(np.exp(np.linspace(-0.05, 0.05, bsz)), ROBERTS_PARAMS)
+    yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
+    w = torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64, device=cuda)
+
+    def run():
+        return sensitivity.batched_continuous_adjoint(
+            roberts_factory, params, ROBERTS_YY0, yp0, tol(1e-4, ATOL, device=cuda), 4.0,
+            lambda y: (y * w).sum(), grid=np.logspace(-4, np.log10(4.0), 64),
+            opts=IdaOptions(mxstep=20000), device=cuda)
+
+    small_lu.reset_launch_counts()
+    new = run()
+    torch.cuda.synchronize()
+    # the N = 6 solves alone take the groups: N = 3 keeps one thread a lane
+    assert small_lu.LAUNCHES["solve", "f64", 6] > 0
+    assert dict(small_lu.GROUP_LAUNCHES) == {("solve", "f64", 6): small_lu.LAUNCHES["solve", "f64", 6]}
+    parent = _build.build_library("small_lu.cu", ("small_lu.cuh", "rounded.cuh"),
+                                  flags=("-fmad=false", "-DIDA_LU_GROUP=0"))
+    small_lu.bind(parent["lib"])
+    monkeypatch.setattr(small_lu, "build", lambda: parent)
+    small_lu.reset_launch_counts()
+    old = run()
+    torch.cuda.synchronize()
+    # counted by the library that launched: the parent's took no groups
+    assert not small_lu.GROUP_LAUNCHES and small_lu.LAUNCHES["solve", "f64", 6] > 0
+    for u, v in zip(new, old):
+        assert torch.equal(u, v)

@@ -9,9 +9,12 @@ foodweb's ``pdata`` and right-hand side, one lane, and the views
   each layout, and its refusal of one it cannot express;
 * the kernel source built for the HOST with the C++ compiler (the CUDA
   keywords defined away, the vector types as plain structs, each
-  ``kernel<<<grid, threads, 0, s>>>(...)`` a loop over blocks and threads,
-  ``-ffp-contract=off``), launched through the real wrapper on CPU
-  tensors, bit for bit against the plain versions on each layout;
+  ``kernel<<<grid, threads, 0, s>>>(...)`` a loop over blocks whose threads
+  run as coroutines in lockstep from one warp collective to the next,
+  ``-ffp-contract=off``: ``build_host_lib``, which
+  ``test_torch_lu_groups.py`` also builds the group skeleton with),
+  launched through the real wrapper on CPU tensors, bit for bit against the
+  plain versions on each layout;
 * ``foodweb.prec_solve`` against its earlier copying form (the same bits),
   and, with the solve routed to the host build, with no copy at all.
 
@@ -45,6 +48,11 @@ _STUB = r"""
 #include <math.h>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <functional>
+#include <vector>
+#include <ucontext.h>
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 struct HostDim { unsigned x = 0; };
@@ -63,6 +71,124 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+
+// A block's threads run as coroutines, each from one collective to the
+// next, all of them before any goes on: lockstep between collectives. A
+// thread publishes its operand in its own slot (two of them, alternating),
+// yields, and reads its source's slot once every thread has published. A
+// collective that names a thread outside its mask, or one that has left or
+// is at another collective, counts as an error (host_collective_errors).
+struct HostBlock {
+  std::vector<ucontext_t> ctx;
+  std::vector<std::vector<char>> stack;
+  std::vector<char> done;
+  std::vector<unsigned> calls;
+  std::vector<uint64_t> slot[2];
+  std::vector<unsigned> masks[2];
+  ucontext_t main;
+  const std::function<void()>* body = nullptr;
+  long errors = 0;
+};
+static HostBlock host_block;
+
+inline void host_entry() {
+  (*host_block.body)();
+  host_block.done[threadIdx.x] = 1;
+}
+
+template <class F>
+void host_run_block(unsigned threads, F& body) {
+  HostBlock& h = host_block;
+  std::function<void()> fn = body;
+  h.body = &fn;
+  h.ctx.resize(threads);
+  h.stack.resize(threads);
+  h.done.assign(threads, 0);
+  h.calls.assign(threads, 0);
+  for (int i = 0; i < 2; ++i) { h.slot[i].assign(threads, 0); h.masks[i].assign(threads, 0); }
+  for (unsigned t = 0; t < threads; ++t) {
+    h.stack[t].resize(1 << 17);
+    getcontext(&h.ctx[t]);
+    h.ctx[t].uc_stack.ss_sp = h.stack[t].data();
+    h.ctx[t].uc_stack.ss_size = h.stack[t].size();
+    h.ctx[t].uc_link = &h.main;
+    makecontext(&h.ctx[t], host_entry, 0);
+  }
+  for (bool live = true; live;) {
+    live = false;
+    for (unsigned t = 0; t < threads; ++t) {
+      if (h.done[t]) continue;
+      threadIdx.x = t;
+      swapcontext(&h.main, &h.ctx[t]);
+      live = live || !h.done[t];
+    }
+  }
+}
+
+// publish `bits`, wait for every thread, and return this collective's buffer
+inline unsigned host_publish(unsigned mask, uint64_t bits) {
+  HostBlock& h = host_block;
+  const unsigned t = threadIdx.x;
+  const unsigned buf = h.calls[t]++ & 1u;
+  h.slot[buf][t] = bits;
+  h.masks[buf][t] = mask;
+  if (!((mask >> (t & 31u)) & 1u)) ++h.errors;
+  swapcontext(&h.ctx[t], &h.main);
+  // every thread the mask names is at this collective, with this mask
+  const unsigned c = h.calls[t];
+  for (unsigned lane = 0; lane < 32; ++lane) {
+    const unsigned src = (t & ~31u) + lane;
+    if (((mask >> lane) & 1u) && (src >= h.done.size() || h.calls[src] < c
+                                  || h.calls[src] > c + 1 || h.masks[buf][src] != mask))
+      ++h.errors;
+  }
+  return buf;
+}
+
+inline uint64_t host_read(unsigned buf, unsigned mask, unsigned lane) {
+  HostBlock& h = host_block;
+  const unsigned t = threadIdx.x;
+  const unsigned src = (t & ~31u) + lane;
+  // the source published this collective (the calls-th) and, if it ran
+  // before this thread in the pass, at most the next one (other buffer)
+  const unsigned c = h.calls[t];
+  if (src >= h.done.size() || h.calls[src] < c || h.calls[src] > c + 1
+      || h.masks[buf][src] != mask || !((mask >> lane) & 1u)) {
+    ++h.errors;
+    return h.slot[buf][t];
+  }
+  return h.slot[buf][src];
+}
+
+template <class V>
+uint64_t host_bits(V v) { uint64_t b = 0; std::memcpy(&b, &v, sizeof(V)); return b; }
+template <class V>
+V host_value(uint64_t b) { V v; std::memcpy(&v, &b, sizeof(V)); return v; }
+
+template <class V>
+V __shfl_sync(unsigned mask, V v, int src, int width) {
+  const unsigned buf = host_publish(mask, host_bits(v));
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned from = (lane & ~(unsigned)(width - 1)) + ((unsigned)src & (unsigned)(width - 1));
+  return host_value<V>(host_read(buf, mask, from));
+}
+
+template <class V>
+V __shfl_xor_sync(unsigned mask, V v, int bit, int width) {
+  const unsigned buf = host_publish(mask, host_bits(v));
+  const unsigned lane = threadIdx.x & 31u;
+  if (bit >= width) ++host_block.errors;
+  return host_value<V>(host_read(buf, mask, lane ^ (unsigned)bit));
+}
+
+inline unsigned __ballot_sync(unsigned mask, int pred) {
+  const unsigned buf = host_publish(mask, pred ? 1u : 0u);
+  unsigned out = 0;
+  for (unsigned lane = 0; lane < 32; ++lane)
+    if ((mask >> lane) & 1u) out |= (unsigned)(host_read(buf, mask, lane) & 1u) << lane;
+  return out;
+}
 """
 _PRELUDE = r"""
 #define __device__
@@ -73,32 +199,44 @@ _PRELUDE = r"""
 template <class F, class... A>
 void host_launch(unsigned grid, unsigned threads, F f, A... a) {
   blockDim.x = threads;
-  for (unsigned g = 0; g < grid; ++g)
-    for (unsigned t = 0; t < threads; ++t) { blockIdx.x = g; threadIdx.x = t; f(a...); }
+  auto body = [&]() { f(a...); };
+  for (unsigned g = 0; g < grid; ++g) {
+    blockIdx.x = g;
+    host_run_block(threads, body);
+  }
 }
+extern "C" long host_collective_errors() { return host_block.errors; }
 """
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def build_host_lib(out, flags=()):
+    """``csrc/small_lu.cu`` built for the host with g++ (``flags`` added:
+    e.g. ``-DIDA_LU_GROUP=2``), bound as the wrappers bind the card's."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
-    out = tmp_path_factory.mktemp("small_lu_host")
     (out / "cuda_runtime.h").write_text(_STUB)
     src, n = re.subn(r"(\w+<[^<>]*>)<<<([^,]+), ([^,]+), 0, s>>>\(", r"host_launch(\2, \3, \1, ",
                      (CSRC / "small_lu.cu").read_text())
-    assert n == 4  # the factor, the solve, the transposed solve and the floor's copy
+    # the factor, the solve and the transposed solve in each skeleton, and
+    # the floor's copies
+    assert n == 9
     (out / "small_lu_host.cpp").write_text(_PRELUDE + src)
     lib_path = out / "libsmall_lu_host.so"
     proc = subprocess.run(
         [cxx, "-O0", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC", "-I", str(out),
-         "-I", str(CSRC), "-o", str(lib_path), str(out / "small_lu_host.cpp")],
+         "-I", str(CSRC), *flags, "-o", str(lib_path), str(out / "small_lu_host.cpp")],
         capture_output=True, text=True, check=False)
     assert proc.returncode == 0, proc.stderr[-4000:]
     lib = ctypes.CDLL(str(lib_path))
     small_lu.bind(lib)
+    lib.host_collective_errors.restype = ctypes.c_long
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return build_host_lib(tmp_path_factory.mktemp("small_lu_host"))
 
 
 @pytest.fixture
