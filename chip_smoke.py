@@ -80,13 +80,24 @@ tout=400 in f64):
   combinations, K2 and budget 32 (K3 + K4) at the headline, each bit for bit
   the eager solve of the same mode from ``mixed_headline``/``fast_f64``,
   with a float32-state leg at B = 4,096; each mode's registers, spills,
-  bare-launch time against parity's in turns, and its bound.
+  bare-launch time against parity's in turns, and its bound;
+* the mesh (``mesh``, ``parallel/mesh.py``): the headline through
+  ``EnsembleIDA(mesh=make_mesh(1))`` under NCCL, bit for bit the eager
+  solve with K1's launch counts, and K2 on the rank's shard bit for bit the
+  unsharded K2; two gloo ranks on the one card (spawned, loading the
+  kernels built here): the headline's lanes split 32,768 a rank, each bit
+  for bit its per-shard and the unsharded solve, no collective inside a
+  rank's solve; heat2d m = 16 (SPGMR) and its BBD-blocked twin with the
+  state vector over the ranks, bit for bit the one-rank runs, with the
+  collectives and bytes a solve; with more than one card, NCCL with one
+  rank a card on the headline and heat2d (else a line says it did not run).
 
 Every stage kernel is checked bit for bit against its eager stage on real
 mid-flight states first, so a parity break is localized. It prints one JSON
 line per phase; any failed check raises, so the exit code is non-zero.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py mesh   # the build, slice and mesh phases alone
 
 The last three lines are the kernels' summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -99,12 +110,15 @@ import dataclasses
 import json
 import statistics
 import subprocess
+import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ida_tpu_torch import IDA, IdaProblem, IdaSolveStatus, sensitivity, solve_dae
@@ -112,7 +126,7 @@ from ida_tpu_torch import constants as C
 from ida_tpu_torch.core import root as core_root
 from ida_tpu_torch.core.solve import TASK_ONE_STEP, solve_dense
 from ida_tpu_torch.core.solve import solve as core_solve
-from ida_tpu_torch.core.state import IdaOptions
+from ida_tpu_torch.core.state import IdaOptions, init_state
 from ida_tpu_torch.core.calc_ic import IC_YA_YDP_INIT
 from ida_tpu_torch.core.calc_ic import calc_ic as core_calc_ic
 from ida_tpu_torch.core.quad import get_quad
@@ -125,6 +139,7 @@ from ida_tpu_torch.ops.banded import band_factor, band_solve, band_sys_jacobian,
 from ida_tpu_torch.tools import kernel_variants
 from ida_tpu_torch.parallel import (EnsembleIDA, ensemble_init, from_native, make_ensemble_solve,
                                     make_stratified_solve, pilot_cost, to_native)
+from ida_tpu_torch.parallel import mesh as mesh_lib
 from ida_tpu_torch.parallel.batch import _native_shared_tol
 from ida_tpu_torch.tol_control import TolControl, tol_ss, tol_sv
 from ida_tpu_torch.utils.ad_mode import safe_ad
@@ -2263,9 +2278,11 @@ def phase_adjoint_continuous(discrete: dict) -> dict:
     return {"launches": launches, "wall_s": wall}
 
 
-def phase_sensitivity_lane() -> None:
+def phase_sensitivity_lane() -> dict:
     """One lane on the card: forward_sensitivity, adjoint_hvp and
-    adjoint_gradient(ic=...) against central differences."""
+    adjoint_gradient(ic=...) against central differences, with K1's
+    launches on these few lanes (the transposed solve's among them)."""
+    small_lu.reset_launch_counts()
     p0 = np.asarray(ROBERTS_PARAMS)
     tol = tol_sv(1e-4, ATOL, device="cuda")
     yy0_of, yp0_of, loss_of = adjoint_maps("cuda")
@@ -2316,13 +2333,15 @@ def phase_sensitivity_lane() -> None:
     emit("sensitivity_lane", tout=ADJ_TOUT, forward_s=fwd_s, forward_max_rel_err=fwd_err,
          dy=dy.tolist(), hvp_s=hvp_s, hvp=hvp.tolist(), hvp_fd=fd_h.tolist(),
          hvp_rel_err=hvp_err, ic_s=ic_s, grad_ic=g_ic.tolist(), fd_ic=fd_ic.tolist(),
-         ic_max_rel_err=ic_err)
+         ic_max_rel_err=ic_err, k1_launches=k1_launches())
     check(bool((ist == C.SUCCESS).all()), "a forward-difference lane failed")
     check(fwd_err < 1e-5, f"forward sensitivity vs differences: {fwd_err}")
     check(int(ist_h) == 0 and bool(torch.isfinite(hvp).all()), "adjoint_hvp failed")
     check(hvp_err < 5e-3, f"hvp vs differences of the gradient: {hvp_err}")
     check(int(ist_ic) == 0 and bool((ist_fd == 0).all()), "the IC adjoint failed")
     check(ic_err < 5e-4, f"adjoint through calc_ic vs differences: {ic_err}")
+    check(small_lu.LAUNCHES["solve_t", "f64", 3] > 0, "no transposed solve on the few lanes")
+    return {"launches": k1_launches()}
 
 
 # ---------- mixed precision, fast_math, slider-crank, stratified, scopes
@@ -2973,6 +2992,256 @@ def phase_fused_modes(mixed: dict, fast: dict) -> dict:
     return rows
 
 
+# ------------------------------------------------------------------ the mesh
+
+MESH_RANKS = 2  # gloo ranks on the one card
+MESH_HEAT_M, MESH_HEAT_TOUT = 16, 0.01
+MESH_FIELDS = ("yy", "yp", "phi", "tn", "hh", "kk") + COUNTERS
+
+
+def mesh_heat_problems(device) -> dict:
+    """heat2d m = 16 with its diagonal preconditioner, and with the BBD
+    preconditioner in MESH_RANKS blocks (keep bandwidths 4, as
+    tests/test_bbd_prec.py's sharded cases)."""
+    base = heat2d_problem(MESH_HEAT_M, use_prec=False, device=device)
+    bbd = make_bbd_prec(base.res, base.n, 4, 4, nblocks=MESH_RANKS)
+    return {"heat2d": heat2d_problem(MESH_HEAT_M, use_prec=True, device=device),
+            "bbd": IdaProblem(n=base.n, res=base.res, id=base.id, **bbd.hooks())}
+
+
+def mesh_heat_solve(prob, device, mesh=None):
+    """``prob`` to MESH_HEAT_TOUT on SPGMR from the C initial profile:
+    unsharded, or its state vector over ``mesh``'s batch axis."""
+    u0, up0 = heat2d_ic(MESH_HEAT_M)
+    opts = IdaOptions(linear_solver="spgmr", mxstep=2000)
+    st = init_state(prob, u0, up0, opts=opts, device=device)
+    tol = tol_ss(1e-5, 1e-8, device=device)
+    if mesh is None:
+        return core_solve(st, prob, opts, tol, MESH_HEAT_TOUT)
+    return mesh_lib.sharded_solve(mesh_lib.shard_state_vector(st, mesh, prob.n), prob, opts, tol,
+                                  MESH_HEAT_TOUT, mesh=mesh)
+
+
+def mesh_fields(st) -> dict:
+    """The fields the mesh phase holds bit for bit, on the host."""
+    return {f: getattr(st, f).cpu() for f in MESH_FIELDS}
+
+
+def mesh_dp(mesh, refs: dict) -> dict:
+    """This rank's share of the headline through ``EnsembleIDA(mesh=...)``
+    (the user path: the whole batch's results come back on every rank), the
+    same lanes through ``shard_ensemble`` + ``make_ensemble_solve`` with the
+    collectives counted, the rank's lanes solved alone without a mesh, and
+    K2 on the rank's shard; each held bit for bit against the unsharded
+    runs of ``refs`` (the parent's eager solve and K2 launch)."""
+    dev = mesh_lib.mesh_device(mesh)
+    k, size = mesh_lib.axis_index(mesh, "batch"), mesh_lib.axis_size(mesh, "batch")
+    part = slice(k * B // size, (k + 1) * B // size)
+    params, yy0, yp0 = ensemble_inputs(B)
+    tol = tol_sv(1e-4, ATOL, device=dev)
+    small_lu.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens = EnsembleIDA(roberts_factory, params, yy0, yp0, tol, mesh=mesh)
+    tret, istate = ens.solve(TOUT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"factor": small_lu.FACTOR_LAUNCHES, "solve": small_lu.SOLVE_LAUNCHES}
+    whole = ens.states
+    ok_whole = (bool(np.array_equal(tret, refs["tret"].numpy()))
+                and bool(np.array_equal(istate, refs["istate"].numpy()))
+                and all(same(getattr(whole, f).cpu(), refs["eager"][f]) for f in MESH_FIELDS))
+
+    st = mesh_lib.shard_ensemble(ensemble_init(roberts_factory, params, yy0, yp0, device=dev), mesh)
+    p_loc = mesh_lib.shard_ensemble(torch.as_tensor(params, device=dev), mesh)
+    mesh_lib.reset_collective_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_s, _, _ = make_ensemble_solve(roberts_factory)(st, p_loc, tol, TOUT)
+    torch.cuda.synchronize()
+    shard_wall = time.perf_counter() - t0
+    coll = dict(mesh_lib.COLLECTIVES)
+    st1, _, _ = run_ensemble(params[part], yy0[part], yp0[part], dev, TOUT)
+    ok_shard = all(same(getattr(st_s, f), getattr(st1, f)) for f in MESH_FIELDS)
+    ok_ens = all(same(x, y) for x, y in zip(mesh_fields(from_native(ens._native)).values(),
+                                            mesh_fields(st1).values()))
+    ok_eager = all(same(getattr(st_s, f).cpu(), refs["eager"][f][part]) for f in MESH_FIELDS)
+
+    fused_solve.reset_launch_counts()
+    k2 = fused_fn(dev)(st, p_loc.contiguous(), TOUT)[0]
+    torch.cuda.synchronize()
+    launches["fused_solve"] = fused_solve.launch_count("solve")
+    ok_k2 = all(same(getattr(k2, f).cpu(), refs["k2"][f][part]) for f in MESH_FIELDS)
+    return {"rank": dist.get_rank(), "lanes": part.stop - part.start, "wall_s": wall,
+            "solve_wall_s": shard_wall, "launches": launches, "collectives_in_solve": coll,
+            "whole_batch_equal_unsharded": ok_whole, "shard_equal_per_shard_run": ok_shard,
+            "ensemble_ida_equal_per_shard_run": ok_ens, "shard_equal_unsharded": ok_eager,
+            "k2_shard_equal_unsharded_k2": ok_k2}
+
+
+def mesh_sharded_n(mesh, names=("heat2d", "bbd")) -> dict:
+    """heat2d m = 16 and its BBD-blocked twin (``names`` of them) with the
+    state vector over the ranks: counters, gathered yy and phi[0],
+    collectives and walls."""
+    dev = mesh_lib.mesh_device(mesh)
+    out = {}
+    for name, prob in mesh_heat_problems(dev).items():
+        if name not in names:
+            continue
+        mesh_lib.reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, tret, ist = mesh_heat_solve(prob, dev, mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        coll = dict(mesh_lib.COLLECTIVES)
+        out[name] = {"wall_s": wall, "collectives": coll, "istate": int(ist), "tret": float(tret),
+                     "counters": {f: int(getattr(st, f)) for f in COUNTERS + ("nli", "nps")},
+                     "yy": mesh_lib.gather(st.yy, mesh, "batch").cpu(),
+                     "phi0": mesh_lib.gather(st.phi[0], mesh, "batch").cpu()}
+    return out
+
+
+def mesh_rank(rank: int, world: int, root: str, backend: str) -> None:
+    """One rank of the mesh phase, started by torch.multiprocessing (spawn):
+    a ``backend`` group of ``world`` ranks (rendezvous through a file under
+    ``root``), the kernels loaded from the parent's build, its results saved
+    under ``root``."""
+    dist.init_process_group(backend, init_method=f"file://{root}/rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        mesh = mesh_lib.make_mesh(world)
+        refs = torch.load(f"{root}/refs.pt", weights_only=False)
+        out = {"dp": mesh_dp(mesh, refs)}
+        # the BBD twin's blocks are MESH_RANKS: the gloo leg's ranks
+        out["sharded_n"] = mesh_sharded_n(mesh, ("heat2d", "bbd") if backend == "gloo"
+                                          else ("heat2d",))
+        torch.save(out, f"{root}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_spawn(root: str, world: int, backend: str):
+    """Start the ranks (spawn, no join yet)."""
+    return torch.multiprocessing.start_processes(mesh_rank, args=(world, root, backend),
+                                                 nprocs=world, join=False, start_method="spawn")
+
+
+def mesh_join(ctx, root: str, world: int) -> list:
+    while not ctx.join():
+        pass
+    return [torch.load(f"{root}/rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def mesh_check_sharded_n(single: dict, ranks: list, backend: str) -> None:
+    """The ranks' sharded-N solves against the one-rank runs ``single``:
+    counters and bits."""
+    for name, ref in single.items():
+        st = ref["st"]
+        want = {f: int(getattr(st, f)) for f in COUNTERS + ("nli", "nps")}
+        rows = [r["sharded_n"][name] for r in ranks]
+        bitwise = [same(x["yy"], st.yy.cpu()) and same(x["phi0"], st.phi[0].cpu()) for x in rows]
+        emit("mesh_sharded_n", problem=name, backend=backend, m=MESH_HEAT_M, tout=MESH_HEAT_TOUT,
+             ranks=len(rows), one_rank_wall_s=ref["wall_s"], one_rank_counters=want,
+             walls_s=[x["wall_s"] for x in rows], counters=[x["counters"] for x in rows],
+             collectives=[x["collectives"] for x in rows], bitwise_equal_one_rank=bitwise,
+             max_abs_err=max(float((x["yy"] - st.yy.cpu()).abs().max()) for x in rows))
+        check(ref["istate"] == C.SUCCESS and all(x["istate"] == C.SUCCESS for x in rows),
+              f"{name}: a sharded-N solve failed")
+        check(all(x["counters"] == want for x in rows), f"{name}: counters != the one-rank run")
+        check(all(bitwise), f"{name}: sharded yy/phi[0] != the one-rank run")
+        check(all(x["collectives"]["calls"] > 0 for x in rows), f"{name}: no collective")
+
+
+def phase_mesh(eager: dict) -> dict:
+    """``parallel/mesh.py`` on the card: a world of one under NCCL running
+    the headline through ``EnsembleIDA(mesh=make_mesh(1))`` (bit for bit the
+    slice phase's eager solve, K1's launches the same; K2 on the rank's
+    shard bit for bit the unsharded K2); two gloo ranks on the one card with
+    CUDA tensors (the headline's lanes split 32,768 a rank, each bit for bit
+    its per-shard solve and the unsharded one, with no collective inside a
+    rank's solve; heat2d m = 16 SPGMR and its BBD-blocked twin with the
+    state vector over the ranks, bit for bit the one-rank runs, with their
+    collectives and bytes); with more than one card, NCCL with one rank a
+    card on the headline's lanes."""
+    est, etret, eistate = eager["result"]
+    refs = {"eager": mesh_fields(est), "tret": etret.cpu(), "istate": eistate.cpu()}
+    params, yy0, yp0 = ensemble_inputs(B)
+    st0 = ensemble_init(roberts_factory, params, yy0, yp0, device="cuda")
+    k2_full = fused_fn("cuda")(st0, on_card(params), TOUT)[0]
+    refs["k2"] = mesh_fields(k2_full)
+    ok_k2_eager = all(same(refs["k2"][f], refs["eager"][f]) for f in MESH_FIELDS)
+
+    with tempfile.TemporaryDirectory() as root:
+        torch.save(refs, f"{root}/refs.pt")
+        t_spawn = time.perf_counter()
+        ctx = mesh_spawn(root, MESH_RANKS, "gloo")
+
+        # a world of one under NCCL, in this process, while the ranks start
+        mesh1 = mesh_lib.make_mesh(1)
+        backend = dist.get_backend()
+        one = mesh_dp(mesh1, refs)
+        dist.destroy_process_group()
+        emit("mesh_one_rank", backend=backend, batch=B, tout=TOUT, k2_equal_eager=ok_k2_eager,
+             slice_launches=eager["launches"], slice_wall_s=eager["wall_s"], **one)
+        check(ok_k2_eager, "the unsharded K2 != the eager headline")
+        check({k: one["launches"][k] for k in eager["launches"]} == eager["launches"],
+              f"mesh of one: K1 launches {one['launches']} != the slice's {eager['launches']}")
+        for key in ("whole_batch_equal_unsharded", "shard_equal_per_shard_run",
+                    "ensemble_ida_equal_per_shard_run", "shard_equal_unsharded",
+                    "k2_shard_equal_unsharded_k2"):
+            check(one[key], f"mesh of one: {key} is false")
+
+        # the one-rank runs of the sharded-N problems, while the ranks work
+        single = {}
+        for name, prob in mesh_heat_problems("cuda").items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, tret, ist = mesh_heat_solve(prob, "cuda")
+            torch.cuda.synchronize()
+            single[name] = {"wall_s": time.perf_counter() - t0, "st": st, "tret": float(tret),
+                            "istate": int(ist)}
+        ranks = mesh_join(ctx, root, MESH_RANKS)
+        spawn_s = time.perf_counter() - t_spawn
+
+    for r in ranks:
+        dp = r["dp"]
+        emit("mesh_dp_gloo", ranks=MESH_RANKS, **dp)
+        check(dp["collectives_in_solve"]["calls"] == 0,
+              f"rank {dp['rank']}: collectives inside the dp solve {dp['collectives_in_solve']}")
+        for key in ("whole_batch_equal_unsharded", "shard_equal_per_shard_run",
+                    "ensemble_ida_equal_per_shard_run", "shard_equal_unsharded",
+                    "k2_shard_equal_unsharded_k2"):
+            check(dp[key], f"rank {dp['rank']}: {key} is false")
+    mesh_check_sharded_n(single, ranks, "gloo")
+
+    cards = torch.cuda.device_count()
+    multi = None
+    if cards > 1:
+        with tempfile.TemporaryDirectory() as root:
+            torch.save(refs, f"{root}/refs.pt")
+            t0 = time.perf_counter()
+            multi = mesh_join(mesh_spawn(root, cards, "nccl"), root, cards)
+            nccl_s = time.perf_counter() - t0
+        for r in multi:
+            dp = r["dp"]
+            emit("mesh_dp_nccl", ranks=cards, **dp)
+            for key in ("whole_batch_equal_unsharded", "shard_equal_per_shard_run",
+                        "ensemble_ida_equal_per_shard_run", "shard_equal_unsharded",
+                        "k2_shard_equal_unsharded_k2"):
+                check(dp[key], f"nccl rank {dp['rank']}: {key} is false")
+            check(dp["collectives_in_solve"]["calls"] == 0,
+                  f"nccl rank {dp['rank']}: collectives inside the dp solve")
+        mesh_check_sharded_n({"heat2d": single["heat2d"]}, multi, "nccl")
+        emit("mesh_multi_card", ran=True, ranks=cards, spawn_and_ranks_s=nccl_s)
+        multi = [r["dp"] for r in multi]
+    else:
+        emit("mesh_multi_card", ran=False,
+             reason=f"{cards} card: NCCL with one rank a card needs more than one")
+    emit("mesh", spawn_and_ranks_s=spawn_s, gloo_ranks=MESH_RANKS, cards=cards)
+    return {"one": one, "gloo": [r["dp"] for r in ranks], "multi": multi}
+
+
 def timed(phase, *args):
     """Run a phase and print how long it took."""
     t0 = time.perf_counter()
@@ -3009,7 +3278,7 @@ def main() -> None:
     resume = timed(phase_checkpoint_resume)
     adj = timed(phase_adjoint_batched)
     adj_c = timed(phase_adjoint_continuous, adj)
-    timed(phase_sensitivity_lane)
+    sens = timed(phase_sensitivity_lane)
     timed(phase_band_heat2d)
     timed(phase_band_factor_100)
     timed(phase_bbd_heat2d)
@@ -3022,6 +3291,7 @@ def main() -> None:
     timed(phase_stratified)
     timed(phase_profile_scopes, eager)
     modes = timed(phase_fused_modes, mixed, fast)
+    mesh = timed(phase_mesh, eager)
 
     # "launches" is the count of the eager headline (phase slice) for the LU
     # kernels and of the fused headline for the solve kernel; the counts of
@@ -3037,18 +3307,21 @@ def main() -> None:
          "launches_adjoint_batched": adj["launches"][k],
          "launches_adjoint_continuous": adj_c["launches"][k],
          "launches_fast_f64": fast["launches"][k],
+         "launches_mesh_one_rank": mesh["one"]["launches"][k],
+         "launches_mesh_gloo_ranks": [r["launches"][k] for r in mesh["gloo"]],
          "max_abs_err": lu[k]["max_abs_err"], "ms": lu[k]["ms"],
          "plain_ms": lu[k]["plain_ms"], "bound_ms": lu[k]["bound_ms"], "bound_by": "bytes",
          "library_ms": lu[k]["library_ms"]}
         for k in ("factor", "solve")
     ]
     # the transposed solve: the backward of every K1 solve under autograd;
-    # its launches are those of adjoint_batched's backward. No TPU kernel
+    # its launches are those of adjoint_batched's backward (sensitivity_lane's
+    # few-lane ones beside them). No TPU kernel
     # has a backward: ida_tpu's gradient differentiates the jnp arithmetic
     # of lu_solve_unrolled, which is what "replaces" names
     rows.append({"name": "small_lu_solve_t", "route": "cuda", "source": T_SOURCE,
                  "replaces": "ida_tpu/ops/dense_lu.py:146", "launches": adj["launches"]["solve_t"],
-                 **lu_t})
+                 "launches_sensitivity_lane": sens["launches"].get("solve_t_f64_n3", 0), **lu_t})
     # K1 at N = 2 on the foodweb preconditioner's blocks: the launches of
     # the single foodweb run, with those of the batched one beside them
     rows += [
@@ -3089,6 +3362,8 @@ def main() -> None:
                  "replaces": REPLACES["fused_solve"], "launches": fused["launches"],
                  "launches_dense_slice_scan_form": dense["scan_form_launches"],
                  "launches_constrained_headline": c_head["launches"]["k2"],
+                 "launches_mesh_one_rank": mesh["one"]["launches"]["fused_solve"],
+                 "launches_mesh_gloo_ranks": [r["launches"]["fused_solve"] for r in mesh["gloo"]],
                  "constrained_to_400_ms": c_head["k2_ms"],
                  "max_abs_err": fused["max_abs_err"], "ms": fused["ms"], "plain_ms": fused["plain_ms"],
                  "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"], "library_ms": None})
@@ -3118,5 +3393,18 @@ def main() -> None:
     }}), flush=True)
 
 
+def main_mesh() -> None:
+    """``python3 chip_smoke.py mesh``: the build, the slice and the mesh
+    phases alone (on a host with four cards the mesh phase's NCCL leg runs,
+    one rank a card)."""
+    smi = phase_device()
+    timed(phase_build)
+    timed(phase_mesh, timed(phase_slice))
+    print(smi, flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["mesh"]:
+        main_mesh()
+    else:
+        main()

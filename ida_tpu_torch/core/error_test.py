@@ -14,6 +14,7 @@ import torch
 from ..norms import wrms_norm_bnd
 from ..problem import IdaProblem
 from ..utils.profiling import scope
+from ..utils.sharding import state_axis
 from ..utils.tree import take1, take_row
 from .coeffs import phi_star_scale
 from .state import IdaOptions, IdaState
@@ -27,9 +28,10 @@ class ErrorTestResult(NamedTuple):
 
 def _norm(state: IdaState, problem: IdaProblem, opts: IdaOptions, x: torch.Tensor) -> torch.Tensor:
     """WRMS norm with the suppressalg mask (reference src/lib.rs:1353-1370),
-    over the data axis of a batch-native array."""
+    over the data axis of a batch-native array (across the shards of a
+    state vector sharded over N)."""
     mask = problem.id if (opts.suppressalg and problem.id is not None) else None
-    return wrms_norm_bnd(x, state.ewt, problem.n, state.tn.dim(), mask)
+    return wrms_norm_bnd(x, state.ewt, problem.n, state.tn.dim(), mask, state_axis())
 
 
 @scope("error_test")

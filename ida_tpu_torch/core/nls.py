@@ -44,6 +44,7 @@ from ..problem import IdaProblem
 from ..utils.ad_mode import is_safe_ad, smask_den, spow
 from ..utils.numerics import sqrt_
 from ..utils.profiling import scope
+from ..utils.sharding import any_over, axis_size, state_axis
 from ..utils.tree import masked_while_loop, tree_where
 from .state import IdaOptions, IdaState
 
@@ -82,8 +83,9 @@ def _res_jvp(problem: IdaProblem, tn, cj, yy, yp, v) -> torch.Tensor:
 
 def _res_ok(r: torch.Tensor) -> torch.Tensor:
     """Per-lane recoverable-residual channel: a non-finite entry marks the
-    lane's residual evaluation recoverably failed."""
-    return torch.isfinite(r).all(dim=0)
+    lane's residual evaluation recoverably failed (across the shards of a
+    state vector sharded over N)."""
+    return ~any_over(~torch.isfinite(r), state_axis())
 
 
 class _Lin(NamedTuple):
@@ -228,8 +230,9 @@ def _newton_iterate(
         tn_l, cj_l, ewt_l = tn.to(ldt), cj.to(ldt), ewt.to(ldt)
         storage = torch.bfloat16 if opts.krylov_storage == "bfloat16" else None
         # the Krylov tolerance sqrt(N) * eplifac * eps_newt (reference
-        # ida_ls.rs:211, 337)
-        sqrt_n = sqrt_(torch.full((), problem.n, dtype=dtype, device=cj.device))
+        # ida_ls.rs:211, 337); N the global length of a sharded state
+        n_all = problem.n * axis_size(state_axis())
+        sqrt_n = sqrt_(torch.full((), n_all, dtype=dtype, device=cj.device))
         ltol = (sqrt_n * opts.eplifac * eps_newt).to(ldt)
         psolve = None
         if problem.prec_solve is not None:
@@ -281,7 +284,7 @@ def _newton_iterate(
         ycor = c.ycor + x
 
         # --- convergence test (idaNlsConvTest) ---
-        delnrm = wrms_norm_bnd(x, ewt, problem.n, bnd)
+        delnrm = wrms_norm_bnd(x, ewt, problem.n, bnd, axis_name=state_axis())
         oldnrm = torch.where(first, delnrm, c.oldnrm)
         conv_direct = first & (delnrm <= 1.0e-4 * toldel)
         expo = 1.0 / m.clamp(min=1).to(cj.dtype)

@@ -28,6 +28,7 @@ from .. import constants as C
 from ..problem import IdaProblem
 from ..tol_control import TolControl
 from ..utils.ad_mode import smask_den
+from ..utils.sharding import any_over, state_axis
 from ..utils.tree import take1, tree_where
 from .coeffs import kidx
 from .complete_step import complete_step
@@ -49,10 +50,11 @@ def _ewt_invalid(ewt: torch.Tensor) -> torch.Tensor:
 
 
 def _any_data(x: torch.Tensor, bnd: int) -> torch.Tensor:
-    """``any`` over the leading data axes of [..., *batch]."""
-    for _ in range(x.dim() - bnd):
+    """``any`` over the leading data axes of [..., N, *batch] (N across the
+    shards of a state vector sharded over it)."""
+    for _ in range(x.dim() - bnd - 1):
         x = x.any(dim=0)
-    return x
+    return any_over(x, state_axis())
 
 
 def _first_call_init(

@@ -24,6 +24,7 @@ import torch
 
 from ..problem import IdaProblem
 from ..utils.device import resolve_device
+from ..utils.sharding import rows
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,10 +64,13 @@ def heat2d_problem(m: int = 10, use_prec: bool = True, *, device=None) -> IdaPro
         # the forward-mode machinery (an order of magnitude of host time)
         return torch.where(mask(v.dim() - 1), cj * v - laplacian(v), v)
 
-    # diagonal preconditioner: interior J_ii = cj + 4/dx^2, boundary 1
+    # diagonal preconditioner: interior J_ii = cj + 4/dx^2, boundary 1; on a
+    # state sharded over N, the rank's rows of it (prec_local)
     def prec_setup(t, cj, yy, yp, rr):
         one = torch.ones((), dtype=yy.dtype, device=yy.device)
-        diag = torch.where(mask(yy.dim() - 1), cj + 4.0 * coeff, one)
+        own = rows(n)
+        m_rows = mask(yy.dim() - 1) if own is None else mask(yy.dim() - 1)[own]
+        diag = torch.where(m_rows, cj + 4.0 * coeff, one)
         return (1.0 / diag,)
 
     def prec_solve(pdata, r, cj):
@@ -77,7 +81,8 @@ def heat2d_problem(m: int = 10, use_prec: bool = True, *, device=None) -> IdaPro
 
     kwargs = {}
     if use_prec:
-        kwargs = dict(prec_setup=prec_setup, prec_solve=prec_solve, prec_zero=prec_zero)
+        kwargs = dict(prec_setup=prec_setup, prec_solve=prec_solve, prec_zero=prec_zero,
+                      prec_local=True)
     return IdaProblem(n=n, res=res, id=interior, jtimes_fn=jtimes_fn, **kwargs)
 
 

@@ -5,6 +5,12 @@ The masked variant zeroes masked entries but still divides by the FULL
 length N (SUNDIALS ``N_VWrmsNormMask`` semantics). Sums run in the
 reference's sequential order and the root is IEEE-correct
 (:mod:`~ida_tpu_torch.utils.numerics`).
+
+Sharding: for a state vector sharded over an axis of the current mesh
+(``utils.sharding.use_mesh``), pass that axis as ``axis_name``: the sum
+then runs over every rank's entries (``ida_tpu``'s ``psum``, here a gather
+of the terms and the unsharded sum, bit for bit) and N is the global
+length, the local one times the axis' size.
 """
 
 from __future__ import annotations
@@ -12,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from .utils.ad_mode import ssqrt
-from .utils.numerics import sum0
+from .utils.sharding import axis_size, sum_over
 
 
 def _mean_sqrt(sq: torch.Tensor, n: int) -> torch.Tensor:
@@ -22,15 +28,18 @@ def _mean_sqrt(sq: torch.Tensor, n: int) -> torch.Tensor:
     return ssqrt(sq / torch.full_like(sq, n))
 
 
-def wrms_norm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def wrms_norm(x: torch.Tensor, w: torch.Tensor, axis_name: str | None = None) -> torch.Tensor:
     """Weighted RMS norm over the trailing axis of ``x``."""
-    return _mean_sqrt(sum0(torch.square(x * w).movedim(-1, 0)), x.shape[-1])
+    sq = sum_over(torch.square(x * w).movedim(-1, 0), axis_name)
+    return _mean_sqrt(sq, x.shape[-1] * axis_size(axis_name))
 
 
-def wrms_norm_masked(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def wrms_norm_masked(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
+                     axis_name: str | None = None) -> torch.Tensor:
     """Masked weighted RMS norm over the trailing axis; divides by full N."""
     t = x * w * mask.to(x.dtype)
-    return _mean_sqrt(sum0(torch.square(t).movedim(-1, 0)), x.shape[-1])
+    sq = sum_over(torch.square(t).movedim(-1, 0), axis_name)
+    return _mean_sqrt(sq, x.shape[-1] * axis_size(axis_name))
 
 
 def wrms_norm_bnd(
@@ -39,20 +48,24 @@ def wrms_norm_bnd(
     n: int,
     bnd: int,
     mask: torch.Tensor | None = None,
+    axis_name: str | None = None,
 ) -> torch.Tensor:
     """WRMS norm over the DATA axis of a possibly batch-native array:
-    ``x`` is [..., N, *batch] with ``bnd`` trailing batch dims."""
+    ``x`` is [..., N, *batch] with ``bnd`` trailing batch dims (N the local
+    length under ``axis_name``)."""
     t = x * w
     if mask is not None:
         t = t * mask.to(x.dtype).reshape((n,) + (1,) * bnd)
     axis = x.dim() - 1 - bnd
-    return _mean_sqrt(sum0(torch.square(t).movedim(axis, 0)), n)
+    sq = sum_over(torch.square(t).movedim(axis, 0), axis_name)
+    return _mean_sqrt(sq, n * axis_size(axis_name))
 
 
 def wrms_norm_maybe_masked(
-    x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor | None, use_mask: bool
+    x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor | None, use_mask: bool,
+    axis_name: str | None = None,
 ) -> torch.Tensor:
     """Dispatch mirroring ``Ida::wrms_norm`` (reference src/lib.rs:1353-1370)."""
     if use_mask and mask is not None:
-        return wrms_norm_masked(x, w, mask)
-    return wrms_norm(x, w)
+        return wrms_norm_masked(x, w, mask, axis_name)
+    return wrms_norm(x, w, axis_name)

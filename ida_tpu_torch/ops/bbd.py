@@ -14,6 +14,15 @@ preconditions SPGMR with its LU. Here, on ``ops/banded.py``:
 * ``res_local`` plays IDABBDPRE's ``Gres``: a cheaper residual used only
   inside the preconditioner (the problem's residual by default).
 
+On a state vector sharded over N (``parallel/mesh.py::sharded_solve``) the
+blocks lie on the state axis: ``nblocks`` a multiple of its ranks, each rank
+holds its own blocks (``pdata`` [rows, nb, nblocks / ranks, ...]), and its
+factor and every ``prec_solve`` are local, with no collective (IDABBDPRE's
+per-rank blocks; ``ida_tpu/ops/bbd.py:22-23``). The setup gathers the
+iterate once and takes the banded Jacobian of the residual there, exactly as
+unsharded, before it keeps the rank's block columns; the band entries are
+therefore the unsharded ones bit for bit.
+
 Usage::
 
     prec = make_bbd_prec(res, n, mu, ml)  # nblocks=..., res_local=...
@@ -28,6 +37,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils import sharding
 from .banded import BandLU, band_factor, band_jacobian, band_rows, band_solve
 
 
@@ -46,7 +56,7 @@ class BBDPrec(NamedTuple):
     def hooks(self) -> dict:
         """Keyword arguments for IdaProblem(...)."""
         return dict(prec_setup=self.prec_setup, prec_solve=self.prec_solve,
-                    prec_zero=self.prec_zero)
+                    prec_zero=self.prec_zero, prec_local=True)
 
 
 def make_bbd_prec(
@@ -83,17 +93,32 @@ def make_bbd_prec(
         same_block = (i // nb) == (np.arange(n)[None, :] // nb)
     masks = {}  # (device, dtype) -> the block mask as 1.0 / 0.0
 
-    def _to_blocks(x, ax):
-        """[..., n, *batch] (n at ``ax``) -> [..., nb, nblocks, *batch]: the
-        block index becomes a trailing batch axis of the banded LU."""
-        x = x.reshape(tuple(x.shape[:ax]) + (nblocks, nb) + tuple(x.shape[ax + 1:]))
+    def _to_blocks(x, ax, count=nblocks):
+        """[..., count * nb, *batch] (at ``ax``) -> [..., nb, count, *batch]:
+        the block index becomes a trailing batch axis of the banded LU."""
+        x = x.reshape(tuple(x.shape[:ax]) + (count, nb) + tuple(x.shape[ax + 1:]))
         return x.movedim(ax, ax + 1)
 
     def _from_blocks(x, ax):
         x = x.movedim(ax + 1, ax)
-        return x.reshape(tuple(x.shape[:ax]) + (n,) + tuple(x.shape[ax + 2:]))
+        return x.reshape(tuple(x.shape[:ax]) + (-1,) + tuple(x.shape[ax + 2:]))
+
+    def own_blocks():
+        """This rank's blocks on a state sharded over N, None unsharded."""
+        own = sharding.rows(n)
+        if own is None:
+            return None
+        ranks = n // (own.stop - own.start)
+        if nblocks % ranks:
+            raise ValueError(f"nblocks={nblocks} must be a multiple of the {ranks} ranks the "
+                             "state vector is sharded over")
+        return slice(own.start // nb, own.stop // nb)
 
     def prec_setup(t, cj, yy, yp, rr):
+        blocks = own_blocks()
+        if blocks is not None:
+            yy, yp = sharding.gather_rows(yy), sharding.gather_rows(yp)
+
         def f_of_e(e):
             return g(t, yy + e, yp + cj * e)
 
@@ -104,13 +129,15 @@ def make_bbd_prec(
                 masks[key] = torch.as_tensor(same_block, device=ab.device).to(ab.dtype)
             ab = ab * masks[key].reshape((rows, n) + (1,) * (ab.dim() - 2))
             ab = _to_blocks(ab, 1)
+            if blocks is not None:
+                ab = ab[:, :, blocks]
         f = band_factor(ab, mu, ml)
         return (f.lu, f.piv)
 
     def prec_solve(pdata, r, cj):
         lu, piv = pdata
         f = BandLU(lu, piv.to(torch.int32), None, mu, ml)
-        rb = _to_blocks(r, 0) if nblocks > 1 else r
+        rb = _to_blocks(r, 0, lu.shape[2]) if nblocks > 1 else r
         x = band_solve(f, rb.to(lu.dtype))
         if nblocks > 1:
             x = _from_blocks(x, 0)

@@ -10,7 +10,10 @@ A is never formed: the caller passes ``atimes`` (for IDA one jvp of the
 residual). Every dot product and norm is a sum over the DATA axis 0
 (``utils.numerics.sum0``), so ``b`` may carry trailing batch axes
 ([N, *batch]) and every lane runs its own restarted GMRES in lockstep; the
-restarts are a per-lane masked while loop.
+restarts are a per-lane masked while loop. On a state vector sharded over N
+(``utils.sharding``) those sums, and only those, run across the shards;
+the basis combinations, the Givens algebra and the back substitution are
+local.
 
 The JAX module runs all ``maxl`` Arnoldi iterations of a cycle with masked
 commits. Here the host stops a cycle once every lane is done: the skipped
@@ -26,6 +29,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..utils.numerics import sqrt_, sum0
+from ..utils.sharding import state_axis, sum_over
 from ..utils.tree import masked_while_loop
 
 Atimes = Callable[[torch.Tensor], torch.Tensor]
@@ -60,7 +64,7 @@ class _Carry(NamedTuple):
 
 
 def _dot(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    return sum0(a * c)
+    return sum_over(a * c, state_axis())
 
 
 def spgmr_solve(
@@ -135,9 +139,9 @@ def spgmr_solve(
                 # CGS2 against V[0..j] (the JAX module contracts the whole
                 # basis, whose rows above j are still zero)
                 vs = basis(V[: j + 1])
-                hs = sum0((vs * w).movedim(1, 0))
+                hs = sum_over((vs * w).movedim(1, 0), state_axis())
                 w = w - sum0(hs.unsqueeze(1) * vs)
-                hs2 = sum0((vs * w).movedim(1, 0))
+                hs2 = sum_over((vs * w).movedim(1, 0), state_axis())
                 w = w - sum0(hs2.unsqueeze(1) * vs)
                 col = list(hs + hs2)
             else:

@@ -18,7 +18,6 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..constants import not_ported
 from ..core.calc_ic import IC_CODES
 from ..core.calc_ic import calc_ic as core_calc_ic
 from ..core.solve import TASK_NORMAL, TASK_ONE_STEP, solve, solve_dense
@@ -27,17 +26,13 @@ from ..problem import IdaProblem
 from ..tol_control import TolControl
 from ..utils.device import resolve_device
 from ..utils.tree import masked_while_loop
+from . import mesh as _mesh
 
 ProblemFactory = Callable[[Any], IdaProblem]
 
 
 def _move_batch(states: IdaState, src: int, dst: int) -> IdaState:
-    def move(x):
-        if isinstance(x, torch.Tensor):
-            return x.movedim(src, dst).contiguous()
-        return tuple(move(y) for y in x)  # pdata: a tuple of tensors, or ()
-
-    return IdaState(*(move(x) for x in states))
+    return _mesh.map_tensors(states, lambda x: x.movedim(src, dst).contiguous())
 
 
 def to_native(states: IdaState) -> IdaState:
@@ -113,8 +108,16 @@ class EnsembleIDA:
     results come back as numpy arrays, batch-leading. The problem is built
     once, from the batch-last params, and the state is kept batch-native on
     the device between calls (``states`` gives the batch-leading view).
-    ``device`` None is the current CUDA device. Sharding over several cards
-    (the JAX class's ``mesh``) is not ported yet: a ``mesh`` raises."""
+    ``device`` None is the current CUDA device.
+
+    ``mesh`` (:func:`ida_tpu_torch.parallel.make_mesh`): the lanes are split
+    over the mesh's first axis, data parallelism over ranks. Every rank
+    constructs the class with the same full inputs (SPMD, one process a
+    device) and keeps its contiguous share of the lanes on its device
+    (``mesh_device``); the batch must divide by the axis' size. Each rank's
+    solve runs its own lanes until they finish, with no collective; the
+    results, ``states`` and the other getters then gather the whole batch,
+    so every rank gets what the same call without a mesh returns."""
 
     def __init__(
         self,
@@ -129,23 +132,31 @@ class EnsembleIDA:
         device=None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise not_ported("EnsembleIDA(mesh=...) (lanes sharded over several cards)", 7,
-                             "ida_tpu/parallel/mesh.py")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else _mesh.mesh_device(mesh)
         self.factory = problem_factory
         self.options = options
         self.params = torch.as_tensor(params, dtype=dtype, device=self.device)
+        yy0 = torch.as_tensor(yy0, dtype=dtype, device=self.device)
+        yp0 = torch.as_tensor(yp0, dtype=dtype, device=self.device)
+        if mesh is not None:
+            self._axis = mesh.mesh_dim_names[0]
+            self.params, yy0, yp0 = _mesh.shard_ensemble((self.params, yy0, yp0), mesh, self._axis)
         self.problem = problem_factory(self.params.t().contiguous())
         self._native = to_native(init_state(self.problem, yy0, yp0, device=self.device,
                                             dtype=dtype, opts=options))
         self.tol = tol
         self._tol_native = _native_shared_tol(tol, self._native)
 
+    def _whole(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x``, whose ``dim`` runs over this rank's lanes, over all lanes."""
+        return x if self.mesh is None else _mesh.gather(x, self.mesh, self._axis, dim)
+
     @property
     def states(self) -> IdaState:
-        """The batch-leading IdaState (a copy in that layout)."""
-        return from_native(self._native)
+        """The batch-leading IdaState (a copy in that layout; every lane's
+        under a mesh)."""
+        return from_native(_mesh.map_tensors(self._native, lambda x: self._whole(x, -1)))
 
     def solve(self, tout: float, one_step: bool = False):
         """Advance every lane toward ``tout`` (or by one internal step each
@@ -155,7 +166,7 @@ class EnsembleIDA:
         self._native, tret, istate = solve(
             self._native, self.problem, self.options, self._tol_native, tout, itask
         )
-        return tret.cpu().numpy(), istate.cpu().numpy()
+        return self._whole(tret, 0).cpu().numpy(), self._whole(istate, 0).cpu().numpy()
 
     def solve_grid(self, touts, fused: bool | None = None, max_events: int = 0):
         """Dense trajectory output for the whole ensemble: sweep a monotone
@@ -182,8 +193,11 @@ class EnsembleIDA:
         st = self._native
         touts = torch.as_tensor(touts, dtype=st.dtype, device=self.device)
 
+        if touts.dim() == 2 and self.mesh is not None:
+            touts = _mesh.shard_ensemble(touts.t(), self.mesh, self._axis).t()
+
         def lead(x):  # [T, (N,) B] -> numpy [T, B(, N)]
-            return x.movedim(-1, 1).cpu().numpy()
+            return self._whole(x.movedim(-1, 1), 1).cpu().numpy()
 
         if fused:
             out = solve_dense(st, self.problem, self.options, self._tol_native, touts,
@@ -192,7 +206,8 @@ class EnsembleIDA:
             rows = tuple(lead(x) for x in out[1:5])
             if nroots:
                 # events keep a leading B (per-lane buffers)
-                return rows + (type(out[6])(*(x.movedim(-1, 0).cpu().numpy() for x in out[6])),)
+                return rows + (type(out[6])(*(self._whole(x.movedim(-1, 0), 0).cpu().numpy()
+                                              for x in out[6])),)
             return rows
 
         rows = []
@@ -219,15 +234,15 @@ class EnsembleIDA:
             self._native, self.problem, self.options, self._tol_native, IC_CODES[icopt],
             torch.as_tensor(tout1, dtype=self._native.dtype, device=self.device),
         )
-        return ok.cpu().numpy()
+        return self._whole(ok, 0).cpu().numpy()
 
     @property
     def yy(self):
-        return self._native.yy.t().cpu().numpy()
+        return self._whole(self._native.yy.t(), 0).cpu().numpy()
 
     @property
     def nst(self):
-        return self._native.nst.cpu().numpy()
+        return self._whole(self._native.nst, 0).cpu().numpy()
 
     def status_names(self, istate) -> list[str]:
         return [C.STATUS_NAMES.get(int(s), str(int(s))) for s in istate]
@@ -242,10 +257,10 @@ class EnsembleIDA:
         The fields come off the device in one transfer."""
         st = self._native
         dt = torch.float64  # holds the int32 fields and counters below 2**53 exactly
-        table = torch.stack(
+        table = self._whole(torch.stack(
             [x.to(dt) for x in (st.status, st.tn, st.nst, st.hh, st.hused, st.kused, st.ncfn,
                                 st.netf)]
-        ).cpu().numpy()
+        ), 1).cpu().numpy()
         status = table[0].astype(np.int64) if istate is None else np.asarray(istate)
         tn, nst, hh, hused, kused, ncfn, netf = table[1:]
         return [

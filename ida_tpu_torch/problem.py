@@ -79,6 +79,12 @@ class IdaProblem:
       quad, nquad: quadratures along the solution (the IDAS quadrature
         role, ``core/quad.py``): ``quad(t, yy, yp) -> [nquad, *batch]``,
         integrated over every accepted step into ``state.yQ``.
+      prec_local: the preconditioner hooks run on a rank's own rows of a
+        state vector sharded over N (``parallel/mesh.py::sharded_solve``;
+        ``utils.sharding.rows`` names them), with ``pdata`` cut on its last
+        data axis as the state's N fields are. heat2d's diagonal and the
+        blocked BBD of ``ops/bbd.py`` are; a sharded solve refuses other
+        preconditioners. No effect on an unsharded solve.
     """
 
     n: int
@@ -94,6 +100,7 @@ class IdaProblem:
     jtimes_fn: Optional[Callable] = None
     quad: Optional[Callable] = None
     nquad: int = 0
+    prec_local: bool = False
 
     def __post_init__(self):
         if self.root is None and self.nroots:

@@ -48,9 +48,17 @@ of one ``foodweb.prec_solve`` at 20 x 20, B = 128 in DIR and here, in turns
 :data:`SWEEP_N` x :data:`SWEEP_LANES` in both dtypes, each bit for bit its
 plain version (the sweep behind the rule ``kGroupRule``), then reports the
 registers and spills of both skeletons and a summary of the SASS of the N = 6
-and N = 10 kernels (``cuobjdump``; the listings under ``build/k1_sass/``).
+and N = 10 kernels (``cuobjdump``; the listings under ``build/k1_sass/``),
+and ends with the few-lane rows of the transposed solve.
 
     python3 -m ida_tpu_torch.tools.kernel_variants k1 --sweep
+
+``k1 --solve-t`` times only those rows: ``small_lu_solve_t`` as shipped (one
+thread a lane at every N) at :data:`SOLVE_T_N` x :data:`SOLVE_T_LANES` in
+float64, each bit for bit its plain version, cold, beside its bytes bound and
+``torch.linalg.lu_solve(..., adjoint=True)`` on the same systems.
+
+    python3 -m ida_tpu_torch.tools.kernel_variants k1 --solve-t
 """
 
 from __future__ import annotations
@@ -207,6 +215,9 @@ SWEEP_LANES = (1, 32, 1024, 8192, 65536)
 # cold, as the one-thread solve was first timed: 320 sets move ~190 MB a
 # factor pass)
 FEW_LANES = {"n10_b1": (10, 1, 64), "n6_b1024": (6, 1024, 320)}
+# the transposed solve's few-lane rows (k1 --solve-t): N x lanes, float64
+SOLVE_T_N = (3, 6, 10)
+SOLVE_T_LANES = (1, 32, 1024)
 K1_HEADERS = ("small_lu.cuh", "rounded.cuh")
 FOOD_NPTS, FOOD_B = 400, 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, 700 W
@@ -647,23 +658,68 @@ def k1_few_lanes(libs: dict, device=torch.device("cuda")) -> dict:
     return rows
 
 
+def k1_solve_t_rows(device=torch.device("cuda")) -> None:
+    """``small_lu_solve_t`` as shipped on few lanes: SOLVE_T_N x
+    SOLVE_T_LANES in float64 on contiguous systems, each bit for bit its plain
+    version, its cold device time (64 input sets rotated) beside its bytes
+    bound (lu, piv and g read once, the result written once), the device
+    time of the plain version's kernels a call, and that of
+    ``torch.linalg.lu_solve(..., adjoint=True)`` on the same systems in the
+    library's batch-leading layout. One JSON line a shape."""
+    for n in SOLVE_T_N:
+        for lanes in SOLVE_T_LANES:
+            gen = torch.Generator(device).manual_seed(7000 + 100 * n + lanes)
+            eye = 3.0 * torch.eye(n, dtype=torch.float64, device=device)[:, :, None]
+            a = torch.randn((n, n, lanes), generator=gen, dtype=torch.float64, device=device) + eye
+            g = torch.randn((n, lanes), generator=gen, dtype=torch.float64, device=device)
+            f = small_lu.lu_factor(a)
+            got, want = small_lu.lu_solve_t(f, g), dense_lu.lu_solve_unrolled_t(f, g)
+            torch.cuda.synchronize()
+            sets = [(dense_lu.DenseLU(f.lu.clone(), f.piv.clone(), None), g.clone())
+                    for _ in range(64)]
+            ms = cold_device_ms([lambda h=h, v=v: small_lu.lu_solve_t(h, v) for h, v in sets], 4,
+                                "solve_t_kernel")
+            plain_ms = cold_device_ms([lambda h=h, v=v: dense_lu.lu_solve_unrolled_t(h, v)
+                                       for h, v in sets[:8]], 4)
+            lead = [(h.lu.permute(2, 0, 1).contiguous(), h.piv.t().contiguous() + 1,
+                     v.t().contiguous().unsqueeze(-1)) for h, v in sets]
+            lib_ms = cold_device_ms([lambda x=x: torch.linalg.lu_solve(x[0], x[1], x[2],
+                                                                        adjoint=True)
+                                     for x in lead], 4)
+            nbytes = n * n * lanes * 8 + n * lanes * 4 + 2 * n * lanes * 8
+            emit(solve_t="k1", dtype="f64", n=n, lanes=lanes,
+                 bitwise_equal=bool(torch.equal(got, want)), ms=ms, plain_ms=plain_ms,
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=lib_ms,
+                 bytes=nbytes)
+            if not torch.equal(got, want):
+                raise SystemExit(f"k1 solve_t: the kernel differs from its plain version at "
+                                 f"N={n} lanes={lanes}")
+
+
 def k1_main(argv: list[str]) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants k1 needs an NVIDIA GPU")
-    parent, sweep = None, False
-    while argv[:1] in (["--parent"], ["--sweep"]):
+    parent, sweep, solve_t = None, False, False
+    while argv[:1] in (["--parent"], ["--sweep"], ["--solve-t"]):
         if argv[0] == "--sweep":
             sweep, argv = True, argv[1:]
+        elif argv[0] == "--solve-t":
+            solve_t, argv = True, argv[1:]
         else:
             parent, argv = argv[1], argv[2:]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    emit(card=smi, torch=torch.__version__, mode="k1 --sweep" if sweep else "k1")
+    mode = "k1 --sweep" if sweep else "k1 --solve-t" if solve_t else "k1"
+    emit(card=smi, torch=torch.__version__, mode=mode)
+    if solve_t:
+        k1_solve_t_rows()
+        return
     if sweep:
         libs = k1_build({k: K1_VARIANTS[k] for k in ("parent", "groups")})
         k1_sweep(libs)
         emit(ptxas={k: k1_ptxas(libs[k]["log"]) for k in libs},
              sass={k: k1_sass(info) for k, info in libs.items()})
+        k1_solve_t_rows()
         return
     chosen = {k: v for k, v in K1_VARIANTS.items()
               if not argv or k in argv or k in ("parent", "new")}

@@ -41,6 +41,8 @@ REFS = {
     "slice_op_by_op": ("test_torch_slice", "jax_op_by_op_live", "REF_INPUTS"),
     "mixed_roberts12_jax": ("test_torch_mixed_precision", "jax_roberts12_live", "REF_INPUTS"),
     "fused_modes_op_by_op": ("test_torch_fused_modes", "jax_modes_op_by_op_live", "REF_INPUTS"),
+    "mesh_dp_op_by_op": ("test_torch_mesh", "jax_dp_op_by_op_live", "REF_INPUTS"),
+    "mesh_sharded_programs": ("test_torch_mesh", "jax_sharded_live", "REF_INPUTS"),
 }
 
 

@@ -1,6 +1,7 @@
 """The rest of the port's single-device surface against ``ida_tpu``: the
 lorenz63 and slider-crank models, the stratified ensemble solve with its
-pilot cost, the profiling scopes, the mesh refusal and two of the examples.
+pilot cost, the profiling scopes, what a sharded-N solve refuses and two of the
+examples.
 
 * slider-crank (N = 10, the AD Jacobian, ``suppressalg``): its consistent IC
   and residual bit for bit ``ida_tpu``'s op by op (``sin``/``cos``/``sqrt``
@@ -44,8 +45,8 @@ from ida_tpu_torch.core.state import init_state
 from ida_tpu_torch.core.step import attempt_once
 from ida_tpu_torch.models import (ROBERTS_PARAMS, ROBERTS_YY0, lorenz63_problem, roberts_factory,
                                   roberts_problem, slider_crank_ic, slider_crank_problem)
-from ida_tpu_torch.parallel import (EnsembleIDA, ensemble_init, make_ensemble_solve,
-                                    make_stratified_solve, pilot_cost)
+from ida_tpu_torch.parallel import (ensemble_init, make_ensemble_solve,
+                                    make_stratified_solve, pilot_cost, sharded_solve, to_native)
 from ida_tpu_torch.tol_control import tol_ss, tol_sv
 from ida_tpu_torch.utils import profiling
 
@@ -218,10 +219,14 @@ def test_stratified_solve_needs_divisible_batch():
 
 
 def test_mesh_is_refused_naming_its_roadmap_item():
+    # the mesh is ported (tests/test_torch_mesh.py); what a solve on a state
+    # sharded over N still refuses, here the dense path's [N, N] Jacobian,
+    # names its ROADMAP item before it touches the mesh
     params, yy0, yp0 = _stratified_inputs(2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        EnsembleIDA(roberts_factory, params, yy0, yp0, tol_sv(1e-4, ATOL, device="cpu"),
-                    device="cpu", mesh=object())
+    st = ensemble_init(roberts_factory, params, yy0, yp0, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        sharded_solve(to_native(st), roberts_factory(torch.as_tensor(params).t()), IdaOptions(),
+                      tol_sv(1e-4, ATOL, device="cpu"), 0.4, mesh=None)
 
 
 # --------------------------------------------------------------- profiling
