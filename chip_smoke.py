@@ -89,15 +89,21 @@ tout=400 in f64):
   for bit its per-shard and the unsharded solve, no collective inside a
   rank's solve; heat2d m = 16 (SPGMR) and its BBD-blocked twin with the
   state vector over the ranks, bit for bit the one-rank runs, with the
-  collectives and bytes a solve; with more than one card, NCCL with one
-  rank a card on the headline and heat2d (else a line says it did not run).
+  collectives and bytes a solve; the 20 x 20 food web with its state over
+  the two ranks (``sharded_calc_ic`` then the four legs, the block-diagonal
+  preconditioner on each rank's 200 grid points: K1 at N = 2 on its shard,
+  held against its plain version there), again with constraints, a root
+  function and a quadrature, and under ``ls_precision="single"``, each bit
+  for bit the one-rank run in this process; with more than one card, NCCL
+  with one rank a card on the headline, heat2d and the food web (else a
+  line says it did not run).
 
 Every stage kernel is checked bit for bit against its eager stage on real
 mid-flight states first, so a parity break is localized. It prints one JSON
 line per phase; any failed check raises, so the exit code is non-zero.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py mesh   # the build, slice and mesh phases alone
+    python3 chip_smoke.py mesh   # the build, slice, foodweb and mesh phases alone
 
 The last three lines are the kernels' summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -143,7 +149,7 @@ from ida_tpu_torch.parallel import mesh as mesh_lib
 from ida_tpu_torch.parallel.batch import _native_shared_tol
 from ida_tpu_torch.tol_control import TolControl, tol_ss, tol_sv
 from ida_tpu_torch.utils.ad_mode import safe_ad
-from ida_tpu_torch.utils import profiling
+from ida_tpu_torch.utils import profiling, sharding
 from ida_tpu_torch.utils.checkpoint import load_state, save_state
 
 BLOCK = 64  # threads a block of the whole-solve kernel (csrc/ida_lane.cuh IDA_THREADS)
@@ -1416,7 +1422,7 @@ def phase_foodweb() -> dict:
     check(ic_err < 1e-3 and end_err < 1e-2, f"foodweb: predator ratio {ic_err}, {end_err}")
     check(got["nje"] == 0 and got["nps"] > 0, f"foodweb: nje {got['nje']}, nps {got['nps']}")
     check(launches["factor"] > 0 and launches["solve"] > 0, f"foodweb: LU kernels {launches}")
-    return {"launches": launches}
+    return {"launches": launches, "counters": got}
 
 
 def phase_foodweb_batched() -> dict:
@@ -3018,8 +3024,8 @@ def mesh_heat_solve(prob, device, mesh=None):
     tol = tol_ss(1e-5, 1e-8, device=device)
     if mesh is None:
         return core_solve(st, prob, opts, tol, MESH_HEAT_TOUT)
-    return mesh_lib.sharded_solve(mesh_lib.shard_state_vector(st, mesh, prob.n), prob, opts, tol,
-                                  MESH_HEAT_TOUT, mesh=mesh)
+    st = mesh_lib.shard_state_vector(st, mesh, prob.n, problem=prob)
+    return mesh_lib.sharded_solve(st, prob, opts, tol, MESH_HEAT_TOUT, mesh=mesh)
 
 
 def mesh_fields(st) -> dict:
@@ -3102,6 +3108,135 @@ def mesh_sharded_n(mesh, names=("heat2d", "bbd")) -> dict:
     return out
 
 
+# the food web sharded over N (idaFoodWeb_kry_p: a subgrid a rank, calc_ic,
+# the block-diagonal preconditioner on each rank's own points): the IC once,
+# then each case's four legs of bench.py::run_foodweb from it
+MESH_FOOD_CASES = {"foodweb_sharded": {}, "foodweb_sharded_features": {},
+                   "foodweb_sharded_single": {"ls_precision": "single"}}
+MESH_FOOD_CENTRE = 2 * ((FOOD_M // 2) * FOOD_M + FOOD_M // 2)  # the prey row at (10, 10)
+# the prey's rate there rises from 10.45 through this level at ~8e-4, before
+# the first tout. The prey itself moves less than an ulp across the root
+# finder's ttol, so a root of it lands on a zero of g at most levels and the
+# next call returns CLOSE_ROOTS (C IDA's IDARcheck2)
+MESH_FOOD_RATE_LEVEL = 11.5
+MESH_FOOD_COUNTERS = KRYLOV + ("nre", "nsetups", "njtimes", "nge")
+
+
+def mesh_food_problem(case: str, device):
+    """The 20 x 20 food web; the features case with a root function (the
+    prey's rate at the centre minus MESH_FOOD_RATE_LEVEL) and a quadrature
+    (the total prey)."""
+    prob = foodweb_problem(FOOD_M, FOOD_M, device=device)
+    if case == "foodweb_sharded_features":
+        p = MESH_FOOD_CENTRE
+        prob = dataclasses.replace(
+            prob, root=lambda t, yy, yp: yp[p:p + 1] - MESH_FOOD_RATE_LEVEL, nroots=1,
+            quad=lambda t, yy, yp: yy[0::2].sum(0, keepdim=True), nquad=1)
+    return prob
+
+
+def k1_n2_launches() -> dict:
+    """K1's N = 2 launches since the last reset, and how many took the group
+    skeleton."""
+    keys = {"factor": ("factor", "f64", 2), "solve": ("solve", "f64", 2),
+            "solve_f32": ("solve", "f32", 2)}
+    out = {k: small_lu.LAUNCHES[key] for k, key in keys.items()}
+    out["group"] = {k: small_lu.GROUP_LAUNCHES[key] for k, key in keys.items()}
+    return out
+
+
+def mesh_foodweb(mesh=None, cases=tuple(MESH_FOOD_CASES), device="cuda") -> dict:
+    """The food web with its state over ``mesh``'s batch axis, or on one
+    rank (mesh None): calc_ic("ya_ydp") once, then each case's legs from
+    that IC (constraints y >= 0 on every component in the features case; a
+    root return resumed), with K1's launches, the collectives and the walls
+    of each; the state's pdata after the first case's legs; on a mesh, K1
+    on the rank's blocks held against its plain version. One rank runs on
+    ``device``, a mesh's ranks on theirs."""
+    dev = device if mesh is None else mesh_lib.mesh_device(mesh)
+    tol = tol_ss(1e-5, 1e-5, device=dev)
+    c0, cp0 = foodweb_ic(FOOD_M, FOOD_M)
+
+    def whole(x):
+        return (x if mesh is None else mesh_lib.gather(x, mesh, "batch")).cpu()
+
+    def start(case):
+        prob = mesh_food_problem(case, dev)
+        opts = dataclasses.replace(foodweb_opts(), **MESH_FOOD_CASES[case])
+        st = init_state(prob, c0, cp0, opts=opts, device=dev)
+        if case == "foodweb_sharded_features":
+            st = st._replace(constraints=torch.ones_like(st.constraints),
+                             constraints_set=torch.ones_like(st.constraints_set))
+        if mesh is not None:
+            st = mesh_lib.shard_state_vector(st, mesh, prob.n, problem=prob)
+        return prob, opts, st
+
+    def timed_counts(fn):
+        small_lu.reset_launch_counts()
+        mesh_lib.reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, k1_n2_launches(), dict(mesh_lib.COLLECTIVES)
+
+    prob, opts, st = start("foodweb_sharded")
+    if mesh is None:
+        (st, ok), wall, _, coll = timed_counts(
+            lambda: core_calc_ic(st, prob, opts, tol, IC_YA_YDP_INIT, FOOD_TOUTS[0]))
+    else:
+        (st, ok), wall, _, coll = timed_counts(lambda: mesh_lib.sharded_calc_ic(
+            st, prob, opts, tol, "ya_ydp", FOOD_TOUTS[0], mesh=mesh))
+    out = {"rank": dist.get_rank() if mesh is not None else None, "ic_ok": bool(ok),
+           "ic_wall_s": wall, "ic_collectives": coll, "ic": [whole(st.phi[0]), whole(st.phi[1])]}
+    for case in cases:
+        prob, opts, cst = start(case)
+        cst = cst._replace(phi=st.phi, yy=st.yy, yp=st.yp)
+
+        def legs():
+            nonlocal cst
+            calls = []
+            for tout in FOOD_TOUTS:
+                for _ in range(4):
+                    if mesh is None:
+                        cst, tret, ist = core_solve(cst, prob, opts, tol, tout)
+                    else:
+                        cst, tret, ist = mesh_lib.sharded_solve(cst, prob, opts, tol, tout,
+                                                                mesh=mesh)
+                    calls.append({"tret": float(tret), "istate": int(ist),
+                                  "counters": {f: int(getattr(cst, f))
+                                               for f in MESH_FOOD_COUNTERS},
+                                  "iroots": cst.iroots.cpu(), "yQ": cst.yQ.cpu()})
+                    if not (int(ist) == C.ROOT_RETURN and float(tret) < tout):
+                        break
+            return calls
+
+        calls, wall, launches, coll = timed_counts(legs)
+        out[case] = {"calls": calls, "wall_s": wall, "launches": launches, "collectives": coll,
+                     "yy": whole(cst.yy), "yp": whole(cst.yp)}
+        if case == cases[0]:
+            out[case]["pdata"] = [x.cpu() for x in cst.pdata]
+            if mesh is not None:
+                out[case]["k1"] = mesh_food_k1(cst, mesh)
+    return out
+
+
+def mesh_food_k1(st, mesh) -> dict:
+    """K1 at N = 2 on this rank's blocks at ``st`` (its points, the cj of its
+    last lsetup), factor and solve against their plain versions bit for bit
+    (launches made after the path's counts were read)."""
+    with sharding.use_mesh(mesh, state_axis="batch"):
+        pts = foodweb.own_points(2 * FOOD_M * FOOD_M)
+    blocks = foodweb.prec_blocks(FOOD_M, FOOD_M, st.cjold, st.yy, pts)
+    rb = st.yy.reshape((-1, 2)).t().contiguous()
+    f, g = small_lu.lu_factor(blocks), dense_lu.lu_factor_unrolled(blocks)
+    x, y = small_lu.lu_solve(f, rb), dense_lu.lu_solve_unrolled(g, rb)
+    torch.cuda.synchronize()
+    return {"systems": blocks.shape[2], "bitwise_equal": same(f.lu, g.lu) and same(f.piv, g.piv)
+            and same(x, y), "max_abs_err": max(float((f.lu - g.lu).abs().max()),
+                                                float((x - y).abs().max()))}
+
+
 def mesh_rank(rank: int, world: int, root: str, backend: str) -> None:
     """One rank of the mesh phase, started by torch.multiprocessing (spawn):
     a ``backend`` group of ``world`` ranks (rendezvous through a file under
@@ -3116,6 +3251,8 @@ def mesh_rank(rank: int, world: int, root: str, backend: str) -> None:
         # the BBD twin's blocks are MESH_RANKS: the gloo leg's ranks
         out["sharded_n"] = mesh_sharded_n(mesh, ("heat2d", "bbd") if backend == "gloo"
                                           else ("heat2d",))
+        out["foodweb"] = mesh_foodweb(mesh, tuple(MESH_FOOD_CASES) if backend == "gloo"
+                                      else ("foodweb_sharded",))
         torch.save(out, f"{root}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -3153,7 +3290,69 @@ def mesh_check_sharded_n(single: dict, ranks: list, backend: str) -> None:
         check(all(x["collectives"]["calls"] > 0 for x in rows), f"{name}: no collective")
 
 
-def phase_mesh(eager: dict) -> dict:
+def mesh_check_foodweb(single: dict, ranks: list, food: dict, backend: str) -> dict:
+    """The ranks' sharded food web against the one-rank run ``single``: the
+    IC, every call's counters, tret, istate, iroots and yQ, and yy/yp at the
+    end bit for bit; each rank's pdata its slice of the one-rank pdata, K1 at
+    N = 2 launched on each rank's shard and bit for bit its plain version
+    there; nst/nli those of the ``foodweb`` phase (``food``). Returns each
+    case's K1 launches a rank."""
+    rows = [r["foodweb"] for r in ranks]
+    launches = {}
+    for x in rows:
+        check(x["ic_ok"] and all(same(a, b) for a, b in zip(x["ic"], single["ic"])),
+              f"{backend} rank {x['rank']}: the sharded IC != the one-rank IC")
+        check(x["ic_collectives"]["calls"] == 3,
+              f"{backend} rank {x['rank']}: the IC made {x['ic_collectives']} gathers, not 3")
+    for case in rows[0]:
+        if not case.startswith("foodweb_sharded"):
+            continue
+        ref = single[case]
+        got = [x[case] for x in rows]
+        bitwise = [len(g["calls"]) == len(ref["calls"])
+                   and all(a["tret"] == b["tret"] and a["istate"] == b["istate"]
+                           and a["counters"] == b["counters"] and same(a["iroots"], b["iroots"])
+                           and same(a["yQ"], b["yQ"]) for a, b in zip(g["calls"], ref["calls"]))
+                   and same(g["yy"], ref["yy"]) and same(g["yp"], ref["yp"]) for g in got]
+        end = ref["calls"][-1]
+        launches[case] = [g["launches"] for g in got]
+        emit(f"mesh_{case}", backend=backend, ranks=len(got), grid=f"{FOOD_M}x{FOOD_M}",
+             n=2 * FOOD_M * FOOD_M, touts=FOOD_TOUTS,
+             statuses=[[c["istate"] for c in g["calls"]] for g in got],
+             counters=end["counters"], yQ=[float(v) for v in end["yQ"]],
+             root_returns=[c["tret"] for c in ref["calls"] if c["istate"] == C.ROOT_RETURN],
+             one_rank_wall_s=ref["wall_s"], walls_s=[g["wall_s"] for g in got],
+             ic_walls_s=[x["ic_wall_s"] for x in rows], one_rank_ic_wall_s=single["ic_wall_s"],
+             collectives=[g["collectives"] for g in got],
+             ic_collectives=[x["ic_collectives"] for x in rows],
+             k1_launches=[g["launches"] for g in got], one_rank_k1_launches=ref["launches"],
+             k1_on_shard=[g.get("k1") for g in got], bitwise_equal_one_rank=bitwise)
+        check(all(bitwise), f"{backend} {case}: the sharded run != the one-rank run")
+        check(all(c["istate"] in (C.SUCCESS, C.ROOT_RETURN) for c in ref["calls"])
+              and ref["calls"][-1]["istate"] == C.SUCCESS, f"{case}: {ref['calls']}")
+        key = "solve_f32" if "single" in case else "solve"
+        check(all(g["launches"]["factor"] > 0 and g["launches"][key] > 0 for g in got),
+              f"{backend} {case}: K1 N = 2 launches {[g['launches'] for g in got]}")
+        check(all(g["collectives"]["calls"] > 0 for g in got), f"{backend} {case}: no collective")
+        if case == "foodweb_sharded":
+            want = {"nst": food["counters"]["nst"], "nli": food["counters"]["nli"]}
+            check({k: end["counters"][k] for k in want} == want,
+                  f"foodweb_sharded: nst/nli {end['counters']} != the foodweb phase's {want}")
+            per = FOOD_M * FOOD_M // len(got)
+            for k, g in enumerate(got):
+                check(all(same(a, b[k * per:(k + 1) * per])
+                          for a, b in zip(g["pdata"], ref["pdata"])),
+                      f"{backend} rank {k}: pdata != its slice of the one-rank pdata")
+                check(g["k1"]["bitwise_equal"] and g["k1"]["systems"] == per,
+                      f"{backend} rank {k}: K1 on the shard != its plain version {g['k1']}")
+        if case == "foodweb_sharded_features":
+            check(any(c["istate"] == C.ROOT_RETURN for c in ref["calls"])
+                  and end["counters"]["nge"] > 0 and float(end["yQ"][0]) > 0.0,
+                  f"{case}: no root or no quadrature: {ref['calls']}")
+    return launches
+
+
+def phase_mesh(eager: dict, food: dict) -> dict:
     """``parallel/mesh.py`` on the card: a world of one under NCCL running
     the headline through ``EnsembleIDA(mesh=make_mesh(1))`` (bit for bit the
     slice phase's eager solve, K1's launches the same; K2 on the rank's
@@ -3162,8 +3361,12 @@ def phase_mesh(eager: dict) -> dict:
     its per-shard solve and the unsharded one, with no collective inside a
     rank's solve; heat2d m = 16 SPGMR and its BBD-blocked twin with the
     state vector over the ranks, bit for bit the one-rank runs, with their
-    collectives and bytes); with more than one card, NCCL with one rank a
-    card on the headline's lanes."""
+    collectives and bytes; the 20 x 20 food web sharded over N,
+    ``sharded_calc_ic`` then the four legs, with constraints, a root
+    function and a quadrature, and under ``ls_precision="single"``, each bit
+    for bit the one-rank run, K1 at N = 2 on each rank's 200 grid points);
+    with more than one card, NCCL with one rank a card on the headline's
+    lanes, heat2d and the food web."""
     est, etret, eistate = eager["result"]
     refs = {"eager": mesh_fields(est), "tret": etret.cpu(), "istate": eistate.cpu()}
     params, yy0, yp0 = ensemble_inputs(B)
@@ -3201,6 +3404,7 @@ def phase_mesh(eager: dict) -> dict:
             torch.cuda.synchronize()
             single[name] = {"wall_s": time.perf_counter() - t0, "st": st, "tret": float(tret),
                             "istate": int(ist)}
+        single_food = mesh_foodweb()
         ranks = mesh_join(ctx, root, MESH_RANKS)
         spawn_s = time.perf_counter() - t_spawn
 
@@ -3214,6 +3418,8 @@ def phase_mesh(eager: dict) -> dict:
                     "k2_shard_equal_unsharded_k2"):
             check(dp[key], f"rank {dp['rank']}: {key} is false")
     mesh_check_sharded_n(single, ranks, "gloo")
+    food_launches = {"one_rank": {c: single_food[c]["launches"] for c in MESH_FOOD_CASES},
+                     "gloo": mesh_check_foodweb(single_food, ranks, food, "gloo")}
 
     cards = torch.cuda.device_count()
     multi = None
@@ -3233,13 +3439,15 @@ def phase_mesh(eager: dict) -> dict:
             check(dp["collectives_in_solve"]["calls"] == 0,
                   f"nccl rank {dp['rank']}: collectives inside the dp solve")
         mesh_check_sharded_n({"heat2d": single["heat2d"]}, multi, "nccl")
+        food_launches["nccl"] = mesh_check_foodweb(single_food, multi, food, "nccl")
         emit("mesh_multi_card", ran=True, ranks=cards, spawn_and_ranks_s=nccl_s)
         multi = [r["dp"] for r in multi]
     else:
         emit("mesh_multi_card", ran=False,
              reason=f"{cards} card: NCCL with one rank a card needs more than one")
     emit("mesh", spawn_and_ranks_s=spawn_s, gloo_ranks=MESH_RANKS, cards=cards)
-    return {"one": one, "gloo": [r["dp"] for r in ranks], "multi": multi}
+    return {"one": one, "gloo": [r["dp"] for r in ranks], "multi": multi,
+            "foodweb": food_launches}
 
 
 def timed(phase, *args):
@@ -3291,7 +3499,7 @@ def main() -> None:
     timed(phase_stratified)
     timed(phase_profile_scopes, eager)
     modes = timed(phase_fused_modes, mixed, fast)
-    mesh = timed(phase_mesh, eager)
+    mesh = timed(phase_mesh, eager, food)
 
     # "launches" is the count of the eager headline (phase slice) for the LU
     # kernels and of the fused headline for the solve kernel; the counts of
@@ -3324,10 +3532,22 @@ def main() -> None:
                  "launches_sensitivity_lane": sens["launches"].get("solve_t_f64_n3", 0), **lu_t})
     # K1 at N = 2 on the foodweb preconditioner's blocks: the launches of
     # the single foodweb run, with those of the batched one beside them
+    # and each rank's on the sharded food web (two gloo ranks; one rank a
+    # card under NCCL where there are several)
+    mesh_food = mesh["foodweb"]
+
+    def per_rank(leg, case, key):
+        return [x[key] for x in mesh_food.get(leg, {}).get(case, [])]
+
     rows += [
         {"name": f"small_lu_{k}_n2_foodweb", "route": "cuda", "source": LU_SOURCE,
          "replaces": LU_REPLACES, "launches": food["launches"][k],
-         "launches_foodweb_batched": food_b["launches"][k], **n2[k]}
+         "launches_foodweb_batched": food_b["launches"][k],
+         "launches_mesh_foodweb_one_rank": mesh_food["one_rank"]["foodweb_sharded"][k],
+         **{f"launches_mesh_{case}": per_rank("gloo", case, k)
+            for case in MESH_FOOD_CASES if k == "factor" or "single" not in case},
+         "launches_mesh_foodweb_sharded_nccl": per_rank("nccl", "foodweb_sharded", k),
+         **n2[k]}
         for k in ("factor", "solve")
     ]
     # K1 at the later paths' shapes: float32 N = 3 (the mixed_headline's
@@ -3345,6 +3565,8 @@ def main() -> None:
                      **{x: k1_modes["f32_n3"][k][x] for x in keep}})
     rows.append({"name": "small_lu_solve_f32_n2_foodweb", "route": "cuda", "source": LU_SOURCE,
                  "replaces": LU_REPLACES, "launches": food_m["launches"].get("solve_f32_n2", 0),
+                 "launches_mesh_foodweb_sharded_single":
+                     per_rank("gloo", "foodweb_sharded_single", "solve_f32"),
                  **{x: k1_modes["f32_n2"][x] for x in keep}})
     for k in ("factor", "solve"):
         rows.append({"name": f"small_lu_{k}_n10_slider_crank", "route": "cuda",
@@ -3394,12 +3616,13 @@ def main() -> None:
 
 
 def main_mesh() -> None:
-    """``python3 chip_smoke.py mesh``: the build, the slice and the mesh
-    phases alone (on a host with four cards the mesh phase's NCCL leg runs,
-    one rank a card)."""
+    """``python3 chip_smoke.py mesh``: the build, the slice, the foodweb and
+    the mesh phases alone (on a host with four cards the mesh phase's NCCL
+    leg runs, one rank a card)."""
     smi = phase_device()
     timed(phase_build)
-    timed(phase_mesh, timed(phase_slice))
+    eager = timed(phase_slice)
+    timed(phase_mesh, eager, timed(phase_foodweb))
     print(smi, flush=True)
 
 

@@ -44,7 +44,7 @@ from ..problem import IdaProblem
 from ..utils.ad_mode import is_safe_ad, smask_den, spow
 from ..utils.numerics import sqrt_
 from ..utils.profiling import scope
-from ..utils.sharding import any_over, axis_size, state_axis
+from ..utils.sharding import any_over, axis_size, min_over, state_axis
 from ..utils.tree import masked_while_loop, tree_where
 from .state import IdaOptions, IdaState
 
@@ -510,8 +510,11 @@ def _constraints(state: IdaState, problem: IdaProblem, active, ee, yy, nl_status
     constraints are set and whose Newton loop converged to a violating
     iterate either pulls the correction back inside (a violation vector
     within the Newton tolerance) or fails the attempt with REC_CONSTRAINT
-    and rr = max(0.9 * min quotient(phi[0], phi[0] - y), 0.1)."""
+    and rr = max(0.9 * min quotient(phi[0], phi[0] - y), 0.1). The
+    ``any``, the norm and the min over N cross the shards of a state vector
+    sharded over N."""
     dtype = state.dtype
+    axis = state_axis()
     cvec = state.constraints
     viol = (
         ((cvec == 2.0) & (yy <= 0.0))
@@ -520,19 +523,19 @@ def _constraints(state: IdaState, problem: IdaProblem, active, ee, yy, nl_status
         | ((cvec == -2.0) & (yy >= 0.0))
     )
     check = state.constraints_set & (nl_status == C.REC_NONE) & active
-    failed = check & viol.any(dim=0)
+    failed = check & any_over(viol, axis)
 
     mm = viol.to(dtype)
     strict = (cvec.abs() >= 1.5).to(dtype)
     v = mm * (yy - 0.1 * strict * cvec / state.ewt)
-    vnorm = wrms_norm_bnd(v, state.ewt, problem.n, state.tn.dim())
+    vnorm = wrms_norm_bnd(v, state.ewt, problem.n, state.tn.dim(), axis_name=axis)
     small = vnorm <= state.eps_newt
     # a small violation: the correction pulled back inside (ee only; phi is
     # rebuilt from ee in complete_step)
     ee = torch.where(failed & small, ee - v, ee)
 
-    # a large one: shrink h by the smallest quotient; torch.amin and
-    # torch.maximum propagate NaN as jnp.min and jnp.maximum do
+    # a large one: shrink h by the smallest quotient; torch.amin (min_over)
+    # and torch.maximum propagate NaN as jnp.min and jnp.maximum do
     phi0 = state.phi[0]
     denom = mm * (phi0 - yy)
     # under safe_ad: guard the discarded 0-division and use a finite
@@ -540,7 +543,7 @@ def _constraints(state: IdaState, problem: IdaProblem, active, ee, yy, nl_status
     # primal would make the backward 0 * inf = nan
     sentinel = torch.finfo(dtype).max if is_safe_ad() else float("inf")
     quot = torch.where(denom != 0.0, phi0 / smask_den(denom), torch.full_like(denom, sentinel))
-    minq = torch.amin(quot, dim=0)
+    minq = min_over(quot, axis)
     rr_c = torch.maximum(0.9 * minq, torch.full_like(minq, 0.1))
     recvr = failed & ~small
     state = state._replace(ee=ee, rr=torch.where(recvr, rr_c, state.rr))

@@ -14,6 +14,11 @@ The preconditioner is block-diagonal over grid points: at each point the
 2 x 2 reaction Jacobian with cj on the prey row, factored and solved by
 ``ops.dense_lu.lu_factor_auto``/``lu_solve_auto``, which on the card is the
 batched small-LU kernel (``csrc/small_lu.cu``) over npts x batch systems.
+A block reads its own point's concentrations alone, so on a state sharded
+over N (``parallel/mesh.py::sharded_solve``, C ``idaFoodWeb_kry_p``'s
+subgrid a rank) each rank factors and solves the blocks of its own points,
+with no collective (``pdata_rows``: the points on the first axis of each
+leaf, two rows a point); a rank whose rows split a point is refused.
 ``pdata`` keeps ``ida_tpu``'s shapes, (lu [npts, 2, 2, *batch], piv
 [npts, 2, *batch]), as views of the factor's [2, 2, npts, *batch] output
 (a checkpoint loads them contiguous). The solve kernel reads either layout,
@@ -37,6 +42,7 @@ import torch
 
 from ..ops.dense_lu import DenseLU, lu_factor_auto, lu_solve_auto
 from ..problem import IdaProblem
+from ..utils import sharding
 from ..utils.device import resolve_device
 
 AA = 1.0
@@ -82,16 +88,34 @@ def _rates(c: torch.Tensor, k: dict, bnd: int) -> torch.Tensor:
     return torch.stack([a[t][0] * c0 + a[t][1] * c1 for t in range(NS)], dim=-1 - bnd)
 
 
-def prec_blocks(mx: int, my: int, cj: torch.Tensor, yy: torch.Tensor) -> torch.Tensor:
-    """The preconditioner's blocks at (cj, yy), [2, 2, MX*MY, *batch], the
+def own_points(n: int) -> slice | None:
+    """The grid points of this rank's rows of a state sharded over N (None
+    unsharded); ValueError when the rows split a point."""
+    own = sharding.rows(n)
+    if own is None:
+        return None
+    if own.start % NS or own.stop % NS:
+        raise ValueError(
+            f"the food web's preconditioner needs whole grid points ({NS} rows a point) on each "
+            f"rank: rows {own.start}:{own.stop} of N = {n} split one")
+    return slice(own.start // NS, own.stop // NS)
+
+
+def prec_blocks(mx: int, my: int, cj: torch.Tensor, yy: torch.Tensor,
+                points: slice | None = None) -> torch.Tensor:
+    """The preconditioner's blocks at (cj, yy), [2, 2, npts, *batch], the
     layout the LU kernel takes: per grid point cj*I_diff - (diag(rate) +
-    c outer a), in ``ida_tpu``'s order of operations."""
+    c outer a), in ``ida_tpu``'s order of operations. ``yy`` holds the
+    ``points`` of the grid (a slice of its MX*MY points; all for None)."""
     lane = yy.shape[1:]
     bnd = len(lane)
-    npts = mx * my
     k = _constants(mx, my, yy.device, yy.dtype)
+    bcoef = k["bcoef"].reshape((mx * my, NS))
+    if points is not None:
+        bcoef = bcoef[points]
+    npts = bcoef.shape[0]
     c_pts = yy.reshape((npts, NS) + lane)
-    rate = k["bcoef"].reshape((npts, NS) + (1,) * bnd) + _rates(c_pts, k, bnd)
+    rate = bcoef.reshape((npts, NS) + (1,) * bnd) + _rates(c_pts, k, bnd)
     a = k["a"]
     rows = []
     for t in range(NS):
@@ -150,16 +174,18 @@ def foodweb_problem(mx: int = 20, my: int = 20, use_prec: bool = True, *, device
         r = torch.where(k["id"].reshape((mx, my, NS) + (1,) * bnd), tp - tf, -tf)
         return r.reshape(v.shape)
 
-    # ---- block-diagonal preconditioner (C Precondbd/PSolvebd) ----
+    # ---- block-diagonal preconditioner (C Precondbd/PSolvebd), on the
+    # rank's own points of a state sharded over N ----
     def prec_setup(t, cj, yy, yp, rr):
-        f = lu_factor_auto(prec_blocks(mx, my, cj, yy))  # [2, 2, npts, *batch]
+        # [2, 2, npts, *batch]
+        f = lu_factor_auto(prec_blocks(mx, my, cj, yy, own_points(n)))
         return (f.lu.movedim((0, 1), (1, 2)), f.piv.movedim(0, 1))
 
     def prec_solve(pdata, r, cj):
         # views only: the kernel reads pdata and r as they lie and writes
         # its result in r's layout, so the reshape back copies nothing
         lu, piv = pdata
-        rb = r.reshape((npts, NS) + r.shape[1:]).movedim(1, 0)
+        rb = r.reshape((lu.shape[0], NS) + r.shape[1:]).movedim(1, 0)
         f = DenseLU(lu.movedim((1, 2), (0, 1)), piv.movedim(1, 0), None)
         return lu_solve_auto(f, rb).movedim(0, 1).reshape(r.shape)
 
@@ -169,7 +195,8 @@ def foodweb_problem(mx: int = 20, my: int = 20, use_prec: bool = True, *, device
 
     kwargs = {}
     if use_prec:
-        kwargs = dict(prec_setup=prec_setup, prec_solve=prec_solve, prec_zero=prec_zero)
+        kwargs = dict(prec_setup=prec_setup, prec_solve=prec_solve, prec_zero=prec_zero,
+                      pdata_rows=((-3, NS), (-2, NS)))
     return IdaProblem(n=n, res=res, id=_constants(mx, my, device, torch.float64)["id"].reshape(-1),
                       jtimes_fn=jtimes_fn, **kwargs)
 

@@ -82,7 +82,7 @@ def heat2d_problem(m: int = 10, use_prec: bool = True, *, device=None) -> IdaPro
     kwargs = {}
     if use_prec:
         kwargs = dict(prec_setup=prec_setup, prec_solve=prec_solve, prec_zero=prec_zero,
-                      prec_local=True)
+                      pdata_rows=((-1, 1),))
     return IdaProblem(n=n, res=res, id=interior, jtimes_fn=jtimes_fn, **kwargs)
 
 

@@ -52,11 +52,15 @@ class BBDPrec(NamedTuple):
     prec_setup: Callable
     prec_solve: Callable
     prec_zero: Callable
+    nblocks: int = 1
 
     def hooks(self) -> dict:
-        """Keyword arguments for IdaProblem(...)."""
+        """Keyword arguments for IdaProblem(...): the rows lie on the last
+        axis of each pdata leaf, a block of ``n // nblocks`` rows an entry
+        with blocks, a row an entry without."""
+        per = self.n // self.nblocks if self.nblocks > 1 else 1
         return dict(prec_setup=self.prec_setup, prec_solve=self.prec_solve,
-                    prec_zero=self.prec_zero, prec_local=True)
+                    prec_zero=self.prec_zero, pdata_rows=((-1, per), (-1, per)))
 
 
 def make_bbd_prec(
@@ -149,4 +153,4 @@ def make_bbd_prec(
                     torch.zeros((nb, nblocks), dtype=torch.int32))
         return (torch.zeros((rows, n), dtype=dtype), torch.zeros((n,), dtype=torch.int32))
 
-    return BBDPrec(n, mu, ml, prec_setup, prec_solve, prec_zero)
+    return BBDPrec(n, mu, ml, prec_setup, prec_solve, prec_zero, nblocks)

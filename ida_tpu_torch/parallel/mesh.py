@@ -25,11 +25,19 @@ Two kinds of sharding, as in ``ida_tpu``:
 * **the state vector** (the tensor-parallel analogue):
   :func:`shard_state_vector` (one system) and :func:`shard_ensemble_2d` (a
   batch-native ensemble over a batch x state mesh) keep the rank's rows of
-  the fields that carry N; :func:`sharded_solve` runs the core on them. The
-  reductions over N cross ranks (``utils/sharding.py``), the residual and
-  J v see the gathered vectors and return the rank's rows, and the
-  preconditioner runs on the rank's own rows or blocks (``IdaProblem.
-  prec_local``: heat2d's diagonal, the blocked BBD of ``ops/bbd.py``).
+  the fields that carry N; :func:`sharded_solve` runs the core on them and
+  :func:`sharded_calc_ic` the consistent initial conditions. The reductions
+  over N cross ranks (``utils/sharding.py``); the residual, J v, the root
+  functions and the quadrature integrand see the gathered vectors (the
+  first two return the rank's rows, the others their whole [R] / [nquad]
+  outputs, the same on every rank); the preconditioner runs on the rank's
+  own rows, points or blocks where the problem says where they lie in
+  ``pdata`` (``IdaProblem.pdata_rows``: heat2d's diagonal, the food web's
+  blocks, the blocked BBD of ``ops/bbd.py``), and on the gathered vectors
+  otherwise, its ``pdata`` whole on every rank (as under ``ida_tpu``'s
+  GSPMD). Every feature of ``core.solve`` runs there but the direct
+  solvers, whose [N, N] or banded Jacobian ``ida_tpu`` keeps on one device
+  (ROADMAP.md item 12).
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ import torch
 import torch.distributed as dist
 
 from ..constants import not_ported
+from ..core.calc_ic import IC_CODES
+from ..core.calc_ic import calc_ic as core_calc_ic
 from ..core.solve import TASK_NORMAL
 from ..core.solve import solve as core_solve
 from ..core.state import IdaOptions, IdaState
@@ -206,30 +216,62 @@ def shard_ensemble(states, mesh, axis: str = "batch"):
 # shape == n test: where N collides with another lane size (N == MXORDP1 ==
 # 6 would match psi/alpha/..., N == nroots would match iroots/gactive), a
 # shape test would cut coefficient or root lanes over the state axis.
-# ``pdata`` (the preconditioner's rows or blocks) is cut on the same axis:
-# the port's preconditioners run on each rank's own (IdaProblem.prec_local).
+# ``pdata`` is cut where its problem says (IdaProblem.pdata_rows), for the
+# same reason: foodweb's [npts, 2, 2] has its rows first, and N == 2 would
+# match its last axes.
 _N_AXIS_FIELDS = frozenset({
     "phi", "ee", "yy", "yp", "yypredict", "yppredict", "ewt", "savres",
     "constraints", "piv", "lu",
 })
 
 
-def _state_cut(states: IdaState, cut) -> IdaState:
-    """``cut(x, has_n)`` on every tensor of ``states``."""
+def _pdata_cut(pdata: tuple, problem: IdaProblem | None, mesh, axis: str, n: int, bnd: int):
+    """This rank's part of ``pdata`` (``bnd`` trailing batch axes, already
+    cut): each leaf cut on its ``problem.pdata_rows`` axis, or every leaf
+    whole where the preconditioner runs on gathered vectors."""
+    if not pdata or (problem is not None and not problem.prec_local):
+        return pdata
+    if problem is None:
+        raise ValueError("the state holds a preconditioner's pdata: pass problem= so its rows "
+                         "can be cut (IdaProblem.pdata_rows)")
+    if len(problem.pdata_rows) != len(pdata):
+        raise ValueError(f"pdata_rows names {len(problem.pdata_rows)} leaves; pdata has "
+                         f"{len(pdata)}")
+    size = axis_size(mesh, axis)
+    out = []
+    for x, (ax, per) in zip(pdata, problem.pdata_rows):
+        dim = x.dim() - bnd + ax
+        if x.shape[dim] * per != n:
+            raise ValueError(f"pdata_rows puts {per} rows an entry on axis {ax} of a "
+                             f"{tuple(x.shape)} pdata leaf: its entries do not cover N = {n}")
+        if n % size or (n // size) % per:
+            raise ValueError(f"N = {n} over {size} ranks splits the preconditioner's entries of "
+                             f"{per} rows: each rank must hold whole entries")
+        out.append(_chunk(x, mesh, axis, dim))
+    return tuple(out)
+
+
+def _state_cut(states: IdaState, cut, pdata_cut) -> IdaState:
+    """``cut(x, has_n)`` on every tensor of ``states``, then
+    ``pdata_cut(pdata)``."""
     out = {}
     for name in states._fields:
-        has_n = name in _N_AXIS_FIELDS or name == "pdata"
+        has_n = name in _N_AXIS_FIELDS
         out[name] = map_tensors(getattr(states, name), lambda x: cut(x, has_n))
+    out["pdata"] = pdata_cut(out["pdata"])
     return IdaState(**out)
 
 
 def shard_ensemble_2d(states: IdaState, mesh, n: int, batch_axis: str = "batch",
-                      state_axis: str = "state") -> IdaState:
+                      state_axis: str = "state", *, problem: IdaProblem | None = None
+                      ) -> IdaState:
     """This rank's part of a BATCH-NATIVE (trailing-batch) ensemble over a
     2-D mesh: the trailing batch over ``batch_axis`` and, on the fields that
-    carry N (and pdata), the axis before it over ``state_axis`` (phi
-    [K, N, B] -> [K, N/s, B/b], ewt [N, B] -> [N/s, B/b], per-lane scalars
-    [B] -> [B/b]). Solve it with :func:`sharded_solve` over
+    carry N, the axis before it over ``state_axis`` (phi [K, N, B] ->
+    [K, N/s, B/b], ewt [N, B] -> [N/s, B/b], per-lane scalars [B] ->
+    [B/b]); ``pdata`` over the batch, and over ``state_axis`` where
+    ``problem.pdata_rows`` puts its rows (``problem`` is needed when the
+    state holds pdata). Solve it with :func:`sharded_solve` over
     ``state_axis``."""
     dev = mesh_device(mesh)
 
@@ -242,50 +284,46 @@ def shard_ensemble_2d(states: IdaState, mesh, n: int, batch_axis: str = "batch",
             x = _chunk(x, mesh, state_axis, x.dim() - 2)
         return x
 
-    return _state_cut(states, cut)
+    return _state_cut(states, cut,
+                      lambda pdata: _pdata_cut(pdata, problem, mesh, state_axis, n, 1))
 
 
-def shard_state_vector(states: IdaState, mesh, n: int, axis: str = "batch") -> IdaState:
+def shard_state_vector(states: IdaState, mesh, n: int, axis: str = "batch", *,
+                       problem: IdaProblem | None = None) -> IdaState:
     """This rank's part of ONE large system's state (the tensor-parallel
-    analogue): the fields that carry N (and pdata) cut on their last axis,
+    analogue): the fields that carry N cut on their last axis, ``pdata``
+    where ``problem.pdata_rows`` puts its rows (whole for a preconditioner
+    without them; ``problem`` is needed when the state holds pdata),
     everything else (scalars, BDF coefficients, root lanes) whole. Solve it
-    with :func:`sharded_solve`: the matrix-free SPGMR path; the dense
-    path's [N, N] Jacobian stays on one device."""
+    with :func:`sharded_solve` (the Krylov path: the dense path's [N, N]
+    Jacobian stays on one device)."""
     dev = mesh_device(mesh)
 
     def cut(x, has_n):
         x = x.to(dev)
         return _chunk(x, mesh, axis, x.dim() - 1) if has_n and x.dim() >= 1 else x
 
-    return _state_cut(states, cut)
+    return _state_cut(states, cut, lambda pdata: _pdata_cut(pdata, problem, mesh, axis, n, 0))
 
 
-def _refuse(states: IdaState, problem: IdaProblem, opts: IdaOptions) -> None:
-    """The features that read the whole state vector (ida_tpu's sharded-N
-    programs run none of them)."""
+def _refuse(problem: IdaProblem, opts: IdaOptions) -> None:
+    """What a state sharded over N cannot run: the direct solvers, whose
+    Jacobian reads the whole state and which ``ida_tpu`` keeps on one
+    device."""
     if opts.linear_solver != "spgmr":
         raise not_ported(f"linear_solver={opts.linear_solver!r} on a state sharded over N", 12,
                          "ida_tpu/parallel/mesh.py")
-    if problem.nroots:
-        raise not_ported("rootfinding on a state sharded over N", 13, "ida_tpu/core/root.py")
-    if opts.enable_constraints and bool(states.constraints_set.any()):
-        raise not_ported("inequality constraints on a state sharded over N", 14,
-                         "ida_tpu/core/nls.py")
-    if problem.nquad:
-        raise not_ported("quadratures on a state sharded over N", 15, "ida_tpu/core/quad.py")
-    if opts.ls_precision != "full" or opts.krylov_storage != "compute" or opts.fast_math:
-        raise not_ported("the non-parity modes on a state sharded over N", 16,
-                         "ida_tpu/core/nls.py")
-    if problem.prec_setup is not None and not problem.prec_local:
-        raise not_ported("a preconditioner that needs its neighbours' rows (prec_local=False) "
-                         "on a state sharded over N", 17, "ida_tpu/parallel/mesh.py")
 
 
 def _rows_problem(problem: IdaProblem) -> IdaProblem:
     """``problem`` on this rank's rows (inside ``sharding.use_mesh``): the
     residual and J v see the gathered vectors and return the rank's rows
-    (bit for bit those of the unsharded call); the preconditioner hooks run
-    on the rank's own rows or blocks."""
+    (bit for bit those of the unsharded call), the root functions and the
+    quadrature integrand see them and return their whole outputs; the
+    preconditioner hooks run on the rank's own rows where ``pdata_rows``
+    places them, and on the gathered vectors otherwise (``pdata`` whole,
+    the solve's result cut to the rank's rows). Each gather is made once a
+    vector (``sharding.gather_rows`` keeps the last few by identity)."""
     rows = sharding.rows(problem.n)
     full = sharding.gather_rows
 
@@ -295,15 +333,29 @@ def _rows_problem(problem: IdaProblem) -> IdaProblem:
     def jtimes_fn(jdata, t, cj, yy, yp, v):
         return problem.jtimes(t, cj, full(yy), full(yp), full(v), jdata)[rows]
 
+    def whole_inputs(fn):
+        return None if fn is None else (lambda t, yy, yp: fn(t, full(yy), full(yp)))
+
     jtimes_setup = None
     if problem.jtimes_setup is not None:
         def jtimes_setup(t, cj, yy, yp, rr):
             return problem.jtimes_setup(t, cj, full(yy), full(yp), full(rr))
 
+    prec = {}
+    if problem.prec_setup is not None and not problem.prec_local:
+        def prec_setup(t, cj, yy, yp, rr):
+            return problem.prec_setup(t, cj, full(yy), full(yp), full(rr))
+
+        def prec_solve(pdata, r, cj):
+            return problem.prec_solve(pdata, full(r), cj)[rows]
+
+        prec = dict(prec_setup=prec_setup, prec_solve=prec_solve)
+
     return dataclasses.replace(
         problem, n=rows.stop - rows.start, res=res, jac=None,
         id=None if problem.id is None else problem.id[rows],
-        jtimes_setup=jtimes_setup, jtimes_fn=jtimes_fn)
+        jtimes_setup=jtimes_setup, jtimes_fn=jtimes_fn, root=whole_inputs(problem.root),
+        quad=whole_inputs(problem.quad), **prec)
 
 
 def _tol_rows(tol: TolControl, n: int) -> TolControl:
@@ -321,11 +373,40 @@ def sharded_solve(states: IdaState, problem: IdaProblem, opts: IdaOptions, tol: 
     (:func:`shard_state_vector`, or :func:`shard_ensemble_2d` with ``axis``
     its state axis and ``tout`` the rank's lanes). ``problem`` is the whole
     system's; each rank returns its rows and the counters, which agree on
-    every rank of the axis. Every reduction over N crosses ranks by
-    :func:`gather`, and a sharded sum is the unsharded one bit for bit, so
-    the result is the unsharded solve's. The Krylov path only: the
-    features that read the whole state raise (``_refuse``)."""
-    _refuse(states, problem, opts)
+    every rank of the axis, as do the root lanes and ``yQ``. Every reduction
+    over N crosses ranks by :func:`gather`, and a sharded sum is the
+    unsharded one bit for bit, so the result is the unsharded solve's, in
+    every mode (``ls_precision`` "single", ``krylov_storage``, ``fast_math``)
+    and with constraints, roots and quadratures. The Krylov path only: the
+    direct solvers raise (ROADMAP.md item 12)."""
+    _refuse(problem, opts)
     with sharding.use_mesh(mesh, state_axis=axis):
         return core_solve(states, _rows_problem(problem), opts, _tol_rows(tol, problem.n), tout,
                           itask)
+
+
+def sharded_calc_ic(states: IdaState, problem: IdaProblem, opts: IdaOptions, tol: TolControl,
+                    icopt, tout1, *, mesh, axis: str = "batch"):
+    """``core.calc_ic`` (``icopt`` "ya_ydp" or "y", as ``IDA.calc_ic``) on a state
+    sharded over N along ``mesh``'s ``axis``, as :func:`sharded_solve` takes
+    it (``problem`` and ``tol`` the whole system's). The IC Jacobian is
+    dense, built from every row (as ``ida_tpu``'s GSPMD builds it): each
+    rank gathers the fields the IC reads and writes (phi, yy, yp), one
+    gather each, runs ``calc_ic`` on the whole state and keeps its rows.
+    Returns (the rank's state, ok [*batch], the same on every rank): the
+    unsharded ``calc_ic`` bit for bit. Refuses what ``sharded_solve``
+    refuses."""
+    _refuse(problem, opts)
+    bnd = states.tn.dim()
+    with sharding.use_mesh(mesh, state_axis=axis):
+        rows = sharding.rows(problem.n)
+
+    def n_dim(x):
+        return x.dim() - 1 - bnd
+
+    whole = {f: gather(getattr(states, f), mesh, axis, n_dim(getattr(states, f)))
+             for f in ("phi", "yy", "yp")}
+    out, ok = core_calc_ic(states._replace(**whole), problem, opts, tol, IC_CODES[icopt], tout1)
+    mine = {f: getattr(out, f).narrow(n_dim(whole[f]), rows.start, rows.stop - rows.start)
+            .contiguous() for f in whole}
+    return states._replace(**mine), ok

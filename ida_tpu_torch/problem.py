@@ -79,12 +79,20 @@ class IdaProblem:
       quad, nquad: quadratures along the solution (the IDAS quadrature
         role, ``core/quad.py``): ``quad(t, yy, yp) -> [nquad, *batch]``,
         integrated over every accepted step into ``state.yQ``.
-      prec_local: the preconditioner hooks run on a rank's own rows of a
+      pdata_rows: the preconditioner hooks run on a rank's own rows of a
         state vector sharded over N (``parallel/mesh.py::sharded_solve``;
-        ``utils.sharding.rows`` names them), with ``pdata`` cut on its last
-        data axis as the state's N fields are. heat2d's diagonal and the
-        blocked BBD of ``ops/bbd.py`` are; a sharded solve refuses other
-        preconditioners. No effect on an unsharded solve.
+        ``utils.sharding.rows`` names them), and this says where each
+        ``pdata`` leaf holds them: one ``(axis, rows)`` a leaf, ``axis`` the
+        leaf's axis that runs over the rows, counted from the end of its
+        one-lane shape (-1 its last; trailing batch axes come after it), and
+        ``rows`` the state rows one entry along it covers. A sharded state
+        cuts each leaf there (``shard_state_vector``, ``shard_ensemble_2d``),
+        and a rank whose rows split an entry is refused. heat2d's diagonal
+        ``((-1, 1),)``, the blocked BBD ``((-1, nb), (-1, nb))`` (its blocks
+        of nb rows), the food web ``((-3, 2), (-2, 2))`` (its grid points).
+        None: a sharded solve runs the hooks on the gathered vectors and
+        keeps ``pdata`` whole on every rank. No effect on an unsharded
+        solve.
     """
 
     n: int
@@ -100,7 +108,7 @@ class IdaProblem:
     jtimes_fn: Optional[Callable] = None
     quad: Optional[Callable] = None
     nquad: int = 0
-    prec_local: bool = False
+    pdata_rows: Optional[tuple] = None
 
     def __post_init__(self):
         if self.root is None and self.nroots:
@@ -111,6 +119,14 @@ class IdaProblem:
             raise ValueError("prec_setup requires prec_solve and prec_zero")
         if self.jtimes_setup is not None and self.jtimes_fn is None:
             raise ValueError("jtimes_setup requires jtimes_fn")
+        if self.pdata_rows is not None and self.prec_setup is None:
+            raise ValueError("pdata_rows names the rows of a preconditioner's pdata: it "
+                             "requires prec_setup")
+
+    @property
+    def prec_local(self) -> bool:
+        """The preconditioner runs on a rank's own rows (``pdata_rows``)."""
+        return self.pdata_rows is not None
 
     def jtimes(self, t, cj, yy, yp, v, jdata=None) -> torch.Tensor:
         """Matrix-free J v = (dF/dy) v + cj (dF/dy') v via one jvp, or the

@@ -16,21 +16,31 @@ those over the N axis do:
   norms and ``core/calc_ic.py``), SPGMR's dot products and norms
   (``ops/spgmr.py::_dot`` and the classical Gram-Schmidt sums), the
   ``any``/``all`` tests over N (``core/solve.py::_any_data`` of the error
-  weights, ``core/nls.py::_res_ok``), and the Krylov tolerance's sqrt(N);
+  weights, ``core/nls.py::_res_ok``, the constraints block's ``any``), the
+  constraints block's ``amin`` (:func:`min_over`), and the Krylov
+  tolerance's sqrt(N);
 * over the BDF order, the Krylov basis or the lanes (local): ``sum0`` in
   ``core/coeffs.py`` and ``core/interp.py``, SPGMR's basis combinations and
   back substitution, the host loops' ``any`` over lanes (``core/solve.py``,
   ``ops/spgmr.py``), and the root functions' ``any`` over their R roots.
 
-The dense Jacobian, the constraints' ``any``/``amin`` over N, roots,
-quadratures and ``calc_ic`` read the whole state; ``sharded_solve`` refuses
-them.
+The non-parity modes add none: under ``ls_precision="single"`` the Krylov
+iteration's sums are the same ``sum_over`` calls on float32 terms, a
+bfloat16 basis is cast back before every dot product, and ``fast_math``
+changes only the BDF history's scaling, which is local.
+
+What reads the whole state gets it gathered (``parallel/mesh.py``): the
+residual, J v, the root functions, the quadrature integrand, a
+preconditioner that is not row-local, and ``calc_ic`` (whose dense IC
+Jacobian is built from all rows, as under GSPMD). Only the direct solvers'
+[N, N] or banded Jacobian stays unsharded: ``sharded_solve`` refuses them.
 
 Exactness: :func:`sum_over` gathers the shards' terms and adds them with
 ``numerics.sum0`` over the whole axis. ``sum0`` pairs entry i with
 i + size/2, so with contiguous shards its first levels add whole shards
 elementwise; replaying its tree on the gathered terms makes a sharded sum
-the unsharded one bit for bit, whatever N and the number of ranks.
+the unsharded one bit for bit, whatever N and the number of ranks. A min
+or an ``any`` is exact in any order.
 """
 
 from __future__ import annotations
@@ -128,3 +138,11 @@ def any_over(x: torch.Tensor, axis_name: str | None = None) -> torch.Tensor:
     """``any`` over the leading axis, across the shards of ``axis_name``."""
     local = x.any(dim=0)
     return local if axis_name is None else _gather(local.unsqueeze(0), axis_name).any(dim=0)
+
+
+def min_over(x: torch.Tensor, axis_name: str | None = None) -> torch.Tensor:
+    """``torch.amin`` over the leading axis, across the shards of
+    ``axis_name``: each shard's min, gathered, and their min (NaN propagates
+    as in ``torch.amin``)."""
+    local = torch.amin(x, dim=0)
+    return local if axis_name is None else torch.amin(_gather(local.unsqueeze(0), axis_name), dim=0)

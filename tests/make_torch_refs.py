@@ -43,6 +43,7 @@ REFS = {
     "fused_modes_op_by_op": ("test_torch_fused_modes", "jax_modes_op_by_op_live", "REF_INPUTS"),
     "mesh_dp_op_by_op": ("test_torch_mesh", "jax_dp_op_by_op_live", "REF_INPUTS"),
     "mesh_sharded_programs": ("test_torch_mesh", "jax_sharded_live", "REF_INPUTS"),
+    "mesh_foodweb_programs": ("test_torch_mesh", "jax_food_live", "FOOD_REF_INPUTS"),
 }
 
 

@@ -18,9 +18,23 @@ three jitted sharded programs take over a minute).
   XLA's order), and bit for bit the port's own unsharded solve (a sharded
   sum replays the unsharded tree; ``utils/sharding.py``). These solves make
   collectives, the positive control of the dp case.
+* the food web (8 x 8, N = 128, the block-diagonal preconditioner on each
+  rank's 16 grid points) over the four ranks: ``sharded_calc_ic("ya_ydp")``
+  and two legs, then constraints, a root function, a quadrature,
+  ``ls_precision="single"``, ``krylov_storage="bfloat16"`` and
+  ``fast_math`` from the same IC, one case each; four lanes over the 2 x 2
+  mesh. Each is bit for bit the port's unsharded run, has ``ida_tpu``'s
+  counters (its jitted program on the state over 8 devices), and its
+  values within ``tests/test_torch_krylov_path.py``'s food-web bound (1e-9
+  relative, the atol floor). A preconditioner without ``pdata_rows`` runs
+  on gathered vectors; a shard that splits a grid point, and the direct
+  solvers (ROADMAP.md item 12), are refused.
 * the collective norms at n = 64, ``EnsembleIDA(mesh=...)`` against the
   same calls without a mesh.
 """
+
+import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -31,10 +45,14 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 import torch_mesh_ranks as R
 from ida_tpu import constants as JC
+from ida_tpu.core.calc_ic import IC_YA_YDP_INIT as JIC_YA_YDP
+from ida_tpu.core.calc_ic import calc_ic as jcalc_ic
 from ida_tpu.core.solve import TASK_NORMAL
 from ida_tpu.core.solve import solve as jsolve
 from ida_tpu.core.state import IdaOptions as JOptions
 from ida_tpu.core.state import init_state as jinit_state
+from ida_tpu.models import foodweb_ic
+from ida_tpu.models import foodweb_problem as jfoodweb
 from ida_tpu.models import roberts_factory as jroberts
 from ida_tpu.models.heat2d import heat2d_ic
 from ida_tpu.models.heat2d import heat2d_problem as jheat2d
@@ -47,11 +65,13 @@ from ida_tpu.problem import IdaProblem as JProblem
 from ida_tpu.tol_control import TolControl as JTol
 from ida_tpu.tol_control import tol_ss as jtol_ss
 from ida_tpu_torch import constants as C
+from ida_tpu_torch.core.calc_ic import IC_YA_YDP_INIT, calc_ic
 from ida_tpu_torch.core.solve import solve as tsolve
-from ida_tpu_torch.core.state import init_state
+from ida_tpu_torch.core.state import IdaOptions, init_state
 from ida_tpu_torch.models import heat2d_problem, roberts_factory
 from ida_tpu_torch.norms import wrms_norm, wrms_norm_masked
-from ida_tpu_torch.parallel import EnsembleIDA, ensemble_init, make_ensemble_solve, to_native
+from ida_tpu_torch.parallel import (EnsembleIDA, ensemble_init, make_ensemble_solve,
+                                    sharded_calc_ic, sharded_solve, to_native)
 from ida_tpu_torch.tol_control import tol_ss, tol_sv
 from make_torch_refs import load
 
@@ -65,6 +85,10 @@ REF_INPUTS = {"dp": dict(zip(("params", "yy0", "yp0"), R.roberts_inputs(R.B_DP))
               "heat_m": R.HEAT_M, "heat_tout": R.HEAT_TOUT, "bbd_hooks_m": R.BBD_HOOKS_M,
               "nblocks": R.WORLD, "counters": R.COUNTERS}
 HEAT_TOL = (1e-5, 1e-8)
+FOOD_REF_INPUTS = {"m": R.FOOD_M, "tol": R.FOOD_TOL, "touts": R.FOOD_TOUTS,
+                   "opts": R.FOOD_OPTS, "cases": R.FOOD_CASES, "centre": R.FOOD_CENTRE,
+                   "level": R.FOOD_ROOT_LEVEL, "lanes": R.FOOD_B}
+FOOD_ATOL = R.FOOD_TOL[1]
 
 
 @pytest.fixture(scope="module")
@@ -149,6 +173,79 @@ def jax_sharded_live():
     return out
 
 
+def _jax_food_problem(case: str):
+    prob = jfoodweb(R.FOOD_M, R.FOOD_M)
+    p = 2 * R.FOOD_CENTRE
+    if case == "roots":
+        prob = dataclasses.replace(prob, root=lambda t, yy, yp: yp[p:p + 1] - R.FOOD_ROOT_LEVEL,
+                                   nroots=1)
+    if case == "quad":
+        prob = dataclasses.replace(prob, quad=lambda t, yy, yp: jnp.sum(yy[0::2], axis=0,
+                                                                          keepdims=True), nquad=1)
+    return prob
+
+
+def jax_food_live():
+    """``ida_tpu``'s jitted programs of the 8 x 8 food web with its state
+    vector over the 8 devices (``shard_state_vector``, as
+    ``tests/test_multidevice.py``): calc_ic("ya_ydp"), then the legs of
+    each case from that IC, a root return resumed (the rank side's
+    ``food_legs``); and four lanes (vmapped calc_ic) over the 2 x 4 mesh."""
+    mesh8 = Mesh(np.asarray(jax.devices()), ("batch",))
+    tol = jtol_ss(*R.FOOD_TOL)
+    c0, cp0 = foodweb_ic(R.FOOD_M, R.FOOD_M)
+    base, opts0 = jfoodweb(R.FOOD_M, R.FOOD_M), JOptions(**R.FOOD_OPTS)
+    tout1 = jnp.asarray(R.FOOD_TOUTS[0])
+    ic_fn = jax.jit(partial(jcalc_ic, problem=base, opts=opts0, tol=tol, icopt=JIC_YA_YDP))
+    st, ok = ic_fn(jshard_state(jinit_state(base, c0, cp0, opts=opts0), mesh8, base.n),
+                   tout1=tout1)
+    out = {"ic": {"ok": bool(ok), "phi0": np.asarray(st.phi[0]), "phi1": np.asarray(st.phi[1]),
+                  "devices": len(st.phi.sharding.device_set)}}
+    for case, kw in R.FOOD_CASES.items():
+        prob, opts = _jax_food_problem(case), JOptions(**R.FOOD_OPTS, **kw)
+        cst = jinit_state(prob, c0, cp0, opts=opts)
+        if case == "constraints":
+            cst = cst._replace(constraints=jnp.ones_like(cst.constraints),
+                               constraints_set=jnp.asarray(True))
+        cst = jshard_state(cst, mesh8, prob.n)._replace(phi=st.phi, yy=st.yy, yp=st.yp)
+        fn = jax.jit(partial(jsolve, problem=prob, opts=opts, tol=tol, itask=TASK_NORMAL))
+        calls = []
+        for tout in R.FOOD_TOUTS:
+            for _ in range(4):
+                cst, tret, ist = fn(cst, tout=jnp.asarray(tout))
+                calls.append({"tret": float(tret), "istate": int(ist),
+                              "counters": {f: int(getattr(cst, f)) for f in R.COUNTERS + ("nge",)},
+                              "iroots": np.asarray(cst.iroots), "yQ": np.asarray(cst.yQ),
+                              "yy": np.asarray(cst.yy)})
+                if not (int(ist) == JC.ROOT_RETURN and float(tret) < tout):
+                    break
+        out[case] = calls
+
+    scales = np.linspace(0.95, 1.05, R.FOOD_B)
+
+    def ic_one(scale):
+        lane = jinit_state(base, c0 * jnp.where(base.id, scale, 1.0), cp0, opts=opts0)
+        return jcalc_ic(lane, base, opts0, tol, JIC_YA_YDP, tout1)
+
+    states, ok4 = jax.jit(jax.vmap(ic_one))(jnp.asarray(scales))
+    states = jax.tree_util.tree_map(lambda x: jnp.moveaxis(x, 0, -1), states)
+    states = jshard_2d(states, jmesh_2d(2, 4), base.n)
+    fn = jax.jit(partial(jsolve, problem=base, opts=opts0, tol=tol, itask=TASK_NORMAL))
+    calls = []
+    for tout in R.FOOD_TOUTS:
+        states, _, ist = fn(states, tout=jnp.full((R.FOOD_B,), tout))
+        calls.append({"istate": np.asarray(ist), "yy": np.asarray(states.yy),
+                      "counters": {f: np.asarray(getattr(states, f)) for f in R.COUNTERS}})
+    out["2d"] = {"ic_ok": np.asarray(ok4), "calls": calls,
+                 "devices": len(states.phi.sharding.device_set)}
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_food():
+    return load("mesh_foodweb_programs", FOOD_REF_INPUTS)
+
+
 @pytest.fixture(scope="module")
 def jax_dp():
     return load("mesh_dp_op_by_op", REF_INPUTS)
@@ -171,6 +268,33 @@ def unsharded_dp():
     params, yy0, yp0 = R.roberts_inputs(R.B_DP)
     st = ensemble_init(roberts_factory, params, yy0, yp0, device="cpu")
     return make_ensemble_solve(roberts_factory)(st, params, _roberts_tol(), R.DP_TOUT)
+
+
+@pytest.fixture(scope="module")
+def food_unsharded():
+    """The port's unsharded food web: calc_ic, the legs of each case from
+    that IC (the rank side's helpers), the base legs' pdata; the four lanes
+    batch-native."""
+    tol, prob = R.food_tol(), R.food_problem()
+    st, ok = calc_ic(R.food_state(), prob, R.food_opts(), tol, IC_YA_YDP_INIT, R.FOOD_TOUTS[0])
+    out = {"ic_ok": bool(ok), "ic": [st.phi[0].numpy(), st.phi[1].numpy()]}
+    for case in R.FOOD_CASES:
+        p, opts = R.food_problem(case), R.food_opts(case)
+        cst = R.food_state(case)._replace(phi=st.phi, yy=st.yy, yp=st.yp)
+        calls, end = R.food_legs(cst, lambda s, tout: tsolve(s, p, opts, tol, tout), lambda x: x)
+        out[case] = calls
+        if case == "base":
+            out["pdata"] = [x.numpy() for x in end.pdata]
+    st4, ok4 = calc_ic(R.food_state(b=R.FOOD_B), prob, R.food_opts(), tol, IC_YA_YDP_INIT,
+                       R.FOOD_TOUTS[0])
+    ic_yy = st4.yy.numpy()
+    calls = []
+    for tout in R.FOOD_TOUTS:
+        st4, _, ist = tsolve(st4, prob, R.food_opts(), tol,
+                             torch.full((R.FOOD_B,), tout, dtype=torch.float64))
+        calls.append({"istate": ist.numpy(), "yy": st4.yy.numpy(), "counters": _counters(st4)})
+    out["2d"] = {"ic_ok": ok4.numpy(), "ic_yy": ic_yy, "calls": calls}
+    return out
 
 
 def _heat_unsharded(prob, b=None):
@@ -353,3 +477,124 @@ def test_ensemble_ida_with_a_mesh_returns_what_it_returns_without(ranks):
 def test_ensemble_ida_refuses_a_batch_that_does_not_divide(ranks):
     for rank in ranks:
         assert "does not divide over the 4 ranks" in rank["ensemble"]["indivisible"]
+
+
+# ------------------------------------------------------ the food web, sharded N
+
+
+def _close(got, want):
+    """Within 1e-9 relative, the scale max(|value|, atol)
+    (``tests/test_torch_krylov_path.py``'s food-web bound)."""
+    err = np.abs(np.asarray(got) - want) / np.maximum(np.abs(want), FOOD_ATOL)
+    assert err.max() <= 1e-9, (err.max(), int(err.argmax()))
+
+
+def _same_calls(got: list, want: list) -> None:
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        for k in ("tret", "istate", "iroots", "yQ", "yy"):
+            assert _same(a[k], b[k]), k
+        for f, x in b["counters"].items():
+            assert _same(a["counters"][f], x), f
+
+
+def _jax_calls(got: list, ref: list) -> None:
+    """Counters, istates and root returns as ``ida_tpu``'s; tret, yQ and
+    yy within the food-web bound."""
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        assert int(a["istate"]) == b["istate"]
+        assert {f: int(x) for f, x in a["counters"].items()} == b["counters"]
+        np.testing.assert_array_equal(a["iroots"], b["iroots"])
+        np.testing.assert_allclose(float(a["tret"]), b["tret"], rtol=1e-12)
+        _close(a["yQ"], b["yQ"])
+        _close(a["yy"], b["yy"])
+
+
+def test_sharded_foodweb_calc_ic_and_legs(ranks, food_unsharded, jax_food):
+    # idaFoodWeb_kry_p's deployment: the IC and the two legs bit for bit the
+    # unsharded run, ida_tpu's counters, its values within 1e-9; the
+    # block-diagonal preconditioner on each rank's 16 grid points (pdata
+    # its slice of the unsharded pdata), the IC one gather a field
+    ref = jax_food
+    assert ref["ic"]["ok"] and ref["ic"]["devices"] == 8 and food_unsharded["ic_ok"]
+    npts = R.FOOD_M ** 2 // R.WORLD
+    for k, rank in enumerate(ranks):
+        food = rank["food"]
+        assert food["ic_ok"] and food["ic_collectives"]["calls"] == 3
+        for got, want in zip(food["ic"], food_unsharded["ic"]):
+            assert _same(got, want)
+        assert food["pdata0_shapes"] == [(npts, 2, 2), (npts, 2)]
+        _same_calls(food["base"]["calls"], food_unsharded["base"])
+        assert food["base"]["collectives"]["calls"] > 0
+        for got, want in zip(food["base"]["pdata"], food_unsharded["pdata"]):
+            assert _same(got, want[k * npts:(k + 1) * npts])
+    _close(ranks[0]["food"]["ic"][0], ref["ic"]["phi0"])
+    _close(ranks[0]["food"]["ic"][1], ref["ic"]["phi1"])
+    _jax_calls(ranks[0]["food"]["base"]["calls"], ref["base"])
+    assert ref["base"][-1]["counters"]["nps"] > 0 and ref["base"][-1]["counters"]["nje"] == 0
+
+
+@pytest.mark.parametrize("case", [c for c in R.FOOD_CASES if c != "base"])
+def test_sharded_foodweb_features_and_modes(ranks, food_unsharded, jax_food, case):
+    # constraints, roots, a quadrature and the non-parity modes on the
+    # sharded state: bit for bit the unsharded run on every call, and
+    # ida_tpu's sharded program's counters and root returns
+    for rank in ranks:
+        _same_calls(rank["food"][case]["calls"], food_unsharded[case])
+    calls = ranks[0]["food"][case]["calls"]
+    _jax_calls(calls, jax_food[case])
+    if case == "roots":
+        assert [int(c["istate"]) for c in calls] == [C.ROOT_RETURN, C.SUCCESS, C.SUCCESS]
+        assert calls[-1]["counters"]["nge"] > 0
+    if case == "quad":
+        assert float(calls[-1]["yQ"][0]) > 0.0
+
+
+def test_sharded_foodweb_2d_mesh(ranks, food_unsharded, jax_food):
+    # four lanes over the 2 x 2 (batch x state) mesh: each rank 2 lanes of
+    # 32 grid points
+    want, ref = food_unsharded["2d"], jax_food["2d"]
+    assert ref["devices"] == 8 and np.all(ref["ic_ok"]) and np.all(want["ic_ok"])
+    for rank in ranks:
+        got = rank["food_2d"]
+        assert np.all(got["ic_ok"]) and _same(got["ic_yy"], want["ic_yy"])
+        assert got["local_pdata"] == [(R.FOOD_M ** 2 // 2, 2, 2, 2), (R.FOOD_M ** 2 // 2, 2, 2)]
+        for a, b, j in zip(got["calls"], want["calls"], ref["calls"]):
+            assert np.all(a["istate"] == C.SUCCESS) and _same(a["yy"], b["yy"])
+            for f in R.COUNTERS:
+                assert _same(a["counters"][f], b["counters"][f]), f
+                np.testing.assert_array_equal(a["counters"][f], j["counters"][f], err_msg=f)
+    for a, j in zip(ranks[0]["food_2d"]["calls"], ref["calls"]):
+        _close(a["yy"], j["yy"])
+
+
+def test_a_preconditioner_without_pdata_rows_runs_on_gathered_vectors(ranks):
+    # pdata whole on every rank, as ida_tpu's GSPMD keeps it
+    prob = R.heat_whole_prec(R.HEAT_M)
+    st1, _, ist1 = _heat_unsharded(prob)
+    for rank in ranks:
+        got = rank["heat_whole_prec"]
+        assert got["istate"] == C.SUCCESS and got["pdata_shape"] == (prob.n,)
+        assert got["counters"] == {f: int(v) for f, v in _counters(st1).items()}
+        assert _same(got["yy"], st1.yy.numpy())
+
+
+def test_a_shard_that_splits_a_grid_point_is_refused(ranks):
+    for rank in ranks:
+        split = rank["split_point"]
+        assert "splits the preconditioner's entries of 2 rows" in split["shard"]
+        assert "of N = 12 split one" in split["prec_setup"]
+
+
+@pytest.mark.parametrize("solver", ["dense", "band"])
+def test_the_direct_solvers_are_still_refused(solver):
+    # ROADMAP.md item 12: their Jacobian reads the whole state
+    prob = heat2d_problem(4, device="cpu")
+    opts = IdaOptions(linear_solver=solver, band_mu=4, band_ml=4)
+    st = init_state(prob, *heat2d_ic(4), opts=opts, device="cpu")
+    tol = tol_ss(*HEAT_TOL, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        sharded_solve(st, prob, opts, tol, 0.01, mesh=None)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        sharded_calc_ic(st, prob, opts, tol, "y", 0.01, mesh=None)
