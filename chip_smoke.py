@@ -72,15 +72,25 @@ tout=400 in f64):
   (``foodweb_mixed``); the slider-crank example, K1 at N = 10 on the group
   skeleton, its first output bit for bit the parent dispatch's
   (``slider_crank``); the stratified solve over two decades of rates, bit
-  for bit the plain one (``stratified``); the headline under
-  ``utils.profiling.profile``, each ``ida.<name>`` scope's host and device
-  ms, and what the scopes cost (``profile_scopes``);
+  for bit the plain one (``stratified``); the headline's first decades
+  under ``utils.profiling.profile``, each ``ida.<name>`` scope's host and
+  device ms, and what the scopes cost (``profile_scopes``);
 * the whole-solve kernel in every non-parity mode (``fused_modes``):
   ``fast_math``, ``ls_precision`` "single" and "refined" and their
   combinations, K2 and budget 32 (K3 + K4) at the headline, each bit for bit
   the eager solve of the same mode from ``mixed_headline``/``fast_f64``,
   with a float32-state leg at B = 4,096; each mode's registers, spills,
   bare-launch time against parity's in turns, and its bound;
+* generated models in the whole-solve kernel (``fused_models``,
+  ``ops/fused_model.py``): the table of ops (each model's ``res``, ``jac``
+  and J v through its evaluation kernel, bit for bit the eager problem's
+  on 4,096 random lanes, f64 and f32); the headline through a generated
+  Roberts, bit for bit the hand-written library and the eager path;
+  Akzo Nobel (N = 6) at B = 65,536 to t = 180 and Lorenz '63 at B = 4,096,
+  K2 and budget 32 (K3 + K4) bit for bit the eager solve (Akzo also
+  "refined" and in float32), Akzo's nominal lane against the eager port's
+  rtol 1e-10 run on the CPU; each library's registers, spills and bare
+  launch; ``python3 chip_smoke.py fused_models`` runs it alone;
 * the mesh (``mesh``, ``parallel/mesh.py``): the headline through
   ``EnsembleIDA(mesh=make_mesh(1))`` under NCCL, bit for bit the eager
   solve with K1's launch counts, and K2 on the rank's shard bit for bit the
@@ -104,6 +114,7 @@ line per phase; any failed check raises, so the exit code is non-zero.
 
     python3 chip_smoke.py
     python3 chip_smoke.py mesh   # the build, slice, foodweb and mesh phases alone
+    python3 chip_smoke.py fused_models   # its libraries, the slice and fused_models alone
 
 The last three lines are the kernels' summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -113,13 +124,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -140,7 +153,8 @@ from ida_tpu_torch.models import (ROBERTS_PARAMS, ROBERTS_YP0, ROBERTS_YY0, food
                                   foodweb_ic, foodweb_problem, heat2d_ic, heat2d_problem,
                                   roberts_factory, roberts_problem, slider_crank_ic,
                                   slider_crank_problem)
-from ida_tpu_torch.ops import _build, dense_lu, fused_solve, fused_stages, make_bbd_prec, small_lu
+from ida_tpu_torch.ops import (_build, dense_lu, fused_model, fused_solve, fused_stages,
+                               make_bbd_prec, small_lu)
 from ida_tpu_torch.ops.banded import band_factor, band_solve, band_sys_jacobian, band_to_dense
 from ida_tpu_torch.tools import kernel_variants
 from ida_tpu_torch.parallel import (EnsembleIDA, ensemble_init, from_native, make_ensemble_solve,
@@ -436,17 +450,20 @@ LU_LIBS: dict = {}
 
 def phase_build() -> None:
     """Every library at once, one nvcc each: K1 (and its parent dispatch and
-    floor, LU_VARIANTS), and the whole-solve kernel in the parity mode and in
-    each mode of FUSED_MODES."""
+    floor, LU_VARIANTS), the whole-solve kernel in the parity mode and in
+    each mode of FUSED_MODES, and the generated models' libraries
+    (:func:`model_builds`, traced while the others compile)."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2 + len(LU_VARIANTS) + len(FUSED_MODES)) as pool:
+    with ThreadPoolExecutor(16) as pool:
         lu, fused = pool.submit(small_lu.build), pool.submit(fused_solve.build)
         variants = {k: pool.submit(_build.build_library, "small_lu.cu", kernel_variants.K1_HEADERS,
                                    flags=("-fmad=false", *f)) for k, f in LU_VARIANTS.items()}
         modes = {m: pool.submit(fused_solve.build_of, o) for m, o in FUSED_MODES.items()}
+        generated = model_builds(pool)
         lu, fused = lu.result(), fused.result()
         LU_LIBS.update({k: f.result() for k, f in variants.items()})
         modes = {m: f.result() for m, f in modes.items()}
+        generated = {k: f.result() for k, f in generated.items()}
     small_lu.bind(LU_LIBS["parent"]["lib"])
     kernel_variants.bind_floor(LU_LIBS["floor"]["lib"])
     lu_ptxas = {k: v for k, v in _build.ptxas_summary(lu["log"]).items() if "Li3E" in k}
@@ -473,6 +490,9 @@ def phase_build() -> None:
          flags={m: list(fused_solve.mode_flags(o.fast_math, o.ls_precision))
                 for m, o in FUSED_MODES.items()}, ptxas=ptxas)
     check(not spills, f"fused_modes_build: solve kernels that spill: {spills}")
+    emit("fused_models_build", seconds={k: v["seconds"] for k, v in generated.items()},
+         cached={k: v["cached"] for k, v in generated.items()},
+         libraries={k: v["path"] for k, v in generated.items()})
 
 
 def lu_bound_ms(nbytes: int) -> float:
@@ -738,11 +758,11 @@ def eager_stage(stage, st, params, tol, aux=None):
     return fused_stages.plain_stage(stage, st, params, tol, TOUT, aux)
 
 
-def solve_ops(totals: dict) -> float:
+def solve_ops(totals: dict, per: dict = OPS_PER) -> float:
     attempts = totals["nst"] + totals["netf"] + totals["ncfn"]
-    return (attempts * OPS_PER["attempt"] + totals["nni"] * OPS_PER["newton"]
-            + max(totals["nni"] - attempts, 0) * OPS_PER["newton_more"]
-            + totals["nje"] * OPS_PER["lsetup"] + totals["nst"] * OPS_PER["step"])
+    return (attempts * per["attempt"] + totals["nni"] * per["newton"]
+            + max(totals["nni"] - attempts, 0) * per["newton_more"]
+            + totals["nje"] * per["lsetup"] + totals["nst"] * per["step"])
 
 
 def mode_ops(totals: dict, opts: IdaOptions, dtype: torch.dtype) -> dict:
@@ -785,15 +805,16 @@ def shared_tol(n: int = 3, dtype=torch.float64):
                                   torch.device("cuda"))
 
 
-def bare_launch_ms(st0, p_b, tol_in=None, opts: IdaOptions = IdaOptions()) -> float:
-    """CUDA-event time of one bare K2 launch to TOUT (the headline's shared
-    tolerances unless ``tol_in`` is given) in ``opts``' mode: the arguments
-    are checked and the result allocated before the first event, so the
-    window holds the launch alone."""
+def bare_launch_ms(st0, p_b, tol_in=None, opts: IdaOptions = IdaOptions(),
+                   model: fused_model.FusedModel = fused_solve.ROBERTS, tout: float = TOUT) -> float:
+    """CUDA-event time of one bare K2 launch of ``model``'s library to
+    ``tout`` (the headline's shared tolerances unless ``tol_in`` is given)
+    in ``opts``' mode: the arguments are checked and the result allocated
+    before the first event, so the window holds the launch alone."""
     dst = fused_solve.empty_result(st0, opts)
     carry = fused_solve.new_carry(st0.tn.shape[0], st0.dtype, st0.phi.device, False)
-    go = fused_solve.prepare_launch("", st0, dst, p_b, tol_in or shared_tol(), TOUT, carry,
-                                    opts, 0, None)
+    go = fused_solve.prepare_launch("", st0, dst, p_b, tol_in or shared_tol(), tout, carry,
+                                    opts, model, None)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
     ev[0].record()
@@ -811,11 +832,12 @@ SOLVE_KERNEL_FORMS = {f"{dt}_{tol}": (dtag, ttag)
                       for tol, ttag in (("shared_tol", "Lb0EEEv"), ("lane_tol", "Lb1EEEv"))}
 
 
-def solve_kernels_ptxas(opts: IdaOptions = IdaOptions()) -> dict:
+def solve_kernels_ptxas(opts: IdaOptions = IdaOptions(),
+                        model: fused_model.FusedModel = fused_solve.ROBERTS) -> dict:
     """Registers, stack and spills of each instantiation of the solve
-    kernel in ``opts``' mode (:data:`SOLVE_KERNEL_FORMS`) from its build's
-    ptxas log."""
-    summary = _build.ptxas_summary(fused_solve.build_of(opts)["log"])
+    kernel in ``opts``' mode (:data:`SOLVE_KERNEL_FORMS`) from the ptxas log
+    of ``model``'s build."""
+    summary = _build.ptxas_summary(fused_solve.build_of(opts, model)["log"])
     out = {}
     for form, (dtag, ttag) in SOLVE_KERNEL_FORMS.items():
         hits = {k: v for k, v in summary.items()
@@ -962,7 +984,7 @@ def phase_fused_budgeted() -> dict:
         kind = "cont" if resume else "init"
         ops_before = solve_ops(counter_totals(dst)) if resume else 0
         go = fused_solve.prepare_launch(kind, dst if resume else st0, dst, p_b, tol_in, TOUT,
-                                        carry, IdaOptions(), 0, 32)
+                                        carry, IdaOptions(), fused_solve.ROBERTS, 32)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
         ev[0].record()
@@ -1069,7 +1091,7 @@ def run_rooted(params, yy0, yp0, device, tout, max_calls=4) -> dict:
 
 def phase_roots_slice(eager: dict) -> dict:
     params, yy0, yp0 = ensemble_inputs(B)
-    run_rooted(params, yy0, yp0, "cuda", TOUT)  # warm-up
+    run_rooted(params, yy0, yp0, "cuda", ROOTS_PROFILE_TOUT)  # warm-up
     torch.cuda.synchronize()
     small_lu.reset_launch_counts()
     core_root.reset_pass_count()
@@ -1151,13 +1173,13 @@ def phase_dense_slice() -> dict:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    run()  # warm-up
+    run(DECADES[:1])  # warm-up: what the solve launches, loaded
     small_lu.reset_launch_counts()
     (st, tret, ist, yy, yp, nst), wall = run()
     launches = lu_launches()
-    # the busy share from the first four decades only: the profiler takes
+    # the busy share from the first two decades only: the profiler takes
     # minutes to digest the ~360,000 device events of all twelve
-    busy = device_busy(lambda: run(DECADES[:4]), calls=1)
+    busy = device_busy(lambda: run(DECADES[:2]), calls=1)
     check(busy["device_events"] > 0, "the profiler recorded no device event of solve_dense")
 
     # the scan form at full width: 12 chained launches of the whole-solve
@@ -1185,7 +1207,7 @@ def phase_dense_slice() -> dict:
          attempts_total=int(attempts.sum()), attempts_max_lane=int(attempts.max()),
          launches=launches, scan_form_kernel_launches=fused_solve.launch_count("solve"),
          scan_form_ms=chain_ms, rows_differ_from_scan_form=differ[:8],
-         nominal_lane_nst=nst[:, mid].tolist(), profiled_first_4_decades=busy,
+         nominal_lane_nst=nst[:, mid].tolist(), profiled_first_2_decades=busy,
          busy_share=busy["busy_share"])
     check(n_ok == len(DECADES) * B, f"dense_slice: {len(DECADES) * B - n_ok} rows not SUCCESS")
     check(fused_solve.launch_count("solve") == len(DECADES), "dense_slice: the scan form's launches")
@@ -2359,6 +2381,9 @@ SLIDER_TEND, SLIDER_NOUT = 10.0, 20  # examples/slider_crank_torch.py
 SLIDER_CPU = {"nst": 222, "ke_avg": 0.33366266}
 STRAT_CHUNKS = 4
 PROFILE_DIR = CHECKPOINT_DIR / "trace"
+# profile_scopes' solves: the headline's first decades (43 of the canonical
+# lane's 95 steps to TOUT); its window to TOUT took most of a minute to digest
+PROFILE_SCOPES_TOUT = 4.0
 
 
 def mixed_inputs(b: int):
@@ -2812,24 +2837,25 @@ def phase_stratified() -> None:
 
 
 def phase_profile_scopes(eager: dict) -> None:
-    """The headline under utils.profiling.profile: per ida.<name> scope its
-    calls, host ms, the device ms of the kernels launched inside it and the
-    span it covers on the device's timeline; and what the scopes cost on the
-    headline's wall without a profiler (ENABLED on and off in turns, two
-    rounds)."""
+    """The headline's lanes to PROFILE_SCOPES_TOUT under
+    utils.profiling.profile: per ida.<name> scope its calls, host ms, the
+    device ms of the kernels launched inside it and the span it covers on
+    the device's timeline; and what the scopes cost on the same solve's wall
+    without a profiler (ENABLED on and off in turns, two rounds)."""
     params, yy0, yp0 = ensemble_inputs(B)
     walls = {True: [], False: []}
     try:
         for on in (True, False, False, True):
             profiling.ENABLED = on
-            walls[on].append(wall_s(lambda: run_ensemble(params, yy0, yp0, "cuda", TOUT)))
+            walls[on].append(wall_s(lambda: run_ensemble(params, yy0, yp0, "cuda",
+                                                         PROFILE_SCOPES_TOUT)))
     finally:
         profiling.ENABLED = True
     with profiling.profile(str(PROFILE_DIR)) as prof:
-        wall = wall_s(lambda: run_ensemble(params, yy0, yp0, "cuda", TOUT))
+        wall = wall_s(lambda: run_ensemble(params, yy0, yp0, "cuda", PROFILE_SCOPES_TOUT))
     check(prof is not None, "profile_scopes: the profiler did not start")
     scopes = {}
-    averages = prof.key_averages()  # digesting a window this long takes most of a minute
+    averages = prof.key_averages()
     for e in averages:
         if not e.key.startswith("ida."):
             continue
@@ -2840,7 +2866,8 @@ def phase_profile_scopes(eager: dict) -> None:
         else:
             row.update(calls=e.count, host_ms=e.cpu_time_total / 1e3, device_ms=dev)
     dev_total = sum(e.self_device_time_total for e in device_activities(averages)) / 1e3
-    emit("profile_scopes", batch=B, tout=TOUT, profiled_wall_s=wall, device_ms=dev_total,
+    emit("profile_scopes", batch=B, tout=PROFILE_SCOPES_TOUT, profiled_wall_s=wall,
+         device_ms=dev_total,
          scopes=scopes, walls_scopes_on_s=walls[True], walls_scopes_off_s=walls[False],
          scope_cost_share_of_min=(min(walls[True]) - min(walls[False])) / min(walls[False]),
          scope_cost_share_of_median=(statistics.median(walls[True])
@@ -2856,17 +2883,20 @@ def phase_profile_scopes(eager: dict) -> None:
           "profile_scopes: no device time inside ida.step.attempt")
 
 
-def mode_launch_times(opts: IdaOptions, st0, p_b, budget: int) -> list:
-    """CUDA-event ms of each launch of a budgeted solve in ``opts``' mode
-    (K3, then K4 in place on its result until no lane is CONTINUE)."""
+def mode_launch_times(opts: IdaOptions, st0, p_b, budget: int, tol_in=None,
+                      model: fused_model.FusedModel = fused_solve.ROBERTS,
+                      tout: float = TOUT) -> list:
+    """CUDA-event ms of each launch of a budgeted solve of ``model``'s
+    library in ``opts``' mode (K3, then K4 in place on its result until no
+    lane is CONTINUE)."""
     dst = fused_solve.empty_result(st0, opts)
     carry = fused_solve.new_carry(st0.tn.shape[0], st0.dtype, st0.phi.device, True)
-    tol_in = shared_tol(dtype=st0.dtype)
+    tol_in = tol_in or shared_tol(dtype=st0.dtype)
     runs = []
 
     def step(resume: bool) -> torch.Tensor:
         go = fused_solve.prepare_launch("cont" if resume else "init", dst if resume else st0, dst,
-                                        p_b, tol_in, TOUT, carry, opts, 0, budget)
+                                        p_b, tol_in, tout, carry, opts, model, budget)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
         ev[0].record()
@@ -2930,7 +2960,7 @@ def phase_fused_modes(mixed: dict, fast: dict) -> dict:
         st, tret, ist = k2(st0, p_b, TOUT)
         sb, tb, ib = k34(st0, p_b, TOUT)
         torch.cuda.synchronize()
-        launches = {k: fused_solve.MODE_LAUNCHES.get((k, mode), 0)
+        launches = {k: fused_solve.MODE_LAUNCHES.get((k, mode, "roberts"), 0)
                     for k in ("solve", "init", "cont")}
         other = {k: c for k, c in fused_solve.MODE_LAUNCHES.items() if k[1] != mode}
         diff_k2 = first_difference(st, est, {"tret": tret, "istate": ist},
@@ -3449,6 +3479,482 @@ def phase_mesh(eager: dict, food: dict) -> dict:
     return {"one": one, "gloo": [r["dp"] for r in ranks], "multi": multi,
             "foodweb": food_launches}
 
+# ------------------------------------------- fused_models: generated models
+#
+# The whole-solve kernel takes any batch-native factory with an analytic jac
+# (ops/fused_model.py generates its model from the factory's torch code).
+# Factories as a user writes them, with plain torch ops: Akzo Nobel
+# (CHEMAKZO of the IVP Test Set, F. Mazzia and C. Magherini, Univ. of Bari:
+# N = 6, y6 algebraic), Lorenz '63 with per-lane parameters, Roberts through
+# a factory that is not models.roberts_factory (so its model is generated,
+# held bit for bit against the hand-written one), and a zoo of every
+# elementwise op the emitter compiles (the table of ops only).
+
+AKZO_K = np.array([18.7, 0.58, 0.09, 0.42])  # k1..k4, per lane
+AKZO_BIG_K, AKZO_KLA, AKZO_KS, AKZO_PCO2, AKZO_H = 34.4, 3.3, 115.83, 0.9, 737.0
+AKZO_Y0 = np.array([0.444, 0.00123, 0.0, 0.007, 0.0, AKZO_KS * 0.444 * 0.007])
+AKZO_TOUT = 180.0  # the test set's end point
+AKZO_RTOL, AKZO_ATOL, AKZO_REF_RTOL = 1e-4, 1e-6, 1e-10
+LORENZ = np.array([10.0, 28.0, 8.0 / 3.0])  # sigma, rho, beta
+LORENZ_TOUT = 1.0
+B_OPS = 4096  # random lanes of the table of ops
+MODEL_BUDGET = 32
+
+
+@functools.cache
+def _akzo_id(device) -> torch.Tensor:
+    return torch.tensor([True] * 5 + [False], device=device)
+
+
+def akzo_factory(params):
+    """CHEMAKZO: F = y' - f(y) on rows 1-5, F6 = Ks y1 y4 - y6; params [k1,
+    k2, k3, k4] per lane."""
+    k1, k2, k3, k4 = params[0], params[1], params[2], params[3]
+
+    def res(t, yy, yp):
+        s2 = torch.sqrt(yy[1])
+        r1 = k1 * yy[0] ** 4 * s2
+        r2 = k2 * yy[2] * yy[3]
+        r3 = k2 / AKZO_BIG_K * yy[0] * yy[4]
+        r4 = k3 * yy[0] * yy[3] ** 2
+        r5 = k4 * yy[5] ** 2 * s2
+        fin = AKZO_KLA * (AKZO_PCO2 / AKZO_H - yy[1])
+        f = [-2.0 * r1 + r2 - r3 - r4, -0.5 * r1 - r4 - 0.5 * r5 + fin, r1 - r2 + r3,
+             -r2 + r3 - 2.0 * r4, r2 - r3 + r5]
+        return torch.stack([yp[i] - f[i] for i in range(5)]
+                           + [AKZO_KS * yy[0] * yy[3] - yy[5]])
+
+    def jac(t, cj, yy, yp, rr):
+        y1, y2, y3, y4, y5, y6 = (yy[i] for i in range(6))
+        s2 = torch.sqrt(y2)
+        d1, d2 = 4.0 * k1 * y1 ** 3 * s2, k1 * y1 ** 4 * (0.5 / s2)  # r1 by y1, y2
+        e3, e4 = k2 * y4, k2 * y3  # r2 by y3, y4
+        g1, g5 = k2 / AKZO_BIG_K * y5, k2 / AKZO_BIG_K * y1  # r3 by y1, y5
+        h1, h4 = k3 * y4 ** 2, 2.0 * k3 * y1 * y4  # r4 by y1, y4
+        m2, m6 = k4 * y6 ** 2 * (0.5 / s2), 2.0 * k4 * y6 * s2  # r5 by y2, y6
+        z = torch.zeros_like(y1)
+        return torch.stack([
+            torch.stack([cj + 2.0 * d1 + g1 + h1, 2.0 * d2, -e3, h4 - e4, g5, z]),
+            torch.stack([0.5 * d1 + h1, cj + 0.5 * d2 + 0.5 * m2 + AKZO_KLA, z, h4, z, 0.5 * m6]),
+            torch.stack([-(d1 + g1), -d2, cj + e3, e4, -g5, z]),
+            torch.stack([2.0 * h1 - g1, z, e3, cj + e4 + 2.0 * h4, -g5, z]),
+            torch.stack([g1, -m2, -e3, -e4, cj + g5, -m6]),
+            torch.stack([AKZO_KS * y4, z, z, AKZO_KS * y1, z, -torch.ones_like(y1)]),
+        ])
+
+    return IdaProblem(n=6, res=res, jac=jac, id=_akzo_id(params.device))
+
+
+def akzo_reference() -> tuple:
+    """The nominal lane through the eager port on the CPU at rtol = atol =
+    1e-10 (no step limit) to AKZO_TOUT: (yy, nst, istate, wall s). Run in a
+    process of its own while the card works (phase_fused_models)."""
+    torch.set_num_threads(1)
+    params, yy0, yp0 = akzo_inputs(1)
+    t0 = time.perf_counter()
+    opts = IdaOptions(mxstep=1_000_000)
+    st, _, ist = make_ensemble_solve(akzo_factory, opts)(
+        ensemble_init(akzo_factory, params, yy0, yp0, device="cpu", opts=opts), params,
+        tol_ss(AKZO_REF_RTOL, AKZO_REF_RTOL, device="cpu"), AKZO_TOUT)
+    return st.yy[0].numpy(), int(st.nst[0]), int(ist[0]), time.perf_counter() - t0
+
+
+def akzo_inputs(b: int):
+    """k1..k4 x exp(linspace(-0.2, 0.2, b)), the last lane at the nominal
+    rates; y'(0) = f(y(0)) on rows 1-5, 0 on the algebraic row."""
+    params = np.outer(np.exp(np.linspace(-0.2, 0.2, b)), AKZO_K)
+    params[-1] = AKZO_K
+    y1, y2, _, y4, _, y6 = AKZO_Y0
+    k1, _, k3, k4 = params.T
+    r1 = k1 * y1 ** 4 * np.sqrt(y2)
+    r4 = k3 * y1 * y4 ** 2
+    r5 = k4 * y6 ** 2 * np.sqrt(y2)
+    fin = AKZO_KLA * (AKZO_PCO2 / AKZO_H - y2)
+    yp0 = np.stack([-2.0 * r1 - r4, -0.5 * r1 - r4 - 0.5 * r5 + fin, r1, -2.0 * r4, r5,
+                    np.zeros_like(r1)], axis=1)
+    return params, np.tile(AKZO_Y0, (b, 1)), yp0
+
+
+def lorenz_factory(params):
+    """Lorenz '63, F = y' - f(y), params [sigma, rho, beta] per lane."""
+    sigma, rho, beta = params[0], params[1], params[2]
+
+    def res(t, yy, yp):
+        x, y, z = yy[0], yy[1], yy[2]
+        return torch.stack([yp[0] - sigma * (y - x), yp[1] - (x * (rho - z) - y),
+                            yp[2] - (x * y - beta * z)])
+
+    def jac(t, cj, yy, yp, rr):
+        x, y, z = yy[0], yy[1], yy[2]
+        zero = torch.zeros_like(x)
+        return torch.stack([torch.stack([cj + sigma, -sigma, zero]),
+                            torch.stack([z - rho, cj + 1.0, x]),
+                            torch.stack([-y, -x, cj + beta])])
+
+    return IdaProblem(n=3, res=res, jac=jac)
+
+
+def lorenz_inputs(b: int):
+    params = np.outer(np.exp(np.linspace(-0.05, 0.05, b)), LORENZ)
+    yy0 = np.ones((b, 3))
+    yp0 = np.stack([np.zeros(b), params[:, 1] - 2.0, 1.0 - params[:, 2]], axis=1)
+    return params, yy0, yp0
+
+
+def roberts_generated(params):
+    """models.roberts_factory behind a factory of its own: its model is
+    generated from the torch code, not the hand-written struct."""
+    return roberts_factory(params)
+
+
+def zoo_factory(params):
+    """One row for each elementwise op the emitter compiles, plain torch:
+    exp, log, sin, cos, rsqrt, abs (sgn in its jvp), reciprocal (c / x), a
+    division by a Python number, pow at the exponents ATen's CUDA kernel
+    takes apart (0.5, -0.5, 2, 3, -1, -2) and at 1.7; N = 16 = MAXN."""
+    a, b = params[0], params[1]
+
+    def terms(yy):
+        y = [yy[i] for i in range(16)]
+        pos = [torch.abs(v) + 0.25 for v in y]
+        return [torch.exp(a * y[0]), torch.log(pos[1]), torch.sin(b * y[2]), torch.cos(y[3]),
+                torch.rsqrt(pos[4]), 2.0 / pos[5], y[6] / 34.4, pos[7] ** 0.5, pos[8] ** -0.5,
+                y[9] ** 2, y[10] ** 3, pos[11] ** -1, pos[12] ** -2, pos[13] ** 1.7,
+                torch.sqrt(pos[14]) * a, -y[15] * b]
+
+    def res(t, yy, yp):
+        f = terms(yy)
+        return torch.stack([yp[i] - f[i] * t for i in range(16)])
+
+    def jac(t, cj, yy, yp, rr):
+        f = terms(yy)
+        z = torch.zeros_like(cj)
+        return torch.stack([torch.stack([cj - f[i] * 0.5 if j == i else z for j in range(16)])
+                            for i in range(16)])
+
+    return IdaProblem(n=16, res=res, jac=jac)
+
+
+# name -> (factory, nominal params, what the phase does with it)
+GENERATED = {"roberts_generated": (roberts_generated, ROBERTS_PARAMS),
+             "akzo": (akzo_factory, AKZO_K), "lorenz": (lorenz_factory, LORENZ),
+             "zoo": (zoo_factory, np.array([0.3, 1.3]))}
+MODEL_LIBS: dict = {}  # name -> FusedModel
+
+
+def generated_models() -> dict:
+    """The models of GENERATED, traced and emitted once (ops/fused_model.py)."""
+    if not MODEL_LIBS:
+        for name, (factory, p0) in GENERATED.items():
+            p = torch.as_tensor(np.tile(p0[:, None], (1, 2)))
+            MODEL_LIBS[name] = fused_model.model_of(factory, p)
+    return MODEL_LIBS
+
+
+def model_builds(pool) -> dict:
+    """Submit the generated models' libraries to ``pool``: the parity
+    library of each solved model, Akzo's "refined" one, and the evaluation
+    library of every model (the zoo's alone: N = 16)."""
+    models = generated_models()
+    jobs = {f"{m}/parity": (fused_solve.build, (False, "full", models[m]))
+            for m in ("roberts_generated", "akzo", "lorenz")}
+    jobs["akzo/refined"] = (fused_solve.build, (False, "refined", models["akzo"]))
+    jobs.update({f"{m}/eval": (fused_solve.build_eval, (models[m],)) for m in models})
+    jobs["roberts/eval"] = (fused_solve.build_eval, (fused_solve.ROBERTS,))
+    return {k: pool.submit(fn, *args) for k, (fn, args) in jobs.items()}
+
+
+def model_ops_per(model) -> dict:
+    """:data:`OPS_PER` at ``model``'s N, with its own residual and Jacobian:
+    the hand counts at N = 3 scaled by the loops' lengths (predict 22 a
+    component, error_test 34, complete_step and the step's preamble 39, the
+    LU solve N^2 + 2N, its factor m + 2 m^2 a column plus N pivot tests),
+    the model's res, jac and jvp counted in its generated code (a
+    statement an operation; pow, sqrt, rsqrt, exp, log, sin and cos 20)."""
+    n = model.n
+    counts = {}
+    for fn, nxt in (("res", "res_jvp"), ("res_jvp", "jac"), ("jac", None)):
+        body = model.header.split(f"static void {fn}(")[1]
+        body = body.split(f"static void {nxt}(")[0] if nxt else body
+        body = body.split("#else")[0]
+        lines = [x for x in body.splitlines() if x.strip().startswith("const T e")]
+        heavy = sum(1 for x in lines if any(f"{k}(" in x for k in (
+            "pow_scalar", "pow_tensor", "sqrt_of", "rsqrt", "model::exp", "model::log",
+            "model::sin", "model::cos")))
+        counts[fn] = len(lines) + 19 * heavy
+    factor = sum(m + 2 * m * m for m in range(n)) + n
+    return {"attempt": 12 + 22 * n + counts["res"] + 2 * n + 34 * n,
+            "newton": (n * n + 2 * n) + 2 * n + (3 * n + 20) + 2,
+            "newton_more": 24 + counts["res"] + 2 * n + 1,
+            "lsetup": counts["jac"] + factor, "step": 39 * n + 2, "jvp": counts["res_jvp"]}
+
+
+def model_launch_counts(model) -> dict:
+    return {k: n for (k, _, m), n in fused_solve.MODE_LAUNCHES.items() if m == model.name}
+
+
+def phase_model_ops() -> dict:
+    """The table of ops: each generated model's res, jac (at that residual)
+    and res_jvp (tangents (v, cj v)) on B_OPS random lanes through its
+    evaluation kernel, bit for bit the eager problem's res, sys_jacobian and
+    jtimes on the same CUDA tensors, in float64 and float32."""
+    models = generated_models()
+    rng = np.random.default_rng(15)
+    table = {}
+    for name, (factory, p0) in {**GENERATED, "roberts": (roberts_factory, ROBERTS_PARAMS)}.items():
+        model = models.get(name, fused_solve.ROBERTS)
+        n = model.n
+        for dtype in (torch.float64, torch.float32):
+            def lanes(x):
+                return torch.as_tensor(x, dtype=dtype, device="cuda").contiguous()
+
+            params = lanes(p0[:, None] * np.exp(rng.uniform(-0.2, 0.2, (len(p0), B_OPS))))
+            yy = lanes(rng.normal(size=(n, B_OPS)) * 0.3 + (0.5 if name == "akzo" else 0.0))
+            args = (params, lanes(rng.uniform(0.0, 5.0, B_OPS)),
+                    lanes(np.exp(rng.uniform(-3.0, 5.0, B_OPS))),
+                    yy.abs() if name == "akzo" else yy, lanes(rng.normal(size=(n, B_OPS))),
+                    lanes(rng.normal(size=(n, B_OPS))))
+            fused_solve.reset_launch_counts()
+            got = fused_solve.eval_model(factory, *args)
+            launches = fused_solve.EVAL_LAUNCHES.get(model.name, 0)
+            want = fused_solve.eval_model_plain(factory, *args)
+            torch.cuda.synchronize()
+            row = {}
+            for out, g, w in zip(("res", "jac", "jv"), got, want):
+                eq = (g == w) | (torch.isnan(g) & torch.isnan(w))
+                row[out] = {"values": int(g.numel()), "differ": int((~eq).sum()),
+                            "finite": int(torch.isfinite(w).sum()),
+                            "max_abs_err": float(torch.nan_to_num(g - w).abs().max())}
+            table[f"{name}/{str(dtype)[6:]}"] = {**row, "launches": launches}
+    emit("fused_models_ops", lanes=B_OPS, table=table,
+         models={k: {"name": m.name, "n": m.n, "p": m.p} for k, m in models.items()})
+    for key, row in table.items():
+        check(row["launches"] == 1, f"table of ops {key}: {row['launches']} evaluation launches")
+        for out in ("res", "jac", "jv"):
+            check(row[out]["differ"] == 0, f"table of ops {key}/{out}: {row[out]['differ']} of "
+                                           f"{row[out]['values']} values differ from the eager")
+    return table
+
+
+def budgeted_run(factory, model, tol, st0, p_b, tout, per, opts=IdaOptions()) -> dict:
+    """``factory``'s budget-32 solve (K3, then K4 in place until no lane is
+    CONTINUE), launch by launch through prepare_launch: each launch's
+    CUDA-event ms and operations (from the counters' growth); then the
+    eager solve(max_attempts=32) call of the first launch and of the first
+    continuation, timed (the plain versions of K3 and K4)."""
+    bsz = st0.tn.shape[0]
+    tol_in = fused_solve.tol_inputs(tol, model.n, bsz, st0.dtype, st0.phi.device)
+    dst = fused_solve.empty_result(st0, opts)
+    carry = fused_solve.new_carry(bsz, st0.dtype, st0.phi.device, True)
+    runs = []
+
+    def step(resume: bool) -> torch.Tensor:
+        before = solve_ops(counter_totals(dst), per) if resume else 0
+        go = fused_solve.prepare_launch("cont" if resume else "init", dst if resume else st0, dst,
+                                        p_b, tol_in, tout, carry, opts, model, MODEL_BUDGET)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        istate = go()
+        ev[1].record()
+        torch.cuda.synchronize()
+        runs.append({"ms": ev[0].elapsed_time(ev[1]),
+                     "ops": solve_ops(counter_totals(dst), per) - before})
+        return istate
+
+    fused_solve.run_until_done(step)
+    p = p_b.t().contiguous()
+    native = to_native(st0)
+    inputs = fused_solve.lane_inputs(native, p, fused_solve._native_tol(tol, model.n), tout,
+                                     model.n)
+    tol_n, prob = TolControl(inputs[1], inputs[2]), factory(p)
+    plain = []
+    out = (native, None, None, None)
+    for resume in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = core_solve(out[0], prob, opts, tol_n, inputs[3], max_attempts=MODEL_BUDGET,
+                         resume_carry=out[3] if resume else None)
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+    return {"runs": runs, "plain_ms": plain}
+
+
+def model_rows(name: str, model, st0, launches: dict, k2_ms: float, plain_ms: float,
+               err: float, k34: dict, totals: dict, per: dict) -> dict:
+    """The kernels line's K2, K3 and K4 rows of one generated model."""
+    bound, by = solve_bound(st0, solve_ops(totals, per))
+    init, cont = k34["runs"][0], k34["runs"][1:]
+    b_init, by_init = solve_bound(st0, init["ops"])
+    b_cont, by_cont = solve_bound(st0, statistics.mean(r["ops"] for r in cont))
+    src = {"route": "cuda", "source": FUSED_SOURCE, "model": model.name,
+           "model_source": "ida_tpu_torch/ops/fused_model.py", "library_ms": None}
+    return {
+        "solve": {"name": f"fused_solve_{name}", "replaces": REPLACES["fused_solve"], **src,
+                  "launches": launches.get("solve", 0), "max_abs_err": err, "ms": k2_ms,
+                  "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by},
+        "init": {"name": f"fused_solve_init_{name}", "replaces": REPLACES["fused_solve_init"],
+                 **src, "launches": launches.get("init", 0), "max_abs_err": err,
+                 "ms": init["ms"], "plain_ms": k34["plain_ms"][0], "bound_ms": b_init,
+                 "bound_by": by_init},
+        "cont": {"name": f"fused_solve_cont_{name}", "replaces": REPLACES["fused_solve_cont"],
+                 **src, "launches": launches.get("cont", 0), "max_abs_err": err,
+                 "ms": statistics.mean(r["ms"] for r in cont), "plain_ms": k34["plain_ms"][1],
+                 "bound_ms": b_cont, "bound_by": by_cont},
+    }
+
+
+def model_ptxas(model, opts: IdaOptions = IdaOptions()) -> dict:
+    forms = solve_kernels_ptxas(opts, model)
+    return {"f64": forms["f64_shared_tol"], "f32": forms["f32_shared_tol"],
+            "spills": {k: v for k, v in forms.items()
+                       if v.get("spill_stores", 0) or v.get("spill_loads", 0)}}
+
+
+def solve_model(name: str, factory, model, inputs, tol, tout, dtype=torch.float64,
+                opts: IdaOptions = IdaOptions(), all_success: bool = True) -> dict:
+    """One generated model's main path: the eager ensemble solve (wall),
+    then K2 and budget 32 (K3 + K4) through make_fused_solve on the same
+    CUDA tensors, the launches of that run counted; each bit for bit the
+    eager result (and every lane SUCCESS with ``all_success``)."""
+    params, yy0, yp0 = inputs
+    st0 = ensemble_init(factory, params, yy0, yp0, device="cuda", dtype=dtype, opts=opts)
+    p_b = on_card(params, dtype)
+    res = {}
+    wall = wall_s(lambda: res.update(eager=make_ensemble_solve(factory, opts)(
+        st0, params, tol, tout)))
+    est, etret, eist = res["eager"]
+    k2 = fused_solve.make_fused_solve(factory, tol, opts)
+    k34 = fused_solve.make_fused_solve(factory, tol, opts, attempt_budget=MODEL_BUDGET)
+    fused_solve.reset_launch_counts()
+    st, tret, ist = k2(st0, p_b, tout)
+    sb, tb, ib = k34(st0, p_b, tout)
+    torch.cuda.synchronize()
+    launches = model_launch_counts(model)
+    others = {k: c for k, c in fused_solve.MODE_LAUNCHES.items() if k[2] != model.name}
+    diff_k2 = first_difference(st, est, {"tret": tret, "istate": ist},
+                               {"tret": etret, "istate": eist})
+    diff_k34 = first_difference(sb, est, {"tret": tb, "istate": ib},
+                                {"tret": etret, "istate": eist})
+    n_ok = int((ist == C.SUCCESS).sum())
+    out = {"name": name, "model": model.name, "batch": st0.tn.shape[0], "dtype": str(dtype)[6:],
+           "mode": fused_solve.mode_name(opts), "tout": tout, "eager_wall_s": wall,
+           "lanes_success": n_ok, "k2_first_difference": diff_k2,
+           "k34_first_difference": diff_k34, "launches": launches,
+           "max_abs_err": max(max_abs_diff(st, est), max_abs_diff(sb, est)),
+           **counter_totals(st)}
+    check(diff_k2 is None, f"{name} ({out['mode']}, {out['dtype']}): K2 {diff_k2} != eager")
+    check(diff_k34 is None, f"{name} ({out['mode']}, {out['dtype']}): budget {MODEL_BUDGET} "
+                            f"{diff_k34} != eager")
+    check(launches.get("solve") == 1 and launches.get("init") == 1 and launches.get("cont", 0) > 0,
+          f"{name}: launches of its library {launches}")
+    check(not others, f"{name}: launches of another library {others}")
+    check(n_ok == st0.tn.shape[0] or not all_success,
+          f"{name}: {st0.tn.shape[0] - n_ok} lanes not SUCCESS")
+    return {**out, "st0": st0, "p_b": p_b, "st": st}
+
+
+def phase_fused_models(eager: dict) -> dict:
+    """Generated models in the whole-solve kernel (module notes above
+    AKZO_K): the table of ops; the headline (B = 65,536, tout 400, f64)
+    through the generated Roberts, bit for bit the hand-written library and
+    the eager path, each library's bare K2 launch in turns; Akzo at B =
+    65,536 to tout 180 (K2, budget 32 and "refined", each bit for bit the
+    eager solve on the card; a float32 leg at B = 4,096; the nominal lane
+    within WRMS 1 of the eager port's rtol 1e-10 run on the CPU); Lorenz
+    at B = 4,096 to t = 1. Registers and spills of each library."""
+    models = generated_models()
+    # the Akzo reference on the CPU, in a process of its own meanwhile
+    reference_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    reference = reference_pool.submit(akzo_reference)
+    table = phase_model_ops()
+    rows, legs, ptxas = {}, {}, {}
+
+    # the headline through the generated Roberts
+    gen = models["roberts_generated"]
+    tol = tol_sv(1e-4, ATOL, device="cuda")
+    head = solve_model("roberts_generated", roberts_generated, gen, ensemble_inputs(B), tol, TOUT)
+    est, _, _ = eager["result"]
+    hand = fused_fn("cuda")(head["st0"], head["p_b"], TOUT)
+    torch.cuda.synchronize()
+    vs_eager = first_difference(head["st"], est, {}, {})
+    vs_hand = first_difference(head["st"], hand[0], {}, {})
+    bare = {"roberts": [], "roberts_generated": []}
+    for _ in range(3):
+        bare["roberts"].append(bare_launch_ms(head["st0"], head["p_b"]))
+        bare["roberts_generated"].append(bare_launch_ms(head["st0"], head["p_b"], model=gen))
+    per = model_ops_per(gen)
+    k34 = budgeted_run(roberts_generated, gen, tol, head["st0"], head["p_b"], TOUT, per)
+    rows["roberts_generated"] = model_rows(
+        "roberts_generated", gen, head["st0"], head["launches"],
+        statistics.median(bare["roberts_generated"]), head["eager_wall_s"] * 1e3,
+        head["max_abs_err"], k34, counter_totals(head["st"]), per)
+    ptxas["roberts_generated"] = model_ptxas(gen)
+    legs["roberts_generated"] = {k: v for k, v in head.items() if k not in ("st0", "p_b", "st")}
+    emit("fused_models_roberts", **legs["roberts_generated"], equals_eager_headline=vs_eager,
+         equals_hand_written=vs_hand, bare_launch_ms=bare, ptxas=ptxas["roberts_generated"],
+         hand_written_ptxas=solve_kernel_ptxas(), ops_per=per)
+    check(vs_eager is None, f"generated Roberts: {vs_eager} != the eager headline")
+    check(vs_hand is None, f"generated Roberts: {vs_hand} != the hand-written library")
+    check(head["nst"] == 6261351, f"generated Roberts headline: {head['nst']} steps")
+
+    # Akzo Nobel
+    akzo = models["akzo"]
+    tol_a = tol_ss(AKZO_RTOL, AKZO_ATOL, device="cuda")
+    a = solve_model("akzo", akzo_factory, akzo, akzo_inputs(B), tol_a, AKZO_TOUT)
+    bare_a = [bare_launch_ms(a["st0"], a["p_b"], fused_solve.tol_inputs(
+        tol_a, 6, B, torch.float64, torch.device("cuda")), model=akzo, tout=AKZO_TOUT)
+        for _ in range(3)]
+    per = model_ops_per(akzo)
+    k34 = budgeted_run(akzo_factory, akzo, tol_a, a["st0"], a["p_b"], AKZO_TOUT, per)
+    rows["akzo"] = model_rows("akzo", akzo, a["st0"], a["launches"], statistics.median(bare_a),
+                              a["eager_wall_s"] * 1e3, a["max_abs_err"], k34,
+                              counter_totals(a["st"]), per)
+    refined = solve_model("akzo", akzo_factory, akzo, akzo_inputs(B), tol_a, AKZO_TOUT,
+                          opts=IdaOptions(ls_precision="refined"))
+    f32 = solve_model("akzo", akzo_factory, akzo, akzo_inputs(B_SMALL),
+                      tol_ss(AKZO_RTOL, AKZO_ATOL, device="cuda", dtype=torch.float32),
+                      AKZO_TOUT, dtype=torch.float32, all_success=False)
+    # the nominal lane (the last) against the eager port's rtol 1e-10 run on the CPU
+    ref_yy, ref_nst, ref_istate, ref_wall = reference.result()
+    reference_pool.shutdown()
+    nominal = wrms_card_vs_cpu(a["st"].yy[-1].cpu(), torch.from_numpy(ref_yy), AKZO_RTOL,
+                               AKZO_ATOL)
+    ptxas["akzo"] = model_ptxas(akzo)
+    ptxas["akzo_refined"] = model_ptxas(akzo, IdaOptions(ls_precision="refined"))
+    legs["akzo"] = {k: v for k, v in a.items() if k not in ("st0", "p_b", "st")}
+    emit("fused_models_akzo", **legs["akzo"], bare_launch_ms=bare_a, per_launch_k34=k34,
+         refined={k: v for k, v in refined.items() if k not in ("st0", "p_b", "st")},
+         f32={k: v for k, v in f32.items() if k not in ("st0", "p_b", "st")},
+         nominal_wrms_vs_rtol_1e10=nominal, reference_nst=ref_nst,
+         reference_istate=ref_istate, reference_wall_s=ref_wall,
+         y_nominal=a["st"].yy[-1].tolist(), y_reference=ref_yy.tolist(),
+         ptxas=ptxas["akzo"], ptxas_refined=ptxas["akzo_refined"], ops_per=per)
+    check(ref_istate == C.SUCCESS, f"akzo: the rtol 1e-10 reference returned {ref_istate}")
+    check(nominal < 1.0, f"akzo: the nominal lane is WRMS {nominal} from the rtol 1e-10 run")
+
+    # Lorenz '63
+    lor = models["lorenz"]
+    tol_l = tol_ss(1e-4, 1e-6, device="cuda")
+    lz = solve_model("lorenz", lorenz_factory, lor, lorenz_inputs(B_SMALL), tol_l, LORENZ_TOUT)
+    tol_in = fused_solve.tol_inputs(tol_l, 3, B_SMALL, torch.float64, torch.device("cuda"))
+    bare_l = [bare_launch_ms(lz["st0"], lz["p_b"], tol_in, model=lor, tout=LORENZ_TOUT)
+              for _ in range(3)]
+    per = model_ops_per(lor)
+    k34 = budgeted_run(lorenz_factory, lor, tol_l, lz["st0"], lz["p_b"], LORENZ_TOUT, per)
+    rows["lorenz"] = model_rows("lorenz", lor, lz["st0"], lz["launches"],
+                                statistics.median(bare_l), lz["eager_wall_s"] * 1e3,
+                                lz["max_abs_err"], k34, counter_totals(lz["st"]), per)
+    ptxas["lorenz"] = model_ptxas(lor)
+    legs["lorenz"] = {k: v for k, v in lz.items() if k not in ("st0", "p_b", "st")}
+    emit("fused_models_lorenz", **legs["lorenz"], bare_launch_ms=bare_l, ops_per=per,
+         ptxas=ptxas["lorenz"])
+    emit("fused_models", models={k: m.name for k, m in models.items()}, rows=rows,
+         spills={k: v["spills"] for k, v in ptxas.items()},
+         registers={k: {"f64": v["f64"].get("registers"), "f32": v["f32"].get("registers")}
+                    for k, v in ptxas.items()})
+    return {"rows": rows, "table": table}
+
 
 def timed(phase, *args):
     """Run a phase and print how long it took."""
@@ -3499,6 +4005,7 @@ def main() -> None:
     timed(phase_stratified)
     timed(phase_profile_scopes, eager)
     modes = timed(phase_fused_modes, mixed, fast)
+    models = timed(phase_fused_models, eager)
     mesh = timed(phase_mesh, eager, food)
 
     # "launches" is the count of the eager headline (phase slice) for the LU
@@ -3600,6 +4107,9 @@ def main() -> None:
             base = "fused_solve" if kind == "solve" else f"fused_solve_{kind}"
             rows.append({"name": f"{base}_{mode}", "route": "cuda", "source": FUSED_SOURCE,
                          "replaces": REPLACES[base], **row, "library_ms": None})
+    # the whole-solve kernel with each generated model (fused_models)
+    for name, kinds in models["rows"].items():
+        rows += [kinds["solve"], kinds["init"], kinds["cont"]]
     for stage, t in stages["times"].items():
         rows.append({"name": f"fused_stage_{stage}", "route": "cuda", "source": FUSED_SOURCE,
                      "replaces": REPLACES["stage"], "launches": stages["launches"][stage],
@@ -3626,8 +4136,26 @@ def main_mesh() -> None:
     print(smi, flush=True)
 
 
+def main_fused_models() -> None:
+    """``python3 chip_smoke.py fused_models``: the libraries it needs, the
+    slice (the eager headline it is held against) and the fused_models
+    phase alone."""
+    smi = phase_device()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(12) as pool:
+        libs = [pool.submit(small_lu.build), pool.submit(fused_solve.build)]
+        libs += list(model_builds(pool).values())
+        for f in libs:
+            f.result()
+    emit("build", seconds=time.perf_counter() - t0)
+    timed(phase_fused_models, timed(phase_slice))
+    print(smi, flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["mesh"]:
         main_mesh()
+    elif sys.argv[1:] == ["fused_models"]:
+        main_fused_models()
     else:
         main()

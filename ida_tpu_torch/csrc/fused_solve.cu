@@ -53,22 +53,38 @@
 // run that mode of IdaOptions (ops/fused_solve.py mode_flags); the parity
 // build (neither flag) is the one that also holds the stage kernels.
 //
+// The model: the hand-written Roberts below, or, built with
+// -DIDA_MODEL_HEADER=1, the struct GeneratedModel that ops/fused_model.py
+// writes from a problem factory into "ida_model.cuh" beside the library
+// (same interface; its solve entry points then compile that model, and the
+// stage kernels, Roberts-only, are left out). fused_model_eval_<dt> runs the
+// model's res, jac and res_jvp alone on a batch of lanes, so that each can
+// be held against the eager problem's; built with -DIDA_EVAL_ONLY=1 the
+// library holds that entry point alone.
+//
 // Each entry point launches on the given stream and returns
-// cudaGetLastError(); none allocates or synchronizes. `model` selects the
-// compiled-in problem (0 = Roberts); any other value returns
-// cudaErrorInvalidValue.
+// cudaGetLastError(); none allocates or synchronizes. `model` is the id of
+// the library's model (Roberts 0, a generated model its kId); any other
+// value returns cudaErrorInvalidValue.
 
 #include <climits>
 
 #include <cuda_runtime.h>
 
 #include "ida_lane.cuh"
+#ifdef IDA_MODEL_HEADER
+#include "model_ops.cuh"
+#include "ida_model.cuh"
+#endif
 
 #ifndef IDA_FAST_MATH
 #define IDA_FAST_MATH 0
 #endif
 #ifndef IDA_LS_PRECISION
 #define IDA_LS_PRECISION 0
+#endif
+#ifndef IDA_EVAL_ONLY
+#define IDA_EVAL_ONLY 0
 #endif
 
 namespace {
@@ -82,6 +98,7 @@ constexpr size_t kMaxSharedBytes = 227 * 1024;
 struct Roberts {
   static constexpr int N = 3;
   static constexpr int P = 3;
+  static constexpr int kId = 0;
   __device__ static bool id(int i) { return i != 2; }
 
   template <typename T>
@@ -131,9 +148,15 @@ struct WithMode : Model {
   static constexpr bool kFastMath = FastMath;
   static constexpr int kLs = Ls;
 };
+#ifdef IDA_MODEL_HEADER
+using Model = GeneratedModel;
+#else
+using Model = Roberts;
+#endif
 // the mode this library's solve entry points run, and the stage kernels'
-using Solved = WithMode<Roberts, IDA_FAST_MATH != 0, IDA_LS_PRECISION>;
+using Solved = WithMode<Model, IDA_FAST_MATH != 0, IDA_LS_PRECISION>;
 using Parity = WithMode<Roberts, false, ida::LS_FULL>;
+static_assert(Model::N <= ida::MAXN, "a by-value atol carries MAXN components");
 static_assert(IDA_LS_PRECISION >= ida::LS_FULL && IDA_LS_PRECISION <= ida::LS_REFINED,
               "IDA_LS_PRECISION is 0 (full), 1 (single) or 2 (refined)");
 
@@ -181,6 +204,16 @@ struct IdaSolveArgs {
   ida::Opts opts;
   long long B;
   int budget;
+};
+
+// The arguments of one launch of the model alone (ops/fused_solve.py
+// ModelEvalArgs mirrors it): batch-native inputs params [P, B], t and cj
+// [B], yy, yp and v [N, B], and outputs res [N, B], jac [N, N, B] and jv
+// [N, B] (res_jvp with tangents (v, cj v)).
+struct ModelEvalArgs {
+  const void *params, *t, *cj, *yy, *yp, *v;
+  void *res, *jac, *jv;
+  long long B;
 };
 
 namespace {
@@ -269,6 +302,34 @@ fused_stage_kernel(const __grid_constant__ ida::StateRefs s, const void* params,
   ida::store_lane<T, M, ida::BatchLast>(s, s, b, B, L);
 }
 
+// The model's res, then jac at that residual, then res_jvp with tangents
+// (v, cj v), as the solve calls them (the refinement's J v), one thread a lane.
+template <typename T, class M>
+__global__ void __launch_bounds__(IDA_THREADS)
+model_eval_kernel(const __grid_constant__ ModelEvalArgs a) {
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= a.B) return;
+  constexpr int N = M::N;
+  const long long B = a.B;
+  T p[M::P], yy[N], yp[N], v[N], w[N], r[N], jv[N], J[N][N];
+  const T t = ((const T*)a.t)[b], cj = ((const T*)a.cj)[b];
+  for (int i = 0; i < M::P; ++i) p[i] = ((const T*)a.params)[i * B + b];
+  for (int i = 0; i < N; ++i) {
+    yy[i] = ((const T*)a.yy)[i * B + b];
+    yp[i] = ((const T*)a.yp)[i * B + b];
+    v[i] = ((const T*)a.v)[i * B + b];
+    w[i] = cj * v[i];
+  }
+  M::res(p, t, yy, yp, r);
+  M::jac(p, t, cj, yy, yp, r, J);
+  M::res_jvp(p, t, yy, yp, v, w, jv);
+  for (int i = 0; i < N; ++i) {
+    ((T*)a.res)[i * B + b] = r[i];
+    ((T*)a.jv)[i * B + b] = jv[i];
+    for (int j = 0; j < N; ++j) ((T*)a.jac)[(i * N + j) * B + b] = J[i][j];
+  }
+}
+
 inline unsigned grid_for(long long B) { return (unsigned)((B + kThreads - 1) / kThreads); }
 
 // Let `kernel` use `bytes` of dynamic shared memory; an error when one block
@@ -282,7 +343,7 @@ int allow_shared(K kernel, size_t bytes) {
 
 template <typename T, bool LaneTol>
 int launch_solve_as(const IdaSolveArgs& a, int budget, int resume, void* stream) {
-  constexpr size_t shared = ida::Hist<T, Roberts::N>::kBytes;
+  constexpr size_t shared = ida::Hist<T, Model::N>::kBytes;
   auto kernel = fused_solve_kernel<T, Solved, LaneTol>;
   const int err = allow_shared(kernel, shared);
   if (err != (int)cudaSuccess) return err;
@@ -292,8 +353,7 @@ int launch_solve_as(const IdaSolveArgs& a, int budget, int resume, void* stream)
 
 template <typename T>
 int launch_solve(const IdaSolveArgs* a, int model, int budget, int resume, void* stream) {
-  static_assert(Roberts::N <= ida::MAXN, "a by-value atol carries MAXN components");
-  if (model != 0 || budget < 1) return (int)cudaErrorInvalidValue;
+  if (model != Model::kId || budget < 1) return (int)cudaErrorInvalidValue;
   if ((a->tol.rtol_lanes == nullptr) != (a->tol.atol_lanes == nullptr))
     return (int)cudaErrorInvalidValue;
   if (a->B <= 0) return (int)cudaSuccess;
@@ -316,11 +376,20 @@ int launch_stage(const ida::StateRefs* s, const void* params, const void* rtol, 
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_model_eval(const ModelEvalArgs* a, int model, void* stream) {
+  if (model != Model::kId) return (int)cudaErrorInvalidValue;
+  if (a->B <= 0) return (int)cudaSuccess;
+  auto kernel = model_eval_kernel<T, Model>;
+  kernel<<<grid_for(a->B), kThreads, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
 // The solve kernel's occupancy on the current device: resident blocks an SM
 // at its registers and shared memory, and the SM count.
 template <typename T>
 int solve_occupancy(int* blocks_per_sm, int* shared_bytes, int* threads, int* sms) {
-  constexpr size_t shared = ida::Hist<T, Roberts::N>::kBytes;
+  constexpr size_t shared = ida::Hist<T, Model::N>::kBytes;
   auto kernel = fused_solve_kernel<T, Solved, false>;
   int err = allow_shared(kernel, shared);
   if (err != (int)cudaSuccess) return err;
@@ -356,11 +425,20 @@ extern "C" {
                                  int* sms) {                                                \
     return solve_occupancy<dt>(blocks_per_sm, shared_bytes, threads, sms);                  \
   }
+#define IDA_EVAL_ENTRY(dt)                                                                  \
+  int fused_model_eval_##dt(const ModelEvalArgs* a, int model, void* stream) {              \
+    return launch_model_eval<dt>(a, model, stream);                                         \
+  }
 
+IDA_EVAL_ENTRY(f64)
+IDA_EVAL_ENTRY(f32)
+
+#if !IDA_EVAL_ONLY
 IDA_SOLVE_ENTRY(f64)
 IDA_SOLVE_ENTRY(f32)
+#endif
 
-#if IDA_FAST_MATH == 0 && IDA_LS_PRECISION == 0
+#if IDA_FAST_MATH == 0 && IDA_LS_PRECISION == 0 && !defined(IDA_MODEL_HEADER) && !IDA_EVAL_ONLY
 
 #define IDA_STAGE_ENTRY(name, S, dt)                                                        \
   int fused_stage_##name##_##dt(const ida::StateRefs* s, const void* params,                \

@@ -11,7 +11,10 @@ default ``-fmad=true``, as PyTorch's kernels are built, for a source whose
 arithmetic goes through the never-contracted intrinsics of
 ``csrc/rounded.cuh``. nvcc's output, which ``-Xptxas -v`` fills with
 registers, stack and spills per kernel, is kept beside the library as
-``nvcc.log``. A failed build raises.
+``nvcc.log``. Sources generated at run time (the whole-solve kernel's model
+header, ops/fused_model.py) are written beside the library and hashed with
+the rest, so two callers that generate the same text share one build. A
+failed build raises.
 """
 
 from __future__ import annotations
@@ -46,13 +49,18 @@ def nvcc_path() -> str:
 
 
 def build_library(source: str, headers: tuple[str, ...] = (),
-                  flags: tuple[str, ...] = ("-fmad=false",)) -> dict:
+                  flags: tuple[str, ...] = ("-fmad=false",),
+                  generated: dict[str, str] | None = None) -> dict:
     """Compile ``csrc/<source>`` with ``NVCC_FLAGS`` and ``flags`` (once per
-    hash of it, ``headers`` and all the flags) and load it. Returns ``{"lib",
-    "path", "seconds", "cached", "log"}``; ``log`` is nvcc's output, read back
-    from ``nvcc.log`` when the library was cached."""
+    hash of it, ``headers``, ``generated`` and all the flags) and load it.
+    ``generated`` maps file names to the text of headers made at run time,
+    written into the library's directory, which is on the include path.
+    Returns ``{"lib", "path", "seconds", "cached", "log"}``; ``log`` is nvcc's
+    output, read back from ``nvcc.log`` when the library was cached."""
     src = CSRC / source
+    generated = generated or {}
     blob = b"".join((CSRC / f).read_bytes() for f in (source, *headers))
+    blob += b"".join(f"{name}\0{text}\0".encode() for name, text in sorted(generated.items()))
     all_flags = [*NVCC_FLAGS, *flags]
     digest = hashlib.sha256(blob + " ".join(all_flags).encode()).hexdigest()[:16]
     out_dir = BUILD_ROOT / digest
@@ -62,8 +70,11 @@ def build_library(source: str, headers: tuple[str, ...] = (),
     log = (out_dir / "nvcc.log").read_text() if cached and (out_dir / "nvcc.log").exists() else ""
     if not cached:
         out_dir.mkdir(parents=True, exist_ok=True)
+        for name, text in generated.items():
+            (out_dir / name).write_text(text)
+        include = ["-I", str(out_dir)] if generated else []
         tmp = out_dir / f"lib{src.stem}.{os.getpid()}.so"
-        proc = subprocess.run([nvcc_path(), *all_flags, "-o", str(tmp), str(src)],
+        proc = subprocess.run([nvcc_path(), *all_flags, *include, "-o", str(tmp), str(src)],
                               capture_output=True, text=True, check=False)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:

@@ -8,6 +8,14 @@ TPU kernel (float32 only, state packed into two buffers, 1024-lane tiles) it
 reads the ``IdaState`` fields in their own dtypes, float64 or float32, and
 takes any batch size.
 
+As the TPU kernel traces any batch-native ``problem_factory`` into its
+body, the kernel takes any factory with an analytic ``jac``, no roots and
+at most ``MAXN`` components: ``models.roberts_factory`` runs the
+hand-written Roberts model of ``fused_solve.cu``, any other factory a model
+that ``ops/fused_model.py`` generates from its torch code at its first
+call, compiled into a library of its own (:func:`model_of`); what the
+kernel cannot take raises ``NotImplementedError`` on either device.
+
 On CUDA tensors ``fn`` does nothing on the card but allocate the result and
 launch: the kernel reads the batch-leading state and ``params_b`` where they
 lie and writes a batch-leading result out of place; ``rtol``, ``atol`` and
@@ -29,8 +37,9 @@ each combination is a library of its own, built from the same source with
 under the same options.
 
 ``MODE_LAUNCHES`` counts the kernel launches (and only those) by (kernel,
-:func:`mode_name`), e.g. ``("init", "refined")``; :func:`launch_count` sums
-them over the modes.
+:func:`mode_name`, model name), e.g. ``("init", "refined", "roberts")``;
+:func:`launch_count` sums them over the modes and models. :func:`eval_model`
+runs a model's ``res``, ``jac`` and ``res_jvp`` alone (``EVAL_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -45,21 +54,20 @@ from torch.autograd import forward_ad
 from .. import constants as C
 from ..core.solve import TASK_NORMAL, solve
 from ..core.state import IdaOptions, IdaState
-from ..models.roberts import roberts_factory
 from ..parallel.batch import from_native
 from ..tol_control import TolControl
 from ._build import DTYPE_TAGS, build_library
+from .fused_model import MAXN, ROBERTS, FusedModel, model_of
 
-MODE_LAUNCHES: dict = {}  # ("solve" | "init" | "cont", mode_name) -> launches
-
-# the compiled-in models: factory -> (model id of the kernel, N, P)
-MODELS = {roberts_factory: (0, 3, 3)}
+# ("solve" | "init" | "cont", mode_name, model name) -> launches
+MODE_LAUNCHES: dict = {}
+EVAL_LAUNCHES: dict = {}  # model name -> launches of fused_model_eval
+HEADERS = ("ida_lane.cuh", "small_lu.cuh", "rounded.cuh", "model_ops.cuh")
 # how fused_solve.cu is built: nvcc's default contraction, as PyTorch's own
 # kernels are, so that the inlined pow and sqrt are torch.pow's and
 # torch.sqrt's; the solve's own arithmetic rounds once per operation through
 # csrc/rounded.cuh
 BUILD_FLAGS = ("-fmad=true",)
-MAXN = 16  # csrc/ida_lane.cuh MAXN: the components a by-value atol carries
 
 # csrc/ida_lane.cuh IDA_STATE_FIELDS, in its order
 STATE_FIELDS = (
@@ -114,6 +122,13 @@ class SolveArgs(ctypes.Structure):
                 ("B", ctypes.c_longlong), ("budget", ctypes.c_int)]
 
 
+class ModelEvalArgs(ctypes.Structure):
+    """csrc/fused_solve.cu ModelEvalArgs."""
+    _fields_ = [(f, ctypes.c_void_p) for f in
+                ("params", "t", "cj", "yy", "yp", "v", "res", "jac", "jv")] + [
+                    ("B", ctypes.c_longlong)]
+
+
 class TolInputs(NamedTuple):
     """The tolerances as a launch takes them: ``rtol`` and ``atol`` ([N]) as
     Python floats when every lane shares them, else None and the per-lane
@@ -126,12 +141,13 @@ class TolInputs(NamedTuple):
 
 def reset_launch_counts() -> None:
     MODE_LAUNCHES.clear()
+    EVAL_LAUNCHES.clear()
 
 
 def launch_count(kind: str) -> int:
     """Launches of kernel ``kind`` ("solve" K2, "init" K3, "cont" K4) since
-    the last reset, in every mode."""
-    return sum(n for (k, _), n in MODE_LAUNCHES.items() if k == kind)
+    the last reset, in every mode and model."""
+    return sum(n for (k, _, _), n in MODE_LAUNCHES.items() if k == kind)
 
 
 def mode_name(opts: IdaOptions) -> str:
@@ -142,9 +158,15 @@ def mode_name(opts: IdaOptions) -> str:
     return "_".join(parts) or "parity"
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the argument types of the solve entry points of ``lib``."""
+def bind(lib: ctypes.CDLL, eval_only: bool = False) -> ctypes.CDLL:
+    """Declare the argument types of the solve entry points of ``lib`` (of
+    its model evaluation alone with ``eval_only``)."""
     for dt in DTYPE_TAGS.values():
+        fn = getattr(lib, f"fused_model_eval_{dt}")
+        fn.argtypes = [ctypes.POINTER(ModelEvalArgs), ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        if eval_only:
+            continue
         for kind in ("", "_init", "_cont"):
             fn = getattr(lib, f"fused_solve{kind}_{dt}")
             fn.argtypes = [ctypes.POINTER(SolveArgs), ctypes.c_int, ctypes.c_void_p]
@@ -164,43 +186,57 @@ def mode_flags(fast_math: bool = False, ls_precision: str = "full") -> tuple[str
     return flags
 
 
+def model_flags(model: FusedModel) -> tuple[str, ...]:
+    """The macro that compiles a generated model in; none for Roberts."""
+    return () if model.header is None else ("-DIDA_MODEL_HEADER=1",)
+
+
 @functools.cache
-def build(fast_math: bool = False, ls_precision: str = "full") -> dict:
-    """Compile (once per hash of the sources and flags) and load the kernel
-    library of one arithmetic mode; see :func:`._build.build_library`. The
-    parity library (the default) also holds the stage kernels."""
-    info = build_library("fused_solve.cu", ("ida_lane.cuh", "small_lu.cuh", "rounded.cuh"),
-                         flags=BUILD_FLAGS + mode_flags(fast_math, ls_precision))
-    bind(info["lib"])
+def build(fast_math: bool = False, ls_precision: str = "full",
+          model: FusedModel = ROBERTS) -> dict:
+    """Compile (once per hash of the sources, the generated model header
+    and the flags) and load the kernel library of one arithmetic mode and
+    model; see :func:`._build.build_library`. The parity library of Roberts
+    (the default) also holds the stage kernels."""
+    return _bound(_build_model(mode_flags(fast_math, ls_precision), model))
+
+
+@functools.cache
+def build_eval(model: FusedModel = ROBERTS) -> dict:
+    """The library of ``model``'s evaluation alone (:func:`eval_model`),
+    quick to build at any N."""
+    return _bound(_build_model(("-DIDA_EVAL_ONLY=1",), model), eval_only=True)
+
+
+def _build_model(flags: tuple[str, ...], model: FusedModel) -> dict:
+    """``fused_solve.cu`` built with ``flags`` and ``model`` (its generated
+    header beside the library)."""
+    return build_library(
+        "fused_solve.cu", HEADERS, flags=BUILD_FLAGS + flags + model_flags(model),
+        generated=None if model.header is None else {"ida_model.cuh": model.header})
+
+
+def _bound(info: dict, eval_only: bool = False) -> dict:
+    bind(info["lib"], eval_only)
     return info
 
 
-def build_of(opts: IdaOptions) -> dict:
-    """The library of ``opts``' arithmetic mode (:func:`build`)."""
-    return build(opts.fast_math, opts.ls_precision)
+def build_of(opts: IdaOptions, model: FusedModel = ROBERTS) -> dict:
+    """The library of ``opts``' arithmetic mode and ``model`` (:func:`build`)."""
+    return build(opts.fast_math, opts.ls_precision, model)
 
 
-def occupancy(dtype: torch.dtype, opts: IdaOptions = IdaOptions()) -> dict:
+def occupancy(dtype: torch.dtype, opts: IdaOptions = IdaOptions(),
+              model: FusedModel = ROBERTS) -> dict:
     """The solve kernel's occupancy on the current card in ``opts``' mode:
     threads a block, dynamic shared bytes a block, resident blocks an SM,
     and the SM count."""
     vals = [ctypes.c_int() for _ in range(4)]
     name = f"fused_solve_occupancy_{DTYPE_TAGS[dtype]}"
-    raise_on(getattr(build_of(opts)["lib"], name)(*(ctypes.byref(v) for v in vals)), name)
+    raise_on(getattr(build_of(opts, model)["lib"], name)(*(ctypes.byref(v) for v in vals)),
+             name)
     blocks, shared, threads, sms = (v.value for v in vals)
     return {"threads": threads, "dynamic_shared_bytes": shared, "blocks_per_sm": blocks, "sms": sms}
-
-
-def model_of(problem_factory) -> tuple[int, int, int]:
-    """(model id, N, P) of a factory the kernel has compiled in; raises for
-    any other."""
-    try:
-        return MODELS[problem_factory]
-    except (KeyError, TypeError):
-        raise NotImplementedError(
-            f"fused_solve: no compiled-in model for {problem_factory!r}; the kernel has "
-            f"{[f.__name__ for f in MODELS]}"
-        ) from None
 
 
 def check_dtype(dtype: torch.dtype) -> None:
@@ -333,20 +369,25 @@ def empty_result(states_b: IdaState, opts: IdaOptions = IdaOptions()) -> IdaStat
 
 
 def prepare_launch(kind: str, src: IdaState, dst: IdaState, params_b: torch.Tensor,
-                   tol: TolInputs, tout: float, carry: dict, opts: IdaOptions, model: int,
-                   budget: int | None):
+                   tol: TolInputs, tout: float, carry: dict, opts: IdaOptions,
+                   model: FusedModel, budget: int | None):
     """Check the arguments of one launch of the whole-solve kernel and return
     ``go``: each ``go()`` launches it once and returns the istate it writes.
     ``kind`` is "" (K2), "init" (K3) or "cont" (K4, resuming ``carry``); the
-    kernel reads the batch-leading ``src`` and ``params_b`` [B, P] and writes
-    ``dst`` (``src`` itself for a launch in place) and ``carry``."""
-    lib = build_of(opts)["lib"]
+    kernel of ``model``'s library reads the batch-leading ``src`` and
+    ``params_b`` [B, P] and writes ``dst`` (``src`` itself for a launch in
+    place) and ``carry``."""
+    lib = build_of(opts, model)["lib"]
     dt = DTYPE_TAGS[src.dtype]
     name = f"fused_solve_{dt}" if kind == "" else f"fused_solve_{kind}_{dt}"
     bsz = src.tn.shape[0]
     if (params_b.dtype != src.dtype or params_b.device != src.phi.device
             or not params_b.is_contiguous() or params_b.dim() != 2 or params_b.shape[0] != bsz):
         raise ValueError(f"{name}: params must be contiguous [{bsz}, P] {src.dtype} on the card")
+    if params_b.shape[1] != model.p or src.yy.shape[1:] != (model.n,):
+        raise ValueError(f"{name}: model {model.name} takes params [B, {model.p}] and N = "
+                         f"{model.n}, got params {list(params_b.shape)}, yy "
+                         f"{list(src.yy.shape)}")
     src_refs = state_refs(src, 0, opts)
     if tol.rtol_lanes is None:
         tol_args = TolArgs(tol.rtol, (ctypes.c_double * MAXN)(*tol.atol), float(tout), None, None)
@@ -358,10 +399,10 @@ def prepare_launch(kind: str, src: IdaState, dst: IdaState, params_b: torch.Tens
                      CarryRefs(**{f: t.data_ptr() for f, t in carry.items()}), opts_struct(opts),
                      bsz, 0 if budget is None else budget)
     fn, stream = getattr(lib, name), stream_of(src.tn)
-    counted = (kind or "solve", mode_name(opts))
+    counted = (kind or "solve", mode_name(opts), model.name)
 
     def go() -> torch.Tensor:
-        raise_on(fn(ctypes.byref(args), model, stream), name)
+        raise_on(fn(ctypes.byref(args), model.id, stream), name)
         MODE_LAUNCHES[counted] = MODE_LAUNCHES.get(counted, 0) + 1
         return carry["istate"]
 
@@ -372,7 +413,7 @@ def prepare_launch(kind: str, src: IdaState, dst: IdaState, params_b: torch.Tens
 
 
 def launch(kind: str, src: IdaState, dst: IdaState, params_b: torch.Tensor, tol: TolInputs,
-           tout: float, carry: dict, opts: IdaOptions, model: int,
+           tout: float, carry: dict, opts: IdaOptions, model: FusedModel,
            budget: int | None) -> torch.Tensor:
     """One launch of the whole-solve kernel (:func:`prepare_launch`, then the
     launch). Returns the istate it writes."""
@@ -442,19 +483,24 @@ def make_fused_solve(problem_factory, tol: TolControl, opts: IdaOptions = IdaOpt
     ``ls_precision`` "full", "single" or "refined", as ``ida_tpu``'s kernel
     traces them; the state's ``lu`` is float32 in the last two, as
     ``ensemble_init(..., opts=opts)`` makes it): options for any other
-    linear solver raise."""
+    linear solver raise.
+
+    ``problem_factory`` is ``models.roberts_factory`` (the hand-written
+    model) or any batch-native factory with an analytic ``jac``, no roots
+    and N <= ``MAXN``, whose model :func:`model_of` generates at the first
+    call (on either device, so that what the kernel cannot take raises on
+    the CPU too) and compiles at the first call on the card."""
     if opts.linear_solver != "dense":
         raise NotImplementedError(
             f"fused_solve: the kernel's linear solver is the compiled-in dense LU; "
             f"linear_solver={opts.linear_solver!r} runs on the eager path (core.solve.solve)"
         )
-    model, n, _ = model_of(problem_factory)
     if attempt_budget is not None and attempt_budget < 1:
         raise ValueError(f"attempt_budget must be at least 1, got {attempt_budget}")
     if opts.debug_trace:
         raise ValueError("fused_solve: the kernel cannot dump per-attempt states "
                          "(debug_trace=True); trace the eager solve")
-    tol_on_card: dict = {}  # (B, dtype, device) -> TolInputs, made at the first such call
+    tol_on_card: dict = {}  # (B, dtype, device, N) -> TolInputs, made at the first such call
 
     def fn(states_b: IdaState, params_b, tout):
         _refuse_derivatives(states_b, params_b, tol)
@@ -466,21 +512,24 @@ def make_fused_solve(problem_factory, tol: TolControl, opts: IdaOptions = IdaOpt
             if isinstance(x, torch.Tensor) and not x.is_contiguous():
                 raise ValueError(f"fused_solve: state.{f} is not contiguous")
         p_b = torch.as_tensor(params_b, dtype=dtype, device=dev).contiguous()
+        model = model_of(problem_factory, p_b.t())
+        n = model.n
+        if tuple(states_b.yy.shape[1:]) != (n,):
+            raise ValueError(f"fused_solve: the state has yy {list(states_b.yy.shape)}, the "
+                             f"factory's problem N = {n}")
         if dev.type == "cpu":
             p = p_b.t().contiguous()
             problem = problem_factory(p)
-            _check_no_roots(problem)
             native = native_clone(states_b)
             inputs = lane_inputs(native, p, _native_tol(tol, n), tout, n)
             st, tret, istate = _solve_plain(native, problem, opts,
                                             TolControl(inputs[1], inputs[2]), inputs[3],
                                             attempt_budget)
             return from_native(st), tret, istate
-        key = (states_b.tn.shape[0], dtype, dev)
+        key = (states_b.tn.shape[0], dtype, dev, n)
         if key not in tol_on_card:
-            # once, not at every call: a factory may copy a tensor to the card
-            # and reading the tolerances off their tensors synchronizes
-            _check_no_roots(problem_factory(p_b.t()))
+            # once, not at every call: reading the tolerances off their
+            # tensors synchronizes
             tol_on_card[key] = tol_inputs(tol, n, key[0], dtype, dev)
         return _solve_cuda(states_b, p_b, tol_on_card[key], tout, opts, model, attempt_budget)
 
@@ -516,16 +565,50 @@ def _check_mode_state(states_b: IdaState, opts: IdaOptions) -> None:
             "ensemble_init(..., opts=opts)")
 
 
-def _check_no_roots(problem) -> None:
-    if problem.nroots:
-        raise NotImplementedError(
-            "fused_solve: rootfinding (nroots > 0) is not supported in the fused kernel "
-            "path; use parallel.make_ensemble_solve for problems with events"
-        )
-
-
 def _native_tol(tol: TolControl, n: int) -> TolControl:
     """``tol`` for the batch-native plain version: a per-lane atol [B, N]
     becomes [N, B]; shared tolerances pass as they are."""
     atol = torch.as_tensor(tol.atol)
     return TolControl(tol.rtol, atol.t() if atol.dim() == 2 else atol)
+
+
+def eval_model(problem_factory, params: torch.Tensor, t: torch.Tensor, cj: torch.Tensor,
+               yy: torch.Tensor, yp: torch.Tensor, v: torch.Tensor):
+    """The problem's residual, its system Jacobian at that residual and J v
+    (the jvp with tangents (v, cj v)) on batch-native lanes: params [P, B],
+    t and cj [B], yy, yp and v [N, B] -> (res [N, B], jac [N, N, B], jv [N,
+    B]). On CUDA tensors the compiled model alone (``fused_model_eval`` of
+    :func:`build_eval`'s library, one thread a lane, counted in
+    ``EVAL_LAUNCHES``); on CPU tensors its plain version, the eager
+    problem's (:func:`eval_model_plain`)."""
+    if yy.device.type == "cpu":
+        return eval_model_plain(problem_factory, params, t, cj, yy, yp, v)
+    check_dtype(yy.dtype)
+    check_device(yy.device)
+    model = model_of(problem_factory, params)
+    n, bsz = model.n, yy.shape[-1]
+    shapes = {"params": (params, (model.p, bsz)), "t": (t, (bsz,)), "cj": (cj, (bsz,)),
+              "yy": (yy, (n, bsz)), "yp": (yp, (n, bsz)), "v": (v, (n, bsz))}
+    for name, (x, shape) in shapes.items():
+        if (tuple(x.shape) != shape or x.dtype != yy.dtype or x.device != yy.device
+                or not x.is_contiguous()):
+            raise ValueError(f"eval_model: {name} must be contiguous {list(shape)} "
+                             f"{yy.dtype} on {yy.device}")
+    out = {"res": yy.new_empty((n, bsz)), "jac": yy.new_empty((n, n, bsz)),
+           "jv": yy.new_empty((n, bsz))}
+    args = ModelEvalArgs(*(x.data_ptr() for x, _ in shapes.values()),
+                         *(x.data_ptr() for x in out.values()), bsz)
+    name = f"fused_model_eval_{DTYPE_TAGS[yy.dtype]}"
+    fn = getattr(build_eval(model)["lib"], name)
+    raise_on(fn(ctypes.byref(args), model.id, stream_of(yy)), name)
+    EVAL_LAUNCHES[model.name] = EVAL_LAUNCHES.get(model.name, 0) + 1
+    return out["res"], out["jac"], out["jv"]
+
+
+def eval_model_plain(problem_factory, params, t, cj, yy, yp, v):
+    """:func:`eval_model`'s plain version on the tensors' own device: the
+    eager problem's ``res``, ``sys_jacobian`` at that residual and
+    ``jtimes``."""
+    problem = problem_factory(params)
+    r = problem.res(t, yy, yp)
+    return r, problem.sys_jacobian(t, cj, yy, yp, r), problem.jtimes(t, cj, yy, yp, v)

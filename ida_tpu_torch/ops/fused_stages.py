@@ -12,8 +12,9 @@ the kernel and the eager port part ways.
 error coefficient ``ck``, the error norms, ``saved_t``, the failure
 counters, status codes) are [B] tensors named in :data:`STAGES`; inputs not
 given take the defaults of :data:`DEFAULTS` (those of bisect_fused.py).
-Every stage runs the Roberts model at the default ``IdaOptions()``, the
-one model the kernel compiles in. ``STAGE_LAUNCHES[name]`` counts the
+Every stage runs the hand-written Roberts model at the default
+``IdaOptions()``: the stage kernels are compiled into the parity library of
+Roberts only (a generated model's library has none). ``STAGE_LAUNCHES[name]`` counts the
 kernel launches.
 """
 
@@ -127,7 +128,7 @@ def _eager(name: str, st: IdaState, problem, opts: IdaOptions, tol: TolControl, 
 def _prepare(stage: str, state: IdaState, params, tol: TolControl, tout, aux):
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}; stages: {list(STAGES)}")
-    model, n, _ = fs.model_of(roberts_factory)
+    model, n = fs.ROBERTS.id, fs.ROBERTS.n
     fs.check_dtype(state.dtype)
     fs.check_device(state.phi.device)
     a = _aux_inputs(STAGES[stage], state, aux)

@@ -42,11 +42,14 @@ p_b = torch.as_tensor(params, device="cuda").contiguous()
 tol = fused_solve.tol_inputs(tol_sv(1e-4, [1e-8, 1e-6, 1e-6], device="cuda"), 3, 1,
                              torch.float64, torch.device("cuda"))
 info = fused_solve.build()
+# the hand-written Roberts: a FusedModel since the kernel took generated models, 0 before
+model = getattr(fused_solve, "ROBERTS", 0)
 runs = []
 for _ in range(7):
     dst = fused_solve.empty_result(st0)
     carry = fused_solve.new_carry(B, torch.float64, st0.phi.device, False)
-    go = fused_solve.prepare_launch("", st0, dst, p_b, tol, 400.0, carry, IdaOptions(), 0, None)
+    go = fused_solve.prepare_launch("", st0, dst, p_b, tol, 400.0, carry, IdaOptions(), model,
+                                    None)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
     ev[0].record()

@@ -149,7 +149,7 @@ def main(names: list[str]) -> None:
     for rnd in range(2):
         for name, info in libs.items():
             fused_solve.bind(info["lib"])
-            fused_solve.build = lambda info=info: info
+            fused_solve.build = lambda *_, info=info, **__: info
             out = fused_solve.make_fused_solve(roberts_factory, tol)(st0, p_b, TOUT)
             torch.cuda.synchronize()
             ref = out if ref is None else ref
@@ -158,7 +158,7 @@ def main(names: list[str]) -> None:
                 dst = fused_solve.empty_result(st0)
                 carry = fused_solve.new_carry(B, st0.dtype, st0.phi.device, False)
                 k2.append(event_ms(fused_solve.prepare_launch(
-                    "", st0, dst, p_b, tol_in, TOUT, carry, opts, 0, None)))
+                    "", st0, dst, p_b, tol_in, TOUT, carry, opts, fused_solve.ROBERTS, None)))
             dst = fused_solve.empty_result(st0)
             carry = fused_solve.new_carry(B, st0.dtype, st0.phi.device, True)
             budgeted = []
@@ -166,7 +166,7 @@ def main(names: list[str]) -> None:
             def step(resume: bool) -> torch.Tensor:
                 budgeted.append(event_ms(fused_solve.prepare_launch(
                     "cont" if resume else "init", dst if resume else st0, dst, p_b, tol_in, TOUT,
-                    carry, opts, 0, 32)))
+                    carry, opts, fused_solve.ROBERTS, 32)))
                 return carry["istate"]
 
             fused_solve.run_until_done(step)
@@ -183,14 +183,15 @@ def main(names: list[str]) -> None:
     fn(st0, p_b, TOUT)
     dst = fused_solve.empty_result(st0)
     carry = fused_solve.new_carry(B, st0.dtype, st0.phi.device, False)
-    go = fused_solve.prepare_launch("", st0, dst, p_b, tol_in, TOUT, carry, opts, 0, None)
+    go = fused_solve.prepare_launch("", st0, dst, p_b, tol_in, TOUT, carry, opts,
+                                    fused_solve.ROBERTS, None)
     torch.cuda.synchronize()
     emit(host_us={
         "state_refs": host_us(lambda: fused_solve.state_refs(st0, 0)),
         "empty_result": host_us(lambda: fused_solve.empty_result(st0)),
         "new_carry": host_us(lambda: fused_solve.new_carry(B, st0.dtype, st0.phi.device, False)),
         "prepare_launch": host_us(lambda: fused_solve.prepare_launch(
-            "", st0, dst, p_b, tol_in, TOUT, carry, opts, 0, None)),
+            "", st0, dst, p_b, tol_in, TOUT, carry, opts, fused_solve.ROBERTS, None)),
         "launch_and_synchronize": host_us(lambda: (go(), torch.cuda.synchronize()), 20),
         "whole_call_and_synchronize": host_us(
             lambda: (fn(st0, p_b, TOUT), torch.cuda.synchronize()), 20),

@@ -44,10 +44,18 @@ differentiated by ``problem.jacobian``'s vmapped jvp.
   inputs, while XLA:CPU's agree with it; so CPU tensors go through numpy
   (which calls the C library for float64) in a Function as above, and CUDA
   tensors through ``torch.sin``/``torch.cos``.
+
+Within :func:`cpu_formulas` the helpers take their CPU branch on a tensor of
+any device, computing the value with the torch op where the tensor is not on
+the CPU: ``ops/fused_model.py`` traces a problem factory so on ``meta``
+tensors to write the host build of its model, whose arithmetic, the
+derivative formulas of these Functions included, is the eager CPU path's.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import ctypes.util
 import functools
@@ -59,6 +67,23 @@ from torch.autograd import forward_ad
 
 # the longest axis :func:`sum0` adds term by term
 SEQUENTIAL_SUM_MAX = 32
+# within cpu_formulas(), in this thread (a context variable: another thread's
+# solve on the card keeps the card's branch)
+_CPU_FORMULAS = contextvars.ContextVar("cpu_formulas", default=False)
+
+
+@contextlib.contextmanager
+def cpu_formulas():
+    """The helpers' CPU branch on tensors of every device (module doc)."""
+    token = _CPU_FORMULAS.set(True)
+    try:
+        yield
+    finally:
+        _CPU_FORMULAS.reset(token)
+
+
+def _card_branch(x: torch.Tensor) -> bool:
+    return x.device.type != "cpu" and not _CPU_FORMULAS.get()
 
 
 def sum0(t: torch.Tensor) -> torch.Tensor:
@@ -92,6 +117,8 @@ class _SqrtCPU(torch.autograd.Function):
 
     @staticmethod
     def forward(x):
+        if x.device.type != "cpu":  # traced within cpu_formulas()
+            return torch.sqrt(x)
         return torch.from_numpy(np.asarray(np.sqrt(x.detach().numpy())))
 
     @staticmethod
@@ -119,6 +146,8 @@ class _SinCPU(torch.autograd.Function):
 
     @staticmethod
     def forward(x):
+        if x.device.type != "cpu":  # traced within cpu_formulas()
+            return torch.sin(x)
         return torch.from_numpy(np.asarray(np.sin(x.detach().numpy())))
 
     @staticmethod
@@ -146,6 +175,8 @@ class _CosCPU(torch.autograd.Function):
 
     @staticmethod
     def forward(x):
+        if x.device.type != "cpu":  # traced within cpu_formulas()
+            return torch.cos(x)
         return torch.from_numpy(np.asarray(np.cos(x.detach().numpy())))
 
     @staticmethod
@@ -170,7 +201,7 @@ class _CosCPU(torch.autograd.Function):
 
 def sin_(x: torch.Tensor) -> torch.Tensor:
     """Elementwise ``sin`` rounded as the C library's (see module doc)."""
-    if x.device.type != "cpu":
+    if _card_branch(x):
         return torch.sin(x)
     if differentiated(x) or _wrapped(x):
         return _SinCPU.apply(x)
@@ -179,7 +210,7 @@ def sin_(x: torch.Tensor) -> torch.Tensor:
 
 def cos_(x: torch.Tensor) -> torch.Tensor:
     """Elementwise ``cos`` rounded as the C library's (see module doc)."""
-    if x.device.type != "cpu":
+    if _card_branch(x):
         return torch.cos(x)
     if differentiated(x) or _wrapped(x):
         return _CosCPU.apply(x)
@@ -194,7 +225,7 @@ def _wrapped(x: torch.Tensor) -> bool:
 
 def sqrt_(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded elementwise square root (see module doc)."""
-    if x.device.type != "cpu":
+    if _card_branch(x):
         return torch.sqrt(x)
     if differentiated(x) or _wrapped(x):
         return _SqrtCPU.apply(x)
@@ -210,6 +241,8 @@ def _libm_pow():
 
 
 def _libm_pow_values(b: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    if b.device.type != "cpu":  # traced within cpu_formulas()
+        return torch.pow(b, e)
     fn = _libm_pow()
     vals = [fn(x, y) for x, y in zip(b.reshape(-1).tolist(), e.reshape(-1).tolist())]
     return torch.tensor(vals, dtype=b.dtype).reshape(b.shape)
@@ -256,8 +289,10 @@ class _PowCPU(torch.autograd.Function):
 def pow_(base: torch.Tensor, expo) -> torch.Tensor:
     """Elementwise ``base ** expo`` in ``base``'s dtype (see module doc);
     ``expo`` is a tensor or a number."""
-    if base.device.type != "cpu":
+    if _card_branch(base):
         return torch.pow(base, expo)
+    if base.device.type != "cpu" and not isinstance(expo, torch.Tensor):
+        expo = torch.full_like(base, expo)  # traced within cpu_formulas()
     expo = torch.as_tensor(expo, dtype=base.dtype)
     b, e = torch.broadcast_tensors(base, expo.to(base.dtype))
     if differentiated(b, e) or _wrapped(b) or _wrapped(e):

@@ -44,6 +44,7 @@ REFS = {
     "mesh_dp_op_by_op": ("test_torch_mesh", "jax_dp_op_by_op_live", "REF_INPUTS"),
     "mesh_sharded_programs": ("test_torch_mesh", "jax_sharded_live", "REF_INPUTS"),
     "mesh_foodweb_programs": ("test_torch_mesh", "jax_food_live", "FOOD_REF_INPUTS"),
+    "fused_models_jax": ("test_torch_fused_models", "jax_fused_models_live", "REF_INPUTS"),
 }
 
 

@@ -325,8 +325,9 @@ def test_fused_kernel_in_each_mode_is_bitwise_the_eager_mode(cuda, mode, budget)
     fused_solve.reset_launch_counts()
     st, tret, ist = fused_solve.make_fused_solve(roberts_factory, tol, opts,
                                                  attempt_budget=budget)(st0, params, 400.0)
-    assert {m for _, m in fused_solve.MODE_LAUNCHES} == {fused_solve.mode_name(opts)}
-    assert {k for k, _ in fused_solve.MODE_LAUNCHES} == ({"init", "cont"} if budget else {"solve"})
+    assert {m for _, m, _ in fused_solve.MODE_LAUNCHES} == {fused_solve.mode_name(opts)}
+    assert {k for k, _, _ in fused_solve.MODE_LAUNCHES} == (
+        {"init", "cont"} if budget else {"solve"})
     est, etret, eist = make_ensemble_solve(roberts_factory, opts)(st0, params, tol, 400.0)
     assert bool((ist == C.SUCCESS).all())
     assert _same_states(st, est) == []
@@ -371,7 +372,7 @@ def _budgeted_launches_are_the_eager_calls(cuda, opts):
     def step(resume):
         nonlocal eager
         istate = fused_solve.launch("cont" if resume else "init", dst if resume else st0, dst,
-                                    p_b, tol_in, 400.0, carry, opts, 0, 7)
+                                    p_b, tol_in, 400.0, carry, opts, fused_solve.ROBERTS, 7)
         eager = core_solve(eager[0], problem, opts, tol, inputs[3], max_attempts=7,
                            resume_carry=eager[3] if resume else None)
         assert _same_states(to_native(dst), eager[0]) == [], resume
@@ -856,3 +857,81 @@ def test_continuous_adjoint_keeps_its_bits_on_the_group_skeleton(cuda, monkeypat
     assert not small_lu.GROUP_LAUNCHES and small_lu.LAUNCHES["solve", "f64", 6] > 0
     for u, v in zip(new, old):
         assert torch.equal(u, v)
+
+
+def _lorenz_factory(params):
+    """Lorenz '63 with per-lane [sigma, rho, beta] and an analytic J: a
+    factory whose model the whole-solve kernel generates."""
+    from ida_tpu_torch.problem import IdaProblem
+
+    sigma, rho, beta = params[0], params[1], params[2]
+
+    def res(t, yy, yp):
+        x, y, z = yy[0], yy[1], yy[2]
+        return torch.stack([yp[0] - sigma * (y - x), yp[1] - (x * (rho - z) - y),
+                            yp[2] - (x * y - beta * z)])
+
+    def jac(t, cj, yy, yp, rr):
+        x, y, z = yy[0], yy[1], yy[2]
+        zero = torch.zeros_like(x)
+        return torch.stack([torch.stack([cj + sigma, -sigma, zero]),
+                            torch.stack([z - rho, cj + 1.0, x]),
+                            torch.stack([-y, -x, cj + beta])])
+
+    return IdaProblem(n=3, res=res, jac=jac)
+
+
+@pytest.mark.parametrize("budget", [None, 7], ids=["k2", "budget7"])
+def test_generated_model_kernel_matches_the_eager_path_bitwise(cuda, budget):
+    # 256 Lorenz lanes to t = 1 through the generated model's library: bit
+    # for bit the eager solve on the same CUDA tensors, launches counted
+    # under the model's name
+    bsz = 256
+    params = np.outer(np.exp(np.linspace(-0.05, 0.05, bsz)), [10.0, 28.0, 8.0 / 3.0])
+    yp0 = np.stack([np.zeros(bsz), params[:, 1] - 2.0, 1.0 - params[:, 2]], axis=1)
+    st0 = ensemble_init(_lorenz_factory, params, np.ones((bsz, 3)), yp0, device=cuda)
+    tol = tol_sv(1e-4, [1e-6] * 3, device=cuda)
+    p_b = torch.as_tensor(params, device=cuda).contiguous()
+    model = fused_solve.model_of(_lorenz_factory, p_b.t())
+    fused_solve.reset_launch_counts()
+    st, tret, ist = fused_solve.make_fused_solve(_lorenz_factory, tol, attempt_budget=budget)(
+        st0, p_b, 1.0)
+    est, etret, eist = make_ensemble_solve(_lorenz_factory)(st0, params, tol, 1.0)
+    assert {m for _, _, m in fused_solve.MODE_LAUNCHES} == {model.name}
+    assert bool((ist == C.SUCCESS).all())
+    assert torch.equal(ist, eist) and torch.equal(tret, etret)
+    assert _same_states(st, est) == []
+
+
+def test_generated_roberts_is_bitwise_the_hand_written_library(cuda):
+    params, st0 = _ensemble(256, cuda)
+    tol = tol_sv(1e-4, ATOL, device=cuda)
+
+    def roberts_generated(p):
+        return roberts_factory(p)
+
+    hand = fused_solve.make_fused_solve(roberts_factory, tol)(st0, params, 400.0)
+    gen = fused_solve.make_fused_solve(roberts_generated, tol)(st0, params, 400.0)
+    assert _same_states(gen[0], hand[0]) == []
+    assert torch.equal(gen[1], hand[1]) and torch.equal(gen[2], hand[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_generated_model_ops_are_the_eager_problems(cuda, dtype):
+    # the table of ops: res, jac and J v of 4,096 random lanes through the
+    # model's evaluation kernel, bit for bit the eager problem's
+    rng = np.random.default_rng(5)
+
+    def lanes(x):
+        return torch.as_tensor(x, dtype=dtype, device=cuda).contiguous()
+
+    p0 = np.array([10.0, 28.0, 8.0 / 3.0])
+    args = (lanes(p0[:, None] * np.exp(rng.uniform(-0.2, 0.2, (3, 4096)))),
+            lanes(rng.uniform(0, 5, 4096)), lanes(np.exp(rng.uniform(-3, 5, 4096))),
+            *(lanes(rng.normal(size=(3, 4096))) for _ in range(3)))
+    fused_solve.reset_launch_counts()
+    got = fused_solve.eval_model(_lorenz_factory, *args)
+    want = fused_solve.eval_model_plain(_lorenz_factory, *args)
+    assert sum(fused_solve.EVAL_LAUNCHES.values()) == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

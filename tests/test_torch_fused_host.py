@@ -94,32 +94,38 @@ void host_launch(unsigned grid, unsigned threads, F f, A... a) {
 """
 
 
-# mode flags (ops.fused_solve.mode_flags) -> the host build of that mode
+# (mode flags (ops.fused_solve.mode_flags), model) -> the host build of that
+# mode and model
 _HOST_BUILDS: dict = {}
 
 
-def host_build(tmp_path_factory, flags: tuple = ()) -> ctypes.CDLL:
-    """The host build of ``fused_solve.cu`` with the mode ``flags``, compiled
-    at its first use in the test process."""
-    if flags in _HOST_BUILDS:
-        return _HOST_BUILDS[flags]
+def host_build(tmp_path_factory, flags: tuple = (),
+               model: fused_solve.FusedModel = fused_solve.ROBERTS) -> ctypes.CDLL:
+    """The host build of ``fused_solve.cu`` with the mode ``flags`` and the
+    model (a generated one's header beside it, as ``ops.fused_solve.build``
+    compiles it), compiled at its first use in the test process."""
+    if (flags, model) in _HOST_BUILDS:
+        return _HOST_BUILDS[flags, model]
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
     out = tmp_path_factory.mktemp("fused_host")
     (out / "cuda_runtime.h").write_text(_STUB)
+    if model.header is not None:
+        (out / "ida_model.cuh").write_text(model.header)
     src, n = re.subn(r"(\w+)<<<([^,]+), ([^,]+), [^,]+, \(cudaStream_t\)stream>>>\(",
                      r"host_launch(\2, \3, \1, ", (CSRC / "fused_solve.cu").read_text())
-    assert n == 2  # the solve kernel and the stage kernel
+    assert n == 3  # the solve kernel, the stage kernel and the model's evaluation
     (out / "fused_solve_host.cpp").write_text(_PRELUDE + src)
     lib_path = out / "libfused_solve_host.so"
     proc = subprocess.run(
         [cxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC", "-I", str(out),
-         "-I", str(CSRC), *flags, "-o", str(lib_path), str(out / "fused_solve_host.cpp")],
+         "-I", str(CSRC), *flags, *fused_solve.model_flags(model), "-o", str(lib_path),
+         str(out / "fused_solve_host.cpp")],
         capture_output=True, text=True, check=False)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    _HOST_BUILDS[flags] = fused_solve.bind(ctypes.CDLL(str(lib_path)))
-    return _HOST_BUILDS[flags]
+    _HOST_BUILDS[flags, model] = fused_solve.bind(ctypes.CDLL(str(lib_path)))
+    return _HOST_BUILDS[flags, model]
 
 
 @pytest.fixture(scope="module")
@@ -129,10 +135,13 @@ def host_lib(tmp_path_factory):
 
 @pytest.fixture
 def on_host(host_lib, tmp_path_factory, monkeypatch):
-    """Route the wrappers' launches to the host build of each mode, on CPU
-    tensors."""
-    monkeypatch.setattr(fused_solve, "build", lambda fast_math=False, ls_precision="full": {
-        "lib": host_build(tmp_path_factory, fused_solve.mode_flags(fast_math, ls_precision))})
+    """Route the wrappers' launches to the host build of each mode and
+    model, on CPU tensors."""
+    monkeypatch.setattr(
+        fused_solve, "build",
+        lambda fast_math=False, ls_precision="full", model=fused_solve.ROBERTS: {
+            "lib": host_build(tmp_path_factory, fused_solve.mode_flags(fast_math, ls_precision),
+                              model)})
     monkeypatch.setattr(fused_solve, "stream_of", lambda t: 0)
     monkeypatch.setattr(
         fused_solve, "state_refs", lambda st, batch_axis, opts=IdaOptions(): fused_solve.StateRefs(
@@ -151,7 +160,7 @@ def _kernel_solve(st_b, params, tout, opts, budget=None, tol=None):
     bsz = st_b.tn.shape[0]
     tol_in = fused_solve.tol_inputs(tol or tol_sv(1e-4, ATOL, device="cpu"), 3, bsz,
                                     torch.float64, torch.device("cpu"))
-    return fused_solve._solve_cuda(st_b, p_b, tol_in, tout, opts, 0, budget)
+    return fused_solve._solve_cuda(st_b, p_b, tol_in, tout, opts, fused_solve.ROBERTS, budget)
 
 
 def _differ(a, b):
@@ -225,8 +234,9 @@ def test_host_build_is_bitwise_the_eager_mode(on_host, mode, budget):
         fused_solve.reset_launch_counts()
         got = _kernel_solve(st_k, params, tout, opts, budget=budget)
         kinds = ("init", "cont") if budget else ("solve",)
-        assert {k for k, _ in fused_solve.MODE_LAUNCHES} == set(kinds)
-        assert {m for _, m in fused_solve.MODE_LAUNCHES} == {fused_solve.mode_name(opts)}
+        assert {k for k, _, _ in fused_solve.MODE_LAUNCHES} == set(kinds)
+        assert {m for _, m, _ in fused_solve.MODE_LAUNCHES} == {fused_solve.mode_name(opts)}
+        assert {m for _, _, m in fused_solve.MODE_LAUNCHES} == {"roberts"}
         assert _differ(got[0], ref[0]) == [], tout
         assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
         st_e, st_k = ref[0], got[0]
@@ -269,7 +279,7 @@ def _budgeted_launches_are_the_eager_calls(opts):
         def step(resume):
             nonlocal eager
             istate = fused_solve.launch("cont" if resume else "init", dst if resume else src, dst,
-                                        p_b, tol_in, tout, carry, opts, 0, 3)
+                                        p_b, tol_in, tout, carry, opts, fused_solve.ROBERTS, 3)
             eager = core_solve(eager[0], problem, opts, tol, inputs[3], max_attempts=3,
                                resume_carry=eager[3] if resume else None)
             assert _differ(to_native(dst), eager[0]) == [], (tout, resume)
