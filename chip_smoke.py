@@ -91,6 +91,16 @@ tout=400 in f64):
   "refined" and in float32), Akzo's nominal lane against the eager port's
   rtol 1e-10 run on the CPU; each library's registers, spills and bare
   launch; ``python3 chip_smoke.py fused_models`` runs it alone;
+* quadratures and the new ops in the whole-solve kernel
+  (``fused_quad_ops``): the quadrature headline through K2 and budget 32
+  bit for bit the eager ``quadrature_headline`` (``yQ`` included,
+  ``get_quad`` on one lane), "refined" and float32 at B = 4,096;
+  Morris-Lecar (tanh, cosh, two quadratures) at B = 65,536 over the applied
+  current to 10 ms, K2, budget 32 and "refined" bit for bit the eager
+  solve, its nominal lane against the eager port's rtol 1e-10 run on the
+  CPU; the table of ops with a zoo of every new op on NaN/+-0/+-inf lanes;
+  the hand-written Roberts library still 234 registers;
+  ``python3 chip_smoke.py fused_quad_ops`` runs it alone;
 * the mesh (``mesh``, ``parallel/mesh.py``): the headline through
   ``EnsembleIDA(mesh=make_mesh(1))`` under NCCL, bit for bit the eager
   solve with K1's launch counts, and K2 on the rank's shard bit for bit the
@@ -115,6 +125,8 @@ line per phase; any failed check raises, so the exit code is non-zero.
     python3 chip_smoke.py
     python3 chip_smoke.py mesh   # the build, slice, foodweb and mesh phases alone
     python3 chip_smoke.py fused_models   # its libraries, the slice and fused_models alone
+    python3 chip_smoke.py fused_quad_ops   # its libraries, the slice, the quadrature
+                                           # headline, the table of ops and fused_quad_ops
 
 The last three lines are the kernels' summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -153,6 +165,8 @@ from ida_tpu_torch.models import (ROBERTS_PARAMS, ROBERTS_YP0, ROBERTS_YY0, food
                                   foodweb_ic, foodweb_problem, heat2d_ic, heat2d_problem,
                                   roberts_factory, roberts_problem, slider_crank_ic,
                                   slider_crank_problem)
+from ida_tpu_torch.models.morris_lecar import (I_NOMINAL, morris_lecar_factory,
+                                               morris_lecar_inputs)
 from ida_tpu_torch.ops import (_build, dense_lu, fused_model, fused_solve, fused_stages,
                                make_bbd_prec, small_lu)
 from ida_tpu_torch.ops.banded import band_factor, band_solve, band_sys_jacobian, band_to_dense
@@ -384,14 +398,23 @@ def fused_fn(device, dtype=torch.float64, budget=None):
     return fused_solve.make_fused_solve(roberts_factory, tol, attempt_budget=budget)
 
 
+BITS = {torch.float64: torch.int64, torch.float32: torch.int32, torch.float16: torch.int16,
+        torch.bfloat16: torch.int16}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise: the same bit pattern (so +0 and -0 differ), any NaN
+    equal to any NaN."""
+    if not a.is_floating_point():
+        return a == b
+    return (a.view(BITS[a.dtype]) == b.view(BITS[b.dtype])) | (torch.isnan(a) & torch.isnan(b))
+
+
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Bit for bit, NaN equal to NaN."""
+    """Bit for bit (+0 and -0 differ), NaN equal to NaN."""
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    eq = a == b
-    if a.is_floating_point():
-        eq |= torch.isnan(a) & torch.isnan(b)
-    return bool(eq.all())
+    return bool(same_bits(a.contiguous(), b.contiguous()).all())
 
 
 def first_difference(st_a, st_b, out_a: dict, out_b: dict) -> str | None:
@@ -418,10 +441,12 @@ def max_abs_diff(st_a, st_b, out_a: dict | None = None, out_b: dict | None = Non
     return worst
 
 
-def state_bytes(st, opts: IdaOptions = IdaOptions()) -> int:
-    """Bytes of the fields a launch in ``opts``' mode reads or writes."""
+def state_bytes(st, opts: IdaOptions = IdaOptions(),
+                model: fused_model.FusedModel = fused_solve.ROBERTS) -> int:
+    """Bytes of the fields a launch of ``model``'s library in ``opts``' mode
+    reads or writes."""
     return sum(getattr(st, f).numel() * getattr(st, f).element_size()
-               for f in fused_solve.touched_fields(opts))
+               for f in fused_solve.touched_fields(opts, model))
 
 
 # ---------------------------------------------------------------- phases
@@ -782,14 +807,16 @@ def mode_ops(totals: dict, opts: IdaOptions, dtype: torch.dtype) -> dict:
     return {torch.float64: rest, torch.float32: lu}
 
 
-def solve_bound(st, ops, opts: IdaOptions = IdaOptions()) -> tuple[float, str]:
+def solve_bound(st, ops, opts: IdaOptions = IdaOptions(),
+                model: fused_model.FusedModel = fused_solve.ROBERTS) -> tuple[float, str]:
     """The least time for a launch's work: the state (B lanes) read and
     written once, with params read once (the tolerances and tout travel by
     value), over the memory rate, against the operations (a number, in the
     state's dtype, or {dtype: operations}) over the peak rate of their
-    type; the fields are those of ``opts``' mode."""
+    type; the fields are those of ``model``'s library in ``opts``' mode."""
     bsz = st.tn.shape[0]
-    nbytes = 2 * state_bytes(st, opts) + bsz * 3 * st.phi.element_size()
+    nbytes = (2 * state_bytes(st, opts, model)
+              + bsz * model.p * st.phi.element_size())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_type = ops if isinstance(ops, dict) else {st.dtype: ops}
     t_ops = sum(n / PEAK_FLOPS[dt] for dt, n in by_type.items()) * 1e3
@@ -811,7 +838,7 @@ def bare_launch_ms(st0, p_b, tol_in=None, opts: IdaOptions = IdaOptions(),
     ``tout`` (the headline's shared tolerances unless ``tol_in`` is given)
     in ``opts``' mode: the arguments are checked and the result allocated
     before the first event, so the window holds the launch alone."""
-    dst = fused_solve.empty_result(st0, opts)
+    dst = fused_solve.empty_result(st0, opts, model)
     carry = fused_solve.new_carry(st0.tn.shape[0], st0.dtype, st0.phi.device, False)
     go = fused_solve.prepare_launch("", st0, dst, p_b, tol_in or shared_tol(), tout, carry,
                                     opts, model, None)
@@ -974,7 +1001,7 @@ def phase_fused_budgeted() -> dict:
     eager_out = (to_native(st0), None, None, None)
     inputs = fused_solve.lane_inputs(eager_out[0], p, tol_sv(1e-4, ATOL, device="cuda"), TOUT, 3)
     tol_n = TolControl(inputs[1], inputs[2])
-    dst = fused_solve.empty_result(st0)
+    dst = fused_solve.empty_result(st0, IdaOptions(), fused_solve.ROBERTS)
     carry = fused_solve.new_carry(B, dst.dtype, dst.phi.device, True)
     tol_in = shared_tol()
     runs = []
@@ -1995,7 +2022,8 @@ def phase_quadrature_headline(eager: dict) -> dict:
     check(q_err < 1e-9, f"quadrature_headline: yQ[0] off tn by {q_err} (relative)")
     check(lane_same and np.array_equal(q_ida, q_core), "quadrature_headline: IDA.get_quad lane")
     check(bool((istate == C.SUCCESS).all()), "quadrature_headline: a lane is not SUCCESS")
-    return {"lu_launches": lu_l}
+    return {"lu_launches": lu_l, "result": out["r"], "wall_s": wall, "lane": lane,
+            "ida_get_quad": q_ida}
 
 
 def phase_checkpoint_resume() -> dict:
@@ -2889,7 +2917,7 @@ def mode_launch_times(opts: IdaOptions, st0, p_b, budget: int, tol_in=None,
     """CUDA-event ms of each launch of a budgeted solve of ``model``'s
     library in ``opts``' mode (K3, then K4 in place on its result until no
     lane is CONTINUE)."""
-    dst = fused_solve.empty_result(st0, opts)
+    dst = fused_solve.empty_result(st0, opts, model)
     carry = fused_solve.new_carry(st0.tn.shape[0], st0.dtype, st0.phi.device, True)
     tol_in = tol_in or shared_tol(dtype=st0.dtype)
     runs = []
@@ -3635,10 +3663,54 @@ def zoo_factory(params):
     return IdaProblem(n=16, res=res, jac=jac)
 
 
+def ops_zoo_factory(params):
+    """One row for each op of the emitter's kinetics/neuron table, plain torch:
+    tanh, sinh, cosh, tan, atan, expm1, log1p, maximum, minimum, clamp
+    between numbers (both, clamp_min, clamp_max) and between tensors, and
+    where over the comparisons and logic of masks (gt, ge, lt, le, eq, ne,
+    &, |, ~, a mask cast to the dtype, masked_fill); their jvps bring in
+    tanh_backward, logical_and and where; N = 16."""
+    a, b = params[0], params[1]
+
+    def terms(yy):
+        y = [yy[i] for i in range(16)]
+        mask = ((y[14] >= 0.0) & (y[14] != 0.5)) | (y[14] < -2.0)
+        return [torch.tanh(a * y[0]), torch.sinh(y[1]), torch.cosh(y[2]), torch.tan(y[3]),
+                torch.atan(b * y[4]), torch.expm1(y[5]), torch.log1p(torch.abs(y[6])),
+                torch.maximum(y[7], a * y[8]), torch.minimum(y[8], b * y[9]),
+                torch.clamp(y[9], -0.5, 0.5), torch.clamp_min(y[10], 0.0),
+                torch.clamp(y[11], max=-0.0), torch.clamp(y[12], min=a - 1.0, max=b),
+                torch.where(y[13] > a, y[13] * y[13], -y[13]),
+                torch.where(mask & ~(y[14] > 3.0), y[14], 0.5 * y[14]),
+                torch.where(y[15] <= b, torch.tanh(y[15]), (y[15] == 0.0).to(y[15].dtype))
+                .masked_fill(y[15] == 1.0, 2.0)]
+
+    # each op's value alone in res (and its tangent in J v), so that a
+    # difference is the op's own
+    def res(t, yy, yp):
+        return torch.stack(terms(yy))
+
+    def jac(t, cj, yy, yp, rr):
+        f = terms(yy)
+        z = torch.zeros_like(cj)
+        return torch.stack([torch.stack([f[i] * cj if j == i else z for j in range(16)])
+                            for i in range(16)])
+
+    return IdaProblem(n=16, res=res, jac=jac)
+
+
 # name -> (factory, nominal params, what the phase does with it)
 GENERATED = {"roberts_generated": (roberts_generated, ROBERTS_PARAMS),
              "akzo": (akzo_factory, AKZO_K), "lorenz": (lorenz_factory, LORENZ),
-             "zoo": (zoo_factory, np.array([0.3, 1.3]))}
+             "zoo": (zoo_factory, np.array([0.3, 1.3])),
+             "ops_zoo": (ops_zoo_factory, np.array([0.3, 1.3])),
+             "roberts_quad": (quad_factory, ROBERTS_PARAMS),
+             "morris_lecar": (morris_lecar_factory, np.array([I_NOMINAL]))}
+# the lanes of the table of ops that hold special values (NaN, +-0, +-inf),
+# one in SPECIAL_EVERY, in the models named here
+SPECIAL_VALUES = np.array([np.nan, 0.0, -0.0, np.inf, -np.inf])
+SPECIAL_EVERY = 4
+SPECIAL_MODELS = ("ops_zoo",)
 MODEL_LIBS: dict = {}  # name -> FusedModel
 
 
@@ -3653,12 +3725,14 @@ def generated_models() -> dict:
 
 def model_builds(pool) -> dict:
     """Submit the generated models' libraries to ``pool``: the parity
-    library of each solved model, Akzo's "refined" one, and the evaluation
-    library of every model (the zoo's alone: N = 16)."""
+    library of each solved model, the "refined" ones of Akzo, the
+    quadrature Roberts and Morris-Lecar, and the evaluation library of
+    every model (the zoos' alone: N = 16)."""
     models = generated_models()
     jobs = {f"{m}/parity": (fused_solve.build, (False, "full", models[m]))
-            for m in ("roberts_generated", "akzo", "lorenz")}
-    jobs["akzo/refined"] = (fused_solve.build, (False, "refined", models["akzo"]))
+            for m in ("roberts_generated", "akzo", "lorenz", "roberts_quad", "morris_lecar")}
+    jobs.update({f"{m}/refined": (fused_solve.build, (False, "refined", models[m]))
+                 for m in ("akzo", "roberts_quad", "morris_lecar")})
     jobs.update({f"{m}/eval": (fused_solve.build_eval, (models[m],)) for m in models})
     jobs["roberts/eval"] = (fused_solve.build_eval, (fused_solve.ROBERTS,))
     return {k: pool.submit(fn, *args) for k, (fn, args) in jobs.items()}
@@ -3673,64 +3747,107 @@ def model_ops_per(model) -> dict:
     statement an operation; pow, sqrt, rsqrt, exp, log, sin and cos 20)."""
     n = model.n
     counts = {}
-    for fn, nxt in (("res", "res_jvp"), ("res_jvp", "jac"), ("jac", None)):
+    fns = ("res", "res_jvp", "jac") + (("quad",) if model.nq else ())
+    for fn, nxt in zip(fns, fns[1:] + (None,)):
         body = model.header.split(f"static void {fn}(")[1]
         body = body.split(f"static void {nxt}(")[0] if nxt else body
         body = body.split("#else")[0]
         lines = [x for x in body.splitlines() if x.strip().startswith("const T e")]
-        heavy = sum(1 for x in lines if any(f"{k}(" in x for k in (
-            "pow_scalar", "pow_tensor", "sqrt_of", "rsqrt", "model::exp", "model::log",
-            "model::sin", "model::cos")))
+        heavy = sum(1 for x in lines if any(f"model::{k}(" in x for k in (
+            "pow_scalar", "pow_tensor", "rsqrt", "exp", "log", "sin", "cos", "tanh", "sinh",
+            "cosh", "tan", "atan", "expm1", "log1p")) or "sqrt_of(" in x)
         counts[fn] = len(lines) + 19 * heavy
     factor = sum(m + 2 * m * m for m in range(n)) + n
+    # an accepted step's quadratures (ida_lane.cuh accumulate_quad): mid and
+    # half, and at each of the three nodes its time, the interpolation
+    # (recurrences 25, the rows' products and sums 24 a component), quad
+    # and a weight's product and sum a quadrature; then half times it, added
+    quad = (4 + 3 * (2 + 25 + 24 * n + counts["quad"] + 2 * model.nq) + 2 * model.nq
+            if model.nq else 0)
     return {"attempt": 12 + 22 * n + counts["res"] + 2 * n + 34 * n,
             "newton": (n * n + 2 * n) + 2 * n + (3 * n + 20) + 2,
             "newton_more": 24 + counts["res"] + 2 * n + 1,
-            "lsetup": counts["jac"] + factor, "step": 39 * n + 2, "jvp": counts["res_jvp"]}
+            "lsetup": counts["jac"] + factor, "step": 39 * n + 2 + quad,
+            "jvp": counts["res_jvp"], "quad": quad}
 
 
 def model_launch_counts(model) -> dict:
     return {k: n for (k, _, m), n in fused_solve.MODE_LAUNCHES.items() if m == model.name}
 
 
+def special_lanes(x: np.ndarray, shift: int) -> np.ndarray:
+    """``x`` [rows, lanes] with one lane in SPECIAL_EVERY holding NaN, +0,
+    -0, +inf or -inf, a different one in each row (``shift`` moves them)."""
+    x = x.copy()
+    lanes = np.arange(0, x.shape[1], SPECIAL_EVERY)
+    for i in range(x.shape[0]):
+        x[i, lanes] = SPECIAL_VALUES[(lanes // SPECIAL_EVERY + i + shift) % len(SPECIAL_VALUES)]
+    return x
+
+
+def model_ops_inputs(name: str, n: int, p0: np.ndarray, dtype, rng) -> tuple:
+    """Random lanes of the table of ops for model ``name``: params around
+    the nominal ones, t, cj, yy, yp and v (special values in the
+    SPECIAL_MODELS' lanes; Akzo's yy positive; Morris-Lecar's V in
+    [-80, 60] mV and w in [0, 1])."""
+    def lanes(x):
+        return torch.as_tensor(x, dtype=dtype, device="cuda").contiguous()
+
+    params = p0[:, None] * np.exp(rng.uniform(-0.2, 0.2, (len(p0), B_OPS)))
+    yy = rng.normal(size=(n, B_OPS)) * 0.3 + (0.5 if name == "akzo" else 0.0)
+    if name == "akzo":
+        yy = np.abs(yy)
+    if name == "morris_lecar":
+        yy = np.stack([rng.uniform(-80.0, 60.0, B_OPS), rng.uniform(0.0, 1.0, B_OPS)])
+    yp, v = rng.normal(size=(n, B_OPS)), rng.normal(size=(n, B_OPS))
+    if name in SPECIAL_MODELS:
+        yy, yp, v = special_lanes(yy, 0), special_lanes(yp, 2), special_lanes(v, 4)
+    return (lanes(params), lanes(rng.uniform(0.0, 5.0, B_OPS)),
+            lanes(np.exp(rng.uniform(-3.0, 5.0, B_OPS))), lanes(yy), lanes(yp), lanes(v))
+
+
 def phase_model_ops() -> dict:
-    """The table of ops: each generated model's res, jac (at that residual)
-    and res_jvp (tangents (v, cj v)) on B_OPS random lanes through its
-    evaluation kernel, bit for bit the eager problem's res, sys_jacobian and
-    jtimes on the same CUDA tensors, in float64 and float32."""
+    """The table of ops: each generated model's res, jac (at that residual),
+    res_jvp (tangents (v, cj v)) and quad (a model with quadratures) on
+    B_OPS random lanes through its evaluation kernel, bit for bit (the sign
+    of a zero included, NaN equal to NaN) the eager problem's res,
+    sys_jacobian, jtimes and quad on the same CUDA tensors, in float64 and
+    float32; the SPECIAL_MODELS' lanes hold NaN, +-0 and +-inf too."""
     models = generated_models()
     rng = np.random.default_rng(15)
     table = {}
     for name, (factory, p0) in {**GENERATED, "roberts": (roberts_factory, ROBERTS_PARAMS)}.items():
         model = models.get(name, fused_solve.ROBERTS)
-        n = model.n
         for dtype in (torch.float64, torch.float32):
-            def lanes(x):
-                return torch.as_tensor(x, dtype=dtype, device="cuda").contiguous()
-
-            params = lanes(p0[:, None] * np.exp(rng.uniform(-0.2, 0.2, (len(p0), B_OPS))))
-            yy = lanes(rng.normal(size=(n, B_OPS)) * 0.3 + (0.5 if name == "akzo" else 0.0))
-            args = (params, lanes(rng.uniform(0.0, 5.0, B_OPS)),
-                    lanes(np.exp(rng.uniform(-3.0, 5.0, B_OPS))),
-                    yy.abs() if name == "akzo" else yy, lanes(rng.normal(size=(n, B_OPS))),
-                    lanes(rng.normal(size=(n, B_OPS))))
+            args = model_ops_inputs(name, model.n, p0, dtype, rng)
             fused_solve.reset_launch_counts()
             got = fused_solve.eval_model(factory, *args)
             launches = fused_solve.EVAL_LAUNCHES.get(model.name, 0)
             want = fused_solve.eval_model_plain(factory, *args)
             torch.cuda.synchronize()
             row = {}
-            for out, g, w in zip(("res", "jac", "jv"), got, want):
-                eq = (g == w) | (torch.isnan(g) & torch.isnan(w))
+            for out, g, w in zip(("res", "jac", "jv", "quad"), got, want):
+                if g is None and w is None:
+                    continue
+                eq = same_bits(g, w)
+                zero = w == 0
                 row[out] = {"values": int(g.numel()), "differ": int((~eq).sum()),
                             "finite": int(torch.isfinite(w).sum()),
+                            "zeros": int(zero.sum()),
+                            "negative_zeros": int((zero & torch.signbit(w)).sum()),
+                            "zero_sign_differs": int((zero & (g == 0) & (torch.signbit(g)
+                                                                        != torch.signbit(w))).sum()),
                             "max_abs_err": float(torch.nan_to_num(g - w).abs().max())}
             table[f"{name}/{str(dtype)[6:]}"] = {**row, "launches": launches}
     emit("fused_models_ops", lanes=B_OPS, table=table,
-         models={k: {"name": m.name, "n": m.n, "p": m.p} for k, m in models.items()})
+         special_lanes={"models": list(SPECIAL_MODELS), "every": SPECIAL_EVERY,
+                        "values": [str(v) for v in SPECIAL_VALUES]},
+         models={k: {"name": m.name, "n": m.n, "p": m.p, "nq": m.nq} for k, m in models.items()})
     for key, row in table.items():
         check(row["launches"] == 1, f"table of ops {key}: {row['launches']} evaluation launches")
-        for out in ("res", "jac", "jv"):
+        outs = ("res", "jac", "jv") + (("quad",) if models.get(key.split("/")[0],
+                                                                fused_solve.ROBERTS).nq else ())
+        for out in outs:
             check(row[out]["differ"] == 0, f"table of ops {key}/{out}: {row[out]['differ']} of "
                                            f"{row[out]['values']} values differ from the eager")
     return table
@@ -3744,7 +3861,7 @@ def budgeted_run(factory, model, tol, st0, p_b, tout, per, opts=IdaOptions()) ->
     continuation, timed (the plain versions of K3 and K4)."""
     bsz = st0.tn.shape[0]
     tol_in = fused_solve.tol_inputs(tol, model.n, bsz, st0.dtype, st0.phi.device)
-    dst = fused_solve.empty_result(st0, opts)
+    dst = fused_solve.empty_result(st0, opts, model)
     carry = fused_solve.new_carry(bsz, st0.dtype, st0.phi.device, True)
     runs = []
 
@@ -3783,10 +3900,10 @@ def budgeted_run(factory, model, tol, st0, p_b, tout, per, opts=IdaOptions()) ->
 def model_rows(name: str, model, st0, launches: dict, k2_ms: float, plain_ms: float,
                err: float, k34: dict, totals: dict, per: dict) -> dict:
     """The kernels line's K2, K3 and K4 rows of one generated model."""
-    bound, by = solve_bound(st0, solve_ops(totals, per))
+    bound, by = solve_bound(st0, solve_ops(totals, per), model=model)
     init, cont = k34["runs"][0], k34["runs"][1:]
-    b_init, by_init = solve_bound(st0, init["ops"])
-    b_cont, by_cont = solve_bound(st0, statistics.mean(r["ops"] for r in cont))
+    b_init, by_init = solve_bound(st0, init["ops"], model=model)
+    b_cont, by_cont = solve_bound(st0, statistics.mean(r["ops"] for r in cont), model=model)
     src = {"route": "cuda", "source": FUSED_SOURCE, "model": model.name,
            "model_source": "ida_tpu_torch/ops/fused_model.py", "library_ms": None}
     return {
@@ -3811,9 +3928,19 @@ def model_ptxas(model, opts: IdaOptions = IdaOptions()) -> dict:
                        if v.get("spill_stores", 0) or v.get("spill_loads", 0)}}
 
 
+def add_ptxas(kinds: dict, ptxas: dict) -> None:
+    """The f64 solve kernel's registers and spill stores on a model's K2,
+    K3 and K4 rows (one kernel runs all three)."""
+    for row in kinds.values():
+        row.update(registers=ptxas["f64"].get("registers"),
+                   spill_stores=ptxas["f64"].get("spill_stores", 0))
+
+
 def solve_model(name: str, factory, model, inputs, tol, tout, dtype=torch.float64,
-                opts: IdaOptions = IdaOptions(), all_success: bool = True) -> dict:
-    """One generated model's main path: the eager ensemble solve (wall),
+                opts: IdaOptions = IdaOptions(), all_success: bool = True,
+                eager: tuple | None = None) -> dict:
+    """One generated model's main path: the eager ensemble solve (wall; or
+    ``eager``, its (result, wall) from an earlier phase on the same inputs),
     then K2 and budget 32 (K3 + K4) through make_fused_solve on the same
     CUDA tensors, the launches of that run counted; each bit for bit the
     eager result (and every lane SUCCESS with ``all_success``)."""
@@ -3821,8 +3948,11 @@ def solve_model(name: str, factory, model, inputs, tol, tout, dtype=torch.float6
     st0 = ensemble_init(factory, params, yy0, yp0, device="cuda", dtype=dtype, opts=opts)
     p_b = on_card(params, dtype)
     res = {}
-    wall = wall_s(lambda: res.update(eager=make_ensemble_solve(factory, opts)(
-        st0, params, tol, tout)))
+    if eager is None:
+        wall = wall_s(lambda: res.update(eager=make_ensemble_solve(factory, opts)(
+            st0, params, tol, tout)))
+    else:
+        res["eager"], wall = eager
     est, etret, eist = res["eager"]
     k2 = fused_solve.make_fused_solve(factory, tol, opts)
     k34 = fused_solve.make_fused_solve(factory, tol, opts, attempt_budget=MODEL_BUDGET)
@@ -3851,7 +3981,16 @@ def solve_model(name: str, factory, model, inputs, tol, tout, dtype=torch.float6
     check(not others, f"{name}: launches of another library {others}")
     check(n_ok == st0.tn.shape[0] or not all_success,
           f"{name}: {st0.tn.shape[0] - n_ok} lanes not SUCCESS")
-    return {**out, "st0": st0, "p_b": p_b, "st": st}
+    return {**out, "st0": st0, "p_b": p_b, "st": st, "tret": tret}
+
+
+# what solve_model returns beside its line's fields
+SOLVE_PRIVATE = ("st0", "p_b", "st", "tret")
+
+
+def leg(out: dict) -> dict:
+    """solve_model's result without its tensors: the fields of a line."""
+    return {k: v for k, v in out.items() if k not in SOLVE_PRIVATE}
 
 
 def phase_fused_models(eager: dict) -> dict:
@@ -3890,7 +4029,8 @@ def phase_fused_models(eager: dict) -> dict:
         statistics.median(bare["roberts_generated"]), head["eager_wall_s"] * 1e3,
         head["max_abs_err"], k34, counter_totals(head["st"]), per)
     ptxas["roberts_generated"] = model_ptxas(gen)
-    legs["roberts_generated"] = {k: v for k, v in head.items() if k not in ("st0", "p_b", "st")}
+    add_ptxas(rows["roberts_generated"], ptxas["roberts_generated"])
+    legs["roberts_generated"] = leg(head)
     emit("fused_models_roberts", **legs["roberts_generated"], equals_eager_headline=vs_eager,
          equals_hand_written=vs_hand, bare_launch_ms=bare, ptxas=ptxas["roberts_generated"],
          hand_written_ptxas=solve_kernel_ptxas(), ops_per=per)
@@ -3921,11 +4061,12 @@ def phase_fused_models(eager: dict) -> dict:
     nominal = wrms_card_vs_cpu(a["st"].yy[-1].cpu(), torch.from_numpy(ref_yy), AKZO_RTOL,
                                AKZO_ATOL)
     ptxas["akzo"] = model_ptxas(akzo)
+    add_ptxas(rows["akzo"], ptxas["akzo"])
     ptxas["akzo_refined"] = model_ptxas(akzo, IdaOptions(ls_precision="refined"))
-    legs["akzo"] = {k: v for k, v in a.items() if k not in ("st0", "p_b", "st")}
+    legs["akzo"] = leg(a)
     emit("fused_models_akzo", **legs["akzo"], bare_launch_ms=bare_a, per_launch_k34=k34,
-         refined={k: v for k, v in refined.items() if k not in ("st0", "p_b", "st")},
-         f32={k: v for k, v in f32.items() if k not in ("st0", "p_b", "st")},
+         refined=leg(refined),
+         f32=leg(f32),
          nominal_wrms_vs_rtol_1e10=nominal, reference_nst=ref_nst,
          reference_istate=ref_istate, reference_wall_s=ref_wall,
          y_nominal=a["st"].yy[-1].tolist(), y_reference=ref_yy.tolist(),
@@ -3946,7 +4087,8 @@ def phase_fused_models(eager: dict) -> dict:
                                 statistics.median(bare_l), lz["eager_wall_s"] * 1e3,
                                 lz["max_abs_err"], k34, counter_totals(lz["st"]), per)
     ptxas["lorenz"] = model_ptxas(lor)
-    legs["lorenz"] = {k: v for k, v in lz.items() if k not in ("st0", "p_b", "st")}
+    add_ptxas(rows["lorenz"], ptxas["lorenz"])
+    legs["lorenz"] = leg(lz)
     emit("fused_models_lorenz", **legs["lorenz"], bare_launch_ms=bare_l, ops_per=per,
          ptxas=ptxas["lorenz"])
     emit("fused_models", models={k: m.name for k, m in models.items()}, rows=rows,
@@ -3954,6 +4096,163 @@ def phase_fused_models(eager: dict) -> dict:
          registers={k: {"f64": v["f64"].get("registers"), "f32": v["f32"].get("registers")}
                     for k, v in ptxas.items()})
     return {"rows": rows, "table": table}
+
+
+# ------------------------------------------- fused_quad_ops: quadratures and the new ops
+#
+# K2-K4 with quadratures in the lane (ida_lane.cuh accumulate_quad) and the
+# ops of the emitter's kinetics/neuron table (tanh ... log1p, maximum, minimum,
+# clamp, where over comparisons and logic). Morris-Lecar (models/morris_lecar.py,
+# the Rinzel-Ermentrout Hopf set) needs both: tanh and cosh in its residual,
+# its calcium charge and mean voltage as quadratures. Its eager solve on the
+# card costs ~40 ms an attempt ("refined" ~115), host bound, so the horizon
+# is 10 ms, not the 200 ms of two spikes (20.8 s and 60.4 s for the two eager
+# solves there on an H100): the lanes above I ~ 150 make their
+# first spike, the nominal one (I = 100, period ~85 ms) is rising to it, up to
+# ~140 steps a lane. On that upstroke the solve's global error at rtol 1e-6
+# is WRMS 4.9 (y) and 4.5 (get_quad) from the rtol 1e-10 run on the CPU, and
+# ida_tpu's own rtol 1e-6 solve is as far from its rtol 1e-10 one
+# (tests/test_torch_fused_quad.py): the nominal lane is held within WRMS 1 of
+# the reference at ML_CHECK_SCALE times the run's tolerances.
+ML_TOUT = 10.0
+ML_RTOL, ML_ATOL, ML_REF_TOL = 1e-6, 1e-8, 1e-10
+ML_CHECK_SCALE = 10.0
+
+
+def ml_reference() -> tuple:
+    """The nominal Morris-Lecar lane through the eager port on the CPU at
+    rtol = atol = 1e-10 (no step limit) to ML_TOUT: (yy, get_quad at tret,
+    nst, istate, wall s). Run in a process of its own while the card works."""
+    torch.set_num_threads(1)
+    params, yy0, yp0 = morris_lecar_inputs(1)
+    t0 = time.perf_counter()
+    opts = IdaOptions(mxstep=1_000_000)
+    st, tret, ist = make_ensemble_solve(morris_lecar_factory, opts)(
+        ensemble_init(morris_lecar_factory, params, yy0, yp0, device="cpu", opts=opts), params,
+        tol_ss(ML_REF_TOL, ML_REF_TOL, device="cpu"), ML_TOUT)
+    q = get_quad(to_native(st), morris_lecar_factory(torch.from_numpy(params.T)), tret)
+    return (st.yy[0].numpy(), q[:, 0].numpy(), int(st.nst[0]), int(ist[0]),
+            time.perf_counter() - t0)
+
+
+def quad_of(st, factory, p_b, tret) -> torch.Tensor:
+    """core/quad.py get_quad of a batch-leading result at ``tret``: [B, nq]."""
+    return get_quad(to_native(st), factory(p_b.t().contiguous()), tret).t()
+
+
+def phase_fused_quad_ops(eager: dict, quad_head: dict, table: dict) -> dict:
+    """K2-K4 with quadratures and the new ops: (a) the quadrature headline
+    (quad_factory, B = 65,536, tout 400, f64) through K2 and budget 32,
+    every field and yQ bit for bit quadrature_headline's eager result, and
+    get_quad on the K2 result IDA.get_quad's on one lane; "refined" and
+    float32 at B = 4,096 against their eager modes; bare K2 of the
+    hand-written, the generated and the quadrature Roberts in turns (what
+    yQ adds), the hand-written library still 234 registers without spills;
+    (b) Morris-Lecar at B = 65,536, I = linspace(0, 300) (the last lane
+    nominal), rtol 1e-6, atol 1e-8, to ML_TOUT: K2, budget 32 and
+    "refined" bit for bit the eager solve, every lane SUCCESS, the nominal
+    lane's y and get_quad within WRMS 1 of the eager rtol 1e-10 run on the
+    CPU at ML_CHECK_SCALE times the run's tolerances; (c) the table of ops
+    (phase_model_ops) holds the new zoo, Morris-Lecar and the quadrature
+    Roberts, special lanes included. Registers and spills of each library."""
+    models = generated_models()
+    reference_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    reference = reference_pool.submit(ml_reference)
+    rows, legs, ptxas = {}, {}, {}
+
+    # (a) the quadrature headline through K2-K4
+    rq = models["roberts_quad"]
+    tol = tol_sv(1e-4, ATOL, device="cuda")
+    head = solve_model("roberts_quad", quad_factory, rq, ensemble_inputs(B), tol, TOUT,
+                       eager=(quad_head["result"], quad_head["wall_s"]))
+    lane = quad_head["lane"]
+    q_k2 = quad_of(head["st"], quad_factory, head["p_b"], head["tret"])[lane].cpu().numpy()
+    q_lane_same = bool(np.array_equal(q_k2, quad_head["ida_get_quad"]))
+    bare = {"roberts": [], "roberts_generated": [], "roberts_quad": []}
+    for _ in range(3):
+        bare["roberts"].append(bare_launch_ms(head["st0"], head["p_b"]))
+        bare["roberts_generated"].append(bare_launch_ms(head["st0"], head["p_b"],
+                                                        model=models["roberts_generated"]))
+        bare["roberts_quad"].append(bare_launch_ms(head["st0"], head["p_b"], model=rq))
+    per = model_ops_per(rq)
+    k34 = budgeted_run(quad_factory, rq, tol, head["st0"], head["p_b"], TOUT, per)
+    rows["roberts_quad"] = model_rows(
+        "roberts_quad", rq, head["st0"], head["launches"], statistics.median(bare["roberts_quad"]),
+        head["eager_wall_s"] * 1e3, head["max_abs_err"], k34, counter_totals(head["st"]), per)
+    refined = solve_model("roberts_quad", quad_factory, rq, ensemble_inputs(B_SMALL), tol, TOUT,
+                          opts=IdaOptions(ls_precision="refined"))
+    f32 = solve_model("roberts_quad", quad_factory, rq, ensemble_inputs(B_SMALL),
+                      tol_sv(1e-4, ATOL, device="cuda", dtype=torch.float32), TOUT,
+                      dtype=torch.float32, all_success=False)
+    hand = solve_kernel_ptxas()
+    ptxas["roberts_quad"] = model_ptxas(rq)
+    ptxas["roberts_quad_refined"] = model_ptxas(rq, IdaOptions(ls_precision="refined"))
+    add_ptxas(rows["roberts_quad"], ptxas["roberts_quad"])
+    legs["roberts_quad"] = leg(head)
+    emit("fused_quad_headline", **legs["roberts_quad"], get_quad_lane=lane,
+         get_quad_k2=q_k2.tolist(), get_quad_equals_ida=q_lane_same, bare_launch_ms=bare,
+         per_launch_k34=k34, refined=leg(refined), f32=leg(f32), ptxas=ptxas["roberts_quad"],
+         ptxas_refined=ptxas["roberts_quad_refined"], hand_written_ptxas=hand, ops_per=per)
+    check(q_lane_same, f"fused_quad_headline: get_quad of K2's lane {q_k2} != IDA.get_quad "
+                       f"{quad_head['ida_get_quad']}")
+    check(head["nst"] == 6261351, f"fused_quad_headline: {head['nst']} steps")
+    check(hand.get("registers") == 234 and not hand.get("spill_stores", 0)
+          and not hand.get("spill_loads", 0), f"the hand-written Roberts library: {hand}")
+
+    # (b) Morris-Lecar
+    ml = models["morris_lecar"]
+    tol_m = tol_ss(ML_RTOL, ML_ATOL, device="cuda")
+    m = solve_model("morris_lecar", morris_lecar_factory, ml, morris_lecar_inputs(B), tol_m,
+                    ML_TOUT)
+    tol_in = fused_solve.tol_inputs(tol_m, 2, B, torch.float64, torch.device("cuda"))
+    bare_m = [bare_launch_ms(m["st0"], m["p_b"], tol_in, model=ml, tout=ML_TOUT)
+              for _ in range(3)]
+    per_m = model_ops_per(ml)
+    k34_m = budgeted_run(morris_lecar_factory, ml, tol_m, m["st0"], m["p_b"], ML_TOUT, per_m)
+    rows["morris_lecar"] = model_rows(
+        "morris_lecar", ml, m["st0"], m["launches"], statistics.median(bare_m),
+        m["eager_wall_s"] * 1e3, m["max_abs_err"], k34_m, counter_totals(m["st"]), per_m)
+    refined_m = solve_model("morris_lecar", morris_lecar_factory, ml, morris_lecar_inputs(B),
+                            tol_m, ML_TOUT, opts=IdaOptions(ls_precision="refined"))
+    q_all = quad_of(m["st"], morris_lecar_factory, m["p_b"], m["tret"])
+    ref_yy, ref_q, ref_nst, ref_istate, ref_wall = reference.result()
+    reference_pool.shutdown()
+    scale = (ML_CHECK_SCALE * ML_RTOL, ML_CHECK_SCALE * ML_ATOL)
+    wrms_y = wrms_card_vs_cpu(m["st"].yy[-1].cpu(), torch.from_numpy(ref_yy), *scale)
+    wrms_q = wrms_card_vs_cpu(q_all[-1].cpu(), torch.from_numpy(ref_q), *scale)
+    wrms_y_run = wrms_card_vs_cpu(m["st"].yy[-1].cpu(), torch.from_numpy(ref_yy), ML_RTOL,
+                                  ML_ATOL)
+    nst = m["st"].nst
+    ptxas["morris_lecar"] = model_ptxas(ml)
+    ptxas["morris_lecar_refined"] = model_ptxas(ml, IdaOptions(ls_precision="refined"))
+    add_ptxas(rows["morris_lecar"], ptxas["morris_lecar"])
+    legs["morris_lecar"] = leg(m)
+    emit("fused_morris_lecar", **legs["morris_lecar"], bare_launch_ms=bare_m,
+         per_launch_k34=k34_m, refined=leg(refined_m),
+         steps_a_lane={"min": int(nst.min()), "median": float(nst.double().median()),
+                       "max": int(nst.max())},
+         nominal_wrms_at_scale=wrms_y, nominal_quad_wrms_at_scale=wrms_q,
+         nominal_wrms_at_run_tol=wrms_y_run, check_scale=ML_CHECK_SCALE,
+         y_nominal=m["st"].yy[-1].tolist(), y_reference=ref_yy.tolist(),
+         quad_nominal=q_all[-1].tolist(), quad_reference=ref_q.tolist(), reference_nst=ref_nst,
+         reference_istate=ref_istate, reference_wall_s=ref_wall, ptxas=ptxas["morris_lecar"],
+         ptxas_refined=ptxas["morris_lecar_refined"], ops_per=per_m)
+    check(ref_istate == C.SUCCESS, f"morris_lecar: the rtol 1e-10 reference returned {ref_istate}")
+    check(wrms_y < 1.0 and wrms_q < 1.0,
+          f"morris_lecar: the nominal lane is WRMS {wrms_y} (y), {wrms_q} (get_quad) from the "
+          f"rtol 1e-10 run at {ML_CHECK_SCALE}x the run's tolerances")
+
+    # (c) the table of ops holds the new models
+    new = [f"{m}/{dt}" for m in ("ops_zoo", "morris_lecar", "roberts_quad")
+           for dt in ("float64", "float32")]
+    check(all(k in table for k in new), f"the table of ops lacks {set(new) - set(table)}")
+    emit("fused_quad_ops", models={k: models[k].name for k in ("roberts_quad", "morris_lecar",
+                                                               "ops_zoo")},
+         table={k: table[k] for k in new}, rows=rows,
+         registers={k: {"f64": v["f64"].get("registers"), "f32": v["f32"].get("registers")}
+                    for k, v in ptxas.items()},
+         spills={k: v["spills"] for k, v in ptxas.items()})
+    return {"rows": rows}
 
 
 def timed(phase, *args):
@@ -4006,6 +4305,7 @@ def main() -> None:
     timed(phase_profile_scopes, eager)
     modes = timed(phase_fused_modes, mixed, fast)
     models = timed(phase_fused_models, eager)
+    quad_ops = timed(phase_fused_quad_ops, eager, quad, models["table"])
     mesh = timed(phase_mesh, eager, food)
 
     # "launches" is the count of the eager headline (phase slice) for the LU
@@ -4108,7 +4408,7 @@ def main() -> None:
             rows.append({"name": f"{base}_{mode}", "route": "cuda", "source": FUSED_SOURCE,
                          "replaces": REPLACES[base], **row, "library_ms": None})
     # the whole-solve kernel with each generated model (fused_models)
-    for name, kinds in models["rows"].items():
+    for name, kinds in {**models["rows"], **quad_ops["rows"]}.items():
         rows += [kinds["solve"], kinds["init"], kinds["cont"]]
     for stage, t in stages["times"].items():
         rows.append({"name": f"fused_stage_{stage}", "route": "cuda", "source": FUSED_SOURCE,
@@ -4152,10 +4452,36 @@ def main_fused_models() -> None:
     print(smi, flush=True)
 
 
+def main_fused_quad_ops() -> None:
+    """``python3 chip_smoke.py fused_quad_ops``: the libraries it needs, the
+    slice, the quadrature headline (the eager results it is held against),
+    the table of ops and the fused_quad_ops phase alone."""
+    smi = phase_device()
+    t0 = time.perf_counter()
+    models = generated_models()
+    with ThreadPoolExecutor(12) as pool:
+        libs = [pool.submit(small_lu.build), pool.submit(fused_solve.build)]
+        libs += [pool.submit(fused_solve.build, False, mode, models[m])
+                 for m in ("roberts_generated", "roberts_quad", "morris_lecar")
+                 for mode in ("full", "refined") if m != "roberts_generated" or mode == "full"]
+        libs += [pool.submit(fused_solve.build_eval, m) for m in models.values()]
+        libs.append(pool.submit(fused_solve.build_eval, fused_solve.ROBERTS))
+        for f in libs:
+            f.result()
+    emit("build", seconds=time.perf_counter() - t0)
+    eager = timed(phase_slice)
+    quad = timed(phase_quadrature_headline, eager)
+    table = timed(phase_model_ops)
+    timed(phase_fused_quad_ops, eager, quad, table)
+    print(smi, flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["mesh"]:
         main_mesh()
     elif sys.argv[1:] == ["fused_models"]:
         main_fused_models()
+    elif sys.argv[1:] == ["fused_quad_ops"]:
+        main_fused_quad_ops()
     else:
         main()

@@ -40,9 +40,9 @@ from ..norms import wrms_norm_bnd
 from ..ops.banded import BandLU, band_factor, band_solve, band_sys_jacobian
 from ..ops.dense_lu import DenseLU, lu_factor_auto, lu_solve_auto
 from ..ops.spgmr import spgmr_solve
-from ..problem import IdaProblem
+from ..problem import IdaProblem, jacobian
 from ..utils.ad_mode import is_safe_ad, smask_den, spow
-from ..utils.numerics import sqrt_
+from ..utils.numerics import sqrt_, sum0
 from ..utils.profiling import scope
 from ..utils.sharding import any_over, axis_size, min_over, state_axis
 from ..utils.tree import masked_while_loop, tree_where
@@ -71,13 +71,16 @@ def _res_jvp(problem: IdaProblem, tn, cj, yy, yp, v) -> torch.Tensor:
     """J v = dF/dy v + cj dF/dy' v at (tn, yy, yp): one jvp of the residual
     with tangents (v, cj v), the refinement's matrix-free Jacobian. Inside
     an open forward-mode level (``forward_sensitivity``), where
-    ``torch.func.jvp`` cannot open another, it raises: the refined mode is
-    differentiated in reverse mode only."""
+    ``torch.func.jvp`` cannot open another, the two Jacobians come from the
+    vmapped vjps that ``problem.jacobian`` takes there, and J v is their
+    product with (v, cj v), the columns added left to right: the same
+    matrix applied, whose own tangent then follows that level (the last
+    bits of J v are the product's, not the jvp's)."""
     if forward_ad._current_level >= 0:
-        raise NotImplementedError(
-            "ls_precision='refined' takes a jvp of the residual in every linear solve, and "
-            "torch.func.jvp cannot run inside an open forward-mode level: differentiate it "
-            "in reverse mode, or use ls_precision='full' or 'single'")
+        d_yy = jacobian(lambda y: problem.res(tn, y, yp), yy)
+        d_yp = jacobian(lambda ydot: problem.res(tn, yy, ydot), yp)
+        terms = d_yy * v.unsqueeze(0) + d_yp * (cj * v).unsqueeze(0)
+        return sum0(terms.movedim(1, 0))
     return torch.func.jvp(lambda y, ydot: problem.res(tn, y, ydot), (yy, yp), (v, cj * v))[1]
 
 

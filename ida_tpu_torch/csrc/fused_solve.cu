@@ -57,10 +57,12 @@
 // -DIDA_MODEL_HEADER=1, the struct GeneratedModel that ops/fused_model.py
 // writes from a problem factory into "ida_model.cuh" beside the library
 // (same interface; its solve entry points then compile that model, and the
-// stage kernels, Roberts-only, are left out). fused_model_eval_<dt> runs the
-// model's res, jac and res_jvp alone on a batch of lanes, so that each can
-// be held against the eager problem's; built with -DIDA_EVAL_ONLY=1 the
-// library holds that entry point alone.
+// stage kernels, Roberts-only, are left out). A model with quadratures
+// (Model::NQ > 0) has its quad integrated into the state's yQ after every
+// accepted step (ida_lane.cuh accumulate_quad). fused_model_eval_<dt> runs
+// the model's res, jac, res_jvp and quad alone on a batch of lanes, so that
+// each can be held against the eager problem's; built with -DIDA_EVAL_ONLY=1
+// the library holds that entry point alone.
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError(); none allocates or synchronizes. `model` is the id of
@@ -98,6 +100,7 @@ constexpr size_t kMaxSharedBytes = 227 * 1024;
 struct Roberts {
   static constexpr int N = 3;
   static constexpr int P = 3;
+  static constexpr int NQ = 0;  // no quadratures
   static constexpr int kId = 0;
   __device__ static bool id(int i) { return i != 2; }
 
@@ -208,12 +211,14 @@ struct IdaSolveArgs {
 
 // The arguments of one launch of the model alone (ops/fused_solve.py
 // ModelEvalArgs mirrors it): batch-native inputs params [P, B], t and cj
-// [B], yy, yp and v [N, B], and outputs res [N, B], jac [N, N, B] and jv
-// [N, B] (res_jvp with tangents (v, cj v)).
+// [B], yy, yp and v [N, B], and outputs res [N, B], jac [N, N, B], jv
+// [N, B] (res_jvp with tangents (v, cj v)) and, for a model with
+// quadratures, quad [NQ, B] (null, and not written, for the others).
 struct ModelEvalArgs {
   const void *params, *t, *cj, *yy, *yp, *v;
   void *res, *jac, *jv;
   long long B;
+  void* quad;
 };
 
 namespace {
@@ -328,6 +333,11 @@ model_eval_kernel(const __grid_constant__ ModelEvalArgs a) {
     ((T*)a.jv)[i * B + b] = jv[i];
     for (int j = 0; j < N; ++j) ((T*)a.jac)[(i * N + j) * B + b] = J[i][j];
   }
+  if constexpr (M::NQ > 0) {
+    T q[M::NQ];
+    M::quad(p, t, yy, yp, q);
+    for (int i = 0; i < M::NQ; ++i) ((T*)a.quad)[i * B + b] = q[i];
+  }
 }
 
 inline unsigned grid_for(long long B) { return (unsigned)((B + kThreads - 1) / kThreads); }
@@ -378,7 +388,8 @@ int launch_stage(const ida::StateRefs* s, const void* params, const void* rtol, 
 
 template <typename T>
 int launch_model_eval(const ModelEvalArgs* a, int model, void* stream) {
-  if (model != Model::kId) return (int)cudaErrorInvalidValue;
+  if (model != Model::kId || ((Model::NQ > 0) != (a->quad != nullptr)))
+    return (int)cudaErrorInvalidValue;
   if (a->B <= 0) return (int)cudaSuccess;
   auto kernel = model_eval_kernel<T, Model>;
   kernel<<<grid_for(a->B), kThreads, 0, (cudaStream_t)stream>>>(*a);

@@ -13,8 +13,8 @@
 //   compile-time indices only; every function here is inlined into its
 //   kernel, so they stay in registers;
 // * the cold fields (hin, hmax_inv, epcon, tstop, h0u, tretlast, tolsf,
-//   toutc, taskc) stay in device memory and are read and written where they
-//   are used; the seven int64 counters are carried as this launch's int32
+//   toutc, taskc, and the quadratures yQ) stay in device memory and are read
+//   and written where they are used; the seven int64 counters are carried as this launch's int32
 //   increments and added to the field at the store.
 //
 // Parity with the eager port on the card is bit for bit, so:
@@ -148,9 +148,11 @@ template <typename T> __device__ __forceinline__ T tsign(T a) {
 // The state fields the solve reads or writes (core/state.py IdaState), in
 // the order of the pointer table the wrapper passes (ops/fused_solve.py
 // STATE_FIELDS must list the same names in the same order). Fields the solve
-// never touches (roots, yQ, the Krylov buffers) are not passed and pass
+// never touches (roots, the Krylov buffers) are not passed and pass
 // through; the constraints are read, and copied to the result of a launch
-// out of place. ls_tn, ls_cj, ls_yy and ls_yp are read, written and copied
+// out of place. yQ ([B, M::NQ]) is read, written and copied for a model
+// with quadratures only (M::NQ > 0): for the others its pointer is null and
+// the field passes through. ls_tn, ls_cj, ls_yy and ls_yp are read, written and copied
 // under ls_precision "refined" only: in the other modes their pointers are
 // null and the fields pass through.
 #define IDA_STATE_FIELDS(X)                                                     \
@@ -160,7 +162,7 @@ template <typename T> __device__ __forceinline__ T tsign(T a) {
   X(cjold) X(cjratio) X(ss) X(oldnrm) X(eps_newt) X(toldel) X(lu) X(piv) X(hin) \
   X(hmax_inv) X(epcon) X(tstop) X(tstop_set) X(constraints) X(constraints_set)  \
   X(nst) X(nre) X(ncfn) X(netf) X(nni) X(nsetups) X(nje) X(toutc) X(taskc)       \
-  X(status) X(ls_tn) X(ls_cj) X(ls_yy) X(ls_yp)
+  X(status) X(yQ) X(ls_tn) X(ls_cj) X(ls_yy) X(ls_yp)
 
 // Device pointers to the state's fields: reals in the state's dtype,
 // kk..ns/piv/taskc/status int32, counters int64, tstop_set and
@@ -337,6 +339,13 @@ __device__ __forceinline__ void load_lane(const StateRefs& in, const StateRefs& 
     CP_COLD(status, int) CP_COLD(constraints_set, unsigned char)
     if (M::kLs == LS_REFINED) { CP_COLD(ls_tn, T) CP_COLD(ls_cj, T) }
 #undef CP_COLD
+    if constexpr (M::NQ > 0) {
+#pragma unroll
+      for (int i = 0; i < M::NQ; ++i) {
+        const long long at = Lay::at(i, M::NQ, b, B);
+        ((T*)out.yQ)[at] = ((const T*)in.yQ)[at];
+      }
+    }
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const long long at = Lay::at(i, N, b, B);
@@ -627,15 +636,19 @@ __device__ __forceinline__ void reset(LaneOf<T, M>& L) {
 // ---------------------------------------------------------------- interp.py
 
 // y(t) and y'(t) into yy/yp; false, and nothing written, when t is not legal
-template <typename T, class M>
+// (check_t_legal). Without Check, the interpolation alone (interp.py
+// interpolate, for quadrature nodes inside the last step).
+template <typename T, class M, bool Check = true>
 __device__ __forceinline__ bool get_solution(const LaneOf<T, M>& L, T t, T (&yy)[M::N],
                                              T (&yp)[M::N]) {
   constexpr int N = M::N;
-  // check_t_legal
-  const T tfuzz = T(100.0 * Eps<T>::v) * (absval(L.tn) + absval(L.hh)) * tsign(L.hh);
-  const T tp = L.tn - L.hused - tfuzz;
-  const bool ok = (t - tp) * L.hh >= T(0);
-  if (!ok) return false;
+  if constexpr (Check) {
+    // check_t_legal
+    const T tfuzz = T(100.0 * Eps<T>::v) * (absval(L.tn) + absval(L.hh)) * tsign(L.hh);
+    const T tp = L.tn - L.hused - tfuzz;
+    const bool ok = (t - tp) * L.hh >= T(0);
+    if (!ok) return false;
+  }
 
   // interpolate
   const int kord = max(L.kused, 1);
@@ -1200,6 +1213,43 @@ __device__ __forceinline__ void step_begin(LaneOf<T, M>& L) {
   }
 }
 
+// ---------------------------------------------------------------- quad.py
+
+// accumulate_quad for a lane whose step was accepted (after complete_step):
+// yQ += the 3-point Gauss-Legendre integral of M::quad over [tn - hused,
+// tn] on the new interpolant, in quad_increment's order of operations (the
+// nodes in _G3's order, the weights' products summed left to right, then
+// times half). yQ is a cold field, read and written in device memory here.
+template <typename T, class M>
+__device__ __forceinline__ void accumulate_quad(const LaneOf<T, M>& L, const Ctx<T, M>& c) {
+  if constexpr (M::NQ > 0) {
+    constexpr int NQ = M::NQ;
+    constexpr double kNode[3] = {-0.7745966692414834, 0.0, 0.7745966692414834};
+    constexpr double kWeight[3] = {5.0 / 9.0, 8.0 / 9.0, 5.0 / 9.0};
+    const T a = L.tn - L.hused;
+    const T mid = T(0.5) * (a + L.tn);
+    const T half = T(0.5) * (L.tn - a);
+    T acc[NQ];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const T t = mid + half * T(kNode[k]);
+      T yy[M::N], yp[M::N], q[NQ];
+      get_solution<T, M, false>(L, t, yy, yp);
+      M::quad(c.p, t, yy, yp, q);
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        const T term = T(kWeight[k]) * q[i];
+        acc[i] = (k == 0) ? term : acc[i] + term;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      T& yq = ((T*)L.io->yQ)[L.batch_last ? (long long)i * L.B + L.b : L.b * NQ + i];
+      yq = yq + half * acc[i];
+    }
+  }
+}
+
 struct AttemptOut {
   bool success;
   int fatal;
@@ -1419,7 +1469,10 @@ __device__ __forceinline__ void attempt_loop_body(LaneOf<T, M>& L, const Ctx<T, 
   }
   T ck, err_k, err_km1;
   const AttemptOut a = attempt_once<T, M>(L, c, cr.saved_t, cr.ncf, cr.nef, ck, err_k, err_km1);
-  if (a.success) complete_step<T, M>(L, c, err_k, err_km1, ck);
+  if (a.success) {
+    complete_step<T, M>(L, c, err_k, err_km1, ck);
+    accumulate_quad<T, M>(L, c);
+  }
 
   if (a.fatal != CONTINUE) {
     cr.ikind = 1;

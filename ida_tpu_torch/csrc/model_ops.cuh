@@ -84,7 +84,22 @@ __device__ __forceinline__ double sin_raw(double a) { return ::sin(a); }
 __device__ __forceinline__ float sin_raw(float a) { return ::sinf(a); }
 __device__ __forceinline__ double cos_raw(double a) { return ::cos(a); }
 __device__ __forceinline__ float cos_raw(float a) { return ::cosf(a); }
+// the unary functions ATen's CUDA kernels call in the dtype (tanhf, not
+// (float)tanh(double)); on the host the C library's in double, rounded to
+// the dtype, as utils/numerics.py's tanh_, sinh_ and cosh_ call it on the
+// CPU (ATen's own vectorised CPU versions are within 2 ulp of it)
+#define IDA_MODEL_CUDA_FN(name)                                                   \
+  __device__ __forceinline__ double name##_raw(double a) { return ::name(a); }   \
+  __device__ __forceinline__ float name##_raw(float a) { return ::name##f(a); }
+IDA_MODEL_CUDA_FN(tanh) IDA_MODEL_CUDA_FN(sinh) IDA_MODEL_CUDA_FN(cosh) IDA_MODEL_CUDA_FN(tan)
+IDA_MODEL_CUDA_FN(atan) IDA_MODEL_CUDA_FN(expm1) IDA_MODEL_CUDA_FN(log1p)
+#undef IDA_MODEL_CUDA_FN
 #else
+#define IDA_MODEL_LIBM_FN(name) \
+  template <typename S> S name##_raw(S a) { return (S)std::name((double)a); }
+IDA_MODEL_LIBM_FN(tanh) IDA_MODEL_LIBM_FN(sinh) IDA_MODEL_LIBM_FN(cosh) IDA_MODEL_LIBM_FN(tan)
+IDA_MODEL_LIBM_FN(atan) IDA_MODEL_LIBM_FN(expm1) IDA_MODEL_LIBM_FN(log1p)
+#undef IDA_MODEL_LIBM_FN
 template <typename S> S rsqrt_raw(S a) { return S(1) / std::sqrt(a); }
 template <typename S> S exp_raw(S a) { return std::exp(a); }
 template <typename S> S log_raw(S a) { return std::log(a); }
@@ -97,6 +112,91 @@ template <typename S> __device__ __forceinline__ Real<S> exp(Real<S> a) { return
 template <typename S> __device__ __forceinline__ Real<S> log(Real<S> a) { return make(log_raw(a.v)); }
 template <typename S> __device__ __forceinline__ Real<S> sin(Real<S> a) { return make(sin_raw(a.v)); }
 template <typename S> __device__ __forceinline__ Real<S> cos(Real<S> a) { return make(cos_raw(a.v)); }
+#define IDA_MODEL_UNARY(name) \
+  template <typename S> __device__ __forceinline__ Real<S> name(Real<S> a) { return make(name##_raw(a.v)); }
+IDA_MODEL_UNARY(tanh) IDA_MODEL_UNARY(sinh) IDA_MODEL_UNARY(cosh) IDA_MODEL_UNARY(tan)
+IDA_MODEL_UNARY(atan) IDA_MODEL_UNARY(expm1) IDA_MODEL_UNARY(log1p)
+#undef IDA_MODEL_UNARY
+
+// tanh's derivative, grad * (1 - out * out): ATen's kernel on either device
+// contracts 1 - out * out into a multiply-add (the CPU's vectorised one
+// too), then multiplies
+#ifdef __CUDA_ARCH__
+__device__ __forceinline__ double fma_raw(double a, double b, double c) { return ::fma(a, b, c); }
+__device__ __forceinline__ float fma_raw(float a, float b, float c) { return ::fmaf(a, b, c); }
+#else
+template <typename S> S fma_raw(S a, S b, S c) { return std::fma(a, b, c); }
+#endif
+template <typename S>
+__device__ __forceinline__ Real<S> tanh_backward(Real<S> grad, Real<S> out) {
+  return grad * make(fma_raw(-out.v, out.v, (S)1));
+}
+
+template <typename S> __device__ __forceinline__ bool isnan_of(Real<S> a) { return a.v != a.v; }
+
+// maximum and minimum: NaN if either is NaN. On the card ATen returns the
+// NaN operand (the first if both) and else CUDA's fmax/fmin; on the CPU
+// ATen's vectorised kernel (MAXPD/MINPD) returns the second operand when the
+// two compare equal (+0 and -0), and an all-ones NaN
+#ifdef __CUDA_ARCH__
+__device__ __forceinline__ double max_raw(double a, double b) { return ::fmax(a, b); }
+__device__ __forceinline__ float max_raw(float a, float b) { return ::fmaxf(a, b); }
+__device__ __forceinline__ double min_raw(double a, double b) { return ::fmin(a, b); }
+__device__ __forceinline__ float min_raw(float a, float b) { return ::fminf(a, b); }
+template <typename S>
+__device__ __forceinline__ Real<S> maximum(Real<S> a, Real<S> b) {
+  if (isnan_of(a)) return a;
+  if (isnan_of(b)) return b;
+  return make(max_raw(a.v, b.v));
+}
+template <typename S>
+__device__ __forceinline__ Real<S> minimum(Real<S> a, Real<S> b) {
+  if (isnan_of(a)) return a;
+  if (isnan_of(b)) return b;
+  return make(min_raw(a.v, b.v));
+}
+#else
+template <typename S>
+Real<S> maximum(Real<S> a, Real<S> b) {
+  if (isnan_of(a) || isnan_of(b)) return make((S)NAN);
+  return a.v > b.v ? a : b;
+}
+template <typename S>
+Real<S> minimum(Real<S> a, Real<S> b) {
+  if (isnan_of(a) || isnan_of(b)) return make((S)NAN);
+  return a.v < b.v ? a : b;
+}
+#endif
+
+// clamp between Python numbers (-inf/+inf for an absent bound): ATen keeps
+// a NaN input; on the card min(max(v, lo), hi) in CUDA's fmax/fmin, on the
+// CPU its vectorised max(lo, v) then min(hi, .), which keep v where it
+// equals a bound
+template <typename S>
+__device__ __forceinline__ Real<S> clamp_scalar(Real<S> v, Real<S> lo, Real<S> hi) {
+  if (isnan_of(v)) return v;
+#ifdef __CUDA_ARCH__
+  return make(min_raw(max_raw(v.v, lo.v), hi.v));
+#else
+  const Real<S> m = lo.v > v.v ? lo : v;
+  return hi.v < m.v ? hi : m;
+#endif
+}
+
+// clamp between tensors: NaN from the input, then from either bound, else
+// the bounds applied as maximum then minimum
+template <typename S>
+__device__ __forceinline__ Real<S> clamp_tensor(Real<S> v, Real<S> lo, Real<S> hi) {
+#ifdef __CUDA_ARCH__
+  if (isnan_of(v)) return v;
+  if (isnan_of(lo)) return lo;
+  if (isnan_of(hi)) return hi;
+  return make(min_raw(max_raw(v.v, lo.v), hi.v));
+#else
+  return minimum(maximum(v, lo), hi);
+#endif
+}
+
 
 // base ** exponent, both tensors: CUDA's pow on the card (ATen's pow_);
 // on the CPU numerics.pow_'s C library pow in double

@@ -3,23 +3,28 @@
 Counterpart of the problem tracing of ``ida_tpu/ops/fused_solve.py``: the
 TPU kernel calls ``problem_factory(params)`` inside its body and traces
 ``core_solve`` on the result, so it takes any batch-native factory with an
-analytic Jacobian and no roots. The CUDA kernel (``csrc/fused_solve.cu`` over
-``csrc/ida_lane.cuh``) is a template over a model type with the interface of
-its hand-written ``struct Roberts`` (``N``, ``P``, ``id(i)``, ``res``,
-``res_jvp``, ``jac``, one lane's scalars); :func:`generate` writes that
+analytic Jacobian and no roots, quadratures included. The CUDA kernel
+(``csrc/fused_solve.cu`` over ``csrc/ida_lane.cuh``) is a template over a
+model type with the interface of its hand-written ``struct Roberts``
+(``N``, ``P``, ``NQ``, ``id(i)``, ``res``, ``res_jvp``, ``jac`` and, where
+``NQ > 0``, ``quad``; one lane's scalars); :func:`generate` writes that
 struct from the factory's own torch code:
 
 * the factory is called inside ``make_fx`` on ``meta`` tensors of two lanes
   (params [P, 2], t and cj [2], the vectors [N, 2]), capturing ``res``,
-  ``jac`` and the jvp of ``res`` in (yy, yp) with tangents (v, w), the J v
-  that ``ls_precision="refined"`` takes (core/nls.py ``_res_jvp``). On
+  ``jac``, the jvp of ``res`` in (yy, yp) with tangents (v, w), the J v
+  that ``ls_precision="refined"`` takes (core/nls.py ``_res_jvp``), and
+  ``quad`` (the integrand of ``core/quad.py``). On
   ``meta`` the helpers of ``utils/numerics.py`` take the card's branch, so
   ``pow_``/``sqrt_``/``sin_``/``cos_`` appear as the aten ops they call there;
 * the aten graph is run on symbols: every element of every value is a
   scalar expression of one lane, views and copies move expressions
   around, each arithmetic op makes one new expression (identical ones are
   shared). Forward AD's zero tangents leave no live op in the graph, so
-  what reaches the outputs is exactly what the eager jvp computes;
+  what reaches the outputs is exactly what the eager jvp computes. A
+  comparison makes a boolean expression, which only ``where``,
+  ``masked_fill``, logic (``&``, ``|``, ``~``) and a cast to the dtype
+  consume; a boolean that reaches arithmetic or an output is refused;
 * the two lanes must come out as the same code, each reading its own lane
   only: an op that reduces over the lane axis, or reads another lane, is
   refused;
@@ -30,14 +35,15 @@ struct from the factory's own torch code:
   the helper does on each device what the eager op does there: the card
   build follows ATen's CUDA kernels, the host build
   (tests/test_torch_fused_host.py) the eager port on the CPU, where
-  ``numerics.pow_``/``sqrt_``/``sin_``/``cos_`` call the C library.
+  ``numerics.pow_``/``sqrt_``/``sin_``/``cos_``/``tanh_``/``sinh_``/``cosh_``
+  call the C library (ATen's own CPU ``tanh`` ... are 1-3 ulp from it).
 
 ``id`` comes from a plain CPU call of the factory and must be the same in
 every lane. What the kernel cannot take raises ``NotImplementedError``
-naming the reason: no analytic ``jac``, roots, quadratures, N above
-``MAXN``, a per-lane ``id``, an op that reduces over or reads across lanes,
-a dtype change, a tensor constant the trace cannot read, and any aten op
-not in :data:`KNOWN_OPS`.
+naming the reason: no analytic ``jac``, roots, N above ``MAXN``, a per-lane
+``id``, an op that reduces over or reads across lanes, a dtype change, a
+boolean in arithmetic or an output, a NaN as a ``clamp`` bound, a tensor
+constant the trace cannot read, and any aten op not in :data:`KNOWN_OPS`.
 """
 
 from __future__ import annotations
@@ -66,12 +72,14 @@ class FusedModel:
     launch counters), ``id`` (what the entry points check; 0 is the
     hand-written Roberts), ``n`` components, ``p`` parameters a lane, and
     the generated header (None: the hand-written Roberts of
-    ``fused_solve.cu``)."""
+    ``fused_solve.cu``); ``nq`` quadratures (``Model::NQ``: the state's
+    ``yQ`` [B, nq] the kernel accumulates)."""
     name: str
     id: int
     n: int
     p: int
     header: str | None = None
+    nq: int = 0
 
 
 ROBERTS = FusedModel("roberts", 0, 3, 3)
@@ -83,9 +91,29 @@ _UNARY = {
     "exp": "ida::model::exp({0})", "log": "ida::model::log({0})",
     "sin": "ida::model::sin({0})", "cos": "ida::model::cos({0})",
     "sgn": "ida::model::sign({0})", "sign": "ida::model::sign({0})",
+    **{f: f"ida::model::{f}({{0}})" for f in ("tanh", "sinh", "cosh", "tan", "atan", "expm1",
+                                              "log1p")},
 }
 _BINARY = {"add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
-           "div": "({0} / {1})", "pow": "ida::model::pow_tensor({0}, {1})"}
+           "div": "({0} / {1})", "pow": "ida::model::pow_tensor({0}, {1})",
+           "maximum": "ida::model::maximum({0}, {1})",
+           "minimum": "ida::model::minimum({0}, {1})",
+           "tanh_backward": "ida::model::tanh_backward({0}, {1})"}
+# the boolean expressions: comparisons of numbers, and logic of booleans;
+# only where (and masked_fill), logic and a cast to the dtype consume them
+_COMPARE = {"gt": "({0} > {1})", "ge": "({0} >= {1})", "lt": "({0} < {1})",
+            "le": "({0} <= {1})", "eq": "({0} == {1})", "ne": "({0} != {1})"}
+_LOGIC = {"logical_and": "({0} && {1})", "logical_or": "({0} || {1})",
+          "logical_xor": "({0} != {1})", "logical_not": "(!{0})"}
+_BOOLEAN = frozenset(_COMPARE) | frozenset(_LOGIC)
+_TERNARY = {"where": "({0} ? {1} : {2})", "clamp_s": "ida::model::clamp_scalar({0}, {1}, {2})",
+            "clamp_t": "ida::model::clamp_tensor({0}, {1}, {2})"}
+# ops that may make a boolean tensor (of booleans, or comparing numbers)
+_BOOL_RESULT = _BOOLEAN | {
+    "bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_not", "logical_and_", "logical_or_",
+    "bitwise_and_", "bitwise_or_", "alias", "clone", "detach", "lift_fresh_copy", "expand",
+    "select", "slice", "unsqueeze", "squeeze", "view", "reshape", "_unsafe_view", "permute",
+    "transpose", "t", "stack", "cat", "split", "split_with_sizes", "unbind", "_to_copy"}
 _REDUCTIONS = {"sum", "mean", "prod", "amax", "amin", "max", "min", "linalg_vector_norm",
                "norm", "var", "std", "var_mean", "std_mean", "logsumexp", "cumsum", "cumprod",
                "any", "all", "argmax", "argmin", "nansum", "softmax", "_softmax",
@@ -125,6 +153,9 @@ class _Exprs:
     def op(self, name: str, args: tuple, scalar=None) -> int:
         lanes = frozenset().union(*(self.lanes[a] for a in args))
         return self.add((name, args, None if scalar is None else float(scalar).hex()), lanes)
+
+    def is_bool(self, e: int) -> bool:
+        return self.nodes[e][0] in _BOOLEAN
 
 
 def _obj(x) -> np.ndarray:
@@ -190,9 +221,12 @@ class _Interpreter:
                     _refuse(x.why)
         val = node.meta.get("val")
         for v in (val if isinstance(val, (list, tuple)) else [val]):
-            if isinstance(v, torch.Tensor) and v.dtype != TRACE_DTYPE:
+            if not isinstance(v, torch.Tensor) or v.dtype == TRACE_DTYPE:
+                continue
+            if v.dtype != torch.bool or name not in _BOOL_RESULT:
                 _refuse(f"{self.what}: {ns}.{name} makes a {v.dtype} tensor (the model's "
-                        f"arithmetic is in the state's dtype)")
+                        f"arithmetic is in the state's dtype, and only comparisons and "
+                        f"logic make booleans)")
         if name in _IGNORED:
             return None
         if name in _REDUCTIONS:
@@ -219,10 +253,109 @@ class _Interpreter:
                 "terms on the card is not fixed; write the sum out)")
 
     # -- elementwise
-    def elementwise(self, name, *xs, scalar=None):
+    def elementwise(self, name, *xs, scalar=None, bools=()):
+        """``name`` on each element of ``xs`` (arrays of expressions, or
+        Python numbers); the arguments at the positions ``bools`` must be
+        booleans and the others numbers."""
         arrays = [x if isinstance(x, np.ndarray) else _obj(self.ex.const(x)) for x in xs]
+        for i, x in enumerate(arrays):
+            if i in bools and not all(self.ex.is_bool(e) for e in x.flat):
+                _refuse(f"{self.what}: aten.{name} takes a number where it takes a boolean")
+            if i not in bools and any(self.ex.is_bool(e) for e in x.flat):
+                _refuse(f"{self.what}: a boolean (a comparison's result) reaches the "
+                        f"arithmetic of aten.{name}; select with torch.where, or cast it "
+                        "with .to(dtype)")
         f = np.frompyfunc(lambda *a: self.ex.op(name, a, scalar), len(arrays), 1)
         return _arr(f(*arrays))
+
+    def inplace(self, x, out):
+        """An in-place op's result written into its first argument."""
+        if not isinstance(x, np.ndarray) or not x.flags.writeable or x.shape != out.shape:
+            _refuse(f"{self.what}: an in-place op on a view the interpreter cannot write")
+        x[...] = out
+        return x
+
+    # -- comparisons, logic, selection
+    def op_gt(self, a, b):
+        return self.elementwise("gt", a, b)
+
+    def op_ge(self, a, b):
+        return self.elementwise("ge", a, b)
+
+    def op_lt(self, a, b):
+        return self.elementwise("lt", a, b)
+
+    def op_le(self, a, b):
+        return self.elementwise("le", a, b)
+
+    def op_eq(self, a, b):
+        return self.elementwise("eq", a, b)
+
+    def op_ne(self, a, b):
+        return self.elementwise("ne", a, b)
+
+    def op_logical_and(self, a, b):
+        return self.elementwise("logical_and", a, b, bools=(0, 1))
+
+    def op_logical_or(self, a, b):
+        return self.elementwise("logical_or", a, b, bools=(0, 1))
+
+    def op_logical_xor(self, a, b):
+        return self.elementwise("logical_xor", a, b, bools=(0, 1))
+
+    def op_logical_not(self, a):
+        return self.elementwise("logical_not", a, bools=(0,))
+
+    # on booleans (``&``, ``|``, ``^``, ``~`` of masks) the bitwise ops are the logical ones
+    op_bitwise_and, op_bitwise_or = op_logical_and, op_logical_or
+    op_bitwise_xor, op_bitwise_not = op_logical_xor, op_logical_not
+
+    def op_logical_and_(self, a, b):
+        return self.inplace(a, self.op_logical_and(a, b))
+
+    def op_logical_or_(self, a, b):
+        return self.inplace(a, self.op_logical_or(a, b))
+
+    op_bitwise_and_, op_bitwise_or_ = op_logical_and_, op_logical_or_
+
+    def op_where(self, cond, a, b):
+        return self.elementwise("where", cond, a, b, bools=(0,))
+
+    def op_masked_fill(self, x, mask, value):
+        return self.op_where(mask, value, x)
+
+    def op_tanh_backward(self, grad, out):
+        return self.elementwise("tanh_backward", grad, out)
+
+    # -- bounds
+    def op_maximum(self, a, b):
+        return self.elementwise("maximum", a, b)
+
+    def op_minimum(self, a, b):
+        return self.elementwise("minimum", a, b)
+
+    def op_clamp(self, x, min=None, max=None):
+        if isinstance(min, np.ndarray) or isinstance(max, np.ndarray):
+            # bounds that are tensors (aten.clamp.Tensor): one of them is
+            # maximum or minimum, as ATen runs it
+            if max is None:
+                return self.op_maximum(x, min)
+            if min is None:
+                return self.op_minimum(x, max)
+            return self.elementwise("clamp_t", x, min, max)
+        if min is None and max is None:
+            _refuse(f"{self.what}: aten.clamp without a bound")
+        bounds = [float("-inf") if min is None else float(min),
+                  float("inf") if max is None else float(max)]
+        if any(v != v for v in bounds):
+            _refuse(f"{self.what}: aten.clamp with a NaN number as a bound")
+        return self.elementwise("clamp_s", x, *bounds)
+
+    def op_clamp_min(self, x, min):
+        return self.op_clamp(x, min=min)
+
+    def op_clamp_max(self, x, max):
+        return self.op_clamp(x, max=max)
 
     def _binary(self, name, a, b, alpha=1):
         if alpha != 1:
@@ -262,7 +395,15 @@ class _Interpreter:
     op_clone = op_detach = op_lift_fresh_copy = op_alias
 
     def op__to_copy(self, x, dtype=None, **_):
-        return x
+        bools = [self.ex.is_bool(e) for e in x.flat]
+        if dtype is None or dtype == torch.bool or not any(bools):
+            if dtype == torch.bool and not all(bools):
+                _refuse(f"{self.what}: a number cast to a boolean")
+            return x
+        # a boolean cast to the dtype: 1 or 0 (the dtype itself is checked
+        # on the node's value)
+        f = np.frompyfunc(lambda e: self.ex.op("of_bool", (e,)), 1, 1)
+        return _arr(f(x))
 
     def op_copy(self, x, src, non_blocking=False):
         return np.broadcast_to(src, x.shape)
@@ -461,10 +602,18 @@ def _cxx(ex: _Exprs, outputs: dict) -> list[str]:
             continue
         op, args, scalar = key
         a = [ref(x) for x in args]
+        if op in _BOOLEAN:
+            code = (_COMPARE.get(op) or _LOGIC[op]).format(*a)
+            lines.append(f"const bool e{e} = {code};")
+            continue
         if op in _UNARY:
             code = _UNARY[op].format(*a)
         elif op in _BINARY:
             code = _BINARY[op].format(*a)
+        elif op in _TERNARY:
+            code = _TERNARY[op].format(*a)
+        elif op == "of_bool":
+            code = f"({a[0]} ? T(1.0) : T(0.0))"
         elif op == "div_scalar":
             code = f"ida::model::div_scalar({a[0]}, {_literal(float.fromhex(scalar))})"
         elif op == "pow_scalar":
@@ -485,17 +634,18 @@ def _literal(v: float) -> str:
 
 
 _TEMPLATE = """\
-// Generated by ida_tpu_torch/ops/fused_model.py: do not edit. res, jac and
-// res_jvp of one lane in the order of operations of a problem factory's
-// torch code (aten graph of make_fx), one rounded operation on ida::Real a
-// statement (csrc/model_ops.cuh, which fused_solve.cu includes first); where
-// the card's eager path and the CPU's differ, the CPU's under #else (the
-// host build of the tests).
+// Generated by ida_tpu_torch/ops/fused_model.py: do not edit. res, jac,
+// res_jvp and quad (NQ > 0) of one lane in the order of operations of a
+// problem factory's torch code (aten graph of make_fx), one rounded
+// operation on ida::Real a statement (csrc/model_ops.cuh, which
+// fused_solve.cu includes first); where the card's eager path and the CPU's
+// differ, the CPU's under #else (the host build of the tests).
 #pragma once
 
 struct GeneratedModel {{
   static constexpr int N = {n};
   static constexpr int P = {p};
+  static constexpr int NQ = {nq};
   static constexpr int kId = {id};
   __device__ static bool id(int i) {{ return ((0x{id_mask:x}u >> i) & 1u) != 0; }}
 
@@ -516,7 +666,14 @@ struct GeneratedModel {{
                              const T (&rr)[N], T (&J)[N][N]) {{
 {jac}
   }}
-}};
+{quad}}};
+"""
+_QUAD = """
+  template <typename T>
+  __device__ static void quad(const T (&p)[P], T t, const T (&yy)[N], const T (&yp)[N],
+                              T (&q)[NQ]) {{
+{quad}
+  }}
 """
 
 
@@ -553,15 +710,13 @@ def generate(problem_factory, params: torch.Tensor) -> FusedModel:
     if params.dim() != 2:
         raise ValueError(f"fused_solve: params must be [P, B], got {list(params.shape)}")
     problem = problem_factory(params.detach().to("cpu"))
-    n, npar = problem.n, params.shape[0]
+    n, npar, nq = problem.n, params.shape[0], problem.nquad
     if problem.jac is None:
         _refuse("it has no analytic jac (as ida_tpu's kernel, which cannot carry the "
                 "[N, N, B] Jacobian of forward-mode AD)")
     if problem.nroots:
         _refuse("rootfinding (nroots > 0) is not supported in the fused kernel path; use "
                 "parallel.make_ensemble_solve for problems with events")
-    if problem.nquad:
-        _refuse("quadratures (nquad > 0): the kernel's state carries no yQ")
     if n > MAXN:
         _refuse(f"N = {n} components, above the kernel's MAXN = {MAXN}")
     id_mask = _id_mask(problem, n)
@@ -576,6 +731,9 @@ def generate(problem_factory, params: torch.Tensor) -> FusedModel:
         prob = problem_factory(p)
         return torch.func.jvp(lambda y, ydot: prob.res(t, y, ydot), (yy, yp), (v, w))[1]
 
+    def quad(p, t, yy, yp):
+        return problem_factory(p).quad(t, yy, yp)
+
     ex = _Exprs()
     ins = {k: _inputs(ex, k, m) for k, m in
            (("p", npar), ("t", None), ("cj", None), ("yy", n), ("yp", n), ("rr", n), ("v", n),
@@ -585,7 +743,10 @@ def generate(problem_factory, params: torch.Tensor) -> FusedModel:
            "jvp": (jvp, ("p", "t", "yy", "yp", "v", "w"), (n,))}
     outs = {"res": lambda r: {f"r[{i}]": r[i] for i in range(n)},
             "jac": lambda J: {f"J[{i}][{j}]": J[i, j] for i in range(n) for j in range(n)},
-            "jvp": lambda jv: {f"jv[{i}]": jv[i] for i in range(n)}}
+            "jvp": lambda jv: {f"jv[{i}]": jv[i] for i in range(n)},
+            "quad": lambda q: {f"q[{i}]": q[i] for i in range(nq)}}
+    if nq:
+        fns["quad"] = (quad, ("p", "t", "yy", "yp"), (nq,))
     # the card's trace, and the CPU's (numerics' CPU Functions and their
     # derivative formulas) for the host build; one body where they agree
     text = {}
@@ -603,15 +764,19 @@ def generate(problem_factory, params: torch.Tensor) -> FusedModel:
             out = _Interpreter(ex, gm, what).run([ins[k] for k in names])
             if not isinstance(out, np.ndarray):
                 _refuse(f"{what} returns {type(out).__name__}, not a tensor")
+            if any(ex.is_bool(e) for e in out.flat):
+                _refuse(f"{what} returns a boolean (a comparison's result); select with "
+                        "torch.where, or cast it with .to(dtype)")
             bodies.append(_cxx(ex, outs[key](_lane_code(ex, out, shape, what))))
         card, host = (_indent(b) for b in bodies)
         text[key] = card if card == host else (
             f"#ifdef __CUDA_ARCH__\n{card}\n#else\n{host}\n#endif")
     source = _source_name(problem_factory)
-    digest = hashlib.sha256(repr((n, npar, id_mask, text)).encode()).hexdigest()
+    digest = hashlib.sha256(repr((n, npar, nq, id_mask, text)).encode()).hexdigest()
     model_id = int(digest[:7], 16) | 1  # nonzero: 0 is the hand-written Roberts
-    header = _TEMPLATE.format(n=n, p=npar, id=model_id, id_mask=id_mask, **text)
-    return FusedModel(f"{source}_{digest[:8]}", model_id, n, npar, header)
+    text["quad"] = _QUAD.format(quad=text["quad"]) if nq else ""
+    header = _TEMPLATE.format(n=n, p=npar, nq=nq, id=model_id, id_mask=id_mask, **text)
+    return FusedModel(f"{source}_{digest[:8]}", model_id, n, npar, header, nq)
 
 
 _MODELS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()

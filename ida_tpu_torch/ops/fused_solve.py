@@ -10,8 +10,10 @@ takes any batch size.
 
 As the TPU kernel traces any batch-native ``problem_factory`` into its
 body, the kernel takes any factory with an analytic ``jac``, no roots and
-at most ``MAXN`` components: ``models.roberts_factory`` runs the
-hand-written Roberts model of ``fused_solve.cu``, any other factory a model
+at most ``MAXN`` components, quadratures included (integrated into the
+state's ``yQ`` after every accepted step, as the eager solve does):
+``models.roberts_factory`` runs the hand-written Roberts model of
+``fused_solve.cu``, any other factory a model
 that ``ops/fused_model.py`` generates from its torch code at its first
 call, compiled into a library of its own (:func:`model_of`); what the
 kernel cannot take raises ``NotImplementedError`` on either device.
@@ -76,7 +78,7 @@ STATE_FIELDS = (
     "kk", "kused", "knew", "phase", "ns", "cj", "cjlast", "cjold", "cjratio", "ss", "oldnrm",
     "eps_newt", "toldel", "lu", "piv", "hin", "hmax_inv", "epcon", "tstop", "tstop_set",
     "constraints", "constraints_set", "nst", "nre", "ncfn", "netf", "nni", "nsetups", "nje",
-    "toutc", "taskc", "status", "ls_tn", "ls_cj", "ls_yy", "ls_yp",
+    "toutc", "taskc", "status", "yQ", "ls_tn", "ls_cj", "ls_yy", "ls_yp",
 )
 # the lsetup point that ls_precision "refined" saves (core/nls.py): the kernel
 # touches it in that mode only, and in the others it passes through
@@ -123,10 +125,11 @@ class SolveArgs(ctypes.Structure):
 
 
 class ModelEvalArgs(ctypes.Structure):
-    """csrc/fused_solve.cu ModelEvalArgs."""
+    """csrc/fused_solve.cu ModelEvalArgs (``quad`` null for a model without
+    quadratures)."""
     _fields_ = [(f, ctypes.c_void_p) for f in
                 ("params", "t", "cj", "yy", "yp", "v", "res", "jac", "jv")] + [
-                    ("B", ctypes.c_longlong)]
+                    ("B", ctypes.c_longlong), ("quad", ctypes.c_void_p)]
 
 
 class TolInputs(NamedTuple):
@@ -249,9 +252,13 @@ def check_device(device: torch.device) -> None:
         raise ValueError(f"fused_solve: runs on CUDA (kernel) or CPU (plain version), got {device}")
 
 
-def touched_fields(opts: IdaOptions) -> tuple[str, ...]:
-    """The fields a launch in ``opts``' mode reads or writes."""
-    return STATE_FIELDS if opts.ls_precision == "refined" else STATE_FIELDS[:-len(LS_FIELDS)]
+def touched_fields(opts: IdaOptions, model: FusedModel) -> tuple[str, ...]:
+    """The fields a launch of ``model``'s library in ``opts``' mode reads or
+    writes: the lsetup point under "refined" only, ``yQ`` for a model with
+    quadratures only."""
+    skip = (set() if opts.ls_precision == "refined" else set(LS_FIELDS)) | (
+        set() if model.nq else {"yQ"})
+    return tuple(f for f in STATE_FIELDS if f not in skip)
 
 
 def _expected_dtype(field: str, dtype: torch.dtype, opts: IdaOptions) -> torch.dtype:
@@ -266,21 +273,28 @@ def _expected_dtype(field: str, dtype: torch.dtype, opts: IdaOptions) -> torch.d
     return dtype
 
 
-def state_refs(state: IdaState, batch_axis: int, opts: IdaOptions = IdaOptions()) -> StateRefs:
+def state_refs(state: IdaState, batch_axis: int, opts: IdaOptions,
+               model: FusedModel) -> StateRefs:
     """Pointer table of a state on the card, batch-leading (``batch_axis``
-    0) or batch-native (-1); checks every field the kernel touches in
-    ``opts``' mode (device, dtype in that mode, contiguity, the batch axis).
-    The fields it does not touch there are null."""
+    0) or batch-native (-1); checks every field ``model``'s kernel touches
+    in ``opts``' mode (device, dtype in that mode, contiguity, the batch
+    axis; ``yQ`` is [B, nq], or [nq, B] batch-native). The fields it does
+    not touch there are null."""
     dtype, bsz = state.dtype, state.tn.shape[batch_axis]
     ptrs = {}
-    for f in touched_fields(opts):
+    for f in touched_fields(opts, model):
         x = getattr(state, f)
         want = _expected_dtype(f, dtype, opts)
         if not x.is_cuda:
             raise ValueError(f"fused_solve: state.{f} is on {x.device}, not on the card")
         if x.dtype != want:
             raise TypeError(f"fused_solve: state.{f} is {x.dtype}, the kernel takes {want}")
-        if not x.is_contiguous() or x.dim() < 1 or x.shape[batch_axis] != bsz:
+        if f == "yQ":
+            want_shape = (bsz, model.nq) if batch_axis == 0 else (model.nq, bsz)
+            if not x.is_contiguous() or tuple(x.shape) != want_shape:
+                raise ValueError(f"fused_solve: state.yQ must be contiguous {list(want_shape)} "
+                                 f"for model {model.name}, got {list(x.shape)}")
+        elif not x.is_contiguous() or x.dim() < 1 or x.shape[batch_axis] != bsz:
             shape = f"[{bsz}, ...]" if batch_axis == 0 else f"[..., {bsz}]"
             raise ValueError(f"fused_solve: state.{f} must be contiguous {shape}")
         ptrs[f] = x.data_ptr()
@@ -360,10 +374,11 @@ def native_clone(states_b: IdaState) -> IdaState:
     ))
 
 
-def empty_result(states_b: IdaState, opts: IdaOptions = IdaOptions()) -> IdaState:
-    """The state a launch in ``opts``' mode writes: a new tensor for every
-    field the kernel touches there, the input's own tensor for every other."""
-    touched = set(touched_fields(opts))
+def empty_result(states_b: IdaState, opts: IdaOptions, model: FusedModel) -> IdaState:
+    """The state a launch of ``model``'s library in ``opts``' mode writes: a
+    new tensor for every field the kernel touches there, the input's own
+    tensor for every other."""
+    touched = set(touched_fields(opts, model))
     return IdaState(*(x.new_empty(x.shape) if f in touched else x
                       for f, x in zip(states_b._fields, states_b)))
 
@@ -388,13 +403,13 @@ def prepare_launch(kind: str, src: IdaState, dst: IdaState, params_b: torch.Tens
         raise ValueError(f"{name}: model {model.name} takes params [B, {model.p}] and N = "
                          f"{model.n}, got params {list(params_b.shape)}, yy "
                          f"{list(src.yy.shape)}")
-    src_refs = state_refs(src, 0, opts)
+    src_refs = state_refs(src, 0, opts, model)
     if tol.rtol_lanes is None:
         tol_args = TolArgs(tol.rtol, (ctypes.c_double * MAXN)(*tol.atol), float(tout), None, None)
     else:
         tol_args = TolArgs(0.0, (ctypes.c_double * MAXN)(), float(tout),
                            tol.rtol_lanes.data_ptr(), tol.atol_lanes.data_ptr())
-    args = SolveArgs(src_refs, src_refs if dst is src else state_refs(dst, 0, opts),
+    args = SolveArgs(src_refs, src_refs if dst is src else state_refs(dst, 0, opts, model),
                      params_b.data_ptr(), tol_args,
                      CarryRefs(**{f: t.data_ptr() for f, t in carry.items()}), opts_struct(opts),
                      bsz, 0 if budget is None else budget)
@@ -436,7 +451,7 @@ def run_until_done(step) -> int:
 
 
 def _solve_cuda(states_b: IdaState, params_b, tol: TolInputs, tout, opts, model, budget):
-    dst = empty_result(states_b, opts)
+    dst = empty_result(states_b, opts, model)
     carry = new_carry(states_b.tn.shape[0], states_b.dtype, states_b.phi.device,
                       budget is not None)
     if budget is None:
@@ -574,10 +589,11 @@ def _native_tol(tol: TolControl, n: int) -> TolControl:
 
 def eval_model(problem_factory, params: torch.Tensor, t: torch.Tensor, cj: torch.Tensor,
                yy: torch.Tensor, yp: torch.Tensor, v: torch.Tensor):
-    """The problem's residual, its system Jacobian at that residual and J v
-    (the jvp with tangents (v, cj v)) on batch-native lanes: params [P, B],
-    t and cj [B], yy, yp and v [N, B] -> (res [N, B], jac [N, N, B], jv [N,
-    B]). On CUDA tensors the compiled model alone (``fused_model_eval`` of
+    """The problem's residual, its system Jacobian at that residual, J v
+    (the jvp with tangents (v, cj v)) and its quadratures on batch-native
+    lanes: params [P, B], t and cj [B], yy, yp and v [N, B] -> (res [N, B],
+    jac [N, N, B], jv [N, B], quad [nq, B] or None without quadratures).
+    On CUDA tensors the compiled model alone (``fused_model_eval`` of
     :func:`build_eval`'s library, one thread a lane, counted in
     ``EVAL_LAUNCHES``); on CPU tensors its plain version, the eager
     problem's (:func:`eval_model_plain`)."""
@@ -596,19 +612,22 @@ def eval_model(problem_factory, params: torch.Tensor, t: torch.Tensor, cj: torch
                              f"{yy.dtype} on {yy.device}")
     out = {"res": yy.new_empty((n, bsz)), "jac": yy.new_empty((n, n, bsz)),
            "jv": yy.new_empty((n, bsz))}
+    quad = yy.new_empty((model.nq, bsz)) if model.nq else None
     args = ModelEvalArgs(*(x.data_ptr() for x, _ in shapes.values()),
-                         *(x.data_ptr() for x in out.values()), bsz)
+                         *(x.data_ptr() for x in out.values()), bsz,
+                         None if quad is None else quad.data_ptr())
     name = f"fused_model_eval_{DTYPE_TAGS[yy.dtype]}"
     fn = getattr(build_eval(model)["lib"], name)
     raise_on(fn(ctypes.byref(args), model.id, stream_of(yy)), name)
     EVAL_LAUNCHES[model.name] = EVAL_LAUNCHES.get(model.name, 0) + 1
-    return out["res"], out["jac"], out["jv"]
+    return out["res"], out["jac"], out["jv"], quad
 
 
 def eval_model_plain(problem_factory, params, t, cj, yy, yp, v):
     """:func:`eval_model`'s plain version on the tensors' own device: the
-    eager problem's ``res``, ``sys_jacobian`` at that residual and
-    ``jtimes``."""
+    eager problem's ``res``, ``sys_jacobian`` at that residual, ``jtimes``
+    and ``quad`` (None without quadratures)."""
     problem = problem_factory(params)
     r = problem.res(t, yy, yp)
-    return r, problem.sys_jacobian(t, cj, yy, yp, r), problem.jtimes(t, cj, yy, yp, v)
+    quad = problem.quad(t, yy, yp) if problem.nquad else None
+    return r, problem.sys_jacobian(t, cj, yy, yp, r), problem.jtimes(t, cj, yy, yp, v), quad

@@ -165,7 +165,7 @@ def prepare_launch(stage: str, state: IdaState, params, tol: TolControl, tout,
             aux_i[spec.ints.index(name)] = t
     name = f"fused_stage_{stage}_{DTYPE_TAGS[dtype]}"
     fn = getattr(_bind(), name)
-    refs, opts_c = fs.state_refs(native, -1), fs.opts_struct(IdaOptions())
+    refs, opts_c = fs.state_refs(native, -1, IdaOptions(), fs.ROBERTS), fs.opts_struct(IdaOptions())
 
     def launch() -> None:
         # the closure holds every tensor the kernel reads, so none is freed

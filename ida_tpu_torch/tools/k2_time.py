@@ -44,9 +44,13 @@ tol = fused_solve.tol_inputs(tol_sv(1e-4, [1e-8, 1e-6, 1e-6], device="cuda"), 3,
 info = fused_solve.build()
 # the hand-written Roberts: a FusedModel since the kernel took generated models, 0 before
 model = getattr(fused_solve, "ROBERTS", 0)
+# empty_result takes the mode and the model since the kernel took quadratures
+import inspect
+with_model = "model" in inspect.signature(fused_solve.empty_result).parameters
 runs = []
 for _ in range(7):
-    dst = fused_solve.empty_result(st0)
+    dst = fused_solve.empty_result(st0, IdaOptions(), model) if with_model else \
+        fused_solve.empty_result(st0)
     carry = fused_solve.new_carry(B, torch.float64, st0.phi.device, False)
     go = fused_solve.prepare_launch("", st0, dst, p_b, tol, 400.0, carry, IdaOptions(), model,
                                     None)

@@ -155,11 +155,11 @@ def main(names: list[str]) -> None:
             ref = out if ref is None else ref
             k2 = []
             for _ in range(3):
-                dst = fused_solve.empty_result(st0)
+                dst = fused_solve.empty_result(st0, opts, fused_solve.ROBERTS)
                 carry = fused_solve.new_carry(B, st0.dtype, st0.phi.device, False)
                 k2.append(event_ms(fused_solve.prepare_launch(
                     "", st0, dst, p_b, tol_in, TOUT, carry, opts, fused_solve.ROBERTS, None)))
-            dst = fused_solve.empty_result(st0)
+            dst = fused_solve.empty_result(st0, opts, fused_solve.ROBERTS)
             carry = fused_solve.new_carry(B, st0.dtype, st0.phi.device, True)
             budgeted = []
 
@@ -181,14 +181,14 @@ def main(names: list[str]) -> None:
     # the host work of one call of the shipped build, piece by piece
     fn = fused_solve.make_fused_solve(roberts_factory, tol)
     fn(st0, p_b, TOUT)
-    dst = fused_solve.empty_result(st0)
+    dst = fused_solve.empty_result(st0, opts, fused_solve.ROBERTS)
     carry = fused_solve.new_carry(B, st0.dtype, st0.phi.device, False)
     go = fused_solve.prepare_launch("", st0, dst, p_b, tol_in, TOUT, carry, opts,
                                     fused_solve.ROBERTS, None)
     torch.cuda.synchronize()
     emit(host_us={
-        "state_refs": host_us(lambda: fused_solve.state_refs(st0, 0)),
-        "empty_result": host_us(lambda: fused_solve.empty_result(st0)),
+        "state_refs": host_us(lambda: fused_solve.state_refs(st0, 0, opts, fused_solve.ROBERTS)),
+        "empty_result": host_us(lambda: fused_solve.empty_result(st0, opts, fused_solve.ROBERTS)),
         "new_carry": host_us(lambda: fused_solve.new_carry(B, st0.dtype, st0.phi.device, False)),
         "prepare_launch": host_us(lambda: fused_solve.prepare_launch(
             "", st0, dst, p_b, tol_in, TOUT, carry, opts, fused_solve.ROBERTS, None)),

@@ -45,6 +45,15 @@ differentiated by ``problem.jacobian``'s vmapped jvp.
   (which calls the C library for float64) in a Function as above, and CUDA
   tensors through ``torch.sin``/``torch.cos``.
 
+* :func:`tanh_`, :func:`sinh_` and :func:`cosh_` are ``tanh``, ``sinh`` and
+  ``cosh``. ATen's vectorised CPU versions are up to 2 ulp from the C
+  library's in float64, and numpy's may be SIMD code of its own, so CPU
+  tensors go through the C library element by element (``ctypes``, in
+  double, rounded to the dtype, as :func:`pow_`), in a Function whose
+  derivatives are ``1 - tanh^2``, ``cosh`` and ``sinh``; CUDA tensors go
+  through the torch ops. A model written with them (``models.morris_lecar``)
+  is bit for bit the whole-solve kernel's host build on the CPU.
+
 Within :func:`cpu_formulas` the helpers take their CPU branch on a tensor of
 any device, computing the value with the torch op where the tensor is not on
 the CPU: ``ops/fused_model.py`` traces a problem factory so on ``meta``
@@ -298,3 +307,78 @@ def pow_(base: torch.Tensor, expo) -> torch.Tensor:
     if differentiated(b, e) or _wrapped(b) or _wrapped(e):
         return _PowCPU.apply(b, e)
     return _libm_pow_values(b, e)
+
+
+@functools.cache
+def _libm_unary(name: str):
+    fn = getattr(ctypes.CDLL(ctypes.util.find_library("m")), name)
+    fn.argtypes = [ctypes.c_double]
+    fn.restype = ctypes.c_double
+    return fn
+
+
+def _libm_values(name: str, x: torch.Tensor) -> torch.Tensor:
+    if x.device.type != "cpu":  # traced within cpu_formulas()
+        return getattr(torch, name)(x)
+    fn = _libm_unary(name)
+    vals = [fn(v) for v in x.detach().reshape(-1).tolist()]
+    return torch.tensor(vals, dtype=x.dtype).reshape(x.shape)
+
+
+def _libm_function(name: str, derivative) -> type[torch.autograd.Function]:
+    """A Function computing the C library's ``name`` on a CPU tensor, with
+    the derivative ``derivative(x, y)`` at ``y = name(x)``."""
+
+    class LibmCPU(torch.autograd.Function):
+        @staticmethod
+        def forward(x):
+            return _libm_values(name, x)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_backward(inputs[0], output)
+            ctx.save_for_forward(inputs[0], output)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * derivative(*ctx.saved_tensors)
+
+        @staticmethod
+        def jvp(ctx, t):
+            return t * derivative(*ctx.saved_tensors)
+
+        @staticmethod
+        def vmap(info, in_dims, x):
+            return LibmCPU.apply(x), in_dims[0]
+
+    LibmCPU.__name__ = LibmCPU.__qualname__ = f"_{name.capitalize()}CPU"
+    LibmCPU.__doc__ = f"The C library's ``{name}`` on a CPU tensor, differentiable."
+    return LibmCPU
+
+
+_TanhCPU = _libm_function("tanh", lambda x, y: 1.0 - y * y)
+_SinhCPU = _libm_function("sinh", lambda x, y: cosh_(x))
+_CoshCPU = _libm_function("cosh", lambda x, y: sinh_(x))
+
+
+def _libm_op(fn: type[torch.autograd.Function], name: str, x: torch.Tensor) -> torch.Tensor:
+    if _card_branch(x):
+        return getattr(torch, name)(x)
+    if differentiated(x) or _wrapped(x):
+        return fn.apply(x)
+    return fn.forward(x)
+
+
+def tanh_(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise ``tanh`` rounded as the C library's (see module doc)."""
+    return _libm_op(_TanhCPU, "tanh", x)
+
+
+def sinh_(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise ``sinh`` rounded as the C library's (see module doc)."""
+    return _libm_op(_SinhCPU, "sinh", x)
+
+
+def cosh_(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise ``cosh`` rounded as the C library's (see module doc)."""
+    return _libm_op(_CoshCPU, "cosh", x)

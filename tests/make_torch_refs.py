@@ -40,11 +40,22 @@ REFS = {
     "roots_first_root": ("test_torch_roots", "first_root_op_by_op_live", "REF_INPUTS"),
     "slice_op_by_op": ("test_torch_slice", "jax_op_by_op_live", "REF_INPUTS"),
     "mixed_roberts12_jax": ("test_torch_mixed_precision", "jax_roberts12_live", "REF_INPUTS"),
+    "mixed_modes_op_by_op": ("test_torch_mixed_precision", "jax_modes_op_by_op_live",
+                             "OBO_REF_INPUTS"),
+    "mixed_heat2d_jax": ("test_torch_mixed_precision", "jax_heat_live", "HEAT_REF_INPUTS"),
+    "mixed_forward_refined_jax": ("test_torch_mixed_precision", "jax_forward_refined_live",
+                                  "FWD_REF_INPUTS"),
     "fused_modes_op_by_op": ("test_torch_fused_modes", "jax_modes_op_by_op_live", "REF_INPUTS"),
     "mesh_dp_op_by_op": ("test_torch_mesh", "jax_dp_op_by_op_live", "REF_INPUTS"),
     "mesh_sharded_programs": ("test_torch_mesh", "jax_sharded_live", "REF_INPUTS"),
     "mesh_foodweb_programs": ("test_torch_mesh", "jax_food_live", "FOOD_REF_INPUTS"),
     "fused_models_jax": ("test_torch_fused_models", "jax_fused_models_live", "REF_INPUTS"),
+    "fused_quad_jax": ("test_torch_fused_quad", "fused_quad_jax_live", "REF_INPUTS"),
+    "krylov_path_jax": ("test_torch_krylov_path", "jax_krylov_live", "REF_INPUTS"),
+    "banded_jax": ("test_torch_banded", "jax_banded_live", "REF_INPUTS"),
+    "dense_output_jax": ("test_torch_dense_output", "jax_dense_live", "REF_INPUTS"),
+    "sensitivity_jax": ("test_torch_sensitivity", "jax_sensitivity_live", "REF_INPUTS"),
+    "fused_solve_jax": ("test_torch_fused_solve", "jax_fused_solve_live", "REF_INPUTS"),
 }
 
 

@@ -8,7 +8,8 @@ those, and its gradient is held to rtol 1e-6 (the jitted JAX run contracts
 multiply-adds, and ``ida_tpu`` differentiates its LU's arithmetic where the
 port applies the implicit formula). The rest is checked on the port by
 central differences, as ``ida_tpu``'s own tests/test_adjoint.py and
-tests/test_ic_sensitivity.py do.
+tests/test_ic_sensitivity.py do; the adjoint of an event time in
+``test_torch_adjoint_event_time.py``, a file of one test, which queues last.
 """
 
 from functools import partial
@@ -182,29 +183,3 @@ def test_adjoint_through_calc_ic_matches_differences():
         eps = 1e-6 * float(p0[i])
         fd = (primal(p0 + eps * v) - primal(p0 - eps * v)) / (2 * eps)
         assert abs(float(grad[i]) - fd) / max(abs(fd), 1e-12) < 5e-4, (i, grad[i], fd)
-
-
-def test_adjoint_of_an_event_time():
-    """The gradient of a ROOT_RETURN time through the fixed-trip Illinois
-    loop and the interpolation to tlo (tests/test_adjoint.py:96-134)."""
-    factory = partial(roberts_factory, with_roots=True)
-    val, grad, istate = S.adjoint_gradient(
-        factory, ROBERTS_PARAMS, yy0_of, yp0_of, TOL, 4.0, None, max_attempts=120,
-        loss_of_state=lambda st, tret, prob: tret, device="cpu")
-    assert int(istate) == C.ROOT_RETURN
-    assert float(grad[0]) < 0.0  # faster decay, earlier crossing
-
-    opts = IdaOptions(unroll_newton=True)
-
-    def troot(p):
-        prob = factory(p)
-        st = init_state(prob, yy0_of(p), yp0_of(p), device="cpu", opts=opts)
-        return float(core_solve(st, prob, opts, TOL, 4.0, max_attempts=120)[1])
-
-    p0 = _t(ROBERTS_PARAMS)
-    for i in range(3):
-        v = torch.zeros(3, dtype=torch.float64)
-        v[i] = 1.0
-        eps = 1e-6 * float(p0[i])
-        fd = (troot(p0 + eps * v) - troot(p0 - eps * v)) / (2 * eps)
-        assert abs(float(grad[i]) - fd) / max(abs(fd), 1e-12) < 1e-3, (i, grad[i], fd)

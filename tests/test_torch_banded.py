@@ -12,7 +12,10 @@ tests/test_bbd_prec.py, heat2d at m = 8 and 6): band against dense to
 against the diagonal preconditioner's, and the counters against the jitted
 JAX solve where one is run (exactly; the solution there to a WRMS of 1
 under the solve's weights: the jitted linear algebra rounds otherwise, and
-the Newton iterates differ within their tolerance).
+the Newton iterates differ within their tolerance). The JAX runs are pinned
+(tests/make_torch_refs.py, ``banded_jax``). The end-to-end solves are
+``test_torch_banded_solves.py``'s, a file of few tests, which queues after
+the files with the most tests (pytest-xdist hands those out first).
 """
 
 import jax
@@ -32,6 +35,7 @@ from ida_tpu_torch.models import (ROBERTS_YP0, ROBERTS_YY0, heat2d_ic, heat2d_pr
 from ida_tpu_torch.ops import banded as tb
 from ida_tpu_torch.ops import make_bbd_prec
 from ida_tpu_torch.tol_control import tol_ss, tol_sv
+from make_torch_refs import load
 
 # one intra-op thread: the tests' tensors are small, and the suite runs in
 # parallel workers, each of which would otherwise start a pool per core
@@ -50,28 +54,58 @@ def _random_banded(n, mu, ml, rng, batch=()):
     return a
 
 
-def _both(a, b, mu, ml):
-    """(ida_tpu op by op, port): the packed band, the factor and x."""
+def _jax_band(a, b, mu, ml):
+    """ida_tpu op by op: the packed band, the factor and x."""
     with jax.disable_jit():
         ab = jb.band_from_dense(jnp.asarray(a), mu, ml)
         f = jb.band_factor(ab, mu, ml)
         x = jb.band_solve(f, jnp.asarray(b))
+    return [np.asarray(ab), np.asarray(f.lu), np.asarray(f.piv), np.asarray(f.fail_col),
+            np.asarray(x)]
+
+
+def _port_band(a, b, mu, ml):
+    """The port's packed band, factor and x."""
     abt = tb.band_from_dense(torch.from_numpy(a), mu, ml)
     ft = tb.band_factor(abt, mu, ml)
     xt = tb.band_solve(ft, torch.from_numpy(b))
-    return (np.asarray(ab), np.asarray(f.lu), np.asarray(f.piv), np.asarray(f.fail_col),
-            np.asarray(x)), (abt.numpy(), ft.lu.numpy(), ft.piv.numpy(), ft.fail_col.numpy(),
-                             xt.numpy())
+    return abt.numpy(), ft.lu.numpy(), ft.piv.numpy(), ft.fail_col.numpy(), xt.numpy()
 
 
-@pytest.mark.parametrize("n,mu,ml,batch", [
-    (8, 2, 1, ()), (8, 1, 3, ()), (12, 0, 2, ()), (7, 6, 6, ()), (10, 2, 3, (3,)),
-], ids=["8-2-1", "8-1-3", "12-0-2", "7-6-6-full", "10-2-3-batch3"])
-def test_band_factor_and_solve_are_ida_tpus_bit_for_bit(n, mu, ml, batch):
+BAND_CASES = {"8-2-1": (8, 2, 1, ()), "8-1-3": (8, 1, 3, ()), "12-0-2": (12, 0, 2, ()),
+              "7-6-6-full": (7, 6, 6, ()), "10-2-3-batch3": (10, 2, 3, (3,))}
+
+
+def _seeded_case(n, mu, ml, batch):
     rng = np.random.default_rng(42 + n + 10 * mu + 100 * ml)
     a = _random_banded(n, mu, ml, rng, batch)
-    b = rng.standard_normal((n,) + batch)
-    want, got = _both(a, b, mu, ml)
+    return a, rng.standard_normal((n,) + batch)
+
+
+def _ties_case():
+    # lane 0: column 1 all zero (fail_col 2); lane 1: |column 0| ties at 2
+    # between rows 1 and 2 below a zero diagonal (the first one wins); lane
+    # 2: a three-way tie led by the diagonal itself (no swap)
+    n = 4
+    a = np.zeros((n, n, 3))
+    a[:, :, 0] = [[1, 0, 0, 0], [0, 0, 1, 0], [1, 0, 1, 1], [0, 0, 1, 1]]
+    a[:, :, 1] = [[0, 1, 0, 0], [2, 3, 1, 0], [-2, 1, 4, 2], [0, 1, 1, 1]]
+    a[:, :, 2] = [[2, 1, 0, 0], [-2, 3, 1, 0], [2, 1, 4, 2], [0, 1, 1, 5]]
+    return a, np.arange(1.0, 1.0 + n * 3).reshape(n, 3)
+
+
+def _wide_case():
+    n, mu, ml = 40, 17, 17
+    rng = np.random.default_rng(5)
+    a = _random_banded(n, mu, ml, rng, (2,)) + 8.0 * np.eye(n)[:, :, None]
+    return a, rng.standard_normal((n, 2))
+
+
+@pytest.mark.parametrize("n,mu,ml,batch", list(BAND_CASES.values()), ids=list(BAND_CASES))
+def test_band_factor_and_solve_are_ida_tpus_bit_for_bit(jax_refs, n, mu, ml, batch):
+    a, b = _seeded_case(n, mu, ml, batch)
+    case = next(k for k, v in BAND_CASES.items() if v == (n, mu, ml, batch))
+    want, got = jax_refs["band"][case], _port_band(a, b, mu, ml)
     for name, w, g in zip(("band", "lu", "piv", "fail_col", "x"), want, got):
         assert w.dtype == g.dtype and np.array_equal(w, g), name
     assert not got[3].any() and (got[2] > 0).any()  # the pivot search swapped rows
@@ -79,53 +113,25 @@ def test_band_factor_and_solve_are_ida_tpus_bit_for_bit(n, mu, ml, batch):
     assert np.array_equal(tb.band_to_dense(torch.from_numpy(got[0]), mu, ml).numpy(), a)
 
 
-def test_zero_pivots_and_ties_follow_ida_tpu():
-    # lane 0: column 1 all zero (fail_col 2); lane 1: |column 0| ties at 2
-    # between rows 1 and 2 below a zero diagonal (the first one wins); lane
-    # 2: a three-way tie led by the diagonal itself (no swap)
-    n, mu, ml = 4, 1, 2
-    a = np.zeros((n, n, 3))
-    a[:, :, 0] = [[1, 0, 0, 0], [0, 0, 1, 0], [1, 0, 1, 1], [0, 0, 1, 1]]
-    a[:, :, 1] = [[0, 1, 0, 0], [2, 3, 1, 0], [-2, 1, 4, 2], [0, 1, 1, 1]]
-    a[:, :, 2] = [[2, 1, 0, 0], [-2, 3, 1, 0], [2, 1, 4, 2], [0, 1, 1, 5]]
-    b = np.arange(1.0, 1.0 + n * 3).reshape(n, 3)
-    want, got = _both(a, b, mu, ml)
+def test_zero_pivots_and_ties_follow_ida_tpu(jax_refs):
+    # _ties_case: a zero column, ties below a zero diagonal, a tie led by
+    # the diagonal
+    mu, ml = 1, 2
+    a, b = _ties_case()
+    want, got = jax_refs["band"]["ties"], _port_band(a, b, mu, ml)
     for name, w, g in zip(("band", "lu", "piv", "fail_col", "x"), want, got):
         assert np.array_equal(w, g, equal_nan=True), name
     assert got[3].tolist() == [2, 0, 0]
     assert got[2][0].tolist() == [0, 1, 0]
 
 
-def test_more_than_32_products_a_row_sum_as_a_tree():
-    n, mu, ml = 40, 17, 17
-    rng = np.random.default_rng(5)
-    a = _random_banded(n, mu, ml, rng, (2,)) + 8.0 * np.eye(n)[:, :, None]
-    b = rng.standard_normal((n, 2))
-    want, got = _both(a, b, mu, ml)
+def test_more_than_32_products_a_row_sum_as_a_tree(jax_refs):
+    mu, ml = 17, 17
+    a, b = _wide_case()
+    want, got = jax_refs["band"]["wide"], _port_band(a, b, mu, ml)
     for name, w, g in zip(("band", "lu", "piv", "fail_col"), want[:4], got[:4]):
         assert np.array_equal(w, g), name
     np.testing.assert_allclose(got[4], want[4], rtol=1e-12, atol=1e-14)
-
-
-def test_band_jacobian_is_ida_tpus():
-    # the heat2d residual at m = 5 over 3 lanes, mu = ml = 5: one vmapped jvp
-    # of the 11 colored probes against ida_tpu's 11 jvps
-    m, bsz = 5, 3
-    rng = np.random.default_rng(2)
-    yy = rng.standard_normal((m * m, bsz))
-    yp = rng.standard_normal((m * m, bsz))
-    cj = rng.uniform(1.0, 10.0, bsz)
-    jp = jax_heat2d(m, use_prec=False)
-    want = jb.band_sys_jacobian(jp, jnp.zeros(bsz), jnp.asarray(cj), jnp.asarray(yy),
-                                jnp.asarray(yp), m, m)
-    tp = heat2d_problem(m, use_prec=False, device="cpu")
-    got = tb.band_sys_jacobian(tp, torch.zeros(bsz, dtype=torch.float64), torch.from_numpy(cj),
-                               torch.from_numpy(yy), torch.from_numpy(yp), m, m)
-    assert np.array_equal(got.numpy(), np.asarray(want))
-    # and the dense system Jacobian, packed, holds the same entries
-    dense = tp.sys_jacobian(torch.zeros(bsz, dtype=torch.float64), torch.from_numpy(cj),
-                            torch.from_numpy(yy), torch.from_numpy(yp), None)
-    assert torch.equal(tb.band_from_dense(dense, m, m), got)
 
 
 # ---------------------------------------------------------------- end to end
@@ -167,50 +173,56 @@ def _counts(ida) -> dict:
             "nps": ida.get_num_prec_solves(), "netf": ida.get_num_err_test_fails()}
 
 
+def _jax_bbd_blocked():
+    """ida_tpu's BBD preconditioner (nblocks 4) on heat2d m = 8, op by op:
+    (pdata, x) at cj 7.5 for the seeded right-hand side."""
+    m, nblocks = 8, 4
+    n = m * m
+    u0, up0 = heat2d_ic(m)
+    cj = 7.5
+    r = np.random.default_rng(0).standard_normal(n)
+    jbase = jax_heat2d(m, use_prec=False)
+    jprec = jax_bbd(jbase.res, n, m, m, nblocks=nblocks)
+    with jax.disable_jit():
+        jdata = jprec.prec_setup(jnp.asarray(0.0), jnp.asarray(cj), jnp.asarray(u0),
+                                 jnp.asarray(up0), jnp.zeros(n))
+        jx = np.asarray(jprec.prec_solve(jdata, jnp.asarray(r), jnp.asarray(cj)))
+    return [np.asarray(jdata[0]), np.asarray(jdata[1])], jx
+
+
+def _jax_heat2d_run(kind):
+    """ida_tpu's jitted heat2d m = 8 solve with the band solver or SPGMR
+    with the blocked BBD preconditioner: its counters and rows."""
+    m = 8
+    if kind == "band":
+        prob = jax_heat2d(m, use_prec=False)
+        opts = dict(linear_solver="band", band_mu=m, band_ml=m, mxstep=5000)
+    else:
+        jbase = jax_heat2d(m, use_prec=False)
+        prob = JaxProblem(n=jbase.n, res=jbase.res, id=jbase.id,
+                          **jax_bbd(jbase.res, jbase.n, m, m, nblocks=4).hooks())
+        opts = dict(linear_solver="spgmr", mxstep=5000)
+    jax_ida, rows = _jax_heat2d(prob, m, jida.IdaOptions(**opts))
+    return {"counts": {k: int(v) for k, v in _counts(jax_ida).items()}, "rows": rows}
+
+
+# what the pinned JAX runs (jax_banded_live) are computed from
+REF_INPUTS = {"band_cases": BAND_CASES, "ties": _ties_case(), "wide": _wide_case(),
+              "touts": TOUTS, "heat_m": 8, "bbd": {"nblocks": 4, "cj": 7.5}}
+
+
+def jax_banded_live():
+    band = {case: _jax_band(*_seeded_case(*v), v[1], v[2]) for case, v in BAND_CASES.items()}
+    band["ties"] = _jax_band(*_ties_case(), 1, 2)
+    band["wide"] = _jax_band(*_wide_case(), 17, 17)
+    return {"band": band, "bbd_blocked": _jax_bbd_blocked(),
+            "heat2d_band": _jax_heat2d_run("band"), "heat2d_bbd": _jax_heat2d_run("bbd")}
+
+
 @pytest.fixture(scope="module")
-def heat2d_dense():
-    m = 8
-    return _heat2d(heat2d_problem(m, use_prec=False, device="cpu"), m,
-                   port.IdaOptions(mxstep=5000))
-
-
-def test_heat2d_band_vs_dense_and_ida_tpu(heat2d_dense):
-    # tests/test_band_ls.py::test_heat2d_band_vs_dense, and the same band
-    # solve in ida_tpu (jitted): the same counters
-    m = 8
-    ida_d, dense_rows = heat2d_dense
-    opts = dict(linear_solver="band", band_mu=m, band_ml=m, mxstep=5000)
-    ida_b, band_rows = _heat2d(heat2d_problem(m, use_prec=False, device="cpu"), m,
-                               port.IdaOptions(**opts))
-    for ud, ub in zip(dense_rows, band_rows):
-        np.testing.assert_allclose(ub, ud, atol=5e-6)
-    assert ida_b.get_num_jac_evals() > 0
-    assert ida_b.get_num_steps() <= 2 * ida_d.get_num_steps()
-    assert tuple(ida_b.state.lu.shape) == (3 * m + 1, m * m)
-    jax_ida, jax_rows = _jax_heat2d(jax_heat2d(m, use_prec=False), m, jida.IdaOptions(**opts))
-    assert _counts(ida_b) == _counts(jax_ida)
-    assert _wrms(band_rows, jax_rows) < 1.0
-
-
-def test_roberts_band_full_bandwidth_matches_dense():
-    # tests/test_band_ls.py: N = 3 with mu = ml = 2, the band IS the dense
-    # matrix; 12 decades with the two roots
-    ida = port.IDA(roberts_problem(device="cpu"), ROBERTS_YY0, ROBERTS_YP0,
-                   tol_sv(1e-4, [1e-8, 1e-6, 1e-6], device="cpu"),
-                   port.IdaOptions(linear_solver="band", band_mu=2, band_ml=2), device="cpu")
-    iout, tout, roots = 0, 0.4, 0
-    while iout < 12:
-        _, status = ida.solve(tout)
-        if status == port.IdaSolveStatus.Root:
-            roots += 1
-        else:
-            assert status == port.IdaSolveStatus.Success
-            iout, tout = iout + 1, tout * 10.0
-    assert roots == 2
-    reference = np.array([5.2083474251394888e-08, 2.0833390772616859e-13, 9.9999994791631752e-01])
-    ewt = 1.0 / (1e-4 * np.abs(reference) + 10.0 * np.array([1e-8, 1e-6, 1e-6]))
-    assert np.sqrt(np.mean((ewt * (ida.get_yy() - reference)) ** 2)) < 1.0
-    assert abs(ida.get_num_steps() - 362) <= 20 and abs(ida.get_num_jac_evals() - 60) <= 10
+def jax_refs():
+    """The JAX runs, pinned (tests/make_torch_refs.py, ``banded_jax``)."""
+    return load("banded_jax", REF_INPUTS)
 
 
 def test_band_options_size_the_state():
@@ -228,25 +240,7 @@ def _bbd_problem(m, mu, ml, **kw):
     return port.IdaProblem(n=base.n, res=base.res, id=base.id, **prec.hooks())
 
 
-def test_heat2d_bbd_vs_diag_prec(heat2d_dense):
-    # tests/test_bbd_prec.py::test_heat2d_bbd_vs_diag_prec: at a tight
-    # linear tolerance the banded preconditioner (here the exact Jacobian)
-    # needs materially fewer Krylov iterations a Newton iteration than the
-    # diagonal one, on the dense trajectory
-    m = 8
-    opts = port.IdaOptions(linear_solver="spgmr", mxstep=5000, eplifac=1e-8)
-    _, dense_rows = heat2d_dense
-    ida_diag, _ = _heat2d(heat2d_problem(m, use_prec=True, device="cpu"), m, opts)
-    ida_bbd, bbd_rows = _heat2d(_bbd_problem(m, m, m), m, opts)
-    for ud, ub in zip(dense_rows, bbd_rows):
-        np.testing.assert_allclose(ub, ud, atol=2e-5)
-    assert ida_bbd.get_num_prec_solves() > 0
-    cost_bbd = ida_bbd.get_num_lin_iters() / ida_bbd.get_num_nonlin_solv_iters()
-    cost_diag = ida_diag.get_num_lin_iters() / ida_diag.get_num_nonlin_solv_iters()
-    assert cost_bbd < 0.8 * cost_diag
-
-
-def test_bbd_blocked_matches_ida_tpu_and_the_block_diagonal_solve():
+def test_bbd_blocked_matches_ida_tpu_and_the_block_diagonal_solve(jax_refs):
     # tests/test_bbd_prec.py::test_bbd_blocked_matches_manual_blockdiag:
     # with nblocks = 4 the preconditioner solves with the band of the
     # Jacobian restricted to the blocks; its factor and solve are ida_tpu's
@@ -264,14 +258,9 @@ def test_bbd_blocked_matches_ida_tpu_and_the_block_diagonal_solve():
     r = np.random.default_rng(0).standard_normal(n)
     x = prec.prec_solve(pdata, torch.from_numpy(r), cjt).numpy()
 
-    jbase = jax_heat2d(m, use_prec=False)
-    jprec = jax_bbd(jbase.res, n, mu, ml, nblocks=nblocks)
-    with jax.disable_jit():
-        jdata = jprec.prec_setup(jnp.asarray(0.0), jnp.asarray(cj), jnp.asarray(u0),
-                                 jnp.asarray(up0), jnp.zeros(n))
-        jx = np.asarray(jprec.prec_solve(jdata, jnp.asarray(r), jnp.asarray(cj)))
-    assert np.array_equal(pdata[0].numpy(), np.asarray(jdata[0]))
-    assert np.array_equal(pdata[1].numpy(), np.asarray(jdata[1]))
+    jdata, jx = jax_refs["bbd_blocked"]
+    assert np.array_equal(pdata[0].numpy(), jdata[0])
+    assert np.array_equal(pdata[1].numpy(), jdata[1])
     assert np.array_equal(x, jx)
     assert tuple(pdata[0].shape) == (tb.band_rows(mu, ml), nb, nblocks)
 
@@ -280,44 +269,6 @@ def test_bbd_blocked_matches_ida_tpu_and_the_block_diagonal_solve():
     keep = (i - j <= ml) & (j - i <= mu) & ((i // nb) == (j // nb))
     np.testing.assert_allclose(x, np.linalg.solve(np.where(keep, jac, 0.0), r), rtol=1e-10,
                                atol=1e-12)
-
-
-def test_bbd_blocked_end_to_end_matches_ida_tpu(heat2d_dense):
-    # tests/test_bbd_prec.py::test_bbd_blocked_end_to_end, and the same
-    # solve in ida_tpu (jitted): the same counters
-    m = 8
-    opts = dict(linear_solver="spgmr", mxstep=5000)
-    ida, rows = _heat2d(_bbd_problem(m, m, m, nblocks=4), m, port.IdaOptions(**opts))
-    _, dense_rows = heat2d_dense
-    for ud, ub in zip(dense_rows, rows):
-        np.testing.assert_allclose(ub, ud, atol=2e-5)
-    assert ida.get_num_prec_solves() > 0
-    jbase = jax_heat2d(m, use_prec=False)
-    jprob = JaxProblem(n=jbase.n, res=jbase.res, id=jbase.id,
-                       **jax_bbd(jbase.res, jbase.n, m, m, nblocks=4).hooks())
-    jax_ida, jax_rows = _jax_heat2d(jprob, m, jida.IdaOptions(**opts))
-    assert _counts(ida) == _counts(jax_ida)
-    assert _wrms(rows, jax_rows) < 1.0
-
-
-def test_bbd_narrow_band_and_res_local():
-    # tests/test_bbd_prec.py: a tridiagonal kept band still converges to the
-    # trajectory, and a distinct Gres (res_local) is what prec_setup calls
-    m = 6
-    base = heat2d_problem(m, use_prec=False, device="cpu")
-    calls = []
-
-    def gres(t, yy, yp):
-        calls.append(1)
-        return base.res(t, yy, yp)
-
-    opts = port.IdaOptions(linear_solver="spgmr", mxstep=5000)
-    _, rows = _heat2d(_bbd_problem(m, 1, 1, res_local=gres), m, opts)
-    _, dense_rows = _heat2d(heat2d_problem(m, use_prec=False, device="cpu"), m,
-                            port.IdaOptions(mxstep=5000))
-    for ud, ub in zip(dense_rows, rows):
-        np.testing.assert_allclose(ub, ud, atol=2e-5)
-    assert calls
 
 
 def test_bbd_blocked_validation():

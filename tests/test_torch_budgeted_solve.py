@@ -8,7 +8,8 @@ runs it there:
   the number of resumes exactly, every float bit for bit;
 * heterogeneous lanes with a budget of 5, against the jitted, vmapped JAX
   solve: istate and the counters exactly, tret to 1e-13 relative (XLA:CPU
-  contracts multiply-adds into FMAs);
+  contracts multiply-adds into FMAs), in ``test_torch_budgeted_hetero.py``
+  (a file of one test, which queues last);
 * TASK_ONE_STEP with a budget of 2;
 * the port's budgeted and resumed solve is bit for bit its unbudgeted one.
 """
@@ -125,25 +126,6 @@ def _hetero_inputs(b=5):
     return params, yy0, yp0
 
 
-@pytest.fixture(scope="module")
-def hetero_jitted():
-    """The JAX vmapped budgeted solve, budget 5, tout 0.4 (as
-    tests/test_budgeted_solve.py::test_budgeted_resume_vmapped_heterogeneous)."""
-    params, yy0, yp0 = (jnp.asarray(a) for a in _hetero_inputs())
-    states = jensemble_init(jroberts, params, yy0, yp0)
-    tol = jtol_sv(1e-4, jnp.asarray(ATOL))
-    tout = jnp.asarray(0.4)
-
-    def first(s, p):
-        return jsolve(s, jroberts(p), JOptions(), tol, tout, max_attempts=5)
-
-    def again(s, p, carry):
-        return jsolve(s, jroberts(p), JOptions(), tol, tout, max_attempts=5, resume_carry=carry)
-
-    f, a = jax.jit(jax.vmap(first)), jax.jit(jax.vmap(again))
-    return _jax_budgeted(lambda s: f(s, params), lambda s, c: a(s, params, c), states)
-
-
 def _hetero_port(budget):
     params, yy0, yp0 = _hetero_inputs()
     st = to_native(ensemble_init(troberts, params, yy0, yp0, device="cpu"))
@@ -154,16 +136,6 @@ def _hetero_port(budget):
     if budget is None:
         return tsolve(st, prob, IdaOptions(), tol, 0.4)
     return _port_budgeted(st, prob, tol, 0.4, budget)
-
-
-def test_heterogeneous_lanes_budget_matches_jitted_reference(hetero_jitted):
-    jst, jtret, jist, jcalls = hetero_jitted
-    st, tret, ist, calls = _hetero_port(5)
-    assert calls == jcalls > 1
-    np.testing.assert_array_equal(ist.numpy(), np.asarray(jist))
-    np.testing.assert_allclose(tret.numpy(), np.asarray(jtret), rtol=1e-13, atol=0)
-    for f in COUNTERS:
-        np.testing.assert_array_equal(getattr(st, f).numpy(), np.asarray(getattr(jst, f)), err_msg=f)
 
 
 def test_heterogeneous_budgeted_is_bitwise_the_unbudgeted_solve():

@@ -9,7 +9,10 @@ tests/test_continuous_adjoint.py:29-40), against ``ida_tpu``'s
 log-spaced grid to tout 0.4; held to rtol 1e-6, since the jitted JAX run
 contracts multiply-adds), and the batch-native form lane by lane against
 the single lane. The backward integration itself is held to
-tests/test_direction.py's gate.
+tests/test_direction.py's gate. The two slowest tests, the routing and the
+batch-native form, are ``test_torch_continuous_adjoint_auto.py`` and
+``_lanes.py``: files of one test queue last (pytest-xdist hands out the
+files with the most tests first).
 """
 
 from functools import partial
@@ -124,49 +127,3 @@ def test_roberts_lane_matches_ida_tpu(jax_continuous):
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-10)
     np.testing.assert_allclose(gp.numpy(), jgp, rtol=1e-6)
     np.testing.assert_allclose(gy0.numpy(), jgy0, rtol=1e-6, atol=1e-12)
-
-
-def test_batched_continuous_adjoint_is_lane_for_lane_the_single_lane():
-    """The batch-native form (one forward and one backward solve for every
-    lane; the KKT system [2N, 2N, B]) against single-lane runs."""
-    params = np.outer([0.95, 1.0, 1.05], ROBERTS_PARAMS)
-    loss, gp, gy0, istf, istb = S.batched_continuous_adjoint(
-        roberts_factory, params, ROBERTS_YY0, params[:, :1] * np.array([-1.0, 1.0, 0.0]), TOL,
-        TOUT, loss_of, grid=GRID, opts=OPTS, device="cpu")
-    assert gp.shape == (3, 3) and gy0.shape == (3, 3)
-    assert np.all(istf.numpy() == 0) and np.all(istb.numpy() == 0)
-    for b in range(3):
-        l1, g1, y1, f1, b1 = _port_lane(params[b])
-        np.testing.assert_allclose(float(loss[b]), float(l1), rtol=1e-12)
-        np.testing.assert_allclose(gp[b].numpy(), g1.numpy(), rtol=1e-9)
-        np.testing.assert_allclose(gy0[b].numpy(), y1.numpy(), rtol=1e-9, atol=1e-15)
-
-
-def test_adjoint_gradient_auto_routes_as_ida_tpu(jax_continuous):
-    """Forced continuous (crossover 0) is ``continuous_adjoint``, forced
-    discrete is ``adjoint_gradient``; the default window picks continuous
-    at 120 attempts; a problem with roots always takes the discrete tape
-    (tests/test_adjoint.py:166-220)."""
-    args = (roberts_factory, ROBERTS_PARAMS, ROBERTS_YY0, _yp0(ROBERTS_PARAMS), TOL, TOUT, loss_of)
-    lc, gc, ic_ = S.adjoint_gradient_auto(*args, max_attempts=120, crossover=0, grid=GRID,
-                                          opts=OPTS, device="cpu")
-    ld, gd, id_ = S.adjoint_gradient_auto(*args, max_attempts=120, crossover=10**9,
-                                          device="cpu")
-    assert int(ic_) == 0 and int(id_) == 0
-    np.testing.assert_allclose(gc.numpy(), jax_continuous[1], rtol=1e-6)
-    _, g_disc, _ = S.adjoint_gradient(roberts_factory, ROBERTS_PARAMS,
-                                      lambda p: _t(ROBERTS_YY0), lambda p: _yp0(ROBERTS_PARAMS),
-                                      TOL, TOUT, loss_of, max_attempts=120, device="cpu")
-    assert torch.equal(gd, g_disc)
-    np.testing.assert_allclose(float(lc), float(ld), rtol=5e-4)
-    np.testing.assert_allclose(gc.numpy(), gd.numpy(), rtol=2e-2)
-    la, ga, ia = S.adjoint_gradient_auto(*args, max_attempts=120, grid=GRID, opts=OPTS,
-                                         device="cpu")
-    assert int(ia) == 0 and torch.equal(ga, gc)
-
-    rooted = partial(roberts_factory, with_roots=True)
-    lr, gr, ir = S.adjoint_gradient_auto(rooted, *args[1:], max_attempts=120, crossover=0,
-                                         device="cpu")
-    assert int(ir) == 2  # ROOT_RETURN: the discrete tape ran (continuous refuses roots)
-    with pytest.raises(ValueError, match="rootfinding"):
-        S.continuous_adjoint(rooted, *args[1:], device="cpu")

@@ -261,9 +261,16 @@ def _ensemble(bsz, device, dtype=torch.float64, opts=IdaOptions()):
                                  opts=opts)
 
 
+def _bits(x):
+    from chip_smoke import BITS
+
+    return x.contiguous().view(BITS[x.dtype]) if x.is_floating_point() else x
+
+
 def _same_states(a, b):
+    """The fields of ``a`` whose bits differ from ``b``'s (+0 and -0 differ)."""
     return [f for f, x in zip(a._fields, a)
-            if isinstance(x, torch.Tensor) and not torch.equal(x, getattr(b, f))]
+            if isinstance(x, torch.Tensor) and not torch.equal(_bits(x), _bits(getattr(b, f)))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -366,7 +373,7 @@ def _budgeted_launches_are_the_eager_calls(cuda, opts):
     inputs = fused_solve.lane_inputs(eager[0], p, tol_sv(1e-4, ATOL, device=cuda), 400.0, 3)
     tol = TolControl(inputs[1], inputs[2])
     tol_in = fused_solve.tol_inputs(tol_sv(1e-4, ATOL, device=cuda), 3, 256, torch.float64, cuda)
-    dst = fused_solve.empty_result(st0, opts)
+    dst = fused_solve.empty_result(st0, opts, fused_solve.ROBERTS)
     carry = fused_solve.new_carry(256, torch.float64, cuda, True)
 
     def step(resume):
@@ -394,10 +401,11 @@ def test_fused_kernel_takes_batches_that_do_not_fill_a_block(cuda, bsz):
     assert _same_states(st, est) == []
     assert torch.equal(ist, eist) and torch.equal(tret, etret)
     # out of place: the input keeps its bits, untouched fields pass through
+    touched = fused_solve.touched_fields(IdaOptions(), fused_solve.ROBERTS)
     for f, x, was in zip(st0._fields, st0, before):
         if isinstance(x, torch.Tensor):
             assert torch.equal(x, was), f
-            assert (getattr(st, f) is x) == (f not in fused_solve.touched_fields(IdaOptions())), f
+            assert (getattr(st, f) is x) == (f not in touched), f
 
 
 def test_fused_kernel_takes_per_lane_tolerances(cuda):
@@ -933,5 +941,92 @@ def test_generated_model_ops_are_the_eager_problems(cuda, dtype):
     got = fused_solve.eval_model(_lorenz_factory, *args)
     want = fused_solve.eval_model_plain(_lorenz_factory, *args)
     assert sum(fused_solve.EVAL_LAUNCHES.values()) == 1
-    for g, w in zip(got, want):
+    assert got[3] is None and want[3] is None  # no quadratures
+    for g, w in zip(got[:3], want[:3]):
         assert torch.equal(g, w)
+
+
+# ------------------------------------ quadratures and the kinetics/neuron ops
+
+
+
+
+QUAD_SOLVES = {"k2": (IdaOptions(), None, torch.float64),
+               "budget7": (IdaOptions(), 7, torch.float64),
+               "refined": (IdaOptions(ls_precision="refined"), None, torch.float64),
+               "f32": (IdaOptions(), None, torch.float32)}
+
+
+@pytest.mark.parametrize("solve", QUAD_SOLVES)
+def test_quadrature_kernel_matches_the_eager_path_bitwise(cuda, solve):
+    # (a) 256 headline lanes to 400 with quadratures through the generated
+    # model's library: every field, yQ included, bit for bit the eager solve
+    from chip_smoke import quad_factory
+
+    opts, budget, dtype = QUAD_SOLVES[solve]
+    bsz = 256
+    params = np.outer(np.exp(np.linspace(-0.5, 0.5, bsz)), ROBERTS_PARAMS)
+    yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
+    st0 = ensemble_init(quad_factory, params, np.tile(ROBERTS_YY0, (bsz, 1)), yp0, device=cuda,
+                        dtype=dtype, opts=opts)
+    tol = tol_sv(1e-4, ATOL, device=cuda, dtype=dtype)
+    p_b = torch.as_tensor(params, device=cuda, dtype=dtype).contiguous()
+    model = fused_solve.model_of(quad_factory, p_b.t())
+    fused_solve.reset_launch_counts()
+    st, tret, ist = fused_solve.make_fused_solve(quad_factory, tol, opts, attempt_budget=budget)(
+        st0, p_b, 400.0)
+    est, etret, eist = make_ensemble_solve(quad_factory, opts)(st0, params, tol, 400.0)
+    assert model.nq == 2 and {m for _, _, m in fused_solve.MODE_LAUNCHES} == {model.name}
+    assert torch.equal(ist, eist) and torch.equal(tret, etret)
+    assert _same_states(st, est) == [] and not torch.equal(st.yQ, st0.yQ)
+
+
+@pytest.mark.parametrize("solve", ["k2", "budget7", "refined"])
+def test_morris_lecar_kernel_matches_the_eager_path_bitwise(cuda, solve):
+    # (b) 256 Morris-Lecar lanes over I in [0, 300] to 10 ms: tanh and cosh in
+    # the residual, two quadratures; bit for bit the eager solve
+    from ida_tpu_torch.models.morris_lecar import morris_lecar_factory, morris_lecar_inputs
+    from ida_tpu_torch.tol_control import tol_ss
+
+    opts, budget, _ = QUAD_SOLVES[solve]
+    params, yy0, yp0 = morris_lecar_inputs(256)
+    st0 = ensemble_init(morris_lecar_factory, params, yy0, yp0, device=cuda, opts=opts)
+    tol = tol_ss(1e-6, 1e-8, device=cuda)
+    p_b = torch.as_tensor(params, device=cuda).contiguous()
+    st, tret, ist = fused_solve.make_fused_solve(morris_lecar_factory, tol, opts,
+                                                 attempt_budget=budget)(st0, p_b, 10.0)
+    est, etret, eist = make_ensemble_solve(morris_lecar_factory, opts)(st0, params, tol, 10.0)
+    assert bool((ist == C.SUCCESS).all())
+    assert torch.equal(ist, eist) and torch.equal(tret, etret)
+    assert _same_states(st, est) == []
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_new_ops_and_quadratures_are_the_eager_problems_on_the_card(cuda, dtype):
+    # (c) the table of ops: the new ops' zoo on 4,096 lanes, a quarter of them
+    # NaN, +-0 or +-inf, and Morris-Lecar's res, jac, J v and quad: bit for
+    # bit (the sign of a zero included, NaN equal to NaN) the eager
+    # problem's on the same CUDA tensors
+    from chip_smoke import ops_zoo_factory, same
+    from ida_tpu_torch.models.morris_lecar import morris_lecar_factory
+    from test_torch_fused_ops import zoo_inputs
+
+    args = tuple(x.to(cuda) for x in zoo_inputs(dtype))
+    got = fused_solve.eval_model(ops_zoo_factory, *args)
+    want = fused_solve.eval_model_plain(ops_zoo_factory, *args)
+    for g, w in zip(got[:3], want[:3]):
+        assert same(g, w)
+    rng = np.random.default_rng(9)
+
+    def lanes(x):
+        return torch.as_tensor(x, dtype=dtype, device=cuda).contiguous()
+
+    n = 4096
+    args = (lanes(100.0 * np.exp(rng.uniform(-1.0, 1.0, (1, n)))), lanes(rng.uniform(0, 5, n)),
+            lanes(np.exp(rng.uniform(-3, 5, n))),
+            lanes(np.stack([rng.uniform(-80, 60, n), rng.uniform(0, 1, n)])),
+            lanes(rng.normal(size=(2, n))), lanes(rng.normal(size=(2, n))))
+    got = fused_solve.eval_model(morris_lecar_factory, *args)
+    want = fused_solve.eval_model_plain(morris_lecar_factory, *args)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))

@@ -6,7 +6,9 @@
   rows that do not, a lane frozen by a first-call input error, and events with
   an event buffer that is too small.
 * ``solve_dense`` against the JAX ``solve_dense`` run op by op on a short
-  grid with roots: rows, events and the final state bit for bit.
+  grid with roots: rows, events and the final state bit for bit; and
+  against the jitted one over 12 decades (both JAX runs pinned:
+  tests/make_torch_refs.py, ``dense_output_jax``).
 * ``get_dky`` against the JAX ``get_dky`` run op by op on mid-flight states,
   one lane and (under ``vmap``) B = 8, every order k <= kused.
 """
@@ -39,6 +41,7 @@ from ida_tpu_torch.parallel import to_native
 from ida_tpu_torch.tol_control import TolControl
 from ida_tpu_torch.utils.convert import params_from_numpy, state_from_numpy
 from ida_tpu_torch.utils.tree import tree_where
+from make_torch_refs import load
 
 # one intra-op thread: the tests' tensors are small, and the suite runs in
 # parallel workers, each of which would otherwise start a pool per core
@@ -98,94 +101,6 @@ def assert_rows_equal(dense, scan, lanes=None):
         assert torch.equal(a, b), name
 
 
-def test_one_lane_twelve_decades_equals_scan_form():
-    prob = troberts_problem(with_roots=False, device="cpu")
-    st = init_state(prob, ROBERTS_YY0, ROBERTS_YP0, device="cpu")
-    tol = TolControl(torch.tensor(1e-4, dtype=torch.float64), torch.tensor(ATOL, dtype=torch.float64))
-    out = solve_dense(st, prob, IdaOptions(), tol, DECADES)
-    sst, rows, _ = scan_form(st, prob, IdaOptions(), tol, DECADES)
-    assert_rows_equal(out, rows)
-    assert out[2].tolist() == [C.SUCCESS] * 12 and out[1].tolist() == DECADES
-    assert out[5].tolist() == [29, 43, 68, 95, 126, 161, 202, 250, 293, 325, 348, 362]
-    for f in ("phi", "psi", "tn", "hh", "kk", "nre", "nni", "nje", "netf"):
-        assert torch.equal(getattr(out[0], f), getattr(sst, f)), f
-    assert int(out[0].status) == C.SUCCESS
-
-
-def test_heterogeneous_batch_equals_scan_form():
-    # a wide parameter spread: lanes reach their rows many passes apart
-    st, prob, tol = _setup(4, roots=False, spread=1.0)
-    touts = DECADES[:8]
-    out = solve_dense(st, prob, IdaOptions(), tol, touts)
-    _, rows, _ = scan_form(st, prob, IdaOptions(), tol, touts)
-    assert_rows_equal(out, rows)
-    assert bool((out[2] == C.SUCCESS).all())
-    assert len(set(out[5][-1].tolist())) > 1  # the lanes really differ
-
-
-def test_per_lane_grids_equal_scan_form():
-    st, prob, tol = _setup(3, roots=False)
-    touts = torch.tensor(DECADES[:5], dtype=torch.float64).reshape(5, 1) * torch.tensor(
-        [1.0, 0.5, 2.0], dtype=torch.float64)
-    out = solve_dense(st, prob, IdaOptions(), tol, touts)
-    _, rows, _ = scan_form(st, prob, IdaOptions(), tol, touts)
-    assert_rows_equal(out, rows)
-    assert torch.equal(out[1], touts)
-
-
-def test_per_lane_tstop_equals_scan_form():
-    # lane 0 stops at 30, lane 1 has no stop time, lane 2 stops at 700
-    st, prob, tol = _setup(3, roots=False)
-    st = st._replace(tstop=torch.tensor([30.0, 0.0, 700.0], dtype=torch.float64),
-                     tstop_set=torch.tensor([True, False, True]))
-    touts = DECADES[:5]
-    out = solve_dense(st, prob, IdaOptions(), tol, touts)
-    sst, rows, _ = scan_form(st, prob, IdaOptions(), tol, touts)
-    assert_rows_equal(out, rows)
-    assert out[2][:, 0].tolist() == [0, 0, C.TSTOP_RETURN, 0, 0]
-    assert out[1][2, 0].item() == 30.0
-    assert out[2][:, 1].tolist() == [0] * 5
-    assert out[2][:, 2].tolist() == [0, 0, 0, 0, C.TSTOP_RETURN] and out[1][4, 2].item() == 700.0
-    assert not bool(out[0].tstop_set.any()) and torch.equal(out[0].tstop_set, sst.tstop_set)
-
-
-def test_tstop_exactly_on_a_grid_row_follows_the_jax_package():
-    """A stop time equal to a grid point: the step lands on it, the row is
-    recorded as SUCCESS with tstop still set, and the clamp to tstop then
-    makes the next step size zero, so ``solve_dense`` records every later
-    row there without stepping (the scan form returns TSTOP_RETURN and goes
-    on). The JAX package does this; the port is held to it, not to the scan
-    form."""
-    p = np.exp(0.2) * ROBERTS_PARAMS
-    yp0 = p[0] * np.array([-1.0, 1.0, 0.0])
-    touts = DECADES[:5]
-    jprob = jroberts(jnp.asarray(p))
-    jtol = JTol(jnp.asarray(1e-4), jnp.asarray(ATOL))
-    jst = jinit(jprob, ROBERTS_YY0, yp0)._replace(tstop=jnp.asarray(40.0), tstop_set=jnp.asarray(True))
-    ref = jax.jit(lambda s: jdense(s, jprob, JOptions(), jtol, jnp.asarray(touts)))(jst)
-    tprob = troberts(torch.from_numpy(p))
-    tst = init_state(tprob, ROBERTS_YY0, yp0, device="cpu")._replace(
-        tstop=torch.tensor(40.0, dtype=torch.float64), tstop_set=torch.tensor(True))
-    ttol = TolControl(torch.tensor(1e-4, dtype=torch.float64), torch.tensor(ATOL, dtype=torch.float64))
-    got = solve_dense(tst, tprob, IdaOptions(), ttol, touts)
-    assert got[2].tolist() == np.asarray(ref[2]).tolist() == [C.SUCCESS] * 5
-    assert got[1].tolist() == np.asarray(ref[1]).tolist() == touts
-    assert got[5].tolist() == np.asarray(ref[5]).tolist() and got[5][2:].tolist() == [71, 71, 71]
-    assert float(got[0].hh) == float(ref[0].hh) == 0.0
-
-
-def test_failed_rows_leave_the_other_lanes_alone():
-    # mxstep 40 is too few for the later decades of some lanes: those rows
-    # carry TOO_MUCH_WORK, the lane goes on, its neighbours never notice
-    st, prob, tol = _setup(4, roots=False, spread=1.0)
-    opts = IdaOptions(mxstep=40)
-    out = solve_dense(st, prob, opts, tol, DECADES[:9])
-    _, rows, _ = scan_form(st, prob, opts, tol, DECADES[:9])
-    assert_rows_equal(out, rows)
-    codes = set(out[2].reshape(-1).tolist())
-    assert codes == {C.SUCCESS, C.TOO_MUCH_WORK}
-
-
 def test_first_call_input_error_freezes_its_lane_only():
     st, prob, tol = _setup(3, roots=False)
     st = st._replace(tstop=torch.tensor([0.0, -1.0, 0.0], dtype=torch.float64),
@@ -199,89 +114,103 @@ def test_first_call_input_error_freezes_its_lane_only():
     assert int(out[0].status[1]) == C.ILL_INPUT
 
 
-def test_events_with_a_buffer_that_is_too_small():
-    # through 4e8: both roots of every lane lie before it
-    b, touts = 3, DECADES[:10]
-    st, prob, tol = _setup(b, roots=True)
-    out1 = solve_dense(st, prob, IdaOptions(), tol, touts, max_events=1)
-    out3 = solve_dense(st, prob, IdaOptions(), tol, touts, max_events=3)
-    _, rows, events = scan_form(st, prob, IdaOptions(), tol, touts)
-    for out in (out1, out3):
-        assert_rows_equal(out, rows)
-        assert out[6].count.tolist() == [2] * b  # the true total, whatever fits
-    ev1, ev3 = out1[6], out3[6]
-    assert ev1.t.shape == (1, b) and ev3.t.shape == (3, b) and ev3.iroots.shape == (3, 2, b)
-    for lane in range(b):
-        assert len(events[lane]) == 2
-        for e, (t, iroots, yy) in enumerate(events[lane]):
-            assert ev3.t[e, lane].item() == t
-            assert ev3.iroots[e, :, lane].tolist() == iroots
-            assert torch.equal(ev3.yy[e, :, lane], yy)
-        assert ev3.t[2, lane].item() == 0.0  # the unused row
-        assert ev1.t[0, lane].item() == events[lane][0][0]  # the first is kept
-    # rows are those of the problem without roots
-    st0, prob0, _ = _setup(b, roots=False)
-    plain = solve_dense(st0, prob0, IdaOptions(), tol, touts)
-    assert torch.equal(plain[5], out3[5]) and torch.equal(plain[3], out3[3])
-
-
 def test_roots_need_an_event_buffer():
     st, prob, tol = _setup(2, roots=True)
     with pytest.raises(ValueError, match="max_events"):
         solve_dense(st, prob, IdaOptions(), tol, DECADES[:2])
 
 
-def test_dense_matches_jax_dense_op_by_op():
-    """One lane with roots over a short grid that holds the first root: the
-    JAX ``solve_dense`` run op by op and the port's agree in every row, every
-    event and every field of the final state."""
+SHORT_TOUTS = [0.1, 0.3]
+EVENT_FIELDS = ("t", "iroots", "yy", "yp", "count")
+
+
+def _jax_dense_short():
+    """The JAX ``solve_dense`` of one lane with roots over SHORT_TOUTS, run
+    op by op: its rows, events and final state."""
     jprob = jroberts_problem(with_roots=True)
     jst = jinit(jprob, ROBERTS_YY0, ROBERTS_YP0)
     jtol = JTol(jnp.asarray(1e-4), jnp.asarray(ATOL))
-    touts = [0.1, 0.3]
     with jax.disable_jit():
-        ref = jdense(jst, jprob, JOptions(), jtol, jnp.asarray(touts), max_events=2)
+        ref = jdense(jst, jprob, JOptions(), jtol, jnp.asarray(SHORT_TOUTS), max_events=2)
+    return {"rows": [np.asarray(r) for r in ref[1:6]],
+            "events": {name: np.asarray(getattr(ref[6], name)) for name in EVENT_FIELDS},
+            "state": {f: np.asarray(x) for f, x in zip(ref[0]._fields, ref[0])
+                      if isinstance(x, jax.Array)}}
+
+
+def _jax_dense_decades():
+    """The jitted JAX ``solve_dense`` of the nominal lane with roots over the
+    12 decades."""
+    jprob = jroberts_problem(with_roots=True)
+    jst = jinit(jprob, ROBERTS_YY0, ROBERTS_YP0)
+    jtol = JTol(jnp.asarray(1e-4), jnp.asarray(ATOL))
+    ref = jax.jit(lambda s: jdense(s, jprob, JOptions(), jtol, jnp.asarray(DECADES),
+                                   max_events=3))(jst)
+    return {"rows": {str(k): np.asarray(ref[k]) for k in (1, 2, 3, 5)},
+            "counters": {f: int(getattr(ref[0], f))
+                         for f in ("nst", "nre", "nje", "nni", "netf", "ncfn", "nge", "kused")},
+            "events": {name: np.asarray(getattr(ref[6], name))
+                       for name in ("t", "iroots", "count")}}
+
+
+# what the pinned JAX runs (jax_dense_live) are computed from
+REF_INPUTS = {"yy0": ROBERTS_YY0, "yp0": ROBERTS_YP0, "atol": ATOL, "short_touts": SHORT_TOUTS,
+              "decades": DECADES}
+
+
+def jax_dense_live():
+    return {"short": _jax_dense_short(), "decades": _jax_dense_decades()}
+
+
+@pytest.fixture(scope="module")
+def jax_dense():
+    """The JAX dense runs, pinned (tests/make_torch_refs.py, ``dense_output_jax``)."""
+    return load("dense_output_jax", REF_INPUTS)
+
+
+def test_dense_matches_jax_dense_op_by_op(jax_dense):
+    """One lane with roots over a short grid that holds the first root: the
+    JAX ``solve_dense`` run op by op and the port's agree in every row, every
+    event and every field of the final state."""
+    ref = jax_dense["short"]
     tprob = troberts_problem(with_roots=True, device="cpu")
     tst = init_state(tprob, ROBERTS_YY0, ROBERTS_YP0, device="cpu")
     ttol = TolControl(torch.tensor(1e-4, dtype=torch.float64), torch.tensor(ATOL, dtype=torch.float64))
-    got = solve_dense(tst, tprob, IdaOptions(), ttol, touts, max_events=2)
-    for name, a, b in zip(("tret", "istate", "yy", "yp", "nst"), got[1:6], ref[1:6]):
+    got = solve_dense(tst, tprob, IdaOptions(), ttol, SHORT_TOUTS, max_events=2)
+    for name, a, b in zip(("tret", "istate", "yy", "yp", "nst"), got[1:6], ref["rows"]):
         assert b.dtype == a.numpy().dtype, name
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b), name)
-    for name in ("t", "iroots", "yy", "yp", "count"):
-        a, b = getattr(got[6], name).numpy(), np.asarray(getattr(ref[6], name))
+        np.testing.assert_array_equal(a.numpy(), b, name)
+    for name in EVENT_FIELDS:
+        a, b = getattr(got[6], name).numpy(), ref["events"][name]
         assert a.dtype == b.dtype, name
         np.testing.assert_array_equal(a, b, name)
     assert int(got[6].count) == 1
-    for f in ref[0]._fields:
-        if f != "pdata":
-            np.testing.assert_array_equal(getattr(got[0], f).numpy(), np.asarray(getattr(ref[0], f)), f)
+    assert "yy" in ref["state"] and "phi" in ref["state"]
+    for f, b in ref["state"].items():
+        np.testing.assert_array_equal(getattr(got[0], f).numpy(), b, f)
 
 
-def test_twelve_decades_with_events_match_the_jitted_jax_dense():
+def test_twelve_decades_with_events_match_the_jitted_jax_dense(jax_dense):
     """The nominal lane over the 12 decades with roots: status, cumulative
     steps, every counter with ``nge``, event count and signs exactly; floats
     as far as the jitted run's contracted multiply-adds allow (1e-9 at the
     first event, 1e-7 later). Off the nominal parameters the jitted run's
     rounding moves single steps, so only this lane is held exactly."""
-    jprob = jroberts_problem(with_roots=True)
-    jst = jinit(jprob, ROBERTS_YY0, ROBERTS_YP0)
-    jtol = JTol(jnp.asarray(1e-4), jnp.asarray(ATOL))
-    ref = jax.jit(lambda s: jdense(s, jprob, JOptions(), jtol, jnp.asarray(DECADES), max_events=3))(jst)
+    ref = jax_dense["decades"]
     tprob = troberts_problem(with_roots=True, device="cpu")
     tst = init_state(tprob, ROBERTS_YY0, ROBERTS_YP0, device="cpu")
     ttol = TolControl(torch.tensor(1e-4, dtype=torch.float64), torch.tensor(ATOL, dtype=torch.float64))
     got = solve_dense(tst, tprob, IdaOptions(), ttol, DECADES, max_events=3)
     for k in (1, 2, 5):
-        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]))
+        np.testing.assert_array_equal(got[k].numpy(), ref["rows"][str(k)])
     for f in ("nst", "nre", "nje", "nni", "netf", "ncfn", "nge", "kused"):
-        assert int(getattr(got[0], f)) == int(getattr(ref[0], f)), f
+        assert int(getattr(got[0], f)) == ref["counters"][f], f
     assert int(got[0].nge) == 393  # 11 fewer than the re-entered solve: no per-row re-entry checks
-    assert int(got[6].count) == int(ref[6].count) == 2
-    np.testing.assert_array_equal(got[6].iroots.numpy(), np.asarray(ref[6].iroots))
-    np.testing.assert_allclose(got[6].t[0].numpy(), np.asarray(ref[6].t)[0], rtol=1e-9, atol=0)
-    np.testing.assert_allclose(got[6].t[1].numpy(), np.asarray(ref[6].t)[1], rtol=1e-7, atol=0)
-    np.testing.assert_allclose(got[3].numpy(), np.asarray(ref[3]), rtol=1e-7, atol=0)
+    assert int(got[6].count) == int(ref["events"]["count"]) == 2
+    np.testing.assert_array_equal(got[6].iroots.numpy(), ref["events"]["iroots"])
+    np.testing.assert_allclose(got[6].t[0].numpy(), ref["events"]["t"][0], rtol=1e-9, atol=0)
+    np.testing.assert_allclose(got[6].t[1].numpy(), ref["events"]["t"][1], rtol=1e-7, atol=0)
+    np.testing.assert_allclose(got[3].numpy(), ref["rows"]["3"], rtol=1e-7, atol=0)
 
 
 # ------------------------------------------------------------------ get_dky

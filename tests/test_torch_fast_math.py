@@ -78,17 +78,6 @@ def _same_fields(st, jst, fields=("yy", "yp", "phi", "psi", "beta", "hh", "ns"))
         assert got.dtype == want.dtype and np.array_equal(got, want), f
 
 
-def test_fast_math_is_ida_tpus_op_by_op():
-    jax_ida = _jax_ida(True)
-    ida = _ida(True)
-    with jax.disable_jit():
-        for t in (0.04, 0.4):
-            jax_ida.solve(t)
-            ida.solve(t)
-            assert _counters(ida.state) == _counters(jax_ida.state), t
-    _same_fields(ida.state, jax_ida.state)
-
-
 def test_phi_star_scale_is_the_parity_scaling():
     # the implicit scale times unscaled phi is the parity mode's phi-star
     ida = _ida(False)

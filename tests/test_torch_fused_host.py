@@ -144,8 +144,9 @@ def on_host(host_lib, tmp_path_factory, monkeypatch):
                               model)})
     monkeypatch.setattr(fused_solve, "stream_of", lambda t: 0)
     monkeypatch.setattr(
-        fused_solve, "state_refs", lambda st, batch_axis, opts=IdaOptions(): fused_solve.StateRefs(
-            **{f: getattr(st, f).data_ptr() for f in fused_solve.touched_fields(opts)}))
+        fused_solve, "state_refs",
+        lambda st, batch_axis, opts=IdaOptions(), model=fused_solve.ROBERTS: fused_solve.StateRefs(
+            **{f: getattr(st, f).data_ptr() for f in fused_solve.touched_fields(opts, model)}))
     fused_stages._bind.cache_clear()
     yield
     fused_stages._bind.cache_clear()
@@ -273,7 +274,7 @@ def _budgeted_launches_are_the_eager_calls(opts):
         inputs = fused_solve.lane_inputs(eager_st, p, tol_sv(1e-4, ATOL, device="cpu"), tout, 3)
         tol = TolControl(inputs[1], inputs[2])
         carry = fused_solve.new_carry(16, torch.float64, "cpu", True)
-        dst = fused_solve.empty_result(src, opts)
+        dst = fused_solve.empty_result(src, opts, fused_solve.ROBERTS)
         eager = (eager_st, None, None, None)
 
         def step(resume):
@@ -313,11 +314,12 @@ def test_host_build_leaves_its_input_state_untouched(on_host, budget):
     before = [x.clone() if isinstance(x, torch.Tensor) else x for x in st0]
     got, _, _ = _kernel_solve(st0, params, 4.0, IdaOptions(), budget=budget)
     assert int(got.nst.sum()) > 0
+    touched = fused_solve.touched_fields(IdaOptions(), fused_solve.ROBERTS)
     for f, x, was in zip(st0._fields, st0, before):
         if not isinstance(x, torch.Tensor):
             continue
         assert torch.equal(x, was, ), f
-        assert (getattr(got, f) is x) == (f not in fused_solve.touched_fields(IdaOptions())), f
+        assert (getattr(got, f) is x) == (f not in touched), f
 
 
 def test_host_build_takes_per_lane_tolerances(on_host):

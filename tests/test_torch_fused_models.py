@@ -27,10 +27,13 @@ Here, with the kernel source built for the host (tests/test_torch_fused_host.py
   counts against its own op-by-op run by up to 3 on a lane: nst is held
   within 1 of the kernel's, or within that distance where it is larger.
   The JAX runs are pinned (tests/make_torch_refs.py, ``fused_models_jax``);
-  the Lorenz kernel run is also computed live and must equal its pin;
+  the Lorenz kernel run is also computed live and must equal its pin
+  (tests/test_torch_pins_live.py);
 * what the kernel cannot take is refused, naming the reason.
 
-The card's build of the same models is held against the eager path on the
+The host build's evaluation of each model against the eager problem is
+``test_torch_fused_models_eval.py``'s (a file of few tests, which queues
+after the files with the most tests). The card's build of the same models is held against the eager path on the
 card by ``chip_smoke.py``'s ``fused_models`` phase.
 """
 
@@ -226,8 +229,9 @@ def on_host(tmp_path_factory, monkeypatch):
         "lib": host_build(tmp_path_factory, (), model)})
     monkeypatch.setattr(fused_solve, "stream_of", lambda t: 0)
     monkeypatch.setattr(
-        fused_solve, "state_refs", lambda st, batch_axis, opts=IdaOptions(): fused_solve.StateRefs(
-            **{f: getattr(st, f).data_ptr() for f in fused_solve.touched_fields(opts)}))
+        fused_solve, "state_refs",
+        lambda st, batch_axis, opts=IdaOptions(), model=fused_solve.ROBERTS: fused_solve.StateRefs(
+            **{f: getattr(st, f).data_ptr() for f in fused_solve.touched_fields(opts, model)}))
     yield
     fused_solve.reset_launch_counts()
 
@@ -271,61 +275,10 @@ def test_the_generated_roberts_model_is_the_hand_written_one(on_host, solve):
     assert {m for _, _, m in fused_solve.MODE_LAUNCHES} == {gen.name, "roberts"}
 
 
-@pytest.mark.parametrize("solve", SOLVES)
-@pytest.mark.parametrize("name", MODELS)
-def test_host_build_of_a_generated_model_is_bitwise_the_eager_solve(on_host, name, solve):
-    # f64, B = 8 spread lanes to the model's tout: the kernel of the
-    # generated model against make_fused_solve's plain version (the eager
-    # core.solve, with the same budgeted host loop), every field
-    factory, inputs, _ = MODELS[name]
-    opts, budget = SOLVES[solve]
-    params, yy0, yp0 = inputs(B)
-    st0 = ensemble_init(factory, params, yy0, yp0, device="cpu", opts=opts)
-    tol = tol_ss(RTOL, ATOL, device="cpu")
-    model, got = _kernel_solve(factory, st0, params, tol, TOUT[name], opts, budget)
-    ref = fused_solve.make_fused_solve(factory, tol, opts, attempt_budget=budget)(
-        st0, params, TOUT[name])
-    assert _differ(got[0], ref[0]) == []
-    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
-    assert bool((ref[2] == C.SUCCESS).all()) and int(ref[0].nst.min()) > 20
-    kinds = {"init", "cont"} if budget else {"solve"}
-    assert {(k, m) for k, _, m in fused_solve.MODE_LAUNCHES} == {(k, model.name) for k in kinds}
-
-
 EVAL_MODELS = {"roberts": (roberts_factory, ROBERTS_PARAMS),
                "roberts_generated": (roberts_generated, ROBERTS_PARAMS),
                "akzo": (akzo_factory, AKZO_K), "lorenz": (lorenz_factory, LORENZ),
                "libm_zoo": (libm_zoo_factory, np.array([0.3, 1.3]))}
-
-
-@pytest.mark.parametrize("name", EVAL_MODELS)
-def test_host_build_evaluates_each_model_as_the_eager_problem(on_host, name):
-    # the table of ops: res, jac (at that residual) and res_jvp (tangents
-    # (v, cj v)) of 256 random lanes through fused_model_eval, bit for bit
-    # the eager problem's res, sys_jacobian and jtimes
-    factory, p0 = EVAL_MODELS[name]
-    rng = np.random.default_rng(3)
-    n = factory(torch.from_numpy(p0[:, None])).n
-    lanes = 256
-    params = torch.from_numpy(p0[:, None] * np.exp(rng.uniform(-0.2, 0.2, (len(p0), lanes))))
-    yy = torch.from_numpy(np.abs(rng.normal(size=(n, lanes))) * 0.3 + 0.01)
-    args = (params, torch.from_numpy(rng.uniform(0.0, 5.0, lanes)),
-            torch.from_numpy(np.exp(rng.uniform(-3.0, 5.0, lanes))), yy,
-            torch.from_numpy(rng.normal(size=(n, lanes))),
-            torch.from_numpy(rng.normal(size=(n, lanes))))
-    model = fused_solve.model_of(factory, params)
-    out = {"res": torch.empty(n, lanes, dtype=torch.float64),
-           "jac": torch.empty(n, n, lanes, dtype=torch.float64),
-           "jv": torch.empty(n, lanes, dtype=torch.float64)}
-    a = fused_solve.ModelEvalArgs(*(x.data_ptr() for x in args),
-                                  *(x.data_ptr() for x in out.values()), lanes)
-    lib = fused_solve.build_eval(model)["lib"]
-    assert lib.fused_model_eval_f64(ctypes.byref(a), model.id, None) == 0
-    assert lib.fused_model_eval_f64(ctypes.byref(a), model.id + 1, None) != 0
-    want = fused_solve.eval_model(factory, *args)  # the plain version on CPU tensors
-    for (key, got), w in zip(out.items(), want):
-        assert torch.isfinite(w).all(), key
-        assert torch.equal(got, w), (key, int((got != w).sum()))
 
 
 def test_a_model_is_traced_once_per_factory_and_shared_by_equal_code():
@@ -407,13 +360,6 @@ def test_plain_version_takes_the_factories_the_jax_fused_kernel_takes(jax_fused_
     np.testing.assert_allclose(got["yy"], kernel["yy"], rtol=2e-2, atol=1e-6)
 
 
-def test_the_lorenz_pin_is_the_live_jax_run():
-    live = _jax_fused("lorenz")
-    pinned = load("fused_models_jax", REF_INPUTS)["lorenz"]["fused"]
-    for k, v in live.items():
-        np.testing.assert_array_equal(v, pinned[k], err_msg=k)
-
-
 def _with_roots(p):
     return dataclasses.replace(roberts_factory(p), nroots=2, root=lambda t, yy, yp: yy[:2])
 
@@ -450,8 +396,10 @@ REFUSED = {
     "roots": (_with_roots, "nroots"),
     "n17": (_decay(17), "N = 17 components, above the kernel's MAXN = 16"),
     "per_lane_id": (_per_lane_id, "a per-lane id"),
-    "unknown_op": (_res_variant(lambda t, yy, yp: yp + torch.clamp(yy, min=0.0)),
-                   "aten.clamp is not one the emitter compiles"),
+    "unknown_op": (_res_variant(lambda t, yy, yp: yp + torch.erf(yy)),
+                   "aten.erf is not one the emitter compiles"),
+    "boolean_reaches_the_residual": (_res_variant(lambda t, yy, yp: yp > yy),
+                                     "makes a torch.bool tensor|returns a boolean"),
     "reduction_over_lanes": (_res_variant(lambda t, yy, yp: yp + yy - yy.mean(-1, keepdim=True)),
                              "reduces over the lane axis"),
     "reduction_over_components": (_res_variant(lambda t, yy, yp: yp + yy.sum(0)),

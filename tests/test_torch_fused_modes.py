@@ -10,7 +10,8 @@ holds the parity mode.
 
 The six references are pinned (:func:`jax_modes_op_by_op_live`, by
 tests/make_torch_refs.py: about a minute of op-by-op JAX); one of them is
-also computed live here and must equal its pinned bits. The kernel source
+also computed live by tests/test_torch_pins_live.py and must equal its
+pinned bits. The kernel source
 itself is held to the eager solve in every mode by
 tests/test_torch_fused_host.py (host build) and on the card by
 tests/test_torch_cuda_kernels.py and ``chip_smoke.py``.
@@ -115,17 +116,6 @@ def _port(mode_id, budget):
 @pytest.mark.parametrize("mode_id", list(MODES))
 def test_plain_version_in_each_mode_is_bitwise_the_op_by_op_reference(pinned, mode_id, budget):
     _assert_bitwise(_port(mode_id, budget), pinned[mode_id])
-
-
-def test_one_mode_against_ida_tpu_live(pinned):
-    # the pinned reference is still what ida_tpu computes, and the port
-    # equals it
-    live = _jax_op_by_op(LIVE)
-    for f in live[0]._fields:
-        if f != "pdata":
-            np.testing.assert_array_equal(np.asarray(getattr(live[0], f)),
-                                          np.asarray(getattr(pinned[LIVE][0], f)), err_msg=f)
-    _assert_bitwise(_port(LIVE, None), live)
 
 
 def test_a_pin_made_from_other_inputs_is_refused():

@@ -12,6 +12,8 @@ budget is given), against the JAX package:
   the JAX solve run op by op;
 * f32 and f64 against the JAX ``core_solve`` run op by op: bit for bit.
 
+Both JAX runs are pinned (tests/make_torch_refs.py, ``fused_solve_jax``).
+
 Then the wrapper's contract: what it raises on, counters that only kernel
 launches move, the batch-leading layout and dtypes it returns, and the stage
 list of the K5 harness against the stage kernels that
@@ -45,6 +47,7 @@ from ida_tpu_torch.models import roberts_factory as troberts
 from ida_tpu_torch.ops import fused_solve, fused_stages, make_fused_solve
 from ida_tpu_torch.parallel import ensemble_init, make_ensemble_solve, to_native
 from ida_tpu_torch.tol_control import TolControl, tol_ss, tol_sv
+from make_torch_refs import load
 
 # one intra-op thread: the tests' tensors are small, and the suite runs in
 # parallel workers, each of which would otherwise start a pool per core
@@ -72,8 +75,7 @@ def _port_fused(dtype, budget, atol, tout=0.4, b=B, scale=None):
     return st, make_fused_solve(troberts, tol, attempt_budget=budget)(st, params, tout)
 
 
-@pytest.fixture(scope="module", params=[None, 6], ids=["unbudgeted", "budget6"])
-def jax_fused_f32(request):
+def _jax_fused_f32(budget):
     """The JAX package's fused Pallas kernel in interpret mode, f32, tile 4."""
     dtype = jnp.float32
     params, yy0, yp0 = (jnp.asarray(a, dtype) for a in _inputs(B))
@@ -81,45 +83,79 @@ def jax_fused_f32(request):
     opts = JOptions()
     states = jensemble_init(jroberts, params, yy0, yp0, dtype=dtype, opts=opts)
     fused = jmake_fused_solve(jroberts, tol, opts, tile=4, interpret=True,
-                              attempt_budget=request.param)
-    return request.param, fused(states, params, 0.4)
+                              attempt_budget=budget)
+    st, tret, ist = fused(states, params, 0.4)
+    return {"nst": np.asarray(st.nst), "yy": np.asarray(st.yy), "tret": np.asarray(tret),
+            "istate": np.asarray(ist)}
 
 
-def test_plain_version_matches_the_jax_fused_kernel_f32(jax_fused_f32):
-    budget, (jst, jtret, jist) = jax_fused_f32
-    _, (st, tret, ist) = _port_fused(torch.float32, budget, ATOL32)
-    np.testing.assert_array_equal(ist.numpy(), np.asarray(jist))
-    np.testing.assert_array_equal(tret.numpy(), np.asarray(jtret))
-    assert np.abs(st.nst.numpy() - np.asarray(jst.nst)).max() <= 1
-    np.testing.assert_allclose(st.yy.numpy(), np.asarray(jst.yy), rtol=2e-2, atol=1e-6)
-
-
-@pytest.fixture(scope="module", params=["float32", "float64"])
-def jax_op_by_op(request):
+def _jax_op_by_op(name):
     """The JAX batch-native core_solve, B=8 to tout 0.4, op by op, with the
-    tolerances of the f32 comparison above (f32) or of the port's slice
-    (f64)."""
-    dtype = jnp.dtype(request.param)
-    atol = ATOL32 if request.param == "float32" else ATOL
+    tolerances of the f32 comparison above (float32) or of the port's slice
+    (float64)."""
+    dtype = jnp.dtype(name)
+    atol = ATOL32 if name == "float32" else ATOL
     params, yy0, yp0 = (jnp.asarray(a, dtype) for a in _inputs(B))
     st = jensemble_init(jroberts, params, yy0, yp0, dtype=dtype, opts=JOptions())
     st = jax.tree_util.tree_map(lambda x: jnp.moveaxis(x, 0, -1), st)
     tol = JTol(jnp.full((B,), 1e-4, dtype), jnp.tile(jnp.asarray(atol, dtype)[:, None], (1, B)))
     with jax.disable_jit():
-        out = jsolve(st, jroberts(params.T), JOptions(), tol, jnp.full((B,), 0.4, dtype))
-    return getattr(torch, request.param), atol, out
+        jst, jtret, jist = jsolve(st, jroberts(params.T), JOptions(), tol,
+                                  jnp.full((B,), 0.4, dtype))
+    return {"state": {f: np.asarray(getattr(jst, f))
+                      for f in COUNTERS + ("yy", "yp", "phi", "psi", "hh", "tn", "kused")},
+            "tret": np.asarray(jtret), "istate": np.asarray(jist)}
+
+
+# what the pinned references (jax_fused_solve_live) are computed from
+REF_INPUTS = {"b": B, "atol32": ATOL32, "atol": ATOL, "inputs": _inputs(B), "tout": 0.4,
+              "budgets": [None, 6]}
+
+
+def jax_fused_solve_live():
+    return {"fused_f32": {str(b): _jax_fused_f32(b) for b in (None, 6)},
+            "op_by_op": {name: _jax_op_by_op(name) for name in ("float32", "float64")}}
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """The JAX runs, pinned (tests/make_torch_refs.py, ``fused_solve_jax``)."""
+    return load("fused_solve_jax", REF_INPUTS)
+
+
+@pytest.fixture(params=[None, 6], ids=["unbudgeted", "budget6"])
+def jax_fused_f32(request, jax_refs):
+    return request.param, jax_refs["fused_f32"][str(request.param)]
+
+
+def test_plain_version_matches_the_jax_fused_kernel_f32(jax_fused_f32):
+    budget, ref = jax_fused_f32
+    _, (st, tret, ist) = _port_fused(torch.float32, budget, ATOL32)
+    np.testing.assert_array_equal(ist.numpy(), ref["istate"])
+    np.testing.assert_array_equal(tret.numpy(), ref["tret"])
+    assert np.abs(st.nst.numpy() - ref["nst"]).max() <= 1
+    np.testing.assert_allclose(st.yy.numpy(), ref["yy"], rtol=2e-2, atol=1e-6)
+
+
+@pytest.fixture(params=["float32", "float64"])
+def jax_op_by_op(request, jax_refs):
+    """The JAX batch-native core_solve, B=8 to tout 0.4, op by op (pinned),
+    with the tolerances of the f32 comparison above (f32) or of the port's
+    slice (f64)."""
+    atol = ATOL32 if request.param == "float32" else ATOL
+    return getattr(torch, request.param), atol, jax_refs["op_by_op"][request.param]
 
 
 @pytest.mark.parametrize("budget", [None, 6], ids=["unbudgeted", "budget6"])
 def test_plain_version_is_bitwise_the_op_by_op_reference(jax_op_by_op, budget):
-    dtype, atol, (jst, jtret, jist) = jax_op_by_op
+    dtype, atol, ref = jax_op_by_op
     _, (st, tret, ist) = _port_fused(dtype, budget, atol)
     assert bool((ist == C.SUCCESS).all())
-    np.testing.assert_array_equal(ist.numpy(), np.asarray(jist))
-    np.testing.assert_array_equal(tret.numpy(), np.asarray(jtret))
+    np.testing.assert_array_equal(ist.numpy(), ref["istate"])
+    np.testing.assert_array_equal(tret.numpy(), ref["tret"])
     for f in COUNTERS + ("yy", "yp", "phi", "psi", "hh", "tn", "kused"):
         np.testing.assert_array_equal(
-            getattr(st, f).numpy(), np.moveaxis(np.asarray(getattr(jst, f)), -1, 0), err_msg=f)
+            getattr(st, f).numpy(), np.moveaxis(ref["state"][f], -1, 0), err_msg=f)
 
 
 @pytest.mark.parametrize("budget", [None, 1, 7])
@@ -345,8 +381,8 @@ def test_result_allocation_covers_the_touched_fields_only(ls_precision):
     # under "refined"; in the other modes it passes through
     opts = IdaOptions(ls_precision=ls_precision)
     st = ensemble_init(troberts, *_inputs(2), device="cpu", opts=opts)
-    out = fused_solve.empty_result(st, opts)
-    touched = fused_solve.touched_fields(opts)
+    out = fused_solve.empty_result(st, opts, fused_solve.ROBERTS)
+    touched = fused_solve.touched_fields(opts, fused_solve.ROBERTS)
     assert set(fused_solve.LS_FIELDS) <= set(touched) if ls_precision == "refined" else (
         not set(fused_solve.LS_FIELDS) & set(touched))
     for f, x in zip(st._fields, st):

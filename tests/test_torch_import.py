@@ -100,32 +100,6 @@ def test_the_example_and_the_smoke_script_import_no_jax():
         assert not bad, (name, bad)
 
 
-def test_the_example_runs_on_the_cpu():
-    proc = subprocess.run(
-        [sys.executable, "examples/roberts_torch.py", "--device", "cpu"], cwd=ROOT,
-        capture_output=True, text=True, timeout=300, env={**__import__("os").environ, "PYTHONPATH": str(ROOT)},
-    )
-    assert proc.returncode == 0, proc.stderr
-    out = proc.stdout
-    assert out.count("<- root") == 2 and "roots found: [0, 1]" in out and "roots found: [-1, 0]" in out
-    assert "Number of steps                        362" in out
-    assert "Number of root fn. evaluations         404" in out and "(PASS)" in out
-
-
-def test_the_krylov_example_runs_on_the_cpu():
-    # foodweb at a 4 x 4 grid: calc_ic, then SPGMR with the block-diagonal
-    # preconditioner over eight output times
-    proc = subprocess.run(
-        [sys.executable, "examples/foodweb_torch.py", "--device", "cpu", "--grid", "4"], cwd=ROOT,
-        capture_output=True, text=True, timeout=300,
-        env={**__import__("os").environ, "PYTHONPATH": str(ROOT)},
-    )
-    assert proc.returncode == 0, proc.stderr
-    rows = [line.split() for line in proc.stdout.splitlines() if line[:10].strip().startswith("0.")]
-    assert len(rows) == 8 and rows[-1][0] == "0.1280"
-    assert "Jacobian evaluations = 0" in proc.stdout
-
-
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|ida_tpu)(\.|\s|$)")
 
 

@@ -3,7 +3,8 @@
 batch-native ensemble, and foodweb (the block-diagonal preconditioner)
 through ``IDA.calc_ic`` and two output legs, at small grids.
 
-The JAX side is the jitted solver, run once per module. The sums inside
+The JAX side is the jitted solver, pinned (tests/make_torch_refs.py,
+``krylov_path_jax``). The sums inside
 GMRES run in each framework's own order (XLA:CPU vectorizes sums over more
 than ~32 terms, ``utils/numerics.py``), which moves the last bits of each
 correction; the counters are held exactly, the states to 1e-9 (of max|u|
@@ -27,6 +28,7 @@ from ida_tpu_torch.core.solve import solve as port_solve
 from ida_tpu_torch.models import foodweb_problem, heat2d_problem
 from ida_tpu_torch.models.foodweb import prec_blocks
 from ida_tpu_torch.parallel import ensemble_init, to_native
+from make_torch_refs import load
 
 # one intra-op thread: the tests' tensors are small, and the suite runs in
 # parallel workers, each of which would otherwise start a pool per core
@@ -64,18 +66,25 @@ def _heat_ida(pkg, problem, **kw):
                    **kw)
 
 
-@pytest.fixture(scope="module")
-def heat_runs():
-    """Both packages' IDA through the three touts: per tout, the counters
-    and yy of each."""
+def _jax_heat_rows():
+    """ida_tpu's IDA through the three touts: per tout, the counters and yy."""
     jax_ida = _heat_ida(jida, jax_heat2d(HEAT_M))
-    ida = _heat_ida(port, heat2d_problem(HEAT_M, device="cpu"), device="cpu")
     rows = []
     for tout in HEAT_TOUTS:
         jax_ida.solve(tout)
+        rows.append((_counters(jax_ida.state), np.asarray(jax_ida.state.yy)))
+    return rows
+
+
+@pytest.fixture(scope="module")
+def heat_runs(jax_refs):
+    """Both packages' IDA through the three touts: per tout, the counters
+    and yy of each (ida_tpu's pinned)."""
+    ida = _heat_ida(port, heat2d_problem(HEAT_M, device="cpu"), device="cpu")
+    rows = []
+    for tout, jax_row in zip(HEAT_TOUTS, jax_refs["heat"]):
         ida.solve(tout)
-        rows.append({"jax": (_counters(jax_ida.state), np.asarray(jax_ida.state.yy)),
-                     "port": (_port_counters(ida.state), ida.get_yy())})
+        rows.append({"jax": jax_row, "port": (_port_counters(ida.state), ida.get_yy())})
     return rows
 
 
@@ -87,29 +96,42 @@ def test_heat2d_ida_matches_ida_tpu(heat_runs, i):
     np.testing.assert_allclose(py, jy, rtol=0, atol=1e-9 * np.abs(jy).max())
 
 
-@pytest.fixture(scope="module")
-def heat_ensemble_runs():
-    """B = 3 batch-native lanes (u0 x 0.9, 1.0, 1.1) through both packages'
-    core solve: per tout, the counters and yy [N, B]."""
+def _heat_ensemble_inputs():
     u0, up0 = heat2d_ic(HEAT_M)
     scales = np.linspace(0.9, 1.1, HEAT_B)
-    u0b, up0b = u0[None] * scales[:, None], up0[None] * scales[:, None]
+    return scales, u0[None] * scales[:, None], up0[None] * scales[:, None]
+
+
+def _jax_heat_ensemble_rows():
+    """ida_tpu's jitted batch-native core solve of the B = 3 lanes: per tout,
+    the counters, yy [N, B] and the statuses."""
+    scales, u0b, up0b = _heat_ensemble_inputs()
     jprob, jopts = jax_heat2d(HEAT_M), jida.IdaOptions(**HEAT_OPTS)
     jst = jax_ensemble_init(lambda s: jprob, jnp.asarray(scales), u0b, up0b, opts=jopts)
     jst = jax.tree_util.tree_map(lambda x: jnp.moveaxis(x, 0, -1), jst)
     jtol = jida.tol_ss(1e-5, 1e-8)
     jfn = jax.jit(lambda st, tout: jax_solve(st, jprob, jopts, jtol, tout, 0))
+    rows = []
+    for tout in HEAT_TOUTS:
+        jst, _, jist = jfn(jst, jnp.full((HEAT_B,), tout))
+        rows.append((_counters(jst), np.asarray(jst.yy), np.asarray(jist).tolist()))
+    return rows
+
+
+@pytest.fixture(scope="module")
+def heat_ensemble_runs(jax_refs):
+    """B = 3 batch-native lanes (u0 x 0.9, 1.0, 1.1) through both packages'
+    core solve: per tout, the counters and yy [N, B] (ida_tpu's pinned)."""
+    scales, u0b, up0b = _heat_ensemble_inputs()
     prob, opts = heat2d_problem(HEAT_M, device="cpu"), port.IdaOptions(**HEAT_OPTS)
     st = to_native(ensemble_init(lambda p: prob, scales[:, None], u0b, up0b, opts=opts,
                                  device="cpu"))
     tol = port.tol_ss(1e-5, 1e-8, device="cpu")
     assert tuple(st.lu.shape) == (0, 0, HEAT_B) and tuple(st.pdata[0].shape) == (HEAT_M ** 2, HEAT_B)
     rows = []
-    for tout in HEAT_TOUTS:
-        jst, _, jist = jfn(jst, jnp.full((HEAT_B,), tout))
+    for tout, jax_row in zip(HEAT_TOUTS, jax_refs["heat_ensemble"]):
         st, _, ist = port_solve(st, prob, opts, tol, tout)
-        rows.append({"jax": (_counters(jst), np.asarray(jst.yy), np.asarray(jist).tolist()),
-                     "port": (_port_counters(st), st.yy.numpy(), ist.tolist())})
+        rows.append({"jax": jax_row, "port": (_port_counters(st), st.yy.numpy(), ist.tolist())})
     return rows
 
 
@@ -130,20 +152,45 @@ def _food_ida(pkg, problem, **kw):
                    pkg.IdaOptions(**FOOD_OPTS), **kw)
 
 
-@pytest.fixture(scope="module")
-def food_runs():
-    """Both packages' IDA: calc_ic("ya_ydp"), then the first two legs."""
+def _jax_food_rows():
+    """ida_tpu's IDA: calc_ic("ya_ydp"), then the first two legs."""
     jax_ida = _food_ida(jida, jax_foodweb(FOOD_M, FOOD_M))
-    ida = _food_ida(port, foodweb_problem(FOOD_M, FOOD_M, device="cpu"), device="cpu")
     jax_ida.calc_ic("ya_ydp", tout1=FOOD_TOUTS[0])
-    ida.calc_ic("ya_ydp", tout1=FOOD_TOUTS[0])
-    rows = [{"jax": tuple(np.asarray(x) for x in jax_ida.get_consistent_ic()),
-             "port": ida.get_consistent_ic()}]
+    rows = [tuple(np.asarray(x) for x in jax_ida.get_consistent_ic())]
     for tout in FOOD_TOUTS:
         jax_ida.solve(tout)
+        rows.append((_counters(jax_ida.state), np.asarray(jax_ida.state.yy)))
+    return rows
+
+
+# what the pinned JAX runs (jax_krylov_live) are computed from
+REF_INPUTS = {"heat_m": HEAT_M, "heat_touts": HEAT_TOUTS, "heat_b": HEAT_B,
+              "heat_opts": HEAT_OPTS, "food_m": FOOD_M, "food_touts": FOOD_TOUTS,
+              "food_atol": FOOD_ATOL, "food_opts": FOOD_OPTS}
+
+
+def jax_krylov_live():
+    return {"heat": _jax_heat_rows(), "heat_ensemble": _jax_heat_ensemble_rows(),
+            "food": _jax_food_rows()}
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """The JAX runs, pinned (tests/make_torch_refs.py, ``krylov_path_jax``)."""
+    return load("krylov_path_jax", REF_INPUTS)
+
+
+@pytest.fixture(scope="module")
+def food_runs(jax_refs):
+    """Both packages' IDA: calc_ic("ya_ydp"), then the first two legs
+    (ida_tpu's pinned)."""
+    ida = _food_ida(port, foodweb_problem(FOOD_M, FOOD_M, device="cpu"), device="cpu")
+    ida.calc_ic("ya_ydp", tout1=FOOD_TOUTS[0])
+    jax_rows = jax_refs["food"]
+    rows = [{"jax": jax_rows[0], "port": ida.get_consistent_ic()}]
+    for tout, jax_row in zip(FOOD_TOUTS, jax_rows[1:]):
         ida.solve(tout)
-        rows.append({"jax": (_counters(jax_ida.state), np.asarray(jax_ida.state.yy)),
-                     "port": (_port_counters(ida.state), ida.get_yy())})
+        rows.append({"jax": jax_row, "port": (_port_counters(ida.state), ida.get_yy())})
     return rows
 
 

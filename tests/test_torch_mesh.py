@@ -1,36 +1,21 @@
 """The port's mesh (``ida_tpu_torch.parallel.mesh``) against ``ida_tpu``'s
 sharded programs, on the CPU under gloo.
 
-Four gloo ranks are spawned once (``tests/torch_mesh_ranks.py``, rendezvous
-through a file under the test's temporary directory); each runs every case
-and saves what it found. The JAX side is ``ida_tpu`` on the conftest's 8
-virtual CPU devices, as ``tests/test_multidevice.py``,
-``tests/test_shard_norms.py`` and ``tests/test_bbd_prec.py`` run it; its
-solves are pinned by ``tests/make_torch_refs.py`` (an op-by-op solve and
-three jitted sharded programs take over a minute).
+Each test module of the mesh spawns four gloo ranks once
+(``tests/torch_mesh_ranks.py``, rendezvous through a file under the
+module's temporary directory); each rank runs the module's cases and saves
+what it found. The JAX side is ``ida_tpu`` on the conftest's 8 virtual CPU
+devices, as ``tests/test_multidevice.py``, ``tests/test_shard_norms.py``
+and ``tests/test_bbd_prec.py`` run it; its solves are pinned by
+``tests/make_torch_refs.py`` (an op-by-op solve and three jitted sharded
+programs take over a minute), computed here for every mesh module.
 
 * dp: Roberts B = 16 at four lanes a rank is bit for bit four per-shard
-  runs, equal to the unsharded run and to ``ida_tpu`` run op by op to 0.4,
-  and makes no collective.
-* sharded N: heat2d m = 16 (SPGMR, diagonal preconditioner) over the four
-  ranks, four lanes over a 2 x 2 mesh, and the blocked BBD preconditioner:
-  ``ida_tpu``'s counters, ``yy`` within 1e-9 of max|y| (its sums run in
-  XLA's order), and bit for bit the port's own unsharded solve (a sharded
-  sum replays the unsharded tree; ``utils/sharding.py``). These solves make
-  collectives, the positive control of the dp case.
-* the food web (8 x 8, N = 128, the block-diagonal preconditioner on each
-  rank's 16 grid points) over the four ranks: ``sharded_calc_ic("ya_ydp")``
-  and two legs, then constraints, a root function, a quadrature,
-  ``ls_precision="single"``, ``krylov_storage="bfloat16"`` and
-  ``fast_math`` from the same IC, one case each; four lanes over the 2 x 2
-  mesh. Each is bit for bit the port's unsharded run, has ``ida_tpu``'s
-  counters (its jitted program on the state over 8 devices), and its
-  values within ``tests/test_torch_krylov_path.py``'s food-web bound (1e-9
-  relative, the atol floor). A preconditioner without ``pdata_rows`` runs
-  on gathered vectors; a shard that splits a grid point, and the direct
-  solvers (ROADMAP.md item 12), are refused.
+  runs, equal to the unsharded run and to ``ida_tpu`` run op by op to 0.4.
 * the collective norms at n = 64, ``EnsembleIDA(mesh=...)`` against the
   same calls without a mesh.
+* sharded N (heat2d, BBD): ``tests/test_torch_mesh_sharded.py``; the food
+  web: ``tests/test_torch_mesh_food.py`` and ``_food_modes.py``.
 """
 
 import dataclasses
@@ -67,11 +52,10 @@ from ida_tpu.tol_control import tol_ss as jtol_ss
 from ida_tpu_torch import constants as C
 from ida_tpu_torch.core.calc_ic import IC_YA_YDP_INIT, calc_ic
 from ida_tpu_torch.core.solve import solve as tsolve
-from ida_tpu_torch.core.state import IdaOptions, init_state
-from ida_tpu_torch.models import heat2d_problem, roberts_factory
+from ida_tpu_torch.core.state import init_state
+from ida_tpu_torch.models import roberts_factory
 from ida_tpu_torch.norms import wrms_norm, wrms_norm_masked
-from ida_tpu_torch.parallel import (EnsembleIDA, ensemble_init, make_ensemble_solve,
-                                    sharded_calc_ic, sharded_solve, to_native)
+from ida_tpu_torch.parallel import EnsembleIDA, ensemble_init, make_ensemble_solve, to_native
 from ida_tpu_torch.tol_control import tol_ss, tol_sv
 from make_torch_refs import load
 
@@ -93,8 +77,9 @@ FOOD_ATOL = R.FOOD_TOL[1]
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """Every rank's results (one spawn for the module)."""
-    return R.spawn(str(tmp_path_factory.mktemp("mesh")))
+    """Every rank's results of the dp, EnsembleIDA and norms cases (one
+    spawn for the module)."""
+    return R.spawn(str(tmp_path_factory.mktemp("mesh")), ("dp", "ensemble", "norms"))
 
 
 # ------------------------------------------------------------ JAX references
@@ -270,21 +255,22 @@ def unsharded_dp():
     return make_ensemble_solve(roberts_factory)(st, params, _roberts_tol(), R.DP_TOUT)
 
 
-@pytest.fixture(scope="module")
-def food_unsharded():
-    """The port's unsharded food web: calc_ic, the legs of each case from
-    that IC (the rank side's helpers), the base legs' pdata; the four lanes
-    batch-native."""
+def food_unsharded_of(cases, two_d: bool) -> dict:
+    """The port's unsharded food web: calc_ic, the legs of each of ``cases``
+    from that IC (the rank side's helpers), the base legs' pdata; with
+    ``two_d``, the four lanes batch-native."""
     tol, prob = R.food_tol(), R.food_problem()
     st, ok = calc_ic(R.food_state(), prob, R.food_opts(), tol, IC_YA_YDP_INIT, R.FOOD_TOUTS[0])
     out = {"ic_ok": bool(ok), "ic": [st.phi[0].numpy(), st.phi[1].numpy()]}
-    for case in R.FOOD_CASES:
+    for case in cases:
         p, opts = R.food_problem(case), R.food_opts(case)
         cst = R.food_state(case)._replace(phi=st.phi, yy=st.yy, yp=st.yp)
         calls, end = R.food_legs(cst, lambda s, tout: tsolve(s, p, opts, tol, tout), lambda x: x)
         out[case] = calls
         if case == "base":
             out["pdata"] = [x.numpy() for x in end.pdata]
+    if not two_d:
+        return out
     st4, ok4 = calc_ic(R.food_state(b=R.FOOD_B), prob, R.food_opts(), tol, IC_YA_YDP_INIT,
                        R.FOOD_TOUTS[0])
     ic_yy = st4.yy.numpy()
@@ -347,48 +333,7 @@ def test_dp_equals_the_unsharded_run_and_ida_tpu_op_by_op(ranks, unsharded_dp, j
         assert _same(dp["whole"][f], jax_dp["state"][f]), f
 
 
-def test_dp_solve_makes_no_collective_and_sharded_n_does(ranks):
-    for rank in ranks:
-        assert rank["dp"]["collectives"] == {"calls": 0, "broadcasts": 0, "bytes": 0}
-        for case in ("heat", "bbd_solve"):
-            coll = rank[case]["collectives"]
-            assert coll["calls"] > 0 and coll["broadcasts"] == R.WORLD * coll["calls"]
-            assert coll["bytes"] > 0
-
-
-# ------------------------------------------------------------ sharded N
-
-
-def test_sharded_heat2d_has_ida_tpus_counters_and_the_unsharded_bits(ranks, jax_sharded):
-    prob = heat2d_problem(R.HEAT_M, device="cpu")
-    st1, _, ist1 = _heat_unsharded(prob)
-    ref = jax_sharded["heat"]
-    assert ref["devices"] == 8 and ref["istate"] == JC.SUCCESS and int(ist1) == C.SUCCESS
-    for rank in ranks:
-        heat = rank["heat"]
-        assert heat["istate"] == C.SUCCESS and heat["pdata_rows"] == prob.n // R.WORLD
-        assert heat["counters"] == {f: int(v) for f, v in _counters(st1).items()}
-        assert heat["counters"] == {f: int(v) for f, v in ref["counters"].items()}
-        assert _same(heat["yy"], st1.yy.numpy())
-    y_ref = ref["yy"]
-    np.testing.assert_allclose(ranks[0]["heat"]["yy"], y_ref, rtol=0,
-                               atol=1e-9 * np.abs(y_ref).max())
-
-
-def test_2d_mesh_batch_x_state(ranks, jax_sharded):
-    st1, _, ist1 = _heat_unsharded(heat2d_problem(R.HEAT_M, device="cpu"), b=4)
-    ref = jax_sharded["heat_2d"]
-    assert ref["devices"] == 8 and np.all(ref["istate"] == JC.SUCCESS)
-    for rank in ranks:
-        got = rank["heat_2d"]
-        assert got["local_phi"] == (6, R.HEAT_M ** 2 // 2, 2)
-        assert np.all(got["istate"] == C.SUCCESS)
-        for f in R.COUNTERS:
-            assert _same(got["counters"][f], getattr(st1, f).numpy()), f
-            np.testing.assert_array_equal(got["counters"][f], ref["counters"][f], err_msg=f)
-        assert _same(got["yy"], st1.yy.numpy())
-    np.testing.assert_allclose(ranks[0]["heat_2d"]["yy"], ref["yy"], rtol=0,
-                               atol=1e-9 * np.abs(ref["yy"]).max())
+# ------------------------------------------------------- the collective norms
 
 
 def test_collective_norms_match_the_unsharded_ones():
@@ -416,39 +361,6 @@ def test_collective_norms_on_the_ranks(ranks):
     for rank in ranks:
         assert rank["norms"]["plain"] == float(wrms_norm(x, w))
         assert rank["norms"]["masked"] == float(wrms_norm_masked(x, w, mask))
-
-
-def test_bbd_blocked_sharded_hooks(ranks, jax_sharded):
-    # tests/test_bbd_prec.py::test_bbd_blocked_sharded_hooks: each rank sets
-    # up and solves its own block, with no collective in the solve
-    prob, bbd = R.bbd_problem(R.BBD_HOOKS_M, R.WORLD)
-    u0, up0 = (torch.as_tensor(v) for v in heat2d_ic(R.BBD_HOOKS_M))
-    r = torch.as_tensor(np.random.default_rng(1).standard_normal(prob.n))
-    t, cj = torch.tensor(0.0, dtype=torch.float64), torch.tensor(3.0, dtype=torch.float64)
-    x_plain = bbd.prec_solve(bbd.prec_setup(t, cj, u0, up0, torch.zeros_like(u0)), r, cj).numpy()
-    nb = prob.n // R.WORLD
-    for rank in ranks:
-        hooks = rank["bbd_hooks"]
-        assert hooks["lu_shape"] == (13, nb, 1)
-        assert hooks["collectives_solve"]["calls"] == 0
-        assert _same(hooks["x"], x_plain)
-    np.testing.assert_allclose(ranks[0]["bbd_hooks"]["x"], jax_sharded["bbd_hooks"]["x"],
-                               rtol=1e-12, atol=1e-14)
-
-
-def test_bbd_blocked_sharded_solve(ranks, jax_sharded):
-    # tests/test_bbd_prec.py::test_bbd_blocked_sharded_solve: the distributed
-    # IDABBDPRE deployment, each rank preconditioning its own block
-    prob, _ = R.bbd_problem(R.HEAT_M, R.WORLD)
-    st1, tret1, ist1 = _heat_unsharded(prob)
-    ref = jax_sharded["bbd_solve"]
-    assert ref["istate"] == JC.SUCCESS and int(ist1) == C.SUCCESS
-    for rank in ranks:
-        got = rank["bbd_solve"]
-        assert got["istate"] == C.SUCCESS and got["tret"] == float(tret1) == ref["tret"]
-        assert got["counters"] == {f: int(v) for f, v in _counters(st1).items()}
-        assert _same(got["phi0"], st1.phi[0].numpy())
-    np.testing.assert_allclose(ranks[0]["bbd_solve"]["phi0"], ref["phi0"], atol=5e-5)
 
 
 # ------------------------------------------------------- EnsembleIDA(mesh=)
@@ -479,7 +391,7 @@ def test_ensemble_ida_refuses_a_batch_that_does_not_divide(ranks):
         assert "does not divide over the 4 ranks" in rank["ensemble"]["indivisible"]
 
 
-# ------------------------------------------------------ the food web, sharded N
+# ------------------------ the food web's comparisons (test_torch_mesh_food*.py)
 
 
 def _close(got, want):
@@ -511,90 +423,3 @@ def _jax_calls(got: list, ref: list) -> None:
         _close(a["yy"], b["yy"])
 
 
-def test_sharded_foodweb_calc_ic_and_legs(ranks, food_unsharded, jax_food):
-    # idaFoodWeb_kry_p's deployment: the IC and the two legs bit for bit the
-    # unsharded run, ida_tpu's counters, its values within 1e-9; the
-    # block-diagonal preconditioner on each rank's 16 grid points (pdata
-    # its slice of the unsharded pdata), the IC one gather a field
-    ref = jax_food
-    assert ref["ic"]["ok"] and ref["ic"]["devices"] == 8 and food_unsharded["ic_ok"]
-    npts = R.FOOD_M ** 2 // R.WORLD
-    for k, rank in enumerate(ranks):
-        food = rank["food"]
-        assert food["ic_ok"] and food["ic_collectives"]["calls"] == 3
-        for got, want in zip(food["ic"], food_unsharded["ic"]):
-            assert _same(got, want)
-        assert food["pdata0_shapes"] == [(npts, 2, 2), (npts, 2)]
-        _same_calls(food["base"]["calls"], food_unsharded["base"])
-        assert food["base"]["collectives"]["calls"] > 0
-        for got, want in zip(food["base"]["pdata"], food_unsharded["pdata"]):
-            assert _same(got, want[k * npts:(k + 1) * npts])
-    _close(ranks[0]["food"]["ic"][0], ref["ic"]["phi0"])
-    _close(ranks[0]["food"]["ic"][1], ref["ic"]["phi1"])
-    _jax_calls(ranks[0]["food"]["base"]["calls"], ref["base"])
-    assert ref["base"][-1]["counters"]["nps"] > 0 and ref["base"][-1]["counters"]["nje"] == 0
-
-
-@pytest.mark.parametrize("case", [c for c in R.FOOD_CASES if c != "base"])
-def test_sharded_foodweb_features_and_modes(ranks, food_unsharded, jax_food, case):
-    # constraints, roots, a quadrature and the non-parity modes on the
-    # sharded state: bit for bit the unsharded run on every call, and
-    # ida_tpu's sharded program's counters and root returns
-    for rank in ranks:
-        _same_calls(rank["food"][case]["calls"], food_unsharded[case])
-    calls = ranks[0]["food"][case]["calls"]
-    _jax_calls(calls, jax_food[case])
-    if case == "roots":
-        assert [int(c["istate"]) for c in calls] == [C.ROOT_RETURN, C.SUCCESS, C.SUCCESS]
-        assert calls[-1]["counters"]["nge"] > 0
-    if case == "quad":
-        assert float(calls[-1]["yQ"][0]) > 0.0
-
-
-def test_sharded_foodweb_2d_mesh(ranks, food_unsharded, jax_food):
-    # four lanes over the 2 x 2 (batch x state) mesh: each rank 2 lanes of
-    # 32 grid points
-    want, ref = food_unsharded["2d"], jax_food["2d"]
-    assert ref["devices"] == 8 and np.all(ref["ic_ok"]) and np.all(want["ic_ok"])
-    for rank in ranks:
-        got = rank["food_2d"]
-        assert np.all(got["ic_ok"]) and _same(got["ic_yy"], want["ic_yy"])
-        assert got["local_pdata"] == [(R.FOOD_M ** 2 // 2, 2, 2, 2), (R.FOOD_M ** 2 // 2, 2, 2)]
-        for a, b, j in zip(got["calls"], want["calls"], ref["calls"]):
-            assert np.all(a["istate"] == C.SUCCESS) and _same(a["yy"], b["yy"])
-            for f in R.COUNTERS:
-                assert _same(a["counters"][f], b["counters"][f]), f
-                np.testing.assert_array_equal(a["counters"][f], j["counters"][f], err_msg=f)
-    for a, j in zip(ranks[0]["food_2d"]["calls"], ref["calls"]):
-        _close(a["yy"], j["yy"])
-
-
-def test_a_preconditioner_without_pdata_rows_runs_on_gathered_vectors(ranks):
-    # pdata whole on every rank, as ida_tpu's GSPMD keeps it
-    prob = R.heat_whole_prec(R.HEAT_M)
-    st1, _, ist1 = _heat_unsharded(prob)
-    for rank in ranks:
-        got = rank["heat_whole_prec"]
-        assert got["istate"] == C.SUCCESS and got["pdata_shape"] == (prob.n,)
-        assert got["counters"] == {f: int(v) for f, v in _counters(st1).items()}
-        assert _same(got["yy"], st1.yy.numpy())
-
-
-def test_a_shard_that_splits_a_grid_point_is_refused(ranks):
-    for rank in ranks:
-        split = rank["split_point"]
-        assert "splits the preconditioner's entries of 2 rows" in split["shard"]
-        assert "of N = 12 split one" in split["prec_setup"]
-
-
-@pytest.mark.parametrize("solver", ["dense", "band"])
-def test_the_direct_solvers_are_still_refused(solver):
-    # ROADMAP.md item 12: their Jacobian reads the whole state
-    prob = heat2d_problem(4, device="cpu")
-    opts = IdaOptions(linear_solver=solver, band_mu=4, band_ml=4)
-    st = init_state(prob, *heat2d_ic(4), opts=opts, device="cpu")
-    tol = tol_ss(*HEAT_TOL, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sharded_solve(st, prob, opts, tol, 0.01, mesh=None)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sharded_calc_ic(st, prob, opts, tol, "y", 0.01, mesh=None)

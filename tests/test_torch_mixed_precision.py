@@ -7,14 +7,16 @@ residual), and ``krylov_storage="bfloat16"``.
 
 * Roberts against ``ida_tpu`` run op by op (``jax.disable_jit``), one lane
   through ``IDA`` and B = 4 lanes batch-native: every counter exactly and
-  the states bit for bit. Jitted, XLA:CPU contracts multiply-adds into
-  FMAs; in these modes that moves step counts over 12 decades (``ida_tpu``
+  the states bit for bit (the JAX runs pinned: ``mixed_modes_op_by_op``).
+  Jitted, XLA:CPU contracts multiply-adds into FMAs; in these modes that
+  moves step counts over 12 decades (``ida_tpu``
   jitted: "single" 437 steps, op by op 433, the port 433), so the 12-decade
   runs are held to ``ida_tpu``'s own acceptance gates and to the jitted run
   within the integration tolerance.
 * heat2d 5 x 5 (N = 25: ``sum0`` adds as ``ida_tpu``'s sequential order)
   through the Krylov and band paths against the jitted ``ida_tpu``.
-* The modes round-trip through checkpoints both ways, and differentiate.
+* The modes round-trip through checkpoints both ways, and differentiate in
+  reverse and forward mode.
 """
 
 import jax
@@ -32,17 +34,21 @@ from ida_tpu.models import roberts_problem as jax_roberts
 from ida_tpu.models.heat2d import heat2d_problem as jax_heat2d
 from ida_tpu.parallel import ensemble_init as jensemble_init
 from ida_tpu.tol_control import TolControl as JTol
-from ida_tpu.utils import checkpoint as jax_ck
 from ida_tpu_torch import IdaOptions, IdaSolveStatus
 from ida_tpu_torch import constants as C
 from ida_tpu_torch.core.solve import solve as tsolve
-from ida_tpu_torch.models import (ROBERTS_PARAMS, ROBERTS_YP0, ROBERTS_YY0, heat2d_ic,
-                                  heat2d_problem, roberts_factory, roberts_problem)
+from ida_tpu_torch.models import (
+    ROBERTS_PARAMS,
+    ROBERTS_YP0,
+    ROBERTS_YY0,
+    heat2d_ic,
+    heat2d_problem,
+    roberts_factory,
+    roberts_problem,
+)
 from ida_tpu_torch.parallel import ensemble_init, to_native
-from ida_tpu_torch.sensitivity import adjoint_gradient, forward_sensitivity
-from ida_tpu_torch.tol_control import TolControl, tol_ss, tol_sv
-from ida_tpu_torch.utils import checkpoint as ck
-from ida_tpu_torch.utils.convert import state_fields
+from ida_tpu_torch.sensitivity import adjoint_gradient
+from ida_tpu_torch.tol_control import TolControl, tol_sv
 from make_torch_refs import load
 
 # one intra-op thread: the tests' tensors are small, and the suite runs in
@@ -88,29 +94,31 @@ def _counters(st) -> dict:
 # ------------------------------------------ dense modes, op by op, exact
 
 
-@pytest.mark.parametrize("mode", ["single", "refined"])
-def test_dense_mode_is_ida_tpus_op_by_op(mode):
-    jax_ida = _jax_ida(mode)
-    with jax.disable_jit():
-        jax_nst = _decades(jax_ida, OBO_DECADES, jax_side=True)
-    ida = _port_ida(mode)
-    assert _decades(ida, OBO_DECADES) == jax_nst
-    assert _counters(ida.state) == _counters(jax_ida.state)
-    for f in ("yy", "yp", "phi", "lu", "piv", "ls_yy", "ls_yp", "ls_tn", "ls_cj", "hh"):
-        got, want = getattr(ida.state, f).numpy(), np.asarray(getattr(jax_ida.state, f))
-        assert got.dtype == want.dtype and np.array_equal(got, want), f
-    assert ida.state.lu.dtype == torch.float32
-    assert tuple(ida.state.ls_yy.shape) == ((3,) if mode == "refined" else (0,))
+DENSE_FIELDS = ("yy", "yp", "phi", "lu", "piv", "ls_yy", "ls_yp", "ls_tn", "ls_cj", "hh")
+ENSEMBLE_B = 4
 
 
-@pytest.mark.parametrize("mode", ["single", "refined"])
-def test_ensemble_mode_is_ida_tpus_op_by_op(mode):
-    # B = 4 lanes of roberts_factory, whose float64 rate constants promote
-    # the "single" Jacobian to float64 before its trailing cast
-    b = 4
+def _ensemble_inputs(b=ENSEMBLE_B):
     params = np.outer(np.exp(np.linspace(-0.2, 0.2, b)), ROBERTS_PARAMS)
     yy0 = np.tile(ROBERTS_YY0, (b, 1))
     yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
+    return params, yy0, yp0
+
+
+def _jax_dense_op_by_op(mode):
+    """ida_tpu's IDA over OBO_DECADES, op by op: steps a decade, counters
+    and the fields DENSE_FIELDS of the state."""
+    jax_ida = _jax_ida(mode)
+    with jax.disable_jit():
+        jax_nst = _decades(jax_ida, OBO_DECADES, jax_side=True)
+    return {"nst": jax_nst, "counters": _counters(jax_ida.state),
+            "state": {f: np.asarray(getattr(jax_ida.state, f)) for f in DENSE_FIELDS}}
+
+
+def _jax_ensemble_op_by_op(mode):
+    """ida_tpu's batch-native core_solve of ENSEMBLE_B lanes to 0.4, op by op."""
+    params, yy0, yp0 = _ensemble_inputs()
+    b = ENSEMBLE_B
     jopts = JOptions(ls_precision=mode)
     jst = jensemble_init(jax_roberts_factory, jnp.asarray(params), jnp.asarray(yy0),
                          jnp.asarray(yp0), opts=jopts)
@@ -119,16 +127,57 @@ def test_ensemble_mode_is_ida_tpus_op_by_op(mode):
     with jax.disable_jit():
         jst, jtret, jist = jsolve(jst, jax_roberts_factory(jnp.asarray(params.T)), jopts, jtol,
                                   jnp.asarray(0.4))
+    return {"istate": np.asarray(jist), "tret": np.asarray(jtret), "counters": _counters(jst),
+            "state": {f: np.asarray(getattr(jst, f)) for f in ("yy", "lu", "ls_yy")}}
+
+
+# what the pinned op-by-op references (jax_modes_op_by_op_live) are made from
+OBO_REF_INPUTS = {"yy0": ROBERTS_YY0, "yp0": ROBERTS_YP0, "rtol": RTOL, "atol": ATOL,
+                  "decades": OBO_DECADES, "ensemble": _ensemble_inputs()}
+
+
+def jax_modes_op_by_op_live():
+    return {mode: {"dense": _jax_dense_op_by_op(mode), "ensemble": _jax_ensemble_op_by_op(mode)}
+            for mode in ("single", "refined")}
+
+
+@pytest.fixture(scope="module")
+def obo_refs():
+    """The op-by-op JAX runs, pinned (tests/make_torch_refs.py,
+    ``mixed_modes_op_by_op``)."""
+    return load("mixed_modes_op_by_op", OBO_REF_INPUTS)
+
+
+@pytest.mark.parametrize("mode", ["single", "refined"])
+def test_dense_mode_is_ida_tpus_op_by_op(mode, obo_refs):
+    ref = obo_refs[mode]["dense"]
+    ida = _port_ida(mode)
+    assert _decades(ida, OBO_DECADES) == ref["nst"]
+    assert _counters(ida.state) == ref["counters"]
+    for f in DENSE_FIELDS:
+        got, want = getattr(ida.state, f).numpy(), ref["state"][f]
+        assert got.dtype == want.dtype and np.array_equal(got, want), f
+    assert ida.state.lu.dtype == torch.float32
+    assert tuple(ida.state.ls_yy.shape) == ((3,) if mode == "refined" else (0,))
+
+
+@pytest.mark.parametrize("mode", ["single", "refined"])
+def test_ensemble_mode_is_ida_tpus_op_by_op(mode, obo_refs):
+    # B = 4 lanes of roberts_factory, whose float64 rate constants promote
+    # the "single" Jacobian to float64 before its trailing cast
+    ref = obo_refs[mode]["ensemble"]
+    b = ENSEMBLE_B
+    params, yy0, yp0 = _ensemble_inputs()
     opts = IdaOptions(ls_precision=mode)
     st = to_native(ensemble_init(roberts_factory, params, yy0, yp0, device="cpu", opts=opts))
     tol = TolControl(torch.full((b,), 1e-4, dtype=torch.float64),
                      torch.tensor(ATOL, dtype=torch.float64)[:, None].expand(3, b))
     st, tret, ist = tsolve(st, roberts_factory(torch.from_numpy(params.T.copy())), opts, tol, 0.4)
-    assert ist.tolist() == np.asarray(jist).tolist() == [C.SUCCESS] * b
-    assert np.array_equal(tret.numpy(), np.asarray(jtret))
-    assert _counters(st) == _counters(jst)
+    assert ist.tolist() == ref["istate"].tolist() == [C.SUCCESS] * b
+    assert np.array_equal(tret.numpy(), ref["tret"])
+    assert _counters(st) == ref["counters"]
     for f in ("yy", "lu", "ls_yy"):
-        got, want = getattr(st, f).numpy(), np.asarray(getattr(jst, f))
+        got, want = getattr(st, f).numpy(), ref["state"][f]
         assert got.dtype == want.dtype and np.array_equal(got, want), f
 
 
@@ -182,59 +231,6 @@ def _wrms(y, ref):
     return float(np.sqrt(np.mean((ewt * (y - ref)) ** 2)))
 
 
-@pytest.mark.parametrize("mode", ["single", "refined"])
-def test_roberts_mode_final_state(roberts12, mode):
-    # the reference check_ans (examples/roberts.rs:9-51): WRMS < 1
-    t_final, y_final = roberts12[mode][2][-1]
-    assert t_final == 4.0e10
-    assert _wrms(y_final, CHECK_ANS) < 1.0
-
-
-@pytest.mark.parametrize("mode", ["single", "refined"])
-def test_roberts_mode_roots(roberts12, mode):
-    roots = roberts12[mode][1]
-    assert [r[1] for r in roots] == [(0, 1), (-1, 0)]
-    np.testing.assert_allclose(roots[0][0], 2.6402e-01, rtol=1e-3)
-    np.testing.assert_allclose(roots[1][0], 2.0788e7, rtol=1e-2)
-    # and the jitted ida_tpu's events of the same mode, within the root
-    # integration tolerance (another step sequence: 1.8e-4 apart at 2e7)
-    jroots = roberts12["jax_" + mode][1]
-    assert [r[1] for r in jroots] == [r[1] for r in roots]
-    np.testing.assert_allclose([r[0] for r in roots], [r[0] for r in jroots], rtol=1e-3)
-
-
-@pytest.mark.parametrize("mode", ["single", "refined"])
-def test_roberts_mode_tracks_full_and_ida_tpu(roberts12, mode):
-    # every output row within the check_ans metric of the port's "full" run
-    # and of ida_tpu's jitted run of the mode (two rtol = 1e-4 solutions
-    # with different step sequences: a few units; a broken float32 solve
-    # gives 100+, tests/test_mixed_precision.py)
-    rows = roberts12[mode][2]
-    for other in ("full", "jax_" + mode):
-        for (ts, ys), (tf, yf) in zip(rows, roberts12[other][2]):
-            assert ts == tf
-            assert _wrms(ys, yf) < 10.0, (mode, other, ts)
-
-
-def test_roberts_single_statistics_sane(roberts12):
-    # ida_tpu's windows (tests/test_mixed_precision.py): the late decades'
-    # cond(J) ~ 1e9 beats float32, so Newton retries with fresh Jacobians
-    ida = roberts12["single"][0]
-    assert 250 <= ida.get_num_steps() <= 550
-    assert ida.get_num_res_evals() <= 810
-    assert ida.get_num_jac_evals() <= 250
-    assert ida.get_num_nonlin_solv_conv_fails() <= 60
-    jax_steps = roberts12["jax_single"][0]
-    assert abs(ida.get_num_steps() - jax_steps) <= 0.1 * jax_steps
-
-
-def test_refined_tracks_full_mode_early_decades():
-    # through t = 4e3 (decade 7) one refinement step gives the "full" mode's
-    # step decisions exactly (ida_tpu's test_refined_tracks_full_mode_...)
-    full = _decades(_port_ida("full"), 7)
-    assert _decades(_port_ida("refined"), 7) == full == CANONICAL_NST[:7]
-
-
 @pytest.mark.parametrize("kw", [dict(linear_solver="spgmr"), dict(linear_solver="band")],
                          ids=["spgmr", "band"])
 def test_refined_requires_dense(kw):
@@ -271,21 +267,35 @@ HEAT_CASES = {
 }
 
 
-@pytest.fixture(scope="module")
-def heat_runs():
-    """Each case through the port, and ida_tpu's jitted runs of the mixed
-    ones."""
-    runs = {k: _heat(port, heat2d_problem(HEAT_M, device="cpu"), o, device="cpu")
-            for k, o in HEAT_CASES.items()}
-    for k in ("single", "single_bf16"):
-        runs["jax_" + k] = _heat(jida, jax_heat2d(HEAT_M), HEAT_CASES[k])
-    return runs
-
-
 def _stats(ida):
     return {k: int(getattr(ida, "get_num_" + k)()) for k in
             ("steps", "lin_iters", "prec_solves", "nonlin_solv_conv_fails", "jac_evals",
              "res_evals")}
+
+
+HEAT_JAX_CASES = ("single", "single_bf16")
+# what the pinned jitted runs (jax_heat_live) are computed from
+HEAT_REF_INPUTS = {"m": HEAT_M, "touts": HEAT_TOUTS, "cases": {k: HEAT_CASES[k]
+                                                             for k in HEAT_JAX_CASES}}
+
+
+def jax_heat_live():
+    """ida_tpu's jitted runs of the mixed heat2d cases: counters and states."""
+    out = {}
+    for k in HEAT_JAX_CASES:
+        jax_ida, jout = _heat(jida, jax_heat2d(HEAT_M), HEAT_CASES[k])
+        out[k] = {"stats": _stats(jax_ida), "out": jout}
+    return out
+
+
+@pytest.fixture(scope="module")
+def heat_runs():
+    """Each case through the port, and ida_tpu's jitted runs of the mixed
+    ones (pinned: tests/make_torch_refs.py, ``mixed_heat2d_jax``)."""
+    runs = {k: _heat(port, heat2d_problem(HEAT_M, device="cpu"), o, device="cpu")
+            for k, o in HEAT_CASES.items()}
+    runs.update({"jax_" + k: v for k, v in load("mixed_heat2d_jax", HEAT_REF_INPUTS).items()})
+    return runs
 
 
 @pytest.mark.parametrize("case", ["single", "single_bf16"])
@@ -294,9 +304,9 @@ def test_heat2d_mode_matches_ida_tpu(heat_runs, case):
     # max |u| (float32 Krylov corrections; FMA contraction moves their
     # last bits)
     ida, out = heat_runs[case]
-    jax_ida, jout = heat_runs["jax_" + case]
-    assert _stats(ida) == _stats(jax_ida)
-    for u, ju in zip(out, jout):
+    ref = heat_runs["jax_" + case]
+    assert _stats(ida) == ref["stats"]
+    for u, ju in zip(out, ref["out"]):
         np.testing.assert_allclose(u, ju, rtol=0, atol=1e-6 * np.abs(ju).max())
 
 
@@ -326,43 +336,6 @@ def test_heat2d_spgmr_bf16_basis_storage(heat_runs):
     assert _stats(ida_c) == _stats(ida_s)
     for us, uc in zip(out_s, out_c):
         np.testing.assert_array_equal(uc, us)
-
-
-def test_band_single_lsetup_and_lsolve_are_ida_tpus_op_by_op():
-    # the band "single" lsetup and lsolve on a heat2d state: the float32
-    # band Jacobian, factor and solve, bit for bit ida_tpu's (the solve op by
-    # op; jitted, its multiply-adds are contracted). (A
-    # whole solve op by op costs ~40 s; jitted, FMA contraction in the
-    # float32 factor moves ida_tpu's run: 81 steps against 66 op by op, as
-    # here, checked once by hand.)
-    from ida_tpu.ops import banded as jb
-    from ida_tpu_torch.ops import banded as tb
-
-    rng = np.random.default_rng(4)
-    n = HEAT_M * HEAT_M
-    yy = rng.normal(size=n) * 0.1
-    yp = rng.normal(size=n)
-    b = rng.normal(size=n)
-    f32 = np.float32
-
-    @jax.jit
-    def setup(yy, yp):  # no multiply-add to contract here: jitted is op by op
-        ab = jb.band_sys_jacobian(jax_heat2d(HEAT_M), jnp.asarray(0.0, f32),
-                                  jnp.asarray(50.0, f32), yy, yp, HEAT_M, HEAT_M).astype(f32)
-        return ab, jb.band_factor(ab, HEAT_M, HEAT_M)
-
-    jab, jf = setup(jnp.asarray(yy, f32), jnp.asarray(yp, f32))
-    with jax.disable_jit():
-        jx = jb.band_solve(jf, jnp.asarray(b, f32))
-    t32 = torch.float32
-    ab = tb.band_sys_jacobian(heat2d_problem(HEAT_M, device="cpu"), torch.tensor(0.0, dtype=t32),
-                              torch.tensor(50.0, dtype=t32), torch.from_numpy(yy).to(t32),
-                              torch.from_numpy(yp).to(t32), HEAT_M, HEAT_M).to(t32)
-    f = tb.band_factor(ab, HEAT_M, HEAT_M)
-    x = tb.band_solve(f, torch.from_numpy(b).to(t32))
-    for got, want in ((ab, jab), (f.lu, jf.lu), (f.piv, jf.piv), (x, jx)):
-        assert got.dtype == torch.float32 or got.dtype == torch.int32
-        assert np.array_equal(got.numpy(), np.asarray(want))
 
 
 def test_band_single_vs_full(heat_runs):
@@ -395,34 +368,6 @@ def test_spgmr_storage_dtype_rounds_the_basis():
 # ------------------------------------------- checkpoints and derivatives
 
 
-@pytest.mark.parametrize("mode", ["single", "refined"])
-def test_mode_checkpoints_round_trip_both_ways(tmp_path, mode):
-    # the float32 lu and the refined point [N] load into ida_tpu as they
-    # are, and an ida_tpu archive of the mode loads into the port
-    mine = _port_ida(mode)
-    mine.solve(0.4)
-    path = str(tmp_path / "port.npz")
-    ck.save_state(path, mine.state)
-    jst = jax_ck.load_state(path)
-    for f, x in state_fields(jst).items():
-        if f != "pdata":
-            got = getattr(mine.state, f).numpy()
-            assert got.dtype == x.dtype and np.array_equal(got, x), f
-    assert np.asarray(jst.lu).dtype == np.float32
-    jax_ida = _jax_ida(mode)
-    jax_ida.solve(0.4)
-    jpath = str(tmp_path / "jax.npz")
-    jax_ck.save_state(jpath, jax_ida.state)
-    st = ck.load_state(jpath, device="cpu")
-    assert st.lu.dtype == torch.float32 and tuple(st.ls_yy.shape) == np.asarray(
-        jax_ida.state.ls_yy).shape
-    resumed = _port_ida(mode)
-    resumed.state = ck.load_state(path, device="cpu")
-    resumed.solve(4.0)
-    mine.solve(4.0)
-    assert torch.equal(resumed.state.yy, mine.state.yy)
-
-
 def _adjoint(mode):
     return adjoint_gradient(
         roberts_factory, ROBERTS_PARAMS, lambda p: torch.tensor(ROBERTS_YY0),
@@ -431,22 +376,20 @@ def _adjoint(mode):
         opts=IdaOptions(ls_precision=mode, unroll_newton=True), max_attempts=60, device="cpu")
 
 
-def test_modes_differentiate_in_reverse_and_refuse_forward():
-    # the casts and the float32 LU Functions keep the graph: the gradient
-    # through "single" and "refined" is the "full" one to the float32
-    # solves' accuracy; forward mode cannot take the refinement's jvp and
-    # says so instead of dropping the tangent
-    _, g_full, ist = _adjoint("full")
-    assert int(ist) == 0
-    for mode in ("single", "refined"):
-        _, g, ist = _adjoint(mode)
-        assert int(ist) == 0 and bool(torch.isfinite(g).all())
-        np.testing.assert_allclose(g.numpy(), g_full.numpy(), rtol=1e-3)
-    with pytest.raises(NotImplementedError, match="refined"):
-        forward_sensitivity(roberts_factory, ROBERTS_PARAMS, lambda p: torch.tensor(ROBERTS_YY0),
-                            lambda p: p[0] * torch.tensor([-1.0, 1.0, 0.0], dtype=torch.float64),
-                            tol_sv(1e-4, ATOL, device="cpu"), 0.4, np.array([1.0, 0.0, 0.0]),
-                            IdaOptions(ls_precision="refined"), device="cpu")
+FWD_V = np.array([1.0, 0.0, 0.0])
+FWD_REF_INPUTS = {"params": ROBERTS_PARAMS, "yy0": ROBERTS_YY0, "rtol": 1e-4, "atol": ATOL,
+                  "tout": 0.4, "tangent": FWD_V, "ls_precision": "refined"}
+
+
+def jax_forward_refined_live():
+    """``ida_tpu``'s forward sensitivity under "refined" (jitted, ~20 s)."""
+    from ida_tpu import sensitivity as jsens
+
+    jy, jdy = jsens.forward_sensitivity(
+        jax_roberts_factory, jnp.asarray(ROBERTS_PARAMS), lambda p: jnp.asarray(ROBERTS_YY0),
+        lambda p: p[0] * jnp.array([-1.0, 1.0, 0.0]), jida.tol_sv(1e-4, jnp.asarray(ATOL)), 0.4,
+        jnp.asarray(FWD_V), JOptions(ls_precision="refined"))
+    return {"y": np.asarray(jy), "dy": np.asarray(jdy)}
 
 
 @pytest.mark.parametrize("kw", [dict(ls_precision="double"), dict(krylov_storage="float16"),

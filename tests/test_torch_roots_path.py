@@ -7,7 +7,9 @@ checks are in tests/test_torch_roots.py).
   1e-7 (XLA:CPU contracts multiply-adds inside jit and drifts as t grows).
 * Root times against the native oracle with the tolerances of
   tests/test_root_oracle.py, with ``rootdir`` filtering, the zero-at-t0
-  deactivation and CLOSE_ROOTS.
+  deactivation and CLOSE_ROOTS (their convergence with the tolerance in
+  ``test_torch_roots_tolerance.py``, a file of one test, which queues
+  last).
 * The budgeted solve with roots: budget 7, resumed, equals no budget.
 """
 
@@ -142,17 +144,6 @@ def test_roots_match_oracle_loose_tol(port_run):
     assert ev_t[0][1] == [0, 1] and ev_t[1][1] == [-1, 0]
     np.testing.assert_allclose(ev_t[0][0], 2.6402e-01, rtol=1e-3)
     np.testing.assert_allclose(ev_t[1][0], 2.0788e7, rtol=1e-2)
-
-
-def test_roots_converge_with_tolerance():
-    # through 4e7: both roots lie before it
-    atol = [1e-12, 1e-10, 1e-10]
-    ret, _y, ev_o, _s = _oracle(1e-8, atol, touts=TOUTS[:9])
-    _, ev_t = _port_events(1e-8, atol, touts=TOUTS[:9])
-    assert ret == 0 and len(ev_o) == len(ev_t) == 2
-    for (to, io), (tt, it) in zip(ev_o, ev_t):
-        assert list(io) == list(it)
-        assert abs(to - tt) / tt < 1e-6
 
 
 def test_rootdir_filtering_matches_oracle():

@@ -34,6 +34,7 @@ from ida_tpu_torch.problem import IdaProblem
 from ida_tpu_torch.tol_control import tol_sv
 from ida_tpu_torch.utils import ad_mode
 from ida_tpu_torch.utils.numerics import pow_, sqrt_
+from make_torch_refs import load
 
 # one intra-op thread: the tests' tensors are small, and the suite runs in
 # parallel workers, each of which would otherwise start a pool per core
@@ -174,30 +175,6 @@ def _lu_system(n, bsz=5, seed=0):
 
 
 @pytest.mark.parametrize("n", [2, 3, 6])
-def test_lu_functions_gradcheck(n):
-    """``lu_solve_auto`` and ``lu_solve_t_auto`` through ``lu_factor_auto``:
-    reverse, forward and second order, f64, B = 5 (the looped form past
-    N = 16 is held against ``ida_tpu`` below, at N = 20)."""
-    a, b = _lu_system(n)
-
-    def solve(a, b):
-        return dense_lu.lu_solve_auto(dense_lu.lu_factor_auto(a), b)
-
-    def solve_t(a, b):
-        return dense_lu.lu_solve_t_auto(dense_lu.lu_factor_auto(a), b)
-
-    for fn in (solve, solve_t):
-        assert torch.autograd.gradcheck(fn, (a, b), check_forward_ad=True)
-        assert torch.autograd.gradgradcheck(fn, (a, b))
-    # the values: the solve and the transposed solve of the same factors
-    lead = a.detach().permute(2, 0, 1)
-    x = torch.linalg.solve(lead, b.detach().t().unsqueeze(-1)).squeeze(-1).t()
-    xt = torch.linalg.solve(lead.transpose(1, 2), b.detach().t().unsqueeze(-1)).squeeze(-1).t()
-    np.testing.assert_allclose(solve(a, b).detach().numpy(), x.numpy(), rtol=1e-12, atol=1e-13)
-    np.testing.assert_allclose(solve_t(a, b).detach().numpy(), xt.numpy(), rtol=1e-12, atol=1e-13)
-
-
-@pytest.mark.parametrize("n", [2, 3, 6])
 def test_plain_transposed_solve_matches_jax_vjp_of_the_solve(n):
     """No TPU kernel has a backward: ``ida_tpu`` differentiates the jnp
     arithmetic of ``lu_solve_unrolled``. Its vjp in b, per lane, against
@@ -281,31 +258,10 @@ def _same_state(a, b):
     assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
 
 
-def test_safe_ad_and_the_unrolled_loops_keep_the_primal_bit_for_bit():
-    """The guarded run (``ida_tpu``'s tests/test_adjoint.py:153) and the
-    fixed-trip Newton loop give every field of the plain run, to 4e4."""
-    ref = _solve_fields(IdaOptions())
-    assert int(ref[0].nst) > 29
-    with ad_mode.safe_ad():
-        guarded = _solve_fields(IdaOptions())
-    _same_state(ref, guarded)
-    _same_state(ref, _solve_fields(IdaOptions(unroll_newton=True)))
-
-
-def test_unrolled_root_search_is_bit_for_bit_the_while_form():
-    from functools import partial
-
-    factory = partial(roberts_factory, with_roots=True)
-    ref = _solve_fields(IdaOptions(), factory, tout=0.4)
-    assert int(ref[2]) == 2  # ROOT_RETURN at y1 = 1e-4 ... the first event
-    _same_state(ref, _solve_fields(IdaOptions(unroll_roots=True), factory, tout=0.4))
-
-
 # ------------------------------------------------- forward sensitivities
 
 
-@pytest.fixture(scope="module")
-def jax_setup():
+def _jax_setup():
     tol = jax_tol_sv(1e-4, jnp.asarray(ATOL))
     return tol, (lambda p: jnp.asarray(ROBERTS_YY0)), (lambda p: p[0] * jnp.asarray([-1.0, 1.0, 0.0]))
 
@@ -315,16 +271,70 @@ def _port_setup():
     return tol, (lambda p: _t(ROBERTS_YY0)), (lambda p: p[0] * _t([-1.0, 1.0, 0.0]))
 
 
-def test_forward_sensitivity_matches_ida_tpu_and_differences(jax_setup):
-    jtol, jyy0, jyp0 = jax_setup
-    v = np.array([1.0, 0.0, 0.0])
+FWD_V = np.array([1.0, 0.0, 0.0])
+
+
+def _jax_forward():
+    """``ida_tpu``'s forward sensitivity along FWD_V (jitted, ~20 s)."""
+    jtol, jyy0, jyp0 = _jax_setup()
     jy, jdy = jsens.forward_sensitivity(jax_roberts_factory, jnp.asarray(ROBERTS_PARAMS), jyy0,
-                                        jyp0, jtol, TOUT, jnp.asarray(v))
+                                        jyp0, jtol, TOUT, jnp.asarray(FWD_V))
+    return {"y": np.asarray(jy), "dy": np.asarray(jdy)}
+
+
+def _jax_consistent_ic(icopt):
+    """``ida_tpu``'s consistent-IC Function on CIC_CASES[icopt]: values, the
+    gradient of the loss on both outputs and the tangent along the seeded
+    directions (:func:`_cic_dirs`)."""
+    yy0, yp0 = (np.array(x) for x in CIC_CASES[icopt])
+    jtol = _jax_setup()[0]
+    w = np.array(W)
+    jcic = jsens.make_consistent_ic(jax_roberts_factory, icopt, 0.4, jtol)
+
+    def jloss(p, a, b):
+        yyc, ypc, _ = jcic(p, a, b)
+        return jnp.sum(yyc * w) + jnp.sum(ypc * w[::-1])
+
+    jargs = (jnp.asarray(ROBERTS_PARAMS), jnp.asarray(yy0), jnp.asarray(yp0))
+    jyyc, jypc, jok = jcic(*jargs)
+    jgrad = jax.grad(jloss, argnums=(0, 1, 2))(*jargs)
+    _, jtan = jax.jvp(lambda *a: jcic(*a)[:2], jargs, tuple(jnp.asarray(d) for d in _cic_dirs()))
+    return {"yyc": np.asarray(jyyc), "ypc": np.asarray(jypc), "ok": float(jok),
+            "grad": [np.asarray(g) for g in jgrad], "tan": [np.asarray(t) for t in jtan]}
+
+
+def _cic_dirs():
+    rng = np.random.default_rng(7)
+    return [rng.normal(size=3) * ROBERTS_PARAMS * 1e-2, rng.normal(size=3), rng.normal(size=3)]
+
+
+CIC_CASES = {
+    "ya_ydp": ([1.0, 0.0, 0.3], [0.0, 0.0, 0.0]),
+    "y": ([1.0, 1e-5, 0.05], [-0.05, 0.04, 0.0]),
+}
+# what the pinned JAX runs (jax_sensitivity_live) are computed from
+REF_INPUTS = {"params": ROBERTS_PARAMS, "yy0": ROBERTS_YY0, "atol": ATOL, "tout": TOUT,
+              "tangent": FWD_V, "cic_cases": CIC_CASES, "w": W, "cic_dirs": _cic_dirs()}
+
+
+def jax_sensitivity_live():
+    return {"forward": _jax_forward(),
+            "consistent_ic": {icopt: _jax_consistent_ic(icopt) for icopt in CIC_CASES}}
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """The JAX runs, pinned (tests/make_torch_refs.py, ``sensitivity_jax``)."""
+    return load("sensitivity_jax", REF_INPUTS)
+
+
+def test_forward_sensitivity_matches_ida_tpu_and_differences(jax_refs):
+    v = FWD_V
     tol, yy0_of, yp0_of = _port_setup()
     y, dy = S.forward_sensitivity(roberts_factory, ROBERTS_PARAMS, yy0_of, yp0_of, tol, TOUT, v,
                                   device="cpu")
-    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-10)
-    np.testing.assert_allclose(dy.numpy(), np.asarray(jdy), rtol=1e-6)
+    np.testing.assert_allclose(y.numpy(), jax_refs["forward"]["y"], rtol=1e-10)
+    np.testing.assert_allclose(dy.numpy(), jax_refs["forward"]["dy"], rtol=1e-6)
     # central differences of the port (tests/test_sensitivity.py:20-32)
     f = S.solve_with_params(roberts_factory, None, yy0_of, yp0_of, tol, TOUT)
     eps = 1e-7
@@ -337,33 +347,16 @@ def test_forward_sensitivity_matches_ida_tpu_and_differences(jax_setup):
 # ------------------------------------------------- consistent ICs
 
 
-CIC_CASES = {
-    "ya_ydp": ([1.0, 0.0, 0.3], [0.0, 0.0, 0.0]),
-    "y": ([1.0, 1e-5, 0.05], [-0.05, 0.04, 0.0]),
-}
-
-
 @pytest.mark.parametrize("icopt", ["ya_ydp", "y"])
-def test_make_consistent_ic_matches_ida_tpu(icopt, jax_setup):
+def test_make_consistent_ic_matches_ida_tpu(icopt, jax_refs):
     """Values, the gradient of a loss on both outputs in (p, yy0, yp0), and
     the tangent along a seeded direction, against ``ida_tpu``'s Function
-    (jax.grad through its custom_jvp) on the same inputs."""
+    (jax.grad through its custom_jvp) on the same inputs (pinned)."""
     yy0, yp0 = (np.array(x) for x in CIC_CASES[icopt])
-    jtol = jax_setup[0]
     w = np.array(W)
-    rng = np.random.default_rng(7)
-    dirs = [rng.normal(size=3) * ROBERTS_PARAMS * 1e-2, rng.normal(size=3), rng.normal(size=3)]
-
-    jcic = jsens.make_consistent_ic(jax_roberts_factory, icopt, 0.4, jtol)
-
-    def jloss(p, a, b):
-        yyc, ypc, _ = jcic(p, a, b)
-        return jnp.sum(yyc * w) + jnp.sum(ypc * w[::-1])
-
-    jargs = (jnp.asarray(ROBERTS_PARAMS), jnp.asarray(yy0), jnp.asarray(yp0))
-    jyyc, jypc, jok = jcic(*jargs)
-    jgrad = jax.grad(jloss, argnums=(0, 1, 2))(*jargs)
-    _, jtan = jax.jvp(lambda *a: jcic(*a)[:2], jargs, tuple(jnp.asarray(d) for d in dirs))
+    dirs = _cic_dirs()
+    ref = jax_refs["consistent_ic"][icopt]
+    jyyc, jypc, jok, jgrad, jtan = ref["yyc"], ref["ypc"], ref["ok"], ref["grad"], ref["tan"]
 
     cic = S.make_consistent_ic(roberts_factory, icopt, 0.4, tol_sv(1e-4, ATOL, device="cpu"))
     args = tuple(_t(x).requires_grad_() for x in (ROBERTS_PARAMS, yy0, yp0))
@@ -409,23 +402,3 @@ def _chain_jax(p):
         return jnp.stack(rows)
 
     return JaxProblem(n=N20, res=res, id=jnp.asarray([1.0] * (N20 - 1) + [0.0]))
-
-
-def test_consistent_ic_gradient_through_the_looped_lu_at_n20():
-    """The gradient of a 20-unknown IC solve (the looped LU, which swaps
-    rows in place) against ``ida_tpu``'s."""
-    p0 = np.array([0.5, 0.3, 0.7])
-    rng = np.random.default_rng(20)
-    yy0 = rng.uniform(0.1, 1.0, N20)
-    yp0 = np.zeros(N20)
-    w = rng.normal(size=N20)
-    jtol = jax_tol_sv(1e-6, 1e-8)
-    jcic = jsens.make_consistent_ic(_chain_jax, "ya_ydp", 1.0, jtol)
-    jg = jax.grad(lambda p: jnp.sum(jcic(p, jnp.asarray(yy0), jnp.asarray(yp0))[1] * w))(
-        jnp.asarray(p0))
-    cic = S.make_consistent_ic(_chain_port, "ya_ydp", 1.0, tol_sv(1e-6, 1e-8, device="cpu"))
-    p = _t(p0).requires_grad_()
-    yyc, ypc, ok = cic(p, _t(yy0), _t(yp0))
-    (g,) = torch.autograd.grad((ypc * _t(w)).sum(), p)
-    assert float(ok) == 1.0
-    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-8)

@@ -6,7 +6,9 @@
   the JAX solve rounds every multiply and add separately, as the port and C
   IDA do: istate, tret and the counters must match exactly, yy/yp/phi to
   rtol 1e-12. Jitted, XLA:CPU contracts multiply-adds into FMAs, so there
-  only istate, tret and the counters are held exactly.
+  only istate, tret and the counters are held exactly (the jitted
+  references in ``test_torch_slice_jitted.py``, a file of few tests, which
+  queues after the files with the most tests).
 * One lane, roots off, over 12 decades: the canonical per-decade step
   counts of C idaRoberts_dns exactly, and the trajectory against the native
   C++ oracle as in tests/test_native_oracle.py.
@@ -52,11 +54,6 @@ def _inputs(b):
     return params, yy0, yp0
 
 
-@pytest.fixture(scope="module")
-def jax_native():
-    return _jax_native()
-
-
 def _jax_native():
     """Batch-native JAX states, problem and tolerances for B=8."""
     params, yy0, yp0 = _inputs(B)
@@ -65,13 +62,6 @@ def _jax_native():
     prob = roberts_factory(jnp.asarray(params.T))
     tol = JTol(jnp.full((B,), RTOL), jnp.tile(jnp.asarray(ATOL)[:, None], (1, B)))
     return st, prob, tol
-
-
-@pytest.fixture(scope="module")
-def jax_normal_solve(jax_native):
-    """The jitted TASK_NORMAL solve, compiled once for the module's tests."""
-    _, prob, tol = jax_native
-    return jax.jit(lambda s, t: jsolve(s, prob, JOptions(), tol, t, TASK_NORMAL))
 
 
 def _port_solve(tout, itask=TASK_NORMAL, steps=1):
@@ -125,39 +115,6 @@ def test_ensemble_matches_op_by_op_reference(jax_op_by_op, tout):
     for f in ("yy", "yp", "phi"):
         a = np.moveaxis(np.asarray(getattr(ref[0], f)), -1, 0)
         np.testing.assert_allclose(getattr(got[0], f).numpy(), a, rtol=1e-12, atol=0, err_msg=f)
-
-
-@pytest.mark.parametrize("tout", [0.4, 400.0])
-def test_ensemble_counters_match_jitted_reference(jax_native, jax_normal_solve, tout):
-    st, prob, tol = jax_native
-    ref = jax_normal_solve(st, jnp.full((B,), tout))
-    _assert_exact(ref, _port_solve(tout))
-
-
-def test_one_step_task_matches_jitted_reference(jax_native):
-    # ONE_STEP returns tret = tn, which carries the jitted run's FMA rounding
-    st, prob, tol = jax_native
-    one = jax.jit(lambda s: jsolve(s, prob, JOptions(), tol, jnp.full((B,), 400.0), TASK_ONE_STEP))
-    for _ in range(5):
-        st, tret, ist = one(st)
-    _assert_exact((st, tret, ist), _port_solve(400.0, itask=TASK_ONE_STEP, steps=5), tret_rtol=1e-13)
-
-
-def test_core_solve_on_inputs_converted_from_jax(jax_native, jax_normal_solve):
-    # the JAX package's own batch-native state, params and tolerances,
-    # carried over field by field, through the port's core solve
-    st, prob, tol = jax_native
-    ref = jax_normal_solve(st, jnp.full((B,), 4.0))
-    params, _, _ = _inputs(B)
-    got = tsolve(
-        state_from_numpy({f: np.asarray(getattr(st, f)) for f in st._fields}, device="cpu", batch="trailing"),
-        troberts(params_from_numpy(params, device="cpu", batch="leading")),
-        IdaOptions(),
-        tol_from_numpy({f: np.asarray(getattr(tol, f)) for f in tol._fields}, device="cpu", batch="trailing"),
-        4.0,
-    )
-    assert got[0].phi.shape == st.phi.shape
-    _assert_exact(ref, got)
 
 
 def test_returned_states_keep_the_batch_leading_layout():

@@ -88,24 +88,6 @@ def jax_results():
     return out
 
 
-@pytest.mark.parametrize("gs", GS)
-@pytest.mark.parametrize("name", list(CASES))
-def test_spgmr_matches_ida_tpu(jax_results, name, gs):
-    case = CASES[name]()
-    res = _run(torch.from_numpy, spgmr_solve, case, gs, torch.tensor(1e-10, dtype=torch.float64))
-    ref = jax_results[name, gs]
-    scale = np.abs(ref["x"]).max()
-    np.testing.assert_allclose(res.x.numpy(), ref["x"], rtol=1e-12, atol=1e-12 * scale)
-    for k in ("converged", "nli", "nps", "natimes"):
-        assert np.array_equal(getattr(res, k).numpy(), ref[k]), k
-    assert np.array_equal(res.reduced.numpy(), ref["reduced"])
-    if name == "batched_30x4":
-        assert res.converged.tolist() == [True, True, True, False]
-        assert res.reduced.tolist() == [False, False, False, True]
-    else:
-        assert bool(res.converged) and int(res.nps) > 0
-
-
 def test_inactive_lanes_are_not_solved():
     case = _batched()
     active = torch.tensor([True, False, True, False])

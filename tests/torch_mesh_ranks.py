@@ -1,16 +1,17 @@
-"""The rank side of ``tests/test_torch_mesh.py``: what each process of a
+"""The rank side of ``tests/test_torch_mesh*.py``: what each process of a
 gloo group on the CPU computes with ``ida_tpu_torch.parallel.mesh``.
 
-Kept apart from the test module so that the spawned ranks import torch and
-the port only (the test module imports JAX for its references). ``spawn``
-starts ``WORLD`` ranks once; each runs every case of :func:`cases` and
-saves what it found, and the test module holds those results against
-``ida_tpu`` and against the port's unsharded runs.
+Kept apart from the test modules so that the spawned ranks import torch and
+the port only (the test modules import JAX for their references). ``spawn``
+starts ``WORLD`` ranks once for a test module; each runs the module's cases
+of :data:`CASES` and saves what it found, and the module holds those
+results against ``ida_tpu`` and against the port's unsharded runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -220,12 +221,12 @@ def case_norms(mx) -> dict:
                 "masked": float(wrms_norm_masked(xs, ws, ms, axis_name="x"))}
 
 
-def case_food(m1) -> dict:
+def case_food(m1, cases=tuple(FOOD_CASES)) -> dict:
     """The 8 x 8 food web with its state vector over the four ranks:
-    ``sharded_calc_ic("ya_ydp")``, then the legs of each case of FOOD_CASES
-    from that IC (the block-diagonal preconditioner on the rank's 16 grid
-    points), with the collectives of the IC and of the base legs, and the
-    rank's pdata at the end of the base legs."""
+    ``sharded_calc_ic("ya_ydp")``, then the legs of each of ``cases`` (of
+    FOOD_CASES) from that IC (the block-diagonal preconditioner on the
+    rank's 16 grid points), with the collectives of the IC and of each
+    case's legs, and the rank's pdata at the end of the base legs."""
     tol = food_tol()
     prob = food_problem()
     st0 = shard_state_vector(food_state(), m1, prob.n, problem=prob)
@@ -238,7 +239,7 @@ def case_food(m1) -> dict:
     def whole(x):
         return mesh.gather(x, m1, "batch")
 
-    for case in FOOD_CASES:
+    for case in cases:
         p, opts = food_problem(case), food_opts(case)
         cst = shard_state_vector(food_state(case), m1, p.n, problem=p)
         cst = cst._replace(phi=st.phi, yy=st.yy, yp=st.yp)
@@ -387,30 +388,41 @@ def case_bbd_solve(m1) -> dict:
             "phi0": mesh.gather(out.phi[0], m1, "batch").numpy()}
 
 
-def cases(rank: int) -> dict:
-    """Every case on this rank (a gloo group of WORLD ranks is up)."""
-    m1 = make_mesh(WORLD, device_type="cpu")
-    mx = make_mesh(WORLD, "x", device_type="cpu")
-    m2 = make_mesh_2d(2, 2, device_type="cpu")
-    return {"dp": case_dp(m1), "ensemble": case_ensemble(m1), "norms": case_norms(mx),
-            "heat": case_heat(m1), "heat_2d": case_heat_2d(m2), "bbd_hooks": case_bbd_hooks(m1),
-            "bbd_solve": case_bbd_solve(m1), "food": case_food(m1), "food_2d": case_food_2d(m2),
-            "heat_whole_prec": case_heat_whole_prec(m1), "split_point": case_split_point(m1)}
+# name -> (the mesh it runs on, the case); "food" is the IC and the base
+# legs, "food_modes" the other cases of FOOD_CASES from the same IC
+CASES = {"dp": ("m1", case_dp), "ensemble": ("m1", case_ensemble), "norms": ("mx", case_norms),
+         "heat": ("m1", case_heat), "heat_2d": ("m2", case_heat_2d),
+         "bbd_hooks": ("m1", case_bbd_hooks), "bbd_solve": ("m1", case_bbd_solve),
+         "food": ("m1", functools.partial(case_food, cases=("base",))),
+         "food_modes": ("m1", functools.partial(
+             case_food, cases=tuple(c for c in FOOD_CASES if c != "base"))),
+         "food_2d": ("m2", case_food_2d), "heat_whole_prec": ("m1", case_heat_whole_prec),
+         "split_point": ("m1", case_split_point)}
 
 
-def _rank(rank: int, world: int, root: str) -> None:
+def cases(rank: int, names: tuple) -> dict:
+    """The cases ``names`` (of CASES) on this rank (a gloo group of WORLD
+    ranks is up)."""
+    meshes = {"m1": make_mesh(WORLD, device_type="cpu"),
+              "mx": make_mesh(WORLD, "x", device_type="cpu"),
+              "m2": make_mesh_2d(2, 2, device_type="cpu")}
+    return {name: CASES[name][1](meshes[CASES[name][0]]) for name in names}
+
+
+def _rank(rank: int, world: int, root: str, names: tuple) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{os.path.join(root, 'rendezvous')}",
                             rank=rank, world_size=world)
     try:
-        torch.save(cases(rank), os.path.join(root, f"rank{rank}.pt"))
+        torch.save(cases(rank, names), os.path.join(root, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def spawn(root: str) -> list:
-    """Run :func:`cases` on WORLD spawned gloo ranks (rendezvous through a
-    file under ``root``); every rank's results."""
-    mp.start_processes(_rank, args=(WORLD, root), nprocs=WORLD, start_method="spawn")
+def spawn(root: str, names: tuple) -> list:
+    """Run the cases ``names`` (of CASES) on WORLD spawned gloo ranks
+    (rendezvous through a file under ``root``); every rank's results."""
+    mp.start_processes(_rank, args=(WORLD, root, tuple(names)), nprocs=WORLD,
+                       start_method="spawn")
     return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
             for r in range(WORLD)]
