@@ -101,6 +101,18 @@ tout=400 in f64):
   CPU; the table of ops with a zoo of every new op on NaN/+-0/+-inf lanes;
   the hand-written Roberts library still 234 registers;
   ``python3 chip_smoke.py fused_quad_ops`` runs it alone;
+* the band and Krylov solvers in the whole-solve kernel (``fused_linear``,
+  a library a solver, mode and model, ``ops.fused_solve.mode_flags``): the
+  headline (B = 65,536) under band mu = ml = 2 and spgmr to 400 and band
+  mu = ml = 1 to 0.4, K2 and budget 32 (K3 + K4) bit for bit the eager
+  solve under the same options (the band factor and the Krylov counters
+  among the fields), every lane SUCCESS, the canonical lane through K2 to
+  4e10 (check_ans under the exact band); at B = 4,096 band and spgmr
+  "single", a bfloat16 basis, CGS2, ``fast_math`` under each, a float32
+  state under each and Morris-Lecar under band (1, 1) and spgmr to 10 ms,
+  each bit for bit its eager solve; each library's registers, spills,
+  bare K2 launch, K3/K4 launches and bound; ``python3 chip_smoke.py
+  fused_linear`` runs it alone;
 * the mesh (``mesh``, ``parallel/mesh.py``): the headline through
   ``EnsembleIDA(mesh=make_mesh(1))`` under NCCL, bit for bit the eager
   solve with K1's launch counts, and K2 on the rank's shard bit for bit the
@@ -127,6 +139,7 @@ line per phase; any failed check raises, so the exit code is non-zero.
     python3 chip_smoke.py fused_models   # its libraries, the slice and fused_models alone
     python3 chip_smoke.py fused_quad_ops   # its libraries, the slice, the quadrature
                                            # headline, the table of ops and fused_quad_ops
+    python3 chip_smoke.py fused_linear     # its libraries and fused_linear alone
 
 The last three lines are the kernels' summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -195,7 +208,7 @@ DECADES = [0.4 * 10**k for k in range(12)]
 # to the tolerances given there
 ROOTED_TOTALS = {**CANONICAL_TOTALS, "nge": 404}
 ROOT_EVENTS = [(2.6402e-01, 1e-3, [0, 1]), (2.0788e7, 1e-2, [-1, 0])]
-ROOTS_PROFILE_TOUT = 4.0  # roots_slice's profiled windows: the root (0.22-0.32) and a decade on
+ROOTS_PROFILE_TOUT = 0.4  # roots_slice's profiled windows: the first decade, root (0.22-0.32)
 CHECK_ANS = [5.2083474251394888e-08, 2.0833390772616859e-13, 9.9999994791631752e-01]
 LU_SOURCE = "ida_tpu_torch/csrc/small_lu.cu"
 LU_REPLACES = "ida_tpu/ops/pallas_lu.py:28"
@@ -216,6 +229,7 @@ FUSED_MODES = {
     "fast_math_refined": IdaOptions(fast_math=True, ls_precision="refined"),
 }
 B_MODES_F32 = 4096
+MODES_F32_TOUT = 0.4  # the float32 legs of fused_modes: the first decade
 # the card's peaks (NVIDIA H100 SXM data sheet, 700 W): memory 3.35 TB/s;
 # float64 outside the tensor cores 34 TFLOP/s, float32 67 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -347,11 +361,13 @@ def call_device_ms(fns, rounds: int) -> float:
 def device_busy(fn, calls: int = 5) -> dict:
     """``calls`` calls of ``fn`` under torch.profiler, per call: the wall,
     the device time of everything it ran on the card, the count of device
-    events, and the longest of those by name."""
+    events, and the longest of those by name. The profiler records the
+    card's activity alone: with the host's operators too it took more than
+    twice as long to digest (13.7-14.4 s against 5.9-6.2 s for the
+    headline's first decade, the same device events and device time)."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         first_device_activity()
         t0 = time.perf_counter()
         for _ in range(calls):
@@ -476,8 +492,9 @@ LU_LIBS: dict = {}
 def phase_build() -> None:
     """Every library at once, one nvcc each: K1 (and its parent dispatch and
     floor, LU_VARIANTS), the whole-solve kernel in the parity mode and in
-    each mode of FUSED_MODES, and the generated models' libraries
-    (:func:`model_builds`, traced while the others compile)."""
+    each mode of FUSED_MODES, the generated models' libraries
+    (:func:`model_builds`, traced while the others compile) and the band
+    and Krylov libraries of fused_linear (:func:`linear_builds`)."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(16) as pool:
         lu, fused = pool.submit(small_lu.build), pool.submit(fused_solve.build)
@@ -485,10 +502,12 @@ def phase_build() -> None:
                                    flags=("-fmad=false", *f)) for k, f in LU_VARIANTS.items()}
         modes = {m: pool.submit(fused_solve.build_of, o) for m, o in FUSED_MODES.items()}
         generated = model_builds(pool)
+        linear = linear_builds(pool)
         lu, fused = lu.result(), fused.result()
         LU_LIBS.update({k: f.result() for k, f in variants.items()})
         modes = {m: f.result() for m, f in modes.items()}
         generated = {k: f.result() for k, f in generated.items()}
+        linear = {k: f.result() for k, f in linear.items()}
     small_lu.bind(LU_LIBS["parent"]["lib"])
     kernel_variants.bind_floor(LU_LIBS["floor"]["lib"])
     lu_ptxas = {k: v for k, v in _build.ptxas_summary(lu["log"]).items() if "Li3E" in k}
@@ -518,6 +537,9 @@ def phase_build() -> None:
     emit("fused_models_build", seconds={k: v["seconds"] for k, v in generated.items()},
          cached={k: v["cached"] for k, v in generated.items()},
          libraries={k: v["path"] for k, v in generated.items()})
+    emit("fused_linear_build", seconds={k: v["seconds"] for k, v in linear.items()},
+         cached={k: v["cached"] for k, v in linear.items()},
+         libraries={k: v["path"] for k, v in linear.items()})
 
 
 def lu_bound_ms(nbytes: int) -> float:
@@ -1204,9 +1226,9 @@ def phase_dense_slice() -> dict:
     small_lu.reset_launch_counts()
     (st, tret, ist, yy, yp, nst), wall = run()
     launches = lu_launches()
-    # the busy share from the first two decades only: the profiler takes
+    # the busy share from the first decade only: the profiler takes
     # minutes to digest the ~360,000 device events of all twelve
-    busy = device_busy(lambda: run(DECADES[:2]), calls=1)
+    busy = device_busy(lambda: run(DECADES[:1]), calls=1)
     check(busy["device_events"] > 0, "the profiler recorded no device event of solve_dense")
 
     # the scan form at full width: 12 chained launches of the whole-solve
@@ -1234,7 +1256,7 @@ def phase_dense_slice() -> dict:
          attempts_total=int(attempts.sum()), attempts_max_lane=int(attempts.max()),
          launches=launches, scan_form_kernel_launches=fused_solve.launch_count("solve"),
          scan_form_ms=chain_ms, rows_differ_from_scan_form=differ[:8],
-         nominal_lane_nst=nst[:, mid].tolist(), profiled_first_2_decades=busy,
+         nominal_lane_nst=nst[:, mid].tolist(), profiled_first_decade=busy,
          busy_share=busy["busy_share"])
     check(n_ok == len(DECADES) * B, f"dense_slice: {len(DECADES) * B - n_ok} rows not SUCCESS")
     check(fused_solve.launch_count("solve") == len(DECADES), "dense_slice: the scan form's launches")
@@ -1513,6 +1535,29 @@ def phase_foodweb_batched() -> dict:
     return {"launches": launches, "state": st}
 
 
+# kernel_variants.prec_solve_events of this checkout, each in a fresh
+# process, by dtype: started by start_prec_events, ahead of the phases that
+# read them
+PREC_EVENTS: dict = {}
+
+
+def start_prec_events() -> None:
+    """Start the fresh processes that profile one foodweb.prec_solve in
+    float64 (kernels_n2) and in float32 (foodweb_mixed), one after the
+    other on a thread, while the phases before those run."""
+    pool = ThreadPoolExecutor(1)
+    for dtype in ("float64", "float32"):
+        PREC_EVENTS[dtype] = pool.submit(kernel_variants.prec_solve_events,
+                                         str(Path(__file__).resolve().parent), dtype)
+    pool.shutdown(wait=False)
+
+
+def prec_events(dtype: str) -> dict:
+    """The profile of one prec_solve in ``dtype``, which start_prec_events
+    started."""
+    return PREC_EVENTS.pop(dtype).result()
+
+
 def phase_kernels_n2(food: dict) -> dict:
     """K1 at N = 2 on the foodweb blocks of one lsetup, both batch axes
     ([2, 2, 400, 128]): kernel against its plain version bit for bit, its
@@ -1574,7 +1619,7 @@ def phase_kernels_n2(food: dict) -> dict:
     # one foodweb.prec_solve on the card, profiled in a fresh process: late
     # in this run the profiler records only some launches of a short window,
     # or none (the layouts it hands the kernel are held above)
-    prec = kernel_variants.prec_solve_events(str(Path(__file__).resolve().parent))
+    prec = prec_events("float64")
     # "ms" of the solve is the layout the path launches it on
     rows = {
         "factor": {"max_abs_err": errs["factor"], "ms": dev_ms["factor"],
@@ -1612,7 +1657,8 @@ BAND_B = 4096
 BAND_BIG_M = 100  # one band factor and solve at heat2d 100 x 100, mu = ml = 100
 BBD_M = 20  # idaHeat2D_kry_bbd_p: 20 x 20 on 4 subdomains (strips of 5 grid rows)
 BBD_B = 256
-BBD_TOUT = 0.04  # the second of the heat legs' outputs (0.01, 0.04, 0.16)
+BBD_TOUT = 0.01  # the first of the heat legs' outputs (0.01, 0.04, 0.16)
+BAND_TOUT = 0.04  # band_heat2d's horizon: the second of them
 CHECKPOINT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
@@ -1859,7 +1905,7 @@ def phase_band_heat2d() -> None:
         ida = IDA(heat2d_problem(m, use_prec=False, device=dev), u0, up0,
                   tol_ss(1e-5, 1e-8, device=dev), o, device=dev)
         t0 = time.perf_counter()
-        ida.solve(HEAT_TOUT)  # returns host numbers: synchronizes
+        ida.solve(BAND_TOUT)  # returns host numbers: synchronizes
         walls[name] = time.perf_counter() - t0
         idas[name] = ida
     got = krylov_counts(idas["band"].state)
@@ -1871,21 +1917,21 @@ def phase_band_heat2d() -> None:
     scales, st0 = heat2d_lanes(m, BAND_B, opts, prob)
     out = {}
     wall_b = wall_s(lambda: out.update(r=core_solve(st0, prob, opts,
-                                                    tol_ss(1e-5, 1e-8, device="cuda"), HEAT_TOUT)))
+                                                    tol_ss(1e-5, 1e-8, device="cuda"), BAND_TOUT)))
     st, tret, istate = out["r"]
     lanes = np.linspace(0, BAND_B - 1, 4).astype(int)
     sc, _, ic = cpu_lanes(m, scales, opts, heat2d_problem(m, use_prec=False, device="cpu"),
-                          lanes, HEAT_TOUT, (1e-5, 1e-8))
+                          lanes, BAND_TOUT, (1e-5, 1e-8))
     wrms_b = wrms_lanes(st.yy[:, lanes].cpu(), sc.yy, 1e-5, 1e-8)
     nst_b = int(st.nst.sum())
-    emit("band_heat2d", grid=f"{m}x{m}", mu=m, ml=m, tout=HEAT_TOUT, walls_s=walls, **got,
+    emit("band_heat2d", grid=f"{m}x{m}", mu=m, ml=m, tout=BAND_TOUT, walls_s=walls, **got,
          cpu=krylov_counts(idas["band_cpu"].state), dense_cpu=krylov_counts(idas["dense_cpu"].state),
          wrms_card_vs_cpu=wrms_cpu, wrms_band_vs_dense=wrms_dense,
          batched={"batch": BAND_B, "wall_s": wall_b, "total_steps": nst_b,
                   "agg_steps_per_s": nst_b / wall_b, "lanes_success": int((istate == C.SUCCESS).sum()),
                   "cpu_lanes": lanes.tolist(), "wrms_card_vs_cpu": wrms_b,
                   **krylov_counts(st)})
-    check(idas["band"].get_current_time() >= HEAT_TOUT, "band_heat2d: did not reach tout")
+    check(idas["band"].get_current_time() >= BAND_TOUT, "band_heat2d: did not reach tout")
     check(got["nje"] > 0 and got["nli"] == 0, f"band_heat2d: nje {got['nje']}, nli {got['nli']}")
     check(wrms_cpu < 1.0 and wrms_dense < 1.0, f"band_heat2d: WRMS {wrms_cpu}, {wrms_dense}")
     check(bool((istate == C.SUCCESS).all()), "band_heat2d: a batched lane is not SUCCESS")
@@ -2404,14 +2450,16 @@ def phase_sensitivity_lane() -> dict:
 
 MIXED_MODES = ("single", "refined")
 HEAT_B_MIXED = 128  # bench.py heat2d_100x100_batched_mixed
+HEAT_MIXED_TOUT = 0.04  # heat2d_mixed's horizon: the second of the heat outputs
 SLIDER_TEND, SLIDER_NOUT = 10.0, 20  # examples/slider_crank_torch.py
 # the example's CPU run (ida_tpu's examples/slider_crank.py prints the same)
 SLIDER_CPU = {"nst": 222, "ke_avg": 0.33366266}
 STRAT_CHUNKS = 4
+STRAT_TOUT = 4.0  # the stratified and plain solves: the first two decades
 PROFILE_DIR = CHECKPOINT_DIR / "trace"
 # profile_scopes' solves: the headline's first decades (43 of the canonical
 # lane's 95 steps to TOUT); its window to TOUT took most of a minute to digest
-PROFILE_SCOPES_TOUT = 4.0
+PROFILE_SCOPES_TOUT = 0.4  # the first decade
 
 
 def mixed_inputs(b: int):
@@ -2659,7 +2707,7 @@ def phase_heat2d_mixed() -> None:
     ratio after an error-test failure (hh at step 99 of the "single" MGS
     run, found by replaying that step on both) parts the step sequences."""
     u0, up0 = heat2d_ic(HEAT_M)
-    tol = (1e-5, 1e-8)
+    tol, tout = (1e-5, 1e-8), HEAT_MIXED_TOUT
     legs = {"single_cgs2": dict(ls_precision="single", krylov_gs="classical"),
             "single_bf16": dict(ls_precision="single", krylov_storage="bfloat16")}
     for name, kw in legs.items():
@@ -2668,12 +2716,12 @@ def phase_heat2d_mixed() -> None:
         for dev in ("cuda", "cpu"):
             ida = IDA(heat2d_problem(HEAT_M, device=dev), u0, up0, tol_ss(*tol, device=dev), opts,
                       device=dev)
-            runs[dev] = (wall_s(lambda: ida.solve(HEAT_TOUT)) if dev == "cuda"
-                         else _host_wall(lambda: ida.solve(HEAT_TOUT)), krylov_counts(ida.state),
+            runs[dev] = (wall_s(lambda: ida.solve(tout)) if dev == "cuda"
+                         else _host_wall(lambda: ida.solve(tout)), krylov_counts(ida.state),
                          ida.state.yy.cpu())
         (wall, got, yy), (cpu_wall, cpu, yc) = runs["cuda"], runs["cpu"]
         wrms = wrms_card_vs_cpu(yy, yc, *tol)
-        emit("heat2d_mixed", leg=name, grid=f"{HEAT_M}x{HEAT_M}", tout=HEAT_TOUT, wall_s=wall,
+        emit("heat2d_mixed", leg=name, grid=f"{HEAT_M}x{HEAT_M}", tout=tout, wall_s=wall,
              steps_per_s=got["nst"] / wall, **got, cpu=cpu, cpu_wall_s=cpu_wall,
              counters_equal_cpu=got == cpu, wrms_card_vs_cpu=wrms)
         check(bool(torch.isfinite(yy).all()), f"heat2d_mixed {name}: yy not finite")
@@ -2685,18 +2733,18 @@ def phase_heat2d_mixed() -> None:
     st0 = to_native(ensemble_init(lambda p: prob, scales[:, None], u0[None] * scales[:, None],
                                   up0[None] * scales[:, None], opts=opts))
     res = {}
-    wall = wall_s(lambda: res.update(r=core_solve(st0, prob, opts, tol_ss(*tol), HEAT_TOUT)))
+    wall = wall_s(lambda: res.update(r=core_solve(st0, prob, opts, tol_ss(*tol), tout)))
     st, tret, istate = res["r"]
     prob_c = heat2d_problem(HEAT_M, device="cpu")
     s1 = to_native(ensemble_init(lambda p: prob_c, scales[:1, None], u0[None] * scales[0],
                                  up0[None] * scales[0], opts=opts, device="cpu"))
-    sc, _, _ = core_solve(s1, prob_c, opts, tol_ss(*tol, device="cpu"), HEAT_TOUT)
+    sc, _, _ = core_solve(s1, prob_c, opts, tol_ss(*tol, device="cpu"), tout)
     lane0 = {f: int(getattr(st, f)[0]) for f in KRYLOV}
     cpu0 = {f: int(getattr(sc, f)[0]) for f in KRYLOV}
     wrms = wrms_card_vs_cpu(st.yy[:, 0].cpu(), sc.yy[:, 0], *tol)
     nst = int(st.nst.sum())
     emit("heat2d_mixed", leg="batched_single", grid=f"{HEAT_M}x{HEAT_M}", batch=HEAT_B_MIXED,
-         tout=HEAT_TOUT, wall_s=wall, total_steps=nst, agg_steps_per_s=nst / wall,
+         tout=tout, wall_s=wall, total_steps=nst, agg_steps_per_s=nst / wall,
          **krylov_counts(st), lanes_success=int((istate == C.SUCCESS).sum()), lane0=lane0,
          lane0_cpu=cpu0, lane0_counters_equal_cpu=lane0 == cpu0, lane0_wrms_card_vs_cpu=wrms)
     check(bool((istate == C.SUCCESS).all()), "heat2d_mixed batched: a lane is not SUCCESS")
@@ -2748,7 +2796,7 @@ def phase_foodweb_mixed() -> dict:
     launches = k1_launches()
     nst = int(st.nst.sum())
     lanes_ok = int((ok & torch.stack(ists).eq(C.SUCCESS).all(dim=0)).sum())
-    prec = kernel_variants.prec_solve_events(str(Path(__file__).resolve().parent), "float32")
+    prec = prec_events("float32")
     emit("foodweb_mixed", grid=f"{FOOD_M}x{FOOD_M}", batch=FOOD_B, calc_ic_wall_s=ic_wall,
          legs_wall_s=wall, total_steps=nst, agg_steps_per_s=nst / wall, **krylov_counts(st),
          lanes_ok=lanes_ok, k1_launches=launches, prec_solve_f32=prec,
@@ -2832,13 +2880,13 @@ def phase_slider_crank() -> dict:
 
 def phase_stratified() -> None:
     """The headline's lanes spread over two decades of rates and shuffled:
-    pilot_cost at 0.4, make_stratified_solve in 4 chunks against the plain
-    solve, bit for bit in every lane and field, walls side by side."""
+    pilot_cost at 0.4, make_stratified_solve in 4 chunks to STRAT_TOUT
+    against the plain solve, bit for bit in every lane and field, walls side by side."""
     scale = np.logspace(-1.0, 1.0, B)[np.random.default_rng(11).permutation(B)]
     params = np.outer(scale, ROBERTS_PARAMS)
     yy0 = np.tile(ROBERTS_YY0, (B, 1))
     yp0 = params[:, :1] * np.array([-1.0, 1.0, 0.0])
-    tol = tol_sv(1e-4, ATOL, device="cuda")
+    tol, tout = tol_sv(1e-4, ATOL, device="cuda"), STRAT_TOUT
     st0 = ensemble_init(roberts_factory, params, yy0, yp0)
     out = {}
     pilot = wall_s(lambda: out.update(key=pilot_cost(roberts_factory, st0, params, tol, 0.4)))
@@ -2846,8 +2894,8 @@ def phase_stratified() -> None:
     plain = make_ensemble_solve(roberts_factory)
     walls = {"plain": [], "stratified": []}
     for name in ("plain", "stratified", "stratified", "plain"):
-        fn = (lambda: out.update(s=strat(st0, params, tol, TOUT, out["key"]))) if name == "stratified" \
-            else (lambda: out.update(p=plain(st0, params, tol, TOUT)))
+        fn = (lambda: out.update(s=strat(st0, params, tol, tout, out["key"]))) if name == "stratified" \
+            else (lambda: out.update(p=plain(st0, params, tol, tout)))
         walls[name].append(wall_s(fn))
     (ss, ts, is_), (sp, tp, ip) = out["s"], out["p"]
     differ = [f for f in sp._fields if isinstance(getattr(sp, f), torch.Tensor)
@@ -2855,7 +2903,7 @@ def phase_stratified() -> None:
     nst = sp.nst.cpu().numpy()
     order = np.argsort(out["key"].cpu().numpy(), kind="stable")
     chunk_max = [int(x.max()) for x in np.array_split(nst[order], STRAT_CHUNKS)]
-    emit("stratified", batch=B, chunks=STRAT_CHUNKS, rate_spread="logspace(-1, 1)",
+    emit("stratified", batch=B, tout=tout, chunks=STRAT_CHUNKS, rate_spread="logspace(-1, 1)",
          pilot_wall_s=pilot, walls_plain_s=walls["plain"], walls_stratified_s=walls["stratified"],
          total_steps=int(nst.sum()), max_lane_steps=int(nst.max()), chunk_max_steps=chunk_max,
          lanes_success=int((ip == C.SUCCESS).sum()), fields_differ=differ)
@@ -2946,8 +2994,8 @@ def phase_fused_modes(mixed: dict, fast: dict) -> dict:
     combinations with "single" and "refined" solved here), every lane
     SUCCESS; the bare-launch time of each mode in turns with parity's, the
     K3/K4 launches' times, each mode's registers and spills and its bound;
-    then a float32-state leg at B = 4,096, K2 and budget 7 against the eager
-    float32 solve of each mode."""
+    then a float32-state leg at B = 4,096 to MODES_F32_TOUT, K2 and budget 7
+    against the eager float32 solve of each mode."""
     eager = {"single": ("mixed", mixed["single"]["result"], mixed["single"]["wall_s"]),
              "refined": ("mixed", mixed["refined"]["result"], mixed["refined"]["wall_s"]),
              "fast_math": ("headline", fast["result"], fast["wall_s"])}
@@ -3034,22 +3082,25 @@ def phase_fused_modes(mixed: dict, fast: dict) -> dict:
         check(not other, f"fused_modes {mode}: another mode's kernel launched: {other}")
         check(ptxas.get("spill_stores", 0) == 0, f"fused_modes {mode}: the kernel spills: {ptxas}")
 
-    # float32 states at B = 4,096: K2 and budget 7 against the eager mode
+    # float32 states at B = 4,096 to MODES_F32_TOUT: K2 and budget 7
+    # against the eager mode
     params, yy0, yp0 = ensemble_inputs(B_MODES_F32)
     tol32 = tol_sv(1e-4, ATOL, device="cuda", dtype=torch.float32)
+    tout = MODES_F32_TOUT
     for mode, opts in FUSED_MODES.items():
         st0 = ensemble_init(roberts_factory, params, yy0, yp0, device="cuda",
                             dtype=torch.float32, opts=opts)
-        est, etret, eist = make_ensemble_solve(roberts_factory, opts)(st0, params, tol32, TOUT)
-        got = fused_solve.make_fused_solve(roberts_factory, tol32, opts)(st0, params, TOUT)
+        est, etret, eist = make_ensemble_solve(roberts_factory, opts)(st0, params, tol32, tout)
+        got = fused_solve.make_fused_solve(roberts_factory, tol32, opts)(st0, params, tout)
         bud = fused_solve.make_fused_solve(roberts_factory, tol32, opts, attempt_budget=7)(
-            st0, params, TOUT)
+            st0, params, tout)
         outs = {"tret": etret, "istate": eist}
         diff = [first_difference(g[0], est, {"tret": g[1], "istate": g[2]}, outs)
                 for g in (got, bud)]
         n_ok = int((got[2] == C.SUCCESS).sum())
-        emit("fused_modes_f32", mode=mode, batch=B_MODES_F32, first_difference_k2=diff[0],
-             first_difference_budget7=diff[1], lanes_success=n_ok, nst=int(got[0].nst.sum()),
+        emit("fused_modes_f32", mode=mode, batch=B_MODES_F32, tout=tout,
+             first_difference_k2=diff[0], first_difference_budget7=diff[1], lanes_success=n_ok,
+             nst=int(got[0].nst.sum()),
              max_abs_err=max(max_abs_diff(g[0], est) for g in (got, bud)))
         check(diff == [None, None], f"fused_modes_f32 {mode}: {diff} != the eager mode")
         check(n_ok == B_MODES_F32, f"fused_modes_f32 {mode}: lanes not SUCCESS")
@@ -3059,7 +3110,11 @@ def phase_fused_modes(mixed: dict, fast: dict) -> dict:
 # ------------------------------------------------------------------ the mesh
 
 MESH_RANKS = 2  # gloo ranks on the one card
-MESH_HEAT_M, MESH_HEAT_TOUT = 16, 0.01
+MESH_HEAT_M = 16
+# each problem's horizon: the BBD twin stops a decade earlier, its solve
+# being the phase's longest (12.9 s on one rank to 0.01, against heat2d's
+# 1.1 s; 20.6 s on each gloo rank)
+MESH_HEAT_TOUTS = {"heat2d": 0.01, "bbd": 0.001}
 MESH_FIELDS = ("yy", "yp", "phi", "tn", "hh", "kk") + COUNTERS
 
 
@@ -3073,17 +3128,17 @@ def mesh_heat_problems(device) -> dict:
             "bbd": IdaProblem(n=base.n, res=base.res, id=base.id, **bbd.hooks())}
 
 
-def mesh_heat_solve(prob, device, mesh=None):
-    """``prob`` to MESH_HEAT_TOUT on SPGMR from the C initial profile:
+def mesh_heat_solve(prob, device, tout, mesh=None):
+    """``prob`` to ``tout`` on SPGMR from the C initial profile:
     unsharded, or its state vector over ``mesh``'s batch axis."""
     u0, up0 = heat2d_ic(MESH_HEAT_M)
     opts = IdaOptions(linear_solver="spgmr", mxstep=2000)
     st = init_state(prob, u0, up0, opts=opts, device=device)
     tol = tol_ss(1e-5, 1e-8, device=device)
     if mesh is None:
-        return core_solve(st, prob, opts, tol, MESH_HEAT_TOUT)
+        return core_solve(st, prob, opts, tol, tout)
     st = mesh_lib.shard_state_vector(st, mesh, prob.n, problem=prob)
-    return mesh_lib.sharded_solve(st, prob, opts, tol, MESH_HEAT_TOUT, mesh=mesh)
+    return mesh_lib.sharded_solve(st, prob, opts, tol, tout, mesh=mesh)
 
 
 def mesh_fields(st) -> dict:
@@ -3155,7 +3210,7 @@ def mesh_sharded_n(mesh, names=("heat2d", "bbd")) -> dict:
         mesh_lib.reset_collective_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st, tret, ist = mesh_heat_solve(prob, dev, mesh)
+        st, tret, ist = mesh_heat_solve(prob, dev, MESH_HEAT_TOUTS[name], mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         coll = dict(mesh_lib.COLLECTIVES)
@@ -3336,7 +3391,8 @@ def mesh_check_sharded_n(single: dict, ranks: list, backend: str) -> None:
         want = {f: int(getattr(st, f)) for f in COUNTERS + ("nli", "nps")}
         rows = [r["sharded_n"][name] for r in ranks]
         bitwise = [same(x["yy"], st.yy.cpu()) and same(x["phi0"], st.phi[0].cpu()) for x in rows]
-        emit("mesh_sharded_n", problem=name, backend=backend, m=MESH_HEAT_M, tout=MESH_HEAT_TOUT,
+        emit("mesh_sharded_n", problem=name, backend=backend, m=MESH_HEAT_M,
+             tout=MESH_HEAT_TOUTS[name],
              ranks=len(rows), one_rank_wall_s=ref["wall_s"], one_rank_counters=want,
              walls_s=[x["wall_s"] for x in rows], counters=[x["counters"] for x in rows],
              collectives=[x["collectives"] for x in rows], bitwise_equal_one_rank=bitwise,
@@ -3458,7 +3514,7 @@ def phase_mesh(eager: dict, food: dict) -> dict:
         for name, prob in mesh_heat_problems("cuda").items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            st, tret, ist = mesh_heat_solve(prob, "cuda")
+            st, tret, ist = mesh_heat_solve(prob, "cuda", MESH_HEAT_TOUTS[name])
             torch.cuda.synchronize()
             single[name] = {"wall_s": time.perf_counter() - t0, "st": st, "tret": float(tret),
                             "istate": int(ist)}
@@ -3752,7 +3808,8 @@ def model_ops_per(model) -> dict:
         body = model.header.split(f"static void {fn}(")[1]
         body = body.split(f"static void {nxt}(")[0] if nxt else body
         body = body.split("#else")[0]
-        lines = [x for x in body.splitlines() if x.strip().startswith("const T e")]
+        lines = [x for x in body.splitlines()
+                 if x.strip().startswith(("const T e", "const S e"))]
         heavy = sum(1 for x in lines if any(f"model::{k}(" in x for k in (
             "pow_scalar", "pow_tensor", "rsqrt", "exp", "log", "sin", "cos", "tanh", "sinh",
             "cosh", "tan", "atan", "expm1", "log1p")) or "sqrt_of(" in x)
@@ -3853,12 +3910,15 @@ def phase_model_ops() -> dict:
     return table
 
 
-def budgeted_run(factory, model, tol, st0, p_b, tout, per, opts=IdaOptions()) -> dict:
+def budgeted_run(factory, model, tol, st0, p_b, tout, per, opts=IdaOptions(),
+                 ops_of=None) -> dict:
     """``factory``'s budget-32 solve (K3, then K4 in place until no lane is
     CONTINUE), launch by launch through prepare_launch: each launch's
-    CUDA-event ms and operations (from the counters' growth); then the
+    CUDA-event ms and operations (from the counters' growth: ``ops_of(st)``,
+    by default :func:`solve_ops` of the counters at ``per``); then the
     eager solve(max_attempts=32) call of the first launch and of the first
     continuation, timed (the plain versions of K3 and K4)."""
+    ops_of = ops_of or (lambda st: solve_ops(counter_totals(st), per))
     bsz = st0.tn.shape[0]
     tol_in = fused_solve.tol_inputs(tol, model.n, bsz, st0.dtype, st0.phi.device)
     dst = fused_solve.empty_result(st0, opts, model)
@@ -3866,7 +3926,7 @@ def budgeted_run(factory, model, tol, st0, p_b, tout, per, opts=IdaOptions()) ->
     runs = []
 
     def step(resume: bool) -> torch.Tensor:
-        before = solve_ops(counter_totals(dst), per) if resume else 0
+        before = ops_of(dst) if resume else 0
         go = fused_solve.prepare_launch("cont" if resume else "init", dst if resume else st0, dst,
                                         p_b, tol_in, tout, carry, opts, model, MODEL_BUDGET)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -3875,8 +3935,7 @@ def budgeted_run(factory, model, tol, st0, p_b, tout, per, opts=IdaOptions()) ->
         istate = go()
         ev[1].record()
         torch.cuda.synchronize()
-        runs.append({"ms": ev[0].elapsed_time(ev[1]),
-                     "ops": solve_ops(counter_totals(dst), per) - before})
+        runs.append({"ms": ev[0].elapsed_time(ev[1]), "ops": ops_of(dst) - before})
         return istate
 
     fused_solve.run_until_done(step)
@@ -4255,6 +4314,282 @@ def phase_fused_quad_ops(eager: dict, quad_head: dict, table: dict) -> dict:
     return {"rows": rows}
 
 
+# ------------------------------------------------- band and Krylov in K2-K4
+
+
+def _band(mu: int, ml: int, **kw) -> IdaOptions:
+    return IdaOptions(linear_solver="band", band_mu=mu, band_ml=ml, **kw)
+
+
+def _spgmr(**kw) -> IdaOptions:
+    return IdaOptions(linear_solver="spgmr", **kw)
+
+
+# the headline's legs (B = 65,536, f64, the headline's lanes and tolerances):
+# the exact band (mu = ml = 2: Roberts' whole 3 x 3 Jacobian in band
+# storage), an inexact one (mu = ml = 1: another step sequence) and SPGMR
+# with its defaults (maxl 5, 5 restarts, MGS), by fused_solve.mode_name
+LINEAR_HEADLINE = {"band2_2": _band(2, 2), "band1_1": _band(1, 1), "spgmr5": _spgmr()}
+# the modes' legs at B_SMALL, Roberts
+LINEAR_MODES = {"single_band1_1": _band(1, 1, ls_precision="single"),
+                "single_spgmr5": _spgmr(ls_precision="single"),
+                "spgmr5_bf16": _spgmr(krylov_storage="bfloat16"),
+                "spgmr5_cgs2": _spgmr(krylov_gs="classical"),
+                "fast_math_band2_2": _band(2, 2, fast_math=True),
+                "fast_math_spgmr5": _spgmr(fast_math=True)}
+# float32 states through the headline's libraries (their f32 entry points),
+# and Morris-Lecar (quadratures, tanh and cosh) to ML_TOUT, at B_SMALL
+LINEAR_F32 = ("band2_2", "spgmr5")
+LINEAR_ML = ("band1_1", "spgmr5")
+# the headline legs' horizons, TOUT but where PERF.md section 4 lists a cut:
+# under band mu = ml = 1 (an inexact Newton matrix, 5-7x the steps) a lane
+# meets mxstep = 500 before tout 4, so its legs stop at 0.4 (250-470 steps a
+# lane); the legs at B_SMALL stop at LINEAR_MODES_TOUT (Morris-Lecar at
+# ML_TOUT), to keep the phase's eager solves short: the second decade, where
+# every lane takes more than MODEL_BUDGET attempts, so K4 runs (the first
+# takes ~30), but where band mu = ml = 1 stops at 0.4 as above
+LINEAR_TOUT = {"band2_2": TOUT, "band1_1": 0.4, "spgmr5": TOUT, "single_band1_1": 0.4}
+LINEAR_MODES_TOUT = 4.0
+LINEAR_COUNTERS = COUNTERS + ("nsetups", "nli", "nps", "ncfl", "njtimes")
+# floating-point operations of the band and Krylov solvers beside OPS_PER
+# (model_ops_per for a generated model), counted by hand from
+# csrc/band_lu.cuh and csrc/ida_lane.cuh at N components (a division as one
+# operation, sqrt as 20): a jvp of the residual (Roberts' M::res_jvp 17, a
+# generated one's statements) and w = cj v N; the band lsetup's point (yy +
+# 0, yp + cj * 0) 3 N; a GMRES basis column (v / s2 and s1 A v 2 N, the
+# first Gram-Schmidt pass 4 N, the norm 2 N + 20, the column's scaling N,
+# the new rotation 27, g 2), a cycle (s1 r N, its norm 2 N + 20, the first
+# column N, the true residual 4 N + 20, the tolerance 22 a solve counted
+# here) and a column's back substitution and correction (1 + 3 N); the
+# passes against the earlier columns (j of them at column j) and the
+# earlier rotations are data-dependent and left out, so the bound is low
+def ops_krylov(n: int) -> dict:
+    return {"column": 9 * n + 49, "cycle": 8 * n + 62, "correction": 1 + 3 * n}
+
+
+def band_factor_ops(n: int, mu: int, ml: int) -> int:
+    """csrc/band_lu.cuh band_factor_dev: each column's swap corrections
+    (4 a window column), multipliers and rank-1 update."""
+    smu, ops = mu + ml, 0
+    for k in range(n):
+        cols = min(smu + 1, n - k)
+        ops += 4 * cols + ml + 2 * ml * (cols - 1)
+    return ops
+
+
+def band_solve_ops(n: int, mu: int, ml: int) -> int:
+    """csrc/band_lu.cuh band_solve_dev: the swap corrections and the
+    forward updates, then each row's products, their sum, the difference
+    and the division."""
+    fwd = sum(4 + 2 * min(ml, n - 1 - k) for k in range(n))
+    back = 0
+    for k in range(n):
+        real = min(mu + ml, n - 1 - k)
+        back += real + max(real - 1, 0) + 2
+    return fwd + back
+
+
+def linear_totals(st) -> dict:
+    return {f: int(getattr(st, f).sum()) for f in LINEAR_COUNTERS}
+
+
+def linear_ops(totals: dict, opts: IdaOptions, dtype: torch.dtype,
+               model: fused_model.FusedModel = fused_solve.ROBERTS) -> dict:
+    """:func:`solve_ops` of a solve of ``model`` under ``opts``' band or
+    Krylov solver, by the type each part runs in (the factor and its
+    solves, or the whole Krylov iteration, float32 under "single"; the jvps
+    in the state's dtype, whose float64 parameters promote them): the dense
+    LU's solve and the lsetup's Jacobian and factor taken out, the band
+    Jacobian's colored jvps, the band factor and solve, or the Arnoldi work
+    of the Krylov counters put in (ops_krylov)."""
+    per = OPS_PER if model.header is None else model_ops_per(model)
+    n = model.n
+    jvp = (17 if model.header is None else per["jvp"]) + n
+    base = (solve_ops(totals, per) - totals["nni"] * (n * n + 2 * n)
+            - totals["nje"] * per["lsetup"])
+    if opts.linear_solver == "band":
+        colors = min(opts.band_mu + opts.band_ml + 1, n)
+        lin = (totals["nje"] * band_factor_ops(n, opts.band_mu, opts.band_ml)
+               + totals["nni"] * band_solve_ops(n, opts.band_mu, opts.band_ml))
+        base += totals["nje"] * (colors * jvp + 3 * n)
+    else:
+        cycles = (totals["njtimes"] - totals["nli"]) // 2
+        base += totals["njtimes"] * jvp
+        kry = ops_krylov(n)
+        lin = totals["nli"] * (kry["column"] + kry["correction"]) + cycles * kry["cycle"]
+    narrow = torch.float32 if opts.ls_precision == "single" else dtype
+    out = {dtype: base}
+    out[narrow] = out.get(narrow, 0) + lin
+    return out
+
+
+def linear_library(opts: IdaOptions, model: fused_model.FusedModel = fused_solve.ROBERTS):
+    """``build``'s arguments for ``opts``' library of ``model``."""
+    return (opts.fast_math, opts.ls_precision, model, fused_solve.linear_of(opts))
+
+
+def linear_builds(pool) -> dict:
+    """Submit every library of the fused_linear phase to ``pool``."""
+    ml = generated_models()["morris_lecar"]
+    jobs = {m: linear_library(o) for m, o in {**LINEAR_HEADLINE, **LINEAR_MODES}.items()}
+    jobs.update({f"morris_lecar/{m}": linear_library(LINEAR_HEADLINE[m], ml) for m in LINEAR_ML})
+    return {k: pool.submit(fused_solve.build, *args) for k, args in jobs.items()}
+
+
+def linear_rows(name: str, opts: IdaOptions, model, out: dict, k2_ms: list, k34: dict,
+                ptxas: dict) -> dict:
+    """The kernels line's K2, K3 and K4 rows of one band or Krylov library:
+    the launches of its main-path run, bare-launch ms, the plain versions'
+    ms, bounds by linear_ops, registers and spills, the -D flags."""
+    totals = linear_totals(out["st"])
+    ops = linear_ops(totals, opts, out["st0"].dtype, model)
+    bound, by = solve_bound(out["st0"], ops, opts, model)
+    total = sum(ops.values())
+    init, cont = k34["runs"][0], k34["runs"][1:]
+
+    def share(frac):
+        return {dt: v * frac for dt, v in ops.items()}
+
+    b_init, by_init = solve_bound(out["st0"], share(init["ops"] / total), opts, model)
+    b_cont, by_cont = solve_bound(
+        out["st0"], share(statistics.mean(r["ops"] for r in cont) / total), opts, model)
+    src = {"route": "cuda", "source": FUSED_SOURCE, "model": model.name, "library_ms": None,
+           "flags": list(fused_solve.mode_flags(*linear_library(opts)[:2],
+                                                fused_solve.linear_of(opts))),
+           "registers": ptxas.get("registers"), "spill_stores": ptxas.get("spill_stores", 0),
+           "spill_loads": ptxas.get("spill_loads", 0)}
+    launches, err = out["launches"], out["max_abs_err"]
+    return {
+        "solve": {"name": f"fused_solve_{name}", "replaces": REPLACES["fused_solve"], **src,
+                  "launches": launches.get("solve", 0), "max_abs_err": err,
+                  "ms": statistics.median(k2_ms), "plain_ms": out["eager_wall_s"] * 1e3,
+                  "bound_ms": bound, "bound_by": by},
+        "init": {"name": f"fused_solve_init_{name}", "replaces": REPLACES["fused_solve_init"],
+                 **src, "launches": launches.get("init", 0), "max_abs_err": err,
+                 "ms": init["ms"], "plain_ms": k34["plain_ms"][0], "bound_ms": b_init,
+                 "bound_by": by_init},
+        "cont": {"name": f"fused_solve_cont_{name}", "replaces": REPLACES["fused_solve_cont"],
+                 **src, "launches": launches.get("cont", 0), "max_abs_err": err,
+                 "ms": statistics.mean(r["ms"] for r in cont), "plain_ms": k34["plain_ms"][1],
+                 "bound_ms": b_cont, "bound_by": by_cont},
+    }
+
+
+def linear_leg(name: str, opts: IdaOptions, factory, model, inputs, tol, tout,
+               dtype=torch.float64, all_success: bool = True) -> dict:
+    """One leg of fused_linear: solve_model (eager, then K2 and budget 32
+    through make_fused_solve, each bit for bit the eager solve), then three
+    bare K2 launches and the budgeted launches one by one (budgeted_run),
+    with the library's ptxas line; returns the line's fields and the rows."""
+    out = solve_model(name, factory, model, inputs, tol, tout, dtype, opts, all_success)
+    modes = {m for _, m, _ in fused_solve.MODE_LAUNCHES}
+    check(modes == {fused_solve.mode_name(opts)},
+          f"fused_linear {name}: the main path launched the libraries {modes}")
+    tol_in = fused_solve.tol_inputs(tol, model.n, out["st0"].tn.shape[0], dtype,
+                                    torch.device("cuda"))
+    k2_ms = [bare_launch_ms(out["st0"], out["p_b"], tol_in, opts, model, tout)
+             for _ in range(3)]
+    k34 = budgeted_run(factory, model, tol, out["st0"], out["p_b"], tout, OPS_PER, opts,
+                       ops_of=lambda st: sum(linear_ops(linear_totals(st), opts, dtype,
+                                                        model).values()))
+    forms = solve_kernels_ptxas(opts, model)
+    ptxas = forms["f64_shared_tol" if dtype == torch.float64 else "f32_shared_tol"]
+    rows = linear_rows(name, opts, model, out, k2_ms, k34, ptxas)
+    line = {**leg(out), **{k: v for k, v in linear_totals(out["st"]).items()},
+            "bare_launch_ms": k2_ms, "k3_ms": k34["runs"][0]["ms"],
+            "k4_ms": [r["ms"] for r in k34["runs"][1:]], "plain_k3_k4_ms": k34["plain_ms"],
+            "bound_ms": rows["solve"]["bound_ms"], "bound_by": rows["solve"]["bound_by"],
+            "flags": rows["solve"]["flags"], "ptxas": ptxas,
+            "ptxas_all_forms": forms}
+    return {"line": line, "rows": rows, "out": out}
+
+
+# the legs whose canonical lane reaches 4e10: the exact band takes the dense
+# solve's steps there; under band (1, 1) a decade meets mxstep from 40 on,
+# and unpreconditioned SPGMR loses the lane from 4e6 on, in the eager solve
+# and in ida_tpu's alike (PERF.md section 6)
+LINEAR_CANONICAL_GATED = ("band2_2",)
+
+
+def linear_canonical(name: str, opts: IdaOptions) -> dict:
+    """The canonical lane (nominal rates) through ``opts``' K2, decade by
+    decade to 4e10: its per-decade istate and steps, check_ans; for a leg of
+    LINEAR_CANONICAL_GATED every decade SUCCESS, the dense canonical steps
+    and check_ans WRMS < 1."""
+    params = ROBERTS_PARAMS[None, :]
+    st = ensemble_init(roberts_factory, params, ROBERTS_YY0[None], ROBERTS_YP0[None],
+                       device="cuda", opts=opts)
+    fn = fused_solve.make_fused_solve(roberts_factory, tol_sv(1e-4, ATOL, device="cuda"), opts)
+    nst, codes = [], []
+    for k in range(12):
+        st, tret, istate = fn(st, params, 0.4 * 10**k)
+        nst.append(int(st.nst[0]))
+        codes.append(int(istate[0]))
+    err = check_ans_wrms(st.yy[0].cpu().numpy())
+    if name in LINEAR_CANONICAL_GATED:
+        check(codes == [C.SUCCESS] * 12, f"fused_linear {name} canonical lane: istates {codes}")
+        check(nst == CANONICAL_NST, f"fused_linear {name} canonical lane: nst {nst}")
+        check(err < 1.0, f"fused_linear {name} canonical lane: check_ans WRMS {err}")
+    return {"nst_per_decade": nst, "istate_per_decade": codes, "check_ans_wrms": err,
+            "gated": name in LINEAR_CANONICAL_GATED,
+            **{f: int(getattr(st, f)[0]) for f in LINEAR_COUNTERS}}
+
+
+def phase_fused_linear() -> dict:
+    """K2-K4 with the band and Krylov solvers (ida_lane.cuh SOLVER_BAND,
+    SOLVER_SPGMR; one library a solver, mode and model): (a) the headline
+    (B = 65,536, f64, LINEAR_TOUT) under band mu = ml = 2, band mu = ml = 1
+    and spgmr, each K2 and budget 32 (K3 + K4) bit for bit the eager solve
+    under the same options (same_bits on every field and counter, the Krylov
+    counters among them), every lane SUCCESS, and the canonical lane through
+    K2 to 4e10 within check_ans; (b) at B = 4,096 to LINEAR_MODES_TOUT (band
+    mu = ml = 1 to 0.4): band "single",
+    spgmr "single", a bfloat16 basis, CGS2, fast_math under each solver, a
+    float32 state under each, and Morris-Lecar under band mu = ml = 1 and
+    spgmr to ML_TOUT, each K2 and budget 32 bit for bit its eager solve.
+    Each library's registers and spills, bare K2 launch, K3/K4 launches and
+    bound (linear_ops); the kernels line's rows (linear_rows)."""
+    models = generated_models()
+    tol = tol_sv(1e-4, ATOL, device="cuda")
+    rows, lines = {}, {}
+    for name, opts in LINEAR_HEADLINE.items():
+        got = linear_leg(name, opts, roberts_factory, fused_solve.ROBERTS, ensemble_inputs(B),
+                         tol, LINEAR_TOUT.get(name, TOUT))
+        rows[name], lines[name] = got["rows"], got["line"]
+        lines[name]["canonical"] = linear_canonical(name, opts)
+        emit("fused_linear", leg=name, **lines[name])
+    for name, opts in LINEAR_MODES.items():
+        got = linear_leg(name, opts, roberts_factory, fused_solve.ROBERTS,
+                         ensemble_inputs(B_SMALL), tol, LINEAR_TOUT.get(name, LINEAR_MODES_TOUT))
+        rows[name], lines[name] = got["rows"], got["line"]
+        emit("fused_linear", leg=name, **lines[name])
+    tol32 = tol_sv(1e-4, ATOL, device="cuda", dtype=torch.float32)
+    for name in LINEAR_F32:
+        got = linear_leg(name, LINEAR_HEADLINE[name], roberts_factory, fused_solve.ROBERTS,
+                         ensemble_inputs(B_SMALL), tol32, LINEAR_MODES_TOUT,
+                         torch.float32, all_success=False)
+        lines[f"{name}_f32"] = got["line"]
+        rows[name]["solve"]["launches_f32"] = got["rows"]["solve"]["launches"]
+        rows[name]["solve"]["ms_f32"] = got["rows"]["solve"]["ms"]
+        emit("fused_linear", leg=f"{name}_f32", **got["line"])
+    ml = models["morris_lecar"]
+    tol_m = tol_ss(ML_RTOL, ML_ATOL, device="cuda")
+    for name in LINEAR_ML:
+        got = linear_leg(f"morris_lecar_{name}", LINEAR_HEADLINE[name], morris_lecar_factory,
+                         ml, morris_lecar_inputs(B_SMALL), tol_m, ML_TOUT)
+        rows[f"morris_lecar_{name}"] = got["rows"]
+        lines[f"morris_lecar_{name}"] = got["line"]
+        emit("fused_linear", leg=f"morris_lecar_{name}", **got["line"])
+    # none of these libraries launched another's kernels, and every one of
+    # them ran its K2, K3 and K4 on the main path (solve_model checks each)
+    emit("fused_linear_summary", legs=sorted(lines),
+         registers={k: v["ptxas"].get("registers") for k, v in lines.items()},
+         spill_stores={k: v["ptxas"].get("spill_stores", 0) for k, v in lines.items()},
+         eager_wall_s={k: v["eager_wall_s"] for k, v in lines.items()},
+         bare_launch_ms={k: statistics.median(v["bare_launch_ms"]) for k, v in lines.items()})
+    return {"rows": rows}
+
+
 def timed(phase, *args):
     """Run a phase and print how long it took."""
     t0 = time.perf_counter()
@@ -4268,6 +4603,9 @@ def main() -> None:
     timed(phase_build)
     lu = timed(phase_kernels)
     lu_t = timed(phase_kernels_t)
+    # K1 at the later paths' shapes, while the profiler is fresh: late in
+    # the run its windows of a few launches came back empty
+    k1_modes = timed(phase_kernels_modes)
     eager = timed(phase_slice)
     timed(phase_card_vs_cpu)
     timed(phase_canonical)
@@ -4280,6 +4618,7 @@ def main() -> None:
     dense = timed(phase_dense_slice)
     timed(phase_dense_events)
     timed(phase_user_surface)
+    start_prec_events()
     timed(phase_heat2d_spgmr)
     timed(phase_heat2d_batched)
     food = timed(phase_foodweb)
@@ -4295,7 +4634,6 @@ def main() -> None:
     timed(phase_band_heat2d)
     timed(phase_band_factor_100)
     timed(phase_bbd_heat2d)
-    k1_modes = timed(phase_kernels_modes)
     mixed = timed(phase_mixed_headline, eager, k1_modes)
     fast = timed(phase_fast_f64, eager)
     timed(phase_heat2d_mixed)
@@ -4306,6 +4644,7 @@ def main() -> None:
     modes = timed(phase_fused_modes, mixed, fast)
     models = timed(phase_fused_models, eager)
     quad_ops = timed(phase_fused_quad_ops, eager, quad, models["table"])
+    linear = timed(phase_fused_linear)
     mesh = timed(phase_mesh, eager, food)
 
     # "launches" is the count of the eager headline (phase slice) for the LU
@@ -4410,6 +4749,10 @@ def main() -> None:
     # the whole-solve kernel with each generated model (fused_models)
     for name, kinds in {**models["rows"], **quad_ops["rows"]}.items():
         rows += [kinds["solve"], kinds["init"], kinds["cont"]]
+    # the whole-solve kernel with the band and Krylov solvers (fused_linear),
+    # a library a solver, mode and model; its -D flags on each row
+    for name, kinds in linear["rows"].items():
+        rows += [kinds["solve"], kinds["init"], kinds["cont"]]
     for stage, t in stages["times"].items():
         rows.append({"name": f"fused_stage_{stage}", "route": "cuda", "source": FUSED_SOURCE,
                      "replaces": REPLACES["stage"], "launches": stages["launches"][stage],
@@ -4476,6 +4819,22 @@ def main_fused_quad_ops() -> None:
     print(smi, flush=True)
 
 
+def main_fused_linear() -> None:
+    """``python3 chip_smoke.py fused_linear``: the libraries it needs and the
+    fused_linear phase alone, then its kernels line."""
+    smi = phase_device()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(16) as pool:
+        libs = list(linear_builds(pool).values())
+        for f in libs:
+            f.result()
+    emit("build", seconds=time.perf_counter() - t0)
+    linear = timed(phase_fused_linear)
+    rows = [r for kinds in linear["rows"].values() for r in kinds.values()]
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(smi, flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["mesh"]:
         main_mesh()
@@ -4483,5 +4842,7 @@ if __name__ == "__main__":
         main_fused_models()
     elif sys.argv[1:] == ["fused_quad_ops"]:
         main_fused_quad_ops()
+    elif sys.argv[1:] == ["fused_linear"]:
+        main_fused_linear()
     else:
         main()

@@ -48,10 +48,14 @@
 //
 // Parity with the eager port on the card is bit for bit (see ida_lane.cuh).
 //
-// One library per arithmetic mode: built with -DIDA_FAST_MATH=1 and/or
-// -DIDA_LS_PRECISION=1 ("single") or 2 ("refined") its solve entry points
-// run that mode of IdaOptions (ops/fused_solve.py mode_flags); the parity
-// build (neither flag) is the one that also holds the stage kernels.
+// One library per arithmetic mode and linear solver: built with
+// -DIDA_FAST_MATH=1 and/or -DIDA_LS_PRECISION=1 ("single") or 2 ("refined")
+// its solve entry points run that mode of IdaOptions, and with
+// -DIDA_LINEAR_SOLVER=1 (band: -DIDA_BAND_MU, -DIDA_BAND_ML) or 2 (spgmr:
+// -DIDA_KRYLOV_MAXL, -DIDA_KRYLOV_GS=1 for CGS2, -DIDA_KRYLOV_BF16=1 for a
+// bfloat16 basis) that linear solver in place of the dense LU
+// (ops/fused_solve.py mode_flags); the parity build (no flag) is the one
+// that also holds the stage kernels.
 //
 // The model: the hand-written Roberts below, or, built with
 // -DIDA_MODEL_HEADER=1, the struct GeneratedModel that ops/fused_model.py
@@ -88,6 +92,24 @@
 #ifndef IDA_EVAL_ONLY
 #define IDA_EVAL_ONLY 0
 #endif
+#ifndef IDA_LINEAR_SOLVER
+#define IDA_LINEAR_SOLVER 0
+#endif
+#ifndef IDA_BAND_MU
+#define IDA_BAND_MU 0
+#endif
+#ifndef IDA_BAND_ML
+#define IDA_BAND_ML 0
+#endif
+#ifndef IDA_KRYLOV_MAXL
+#define IDA_KRYLOV_MAXL 5
+#endif
+#ifndef IDA_KRYLOV_GS
+#define IDA_KRYLOV_GS 0
+#endif
+#ifndef IDA_KRYLOV_BF16
+#define IDA_KRYLOV_BF16 0
+#endif
 
 namespace {
 
@@ -116,18 +138,23 @@ struct Roberts {
 
   // the tangent of res with tangents (v, w) of (yy, yp), as torch's forward
   // AD computes it op by op (torch.func.jvp of res: d(a * b) = a' * b + a *
-  // b', the params carry no tangent); the refinement's J v with w = cj v
-  template <typename T>
-  __device__ static void res_jvp(const T (&p)[P], T t, const T (&yy)[N], const T (&yp)[N],
-                                 const T (&v)[N], const T (&w)[N], T (&jv)[N]) {
-    const T a = p[1] * yy[1];
-    const T a_t = p[1] * v[1];
-    const T r0_t = (-p[0]) * v[0] + (a * v[2] + a_t * yy[2]);
-    const T c = p[2] * yy[1];
-    const T c_t = p[2] * v[1];
-    jv[0] = r0_t - w[0];
-    jv[1] = (-r0_t - (c * v[1] + c_t * yy[1])) - w[1];
-    jv[2] = v[0] + v[1] + v[2];
+  // b', the params carry no tangent); the refinement's and the Krylov
+  // operator's J v with w = cj v, and the band Jacobian's colored columns.
+  // The arguments but the params may be of a narrower type S (float32 under
+  // ls_precision "single"): what meets a parameter is promoted to T, as torch
+  // promotes it, and the rest (jv[2]) is computed in S
+  template <typename T, typename S>
+  __device__ static void res_jvp(const T (&p)[P], S t, const S (&yy)[N], const S (&yp)[N],
+                                 const S (&v)[N], const S (&w)[N], T (&jv)[N]) {
+    using ida::promote;
+    const T a = p[1] * promote<T>(yy[1]);
+    const T a_t = p[1] * promote<T>(v[1]);
+    const T r0_t = (-p[0]) * promote<T>(v[0]) + (a * promote<T>(v[2]) + a_t * promote<T>(yy[2]));
+    const T c = p[2] * promote<T>(yy[1]);
+    const T c_t = p[2] * promote<T>(v[1]);
+    jv[0] = r0_t - promote<T>(w[0]);
+    jv[1] = (-r0_t - (c * promote<T>(v[1]) + c_t * promote<T>(yy[1]))) - promote<T>(w[1]);
+    jv[2] = promote<T>(v[0] + v[1] + v[2]);
   }
 
   template <typename T>
@@ -145,11 +172,16 @@ struct Roberts {
   }
 };
 
-// a model in one arithmetic mode of IdaOptions (ida_lane.cuh)
-template <class Model, bool FastMath, int Ls>
+// a model in one arithmetic mode and linear solver of IdaOptions (ida_lane.cuh)
+template <class Model, bool FastMath, int Ls, int Solver = ida::SOLVER_DENSE, int Mu = 0,
+          int Ml = 0, int Maxl = 5, bool Classical = false, bool Bf16 = false>
 struct WithMode : Model {
   static constexpr bool kFastMath = FastMath;
   static constexpr int kLs = Ls;
+  static constexpr int kSolver = Solver;
+  static constexpr int kMu = Mu, kMl = Ml;  // band half-bandwidths
+  static constexpr int kMaxl = Maxl;        // GMRES basis vectors
+  static constexpr bool kClassical = Classical, kBf16 = Bf16;
 };
 #ifdef IDA_MODEL_HEADER
 using Model = GeneratedModel;
@@ -157,11 +189,19 @@ using Model = GeneratedModel;
 using Model = Roberts;
 #endif
 // the mode this library's solve entry points run, and the stage kernels'
-using Solved = WithMode<Model, IDA_FAST_MATH != 0, IDA_LS_PRECISION>;
+using Solved = WithMode<Model, IDA_FAST_MATH != 0, IDA_LS_PRECISION, IDA_LINEAR_SOLVER,
+                        IDA_BAND_MU, IDA_BAND_ML, IDA_KRYLOV_MAXL, IDA_KRYLOV_GS != 0,
+                        IDA_KRYLOV_BF16 != 0>;
 using Parity = WithMode<Roberts, false, ida::LS_FULL>;
 static_assert(Model::N <= ida::MAXN, "a by-value atol carries MAXN components");
 static_assert(IDA_LS_PRECISION >= ida::LS_FULL && IDA_LS_PRECISION <= ida::LS_REFINED,
               "IDA_LS_PRECISION is 0 (full), 1 (single) or 2 (refined)");
+static_assert(IDA_LINEAR_SOLVER >= ida::SOLVER_DENSE && IDA_LINEAR_SOLVER <= ida::SOLVER_SPGMR,
+              "IDA_LINEAR_SOLVER is 0 (dense), 1 (band) or 2 (spgmr)");
+static_assert(IDA_LS_PRECISION != ida::LS_REFINED || IDA_LINEAR_SOLVER == ida::SOLVER_DENSE,
+              "ls_precision \"refined\" is dense-only");
+static_assert(IDA_BAND_MU >= 0 && IDA_BAND_ML >= 0 && IDA_KRYLOV_MAXL >= 1,
+              "band half-bandwidths at least 0, krylov_maxl at least 1");
 
 template <typename T>
 __device__ __forceinline__ void load_carry(const ida::CarryRefs& r, long long b,
@@ -449,7 +489,8 @@ IDA_SOLVE_ENTRY(f64)
 IDA_SOLVE_ENTRY(f32)
 #endif
 
-#if IDA_FAST_MATH == 0 && IDA_LS_PRECISION == 0 && !defined(IDA_MODEL_HEADER) && !IDA_EVAL_ONLY
+#if IDA_FAST_MATH == 0 && IDA_LS_PRECISION == 0 && IDA_LINEAR_SOLVER == 0 && \
+    !defined(IDA_MODEL_HEADER) && !IDA_EVAL_ONLY
 
 #define IDA_STAGE_ENTRY(name, S, dt)                                                        \
   int fused_stage_##name##_##dt(const ida::StateRefs* s, const void* params,                \

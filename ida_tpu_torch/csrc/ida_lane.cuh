@@ -41,8 +41,19 @@
 // iteration); here a lane skips that work and keeps only what the eager code
 // keeps and counts.
 //
-// Only TASK_NORMAL and the dense direct linear solver are covered; roots
-// (nroots > 0) are not. The inequality constraints are: a lane whose
+// Only TASK_NORMAL is covered; roots (nroots > 0) are not. The linear
+// solver is a compile-time member of the model type too (M::kSolver):
+// * SOLVER_DENSE: the dense LU of small_lu.cuh on M::jac;
+// * SOLVER_BAND: the band LU of band_lu.cuh (M::kMu, M::kMl) on a Jacobian
+//   in band storage from mu + ml + 1 calls of M::res_jvp on the
+//   Curtis-Powell-Reid probes (ops/banded.py band_jacobian), held in the
+//   lane like the dense factor;
+// * SOLVER_SPGMR: restarted GMRES in the lane (ops/spgmr.py, M::kMaxl basis
+//   vectors, modified or classical Gram-Schmidt, a basis stored in bfloat16
+//   with M::kBf16) on the jvp M::res_jvp, the basis, the Hessenberg matrix
+//   and the rotations in local memory, with the Krylov counters nli, nps,
+//   ncfl and njtimes (spgmr_solve below).
+// The inequality constraints are covered: a lane whose
 // constraints_set is on runs the block at the end of nonlinear_solve, reading
 // its constraint codes from device memory there (they are read nowhere else,
 // so they take no register across the attempt loop).
@@ -69,6 +80,7 @@
 
 #include <type_traits>
 
+#include "band_lu.cuh"
 #include "rounded.cuh"
 #include "small_lu.cuh"
 
@@ -107,12 +119,16 @@ constexpr int NL_RES_RECVR = 4, NL_LSOLVE_RECVR = 5;
 constexpr int LOWER = 0, MAINTAIN = 1, RAISE = 2;
 
 // IdaOptions as the kernel takes them; `constraints` is enable_constraints
+// (the Krylov solver's krylov_max_restarts and eplifac are read by spgmr only)
 struct Opts {
-  int maxord, mxstep, maxncf, maxnef, maxnlsit, suppressalg, constraints;
+  int maxord, mxstep, maxncf, maxnef, maxnlsit, suppressalg, constraints, krylov_max_restarts;
+  double eplifac;
 };
 
 // IdaOptions.ls_precision, M::kLs
 constexpr int LS_FULL = 0, LS_SINGLE = 1, LS_REFINED = 2;
+// IdaOptions.linear_solver, M::kSolver
+constexpr int SOLVER_DENSE = 0, SOLVER_BAND = 1, SOLVER_SPGMR = 2;
 
 // a real rounded to float32 to the nearest, as torch's .to(torch.float32),
 // and a float32 widened back to a real of the state's dtype (exact)
@@ -124,6 +140,50 @@ __device__ __forceinline__ Real<float> to_f32(Real<double> a) {
 __device__ __forceinline__ Real<float> to_f32(Real<float> a) { return a; }
 __device__ __forceinline__ void widen(Real<float> a, Real<double>& out) { out.v = (double)a.v; }
 __device__ __forceinline__ void widen(Real<float> a, Real<float>& out) { out = a; }
+
+// promote<T>(a): an operand of type S in an operation of type T, as torch
+// promotes a float32 tensor meeting a float64 one (widened exactly), the
+// identity when S is T; narrow<K>(a): a real of type T as .to(K's dtype)
+// rounds it (to the nearest), the identity when K is T
+template <typename T, typename S> struct Convert;
+template <typename S> struct Convert<Real<S>, Real<S>> {
+  __device__ static __forceinline__ Real<S> of(Real<S> a) { return a; }
+};
+template <> struct Convert<Real<double>, Real<float>> {
+  __device__ static __forceinline__ Real<double> of(Real<float> a) {
+    Real<double> r;
+    widen(a, r);
+    return r;
+  }
+};
+template <> struct Convert<Real<float>, Real<double>> {
+  __device__ static __forceinline__ Real<float> of(Real<double> a) { return to_f32(a); }
+};
+template <typename T, typename S>
+__device__ __forceinline__ T promote(S a) { return Convert<T, S>::of(a); }
+template <typename K, typename T>
+__device__ __forceinline__ K narrow(T a) { return Convert<K, T>::of(a); }
+
+// a real stored as bfloat16 the way ATen's .to(torch.bfloat16) rounds it
+// (c10::BFloat16: a float64 goes to float32 to the nearest first, then to
+// bfloat16 to the nearest even; every NaN becomes 0x7FC0), and read back
+// exactly
+__device__ __forceinline__ unsigned short bf16_bits(float f) {
+  union { float f; unsigned int u; } x;
+  x.f = f;
+  if (f != f) return 0x7FC0;
+  return (unsigned short)((x.u + (((x.u >> 16) & 1u) + 0x7FFFu)) >> 16);
+}
+__device__ __forceinline__ unsigned short bf16_bits(Real<float> a) { return bf16_bits(a.v); }
+__device__ __forceinline__ unsigned short bf16_bits(Real<double> a) { return bf16_bits(to_f32(a).v); }
+template <typename K>
+__device__ __forceinline__ K of_bf16(unsigned short bits) {
+  union { float f; unsigned int u; } x;
+  x.u = (unsigned int)bits << 16;
+  K r;
+  r.v = x.f;
+  return r;
+}
 
 // torch.finfo(dtype).eps
 template <typename T> struct Eps;
@@ -148,8 +208,11 @@ template <typename T> __device__ __forceinline__ T tsign(T a) {
 // The state fields the solve reads or writes (core/state.py IdaState), in
 // the order of the pointer table the wrapper passes (ops/fused_solve.py
 // STATE_FIELDS must list the same names in the same order). Fields the solve
-// never touches (roots, the Krylov buffers) are not passed and pass
-// through; the constraints are read, and copied to the result of a launch
+// never touches (roots, pdata) are not passed and pass through; lu and piv
+// are the direct solvers' (dense [B, N, N], band [B, 2*ML+MU+1, N]; piv
+// [B, N]) and pass through under spgmr, whose counters nli, nps, ncfl and
+// njtimes are read and written under spgmr only; the constraints are read,
+// and copied to the result of a launch
 // out of place. yQ ([B, M::NQ]) is read, written and copied for a model
 // with quadratures only (M::NQ > 0): for the others its pointer is null and
 // the field passes through. ls_tn, ls_cj, ls_yy and ls_yp are read, written and copied
@@ -161,8 +224,9 @@ template <typename T> __device__ __forceinline__ T tsign(T a) {
   X(tretlast) X(tolsf) X(kk) X(kused) X(knew) X(phase) X(ns) X(cj) X(cjlast)    \
   X(cjold) X(cjratio) X(ss) X(oldnrm) X(eps_newt) X(toldel) X(lu) X(piv) X(hin) \
   X(hmax_inv) X(epcon) X(tstop) X(tstop_set) X(constraints) X(constraints_set)  \
-  X(nst) X(nre) X(ncfn) X(netf) X(nni) X(nsetups) X(nje) X(toutc) X(taskc)       \
-  X(status) X(yQ) X(ls_tn) X(ls_cj) X(ls_yy) X(ls_yp)
+  X(nst) X(nre) X(ncfn) X(netf) X(nni) X(nsetups) X(nje) X(nli) X(nps) X(ncfl)  \
+  X(njtimes) X(toutc) X(taskc) X(status) X(yQ) X(ls_tn) X(ls_cj) X(ls_yy)       \
+  X(ls_yp)
 
 // Device pointers to the state's fields: reals in the state's dtype,
 // kk..ns/piv/taskc/status int32, counters int64, tstop_set and
@@ -222,19 +286,22 @@ struct Hist {
 };
 
 // One lane's state; LuT is the type of the factor (T, or Real<float> under
-// ls_precision "single" and "refined").
-template <typename T, int N, typename LuT = T>
+// ls_precision "single" and "refined"), [LuRows][N] (dense N x N, band
+// 2*ML+MU+1 x N; a placeholder of one entry under spgmr, never read).
+template <typename T, int N, typename LuT = T, int LuRows = N>
 struct Lane {
   Hist<T, N> h;
   T ee[N], yy[N], yp[N], yypredict[N], yppredict[N], ewt[N], savres[N];
   T tn, hh, hused, rr;
   int kk, kused, knew, phase, ns;
   T cj, cjlast, cjold, cjratio, ss, oldnrm, eps_newt, toldel;
-  LuT lu[N][N];
+  LuT lu[LuRows][N];
   int piv[N];
   bool tstop_set;
-  // the counters as this launch's increments; `stepped`: nst > 0 at the load
+  // the counters as this launch's increments (the Krylov ones under spgmr
+  // only); `stepped`: nst > 0 at the load
   int nst, nre, ncfn, netf, nni, nsetups, nje;
+  int nli, nps, ncfl, njtimes;
   bool stepped;
   // the cold fields, in device memory (the table the launch writes), and
   // where the lane lies in it (a compile-time layout, so B folds away for
@@ -264,11 +331,21 @@ struct Lane {
   __device__ __forceinline__ T constraint(int i) const { return ((const T*)io->constraints)[at(i)]; }
 };
 
-// the factor's type, and the lane, of model M in its mode
+// the factor's type, its rows, and the lane, of model M in its mode; the
+// type of the band Jacobian's arguments and of the Krylov iteration
+// (float32 under "single", nls.py _lsetup and _newton_iterate)
 template <typename T, class M>
 using LuReal = typename std::conditional<M::kLs == LS_FULL, T, Real<float>>::type;
+template <class M>
+struct LuRows {
+  static constexpr int v = M::kSolver == SOLVER_DENSE
+                               ? M::N
+                               : (M::kSolver == SOLVER_BAND ? 2 * M::kMl + M::kMu + 1 : 1);
+};
 template <typename T, class M>
-using LaneOf = Lane<T, M::N, LuReal<T, M>>;
+using LaneOf = Lane<T, M::N, LuReal<T, M>, LuRows<M>::v>;
+template <typename T, class M>
+using SingleReal = typename std::conditional<M::kLs == LS_SINGLE, Real<float>, T>::type;
 
 // The lane's problem data: parameters, tolerances, tout, options.
 template <typename T, class M>
@@ -323,15 +400,19 @@ __device__ __forceinline__ void load_lane(const StateRefs& in, const StateRefs& 
   LD_SCALAR(ns, int)
   LD_SCALAR(cj, T) LD_SCALAR(cjlast, T) LD_SCALAR(cjold, T) LD_SCALAR(cjratio, T)
   LD_SCALAR(ss, T) LD_SCALAR(oldnrm, T) LD_SCALAR(eps_newt, T) LD_SCALAR(toldel, T)
+  if constexpr (M::kSolver != SOLVER_SPGMR) {
+    constexpr int R = LuRows<M>::v;
 #pragma unroll
-  for (int i = 0; i < N; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < N; ++j) L.lu[i][j] = ((const LuT*)in.lu)[Lay::at(i * N + j, N * N, b, B)];
+      for (int j = 0; j < N; ++j) L.lu[i][j] = ((const LuT*)in.lu)[Lay::at(i * N + j, R * N, b, B)];
 #pragma unroll
-  for (int i = 0; i < N; ++i) L.piv[i] = ((const int*)in.piv)[Lay::at(i, N, b, B)];
+    for (int i = 0; i < N; ++i) L.piv[i] = ((const int*)in.piv)[Lay::at(i, N, b, B)];
+  }
   L.tstop_set = ((const unsigned char*)in.tstop_set)[b] != 0;
   L.stepped = ((const long long*)in.nst)[b] > 0;
   L.nst = L.nre = L.ncfn = L.netf = L.nni = L.nsetups = L.nje = 0;
+  L.nli = L.nps = L.ncfl = L.njtimes = 0;
   if (in.status != out.status) {
 #define CP_COLD(name, ty) ((ty*)out.name)[b] = ((const ty*)in.name)[b];
     CP_COLD(hin, T) CP_COLD(hmax_inv, T) CP_COLD(epcon, T) CP_COLD(tstop, T) CP_COLD(h0u, T)
@@ -388,15 +469,21 @@ __device__ __forceinline__ void store_lane(const StateRefs& in, const StateRefs&
   ST_SCALAR(ns, int)
   ST_SCALAR(cj, T) ST_SCALAR(cjlast, T) ST_SCALAR(cjold, T) ST_SCALAR(cjratio, T)
   ST_SCALAR(ss, T) ST_SCALAR(oldnrm, T) ST_SCALAR(eps_newt, T) ST_SCALAR(toldel, T)
+  if constexpr (M::kSolver != SOLVER_SPGMR) {
+    constexpr int R = LuRows<M>::v;
 #pragma unroll
-  for (int i = 0; i < N; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < N; ++j) ((LuT*)out.lu)[Lay::at(i * N + j, N * N, b, B)] = L.lu[i][j];
+      for (int j = 0; j < N; ++j) ((LuT*)out.lu)[Lay::at(i * N + j, R * N, b, B)] = L.lu[i][j];
 #pragma unroll
-  for (int i = 0; i < N; ++i) ((int*)out.piv)[Lay::at(i, N, b, B)] = L.piv[i];
+    for (int i = 0; i < N; ++i) ((int*)out.piv)[Lay::at(i, N, b, B)] = L.piv[i];
+  }
   ((unsigned char*)out.tstop_set)[b] = L.tstop_set ? 1 : 0;
   ST_COUNT(nst) ST_COUNT(nre) ST_COUNT(ncfn) ST_COUNT(netf) ST_COUNT(nni) ST_COUNT(nsetups)
   ST_COUNT(nje)
+  if constexpr (M::kSolver == SOLVER_SPGMR) {
+    ST_COUNT(nli) ST_COUNT(nps) ST_COUNT(ncfl) ST_COUNT(njtimes)
+  }
 #undef ST_SCALAR
 #undef ST_VEC
 #undef ST_HIST
@@ -482,8 +569,8 @@ __device__ __forceinline__ bool ewt_invalid(const T (&ewt)[N]) {
 }
 
 // row j of phi, out of shared memory
-template <typename T, int N, typename LuT>
-__device__ __forceinline__ void phi_row(const Lane<T, N, LuT>& L, int j, T (&out)[N]) {
+template <typename T, int N, class Ln>
+__device__ __forceinline__ void phi_row(const Ln& L, int j, T (&out)[N]) {
 #pragma unroll
   for (int n = 0; n < N; ++n) out[n] = L.h.phi(j, n);
 }
@@ -706,12 +793,21 @@ __device__ __forceinline__ bool get_solution(LaneOf<T, M>& L, T t) {
 
 // ---------------------------------------------------------------- nls.py
 
-// x := A^-1 x from the stored factor (nls.py solve_stored): in T, or under
-// "single"/"refined" with x rounded to float32, solved in float32 and widened
+// x := A^-1 x from the stored factor (nls.py solve_stored), dense or band:
+// in T, or under "single"/"refined" with x rounded to float32, solved in
+// float32 and widened
 template <typename T, class M>
 __device__ __forceinline__ void solve_stored(const LaneOf<T, M>& L, T (&x)[M::N]) {
   constexpr int N = M::N;
-  if constexpr (M::kLs == LS_FULL) {
+  if constexpr (M::kSolver == SOLVER_BAND) {
+    using LuT = LuReal<T, M>;
+    LuT xs[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) xs[i] = narrow<LuT>(x[i]);
+    band_solve_dev<LuT, N, M::kMu, M::kMl>(L.lu, L.piv, xs);
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = promote<T>(xs[i]);
+  } else if constexpr (M::kLs == LS_FULL) {
     lu_solve_dev<T, N>(L.lu, L.piv, x);
   } else {
     Real<float> xf[N];
@@ -753,27 +849,311 @@ __device__ __forceinline__ void direct_solve(const LaneOf<T, M>& L, const Ctx<T,
   }
 }
 
-// The inner Newton loop (nls.py _newton_iterate); the carry lives in the
-// caller's variables.
+// nls.py _lsetup for the band solver: J = dF/dy + cj dF/dy' at the predictor
+// in band storage (ops/banded.py band_sys_jacobian), one jvp of the residual
+// at (yy + 0, yp + cj * 0) a Curtis-Powell-Reid color, then band-factored.
+// Under "single" the arguments are float32 (the float64 parameters promote
+// the products they enter, M::res_jvp<T, Real<float>>) and the Jacobian is
+// rounded to float32. Returns the lsetup failure: a zero pivot or a
+// non-finite Jacobian.
 template <typename T, class M>
-__device__ __forceinline__ void _newton_iterate(const LaneOf<T, M>& L, const Ctx<T, M>& c,
+__device__ __forceinline__ bool band_lsetup(LaneOf<T, M>& L, const Ctx<T, M>& c) {
+  constexpr int N = M::N, MU = M::kMu, ML = M::kMl, SMU = MU + ML, WIDTH = MU + ML + 1;
+  constexpr int ROWS = 2 * ML + MU + 1, COLORS = WIDTH < N ? WIDTH : N;
+  using LuT = LuReal<T, M>;
+  using S = SingleReal<T, M>;
+  const S t = narrow<S>(L.tn), cj = narrow<S>(L.cj);
+  S yy[N], yp[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    yy[i] = narrow<S>(L.yypredict[i]) + S(0);
+    yp[i] = narrow<S>(L.yppredict[i]) + cj * S(0);
+  }
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < N; ++j) L.lu[r][j] = LuT(0);
+  // band row o + SMU of column j holds J[j + o, j], the entry j + o of the
+  // jvp on column j's color
+#pragma unroll
+  for (int color = 0; color < COLORS; ++color) {
+    S v[N], w[N];
+    T jv[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      v[i] = (i % WIDTH == color) ? S(1) : S(0);
+      w[i] = cj * v[i];
+    }
+    M::res_jvp(c.p, t, yy, yp, v, w, jv);
+#pragma unroll
+    for (int j = color; j < N; j += WIDTH)
+#pragma unroll
+      for (int o = -MU; o <= ML; ++o)
+        if (j + o >= 0 && j + o < N) L.lu[o + SMU][j] = narrow<LuT>(jv[j + o]);
+  }
+  bool jfinite = true;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < N; ++j) jfinite = jfinite && finite(L.lu[r][j]);
+  const int failc = band_factor_dev<LuT, N, MU, ML>(L.lu, L.piv);
+  return failc > 0 || !jfinite;
+}
+
+// One value of the GMRES basis as it is stored: in the Krylov type K, or the
+// bits of K rounded to bfloat16 (krylov_storage="bfloat16"), widened at each
+// read.
+template <typename K, bool Bf16> struct BasisStore {
+  using type = K;
+  __device__ static __forceinline__ K put(K a) { return a; }
+  __device__ static __forceinline__ K get(K a) { return a; }
+};
+template <typename K> struct BasisStore<K, true> {
+  using type = unsigned short;
+  __device__ static __forceinline__ unsigned short put(K a) { return bf16_bits(a); }
+  __device__ static __forceinline__ K get(unsigned short a) { return of_bf16<K>(a); }
+};
+
+// sum0 of a * b over the N components, left to right (the Krylov dots)
+template <typename K, int N>
+__device__ __forceinline__ K dot_n(const K (&a)[N], const K (&b)[N]) {
+  K acc = a[0] * b[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) acc = acc + a[i] * b[i];
+  return acc;
+}
+
+// The Krylov operator (nls.py lsolve's atimes, IdaProblem.jtimes without a
+// jtimes_fn): J v, the jvp of the residual at (t, yy, yp) in the Krylov
+// type K with tangents (v, cj v), whose float64 parameters promote what they
+// enter, rounded back to K.
+template <typename T, class M, typename K>
+__device__ __forceinline__ void atimes(const Ctx<T, M>& c, K t, K cj, const K (&yy)[M::N],
+                                       const K (&yp)[M::N], const K (&v)[M::N],
+                                       K (&out)[M::N]) {
+  constexpr int N = M::N;
+  K w[N];
+  T jv[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) w[i] = cj * v[i];
+  M::res_jvp(c.p, t, yy, yp, v, w, jv);
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = narrow<K>(jv[i]);
+}
+
+// The linear solve of one Newton iteration under spgmr (nls.py lsolve, the
+// Krylov branch, over ops/spgmr.py spgmr_solve): A x = -delta by restarted
+// GMRES from x = 0 with s1 = s2 = ewt, no preconditioner, to the tolerance
+// sqrt(N) * eplifac * eps_newt, every value in the Krylov type K (float32
+// under "single"); the operator is taken at the iterate (yy_lin, yp_lin).
+// Adds the iteration's nli, nps, njtimes (nli + 2 a cycle) and ncfl (1 when
+// not converged) to the lane's counters; returns whether the solve counts as
+// a success: converged, or on the first Newton iteration a reduced residual.
+//
+// Every dot product is a sum0 over the components, and the Givens algebra,
+// the back substitution and the correction follow spgmr_solve op for op.
+// The eager solve runs a cycle's Arnoldi columns until every lane of the
+// batch is done; a lane done earlier commits zeros (H[i][j] = 0, y[j] = 0)
+// for the columns past its own, which its back substitution and its
+// correction then add after its own terms. Here a lane stops at its own
+// column: adding +0 changes a sum only when the sum is -0, i.e. when every
+// term of the lane's own is a zero, so the two agree but in the sign of such
+// an all-zero sum (and beyond 32 columns, where sum0 turns to a tree whose
+// shape follows the batch's column count).
+template <typename T, class M>
+__device__ __forceinline__ bool spgmr_solve(LaneOf<T, M>& L, const Ctx<T, M>& c,
+                                            const T (&yy_lin)[M::N], const T (&yp_lin)[M::N],
+                                            const T (&delta)[M::N], bool first_newton,
+                                            T (&x_out)[M::N]) {
+  constexpr int N = M::N, MAXL = M::kMaxl;
+  using K = SingleReal<T, M>;
+  using Store = BasisStore<K, M::kBf16>;
+  const K tn = narrow<K>(L.tn), cj = narrow<K>(L.cj);
+  K ewt[N], yy[N], yp[N], b[N], x[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    ewt[i] = narrow<K>(L.ewt[i]);
+    yy[i] = narrow<K>(yy_lin[i]);
+    yp[i] = narrow<K>(yp_lin[i]);
+    b[i] = narrow<K>(-delta[i]);
+    x[i] = K(0);
+  }
+  const K tol = narrow<K>(sqrt_of(T(N)) * T(c.opts.eplifac) * L.eps_newt);
+
+  typename Store::type V[MAXL + 1][N];
+  K H[MAXL][MAXL], cs[MAXL], sn[MAXL], g[MAXL + 1], y[MAXL], col[MAXL + 1];
+  K res = K(INFINITY), res0 = K(INFINITY);
+  bool converged = false;
+  int restarts = 0, nli = 0, nps = 0;
+#pragma unroll 1
+  while (!converged && restarts < c.opts.krylov_max_restarts + 1) {
+    // r = b - A x (b on the first cycle, from x = 0), z = s1 r
+    K z[N];
+    if (restarts == 0) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) z[i] = ewt[i] * b[i];
+    } else {
+      K ax[N];
+      atimes<T, M, K>(c, tn, cj, yy, yp, x, ax);
+#pragma unroll
+      for (int i = 0; i < N; ++i) z[i] = ewt[i] * (b[i] - ax[i]);
+    }
+    nps += 1;
+    const K beta = sqrt_of(dot_n<K, N>(z, z));
+#pragma unroll
+    for (int i = 0; i < N; ++i) V[0][i] = Store::put(beta > K(0) ? z[i] / beta : z[i]);
+    g[0] = beta;
+#pragma unroll 1
+    for (int j = 0; j < MAXL; ++j) g[j + 1] = cs[j] = sn[j] = K(0);
+    bool done = beta <= tol;
+    int jl = 0;
+#pragma unroll 1
+    for (int j = 0; j < MAXL && !done; ++j) {
+      jl = j + 1;
+      K u[N], w[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) u[i] = Store::get(V[j][i]) / ewt[i];
+      atimes<T, M, K>(c, tn, cj, yy, yp, u, w);
+#pragma unroll
+      for (int i = 0; i < N; ++i) w[i] = ewt[i] * w[i];
+      nps += 1;
+      nli += 1;
+      if constexpr (M::kClassical) {
+        // CGS2: two passes of classical Gram-Schmidt against V[0..j]
+        K hs[MAXL], hs2[MAXL], terms[MAXL];
+#pragma unroll 1
+        for (int pass = 0; pass < 2; ++pass) {
+          K* h = pass == 0 ? hs : hs2;
+#pragma unroll 1
+          for (int i = 0; i <= j; ++i) {
+            K vi[N];
+#pragma unroll
+            for (int n = 0; n < N; ++n) vi[n] = Store::get(V[i][n]);
+            h[i] = dot_n<K, N>(vi, w);
+          }
+#pragma unroll
+          for (int n = 0; n < N; ++n) {
+#pragma unroll 1
+            for (int i = 0; i <= j; ++i) terms[i] = h[i] * Store::get(V[i][n]);
+            w[n] = w[n] - sum0_of<K, MAXL>(terms, j + 1);
+          }
+        }
+#pragma unroll 1
+        for (int i = 0; i <= j; ++i) col[i] = hs[i] + hs2[i];
+      } else {
+        // MGS
+#pragma unroll 1
+        for (int i = 0; i <= j; ++i) {
+          K vi[N];
+#pragma unroll
+          for (int n = 0; n < N; ++n) vi[n] = Store::get(V[i][n]);
+          const K hij = dot_n<K, N>(w, vi);
+#pragma unroll
+          for (int n = 0; n < N; ++n) w[n] = w[n] - hij * vi[n];
+          col[i] = hij;
+        }
+      }
+      const K hnorm = sqrt_of(dot_n<K, N>(w, w));
+      col[j + 1] = hnorm;
+#pragma unroll
+      for (int n = 0; n < N; ++n) V[j + 1][n] = Store::put(hnorm > K(0) ? w[n] / hnorm : w[n]);
+
+      // the earlier Givens rotations, then a new one to annihilate col[j+1]
+#pragma unroll 1
+      for (int i = 0; i < j; ++i) {
+        const K tmp = cs[i] * col[i] - sn[i] * col[i + 1];
+        col[i + 1] = sn[i] * col[i] + cs[i] * col[i + 1];
+        col[i] = tmp;
+      }
+      const K denom = sqrt_of(col[j] * col[j] + col[j + 1] * col[j + 1]);
+      const bool pos = denom > K(0);
+      const K c_new = pos ? col[j] / denom : K(1);
+      const K s_new = pos ? (-col[j + 1]) / denom : K(0);
+      col[j] = c_new * col[j] - s_new * col[j + 1];
+#pragma unroll 1
+      for (int i = 0; i <= j; ++i) H[i][j] = col[i];
+      cs[j] = c_new;
+      sn[j] = s_new;
+      const K gj = g[j];
+      g[j] = c_new * gj;
+      g[j + 1] = s_new * gj;
+      done = absval(g[j + 1]) <= tol;
+    }
+
+    // back substitution H y = g over the lane's columns, then the correction
+#pragma unroll 1
+    for (int j = jl - 1; j >= 0; --j) {
+      K s = g[j];
+      if (j + 1 < jl) {
+        K terms[MAXL];
+#pragma unroll 1
+        for (int k = j + 1; k < jl; ++k) terms[k - j - 1] = H[j][k] * y[k];
+        s = g[j] - sum0_of<K, MAXL>(terms, jl - j - 1);
+      }
+      const K hjj = H[j][j];
+      y[j] = (hjj != K(0)) ? s / hjj : K(0);
+    }
+    if (jl > 0) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        K terms[MAXL];
+#pragma unroll 1
+        for (int k = 0; k < jl; ++k) terms[k] = y[k] * Store::get(V[k][n]);
+        x[n] = x[n] + sum0_of<K, MAXL>(terms, jl) / ewt[n];
+      }
+    }
+    // the true scaled residual decides the restart
+    K ax[N], rt[N];
+    atimes<T, M, K>(c, tn, cj, yy, yp, x, ax);
+#pragma unroll
+    for (int i = 0; i < N; ++i) rt[i] = ewt[i] * (b[i] - ax[i]);
+    nps += 1;
+    res = sqrt_of(dot_n<K, N>(rt, rt));
+    converged = res <= tol;
+    res0 = (restarts == 0) ? beta : res0;
+    restarts += 1;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) x_out[i] = promote<T>(x[i]);
+  L.nli += nli;
+  L.nps += nps;
+  L.njtimes += nli + 2 * restarts;
+  L.ncfl += converged ? 0 : 1;
+  const bool reduced = !converged && (res < res0);
+  return converged || (first_newton && reduced);
+}
+
+// The inner Newton loop (nls.py _newton_iterate); the carry lives in the
+// caller's variables (yy_lin/yp_lin: the iterate the Krylov operator is
+// taken at, spgmr only).
+template <typename T, class M>
+__device__ __forceinline__ void _newton_iterate(LaneOf<T, M>& L, const Ctx<T, M>& c,
                                                 T cjratio, T (&ycor)[M::N], T (&delta)[M::N],
+                                                T (&yy_lin)[M::N], T (&yp_lin)[M::N],
                                                 T& oldnrm, T& ss, int& istatus, int& knni,
                                                 int& kre) {
   constexpr int N = M::N;
+  constexpr bool krylov = M::kSolver == SOLVER_SPGMR;
   const T scale = (cjratio != T(1)) ? T(2) / (T(1) + cjratio) : T(1);
   int m = 0;
   istatus = NL_CONTINUE;
   while (istatus == NL_CONTINUE) {
     const bool first = m == 0;
     T x[N];
+    bool lok = true;
+    if constexpr (krylov) {
+      lok = spgmr_solve<T, M>(L, c, yy_lin, yp_lin, delta, first, x);
 #pragma unroll
-    for (int i = 0; i < N; ++i) x[i] = -delta[i];
-    direct_solve<T, M>(L, c, x);
+      for (int i = 0; i < N; ++i) ycor[i] = ycor[i] + x[i];
+    } else {
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      x[i] = x[i] * scale;
-      ycor[i] = ycor[i] + x[i];
+      for (int i = 0; i < N; ++i) x[i] = -delta[i];
+      direct_solve<T, M>(L, c, x);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        x[i] = x[i] * scale;
+        ycor[i] = ycor[i] + x[i];
+      }
     }
 
     const T delnrm = wrms_norm_bnd<T, M>(x, L.ewt, false);
@@ -789,6 +1169,8 @@ __device__ __forceinline__ void _newton_iterate(const LaneOf<T, M>& L, const Ctx
     const bool exhausted = m >= c.opts.maxnlsit;
     istatus = diverged ? NL_CONV_RECVR
                        : (converged ? NL_OK : (exhausted ? NL_CONV_RECVR : NL_CONTINUE));
+    // a failed linear solve is its own recoverable kind
+    if (!lok) istatus = NL_LSOLVE_RECVR;
 
     const bool keep = istatus == NL_CONTINUE;
     if (keep) {
@@ -806,7 +1188,13 @@ __device__ __forceinline__ void _newton_iterate(const LaneOf<T, M>& L, const Ctx
         istatus = NL_RES_RECVR;
       } else {
 #pragma unroll
-        for (int i = 0; i < N; ++i) delta[i] = r[i];
+        for (int i = 0; i < N; ++i) {
+          delta[i] = r[i];
+          if constexpr (krylov) {
+            yy_lin[i] = yy[i];
+            yp_lin[i] = yp[i];
+          }
+        }
       }
     }
     knni += 1;
@@ -816,8 +1204,8 @@ __device__ __forceinline__ void _newton_iterate(const LaneOf<T, M>& L, const Ctx
 
 // nls.py _constraints, component i of the violation vector v = mm * (y -
 // 0.1 * strict * c / ewt), mm = 1 where bit i of `viol` is set, else 0
-template <typename T, int N, typename LuT>
-__device__ __forceinline__ T constraint_v(const Lane<T, N, LuT>& L, int i, unsigned viol) {
+template <typename T, int N, class Ln>
+__device__ __forceinline__ T constraint_v(const Ln& L, int i, unsigned viol) {
   const T c = L.constraint(i);
   const T mm = ((viol >> i) & 1u) ? T(1) : T(0);
   const T strict = (absval(c) >= T(1.5)) ? T(1) : T(0);
@@ -891,7 +1279,7 @@ __device__ __forceinline__ int nonlinear_solve(LaneOf<T, M>& L, const Ctx<T, M>&
   T cjold = cjold0, cjratio = cjratio0;
 
   // inner carry (_Inner)
-  T ycor[N], delta[N];
+  T ycor[N], delta[N], yy_lin[N], yp_lin[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     ycor[i] = T(0);
@@ -913,7 +1301,20 @@ __device__ __forceinline__ int nonlinear_solve(LaneOf<T, M>& L, const Ctx<T, M>&
 
     const bool do_setup = call_lsetup && !res_bad;
     bool setup_fail = false;
-    if (do_setup) {
+    if constexpr (M::kSolver != SOLVER_DENSE) {
+      if (do_setup) {
+        // _lsetup: the band Jacobian band-factored (one nje), or under spgmr
+        // nothing but the counters (no preconditioner)
+        if constexpr (M::kSolver == SOLVER_BAND) {
+          setup_fail = band_lsetup<T, M>(L, c);
+          L.nje += 1;
+        }
+        L.nsetups += 1;
+        cjold = L.cj;
+        cjratio = T(1);
+        ss = T(20);
+      }
+    } else if (do_setup) {
       // _lsetup: J at the predictor, LU-factored
       if constexpr (M::kLs == LS_FULL) {
         M::jac(c.p, L.tn, L.cj, L.yypredict, L.yppredict, r, L.lu);
@@ -968,12 +1369,15 @@ __device__ __forceinline__ int nonlinear_solve(LaneOf<T, M>& L, const Ctx<T, M>&
     for (int i = 0; i < N; ++i) {
       ycor[i] = T(0);
       delta[i] = r[i];
+      yy_lin[i] = L.yypredict[i];
+      yp_lin[i] = L.yppredict[i];
     }
     oldnrm = L.oldnrm;
     int istatus = NL_CONTINUE;
     const bool skip_newton = setup_fail || res_bad;
     if (!skip_newton)
-      _newton_iterate<T, M>(L, c, cjratio, ycor, delta, oldnrm, ss, istatus, knni, kre);
+      _newton_iterate<T, M>(L, c, cjratio, ycor, delta, yy_lin, yp_lin, oldnrm, ss, istatus,
+                            knni, kre);
 
     const bool recvr = istatus == NL_CONV_RECVR || istatus == NL_LSOLVE_RECVR ||
                        istatus == NL_RES_RECVR;

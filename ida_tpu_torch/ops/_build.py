@@ -34,8 +34,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ida_tpu_torch"
 # the suffix of each C entry point by the dtype it takes
 DTYPE_TAGS = {torch.float64: "f64", torch.float32: "f32"}
+# --split-compile=0: nvcc's optimizer works on the kernels of a file in
+# parallel, on every core; the SASS is the same (small_lu.cu with its floor:
+# 108.8 s alone, 51.5 s split, on the H100 host of chip_smoke.py's runs)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0"]
 
 
 def nvcc_path() -> str:

@@ -64,6 +64,10 @@ from ..utils import numerics
 MAXN = 16  # csrc/ida_lane.cuh MAXN
 LANES = 2  # lanes of the trace: two, so that an op across lanes shows
 TRACE_DTYPE = torch.float64
+# the typed trace of the jvp: the params in TRACE_DTYPE ("T"), its other
+# inputs in NARROW_DTYPE ("S"), as ls_precision "single" calls it
+NARROW_DTYPE = torch.float32
+_KINDS = {TRACE_DTYPE: "T", NARROW_DTYPE: "S"}
 
 
 @dataclass(frozen=True)
@@ -73,13 +77,17 @@ class FusedModel:
     hand-written Roberts), ``n`` components, ``p`` parameters a lane, and
     the generated header (None: the hand-written Roberts of
     ``fused_solve.cu``); ``nq`` quadratures (``Model::NQ``: the state's
-    ``yQ`` [B, nq] the kernel accumulates)."""
+    ``yQ`` [B, nq] the kernel accumulates); ``jtimes`` and ``prec``: the
+    factory brings its own Jacobian-times-vector or a preconditioner, which
+    the Krylov path would call and the kernel does not compile in."""
     name: str
     id: int
     n: int
     p: int
     header: str | None = None
     nq: int = 0
+    jtimes: bool = False
+    prec: bool = False
 
 
 ROBERTS = FusedModel("roberts", 0, 3, 3)
@@ -129,7 +137,9 @@ def _refuse(why: str):
 
 class _Exprs:
     """Scalar expressions of the trace, each made once: ``("in", name, i,
-    lane)`` inputs, ``("c", hex)`` constants, ``(op, args, scalar)`` ops."""
+    lane)`` inputs, ``("c", hex)`` constants, ``(op, args, scalar, kind)``
+    ops (``kind``: "T" or "S", the dtype a typed trace computes the op in;
+    None in an untyped trace)."""
 
     def __init__(self):
         self.index: dict = {}
@@ -150,9 +160,18 @@ class _Exprs:
     def const(self, value: float) -> int:
         return self.add(("c", float(value).hex()), frozenset())
 
-    def op(self, name: str, args: tuple, scalar=None) -> int:
+    def op(self, name: str, args: tuple, scalar=None, kind=None) -> int:
         lanes = frozenset().union(*(self.lanes[a] for a in args))
-        return self.add((name, args, None if scalar is None else float(scalar).hex()), lanes)
+        return self.add((name, args, None if scalar is None else float(scalar).hex(), kind),
+                        lanes)
+
+    def kind(self, e: int):
+        """"T" or "S", the dtype an expression of a typed trace is in (an
+        input's by its name), or None (a constant, an untyped op)."""
+        key = self.nodes[e]
+        if key[0] == "in":
+            return "T" if key[1] == "p" else "S"
+        return None if key[0] == "c" else key[3]
 
     def is_bool(self, e: int) -> bool:
         return self.nodes[e][0] in _BOOLEAN
@@ -170,10 +189,13 @@ def _arr(x) -> np.ndarray:
 
 
 class _Interpreter:
-    """Runs an aten graph of ``make_fx`` on arrays of expression ids."""
+    """Runs an aten graph of ``make_fx`` on arrays of expression ids. With
+    ``typed`` the graph was traced on inputs of two dtypes (:data:`_KINDS`),
+    and each op's expressions carry the dtype the graph computes it in."""
 
-    def __init__(self, ex: _Exprs, gm: torch.fx.GraphModule, what: str):
-        self.ex, self.gm, self.what = ex, gm, what
+    def __init__(self, ex: _Exprs, gm: torch.fx.GraphModule, what: str, typed: bool = False):
+        self.ex, self.gm, self.what, self.typed = ex, gm, what, typed
+        self.kind = None  # the kind of the node being run (typed only)
 
     def run(self, inputs: list) -> np.ndarray:
         graph = self.gm.graph
@@ -220,7 +242,11 @@ class _Interpreter:
                 if isinstance(x, _Unreadable):
                     _refuse(x.why)
         val = node.meta.get("val")
+        self.kind = None
         for v in (val if isinstance(val, (list, tuple)) else [val]):
+            if isinstance(v, torch.Tensor) and self.typed and v.dtype in _KINDS:
+                self.kind = _KINDS[v.dtype]
+                continue
             if not isinstance(v, torch.Tensor) or v.dtype == TRACE_DTYPE:
                 continue
             if v.dtype != torch.bool or name not in _BOOL_RESULT:
@@ -265,7 +291,7 @@ class _Interpreter:
                 _refuse(f"{self.what}: a boolean (a comparison's result) reaches the "
                         f"arithmetic of aten.{name}; select with torch.where, or cast it "
                         "with .to(dtype)")
-        f = np.frompyfunc(lambda *a: self.ex.op(name, a, scalar), len(arrays), 1)
+        f = np.frompyfunc(lambda *a: self.ex.op(name, a, scalar, self.kind), len(arrays), 1)
         return _arr(f(*arrays))
 
     def inplace(self, x, out):
@@ -399,10 +425,17 @@ class _Interpreter:
         if dtype is None or dtype == torch.bool or not any(bools):
             if dtype == torch.bool and not all(bools):
                 _refuse(f"{self.what}: a number cast to a boolean")
+            if self.typed and dtype in _KINDS:
+                # a cast between the two dtypes of a typed trace: widened
+                # exactly, or rounded to the narrower one
+                want = _KINDS[dtype]
+                f = np.frompyfunc(lambda e: e if self.ex.kind(e) in (None, want)
+                                  else self.ex.op("convert", (e,), None, want), 1, 1)
+                return _arr(f(x))
             return x
         # a boolean cast to the dtype: 1 or 0 (the dtype itself is checked
         # on the node's value)
-        f = np.frompyfunc(lambda e: self.ex.op("of_bool", (e,)), 1, 1)
+        f = np.frompyfunc(lambda e: self.ex.op("of_bool", (e,), None, self.kind), 1, 1)
         return _arr(f(x))
 
     def op_copy(self, x, src, non_blocking=False):
@@ -520,10 +553,11 @@ def _lane_axis(ex: _Exprs, x: np.ndarray):
     return None
 
 
-def _trace(fn, *shapes) -> torch.fx.GraphModule:
+def _trace(fn, *shapes, dtypes=None) -> torch.fx.GraphModule:
     from torch.fx.experimental.proxy_tensor import make_fx
 
-    args = [torch.empty(s, dtype=TRACE_DTYPE, device="meta") for s in shapes]
+    dtypes = dtypes or [TRACE_DTYPE] * len(shapes)
+    args = [torch.empty(s, dtype=dt, device="meta") for s, dt in zip(shapes, dtypes)]
     return make_fx(fn)(*args)
 
 
@@ -557,7 +591,7 @@ def _lane_code(ex: _Exprs, out: np.ndarray, shape: tuple, what: str) -> np.ndarr
             relabeled[e] = e
         else:
             relabeled[e] = ex.op(key[0], tuple(relabeled[a] for a in key[1]),
-                                 None if key[2] is None else float.fromhex(key[2]))
+                                 None if key[2] is None else float.fromhex(key[2]), key[3])
     for e0, e1 in zip(lane0.flat, out[..., 1].flat):
         if relabeled[e1] != e0:
             _refuse(f"{what} computes lane 1 differently from lane 0")
@@ -582,26 +616,52 @@ _ARG = {"p": "p[{}]", "t": "t", "cj": "cj", "yy": "yy[{}]", "yp": "yp[{}]", "rr"
         "v": "v[{}]", "w": "w[{}]"}
 
 
-def _cxx(ex: _Exprs, outputs: dict) -> list[str]:
-    """C++ statements computing ``outputs`` (C++ lvalue -> expression id),
-    one rounded operation a statement, in the graph's order."""
-    need = _reachable(ex, outputs.values())
+def _types(ex: _Exprs, need: set) -> dict:
+    """The C++ type of each expression of ``need`` of a typed trace: "T" or
+    "S" (the dtype the graph computes it in), None for a constant (written
+    in the type of what it meets), "bool" for a boolean."""
+    return {e: "bool" if ex.is_bool(e) else ex.kind(e) for e in need}
 
-    def ref(e: int) -> str:
+
+def _cxx(ex: _Exprs, outputs: dict, typed: bool = False) -> list[str]:
+    """C++ statements computing ``outputs`` (C++ lvalue -> expression id),
+    one rounded operation a statement, in the graph's order. With ``typed``
+    (a typed trace) the parameters are of type ``T`` and the other inputs of
+    type ``S`` (the outputs ``T``): each operation runs in the type the
+    trace ran it in, a narrower operand widened by ``ida::promote<T>`` as
+    torch promotes it (a constant written in the operation's type), a cast
+    between the two an op of its own; without, everything is ``T``."""
+    need = _reachable(ex, outputs.values())
+    types = _types(ex, need) if typed else {}
+
+    def ref(e: int, want: str | None = None) -> str:
+        """``e`` as an operand of type ``want`` (None: as it is)."""
         key = ex.nodes[e]
-        if key[0] == "in":
-            return _ARG[key[1]].format(key[2])
         if key[0] == "c":
-            return f"T({_literal(float.fromhex(key[1]))})"
-        return f"e{e}"
+            return f"{want or 'T'}({_literal(float.fromhex(key[1]))})"
+        name = _ARG[key[1]].format(key[2]) if key[0] == "in" else f"e{e}"
+        return f"ida::promote<T>({name})" if typed and want == "T" and types[e] == "S" else name
+
+    def of(args) -> str:
+        """The type of an operation on ``args`` (numbers)."""
+        return "T" if any(types[x] == "T" for x in args) else "S"
 
     lines = []
     for e in sorted(need):
         key = ex.nodes[e]
         if key[0] in ("in", "c"):
             continue
-        op, args, scalar = key
-        a = [ref(x) for x in args]
+        op, args, scalar, kind = key
+        if not typed or op in _LOGIC or op in ("of_bool", "convert"):
+            a = [ref(x) for x in args]
+        elif op in _COMPARE:
+            # a comparison runs in the type its operands promote to
+            want = of(args)
+            a = [ref(x, want) for x in args]
+        elif op == "where":
+            a = [ref(args[0])] + [ref(x, kind) for x in args[1:]]
+        else:
+            a = [ref(x, kind) for x in args]
         if op in _BOOLEAN:
             code = (_COMPARE.get(op) or _LOGIC[op]).format(*a)
             lines.append(f"const bool e{e} = {code};")
@@ -613,15 +673,17 @@ def _cxx(ex: _Exprs, outputs: dict) -> list[str]:
         elif op in _TERNARY:
             code = _TERNARY[op].format(*a)
         elif op == "of_bool":
-            code = f"({a[0]} ? T(1.0) : T(0.0))"
+            code = f"({a[0]} ? {kind or 'T'}(1.0) : {kind or 'T'}(0.0))"
+        elif op == "convert":
+            code = f"ida::promote<T>({a[0]})" if kind == "T" else f"ida::narrow<S>({a[0]})"
         elif op == "div_scalar":
             code = f"ida::model::div_scalar({a[0]}, {_literal(float.fromhex(scalar))})"
         elif op == "pow_scalar":
             code = f"ida::model::pow_scalar({a[0]}, {_literal(float.fromhex(scalar))})"
         else:  # pragma: no cover - every op the interpreter makes is above
             raise AssertionError(op)
-        lines.append(f"const T e{e} = {code};")
-    lines += [f"{lhs} = {ref(e)};" for lhs, e in outputs.items()]
+        lines.append(f"const {types.get(e, 'T')} e{e} = {code};")
+    lines += [f"{lhs} = {ref(e, 'T')};" for lhs, e in outputs.items()]
     return lines
 
 
@@ -655,9 +717,11 @@ struct GeneratedModel {{
 {res}
   }}
 
-  template <typename T>
-  __device__ static void res_jvp(const T (&p)[P], T t, const T (&yy)[N], const T (&yp)[N],
-                                 const T (&v)[N], const T (&w)[N], T (&jv)[N]) {{
+  // the arguments but the params of type S (float32 under ls_precision
+  // "single"), each operation in the type torch promotes its operands to
+  template <typename T, typename S>
+  __device__ static void res_jvp(const T (&p)[P], S t, const S (&yy)[N], const S (&yp)[N],
+                                 const S (&v)[N], const S (&w)[N], T (&jv)[N]) {{
 {jvp}
   }}
 
@@ -748,26 +812,32 @@ def generate(problem_factory, params: torch.Tensor) -> FusedModel:
     if nq:
         fns["quad"] = (quad, ("p", "t", "yy", "yp"), (nq,))
     # the card's trace, and the CPU's (numerics' CPU Functions and their
-    # derivative formulas) for the host build; one body where they agree
+    # derivative formulas) for the host build; one body where they agree.
+    # The jvp is traced with its arguments but the params in NARROW_DTYPE,
+    # as the Krylov operator and the band Jacobian call it under
+    # ls_precision "single": each op then carries the dtype torch computes
+    # it in (res_jvp<T, S>, S = T in every other call)
     text = {}
     for key, (fn, names, shape) in fns.items():
         what = {"jvp": "the jvp of res"}.get(key, key)
         shapes = [(npar, LANES) if k == "p" else (LANES,) if k in ("t", "cj") else (n, LANES)
                   for k in names]
+        typed = key == "jvp"
+        dtypes = [TRACE_DTYPE if k == "p" or not typed else NARROW_DTYPE for k in names]
         bodies = []
         for formulas in (contextlib.nullcontext, numerics.cpu_formulas):
             try:
                 with formulas():
-                    gm = _trace(fn, *shapes)
+                    gm = _trace(fn, *shapes, dtypes=dtypes)
             except Exception as err:  # noqa: BLE001 - the factory's own failure, named
                 _refuse(f"tracing {what} on meta tensors failed: {type(err).__name__}: {err}")
-            out = _Interpreter(ex, gm, what).run([ins[k] for k in names])
+            out = _Interpreter(ex, gm, what, typed).run([ins[k] for k in names])
             if not isinstance(out, np.ndarray):
                 _refuse(f"{what} returns {type(out).__name__}, not a tensor")
             if any(ex.is_bool(e) for e in out.flat):
                 _refuse(f"{what} returns a boolean (a comparison's result); select with "
                         "torch.where, or cast it with .to(dtype)")
-            bodies.append(_cxx(ex, outs[key](_lane_code(ex, out, shape, what))))
+            bodies.append(_cxx(ex, outs[key](_lane_code(ex, out, shape, what)), typed=typed))
         card, host = (_indent(b) for b in bodies)
         text[key] = card if card == host else (
             f"#ifdef __CUDA_ARCH__\n{card}\n#else\n{host}\n#endif")
@@ -776,7 +846,9 @@ def generate(problem_factory, params: torch.Tensor) -> FusedModel:
     model_id = int(digest[:7], 16) | 1  # nonzero: 0 is the hand-written Roberts
     text["quad"] = _QUAD.format(quad=text["quad"]) if nq else ""
     header = _TEMPLATE.format(n=n, p=npar, nq=nq, id=model_id, id_mask=id_mask, **text)
-    return FusedModel(f"{source}_{digest[:8]}", model_id, n, npar, header, nq)
+    return FusedModel(f"{source}_{digest[:8]}", model_id, n, npar, header, nq,
+                      jtimes=problem.jtimes_fn is not None or problem.jtimes_setup is not None,
+                      prec=problem.prec_setup is not None or problem.prec_solve is not None)
 
 
 _MODELS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()

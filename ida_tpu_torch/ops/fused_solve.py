@@ -32,11 +32,18 @@ derivative (``requires_grad``, or a forward-mode tangent) on either device,
 and never detaches them; ``sensitivity.adjoint_gradient`` takes gradients
 through the eager solve.
 
-The arithmetic modes of ``IdaOptions`` that the TPU kernel traces
-(``fast_math``, ``ls_precision`` "single" and "refined") are compiled in:
-each combination is a library of its own, built from the same source with
-:func:`mode_flags` at its first use, and each is bit for bit the eager solve
-under the same options.
+The arithmetic modes and linear solvers of ``IdaOptions`` that the TPU
+kernel traces are compiled in: ``fast_math``, ``ls_precision`` "single" and
+"refined", and ``linear_solver`` "dense", "band" (any ``band_mu``,
+``band_ml``: an in-lane band LU on colored jvps of the residual) and
+"spgmr" (any ``krylov_maxl``, ``krylov_max_restarts``, ``krylov_gs``,
+``krylov_storage``, ``eplifac``: an in-lane restarted GMRES on jvps of the
+residual, with the Krylov counters). Each combination is a library of its
+own, built from the same source with :func:`mode_flags` at its first use,
+and each is bit for bit the eager solve under the same options. What the
+Krylov path would trace but the kernel does not compile in, a factory's own
+``jtimes_fn``/``jtimes_setup`` and a preconditioner
+(``prec_setup``/``prec_solve``), raises (ROADMAP item 22).
 
 ``MODE_LAUNCHES`` counts the kernel launches (and only those) by (kernel,
 :func:`mode_name`, model name), e.g. ``("init", "refined", "roberts")``;
@@ -54,8 +61,9 @@ import torch
 from torch.autograd import forward_ad
 
 from .. import constants as C
+from ..constants import not_ported
 from ..core.solve import TASK_NORMAL, solve
-from ..core.state import IdaOptions, IdaState
+from ..core.state import IdaOptions, IdaState, ls_store_dtype
 from ..parallel.batch import from_native
 from ..tol_control import TolControl
 from ._build import DTYPE_TAGS, build_library
@@ -64,7 +72,7 @@ from .fused_model import MAXN, ROBERTS, FusedModel, model_of
 # ("solve" | "init" | "cont", mode_name, model name) -> launches
 MODE_LAUNCHES: dict = {}
 EVAL_LAUNCHES: dict = {}  # model name -> launches of fused_model_eval
-HEADERS = ("ida_lane.cuh", "small_lu.cuh", "rounded.cuh", "model_ops.cuh")
+HEADERS = ("ida_lane.cuh", "small_lu.cuh", "band_lu.cuh", "rounded.cuh", "model_ops.cuh")
 # how fused_solve.cu is built: nvcc's default contraction, as PyTorch's own
 # kernels are, so that the inlined pow and sqrt are torch.pow's and
 # torch.sqrt's; the solve's own arithmetic rounds once per operation through
@@ -78,13 +86,18 @@ STATE_FIELDS = (
     "kk", "kused", "knew", "phase", "ns", "cj", "cjlast", "cjold", "cjratio", "ss", "oldnrm",
     "eps_newt", "toldel", "lu", "piv", "hin", "hmax_inv", "epcon", "tstop", "tstop_set",
     "constraints", "constraints_set", "nst", "nre", "ncfn", "netf", "nni", "nsetups", "nje",
-    "toutc", "taskc", "status", "yQ", "ls_tn", "ls_cj", "ls_yy", "ls_yp",
+    "nli", "nps", "ncfl", "njtimes", "toutc", "taskc", "status", "yQ", "ls_tn", "ls_cj", "ls_yy",
+    "ls_yp",
 )
 # the lsetup point that ls_precision "refined" saves (core/nls.py): the kernel
 # touches it in that mode only, and in the others it passes through
 LS_FIELDS = ("ls_tn", "ls_cj", "ls_yy", "ls_yp")
+# the direct solvers' factor (touched under "dense" and "band") and the
+# Krylov counters (touched under "spgmr"); each passes through elsewhere
+DIRECT_FIELDS = ("lu", "piv")
+KRYLOV_FIELDS = ("nli", "nps", "ncfl", "njtimes")
 _INT32 = {"kk", "kused", "knew", "phase", "ns", "piv", "taskc", "status"}
-_INT64 = {"nst", "nre", "ncfn", "netf", "nni", "nsetups", "nje"}
+_INT64 = {"nst", "nre", "ncfn", "netf", "nni", "nsetups", "nje", *KRYLOV_FIELDS}
 _BOOL = {"tstop_set", "constraints_set"}
 # ls_precision -> csrc/ida_lane.cuh LS_FULL / LS_SINGLE / LS_REFINED
 LS_CODES = {"full": 0, "single": 1, "refined": 2}
@@ -107,7 +120,33 @@ class Opts(ctypes.Structure):
     """csrc/ida_lane.cuh Opts (``constraints`` is ``enable_constraints``)."""
     _fields_ = [(f, ctypes.c_int) for f in
                 ("maxord", "mxstep", "maxncf", "maxnef", "maxnlsit", "suppressalg",
-                 "constraints")]
+                 "constraints", "krylov_max_restarts")] + [("eplifac", ctypes.c_double)]
+
+
+class LinearSolver(NamedTuple):
+    """The linear solver a library compiles in (:func:`linear_of`): "dense",
+    "band" with half-bandwidths ``mu``/``ml``, or "spgmr" with ``maxl``
+    basis vectors, Gram-Schmidt ``gs`` and a bfloat16 basis (``bf16``)."""
+    kind: str = "dense"
+    mu: int = 0
+    ml: int = 0
+    maxl: int = 0
+    gs: str = ""
+    bf16: bool = False
+
+
+DENSE = LinearSolver()
+
+
+def linear_of(opts: IdaOptions) -> LinearSolver:
+    """The compile-time part of ``opts``' linear solver (krylov_max_restarts
+    and eplifac travel at run time, in :class:`Opts`)."""
+    if opts.linear_solver == "band":
+        return LinearSolver("band", mu=opts.band_mu, ml=opts.band_ml)
+    if opts.linear_solver == "spgmr":
+        return LinearSolver("spgmr", maxl=opts.krylov_maxl, gs=opts.krylov_gs,
+                            bf16=opts.krylov_storage == "bfloat16")
+    return DENSE
 
 
 class TolArgs(ctypes.Structure):
@@ -155,9 +194,18 @@ def launch_count(kind: str) -> int:
 
 def mode_name(opts: IdaOptions) -> str:
     """"parity", or the mode's parts: "fast_math", "single", "refined",
-    "fast_math_single", "fast_math_refined"."""
+    "fast_math_single", "fast_math_refined", then a solver other than the
+    dense LU: "band2_2" (mu, ml) or "spgmr5" (maxl) with "_cgs2" under
+    classical Gram-Schmidt and "_bf16" for a bfloat16 basis, e.g.
+    "single_band1_1" or "spgmr5_bf16"."""
     parts = (["fast_math"] if opts.fast_math else []) + (
         [opts.ls_precision] if opts.ls_precision != "full" else [])
+    if opts.linear_solver == "band":
+        parts.append(f"band{opts.band_mu}_{opts.band_ml}")
+    elif opts.linear_solver == "spgmr":
+        parts.append(f"spgmr{opts.krylov_maxl}" + (
+            "_cgs2" if opts.krylov_gs == "classical" else "") + (
+            "_bf16" if opts.krylov_storage == "bfloat16" else ""))
     return "_".join(parts) or "parity"
 
 
@@ -180,12 +228,20 @@ def bind(lib: ctypes.CDLL, eval_only: bool = False) -> ctypes.CDLL:
     return lib
 
 
-def mode_flags(fast_math: bool = False, ls_precision: str = "full") -> tuple[str, ...]:
+def mode_flags(fast_math: bool = False, ls_precision: str = "full",
+               linear: LinearSolver = DENSE) -> tuple[str, ...]:
     """The macros that compile ``fused_solve.cu``'s solve entry points in
-    one arithmetic mode; none for the parity mode."""
+    one arithmetic mode with one linear solver; none for the parity mode."""
     flags = ("-DIDA_FAST_MATH=1",) if fast_math else ()
     if ls_precision != "full":
         flags += (f"-DIDA_LS_PRECISION={LS_CODES[ls_precision]}",)
+    if linear.kind == "band":
+        flags += ("-DIDA_LINEAR_SOLVER=1", f"-DIDA_BAND_MU={linear.mu}",
+                  f"-DIDA_BAND_ML={linear.ml}")
+    elif linear.kind == "spgmr":
+        flags += ("-DIDA_LINEAR_SOLVER=2", f"-DIDA_KRYLOV_MAXL={linear.maxl}")
+        flags += ("-DIDA_KRYLOV_GS=1",) if linear.gs == "classical" else ()
+        flags += ("-DIDA_KRYLOV_BF16=1",) if linear.bf16 else ()
     return flags
 
 
@@ -196,12 +252,12 @@ def model_flags(model: FusedModel) -> tuple[str, ...]:
 
 @functools.cache
 def build(fast_math: bool = False, ls_precision: str = "full",
-          model: FusedModel = ROBERTS) -> dict:
+          model: FusedModel = ROBERTS, linear: LinearSolver = DENSE) -> dict:
     """Compile (once per hash of the sources, the generated model header
-    and the flags) and load the kernel library of one arithmetic mode and
-    model; see :func:`._build.build_library`. The parity library of Roberts
-    (the default) also holds the stage kernels."""
-    return _bound(_build_model(mode_flags(fast_math, ls_precision), model))
+    and the flags) and load the kernel library of one arithmetic mode,
+    model and linear solver; see :func:`._build.build_library`. The parity
+    library of Roberts (the default) also holds the stage kernels."""
+    return _bound(_build_model(mode_flags(fast_math, ls_precision, linear), model))
 
 
 @functools.cache
@@ -225,8 +281,9 @@ def _bound(info: dict, eval_only: bool = False) -> dict:
 
 
 def build_of(opts: IdaOptions, model: FusedModel = ROBERTS) -> dict:
-    """The library of ``opts``' arithmetic mode and ``model`` (:func:`build`)."""
-    return build(opts.fast_math, opts.ls_precision, model)
+    """The library of ``opts``' arithmetic mode and linear solver and
+    ``model`` (:func:`build`)."""
+    return build(opts.fast_math, opts.ls_precision, model, linear_of(opts))
 
 
 def occupancy(dtype: torch.dtype, opts: IdaOptions = IdaOptions(),
@@ -255,15 +312,17 @@ def check_device(device: torch.device) -> None:
 def touched_fields(opts: IdaOptions, model: FusedModel) -> tuple[str, ...]:
     """The fields a launch of ``model``'s library in ``opts``' mode reads or
     writes: the lsetup point under "refined" only, ``yQ`` for a model with
-    quadratures only."""
+    quadratures only, the factor under the direct solvers and the Krylov
+    counters under spgmr only."""
     skip = (set() if opts.ls_precision == "refined" else set(LS_FIELDS)) | (
-        set() if model.nq else {"yQ"})
+        set() if model.nq else {"yQ"}) | set(
+        DIRECT_FIELDS if opts.linear_solver == "spgmr" else KRYLOV_FIELDS)
     return tuple(f for f in STATE_FIELDS if f not in skip)
 
 
 def _expected_dtype(field: str, dtype: torch.dtype, opts: IdaOptions) -> torch.dtype:
-    if field == "lu" and opts.ls_precision != "full":
-        return torch.float32  # core/state.py ls_store_dtype
+    if field == "lu":
+        return ls_store_dtype(opts, dtype)
     if field in _INT32:
         return torch.int32
     if field in _INT64:
@@ -303,7 +362,8 @@ def state_refs(state: IdaState, batch_axis: int, opts: IdaOptions,
 
 def opts_struct(opts: IdaOptions) -> Opts:
     return Opts(opts.maxord, opts.mxstep, opts.maxncf, opts.maxnef, opts.maxnlsit,
-                int(opts.suppressalg), int(opts.enable_constraints))
+                int(opts.suppressalg), int(opts.enable_constraints),
+                opts.krylov_max_restarts, float(opts.eplifac))
 
 
 def stream_of(t: torch.Tensor) -> int:
@@ -493,23 +553,20 @@ def make_fused_solve(problem_factory, tol: TolControl, opts: IdaOptions = IdaOpt
     host relaunches the continuation until every lane is done, bit for bit
     the unbudgeted result. A lane whose ``constraints_set`` is on runs the
     inequality-constraints block as the eager solve does (unless
-    ``opts.enable_constraints`` is False). The kernel compiles in the dense
-    direct solver in each arithmetic mode of ``opts`` (``fast_math`` and
-    ``ls_precision`` "full", "single" or "refined", as ``ida_tpu``'s kernel
-    traces them; the state's ``lu`` is float32 in the last two, as
-    ``ensemble_init(..., opts=opts)`` makes it): options for any other
-    linear solver raise.
+    ``opts.enable_constraints`` is False). The kernel compiles in
+    ``opts``' linear solver ("dense", "band" or "spgmr") and arithmetic mode
+    (``fast_math`` and ``ls_precision`` "full", "single" or, dense only,
+    "refined"), as ``ida_tpu``'s kernel traces them; the state is laid out
+    for them as ``ensemble_init(..., opts=opts)`` makes it (the factor
+    float32 under the direct solvers' mixed modes, [B, 2*ml+mu+1, N] under
+    "band", empty under "spgmr"). Under "spgmr" a factory with its own
+    ``jtimes_fn``/``jtimes_setup`` or a preconditioner raises.
 
     ``problem_factory`` is ``models.roberts_factory`` (the hand-written
     model) or any batch-native factory with an analytic ``jac``, no roots
     and N <= ``MAXN``, whose model :func:`model_of` generates at the first
     call (on either device, so that what the kernel cannot take raises on
     the CPU too) and compiles at the first call on the card."""
-    if opts.linear_solver != "dense":
-        raise NotImplementedError(
-            f"fused_solve: the kernel's linear solver is the compiled-in dense LU; "
-            f"linear_solver={opts.linear_solver!r} runs on the eager path (core.solve.solve)"
-        )
     if attempt_budget is not None and attempt_budget < 1:
         raise ValueError(f"attempt_budget must be at least 1, got {attempt_budget}")
     if opts.debug_trace:
@@ -528,6 +585,7 @@ def make_fused_solve(problem_factory, tol: TolControl, opts: IdaOptions = IdaOpt
                 raise ValueError(f"fused_solve: state.{f} is not contiguous")
         p_b = torch.as_tensor(params_b, dtype=dtype, device=dev).contiguous()
         model = model_of(problem_factory, p_b.t())
+        _refuse_krylov_hooks(model, opts)
         n = model.n
         if tuple(states_b.yy.shape[1:]) != (n,):
             raise ValueError(f"fused_solve: the state has yy {list(states_b.yy.shape)}, the "
@@ -565,19 +623,38 @@ def _refuse_derivatives(states_b: IdaState, params_b, tol: TolControl) -> None:
                 "(ida_tpu_torch.sensitivity.adjoint_gradient)")
 
 
+def _refuse_krylov_hooks(model: FusedModel, opts: IdaOptions) -> None:
+    """Raise on what the Krylov path would call but the kernel does not
+    compile in: a factory's own Jacobian-times-vector, a preconditioner."""
+    if opts.linear_solver != "spgmr":
+        return  # the direct solvers never call them, eager or in the kernel
+    if model.jtimes:
+        raise not_ported("a factory's own jtimes_fn/jtimes_setup in the whole-solve kernel", 22,
+                         "ida_tpu/ops/fused_solve.py")
+    if model.prec:
+        raise not_ported("a preconditioner (prec_setup/prec_solve) in the whole-solve kernel", 22,
+                         "ida_tpu/ops/fused_solve.py")
+
+
 def _check_mode_state(states_b: IdaState, opts: IdaOptions) -> None:
-    """Raise on a state laid out for another arithmetic mode than ``opts``':
-    its ``lu`` in the mode's dtype, and under "refined" an lsetup point of N
-    components a lane (the kernel writes it there)."""
+    """Raise on a state laid out for another arithmetic mode or linear
+    solver than ``opts``': its ``lu`` in the mode's dtype and the solver's
+    shape (dense [B, N, N], band [B, 2*ml+mu+1, N], with piv [B, N]), and
+    under "refined" an lsetup point of N components a lane (the kernel
+    writes it there)."""
     want = _expected_dtype("lu", states_b.dtype, opts)
     n = states_b.yy.shape[1:]
-    bad = states_b.lu.dtype != want or (opts.ls_precision == "refined" and (
-        states_b.ls_yy.shape[1:] != n or states_b.ls_yp.shape[1:] != n))
+    rows = {"dense": n[0], "band": 2 * opts.band_ml + opts.band_mu + 1}.get(opts.linear_solver)
+    bad = (rows is not None and (
+        states_b.lu.dtype != want or states_b.lu.shape[1:] != (rows, n[0])
+        or states_b.piv.shape[1:] != n)) or (opts.ls_precision == "refined" and (
+            states_b.ls_yy.shape[1:] != n or states_b.ls_yp.shape[1:] != n))
     if bad:
         raise ValueError(
-            f"fused_solve: the state is not laid out for ls_precision={opts.ls_precision!r} "
-            f"(lu {states_b.lu.dtype}, ls_yy {tuple(states_b.ls_yy.shape)}); make it with "
-            "ensemble_init(..., opts=opts)")
+            f"fused_solve: the state is not laid out for linear_solver="
+            f"{opts.linear_solver!r}, ls_precision={opts.ls_precision!r} (lu "
+            f"{states_b.lu.dtype} {tuple(states_b.lu.shape)}, ls_yy "
+            f"{tuple(states_b.ls_yy.shape)}); make it with ensemble_init(..., opts=opts)")
 
 
 def _native_tol(tol: TolControl, n: int) -> TolControl:

@@ -56,6 +56,7 @@ REFS = {
     "dense_output_jax": ("test_torch_dense_output", "jax_dense_live", "REF_INPUTS"),
     "sensitivity_jax": ("test_torch_sensitivity", "jax_sensitivity_live", "REF_INPUTS"),
     "fused_solve_jax": ("test_torch_fused_solve", "jax_fused_solve_live", "REF_INPUTS"),
+    "fused_linear_jax": ("test_torch_fused_linear", "fused_linear_jax_live", "REF_INPUTS"),
 }
 
 

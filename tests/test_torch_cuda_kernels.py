@@ -341,6 +341,36 @@ def test_fused_kernel_in_each_mode_is_bitwise_the_eager_mode(cuda, mode, budget)
     assert torch.equal(ist, eist) and torch.equal(tret, etret)
 
 
+# the whole-solve kernel's other linear solvers, and their horizons: under
+# the inexact band (1, 1) lanes meet mxstep before 4
+LINEAR = {"band2_2": (IdaOptions(linear_solver="band", band_mu=2, band_ml=2), 400.0),
+          "band1_1": (IdaOptions(linear_solver="band", band_mu=1, band_ml=1), 0.4),
+          "spgmr": (IdaOptions(linear_solver="spgmr"), 400.0)}
+
+
+@pytest.mark.parametrize("budget", [None, 7], ids=["k2", "k3_k4"])
+@pytest.mark.parametrize("case", LINEAR)
+def test_fused_kernel_with_band_and_krylov_solvers_is_bitwise_the_eager_solve(cuda, case,
+                                                                               budget):
+    # the band and spgmr libraries, K2 and K3 + K4 at budget 7, at B = 256:
+    # every lane SUCCESS, every field (the band factor, the Krylov counters)
+    # bit for bit the eager solve under the same options on the card, and
+    # only that library's kernels launched
+    opts, tout = LINEAR[case]
+    params, st0 = _ensemble(256, cuda, opts=opts)
+    tol = tol_sv(1e-4, ATOL, device=cuda)
+    fused_solve.reset_launch_counts()
+    st, tret, ist = fused_solve.make_fused_solve(roberts_factory, tol, opts,
+                                                 attempt_budget=budget)(st0, params, tout)
+    assert {m for _, m, _ in fused_solve.MODE_LAUNCHES} == {fused_solve.mode_name(opts)}
+    assert sum(fused_solve.MODE_LAUNCHES.values()) >= 1
+    est, etret, eist = make_ensemble_solve(roberts_factory, opts)(st0, params, tol, tout)
+    assert bool((ist == C.SUCCESS).all())
+    assert _same_states(st, est) == []
+    assert torch.equal(ist, eist) and torch.equal(tret, etret)
+    assert bool((st.nli > 0).all()) == (case == "spgmr")
+
+
 @pytest.mark.parametrize("mode", NON_PARITY, ids=_mode_id)
 def test_fused_kernel_in_each_mode_takes_the_eager_steps_in_float32(cuda, mode):
     # float32 states: the counters, istate and tret, as for parity above

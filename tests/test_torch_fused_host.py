@@ -139,9 +139,10 @@ def on_host(host_lib, tmp_path_factory, monkeypatch):
     model, on CPU tensors."""
     monkeypatch.setattr(
         fused_solve, "build",
-        lambda fast_math=False, ls_precision="full", model=fused_solve.ROBERTS: {
-            "lib": host_build(tmp_path_factory, fused_solve.mode_flags(fast_math, ls_precision),
-                              model)})
+        lambda fast_math=False, ls_precision="full", model=fused_solve.ROBERTS,
+        linear=fused_solve.DENSE: {
+            "lib": host_build(tmp_path_factory,
+                              fused_solve.mode_flags(fast_math, ls_precision, linear), model)})
     monkeypatch.setattr(fused_solve, "stream_of", lambda t: 0)
     monkeypatch.setattr(
         fused_solve, "state_refs",

@@ -222,9 +222,10 @@ def on_host(tmp_path_factory, monkeypatch):
     model, on CPU tensors."""
     monkeypatch.setattr(
         fused_solve, "build",
-        lambda fast_math=False, ls_precision="full", model=fused_solve.ROBERTS: {
-            "lib": host_build(tmp_path_factory, fused_solve.mode_flags(fast_math, ls_precision),
-                              model)})
+        lambda fast_math=False, ls_precision="full", model=fused_solve.ROBERTS,
+        linear=fused_solve.DENSE: {
+            "lib": host_build(tmp_path_factory,
+                              fused_solve.mode_flags(fast_math, ls_precision, linear), model)})
     monkeypatch.setattr(fused_solve, "build_eval", lambda model=fused_solve.ROBERTS: {
         "lib": host_build(tmp_path_factory, (), model)})
     monkeypatch.setattr(fused_solve, "stream_of", lambda t: 0)

@@ -216,11 +216,39 @@ def test_raises_on_a_factory_without_a_compiled_in_model():
         _call(factory=lambda p: dataclasses.replace(troberts(p), jac=None))
 
 
-def test_raises_on_krylov_options():
-    # the kernel compiles in the dense LU: spgmr options must not reach it
-    with pytest.raises(NotImplementedError, match="linear_solver='spgmr'"):
-        make_fused_solve(troberts, tol_sv(1e-4, ATOL, device="cpu"),
-                         IdaOptions(linear_solver="spgmr"))
+def _spgmr_call(factory):
+    params, yy0, yp0 = _inputs(B)
+    opts = IdaOptions(linear_solver="spgmr")
+    st = ensemble_init(troberts, params, yy0, yp0, device="cpu", opts=opts)
+    return make_fused_solve(factory, tol_sv(1e-4, ATOL, device="cpu"), opts)(st, params, 0.4)
+
+
+def test_raises_on_a_factory_with_its_own_jtimes_under_spgmr():
+    # the Krylov path would call a factory's own Jacobian-times-vector, which
+    # the kernel does not compile in: refused on either device, naming the
+    # ROADMAP item that lifts it; the direct solvers never call it
+    def factory(p):
+        prob = troberts(p)
+        return dataclasses.replace(prob, jtimes_fn=lambda jdata, t, cj, yy, yp, v: prob.jtimes(
+            t, cj, yy, yp, v))
+
+    with pytest.raises(NotImplementedError, match="jtimes_fn.*ROADMAP.md.* item 22"):
+        _spgmr_call(factory)
+    params, yy0, yp0 = _inputs(B)
+    st = ensemble_init(troberts, params, yy0, yp0, device="cpu")
+    got = make_fused_solve(factory, tol_sv(1e-4, ATOL, device="cpu"))(st, params, 0.4)
+    assert bool((got[2] == C.SUCCESS).all())
+
+
+def test_raises_on_a_preconditioned_factory_under_spgmr():
+    # likewise a preconditioner (prec_setup/prec_solve/prec_zero)
+    def factory(p):
+        return dataclasses.replace(
+            troberts(p), prec_setup=lambda t, cj, yy, yp, rr: (cj,),
+            prec_solve=lambda pdata, r, cj: r, prec_zero=lambda: (torch.zeros(()),))
+
+    with pytest.raises(NotImplementedError, match="preconditioner.*ROADMAP.md.* item 22"):
+        _spgmr_call(factory)
 
 
 def test_raises_on_rootfinding():
